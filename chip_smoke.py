@@ -45,8 +45,8 @@ HEADLINE = ["--mode", "sketch", "--error_type", "virtual",
             "--device", "cuda"]
 D_RESNET9 = 6_568_640
 K = 50_000
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM (on-chip-measurement guide)
-CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores (same table)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
+CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 REPS = 25
 
 
