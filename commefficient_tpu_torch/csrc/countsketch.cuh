@@ -1,7 +1,7 @@
-// Tiled CountSketch hashing and XLA-exact float min/max, shared by the
-// sketch and unsketch kernels. Bit for bit the reference's
-// commefficient_tpu/ops/countsketch.py (_mix, _row_signs, _block_hashes,
-// _median_small) in uint32 arithmetic.
+// Tiled CountSketch hashing, XLA-exact float min/max and the per-tile
+// estimate, shared by the sketch, estimates and unsketch kernels. Bit for
+// bit the reference's commefficient_tpu/ops/countsketch.py (_mix,
+// _row_signs, _block_hashes, _median_small) in uint32 arithmetic.
 #pragma once
 
 #include <cstdint>
@@ -90,6 +90,66 @@ __device__ __forceinline__ float median<5>(const float* v) {
   float j = xla_max(f, h);
   float k = xla_min(g, i);
   return xla_max(xla_min(j, k), xla_min(xla_max(j, k), v[4]));
+}
+
+// --- per-tile estimates (the estimates kernel and the "est" top-k source)
+// A tile is 64 blocks of 128 coordinates (8,192, the TPU tiling).
+constexpr int kTileBlocks = 64;
+constexpr int kTileN = kTileBlocks * kLanes;
+constexpr int kMaxRows = 5;
+
+// per-(row, block) window offset and lane mask of one tile, in shared memory
+struct TileHashes {
+  uint32_t col[kMaxRows][kTileBlocks];   // window base * 128
+  uint32_t mask[kMaxRows][kTileBlocks];
+};
+
+// all threads of the CTA fill s; a __syncthreads must follow
+template <int R>
+__device__ __forceinline__ void load_tile_hashes(TileHashes& s,
+                                                 const uint32_t* coeffs,
+                                                 int nwindows, int tile) {
+  for (int t = threadIdx.x; t < R * kTileBlocks; t += blockDim.x) {
+    const int row = t / kTileBlocks, bl = t % kTileBlocks;
+    const RowCoeffs h = load_coeffs(coeffs, row);
+    const uint32_t mb = block_mix(h, (uint32_t)tile * kTileBlocks + (uint32_t)bl);
+    s.col[row][bl] = (mb % (uint32_t)nwindows) * kLanes;
+    s.mask[row][bl] = lane_mask(h, mb);
+  }
+}
+
+template <int R>
+struct Coeffs {
+  RowCoeffs h[R];
+};
+
+template <int R>
+__device__ __forceinline__ Coeffs<R> load_row_coeffs(const uint32_t* coeffs) {
+  Coeffs<R> c;
+#pragma unroll
+  for (int row = 0; row < R; ++row) c.h[row] = load_coeffs(coeffs, row);
+  return c;
+}
+
+// estimate of coordinate e (0..8191) of the tile: r window reads, the XOR
+// un-permute, the sign, and the reference's median network
+template <int R>
+__device__ __forceinline__ float estimate(const float* table,
+                                          size_t row_stride,
+                                          const TileHashes& s,
+                                          const Coeffs<R>& c, int tile,
+                                          int e) {
+  const int bl = e / kLanes;
+  const uint32_t l = (uint32_t)(e % kLanes);
+  const uint32_t idx = (uint32_t)tile * kTileN + (uint32_t)e;
+  float v[R];
+#pragma unroll
+  for (int row = 0; row < R; ++row) {
+    v[row] = __ldg(table + row * row_stride + s.col[row][bl]
+                   + (l ^ s.mask[row][bl]))
+             * sign_of(c.h[row], idx);
+  }
+  return median<R>(v);
 }
 
 }  // namespace cs

@@ -8,7 +8,9 @@ rounds and pipelines are ROADMAP.md A7/A9/A12).
 
 The model's current parameters are the initial weights; the learner
 keeps them as one flat vector in the reference's coordinates
-(utils/params.py) and runs the model functionally on views of it.
+(utils/params.py) and runs the model functionally on views of it. Its
+``state`` carries the server's momentum and error and, in the modes that
+keep them, the clients' rows (``state.clients``).
 """
 
 from __future__ import annotations

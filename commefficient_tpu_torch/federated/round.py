@@ -1,13 +1,23 @@
 """The federated round (port of ``commefficient_tpu/federated/round.py``).
 
-This slice ports the fused-clients, sketch-after-aggregate path: with no
-per-client state or nonlinearity, the sum of the clients' gradients is
-the gradient of the summed loss, so one backward over the (W*B, ...)
-batch replaces W, and the sketch is linear, so the round sketches the
-aggregate once. Then the sketch-mode server update, the sticky NaN
-guard (a select, so a NaN update cannot leak into the weights), the
-per-coordinate ``last_changed`` round and the exact upload/download byte
-metrics, all on the device with no host sync.
+Two paths, as in the reference:
+
+* fused clients (``fused_clients_eligible``: uncompressed, sketch and
+  true_topk with no per-client state): the sum of the clients' gradients
+  is the gradient of the summed loss, so one backward over the
+  ``(W*B, ...)`` batch replaces W; in sketch mode the sketch is linear,
+  so the round sketches the aggregate once;
+* per worker (local_topk, fedavg, and any mode with local momentum or
+  local error): each client's step on its own batch and client-state
+  rows, the transmits of padded slots zeroed, summed and divided by the
+  datapoints. fedavg clients apply the lr themselves, so the server takes
+  lr = 1; true_topk with local momentum masks the clients' velocities at
+  the global update's support; the client rows go back by scatter.
+
+Then the server update, the sticky NaN guard (a select, so a NaN update
+cannot leak into the weights), the per-coordinate ``last_changed`` round
+and the exact upload/download byte metrics, all on the device with no
+host sync.
 """
 
 from __future__ import annotations
@@ -19,18 +29,22 @@ import torch
 
 from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.federated import client as client_lib
+from commefficient_tpu_torch.federated.client_store import (
+    gather_rows, init_client_storage, scatter_rows)
 from commefficient_tpu_torch.federated.server import (init_server_opt_state,
                                                       make_sketch,
                                                       server_update)
-from commefficient_tpu_torch.federated.state import ServerOptState
+from commefficient_tpu_torch.federated.state import (ClientState,
+                                                     ServerOptState)
 
 
 @dataclass
 class FedState:
     """What persists across rounds (the reference's ``FedState`` without
-    client rows, quarantine or buffer)."""
+    quarantine or buffer)."""
     weights: torch.Tensor            # (d,) f32
-    opt: ServerOptState              # virtual momentum / error tables
+    opt: ServerOptState              # virtual momentum / error
+    clients: ClientState             # (num_clients + 1, d) rows
     round_idx: torch.Tensor          # () int32
     last_changed: torch.Tensor       # (d,) int32: round each weight changed
     client_last_round: torch.Tensor  # (num_clients,) int32
@@ -45,6 +59,7 @@ def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
     return FedState(
         weights=flat_weights.to(torch.float32),
         opt=init_server_opt_state(cfg, dev),
+        clients=init_client_storage(cfg, dev),
         round_idx=torch.zeros((), dtype=torch.int32, device=dev),
         # -2 = "never changed": below the -1 "never participated" sentinel
         last_changed=torch.full((d,), -2, dtype=torch.int32, device=dev),
@@ -71,12 +86,67 @@ def download_counts(last_changed: torch.Tensor,
     return counts
 
 
+def fused_clients_eligible(cfg: FedConfig) -> bool:
+    """Whether the round may take the fused-gradient path: no per-client
+    state or nonlinearity, so the sum of the clients' gradients is the
+    gradient of the summed loss."""
+    return (cfg.mode in ("uncompressed", "sketch", "true_topk")
+            and not cfg.do_dp and cfg.max_grad_norm is None
+            and not cfg.do_topk_down
+            and not cfg.needs_velocity_state
+            and cfg.error_type != "local"
+            and cfg.microbatch_size == -1)
+
+
 def build_round_step(apply_loss: Callable, unflatten: Callable,
                      cfg: FedConfig) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
     lr) -> (FedState, metrics)``, every tensor on the state's device."""
     cfg.validate()
-    sketch = make_sketch(cfg)
+    sketch = make_sketch(cfg) if cfg.mode == "sketch" else None
+    is_fedavg = cfg.mode == "fedavg"
+    fused_clients = fused_clients_eligible(cfg)
+
+    def fused_step(w, batch, mask):
+        flat_cols = tuple(c.reshape((-1,) + tuple(c.shape[2:]))
+                          for c in batch)
+        flat_mask = mask.reshape(-1)
+        grad_sum, loss_total, metric_totals = \
+            client_lib._masked_loss_and_grad(apply_loss, unflatten, w,
+                                             flat_cols, flat_mask)
+        total_n = torch.sum(flat_mask)
+        if cfg.weight_decay != 0:
+            # each valid worker adds (wd/W)*w scaled by its datapoints
+            grad_sum = grad_sum + (cfg.weight_decay / cfg.num_workers) \
+                * w * total_n
+        agg = grad_sum / torch.clamp(total_n, min=1.0)
+        return agg, loss_total, metric_totals, total_n
+
+    def per_worker_step(state, ids, batch, mask, valid_w, lr):
+        w = state.weights
+        if is_fedavg:
+            outs = [client_lib.fedavg_client_step(
+                apply_loss, unflatten, w, tuple(c[i] for c in batch),
+                mask[i], lr, cfg) for i in range(mask.shape[0])]
+            transmit, loss_sum, metric_sums, n = (torch.stack(x)
+                                                  for x in zip(*outs))
+            new_vels = new_errs = None
+        else:
+            out = client_lib.client_step(
+                apply_loss, unflatten, w, batch, mask,
+                gather_rows(state.clients.velocities, ids),
+                gather_rows(state.clients.errors, ids), cfg)
+            transmit, loss_sum, metric_sums, n = (
+                out.transmit, out.loss_sum, out.metric_sums,
+                out.num_datapoints)
+            new_vels, new_errs = out.velocity, out.error
+        total_n = torch.sum(n)
+        # padded slots are zeroed: with local error feedback their
+        # transmit would otherwise leak the aliased client's error row
+        agg = (torch.sum(transmit * valid_w[:, None], dim=0)
+               / torch.clamp(total_n, min=1.0))
+        return (agg, torch.sum(loss_sum), torch.sum(metric_sums, dim=0),
+                total_n, new_vels, new_errs)
 
     def round_step(state: FedState, client_ids, batch, mask, lr):
         w = state.weights
@@ -92,19 +162,16 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         download_floats = torch.sum(
             counts * valid_w.to(torch.int32)).to(torch.float32)
 
-        flat_cols = tuple(c.reshape((-1,) + tuple(c.shape[2:]))
-                          for c in batch)
-        flat_mask = mask.reshape(-1)
-        grad_sum, loss_total, metric_totals = \
-            client_lib._masked_loss_and_grad(apply_loss, unflatten, w,
-                                             flat_cols, flat_mask)
-        total_n = torch.sum(flat_mask)
-        if cfg.weight_decay != 0:
-            # each valid worker adds (wd/W)*w scaled by its datapoints
-            grad_sum = grad_sum + (cfg.weight_decay / cfg.num_workers) \
-                * w * total_n
-        agg = grad_sum / torch.clamp(total_n, min=1.0)
-        table = sketch.sketch_vec(agg)
+        if fused_clients:
+            agg, loss_total, metric_totals, total_n = fused_step(w, batch,
+                                                                 mask)
+            new_vels = new_errs = None
+        else:
+            (agg, loss_total, metric_totals, total_n, new_vels,
+             new_errs) = per_worker_step(state, ids, batch, mask, valid_w,
+                                         lr)
+        if sketch is not None:
+            agg = sketch.sketch_vec(agg)
 
         # in-round NaN guard: a breaching round and every round after it
         # leave weights, state and accounting untouched
@@ -112,9 +179,11 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         breach = ~torch.isfinite(loss_mean) | (loss_mean > cfg.nan_threshold)
         ok = ~breach & ~state.aborted
         okf = ok.to(torch.float32)
+        # out-of-range ids (padded or guarded slots) write the sink row
         scatter_ids = torch.where(valid_w & ok, ids, num_clients)
 
-        update, new_opt = server_update(table, state.opt, cfg, lr,
+        update, new_opt = server_update(agg, state.opt, cfg,
+                                        1.0 if is_fedavg else lr,
                                         sketch=sketch)
         update = torch.where(ok, update, 0.0)
         new_opt = ServerOptState(
@@ -123,9 +192,18 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             Verror=torch.where(ok, new_opt.Verror, state.opt.Verror))
         new_w = w - update
 
+        if cfg.mode == "true_topk" and new_vels is not None:
+            # momentum factor masking of the participating clients'
+            # velocities at the global top-k support
+            new_vels = torch.where((update != 0)[None, :], 0.0, new_vels)
+        clients = ClientState(
+            velocities=scatter_rows(state.clients.velocities, scatter_ids,
+                                    new_vels),
+            errors=scatter_rows(state.clients.errors, scatter_ids,
+                                new_errs))
+
         new_last_changed = torch.where(update != 0, state.round_idx,
                                        state.last_changed)
-        # out-of-range ids (padded or guarded slots) are dropped
         new_client_last = torch.cat([
             state.client_last_round,
             torch.zeros(1, dtype=torch.int32, device=w.device)])
@@ -134,7 +212,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
 
         aborted = state.aborted | breach
         new_state = FedState(
-            weights=new_w, opt=new_opt,
+            weights=new_w, opt=new_opt, clients=clients,
             round_idx=state.round_idx + ok.to(torch.int32),
             last_changed=new_last_changed,
             client_last_round=new_client_last,

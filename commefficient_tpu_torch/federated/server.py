@@ -1,19 +1,26 @@
-"""Server update, sketch mode (port of
-``commefficient_tpu/federated/server.py``; the other four rules are
-ROADMAP.md A4).
+"""The five server update rules (port of
+``commefficient_tpu/federated/server.py``).
 
-``server_update(table, state, cfg, lr, sketch) -> (weight update (d,),
-new state)``: momentum and error accumulate in sketch space, the fused
-unsketch + exact top-k kernels recover the k heaviest coordinates, and
-the k survivors are re-sketched to zero their footprint in the momentum
-and error tables.
+``server_update(gradient, state, cfg, lr, sketch) -> (weight update (d,),
+new state)``. ``gradient`` is the round's aggregate: ``(d,)`` in every
+mode but sketch, where it is the ``(r, c_eff)`` table.
+
+* fedavg: momentum only; the clients already applied the lr.
+* uncompressed: momentum, then ``lr * v`` (server DP is ROADMAP.md A5).
+* true_topk: momentum, virtual error, the exact top-k of the error, and
+  both residuals masked on the update's support. ``server_fused`` auto
+  runs the fused radix top-k (count kernels over err, the resid select
+  epilogue); off runs the reference's incumbent chain, a stable sort.
+* local_topk: momentum on the sum of the clients' top-ks, no masking.
+* sketch: momentum and error in sketch space; auto runs the fused
+  unsketch + top-k kernels, off the estimates kernel and a stable sort;
+  then the k survivors are re-sketched to zero their footprint.
 
 Rounding: ``g + rho*v`` runs eagerly here and rounds the product first,
 while the reference's jitted XLA program contracts it into an FMA (one
 rounding) on the CPU. The two differ by at most 1 ulp of ``rho*v`` plus 1
-ulp of the result; ``tests/test_torch_round.py`` pins that bound, and
-holds the rest of the server step bitwise at a momentum whose products
-are exact.
+ulp of the result (ROADMAP.md C2); the tests hold the rest of each rule
+bitwise at a momentum whose products are exact.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import torch
 from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.federated.state import ServerOptState
 from commefficient_tpu_torch.ops.countsketch import CountSketch
+from commefficient_tpu_torch.ops.topk import topk
+from commefficient_tpu_torch.ops.topk_kernels import fused_true_topk
 
 
 def init_server_opt_state(cfg: FedConfig, device="cpu") -> ServerOptState:
@@ -44,11 +53,47 @@ def _momentum(gradient, velocity, rho):
     return gradient + rho * velocity
 
 
+def _fedavg(avg_update, state, cfg, lr):
+    # lr is applied client-side during local SGD; the server applies
+    # momentum only (the round passes lr = 1)
+    v = _momentum(avg_update, state.Vvelocity, cfg.virtual_momentum)
+    return v, ServerOptState(Vvelocity=v, Verror=state.Verror)
+
+
+def _uncompressed(gradient, state, cfg, lr):
+    v = _momentum(gradient, state.Vvelocity, cfg.virtual_momentum)
+    return v * lr, ServerOptState(Vvelocity=v, Verror=state.Verror)
+
+
+def _true_topk(gradient, state, cfg, lr):
+    if cfg.server_fused != "off":
+        update, v, err = fused_true_topk(gradient, state.Vvelocity,
+                                         state.Verror, cfg.k,
+                                         cfg.virtual_momentum)
+        return update * lr, ServerOptState(Vvelocity=v, Verror=err)
+    v = _momentum(gradient, state.Vvelocity, cfg.virtual_momentum)
+    err = state.Verror + v
+    update = topk(err, cfg.k, use_kernel=False)
+    support = update != 0
+    # error feedback + momentum factor masking on the global top-k support
+    err = torch.where(support, 0.0, err)
+    v = torch.where(support, 0.0, v)
+    return update * lr, ServerOptState(Vvelocity=v, Verror=err)
+
+
+def _local_topk(summed_local_topk, state, cfg, lr):
+    # momentum on the already-sparse sum of the clients' top-ks; no
+    # virtual error and no factor masking
+    v = _momentum(summed_local_topk, state.Vvelocity, cfg.virtual_momentum)
+    return v * lr, ServerOptState(Vvelocity=v, Verror=state.Verror)
+
+
 def _sketched(sketched_grad, state, cfg, lr, sketch: CountSketch):
     v = _momentum(sketched_grad, state.Vvelocity, cfg.virtual_momentum)
     # 'virtual' accumulates; 'none' recovers straight from the momentum table
     err = state.Verror + v if cfg.error_type == "virtual" else v
-    vals, idxs = sketch.unsketch_values_indices(err, cfg.k)
+    vals, idxs = sketch.unsketch_values_indices(
+        err, cfg.k, fused=cfg.server_fused != "off")
     update = torch.zeros(cfg.grad_dim, dtype=torch.float32,
                          device=err.device)
     update[idxs] = vals
@@ -63,10 +108,17 @@ def _sketched(sketched_grad, state, cfg, lr, sketch: CountSketch):
 
 def server_update(gradient: torch.Tensor, state: ServerOptState,
                   cfg: FedConfig, lr, sketch: CountSketch = None):
-    """Dispatch to the mode's update rule (sketch mode only here)."""
-    if cfg.mode != "sketch":
-        raise NotImplementedError(f"server rule {cfg.mode!r} is not ported "
-                                  "to PyTorch yet (ROADMAP.md A4)")
-    if sketch is None:
-        sketch = make_sketch(cfg)
-    return _sketched(gradient, state, cfg, lr, sketch)
+    """Dispatch to the mode's update rule."""
+    if cfg.mode == "fedavg":
+        return _fedavg(gradient, state, cfg, lr)
+    if cfg.mode == "uncompressed":
+        return _uncompressed(gradient, state, cfg, lr)
+    if cfg.mode == "true_topk":
+        return _true_topk(gradient, state, cfg, lr)
+    if cfg.mode == "local_topk":
+        return _local_topk(gradient, state, cfg, lr)
+    if cfg.mode == "sketch":
+        if sketch is None:
+            sketch = make_sketch(cfg)
+        return _sketched(gradient, state, cfg, lr, sketch)
+    raise ValueError(f"unknown mode {cfg.mode!r}")

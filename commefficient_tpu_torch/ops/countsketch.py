@@ -16,8 +16,10 @@ signed overflow). The CUDA kernels use ``uint32_t``.
 
 The dense sketch (``sketch_range``) goes through the hand-written kernel
 of ``ops/sketch_kernels.py``; the fused unsketch + top-k through
-``ops/topk_kernels.py``. ``estimates`` and ``sketch_sparse`` are plain
-PyTorch: neither is a TPU kernel on the sketch-mode path.
+``ops/topk_kernels.py``; ``--server_fused off`` through the estimates
+kernel of ``ops/sketch_kernels.py``. ``CountSketch.estimates`` and
+``sketch_sparse`` are plain PyTorch: the first is the plain version the
+estimate-reading kernels are held against, the second no TPU kernel.
 """
 
 from __future__ import annotations
@@ -239,13 +241,20 @@ class CountSketch:
         masked, _ = unsketch_select(self, table, k)
         return masked
 
-    def unsketch_values_indices(self, table: torch.Tensor, k: int):
+    def unsketch_values_indices(self, table: torch.Tensor, k: int,
+                                fused: bool = True):
         """(values, indices) of the recovered top-k in the exact stable
-        ``lax.top_k`` order."""
-        from commefficient_tpu_torch.ops.topk_kernels import (
-            unsketch_select, values_indices_from_mask)
-        masked, mask = unsketch_select(self, table, k)
-        return values_indices_from_mask(masked, mask, k)
+        ``lax.top_k`` order. ``fused`` runs the fused unsketch + top-k
+        kernels; ``fused=False`` is the reference's ``--server_fused off``
+        chain: the estimates kernel, then the stable-sort top-k."""
+        from commefficient_tpu_torch.ops import topk_kernels
+        if not fused:
+            from commefficient_tpu_torch.ops.sketch_kernels import estimates
+            from commefficient_tpu_torch.ops.topk import topk_values_indices
+            return topk_values_indices(estimates(self, table), k,
+                                       use_kernel=False)
+        masked, mask = topk_kernels.unsketch_select(self, table, k)
+        return topk_kernels.values_indices_from_mask(masked, mask, k)
 
     def l2estimate(self, table: torch.Tensor) -> torch.Tensor:
         """Estimate ||vec||_2 as sqrt(median over rows of row sum-of-squares)."""

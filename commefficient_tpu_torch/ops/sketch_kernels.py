@@ -1,10 +1,11 @@
-"""Dense CountSketch scatter: CUDA kernel for Hopper + its plain version.
+"""Dense CountSketch scatter and estimates: CUDA kernels for Hopper +
+their plain versions.
 
-Replaces ``commefficient_tpu/ops/sketch_kernels.py::_sketch_kernel`` (via
-``sketch_vec_pallas``; the round reaches it at batch 1 through
-``sketch_vec_batched``). The TPU kernel keeps the whole (r, c_eff) table
-in VMEM and relies on its sequential grid: each window adds its blocks in
-ascending block order, with no atomics.
+``sketch_vec`` replaces ``commefficient_tpu/ops/sketch_kernels.py::
+_sketch_kernel`` (via ``sketch_vec_pallas``; the round reaches it at batch
+1 through ``sketch_vec_batched``). The TPU kernel keeps the whole (r,
+c_eff) table in VMEM and relies on its sequential grid: each window adds
+its blocks in ascending block order, with no atomics.
 
 Hopper has no sequential grid, and float atomics would change the sum
 order from run to run and break the bit-identity with the reference. A
@@ -14,11 +15,20 @@ grouped by window in ascending order; the kernel (``csrc/sketch.cu``)
 runs one 128-thread CTA per (row, window), lane l accumulating
 ``x[b*128 + (l ^ m_b)] * sign(b*128 + (l ^ m_b))`` over the window's
 blocks in that order from 0.0, and writes each table cell once. The signs
-are ±1, so FMA contraction cannot change a sum.
+are ±1, so FMA contraction cannot change a sum. Bound: bytes (the vector
+read once, the table written once: 26.3 MB + 10.0 MB at d=6,568,640,
+5 x 500,096), about 18 integer/float operations per (row, coordinate) of
+hashing on top.
 
-Bound: bytes (the vector read once, the table written once: 26.3 MB +
-10.0 MB at d=6,568,640, 5 x 500,096), about 18 integer/float operations
-per (row, coordinate) of hashing on top.
+``estimates`` replaces ``_estimates_kernel`` (via ``estimates_pallas``,
+its unbatched grid; the batched grid serves the sketched client codec,
+not ported). One 256-thread CTA per 8,192-coordinate tile hashes its 64
+blocks once into shared memory, then computes each coordinate's r window
+reads, un-permute, sign and median in registers (``csrc/estimates.cu``,
+the same ``cs::estimate`` the fused top-k kernels use). There are no
+sums, so it is bitwise its plain version, ``CountSketch.estimates``.
+Bound: the table read once and the (d,) vector written once (10.0 MB +
+26.3 MB), against ~100 operations per coordinate at r=5.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from commefficient_tpu_torch.ops.countsketch import LANES, CountSketch
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"sketch_launch": [_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P,
                                  _P]}
+_EST_SIGNATURES = {"estimates_launch": [_P, _LL, _I, _I, _P, _P, _P]}
 
 
 def sketch_vec_plain(cs: CountSketch, vec: torch.Tensor,
@@ -99,4 +110,37 @@ def sketch_vec(cs: CountSketch, vec: torch.Tensor,
         cuda_lib.stream_ptr(vec.device))
     cuda_lib.check(err, "sketch")
     cuda_lib.LAUNCHES["sketch"] += 1
+    return out
+
+
+def estimates_plain(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``estimates``: ``CountSketch.estimates``."""
+    return cs.estimates(table)
+
+
+def estimates(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
+    """(d,) median-of-rows estimates of every coordinate of ``table``.
+
+    A CPU table takes the plain version; a CUDA table launches the kernel
+    or raises."""
+    if table.device.type == "cpu":
+        return estimates_plain(cs, table)
+    if table.device.type != "cuda":
+        raise ValueError(f"estimates: unsupported device {table.device}")
+    if table.dtype != torch.float32 or tuple(table.shape) != (
+            cs.r, cs.c_eff) or not table.is_contiguous():
+        raise ValueError("estimates kernel takes a contiguous float32 "
+                         f"({cs.r}, {cs.c_eff}) table, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    if cs.r not in (1, 3, 5):
+        raise NotImplementedError("estimates kernel has median networks "
+                                  f"for r in (1, 3, 5), not r={cs.r}")
+    tabs = cs.kernel_tables(table.device)
+    out = torch.empty(cs.d, dtype=torch.float32, device=table.device)
+    lib = cuda_lib.load("estimates", _EST_SIGNATURES)
+    err = lib.estimates_launch(table.data_ptr(), cs.d, cs.r, cs.nwindows,
+                               tabs.coeffs.data_ptr(), out.data_ptr(),
+                               cuda_lib.stream_ptr(table.device))
+    cuda_lib.check(err, "estimates")
+    cuda_lib.LAUNCHES["estimates"] += 1
     return out

@@ -34,11 +34,21 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--sketch_scheme", choices=("tiled", "global"),
                    default="tiled")
     p.add_argument("--grad_buckets", type=int, default=1)
+    p.add_argument("--topk_down", action="store_true", dest="do_topk_down")
+    p.add_argument("--topk_approx_recall", type=float, default=0.0)
+    p.add_argument("--server_fused", choices=("auto", "off"),
+                   default="auto",
+                   help="'auto' = the servers' exact top-k runs the fused "
+                        "kernels; 'off' = the estimates kernel and a "
+                        "stable sort (the same bits)")
     # optimization
     p.add_argument("--local_momentum", type=float, default=0.0)
     p.add_argument("--virtual_momentum", type=float, default=0.0)
     p.add_argument("--weight_decay", type=float, default=5e-4)
     p.add_argument("--num_epochs", type=float, default=24)
+    p.add_argument("--num_fedavg_epochs", type=int, default=1)
+    p.add_argument("--fedavg_batch_size", type=int, default=-1)
+    p.add_argument("--fedavg_lr_decay", type=float, default=1.0)
     p.add_argument("--error_type", choices=ERROR_TYPES, default="none")
     p.add_argument("--lr_scale", type=float, default=default_lr)
     p.add_argument("--pivot_epoch", type=float, default=5)
@@ -52,6 +62,9 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--microbatch_size", type=int, default=-1)
     p.add_argument("--iid", action="store_true", dest="do_iid")
     p.add_argument("--dp", action="store_true", dest="do_dp")
+    p.add_argument("--client_state", choices=("dense", "sparse", "sketched"),
+                   default="dense")
+    p.add_argument("--client_k_dist", type=str, default="")
     # accepted so that a reference command line parses; refused by train()
     p.add_argument("--mesh", type=str, default="")
     p.add_argument("--client_state_offload", action="store_true")

@@ -4,6 +4,10 @@
         --error_type virtual --virtual_momentum 0.9 --num_workers 8 \
         --local_batch_size 32 --k 50000 --num_rows 5 --num_cols 500000
 
+All five modes run: ``--mode sketch`` (``--server_fused auto|off``),
+``true_topk``, ``local_topk``, ``uncompressed`` and ``fedavg`` (with
+``--local_batch_size -1``).
+
 Runs on CUDA unless ``--device cpu`` is given; without a CUDA device and
 without ``--device cpu`` it raises. On CUDA it turns TF32 off for
 convolutions and matmuls: the reference trains in float32.
@@ -46,6 +50,8 @@ def _refuse_unported(args):
         raise NotImplementedError(
             f"dataset {args.dataset_name!r} is not ported to PyTorch yet "
             f"(ROADMAP.md A7); ported: {sorted(fed_datasets)}")
+    # the config's refusals, before any data is made
+    args_to_config(args).validate()
 
 
 def make_dataset(args, train: bool):
@@ -71,7 +77,8 @@ def build_learner(args, num_classes, channels, device):
 
 def train(args, max_rounds=None, log=True):
     """Train per ``args``; returns ``(learner, last epoch's row)``. The row
-    carries each round's metrics and host time under ``"rounds"``."""
+    carries every round's metrics and host time, over all epochs, under
+    ``"rounds"``."""
     _refuse_unported(args)
     device = resolve_device(args.device)
     train_set = make_dataset(args, train=True)
@@ -90,7 +97,7 @@ def train(args, max_rounds=None, log=True):
     total_rounds = 0
     t_start = time.perf_counter()
     n_epochs = int(math.ceil(args.num_epochs))
-    row = {}
+    row, history = {}, []
     for epoch in range(n_epochs):
         # fractional num_epochs truncates the last epoch's round count
         epoch_fraction = (args.num_epochs - epoch
@@ -105,6 +112,7 @@ def train(args, max_rounds=None, log=True):
                                       epoch_frac=total_rounds / max(spe, 1))
             out["round_s"] = time.perf_counter() - t0
             rounds.append(out)
+            history.append(out)
             total_rounds += 1
             if log:
                 print(f"round {total_rounds}: loss={out['loss']:.6f} "
@@ -115,7 +123,7 @@ def train(args, max_rounds=None, log=True):
                 print(f"NaN/divergent loss ({out['loss']}); aborting "
                       f"(threshold {args.nan_threshold})")
                 return learner, {"aborted": True, "loss": out["loss"],
-                                 "rounds": rounds}
+                                 "rounds": history}
             if (args.do_test or len(rounds) >= rounds_cap
                     or (max_rounds and total_rounds >= max_rounds)):
                 break
@@ -138,7 +146,7 @@ def train(args, max_rounds=None, log=True):
         if log:
             print({k: round(v, 4) if isinstance(v, float) else v
                    for k, v in row.items()}, flush=True)
-        row["rounds"] = rounds
+        row["rounds"] = history
         if args.do_test or (max_rounds and total_rounds >= max_rounds):
             break
     return learner, row

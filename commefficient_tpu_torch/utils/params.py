@@ -16,7 +16,7 @@ torch's ``(out, in, kh, kw)`` / ``(out, in)`` to flax's.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,3 +121,31 @@ def params_to_jax(state_dict) -> dict:
         node[path[-1]] = np.ascontiguousarray(
             to_flax_layout(t.detach().cpu().numpy()))
     return tree
+
+
+def _tensor(arr, device) -> Optional[torch.Tensor]:
+    if arr is None:
+        return None
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+
+
+def server_opt_from_arrays(opt, device="cpu"):
+    """A ``ServerOptState`` from any object with ``Vvelocity``/``Verror``
+    arrays (the reference's state, or numpy)."""
+    from commefficient_tpu_torch.federated.state import ServerOptState
+    return ServerOptState(Vvelocity=_tensor(opt.Vvelocity, device),
+                          Verror=_tensor(opt.Verror, device))
+
+
+def client_state_from_arrays(clients, device="cpu"):
+    """A ``ClientState`` from any object with ``(num_clients, d)``
+    ``velocities``/``errors`` arrays or None (the reference's dense rows),
+    with the port's zero sink row appended (``federated/client_store``)."""
+    from commefficient_tpu_torch.federated.state import ClientState
+
+    def rows(arr):
+        t = _tensor(arr, device)
+        return None if t is None else torch.cat([t, torch.zeros_like(t[:1])])
+
+    return ClientState(velocities=rows(clients.velocities),
+                       errors=rows(clients.errors))

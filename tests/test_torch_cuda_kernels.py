@@ -6,8 +6,9 @@ machine with one (and without JAX, so without the suite's conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Each kernel must equal its plain version bitwise at small shapes, odd
-lengths and a nonzero block offset included; ``chip_smoke.py`` repeats
-this at the main path's full width.
+lengths (tails that are no multiple of a tile), a nonzero block offset,
+per-row k and planted ties included; ``chip_smoke.py`` repeats this at the
+main paths' full width.
 """
 
 import numpy as np
@@ -17,7 +18,9 @@ import torch
 from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.countsketch import CountSketch
-from commefficient_tpu_torch.ops.sketch_kernels import (sketch_vec,
+from commefficient_tpu_torch.ops.sketch_kernels import (estimates,
+                                                        estimates_plain,
+                                                        sketch_vec,
                                                         sketch_vec_plain)
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +76,74 @@ def test_count_and_select_kernels_equal_plain(dev, r, k, tied):
     p_masked, p_mask = tk.unsketch_select_plain(cs, table, k)
     assert _same_bits(masked, p_masked) and torch.equal(mask, p_mask)
     assert int(mask.sum()) == k
+
+
+def _tied_rows(B, n, seed):
+    """Ties spread over every tile in rows 0 and 2, an all-zero row 1."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, n).astype(np.float32)
+    x[0, rng.choice(n, n // 7, replace=False)] = 1.5
+    if B > 1:
+        x[1] = 0.0
+    if B > 2:
+        x[2, rng.choice(n, n // 9, replace=False)] = -2.5
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("B,n,kk", [(1, 20_001, [300]),
+                                    (4, 30_000, [500, 250, 1, 500]),
+                                    (8, 8_192 * 3 + 5,
+                                     [100, 100, 50, 1, 100, 100, 100, 7])])
+def test_plain_count_and_select_kernels_equal_plain(dev, B, n, kk):
+    x = _tied_rows(B, n, seed=n).to(dev)
+    kk = torch.tensor(kk, device=dev)
+    t, n_take = tk._radix_threshold_batched(
+        lambda c: tk.count_rows_plain(x, c), kk, dev)
+    for cands in (tk._wrap_i32(torch.arange(16, device=dev) << 28).expand(
+            B, 16).contiguous(),
+            tk._wrap_i32(t.long()[:, None] + torch.arange(16, device=dev)
+                         - 8)):
+        assert torch.equal(tk.count_rows(x, cands),
+                           tk.count_rows_plain(x, cands))
+    for with_mask in (True, False):
+        got = tk.select_rows(x, t, n_take, with_mask)
+        ref = tk.select_rows_plain(x, t, n_take, with_mask)
+        assert _same_bits(got[0], ref[0])
+        if with_mask:
+            assert torch.equal(got[1], ref[1])
+            assert torch.equal(got[1].sum(1), kk)
+    before = cuda_lib.LAUNCHES["count_plain"]
+    dense = tk.topk_select(x, kk, int(kk.max()))
+    assert cuda_lib.LAUNCHES["count_plain"] == before + 9
+    assert _same_bits(dense, tk.select_rows_plain(x, t, n_take)[0])
+
+
+@pytest.mark.parametrize("n,k", [(20_001, 300), (40_000, 25_000)])
+def test_resid_select_kernel_equals_plain(dev, n, k):
+    rng = np.random.RandomState(k)
+    g, vv, ve = (torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+                 for _ in range(3))
+    zero = torch.from_numpy(rng.permutation(n)[: n // 2]).to(dev)
+    for t_ in (g, vv, ve):   # selected -0.0 must keep their residuals
+        t_[zero] = -0.0
+    err = ve + (g + 0.9 * vv)
+    v = g + 0.9 * vv
+    t, n_take = tk._radix_threshold(
+        lambda c: tk.count_rows_plain(err[None], c[None])[0], k, dev)
+    got = tk.select_resid(err, v, t, n_take)
+    ref = tk.select_resid_plain(err, v, t, n_take)
+    assert all(_same_bits(a, b) for a, b in zip(got, ref))
+    fused = tk.fused_true_topk(g, vv, ve, k, 0.9)
+    assert all(_same_bits(a, b) for a, b in zip(fused, ref))
+
+
+@pytest.mark.parametrize("d,c,r", [(20_000, 1_000, 5), (777, 300, 3),
+                                   (9_000, 512, 1)])
+def test_estimates_kernel_equals_plain(dev, d, c, r):
+    cs = CountSketch(d=d, c=c, r=r, seed=42)
+    table = torch.from_numpy(np.random.RandomState(d).randn(
+        r, cs.c_eff).astype(np.float32)).to(dev)
+    before = cuda_lib.LAUNCHES["estimates"]
+    got = estimates(cs, table)
+    assert cuda_lib.LAUNCHES["estimates"] == before + 1
+    assert _same_bits(got, estimates_plain(cs, table))
