@@ -38,7 +38,29 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    with finite losses and weights and exact upload bytes per client;
 5. a reference check on a small input: two rounds of a narrow ResNet9
    learner on CUDA (kernels) and on the CPU (plain versions) from the same
-   weights and batches must agree, in sketch, true_topk and local_topk.
+   weights and batches must agree, in sketch, true_topk and local_topk;
+6. the flash attention kernels (forward, dq, dkv) against their plain
+   versions at the GPT2 path's shape (BH 768 = 64 sequences x 12 heads,
+   T 256, D 64): float32 at dropout 0 and 0.1 (O within 1e-5, dq/dk/dv
+   within 1e-4 of their largest magnitude), bfloat16 (O within 2e-2),
+   and T 1100, D 128 at dropout 0.1 (three logical dropout tiles, a
+   ragged end); every kernel run twice, bitwise equal; then their times
+   beside the plain versions, the bound and
+   ``scaled_dot_product_attention`` (forward, and its autograd backward);
+7. the GPT2 path: ``training.gpt2.train(args, max_rounds=3)`` with the
+   flags of ``examples/gpt2_personachat.sh`` on SyntheticPersona at
+   GPT2-small's width (d = 124,051,201, ``--attn_impl blockwise``,
+   sketch 5 x 500k, k = 50,000, 4 workers of 8 dialogs x 2 candidates x
+   256 tokens): counters zeroed just before the rounds and read when the
+   validation pass starts (flash_fwd, flash_bwd_dq, flash_bwd_dkv 36
+   each, sketch 3, count 27, select 3), the validation pass's launches
+   read apart (flash_fwd 12 per batch, nothing else); finite losses,
+   weights and validation nll, exact upload bytes; round ms printed;
+   then round 3's batch once more under ``torch.profiler``, its device
+   time printed by kernel class beside its wall time;
+8. a reference check of a narrow GPT2 learner (2 layers, dropout 0) on
+   CUDA (flash kernels) and on the CPU: two sketch rounds from the same
+   weights and batches, losses within 1e-4 relative, bytes equal.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -51,6 +73,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -93,6 +116,19 @@ PATHS = {
 # per-row k of the batched parity check: full, an all-zero row, contested
 # ties at k/2, and k = 1
 KK_ROWS = [K, K, K // 2, 1, K, K, K, K]
+GPT2_FLAGS = ["--model", "gpt2", "--vocab_pad_to", "50262", "--attn_impl",
+              "blockwise", "--mode", "sketch", "--error_type", "virtual",
+              "--virtual_momentum", "0.9", "--num_workers", "4",
+              "--local_batch_size", "8", "--k", "50000", "--num_rows", "5",
+              "--num_cols", "500000", "--max_seq_len", "256", "--lr_scale",
+              "0.04", "--weight_decay", "0", "--dataset_name",
+              "SyntheticPersona", "--device", "cuda"]
+D_GPT2 = 124_051_201
+# 12 layers a round, 3 rounds; the sketch of d = 124M is one launch a round
+GPT2_LAUNCHES = {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+                 "sketch": 3, "count": 27, "select": 3}
+FLASH_SHAPE = (768, 256, 64)      # (BH, T, D) of the GPT2 path
+FLASH_RATE = 0.1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 REPS = 25
@@ -612,6 +648,334 @@ def phase_reference(dev):
               f"{frac:.6f} of weights within rtol 1e-3", flush=True)
 
 
+def _flash_inputs(dev, bh, t, d, dtype, seed):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(bh, t, d, generator=gen, device=dev).to(dtype)
+                 for _ in range(4))
+
+
+def _flash_args(d, rate):
+    from commefficient_tpu_torch.ops import flash_attention as fa
+    return ((1234567, -7654321), d ** -0.5, fa.DEFAULT_BLOCK_Q,
+            fa.DEFAULT_BLOCK_K, rate)
+
+
+def _flash_run(q, k, v, g, args):
+    import torch
+
+    from commefficient_tpu_torch.ops import flash_attention as fa
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    delta = torch.sum(g.float() * o.float(), dim=-1)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
+    return o, lse, dq, dk, dv
+
+
+def _flash_check(dev, bh, t, d, dtype, rate, seed):
+    """Kernels twice (bitwise equal) and against the plain versions:
+    ``({name: max abs err}, {name: err relative to max |plain|})``."""
+    import torch
+
+    from commefficient_tpu_torch.ops import flash_attention as fa
+    q, k, v, g = _flash_inputs(dev, bh, t, d, dtype, seed)
+    args = _flash_args(d, rate)
+    got = _flash_run(q, k, v, g, args)
+    again = _flash_run(q, k, v, g, args)
+    torch.cuda.synchronize()
+    names = ("o", "lse", "dq", "dk", "dv")
+    for name, a, b in zip(names, got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash kernels are not deterministic: {name}"
+                                 f" differs between two runs ({bh}, {t}, {d},"
+                                 f" {dtype}, rate {rate})")
+    ref = fa.flash_fwd_plain(q, k, v, *args) + fa.flash_bwd_plain(
+        q, k, v, g, *args)
+    err = {n: _max_abs_err(a, b) for n, a, b in zip(names, got, ref)}
+    rel = {n: err[n] / max(float(b.double().abs().max()), 1e-30)
+           for n, b in zip(names, ref)}
+    return err, rel
+
+
+def phase_flash_parity(dev, errs):
+    import torch
+    bh, t, d = FLASH_SHAPE
+    cases = [("f32", bh, t, d, torch.float32, 0.0),
+             ("f32", bh, t, d, torch.float32, FLASH_RATE),
+             ("bf16", bh, t, d, torch.bfloat16, FLASH_RATE),
+             ("f32", 24, 1100, 128, torch.float32, FLASH_RATE)]
+    errs.update(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0)
+    for i, (tag, bh_, t_, d_, dtype, rate) in enumerate(cases):
+        err, rel = _flash_check(dev, bh_, t_, d_, dtype, rate, seed=i)
+        print(f"parity flash ({tag}, BH={bh_}, T={t_}, D={d_}, rate "
+              f"{rate}): bitwise equal over 2 runs; max abs err O "
+              f"{err['o']:.3e}, lse {err['lse']:.3e}; relative to max |.|: "
+              f"dq {rel['dq']:.3e}, dk {rel['dk']:.3e}, dv {rel['dv']:.3e}",
+              flush=True)
+        if dtype == torch.float32:
+            bad = [n for n in ("o", "lse") if err[n] > 1e-5] + [
+                n for n in ("dq", "dk", "dv") if rel[n] > 1e-4]
+            if (t_, d_) == (t, d):
+                errs["flash_fwd"] = max(errs["flash_fwd"], err["o"])
+                errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], err["dq"])
+                errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"],
+                                            err["dk"], err["dv"])
+        else:
+            bad = [n for n in ("o",) if err[n] > 2e-2]
+        if bad:
+            raise AssertionError(f"flash kernels disagree with the plain "
+                                 f"versions ({tag}, T={t_}, D={d_}, rate "
+                                 f"{rate}) in {bad}: {err} / {rel}")
+
+
+def _flash_cost(kind, bh, t, d):
+    """(ms, kind) of the least time for one kernel at (bh, t, d) float32:
+    each input read once and each output written once; the causal
+    products' flops (forward 2 T^2 D BH, dq 1.5x, dkv 2x)."""
+    tensor, row = 4 * bh * t * d, 4 * bh * t
+    flops = 2 * t * t * d * bh
+    if kind == "fwd":       # q, k, v -> O, lse
+        return _bound(4 * tensor + row, flops)
+    if kind == "dq":        # q, k, v, dO, lse, delta -> dq
+        return _bound(5 * tensor + 2 * row, 1.5 * flops)
+    return _bound(6 * tensor + 2 * row, 2 * flops)  # ... -> dk, dv
+
+
+def phase_flash_timing(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from commefficient_tpu_torch.ops import flash_attention as fa
+    bh, t, d = FLASH_SHAPE
+    q, k, v, g = _flash_inputs(dev, bh, t, d, torch.float32, 0)
+    args = _flash_args(d, FLASH_RATE)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    delta = torch.sum(g * o, dim=-1)
+    # the same attention as one library call, (B, H, T, D) views of the
+    # (BH, T, D) tensors; its backward through autograd
+    q4, k4, v4, g4 = (x.view(bh // 12, 12, t, d) for x in (q, k, v, g))
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True, dropout_p=FLASH_RATE)
+    lib_fwd = _time_ms(lambda: sdpa(q4, k4, v4))
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+    out = sdpa(*leaves)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, leaves, g4,
+                                                   retain_graph=True))
+    plain_bwd = _time_ms(lambda: fa.flash_bwd_plain(q, k, v, g, *args))
+    at = f"BH={bh}, T={t}, D={d}, f32, rate {FLASH_RATE}"
+    rows = {
+        "flash_fwd": dict(
+            ms=_time_ms(lambda: fa.flash_fwd(q, k, v, *args)),
+            plain_ms=_time_ms(lambda: fa.flash_fwd_plain(q, k, v, *args)),
+            library_ms=lib_fwd, cost=_flash_cost("fwd", bh, t, d), at=at),
+        "flash_bwd_dq": dict(
+            ms=_time_ms(lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta,
+                                                *args)),
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            cost=_flash_cost("dq", bh, t, d), at=at),
+        "flash_bwd_dkv": dict(
+            ms=_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta,
+                                                 *args)),
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            cost=_flash_cost("dkv", bh, t, d), at=at),
+    }
+    for name, r in rows.items():
+        bound_ms, kind = r["cost"]
+        print(f"time {name} ({at}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({kind})", flush=True)
+    print("  library: flash_fwd = scaled_dot_product_attention(is_causal, "
+          f"dropout_p={FLASH_RATE}) forward; flash_bwd_dq, flash_bwd_dkv = "
+          "its whole autograd backward (dq, dk, dv together); plain ms of "
+          "both backward rows = the plain forward's autograd (dq, dk, dv "
+          "together)", flush=True)
+    return rows
+
+
+# kernel classes of the round's device-time breakdown, by name substring
+_KERNEL_CLASSES = (
+    ("flash attention (B5-B7)", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+    ("sketch and top-k (B1-B3)", ("sketch_kernel", "count_kernel",
+                                  "select_kernel", "tie_count_kernel",
+                                  "exclusive_scan_kernel")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
+)
+
+
+def _kernel_class(name: str) -> str:
+    for label, keys in _KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "other"
+
+
+def _profile_round(learner, call):
+    """One more round (round 3's batch again) under ``torch.profiler``:
+    device time by kernel class and the top kernels, beside the round's
+    wall time. Prints the breakdown; checks nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ids, batch, mask = call
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner.train_round(ids, batch, mask)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print("profile gpt2 round: the profiler recorded no device time",
+              flush=True)
+        return
+    by_class = {}
+    for e in kernels:
+        c = _kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    print(f"profile gpt2 round (torch.profiler, one round): wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}; by class: " + ", ".join(
+              f"{c} {ms:.3f} ms ({ms / busy_ms:.4f})"
+              for c, ms in sorted(by_class.items(), key=lambda x: -x[1])),
+          flush=True)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} "
+              f"{_kernel_class(e.key)}: {e.key[:90]}", flush=True)
+    torch.cuda.synchronize()
+
+
+def phase_gpt2_path(tmpdir):
+    """3 rounds of the GPT2 path; launches of the rounds and of the
+    validation pass read apart; then one more round under the profiler."""
+    import torch
+
+    from commefficient_tpu_torch.federated.api import FedLearner
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    args = build_gpt2_parser().parse_args(GPT2_FLAGS + ["--dataset_dir",
+                                                        tmpdir])
+    np.random.seed(args.seed)
+    at_val, last_call = {}, []
+    evaluate, train_round = FedLearner.evaluate, FedLearner.train_round
+
+    def evaluate_counted(self, batches):
+        batches = list(batches)
+        at_val["launches"] = dict(cuda_lib.LAUNCHES)
+        at_val["batches"] = len(batches)
+        return evaluate(self, batches)
+
+    def train_round_kept(self, client_ids, batch, mask, **kw):
+        last_call[:] = [(client_ids, batch, mask)]
+        return train_round(self, client_ids, batch, mask, **kw)
+
+    FedLearner.evaluate = evaluate_counted
+    FedLearner.train_round = train_round_kept
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        cuda_lib.LAUNCHES.clear()
+        learner, row = train(args, max_rounds=3, log=False)
+        torch.cuda.synchronize()
+    finally:
+        FedLearner.evaluate = evaluate
+        FedLearner.train_round = train_round
+    launches = {k: v for k, v in at_val["launches"].items() if v}
+    val = {k: v - at_val["launches"].get(k, 0)
+           for k, v in cuda_lib.LAUNCHES.items()
+           if v - at_val["launches"].get(k, 0)}
+    if launches != GPT2_LAUNCHES:
+        raise AssertionError(f"gpt2: launch counts {launches} != "
+                             f"{GPT2_LAUNCHES}")
+    n_layer = learner.model.config.n_layer
+    if val != {"flash_fwd": n_layer * at_val["batches"]}:
+        raise AssertionError(f"gpt2: validation launches {val} over "
+                             f"{at_val['batches']} batches, expected "
+                             f"flash_fwd {n_layer} a batch")
+    rounds = row["rounds"]
+    w = learner.state.weights
+    if len(rounds) != 3 or learner.cfg.grad_size != D_GPT2 \
+            or w.shape != (D_GPT2,):
+        raise AssertionError(f"gpt2: {len(rounds)} rounds, d = "
+                             f"{learner.cfg.grad_size}")
+    if not all(math.isfinite(r["loss"]) for r in rounds) \
+            or not bool(torch.isfinite(w).all()) \
+            or not math.isfinite(row["nll"]):
+        raise AssertionError("gpt2: non-finite loss, weights or val nll")
+    if any(r["upload_bytes"] != 4 * 4 * TABLE_FLOATS for r in rounds):
+        raise AssertionError(f"gpt2: upload bytes "
+                             f"{[r['upload_bytes'] for r in rounds]} are "
+                             f"not {4 * TABLE_FLOATS} per client x 4")
+    print(f"path gpt2: d = {learner.cfg.grad_size}, launches {launches}, "
+          f"validation launches {val} over {at_val['batches']} batches, "
+          f"losses {[round(r['loss'], 6) for r in rounds]}, round ms "
+          f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, upload B "
+          f"{[int(r['upload_bytes']) for r in rounds]}, val nll "
+          f"{row['nll']:.6f}, mc_acc {row['mc_acc']:.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    _profile_round(learner, last_call[0])
+    del learner, row
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gpt2_reference(dev):
+    """Two sketch rounds of a narrow GPT2 learner with the flash kernels
+    on the card and on the CPU, from the same weights and batches."""
+    import torch
+
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.api import FedLearner
+    from commefficient_tpu_torch.federated.losses import (
+        make_gpt2_train_loss, make_gpt2_val_loss)
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    from commefficient_tpu_torch.ops import cuda_lib
+    W, B, C, T = 4, 2, 2, 64
+    rng = np.random.RandomState(3)
+    batches = []
+    for _ in range(2):
+        ids = rng.randint(0, 261, (W, B, C, T)).astype(np.int32)
+        cols = (ids, rng.randint(T // 2, T, (W, B, C)).astype(np.int32),
+                np.where(rng.rand(W, B, C, T) < 0.3, ids, -1).astype(
+                    np.int32), np.full((W, B), C - 1, np.int32),
+                rng.randint(256, 261, (W, B, C, T)).astype(np.int32))
+        batches.append((rng.choice(8, W, replace=False).astype(np.int32),
+                        cols, np.ones((W, B), np.float32)))
+    cfg = FedConfig(mode="sketch", error_type="virtual",
+                    virtual_momentum=0.9, k=500, num_cols=4000, num_rows=5,
+                    num_clients=8, num_workers=W, weight_decay=0.0)
+    outs = {}
+    for device in ("cpu", dev):
+        model = GPT2DoubleHeads(GPT2Config(
+            vocab_size=300, n_positions=T, n_embd=64, n_layer=2, n_head=4,
+            dropout=0.0, attn_impl="blockwise")).reset_parameters(
+                torch.Generator().manual_seed(0))
+        learner = FedLearner(model, cfg, make_gpt2_train_loss(model),
+                             make_gpt2_val_loss(model), device=device)
+        before = cuda_lib.LAUNCHES["flash_fwd"]
+        ms = [learner.train_round(ids, cols, m, epoch_frac=r)
+              for r, (ids, cols, m) in enumerate(batches)]
+        outs[str(device)] = (ms, cuda_lib.LAUNCHES["flash_fwd"] - before)
+    (m_cpu, n_cpu), (m_gpu, n_gpu) = outs["cpu"], outs[str(dev)]
+    if n_cpu != 0 or n_gpu != 4:
+        raise AssertionError(f"gpt2 reference: flash_fwd launched {n_cpu} "
+                             f"times on the CPU, {n_gpu} on the card")
+    for a, b in zip(m_cpu, m_gpu):
+        if not math.isclose(a["loss"], b["loss"], rel_tol=1e-4):
+            raise AssertionError(f"gpt2 reference: loss cpu {a['loss']} != "
+                                 f"cuda {b['loss']}")
+        if (a["download_bytes"], a["upload_bytes"]) != (
+                b["download_bytes"], b["upload_bytes"]):
+            raise AssertionError("gpt2 reference: byte metrics differ")
+    print(f"reference gpt2 (2 layers, n_embd 64, T {T}, 2 sketch rounds, "
+          f"cuda flash kernels vs cpu): losses "
+          f"{[round(m['loss'], 6) for m in m_gpu]} vs "
+          f"{[round(m['loss'], 6) for m in m_cpu]}, bytes equal",
+          flush=True)
+
+
 SOURCES = {
     "sketch": ("commefficient_tpu_torch/csrc/sketch.cu",
                "commefficient_tpu/ops/sketch_kernels.py:285"),
@@ -627,6 +991,12 @@ SOURCES = {
                      "commefficient_tpu/ops/topk_kernels.py:355"),
     "estimates": ("commefficient_tpu_torch/csrc/estimates.cu",
                   "commefficient_tpu/ops/sketch_kernels.py:183"),
+    "flash_fwd": ("commefficient_tpu_torch/csrc/flash_attention.cu",
+                  "commefficient_tpu/ops/flash_attention.py:183"),
+    "flash_bwd_dq": ("commefficient_tpu_torch/csrc/flash_attention.cu",
+                     "commefficient_tpu/ops/flash_attention.py:303"),
+    "flash_bwd_dkv": ("commefficient_tpu_torch/csrc/flash_attention.cu",
+                      "commefficient_tpu/ops/flash_attention.py:356"),
 }
 
 
@@ -658,6 +1028,13 @@ def main() -> int:
         for kernel, n in phase_path(name).items():
             launches[kernel] = launches.get(kernel, 0) + n
     phase_reference(dev)
+    phase_flash_parity(dev, errs)
+    times.update(phase_flash_timing(dev))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for kernel, n in phase_gpt2_path(tmpdir).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    phase_gpt2_reference(dev)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -11,6 +11,11 @@ keeps them as one flat vector in the reference's coordinates
 (utils/params.py) and runs the model functionally on views of it. Its
 ``state`` carries the server's momentum and error and, in the modes that
 keep them, the clients' rows (``state.clients``).
+
+Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
+(the reference's round rng). Each round draws one seed from it for the
+fused path, and client ``c`` of the round gets ``fold_in(seed, c)``, as
+the reference folds the client id into the round's rng.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from commefficient_tpu_torch.federated.round import (FedState,
                                                      build_eval_step,
                                                      build_round_step,
                                                      init_fed_state)
+from commefficient_tpu_torch.ops.dropout import fold_in
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.params import flatten_params
 
@@ -32,8 +38,10 @@ from commefficient_tpu_torch.utils.params import flatten_params
 class FedLearner:
     def __init__(self, model: torch.nn.Module, cfg: FedConfig,
                  loss_train: Callable, loss_val: Optional[Callable] = None,
-                 lr_schedule: Optional[Callable] = None, device="cuda"):
+                 lr_schedule: Optional[Callable] = None, device="cuda",
+                 seed: int = 0):
         self.device = resolve_device(device)
+        self.generator = torch.Generator().manual_seed(int(seed))
         self.model = model.to(self.device)
         flat, self.unflatten = flatten_params(self.model)
         self.cfg = cfg.finalize(flat.shape[0])
@@ -55,10 +63,13 @@ class FedLearner:
         """Run one federated round and return its host metrics."""
         lr = self.lr_at(self.rounds_done if epoch_frac is None
                         else epoch_frac)
+        seed = int(torch.randint(0, 2 ** 62, (1,),
+                                 generator=self.generator))
+        client_seeds = [fold_in(seed, int(c)) for c in np.asarray(client_ids)]
         self.state, raw = self._round(
             self.state, self._to_device(client_ids, torch.int32),
             tuple(self._to_device(c) for c in batch),
-            self._to_device(mask, torch.float32), lr)
+            self._to_device(mask, torch.float32), lr, seed, client_seeds)
         self.rounds_done += 1
         n = max(float(raw["num_datapoints"]), 1.0)
         out = {

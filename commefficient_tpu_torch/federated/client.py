@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from commefficient_tpu_torch.config import FedConfig
+from commefficient_tpu_torch.ops.dropout import fold_in
 from commefficient_tpu_torch.ops.topk import topk
 
 
@@ -30,11 +31,14 @@ class ClientStepOut(NamedTuple):
     num_datapoints: torch.Tensor       # (W,)
 
 
-def _masked_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask):
+def _masked_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask,
+                          seed=None):
     """Gradient of the summed loss over valid examples, with respect to
-    the flat weights, plus the summed loss and metrics."""
+    the flat weights, plus the summed loss and metrics; ``seed`` feeds the
+    model's dropout."""
     w = w_flat.detach().requires_grad_(True)
-    per_ex_loss, per_ex_metrics = apply_loss(unflatten(w), batch, True)
+    per_ex_loss, per_ex_metrics = apply_loss(unflatten(w), batch, seed,
+                                             True)
     loss_sum = torch.sum(per_ex_loss * mask)
     metric_sums = torch.sum(per_ex_metrics.detach() * mask[None, :], dim=-1)
     (grad,) = torch.autograd.grad(loss_sum, w)
@@ -42,13 +46,13 @@ def _masked_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask):
 
 
 def compute_gradient(apply_loss, unflatten, forward_weights, batch, mask,
-                     cfg: FedConfig):
+                     cfg: FedConfig, seed=None):
     """One client's mean gradient over its valid examples plus weight
     decay ``(wd / W) * w`` (every worker adds it and the server sums),
     and its summed loss, metrics and datapoint count."""
     n = torch.sum(mask)
     grad_sum, loss_sum, metric_sums = _masked_loss_and_grad(
-        apply_loss, unflatten, forward_weights, batch, mask)
+        apply_loss, unflatten, forward_weights, batch, mask, seed)
     grad = grad_sum / torch.clamp(n, min=1.0)
     if cfg.weight_decay != 0:
         grad = grad + (cfg.weight_decay / cfg.num_workers) * forward_weights
@@ -56,13 +60,17 @@ def compute_gradient(apply_loss, unflatten, forward_weights, batch, mask,
 
 
 def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
-                error, cfg: FedConfig) -> ClientStepOut:
+                error, cfg: FedConfig, seeds=None) -> ClientStepOut:
     """The local step of the round's W non-fedavg clients: ``batch`` is a
     tuple of ``(W, B, ...)`` tensors, ``mask`` ``(W, B)``, ``velocity`` and
-    ``error`` the clients' ``(W, d)`` rows or None."""
+    ``error`` the clients' ``(W, d)`` rows or None, ``seeds`` the W
+    clients' dropout seeds (None: no dropout drawn)."""
+    W = mask.shape[0]
+    seeds = [None] * W if seeds is None else seeds
     outs = [compute_gradient(apply_loss, unflatten, ps_weights,
-                             tuple(c[w] for c in batch), mask[w], cfg)
-            for w in range(mask.shape[0])]
+                             tuple(c[w] for c in batch), mask[w], cfg,
+                             seeds[w])
+            for w in range(W)]
     g, loss_sum, metric_sums, n = (torch.stack(x) for x in zip(*outs))
     # sum-of-gradients semantics: scale each mean back up by its batch
     # size so the server can divide by the total datapoints
@@ -92,14 +100,15 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
 
 
 def fedavg_client_step(apply_loss, unflatten, ps_weights, batch, mask, lr,
-                       cfg: FedConfig):
+                       cfg: FedConfig, seed=None):
     """FedAvg for one client: ``num_fedavg_epochs`` of local SGD over its
     whole (padded) data in chunks of ``fedavg_batch_size``, transmitting
     the weight delta scaled by its datapoint count. The lr decays per real
     local step: the exponent is ``epoch * n_real_chunks + chunk_idx``,
     padded ghost chunks (all-zero mask tails) not counted, as in the
-    reference. Returns ``(transmit (d,), loss_sum, metric_sums, n)``, the
-    loss and metrics averaged over the epochs."""
+    reference. Local step ``s`` draws its dropout from ``fold_in(seed,
+    s)``. Returns ``(transmit (d,), loss_sum, metric_sums, n)``, the loss
+    and metrics averaged over the epochs."""
     max_b = mask.shape[0]
     chunk = (max_b if cfg.fedavg_batch_size == -1
              else min(cfg.fedavg_batch_size, max_b))
@@ -119,9 +128,9 @@ def fedavg_client_step(apply_loss, unflatten, ps_weights, batch, mask, lr,
     for step in range(n_chunks * cfg.num_fedavg_epochs):
         epoch, b_idx = divmod(step, n_chunks)
         sl = slice(b_idx * chunk, (b_idx + 1) * chunk)
-        g, ls, ms, n = compute_gradient(apply_loss, unflatten, w,
-                                        tuple(c[sl] for c in batch),
-                                        mask_p[sl], cfg)
+        g, ls, ms, n = compute_gradient(
+            apply_loss, unflatten, w, tuple(c[sl] for c in batch),
+            mask_p[sl], cfg, None if seed is None else fold_in(seed, step))
         eff_step = epoch * n_real_chunks + b_idx
         decay = torch.pow(cfg.fedavg_lr_decay, eff_step)
         # g is already the mean gradient over the chunk
@@ -138,7 +147,7 @@ def fedavg_client_step(apply_loss, unflatten, ps_weights, batch, mask, lr,
 def eval_step(apply_loss, unflatten, weights, batch, mask):
     """Validation forward pass: (loss sum, metric sums, count)."""
     per_ex_loss, per_ex_metrics = apply_loss(unflatten(weights), batch,
-                                             False)
+                                             None, False)
     return (torch.sum(per_ex_loss * mask),
             torch.sum(per_ex_metrics * mask[None, :], dim=-1),
             torch.sum(mask))

@@ -1,10 +1,11 @@
-"""Loss callables (port of ``make_cv_loss`` in
-``commefficient_tpu/federated/losses.py``).
+"""Loss callables (port of ``commefficient_tpu/federated/losses.py``:
+``make_cv_loss``, ``make_gpt2_train_loss``, ``make_gpt2_val_loss``).
 
-Contract: ``apply_loss(params, batch_tuple, train) -> (per-example loss
-(B,), per-example metrics (M, B))``, where ``params`` is a ``{torch name:
-tensor}`` dict for ``torch.func.functional_call``. The reference's rng
-argument is dropped: no ported model draws random numbers.
+Contract: ``apply_loss(params, batch_tuple, seed, train) -> (per-example
+loss (B,), per-example metrics (M, B))``, where ``params`` is a ``{torch
+name: tensor}`` dict for ``torch.func.functional_call`` and ``seed`` an
+int from which the model draws its dropout bits in training (the
+reference's rng; None where nothing is drawn).
 """
 
 from __future__ import annotations
@@ -17,12 +18,75 @@ from torch.func import functional_call
 def make_cv_loss(model: torch.nn.Module):
     """Cross-entropy + top-1 correctness for image classifiers."""
 
-    def apply_loss(params, batch, train):
+    def apply_loss(params, batch, seed, train):
         images, targets = batch
         logits = functional_call(model, params, (images,))
         targets = targets.long()
         loss = F.cross_entropy(logits, targets, reduction="none")
         correct = (torch.argmax(logits, -1) == targets).to(torch.float32)
         return loss, correct[None, :]
+
+    return apply_loss
+
+
+def shift_labels(lm_labels: torch.Tensor) -> torch.Tensor:
+    """Next-token targets: shifted[t] = labels[t+1], the last position -1
+    (ignored)."""
+    return torch.cat([lm_labels[..., 1:],
+                      torch.full_like(lm_labels[..., :1], -1)], dim=-1)
+
+
+def _lm_nll_sums(lm_logits, lm_labels):
+    """(nll token-sum, labeled-token count) per dialog over the shifted
+    positions whose label is not -1 (ref CrossEntropyLoss(ignore_index=-1),
+    gpt2_train.py:77-87)."""
+    labels = shift_labels(lm_labels.long())
+    valid = labels != -1
+    safe = torch.where(valid, labels, 0)
+    V = lm_logits.shape[-1]
+    nll = F.cross_entropy(lm_logits.reshape(-1, V), safe.reshape(-1),
+                          reduction="none").reshape(labels.shape)
+    nll = torch.where(valid, nll, 0.0)
+    return (torch.sum(nll, dim=(-2, -1)),
+            torch.sum(valid, dim=(-2, -1)).to(torch.float32))
+
+
+def _forward(model, params, batch, seed, train):
+    input_ids, mc_token_ids, _, _, token_type_ids = batch
+    return functional_call(model, params,
+                           (input_ids, token_type_ids, mc_token_ids),
+                           {"train": train, "seed": seed})
+
+
+def make_gpt2_train_loss(model, lm_coef: float = 1.0, mc_coef: float = 1.0):
+    """LM + multiple-choice loss (reference compute_loss_train,
+    gpt2_train.py:88-99): the LM NLL is the mean over each dialog's
+    labeled tokens, so every dialog weighs the same in the round."""
+
+    def apply_loss(params, batch, seed, train):
+        lm_logits, mc_logits = _forward(model, params, batch, seed, train)
+        nll_sum, tokens = _lm_nll_sums(lm_logits, batch[2])
+        lm_loss = nll_sum / torch.clamp(tokens, min=1.0)
+        mc_loss = F.cross_entropy(mc_logits, batch[3].long(),
+                                  reduction="none")
+        loss = lm_coef * lm_loss + mc_coef * mc_loss
+        return loss, torch.zeros((1, loss.shape[0]), device=loss.device)
+
+    return apply_loss
+
+
+def make_gpt2_val_loss(model):
+    """NLL + multiple-choice accuracy (reference compute_loss_val,
+    gpt2_train.py:77-87). Metric rows: [mc accuracy, nll token-sum,
+    labeled-token count]; the rollup recovers the reference's
+    token-weighted nll as sum(nll_sums) / sum(token_counts)."""
+
+    def apply_loss(params, batch, seed, train):
+        lm_logits, mc_logits = _forward(model, params, batch, None, False)
+        nll_sum, tokens = _lm_nll_sums(lm_logits, batch[2])
+        acc = (torch.argmax(mc_logits, -1) == batch[3].long()).to(
+            torch.float32)
+        return (nll_sum / torch.clamp(tokens, min=1.0),
+                torch.stack([acc, nll_sum, tokens]))
 
     return apply_loss

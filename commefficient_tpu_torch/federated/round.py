@@ -101,19 +101,21 @@ def fused_clients_eligible(cfg: FedConfig) -> bool:
 def build_round_step(apply_loss: Callable, unflatten: Callable,
                      cfg: FedConfig) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
-    lr) -> (FedState, metrics)``, every tensor on the state's device."""
+    lr, seed, client_seeds) -> (FedState, metrics)``, every tensor on the
+    state's device. The fused path draws its dropout from ``seed``, the
+    per-worker path client ``w``'s from ``client_seeds[w]``."""
     cfg.validate()
     sketch = make_sketch(cfg) if cfg.mode == "sketch" else None
     is_fedavg = cfg.mode == "fedavg"
     fused_clients = fused_clients_eligible(cfg)
 
-    def fused_step(w, batch, mask):
+    def fused_step(w, batch, mask, seed):
         flat_cols = tuple(c.reshape((-1,) + tuple(c.shape[2:]))
                           for c in batch)
         flat_mask = mask.reshape(-1)
         grad_sum, loss_total, metric_totals = \
             client_lib._masked_loss_and_grad(apply_loss, unflatten, w,
-                                             flat_cols, flat_mask)
+                                             flat_cols, flat_mask, seed)
         total_n = torch.sum(flat_mask)
         if cfg.weight_decay != 0:
             # each valid worker adds (wd/W)*w scaled by its datapoints
@@ -122,12 +124,12 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         agg = grad_sum / torch.clamp(total_n, min=1.0)
         return agg, loss_total, metric_totals, total_n
 
-    def per_worker_step(state, ids, batch, mask, valid_w, lr):
+    def per_worker_step(state, ids, batch, mask, valid_w, lr, seeds):
         w = state.weights
         if is_fedavg:
             outs = [client_lib.fedavg_client_step(
                 apply_loss, unflatten, w, tuple(c[i] for c in batch),
-                mask[i], lr, cfg) for i in range(mask.shape[0])]
+                mask[i], lr, cfg, seeds[i]) for i in range(mask.shape[0])]
             transmit, loss_sum, metric_sums, n = (torch.stack(x)
                                                   for x in zip(*outs))
             new_vels = new_errs = None
@@ -135,7 +137,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             out = client_lib.client_step(
                 apply_loss, unflatten, w, batch, mask,
                 gather_rows(state.clients.velocities, ids),
-                gather_rows(state.clients.errors, ids), cfg)
+                gather_rows(state.clients.errors, ids), cfg, seeds)
             transmit, loss_sum, metric_sums, n = (
                 out.transmit, out.loss_sum, out.metric_sums,
                 out.num_datapoints)
@@ -148,7 +150,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         return (agg, torch.sum(loss_sum), torch.sum(metric_sums, dim=0),
                 total_n, new_vels, new_errs)
 
-    def round_step(state: FedState, client_ids, batch, mask, lr):
+    def round_step(state: FedState, client_ids, batch, mask, lr, seed,
+                   client_seeds):
         w = state.weights
         ids = client_ids.long()
         num_clients = state.client_last_round.shape[0]
@@ -163,13 +166,13 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             counts * valid_w.to(torch.int32)).to(torch.float32)
 
         if fused_clients:
-            agg, loss_total, metric_totals, total_n = fused_step(w, batch,
-                                                                 mask)
+            agg, loss_total, metric_totals, total_n = fused_step(
+                w, batch, mask, seed)
             new_vels = new_errs = None
         else:
             (agg, loss_total, metric_totals, total_n, new_vels,
              new_errs) = per_worker_step(state, ids, batch, mask, valid_w,
-                                         lr)
+                                         lr, client_seeds)
         if sketch is not None:
             agg = sketch.sketch_vec(agg)
 

@@ -1,0 +1,303 @@
+"""GPT-2 with double heads, LM + multiple-choice (port of
+``commefficient_tpu/models/gpt2.py``, the training forward).
+
+Same architecture and parameters as the reference: token and position
+embeddings (token types index the token table), pre-LN blocks for
+``arch="gpt2"`` and post-LN blocks without a final LayerNorm for
+``arch="openai-gpt"``, the LM head tied to ``wte``, and a scalar
+multiple-choice head read at each candidate's ``mc_token_ids`` position.
+Inputs are (batch, num_candidates, seq_len); padded positions are attended
+and masked in the loss only, as in the reference.
+
+Submodules carry flax's auto-names (``Block_0.CausalSelfAttention_0.
+Dense_0``, ``LayerNorm_0``, ``wte``, ``mc_head``) and the leaves flax's
+names (``weight`` is flax's ``kernel``; ``embedding``, ``scale`` and
+``bias`` as they are), so ``utils/params.py`` maps the reference's params
+tree one to one.
+
+Two traps carry over from flax: ``nn.gelu`` is the tanh approximation, and
+the LayerNorm epsilon is 1e-5.
+
+``attn_impl``: ``"full"`` materializes the (T, T) scores with dropout on
+the probabilities; ``"blockwise"`` calls ``ops.attention.
+blockwise_attention``, which on a CUDA tensor runs the flash kernels.
+There ``attn_dropout`` places the attention dropout: ``"auto"`` drops the
+probabilities inside the kernels when they are eligible and the output
+otherwise, ``"output"`` always drops the output, ``"kernel"`` requires the
+kernels and raises without them.
+
+Dropout seeds: ``forward(..., train, seed)`` takes one int a call; each
+dropout site draws from ``fold_in`` of it by its place in the model, as
+flax folds the module path into the ``'dropout'`` rng.
+
+Not ported, each raising NotImplementedError: the KV cache of the serving
+stack (ROADMAP.md A11), MoE blocks and ring attention (A12), ``remat`` and
+the fused LM-head loss (A8).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from commefficient_tpu_torch.ops.attention import (
+    blockwise_attention, kernel_prob_dropout_eligible)
+from commefficient_tpu_torch.ops.dropout import FusedDropout, fold_in
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _sub(seed: Optional[int], i: int) -> Optional[int]:
+    return None if seed is None else fold_in(seed, i)
+
+
+def _todo(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
+
+
+class GPT2Config:
+    def __init__(self, vocab_size=50262, n_positions=512, n_embd=768,
+                 n_layer=12, n_head=12, dropout=0.1, dtype="float32",
+                 attn_impl="full", attn_block_size=512, remat=False,
+                 arch="gpt2"):
+        if arch not in ("gpt2", "openai-gpt"):
+            raise ValueError(f"unknown arch {arch!r}")
+        if attn_impl not in ("full", "blockwise", "ring"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.arch = arch
+        self.vocab_size = vocab_size
+        self.n_positions = n_positions
+        self.n_embd = n_embd
+        self.n_layer = n_layer
+        self.n_head = n_head
+        self.dropout = dropout
+        self.dtype = dtype            # "float32" | "bfloat16" compute dtype
+        self.attn_impl = attn_impl
+        self.attn_block_size = attn_block_size
+        self.remat = remat
+        self.moe_experts = 0
+        self.dropout_impl = "xla"
+        self.attn_dropout = "auto"    # "auto" | "output" | "kernel"
+        self.fused_lm_head = False
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @classmethod
+    def small(cls, vocab_size=50262):
+        return cls(vocab_size=vocab_size)
+
+    @classmethod
+    def tiny(cls, vocab_size=300):
+        """For tests and offline byte-tokenizer runs."""
+        return cls(vocab_size=vocab_size, n_positions=256, n_embd=128,
+                   n_layer=2, n_head=4, dropout=0.0)
+
+    @classmethod
+    def openai_gpt(cls, vocab_size=40478 + 5):
+        """GPT-1 double heads: 12 post-LN layers, 512 positions."""
+        return cls(vocab_size=vocab_size, n_positions=512, n_embd=768,
+                   n_layer=12, n_head=12, arch="openai-gpt")
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in the compute dtype (the
+    parameters stay float32)."""
+
+    def __init__(self, n_in: int, n_out: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(n_in, n_out)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: a (num, features) ``embedding`` table; ``attend``
+    is the tied output head ``x @ embedding.T``."""
+
+    def __init__(self, num: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, features))
+
+    def forward(self, ids):
+        return F.embedding(ids, self.embedding)
+
+    def attend(self, x):
+        return x @ self.embedding.T
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon=1e-5)`` with its arithmetic: statistics
+    in float32, the variance as ``E[x^2] - E[x]^2`` clipped at 0 (flax's
+    fast variance), ``(x - mean) * (rsqrt(var + eps) * scale) + bias``,
+    output in the compute dtype."""
+
+    def __init__(self, n: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = (x - mean) * (torch.rsqrt(var + 1e-5) * self.scale) + self.bias
+        return y.to(self.compute_dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        C, dt = cfg.n_embd, cfg.torch_dtype
+        if cfg.attn_impl == "ring":
+            _todo("attn_impl='ring' (sequence-parallel attention)", "A12")
+        if cfg.attn_dropout not in ("auto", "output", "kernel"):
+            raise ValueError(f"unknown attn_dropout {cfg.attn_dropout!r}")
+        self.n_head = cfg.n_head
+        self.rate = cfg.dropout
+        self.attn_impl = cfg.attn_impl
+        self.attn_block_size = cfg.attn_block_size
+        self.attn_dropout = cfg.attn_dropout
+        self.Dense_0 = Dense(C, 3 * C, dt)
+        self.Dense_1 = Dense(C, C, dt)
+        # the probabilities ('full'), or the output ('blockwise' off-kernel)
+        self.attn_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
+        self.resid_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
+
+    def forward(self, x, train: bool, seed: Optional[int]):
+        B, T, C = x.shape
+        q, k, v = torch.split(self.Dense_0(x), C, dim=-1)
+        heads = lambda t: t.reshape(B, T, self.n_head, C // self.n_head)
+        q, k, v = heads(q), heads(k), heads(v)
+        if self.attn_impl == "blockwise":
+            rate = self.rate if train else 0.0
+            in_kernel = (rate > 0.0 and self.attn_dropout != "output"
+                         and kernel_prob_dropout_eligible(q, k, v))
+            if self.attn_dropout == "kernel" and rate > 0.0 \
+                    and not in_kernel:
+                raise ValueError(
+                    "attn_dropout='kernel' but the fused kernels are not "
+                    "eligible for this device/shape; use 'auto' to fall "
+                    "back to output dropout")
+            if in_kernel:
+                # dropout on the attention PROBABILITIES inside the kernels
+                y = blockwise_attention(q, k, v, causal=True,
+                                        block_size=self.attn_block_size,
+                                        dropout_rate=rate,
+                                        dropout_seed=_sub(seed, 0))
+            else:
+                y = blockwise_attention(q, k, v, causal=True,
+                                        block_size=self.attn_block_size)
+                y = self.attn_drop(y, _sub(seed, 0), train)
+        else:
+            att = (torch.einsum("bqhd,bkhd->bhqk", q, k)
+                   / math.sqrt(C // self.n_head))
+            causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                           device=x.device))
+            att = att + torch.where(causal, 0.0,
+                                    torch.finfo(att.dtype).min)[None, None]
+            att = torch.softmax(att, dim=-1)
+            att = self.attn_drop(att, _sub(seed, 0), train)
+            y = torch.einsum("bhqk,bkhd->bqhd", att, v)
+        y = self.Dense_1(y.reshape(B, T, C))
+        return self.resid_drop(y, _sub(seed, 1), train)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        C, dt = cfg.n_embd, cfg.torch_dtype
+        self.post_ln = cfg.arch == "openai-gpt"
+        # LayerNorm_0 is the first one applied, LayerNorm_1 the second
+        self.LayerNorm_0 = LayerNorm(C, dt)
+        self.LayerNorm_1 = LayerNorm(C, dt)
+        self.CausalSelfAttention_0 = CausalSelfAttention(cfg)
+        self.Dense_0 = Dense(C, 4 * C, dt)
+        self.Dense_1 = Dense(4 * C, C, dt)
+        self.mlp_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
+
+    def _mlp(self, h):
+        return self.Dense_1(F.gelu(self.Dense_0(h), approximate="tanh"))
+
+    def forward(self, x, train: bool, seed: Optional[int]):
+        attn = lambda h: self.CausalSelfAttention_0(h, train, _sub(seed, 0))
+        drop = lambda t: self.mlp_drop(t, _sub(seed, 1), train)
+        if self.post_ln:
+            x = self.LayerNorm_0(x + attn(x))
+            return self.LayerNorm_1(x + drop(self._mlp(x)))
+        x = x + attn(self.LayerNorm_0(x))
+        return x + drop(self._mlp(self.LayerNorm_1(x)))
+
+
+class GPT2DoubleHeads(nn.Module):
+    """``forward(input_ids, token_type_ids, mc_token_ids, train, seed)`` ->
+    ``(lm_logits (B, C, T, V) float32, mc_logits (B, C))``."""
+
+    def __init__(self, config: GPT2Config):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.moe_experts > 0:
+            _todo("MoE blocks (--moe_experts)", "A12")
+        if cfg.remat:
+            _todo("remat (activation checkpointing)", "A8")
+        if cfg.fused_lm_head:
+            _todo("the fused LM-head loss (ops/fused_ce.py, --fused_ce)",
+                  "A8")
+        self.wte = Embed(cfg.vocab_size, cfg.n_embd)
+        self.wpe = Embed(cfg.n_positions, cfg.n_embd)
+        self.emb_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
+        for i in range(cfg.n_layer):
+            self.add_module(f"Block_{i}", Block(cfg))
+        if cfg.arch == "gpt2":
+            self.LayerNorm_0 = LayerNorm(cfg.n_embd)
+        self.mc_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
+        self.mc_head = Dense(cfg.n_embd, 1)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The reference's initializers: normal(0.02) kernels and token
+        embeddings, normal(0.01) positions, zero biases, unit scales."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                leaf = name.rsplit(".", 1)[-1]
+                if name == "wpe.embedding":
+                    p.normal_(0.0, 0.01, generator=generator)
+                elif leaf in ("weight", "embedding"):
+                    p.normal_(0.0, 0.02, generator=generator)
+                elif leaf == "bias":
+                    p.zero_()
+                else:
+                    p.fill_(1.0)
+        return self
+
+    def forward(self, input_ids, token_type_ids, mc_token_ids,
+                train: bool = True, seed: Optional[int] = None, cache=None):
+        if cache is not None:
+            _todo("KV-cached decoding (the serving stack)", "A11")
+        cfg = self.config
+        B, C, T = input_ids.shape
+        ids = input_ids.reshape(B * C, T).long()
+        types = token_type_ids.reshape(B * C, T).long()
+        pos = torch.arange(T, device=ids.device)[None, :]
+        x = self.wte(ids) + self.wpe(pos) + self.wte(types)
+        x = self.emb_drop(x, _sub(seed, 0), train)
+        for i in range(cfg.n_layer):
+            x = getattr(self, f"Block_{i}")(x, train, _sub(seed, 1 + i))
+        x = x.float()
+        if cfg.arch == "gpt2":
+            x = self.LayerNorm_0(x)
+        lm_logits = self.wte.attend(x).reshape(B, C, T, cfg.vocab_size)
+        mc_ids = mc_token_ids.reshape(B * C).long()
+        picked = x[torch.arange(B * C, device=x.device), mc_ids]
+        picked = self.mc_drop(picked, _sub(seed, cfg.n_layer + 1), train)
+        return lm_logits, self.mc_head(picked).reshape(B, C)

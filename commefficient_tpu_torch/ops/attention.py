@@ -1,0 +1,136 @@
+"""Attention ops (port of ``full_attention``, ``blockwise_attention`` and
+``kernel_prob_dropout_eligible`` from ``commefficient_tpu/ops/attention.py``).
+
+* ``full_attention`` — plain O(T^2)-memory attention, the correctness
+  reference.
+* ``blockwise_attention`` — flash-style attention. A CUDA call that the
+  fused kernels support (``ops/flash_attention.supported``: causal
+  self-attention without a key mask) goes to them, with optional dropout
+  on the attention probabilities inside the kernels; anything else runs
+  the reference's online softmax over key/value blocks as a loop in plain
+  PyTorch (no dropout there: it would need the (T, T) mask).
+
+Layout: q/k/v are (B, T, H, D); ``kv_mask`` (B, T) marks valid keys.
+``decode_attention``, the paged variants and ring attention are ROADMAP.md
+A11/A12.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from commefficient_tpu_torch.ops import flash_attention as _fa
+
+_NEG = -1e30
+
+
+def full_attention(q, k, v, *, causal: bool = True,
+                   kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain attention with float32 scores; fully masked queries emit 0."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    if causal:
+        qp = torch.arange(Tq, device=q.device)[:, None]
+        kp = torch.arange(Tk, device=q.device)[None, :]
+        s = s + torch.where(kp <= qp, 0.0, _NEG)[None, None]
+    if kv_mask is not None:
+        s = s + torch.where(kv_mask[:, None, None, :].bool(), 0.0, _NEG)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    if causal and kv_mask is None and Tq == Tk:
+        return out
+    any_valid = torch.any(s > _NEG / 2, dim=-1)            # (B, H, Tq)
+    return torch.where(any_valid.permute(0, 2, 1)[..., None], out, 0.0)
+
+
+def _fold_block(acc, q, kb, vb, q_pos, k_pos, kv_mask_b, causal):
+    """Fold one k/v block into the online-softmax accumulator
+    ``(m (B,H,Tq), l (B,H,Tq), o (B,Tq,H,D))``, float32 statistics."""
+    m, l, o = acc
+    D = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kb.float()) / math.sqrt(D)
+    if causal:
+        s = torch.where((k_pos[None, :] <= q_pos[:, None])[None, None], s,
+                        _NEG)
+    if kv_mask_b is not None:
+        s = torch.where(kv_mask_b[:, None, None, :], s, _NEG)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    # explicit zero for masked entries (exp(s - m_new) would be 1 while
+    # every score so far is _NEG); exponents clamped at 0
+    p = torch.where(s <= _NEG / 2, 0.0,
+                    torch.exp(torch.clamp(s - m_new[..., None], max=0.0)))
+    corr = torch.exp(torch.clamp(m - m_new, max=0.0))
+    l_new = l * corr + torch.sum(p, dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), vb)
+    o_new = o * corr.permute(0, 2, 1)[..., None] + pv.float()
+    return m_new, l_new, o_new
+
+
+def kernel_prob_dropout_eligible(q, k, v, *, causal: bool = True,
+                                 kv_mask: Optional[torch.Tensor] = None
+                                 ) -> bool:
+    """True when ``blockwise_attention`` would dispatch the fused kernels
+    (a CUDA call they support), i.e. when in-kernel attention-probability
+    dropout is available."""
+    return q.device.type == "cuda" and _fa.supported(q, k, v, causal,
+                                                     kv_mask)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        kv_mask: Optional[torch.Tensor] = None,
+                        block_size: int = 512,
+                        use_kernel: Optional[bool] = None,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None,
+                        block_q: Optional[int] = None,
+                        block_k: Optional[int] = None) -> torch.Tensor:
+    """Flash-style attention. ``use_kernel`` forces the choice (None =
+    the fused kernels when ``kernel_prob_dropout_eligible``); on a CPU
+    tensor the kernel route runs the kernels' plain versions.
+    ``block_size`` applies to the loop path only; ``block_q``/``block_k``
+    set the kernels' logical dropout tiles. ``dropout_rate > 0`` needs the
+    kernel route and a ``dropout_seed``."""
+    if use_kernel is None:
+        use_kernel = kernel_prob_dropout_eligible(q, k, v, causal=causal,
+                                                  kv_mask=kv_mask)
+    if use_kernel:
+        if not _fa.supported(q, k, v, causal, kv_mask):
+            raise ValueError(
+                "use_kernel=True but the call is not kernel-supported "
+                "(needs causal self-attention without kv_mask)")
+        kw = {}
+        if block_q is not None:
+            kw["block_q"] = block_q
+        if block_k is not None:
+            kw["block_k"] = block_k
+        return _fa.flash_attention(q, k, v, causal=causal,
+                                   dropout_rate=dropout_rate,
+                                   dropout_seed=dropout_seed, **kw)
+    if dropout_rate > 0.0:
+        raise ValueError(
+            "attention-probability dropout needs the fused kernel path "
+            "(the loop formulation would materialize the (T, T) mask); "
+            "use output dropout on this device/shape instead")
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    bs = min(block_size, Tk)
+    dev = q.device
+    km = (torch.ones((B, Tk), dtype=torch.bool, device=dev)
+          if kv_mask is None else kv_mask.bool())
+    q_pos = torch.arange(Tq, device=dev)
+    acc = (torch.full((B, H, Tq), _NEG, device=dev),
+           torch.zeros((B, H, Tq), device=dev),
+           torch.zeros((B, Tq, H, D), device=dev))
+    for s0 in range(0, Tk, bs):
+        # the reference pads the last block and masks the pad via kv_mask;
+        # a shorter last block is the same arithmetic on the valid keys
+        k_pos = torch.arange(s0, min(s0 + bs, Tk), device=dev)
+        acc = _fold_block(acc, q, k[:, s0:s0 + bs], v[:, s0:s0 + bs],
+                          q_pos, k_pos, km[:, s0:s0 + bs], causal)
+    m, l, o = acc
+    l = torch.clamp(l, min=1e-30)
+    return (o / l.permute(0, 2, 1)[..., None]).to(q.dtype)

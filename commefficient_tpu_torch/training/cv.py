@@ -31,7 +31,9 @@ from commefficient_tpu_torch.data import FedBatcher, fed_datasets, val_batches
 from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import make_cv_loss
 from commefficient_tpu_torch.models import get_model
-from commefficient_tpu_torch.training.args import args_to_config, build_parser
+from commefficient_tpu_torch.training.args import (args_to_config,
+                                                   build_parser,
+                                                   refuse_unported)
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.schedules import cifar_lr_schedule
 
@@ -39,13 +41,7 @@ DATASET_CHANNELS = {"EMNIST": 1, "Digits": 1}
 
 
 def _refuse_unported(args):
-    for flag, on, item in (
-            ("--mesh", bool(args.mesh), "A12"),
-            ("--client_state_offload", args.client_state_offload, "A9"),
-            ("--scan_rounds > 1", args.scan_rounds > 1, "A7")):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to PyTorch "
-                                      f"yet (ROADMAP.md {item})")
+    refuse_unported(args)
     if args.dataset_name not in fed_datasets:
         raise NotImplementedError(
             f"dataset {args.dataset_name!r} is not ported to PyTorch yet "

@@ -3,15 +3,20 @@
 The CountSketch hashes flat coordinate indices and top-k breaks ties by
 flat index, so the port's flat vector must be exactly the reference's:
 ``jax.flatten_util.ravel_pytree`` over the flax params tree. That ravels
-leaves in sorted-key order (for ResNet9: ``ConvBN_0 … ConvBN_3, Dense_0,
-Residual_0, Residual_1``) and each leaf in flax layout: conv kernels
-``(kh, kw, in, out)``, dense kernels ``(in, out)``.
+leaves in sorted-key order, component by component as strings (for
+ResNet9: ``ConvBN_0 … ConvBN_3, Dense_0, Residual_0, Residual_1``; for
+GPT2 ``Block_10`` comes before ``Block_2``), and each leaf in flax layout:
+conv kernels ``(kh, kw, in, out)``, dense kernels ``(in, out)``.
 
 The port's modules name their submodules after flax's auto-names
-(``ConvBN_0.Conv_0.weight`` is flax's ``ConvBN_0/Conv_0/kernel``), so the
-bridge needs no per-model table: a torch parameter name maps to its flax
-path by renaming ``weight`` to ``kernel``, and its layout by permuting
-torch's ``(out, in, kh, kw)`` / ``(out, in)`` to flax's.
+(``ConvBN_0.Conv_0.weight`` is flax's ``ConvBN_0/Conv_0/kernel``) and
+their other leaves after flax's (``embedding`` of ``nn.Embed``, ``scale``
+and ``bias`` of ``nn.LayerNorm``, ``bias`` of ``nn.Dense``), so the bridge
+needs no per-model table: a torch parameter name maps to its flax path by
+renaming ``weight`` to ``kernel``, and only a ``weight`` changes layout,
+torch's ``(out, in, kh, kw)`` / ``(out, in)`` permuted to flax's. Every
+other leaf keeps its layout (an embedding table is ``(num, features)`` on
+both sides).
 """
 
 from __future__ import annotations
@@ -42,8 +47,11 @@ def torch_name(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
-def to_flax_layout(t):
-    """torch layout -> flax layout (a permuted view; works on numpy too)."""
+def to_flax_layout(t, leaf: str = "weight"):
+    """torch layout -> flax layout of the leaf named ``leaf`` (a permuted
+    view; works on numpy too). Only a ``weight`` is permuted."""
+    if leaf != "weight":
+        return t
     if t.ndim == 4:     # (out, in, kh, kw) -> (kh, kw, in, out)
         return t.permute(2, 3, 1, 0) if torch.is_tensor(t) \
             else t.transpose(2, 3, 1, 0)
@@ -52,8 +60,11 @@ def to_flax_layout(t):
     return t
 
 
-def from_flax_layout(t):
-    """flax layout -> torch layout (inverse of ``to_flax_layout``)."""
+def from_flax_layout(t, leaf: str = "kernel"):
+    """flax layout -> torch layout of the flax leaf named ``leaf`` (inverse
+    of ``to_flax_layout``). Only a ``kernel`` is permuted."""
+    if leaf != "kernel":
+        return t
     if t.ndim == 4:
         return t.permute(3, 2, 0, 1) if torch.is_tensor(t) \
             else t.transpose(3, 2, 0, 1)
@@ -64,6 +75,10 @@ def from_flax_layout(t):
 
 def _ordered(names):
     return sorted(names, key=flax_path)
+
+
+def _leaf(name: str) -> str:
+    return name.rsplit(".", 1)[-1]
 
 
 def flatten_params(module: torch.nn.Module
@@ -77,15 +92,17 @@ def flatten_params(module: torch.nn.Module
     views lands the gradient in flat (JAX) coordinates."""
     params = dict(module.named_parameters())
     names = _ordered(params)
-    flax_shapes = [tuple(to_flax_layout(params[n]).shape) for n in names]
+    leaves = [flax_path(n)[-1] for n in names]
+    flax_shapes = [tuple(to_flax_layout(params[n], _leaf(n)).shape)
+                   for n in names]
     sizes = [int(np.prod(s)) for s in flax_shapes]
-    flat = torch.cat([to_flax_layout(params[n].detach()).reshape(-1)
-                      for n in names])
+    flat = torch.cat([to_flax_layout(params[n].detach(),
+                                     _leaf(n)).reshape(-1) for n in names])
 
     def unflatten(vec: torch.Tensor) -> Dict[str, torch.Tensor]:
         out, off = {}, 0
-        for n, shape, size in zip(names, flax_shapes, sizes):
-            out[n] = from_flax_layout(vec[off:off + size].view(shape))
+        for n, leaf, shape, size in zip(names, leaves, flax_shapes, sizes):
+            out[n] = from_flax_layout(vec[off:off + size].view(shape), leaf)
             off += size
         return out
 
@@ -101,9 +118,10 @@ def params_from_jax(flax_params) -> Dict[str, torch.Tensor]:
             if isinstance(val, dict):
                 walk(val, path + (key,))
             else:
-                arr = np.asarray(val, dtype=np.float32)
+                # a copy: arrays fetched from JAX are read-only
+                arr = np.array(val, dtype=np.float32)
                 out[torch_name(path + (key,))] = torch.from_numpy(
-                    np.ascontiguousarray(from_flax_layout(arr)))
+                    np.ascontiguousarray(from_flax_layout(arr, key)))
 
     walk(flax_params, ())
     return out
@@ -119,7 +137,7 @@ def params_to_jax(state_dict) -> dict:
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(
-            to_flax_layout(t.detach().cpu().numpy()))
+            to_flax_layout(t.detach().cpu().numpy(), _leaf(name)))
     return tree
 
 

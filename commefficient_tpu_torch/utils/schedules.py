@@ -22,3 +22,8 @@ class PiecewiseLinear:
 def cifar_lr_schedule(lr_scale: float, pivot_epoch: float, num_epochs: float):
     """0 -> lr_scale at pivot -> 0 at end (ref cv_train.py:393-395)."""
     return PiecewiseLinear([0, pivot_epoch, num_epochs], [0, lr_scale, 0])
+
+
+def gpt2_lr_schedule(lr_scale: float, total_steps: int):
+    """Linear per-step decay from lr_scale to 0 (ref gpt2_train.py:302-307)."""
+    return PiecewiseLinear([0, total_steps], [lr_scale, 0])

@@ -5,10 +5,13 @@ machine with one (and without JAX, so without the suite's conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Each kernel must equal its plain version bitwise at small shapes, odd
-lengths (tails that are no multiple of a tile), a nonzero block offset,
-per-row k and planted ties included; ``chip_smoke.py`` repeats this at the
-main paths' full width.
+Each sketch and top-k kernel must equal its plain version bitwise at
+small shapes, odd lengths (tails that are no multiple of a tile), a
+nonzero block offset, per-row k and planted ties included; the flash
+attention kernels match theirs within float32 rounding (O and lse atol
+1e-5, gradients 1e-4 of their largest magnitude; bf16 2e-2), with and
+without dropout, and are deterministic. ``chip_smoke.py`` repeats this at
+the main paths' full width.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from commefficient_tpu_torch.ops import cuda_lib
+from commefficient_tpu_torch.ops import flash_attention as fa
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.countsketch import CountSketch
 from commefficient_tpu_torch.ops.sketch_kernels import (estimates,
@@ -147,3 +151,56 @@ def test_estimates_kernel_equals_plain(dev, d, c, r):
     got = estimates(cs, table)
     assert cuda_lib.LAUNCHES["estimates"] == before + 1
     assert _same_bits(got, estimates_plain(cs, table))
+
+
+@pytest.mark.parametrize("dtype,D,T,rate", [
+    (torch.float32, 64, 256, 0.0), (torch.float32, 64, 256, 0.1),
+    (torch.float32, 32, 100, 0.1), (torch.float32, 128, 200, 0.1),
+    (torch.float32, 40, 130, 0.1), (torch.bfloat16, 64, 256, 0.1)])
+def test_flash_kernels_match_plain(dev, dtype, D, T, rate):
+    BH = 6
+    gen = torch.Generator().manual_seed(T + D)
+    q, k, v, g = (torch.randn(BH, T, D, generator=gen).to(dev, dtype)
+                  for _ in range(4))
+    args = ((123, -456), D ** -0.5, 64, 96, rate)   # 3 x 2 dropout tiles
+    before = dict(cuda_lib.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    p_o, p_lse = fa.flash_fwd_plain(q, k, v, *args)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), p_o.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, p_lse, rtol=0, atol=1e-5)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
+    ref = fa.flash_bwd_plain(q, k, v, g, *args)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip((dq, dk, dv), ref):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=rel * scale)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1
+    again = fa.flash_fwd(q, k, v, *args)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    assert torch.equal(fa.flash_bwd_dq(q, k, v, g, lse, delta, *args), dq)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_flash_attention_autograd_on_the_card(dev):
+    """The autograd Function on the card against the same Function on the
+    CPU (the plain versions), dropout included."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, g = (torch.randn(2, 150, 3, 32, generator=gen)
+                  for _ in range(4))
+    outs = {}
+    for device in ("cpu", dev):
+        xs = [x.to(device).detach().requires_grad_(True)
+              for x in (q, k, v)]
+        o = fa.flash_attention(*xs, dropout_rate=0.1, dropout_seed=77,
+                               block_q=64, block_k=64)
+        o.backward(g.to(device))
+        outs[str(device)] = [o.detach().cpu()] + [x.grad.cpu() for x in xs]
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        torch.testing.assert_close(b, a, rtol=0,
+                                   atol=1e-4 * float(a.abs().max()))

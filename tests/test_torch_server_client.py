@@ -102,7 +102,7 @@ def _jax_loss(params, batch, rng, train):
     return loss, (jnp.argmax(logits, -1) == y).astype(jnp.float32)[None]
 
 
-def _torch_loss(params, batch, train):
+def _torch_loss(params, batch, seed, train):
     x, y = batch
     logits = x @ params["w"]
     loss = torch.nn.functional.cross_entropy(logits, y.long(),
