@@ -47,6 +47,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ragged end); every kernel run twice, bitwise equal; then their times
    beside the plain versions, the bound and
    ``scaled_dot_product_attention`` (forward, and its autograd backward);
+   then the checks of phase 2's first item and the kernel times of phase 3
+   for sketch, count and select again at the GPT2 path's d = 124,051,201
+   (a seeded vector into the same 5 x 500,096 table, k = 50,000; plain
+   versions timed over 3 runs);
 7. the GPT2 path: ``training.gpt2.train(args, max_rounds=3)`` with the
    flags of ``examples/gpt2_personachat.sh`` on SyntheticPersona at
    GPT2-small's width (d = 124,051,201, ``--attn_impl blockwise``,
@@ -243,20 +247,23 @@ def phase_build():
                     print(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_parity(dev):
+def phase_parity(dev, d, errs):
+    """Sketch, count, select and the fused unsketch + top-k against their
+    plain versions, bitwise, at ``d`` with the main paths' 5 x 500k table
+    and k; the largest error of each kernel goes into ``errs``."""
     import torch
 
     from commefficient_tpu_torch.ops import topk_kernels as tk
     from commefficient_tpu_torch.ops.countsketch import CountSketch
     from commefficient_tpu_torch.ops.sketch_kernels import (sketch_vec,
                                                             sketch_vec_plain)
-    cs = CountSketch(D_RESNET9, 500_000, 5, seed=42)
+    cs = CountSketch(d, 500_000, 5, seed=42)
     rng = np.random.RandomState(0)
     x = (rng.randn(cs.d) * 1e-3).astype(np.float32)
     hot = rng.choice(cs.d, 2 * K, replace=False)
     x[hot] += rng.randn(2 * K).astype(np.float32)
     vec = torch.from_numpy(x).to(dev)
-    errs = {}
+    del x, hot
 
     table = sketch_vec(cs, vec)
     again = sketch_vec(cs, vec)
@@ -272,7 +279,8 @@ def phase_parity(dev):
     if not _same_bits(sketch_vec(cs, part, off),
                       sketch_vec_plain(cs, part, off)):
         raise AssertionError("sketch kernel != plain version at an offset")
-    errs["sketch"] = _max_abs_err(table, plain)
+    errs["sketch"] = max(errs.get("sketch", 0.0), _max_abs_err(table, plain))
+    del again, plain
     print(f"parity sketch: bitwise equal to plain at d={cs.d}, table "
           f"{cs.r}x{cs.c_eff}, deterministic over 2 runs, offset slice ok",
           flush=True)
@@ -306,11 +314,11 @@ def phase_parity(dev):
         errs["select"] = max(errs.get("select", 0.0),
                              _max_abs_err(ks[0], ps[0]),
                              _max_abs_err(ks[1], ps[1]))
-        print(f"parity unsketch_select ({name}): count, select and the "
-              f"fused k={K} selection bitwise equal to plain; "
+        print(f"parity unsketch_select ({name}, d={cs.d}): count, select "
+              f"and the fused k={K} selection bitwise equal to plain; "
               f"threshold bits {int(t)}, ties taken {int(n_take)}",
               flush=True)
-    return cs, vec, table, errs
+    return cs, vec, table
 
 
 def _resid_inputs(dev, rng, sparse):
@@ -440,7 +448,10 @@ def phase_parity_stream(dev, cs, table, errs):
     return inputs
 
 
-def phase_timing(cs, vec, table):
+def phase_timing(cs, vec, table, plain_reps=REPS):
+    """Times of the sketch, count and select kernels at ``cs.d`` beside
+    their plain versions (median of ``plain_reps``), the library calls and
+    the bound."""
     import torch
 
     from commefficient_tpu_torch.ops import topk_kernels as tk
@@ -464,21 +475,24 @@ def phase_timing(cs, vec, table):
     rows = {
         "sketch": dict(
             ms=_time_ms(lambda: sketch_vec(cs, vec)),
-            plain_ms=_time_ms(lambda: sketch_vec_plain(cs, vec)),
+            plain_ms=_time_ms(lambda: sketch_vec_plain(cs, vec),
+                              plain_reps),
             library_ms=_time_ms(lambda: flat.index_add_(0, buckets, signed)),
             cost=_sketch_cost(cs)),
         "count": dict(
             ms=_time_ms(lambda: tk.count(cs, table, cands)),
-            plain_ms=_time_ms(lambda: tk.count_plain(cs, table, cands)),
+            plain_ms=_time_ms(lambda: tk.count_plain(cs, table, cands),
+                              plain_reps),
             library_ms=topk_ms, cost=_count_cost(cs)),
         "select": dict(
             ms=_time_ms(lambda: tk.select(cs, table, t, n_take)),
-            plain_ms=_time_ms(lambda: tk.select_plain(cs, table, t, n_take)),
+            plain_ms=_time_ms(lambda: tk.select_plain(cs, table, t, n_take),
+                              plain_reps),
             library_ms=topk_ms, cost=_select_cost(cs)),
     }
     for name, r in rows.items():
         bound_ms, kind = r["cost"]
-        print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
+        print(f"time {name} (d={cs.d}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {bound_ms:.5f} ms ({kind})", flush=True)
     print(f"  library: sketch = index_add_ of the {cs.r}x{cs.d} signed "
@@ -851,47 +865,26 @@ def phase_gpt2_path(tmpdir):
     validation pass read apart; then one more round under the profiler."""
     import torch
 
-    from commefficient_tpu_torch.federated.api import FedLearner
     from commefficient_tpu_torch.ops import cuda_lib
     from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
                                                        train)
     args = build_gpt2_parser().parse_args(GPT2_FLAGS + ["--dataset_dir",
                                                         tmpdir])
     np.random.seed(args.seed)
-    at_val, last_call = {}, []
-    evaluate, train_round = FedLearner.evaluate, FedLearner.train_round
-
-    def evaluate_counted(self, batches):
-        batches = list(batches)
-        at_val["launches"] = dict(cuda_lib.LAUNCHES)
-        at_val["batches"] = len(batches)
-        return evaluate(self, batches)
-
-    def train_round_kept(self, client_ids, batch, mask, **kw):
-        last_call[:] = [(client_ids, batch, mask)]
-        return train_round(self, client_ids, batch, mask, **kw)
-
-    FedLearner.evaluate = evaluate_counted
-    FedLearner.train_round = train_round_kept
     torch.cuda.reset_peak_memory_stats()
-    try:
-        cuda_lib.LAUNCHES.clear()
-        learner, row = train(args, max_rounds=3, log=False)
-        torch.cuda.synchronize()
-    finally:
-        FedLearner.evaluate = evaluate
-        FedLearner.train_round = train_round
-    launches = {k: v for k, v in at_val["launches"].items() if v}
-    val = {k: v - at_val["launches"].get(k, 0)
-           for k, v in cuda_lib.LAUNCHES.items()
-           if v - at_val["launches"].get(k, 0)}
+    cuda_lib.LAUNCHES.clear()
+    learner, row = train(args, max_rounds=3, log=False)
+    torch.cuda.synchronize()
+    launches = row["launches_after_rounds"]
+    val = {k: v - launches.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+           if v - launches.get(k, 0)}
     if launches != GPT2_LAUNCHES:
         raise AssertionError(f"gpt2: launch counts {launches} != "
                              f"{GPT2_LAUNCHES}")
     n_layer = learner.model.config.n_layer
-    if val != {"flash_fwd": n_layer * at_val["batches"]}:
+    if val != {"flash_fwd": n_layer * row["val_batches"]}:
         raise AssertionError(f"gpt2: validation launches {val} over "
-                             f"{at_val['batches']} batches, expected "
+                             f"{row['val_batches']} batches, expected "
                              f"flash_fwd {n_layer} a batch")
     rounds = row["rounds"]
     w = learner.state.weights
@@ -908,13 +901,13 @@ def phase_gpt2_path(tmpdir):
                              f"{[r['upload_bytes'] for r in rounds]} are "
                              f"not {4 * TABLE_FLOATS} per client x 4")
     print(f"path gpt2: d = {learner.cfg.grad_size}, launches {launches}, "
-          f"validation launches {val} over {at_val['batches']} batches, "
+          f"validation launches {val} over {row['val_batches']} batches, "
           f"losses {[round(r['loss'], 6) for r in rounds]}, round ms "
           f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, upload B "
           f"{[int(r['upload_bytes']) for r in rounds]}, val nll "
           f"{row['nll']:.6f}, mc_acc {row['mc_acc']:.4f}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    _profile_round(learner, last_call[0])
+    _profile_round(learner, row["last_batch"])
     del learner, row
     torch.cuda.empty_cache()
     return launches
@@ -1017,7 +1010,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    cs, vec, table, errs = phase_parity(dev)
+    errs = {}
+    cs, vec, table = phase_parity(dev, D_RESNET9, errs)
     inputs = phase_parity_stream(dev, cs, table, errs)
     times = phase_timing(cs, vec, table)
     times.update(phase_timing_stream(cs, table, inputs))
@@ -1030,6 +1024,11 @@ def main() -> int:
     phase_reference(dev)
     phase_flash_parity(dev, errs)
     times.update(phase_flash_timing(dev))
+    # the sketch-mode kernels again at the GPT2 path's d (timed apart: the
+    # kernel line keeps ResNet9's d)
+    cs, vec, table = phase_parity(dev, D_GPT2, errs)
+    phase_timing(cs, vec, table, plain_reps=3)
+    del cs, vec, table
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmpdir:
         for kernel, n in phase_gpt2_path(tmpdir).items():

@@ -13,9 +13,7 @@ keeps them as one flat vector in the reference's coordinates
 keep them, the clients' rows (``state.clients``).
 
 Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
-(the reference's round rng). Each round draws one seed from it for the
-fused path, and client ``c`` of the round gets ``fold_in(seed, c)``, as
-the reference folds the client id into the round's rng.
+(the reference's round rng) and draws one seed from it per round.
 """
 
 from __future__ import annotations
@@ -30,7 +28,6 @@ from commefficient_tpu_torch.federated.round import (FedState,
                                                      build_eval_step,
                                                      build_round_step,
                                                      init_fed_state)
-from commefficient_tpu_torch.ops.dropout import fold_in
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.params import flatten_params
 
@@ -65,11 +62,10 @@ class FedLearner:
                         else epoch_frac)
         seed = int(torch.randint(0, 2 ** 62, (1,),
                                  generator=self.generator))
-        client_seeds = [fold_in(seed, int(c)) for c in np.asarray(client_ids)]
         self.state, raw = self._round(
             self.state, self._to_device(client_ids, torch.int32),
             tuple(self._to_device(c) for c in batch),
-            self._to_device(mask, torch.float32), lr, seed, client_seeds)
+            self._to_device(mask, torch.float32), lr, seed)
         self.rounds_done += 1
         n = max(float(raw["num_datapoints"]), 1.0)
         out = {
@@ -88,8 +84,9 @@ class FedLearner:
 
     def evaluate(self, batches: Iterable):
         """Centralized validation over an iterable of (batch_tuple, mask)."""
-        loss_sum, metric_sums, n_total = 0.0, None, 0.0
+        loss_sum, metric_sums, n_total, num_batches = 0.0, None, 0.0, 0
         for batch, mask in batches:
+            num_batches += 1
             out = self._eval(self.state.weights,
                              tuple(self._to_device(c) for c in batch),
                              self._to_device(mask, torch.float32))
@@ -101,4 +98,4 @@ class FedLearner:
         return {"loss": loss_sum / n,
                 "metrics": (metric_sums if metric_sums is not None
                             else np.zeros(1)) / n,
-                "num_datapoints": n}
+                "num_datapoints": n, "num_batches": num_batches}

@@ -36,6 +36,7 @@ from commefficient_tpu_torch.federated.server import (init_server_opt_state,
                                                       server_update)
 from commefficient_tpu_torch.federated.state import (ClientState,
                                                      ServerOptState)
+from commefficient_tpu_torch.ops.dropout import fold_in
 
 
 @dataclass
@@ -101,9 +102,10 @@ def fused_clients_eligible(cfg: FedConfig) -> bool:
 def build_round_step(apply_loss: Callable, unflatten: Callable,
                      cfg: FedConfig) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
-    lr, seed, client_seeds) -> (FedState, metrics)``, every tensor on the
-    state's device. The fused path draws its dropout from ``seed``, the
-    per-worker path client ``w``'s from ``client_seeds[w]``."""
+    lr, seed) -> (FedState, metrics)``, every tensor on the state's
+    device. The fused path draws its dropout from ``seed``; in the
+    per-worker path client ``c`` draws from ``fold_in(seed, c)``, as the
+    reference folds the client id into the round's rng."""
     cfg.validate()
     sketch = make_sketch(cfg) if cfg.mode == "sketch" else None
     is_fedavg = cfg.mode == "fedavg"
@@ -124,8 +126,10 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         agg = grad_sum / torch.clamp(total_n, min=1.0)
         return agg, loss_total, metric_totals, total_n
 
-    def per_worker_step(state, ids, batch, mask, valid_w, lr, seeds):
+    def per_worker_step(state, ids, batch, mask, valid_w, lr, seed):
         w = state.weights
+        # one host read of the W ids: the seeds are host ints
+        seeds = [fold_in(seed, c) for c in ids.tolist()]
         if is_fedavg:
             outs = [client_lib.fedavg_client_step(
                 apply_loss, unflatten, w, tuple(c[i] for c in batch),
@@ -150,8 +154,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         return (agg, torch.sum(loss_sum), torch.sum(metric_sums, dim=0),
                 total_n, new_vels, new_errs)
 
-    def round_step(state: FedState, client_ids, batch, mask, lr, seed,
-                   client_seeds):
+    def round_step(state: FedState, client_ids, batch, mask, lr, seed):
         w = state.weights
         ids = client_ids.long()
         num_clients = state.client_last_round.shape[0]
@@ -172,7 +175,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         else:
             (agg, loss_total, metric_totals, total_n, new_vels,
              new_errs) = per_worker_step(state, ids, batch, mask, valid_w,
-                                         lr, client_seeds)
+                                         lr, seed)
         if sketch is not None:
             agg = sketch.sketch_vec(agg)
 

@@ -11,7 +11,8 @@ Pallas kernels, each behind a wrapper that counts its launches:
   q, k and lse; ``delta = rowsum(dO * O)`` is computed in PyTorch between
   them, as the reference computes it outside its kernels.
 
-``flash_attention`` is a ``torch.autograd.Function`` over the three.
+``flash_attention`` is a ``torch.autograd.Function`` over the three (on a
+CPU tensor, the plain forward under autograd).
 
 Dropout on the attention probabilities (``dropout_rate`` > 0) keeps the
 reference's contract: the softmax denominator sums the undropped
@@ -316,6 +317,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     def to3(x):
         return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
 
-    o3 = _Flash.apply(to3(q), to3(k), to3(v), seeds, 1.0 / (D ** 0.5),
-                      int(block_q), int(block_k), rate)
+    args = (seeds, 1.0 / (D ** 0.5), int(block_q), int(block_k), rate)
+    if _device_of("flash_attention", q):
+        o3 = _Flash.apply(to3(q), to3(k), to3(v), *args)
+    else:
+        # a CPU tensor: the plain forward, differentiated by autograd
+        o3 = flash_fwd_plain(to3(q), to3(k), to3(v), *args)[0]
     return o3.reshape(B, H, T, D).permute(0, 2, 1, 3)

@@ -39,6 +39,7 @@ from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import (make_gpt2_train_loss,
                                                       make_gpt2_val_loss)
 from commefficient_tpu_torch.models import GPT2_CONFIGS, GPT2DoubleHeads
+from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    args_to_config,
                                                    build_parser,
@@ -92,8 +93,12 @@ def gpt2_config(args, vocab_size: int):
 
 
 def train(args, max_rounds=None, log=True):
-    """Train per ``args``; returns ``(learner, last epoch's row)``. The row
-    carries every round's metrics and host time under ``"rounds"``."""
+    """Train per ``args``; returns ``(learner, last epoch's row)``. Beside
+    the epoch's metrics the row carries every round's metrics and host time
+    (``"rounds"``), the kernel launch counters as they stood when the
+    epoch's rounds ended (``"launches_after_rounds"``), the number of
+    validation batches (``"val_batches"``) and the last round's
+    ``(client_ids, batch, mask)`` (``"last_batch"``)."""
     _refuse_unported(args)
     device = resolve_device(args.device)
     tokenizer = get_tokenizer(args.model_checkpoint, verbose=log)
@@ -132,6 +137,7 @@ def train(args, max_rounds=None, log=True):
             out["round_s"] = time.perf_counter() - t0
             rounds.append(out)
             history.append(out)
+            last_batch = (ids, cols, mask)
             total_rounds += 1
             if log:
                 print(f"round {total_rounds}: loss={out['loss']:.6f} "
@@ -145,6 +151,7 @@ def train(args, max_rounds=None, log=True):
             if args.do_test or (max_rounds and total_rounds >= max_rounds):
                 break
         train_time = time.perf_counter() - t_epoch
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
         t_val = time.perf_counter()
         val = learner.evaluate(val_batches(val_set, args.valid_batch_size))
         # token-weighted nll = the reference's flat
@@ -167,7 +174,8 @@ def train(args, max_rounds=None, log=True):
         if log:
             print({k: round(v, 4) if isinstance(v, float) else v
                    for k, v in row.items()}, flush=True)
-        row["rounds"] = history
+        row.update(rounds=history, launches_after_rounds=launches,
+                   val_batches=val["num_batches"], last_batch=last_batch)
         if args.do_test or (max_rounds and total_rounds >= max_rounds):
             break
     if log and not args.do_test:
@@ -198,7 +206,9 @@ def main(argv=None):
         args.num_rows = min(args.num_rows, 1)
     np.random.seed(args.seed)
     _, final = train(args)
-    final.pop("rounds", None)
+    for key in ("rounds", "launches_after_rounds", "val_batches",
+                "last_batch"):
+        final.pop(key, None)
     print("final:", {k: round(v, 4) if isinstance(v, float) else v
                      for k, v in final.items()})
     return 0
