@@ -19,6 +19,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      equal the fused selection's masked values where its mask is set;
    - one sketch-mode server step with --server_fused auto against off:
      update, Vvelocity and Verror bitwise equal (each step also timed);
+   - the batched sketch on an (8, 6,568,640) batch (an all-zero row and a
+     row of planted heavy coordinates among seeded ones) and on an offset
+     slice of it, row by row bitwise equal to its plain version and to the
+     unbatched kernel, and the same over two runs;
 3. kernel times with CUDA events (median of 25), beside the plain
    versions, one PyTorch library call for the same work where there is
    one, and the bound computed from this run's bytes and operations;
@@ -35,14 +39,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    - sketch with --server_fused off: sketch 3, estimates 3;
    - uncompressed (momentum 0.9) and fedavg (2 local epochs in chunks of
      16, lr decay 0.9): no kernel;
+   - sketch_clip (the sketch flags + --max_grad_norm 1.0) and sketch_dp
+     (+ --dp --dp_mode worker --l2_norm_clip 1.0 --noise_multiplier 1e-3):
+     the per-worker sketch, sketch_batched 3 (the 8 clients' tables in one
+     launch a round), count 27, select 3, and no unbatched sketch;
+   - uncompressed_dp_server (+ --dp --dp_mode server, the same clip and
+     noise): no kernel;
    with finite losses and weights and exact upload bytes per client;
 5. a reference check on a small input: two rounds of a narrow ResNet9
    learner on CUDA (kernels) and on the CPU (plain versions) from the same
-   weights and batches must agree, in sketch, true_topk and local_topk;
+   weights and batches must agree, in sketch, true_topk and local_topk,
+   and in sketch with --max_grad_norm and with DP (noise 0);
 6. the flash attention kernels (forward, dq, dkv) against their plain
    versions at the GPT2 path's shape (BH 768 = 64 sequences x 12 heads,
    T 256, D 64): float32 at dropout 0 and 0.1 (O within 1e-5, dq/dk/dv
-   within 1e-4 of their largest magnitude), bfloat16 (O within 2e-2),
+   within 1e-4 of their largest magnitude), float32 at dropout 0.1 at the
+   gpt2_clip path's per-client shape (BH 192 = 16 sequences x 12 heads;
+   the same limits), bfloat16 (O within 2e-2),
    and T 1100, D 128 at dropout 0.1 (three logical dropout tiles, a
    ragged end); every kernel run twice, bitwise equal; then their times
    beside the plain versions, the bound and
@@ -50,7 +63,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    then the checks of phase 2's first item and the kernel times of phase 3
    for sketch, count and select again at the GPT2 path's d = 124,051,201
    (a seeded vector into the same 5 x 500,096 table, k = 50,000; plain
-   versions timed over 3 runs);
+   versions timed over 3 runs), and the batched sketch's check and times
+   at that d with B = 4;
 7. the GPT2 path: ``training.gpt2.train(args, max_rounds=3)`` with the
    flags of ``examples/gpt2_personachat.sh`` on SyntheticPersona at
    GPT2-small's width (d = 124,051,201, ``--attn_impl blockwise``,
@@ -61,14 +75,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    read apart (flash_fwd 12 per batch, nothing else); finite losses,
    weights and validation nll, exact upload bytes; round ms printed;
    then round 3's batch once more under ``torch.profiler``, its device
-   time printed by kernel class beside its wall time;
+   time printed by kernel class beside its wall time; then the same with
+   --max_grad_norm 1.0 (gpt2_clip): the per-worker path, one forward and
+   backward per client, so flash_fwd, flash_bwd_dq, flash_bwd_dkv 144 each
+   (12 layers x 4 clients x 3 rounds), sketch_batched 3, count 27, select
+   3, and no unbatched sketch; its round 3 profiled in the same way;
 8. a reference check of a narrow GPT2 learner (2 layers, dropout 0) on
    CUDA (flash kernels) and on the CPU: two sketch rounds from the same
    weights and batches, losses within 1e-4 relative, bytes equal.
 
 The line before the last is the per-kernel JSON; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
-prints no result.
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+checkout of the repository (the port's package not beside it), it exits
+1 and prints no result.
 """
 
 from __future__ import annotations
@@ -117,6 +136,18 @@ PATHS = {
                         "16", "--fedavg_lr_decay", "0.9"], {},
                4 * D_RESNET9),
 }
+DP_FLAGS = ["--l2_norm_clip", "1.0", "--noise_multiplier", "1e-3"]
+# the per-worker sketch: the W clients' tables in one batched launch a
+# round, and no sketch of the aggregate
+PER_WORKER_SKETCH = {"sketch_batched": 3, "count": 27, "select": 3}
+PATHS.update({
+    "sketch_clip": (HEADLINE + ["--max_grad_norm", "1.0"],
+                    PER_WORKER_SKETCH, 4 * TABLE_FLOATS),
+    "sketch_dp": (HEADLINE + ["--dp", "--dp_mode", "worker"] + DP_FLAGS,
+                  PER_WORKER_SKETCH, 4 * TABLE_FLOATS),
+    "uncompressed_dp_server": (PATHS["uncompressed"][0] + [
+        "--dp", "--dp_mode", "server"] + DP_FLAGS, {}, 4 * D_RESNET9),
+})
 # per-row k of the batched parity check: full, an all-zero row, contested
 # ties at k/2, and k = 1
 KK_ROWS = [K, K, K // 2, 1, K, K, K, K]
@@ -128,10 +159,22 @@ GPT2_FLAGS = ["--model", "gpt2", "--vocab_pad_to", "50262", "--attn_impl",
               "0.04", "--weight_decay", "0", "--dataset_name",
               "SyntheticPersona", "--device", "cuda"]
 D_GPT2 = 124_051_201
-# 12 layers a round, 3 rounds; the sketch of d = 124M is one launch a round
-GPT2_LAUNCHES = {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
-                 "sketch": 3, "count": 27, "select": 3}
+# name: (extra flags, launches over 3 rounds). gpt2: 12 layers a round, the
+# sketch of d = 124M one launch a round; gpt2_clip: the per-worker path, one
+# forward and backward per client (12 layers x 4 clients a round), the 4
+# clients' tables in one batched launch a round
+GPT2_PATHS = {
+    "gpt2": ([], {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+                  "sketch": 3, "count": 27, "select": 3}),
+    "gpt2_clip": (["--max_grad_norm", "1.0"],
+                  {"flash_fwd": 144, "flash_bwd_dq": 144,
+                   "flash_bwd_dkv": 144, "sketch_batched": 3, "count": 27,
+                   "select": 3}),
+}
+GPT2_WORKERS = 4
 FLASH_SHAPE = (768, 256, 64)      # (BH, T, D) of the GPT2 path
+# gpt2_clip runs the attention one client at a time: BH = 768 / 4 = 192
+FLASH_SHAPE_CLIENT = (FLASH_SHAPE[0] // GPT2_WORKERS,) + FLASH_SHAPE[1:]
 FLASH_RATE = 0.1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -191,9 +234,13 @@ _OPS_BLOCK = 25
 _OPS_MEDIAN = {1: 0, 3: 4, 5: 10}
 
 
-def _sketch_cost(cs):
-    nbytes = 4 * cs.d + 4 * cs.r * cs.c_eff
-    ops = cs.r * cs.d * (_OPS_SIGN + 2) + cs.r * cs.nblocks * _OPS_BLOCK
+def _sketch_cost(cs, B=1):
+    """B vectors of length d into B tables: each vector read and each
+    table written once; the hashing once (the batched kernel shares it
+    between its rows) plus one add per (batch row, row, coordinate)."""
+    nbytes = B * (4 * cs.d + 4 * cs.r * cs.c_eff)
+    ops = (cs.r * cs.d * (_OPS_SIGN + 2) + cs.r * cs.nblocks * _OPS_BLOCK
+           + B * cs.r * cs.d)
     return _bound(nbytes, ops)
 
 
@@ -448,6 +495,100 @@ def phase_parity_stream(dev, cs, table, errs):
     return inputs
 
 
+def phase_parity_batched(dev, d, B, errs):
+    """The batched sketch of a seeded (B, d) batch (row 1 all zero, row 2
+    with 2k planted heavy coordinates) and of an offset slice of it, row by
+    row bitwise equal to its plain version and to the unbatched kernel,
+    and the same over two runs. Returns ``(cs, vecs)``."""
+    import torch
+
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
+    from commefficient_tpu_torch.ops.sketch_kernels import (
+        sketch_vec, sketch_vec_batched, sketch_vec_batched_plain)
+    cs = CountSketch(d, 500_000, 5, seed=42)
+    gen = torch.Generator(device=dev).manual_seed(B)
+    vecs = torch.randn(B, d, generator=gen, device=dev) * 1e-3
+    vecs[1] = 0.0
+    hot = torch.randperm(d, generator=gen, device=dev)[:2 * K]
+    vecs[2, hot] += torch.randn(2 * K, generator=gen, device=dev)
+    del hot
+    off = 1000    # a bucket-style slice placed at block 1000
+    part = vecs[:, off * 128: off * 128 + d // 3].contiguous()
+    for tag, x, o in (("", vecs, 0), (f", offset block {off}", part, off)):
+        got = sketch_vec_batched(cs, x, o)
+        again = sketch_vec_batched(cs, x, o)
+        torch.cuda.synchronize()
+        if not _same_bits(got, again):
+            raise AssertionError(f"sketch_batched differs between two runs"
+                                 f" (B={B}, d={d}{tag})")
+        for b in range(B):
+            plain = sketch_vec_batched_plain(cs, x[b:b + 1], o)[0]
+            one = sketch_vec(cs, x[b], o)
+            if not (_same_bits(got[b], plain) and _same_bits(got[b], one)):
+                raise AssertionError(
+                    f"sketch_batched row {b} != plain / unbatched kernel "
+                    f"(B={B}, d={d}{tag}), max abs err "
+                    f"{_max_abs_err(got[b], plain)}")
+            errs["sketch_batched"] = max(errs.get("sketch_batched", 0.0),
+                                         _max_abs_err(got[b], plain))
+            del plain, one
+        if got[1].any():
+            raise AssertionError("sketch_batched: the all-zero row's table "
+                                 "is not zero")
+        del got, again
+    del part
+    print(f"parity sketch_batched (B={B}, d={d}, table {cs.r}x{cs.c_eff}): "
+          f"every row bitwise equal to plain and to the unbatched kernel, "
+          f"an all-zero row and a planted row included, offset slice ok, "
+          f"deterministic over 2 runs", flush=True)
+    return cs, vecs
+
+
+def phase_timing_batched(cs, vecs, plain_reps=REPS):
+    """Times of the batched sketch beside its plain version, B launches of
+    the unbatched kernel, one ``index_add_`` per row at precomputed
+    buckets (the library call) and the bound."""
+    import torch
+
+    from commefficient_tpu_torch.ops.sketch_kernels import (
+        sketch_vec, sketch_vec_batched, sketch_vec_batched_plain)
+    B, d = vecs.shape
+    dev = vecs.device
+    buckets, signs = [], []
+    for row in range(cs.r):
+        s, b = cs._row_hashes(row, torch.arange(d, device=dev))
+        buckets.append(b + row * cs.c_eff)
+        signs.append(s)
+    buckets, signs = torch.cat(buckets), torch.cat(signs)
+    signed = [signs * vecs[b].repeat(cs.r) for b in range(B)]
+    del signs
+    flat = torch.zeros(B, cs.r * cs.c_eff, device=dev)
+
+    def library():
+        for b in range(B):
+            flat[b].index_add_(0, buckets, signed[b])
+
+    r = dict(
+        ms=_time_ms(lambda: sketch_vec_batched(cs, vecs)),
+        plain_ms=_time_ms(lambda: sketch_vec_batched_plain(cs, vecs),
+                          plain_reps),
+        library_ms=_time_ms(library),
+        unbatched_ms=_time_ms(lambda: [sketch_vec(cs, vecs[b])
+                                       for b in range(B)]),
+        cost=_sketch_cost(cs, B), at=f"B={B}, d={d}")
+    del buckets, signed, flat
+    torch.cuda.empty_cache()
+    bound_ms, kind = r["cost"]
+    print(f"time sketch_batched ({r['at']}): kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+          f"{B} unbatched launches {r['unbatched_ms']:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({kind})", flush=True)
+    print(f"  library: sketch_batched = {B} index_add_ calls, one per row, "
+          f"of the {cs.r}x{d} signed values at precomputed buckets "
+          f"(scatter only, atomic order)", flush=True)
+    return r
+
+
 def phase_timing(cs, vec, table, plain_reps=REPS):
     """Times of the sketch, count and select kernels at ``cs.d`` beside
     their plain versions (median of ``plain_reps``), the library calls and
@@ -616,6 +757,14 @@ REFERENCE_CONFIGS = {
                       virtual_momentum=0.9),
     "local_topk": dict(mode="local_topk", error_type="local",
                        local_momentum=0.9),
+    # the per-worker sketch, its batched kernel on the card (DP noise 0:
+    # the two devices' generators draw different normals)
+    "sketch_clip": dict(mode="sketch", error_type="virtual",
+                        virtual_momentum=0.9, num_cols=2000, num_rows=5,
+                        max_grad_norm=1.0),
+    "sketch_dp": dict(mode="sketch", error_type="virtual",
+                      virtual_momentum=0.9, num_cols=2000, num_rows=5,
+                      do_dp=True, l2_norm_clip=1.0, noise_multiplier=0.0),
 }
 
 
@@ -716,6 +865,7 @@ def phase_flash_parity(dev, errs):
     bh, t, d = FLASH_SHAPE
     cases = [("f32", bh, t, d, torch.float32, 0.0),
              ("f32", bh, t, d, torch.float32, FLASH_RATE),
+             ("f32", *FLASH_SHAPE_CLIENT, torch.float32, FLASH_RATE),
              ("bf16", bh, t, d, torch.bfloat16, FLASH_RATE),
              ("f32", 24, 1100, 128, torch.float32, FLASH_RATE)]
     errs.update(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0)
@@ -823,7 +973,7 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _profile_round(learner, call):
+def _profile_round(name, learner, call):
     """One more round (round 3's batch again) under ``torch.profiler``:
     device time by kernel class and the top kernels, beside the round's
     wall time. Prints the breakdown; checks nothing."""
@@ -840,14 +990,14 @@ def _profile_round(learner, call):
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
-        print("profile gpt2 round: the profiler recorded no device time",
+        print(f"profile {name} round: the profiler recorded no device time",
               flush=True)
         return
     by_class = {}
     for e in kernels:
         c = _kernel_class(e.key)
         by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
-    print(f"profile gpt2 round (torch.profiler, one round): wall "
+    print(f"profile {name} round (torch.profiler, one round): wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.4f}; by class: " + ", ".join(
               f"{c} {ms:.3f} ms ({ms / busy_ms:.4f})"
@@ -860,16 +1010,18 @@ def _profile_round(learner, call):
     torch.cuda.synchronize()
 
 
-def phase_gpt2_path(tmpdir):
-    """3 rounds of the GPT2 path; launches of the rounds and of the
-    validation pass read apart; then one more round under the profiler."""
+def phase_gpt2_path(tmpdir, name, profile=False):
+    """3 rounds of a GPT2 path; launches of the rounds and of the
+    validation pass read apart; then, with ``profile``, one more round
+    under the profiler."""
     import torch
 
     from commefficient_tpu_torch.ops import cuda_lib
     from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
                                                        train)
-    args = build_gpt2_parser().parse_args(GPT2_FLAGS + ["--dataset_dir",
-                                                        tmpdir])
+    extra, want = GPT2_PATHS[name]
+    args = build_gpt2_parser().parse_args(GPT2_FLAGS + extra + [
+        "--dataset_dir", tmpdir])
     np.random.seed(args.seed)
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.LAUNCHES.clear()
@@ -878,36 +1030,38 @@ def phase_gpt2_path(tmpdir):
     launches = row["launches_after_rounds"]
     val = {k: v - launches.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
            if v - launches.get(k, 0)}
-    if launches != GPT2_LAUNCHES:
-        raise AssertionError(f"gpt2: launch counts {launches} != "
-                             f"{GPT2_LAUNCHES}")
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches} != {want}")
     n_layer = learner.model.config.n_layer
     if val != {"flash_fwd": n_layer * row["val_batches"]}:
-        raise AssertionError(f"gpt2: validation launches {val} over "
+        raise AssertionError(f"{name}: validation launches {val} over "
                              f"{row['val_batches']} batches, expected "
                              f"flash_fwd {n_layer} a batch")
     rounds = row["rounds"]
     w = learner.state.weights
     if len(rounds) != 3 or learner.cfg.grad_size != D_GPT2 \
             or w.shape != (D_GPT2,):
-        raise AssertionError(f"gpt2: {len(rounds)} rounds, d = "
+        raise AssertionError(f"{name}: {len(rounds)} rounds, d = "
                              f"{learner.cfg.grad_size}")
     if not all(math.isfinite(r["loss"]) for r in rounds) \
             or not bool(torch.isfinite(w).all()) \
             or not math.isfinite(row["nll"]):
-        raise AssertionError("gpt2: non-finite loss, weights or val nll")
-    if any(r["upload_bytes"] != 4 * 4 * TABLE_FLOATS for r in rounds):
-        raise AssertionError(f"gpt2: upload bytes "
+        raise AssertionError(f"{name}: non-finite loss, weights or val nll")
+    if any(r["upload_bytes"] != GPT2_WORKERS * 4 * TABLE_FLOATS
+           for r in rounds):
+        raise AssertionError(f"{name}: upload bytes "
                              f"{[r['upload_bytes'] for r in rounds]} are "
-                             f"not {4 * TABLE_FLOATS} per client x 4")
-    print(f"path gpt2: d = {learner.cfg.grad_size}, launches {launches}, "
+                             f"not {4 * TABLE_FLOATS} per client x "
+                             f"{GPT2_WORKERS}")
+    print(f"path {name}: d = {learner.cfg.grad_size}, launches {launches}, "
           f"validation launches {val} over {row['val_batches']} batches, "
           f"losses {[round(r['loss'], 6) for r in rounds]}, round ms "
           f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, upload B "
           f"{[int(r['upload_bytes']) for r in rounds]}, val nll "
           f"{row['nll']:.6f}, mc_acc {row['mc_acc']:.4f}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    _profile_round(learner, row["last_batch"])
+    if profile:
+        _profile_round(name, learner, row["last_batch"])
     del learner, row
     torch.cuda.empty_cache()
     return launches
@@ -990,6 +1144,9 @@ SOURCES = {
                      "commefficient_tpu/ops/flash_attention.py:303"),
     "flash_bwd_dkv": ("commefficient_tpu_torch/csrc/flash_attention.cu",
                       "commefficient_tpu/ops/flash_attention.py:356"),
+    "sketch_batched": ("commefficient_tpu_torch/csrc/sketch.cu",
+                       "commefficient_tpu/ops/sketch_kernels.py:285 "
+                       "(batched grid :381)"),
 }
 
 
@@ -1002,6 +1159,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
+        return 1
+    try:
+        import commefficient_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: {e}; run it from the root of a checkout of the "
+              "repository", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
     smi = _smi()
@@ -1016,6 +1179,9 @@ def main() -> int:
     times = phase_timing(cs, vec, table)
     times.update(phase_timing_stream(cs, table, inputs))
     del vec, table, inputs
+    cs, vecs = phase_parity_batched(dev, D_RESNET9, 8, errs)
+    times["sketch_batched"] = phase_timing_batched(cs, vecs)
+    del cs, vecs
     torch.cuda.empty_cache()
     launches = {}
     for name in PATHS:
@@ -1029,10 +1195,15 @@ def main() -> int:
     cs, vec, table = phase_parity(dev, D_GPT2, errs)
     phase_timing(cs, vec, table, plain_reps=3)
     del cs, vec, table
+    cs, vecs = phase_parity_batched(dev, D_GPT2, GPT2_WORKERS, errs)
+    phase_timing_batched(cs, vecs, plain_reps=3)
+    del cs, vecs
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmpdir:
-        for kernel, n in phase_gpt2_path(tmpdir).items():
-            launches[kernel] = launches.get(kernel, 0) + n
+        for name in GPT2_PATHS:
+            for kernel, n in phase_gpt2_path(tmpdir, name,
+                                             profile=True).items():
+                launches[kernel] = launches.get(kernel, 0) + n
     phase_gpt2_reference(dev)
 
     kernels = []

@@ -19,6 +19,7 @@ from commefficient_tpu_torch.ops.countsketch import pad_cols
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
 ERROR_TYPES = ("none", "local", "virtual")
 CLIENT_STATE_REPS = ("dense", "sparse", "sketched")
+DP_MODES = ("worker", "server")
 
 
 def _todo(what: str, item: str):
@@ -68,8 +69,14 @@ class FedConfig:
     microbatch_size: int = -1
     client_state: str = "dense"
 
-    # differential privacy
+    # differential privacy: each client's gradient is clipped to
+    # l2_norm_clip; 'worker' adds noise_multiplier * sqrt(W) * N(0, 1) on
+    # every client, 'server' noise_multiplier * N(0, 1) to the
+    # uncompressed server's update
     do_dp: bool = False
+    dp_mode: str = "worker"
+    l2_norm_clip: float = 1.0
+    noise_multiplier: float = 0.0
 
     # derived (set by finalize): the flat-vector length
     grad_size: int = 0
@@ -92,6 +99,8 @@ class FedConfig:
         if self.error_type not in ERROR_TYPES:
             raise ValueError(f"error_type must be one of {ERROR_TYPES}, "
                              f"got {self.error_type!r}")
+        if self.dp_mode not in DP_MODES:
+            raise ValueError(f"dp_mode must be one of {DP_MODES}")
         if not 0.0 <= self.topk_approx_recall <= 1.0:
             raise ValueError("topk_approx_recall must be in [0, 1] "
                              "(0 = exact top-k)")
@@ -136,8 +145,6 @@ class FedConfig:
             raise ValueError("true_topk requires error_type == 'virtual'")
         # what the port does not run yet
         for what, on, item in (
-                ("differential privacy (--dp)", self.do_dp, "A4/A5"),
-                ("--max_grad_norm", self.max_grad_norm is not None, "A5"),
                 ("--microbatch_size", self.microbatch_size != -1, "A5"),
                 ("--topk_down", self.do_topk_down, "A5"),
                 ("--client_k_dist", bool(self.client_k_dist), "A9"),

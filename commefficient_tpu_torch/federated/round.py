@@ -7,12 +7,17 @@ Two paths, as in the reference:
   is the gradient of the summed loss, so one backward over the
   ``(W*B, ...)`` batch replaces W; in sketch mode the sketch is linear,
   so the round sketches the aggregate once;
-* per worker (local_topk, fedavg, and any mode with local momentum or
-  local error): each client's step on its own batch and client-state
-  rows, the transmits of padded slots zeroed, summed and divided by the
-  datapoints. fedavg clients apply the lr themselves, so the server takes
-  lr = 1; true_topk with local momentum masks the clients' velocities at
-  the global update's support; the client rows go back by scatter.
+* per worker (local_topk, fedavg, any mode with local momentum or
+  local error, and every mode under ``--dp`` or ``--max_grad_norm``):
+  each client's step on its own batch and client-state rows, the
+  transmits of padded slots zeroed, summed and divided by the
+  datapoints. In sketch mode a per-worker nonlinearity breaks the
+  sketch's linearity, so each client transmits its own table (all W
+  sketched in one batched launch) and the round sums tables instead of
+  sketching the aggregate. fedavg clients apply the lr themselves, so
+  the server takes lr = 1; true_topk with local momentum masks the
+  clients' velocities at the global update's support; the client rows go
+  back by scatter.
 
 Then the server update, the sticky NaN guard (a select, so a NaN update
 cannot leak into the weights), the per-coordinate ``last_changed`` round
@@ -37,6 +42,10 @@ from commefficient_tpu_torch.federated.server import (init_server_opt_state,
 from commefficient_tpu_torch.federated.state import (ClientState,
                                                      ServerOptState)
 from commefficient_tpu_torch.ops.dropout import fold_in
+
+#: fold-in domain of the server's DP noise seed under the round's seed
+#: (the reference's ``noise_rng = fold_in(rng, 0x5e77e7)``)
+SERVER_NOISE_FOLD = 0x5E77E7
 
 
 @dataclass
@@ -105,11 +114,18 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
     lr, seed) -> (FedState, metrics)``, every tensor on the state's
     device. The fused path draws its dropout from ``seed``; in the
     per-worker path client ``c`` draws from ``fold_in(seed, c)``, as the
-    reference folds the client id into the round's rng."""
+    reference folds the client id into the round's rng. The server's DP
+    noise draws from ``fold_in(seed, SERVER_NOISE_FOLD)``, the
+    reference's ``noise_rng``."""
     cfg.validate()
     sketch = make_sketch(cfg) if cfg.mode == "sketch" else None
     is_fedavg = cfg.mode == "fedavg"
     fused_clients = fused_clients_eligible(cfg)
+    # sum of sketches == sketch of the sum unless a per-worker
+    # nonlinearity (the DP clip and noise, the sketch-space clip) comes
+    # between; then each client sketches its own gradient
+    client_sketch = (sketch if cfg.do_dp or cfg.max_grad_norm is not None
+                     else None)
 
     def fused_step(w, batch, mask, seed):
         flat_cols = tuple(c.reshape((-1,) + tuple(c.shape[2:]))
@@ -141,7 +157,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             out = client_lib.client_step(
                 apply_loss, unflatten, w, batch, mask,
                 gather_rows(state.clients.velocities, ids),
-                gather_rows(state.clients.errors, ids), cfg, seeds)
+                gather_rows(state.clients.errors, ids), cfg, seeds,
+                client_sketch)
             transmit, loss_sum, metric_sums, n = (
                 out.transmit, out.loss_sum, out.metric_sums,
                 out.num_datapoints)
@@ -149,7 +166,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         total_n = torch.sum(n)
         # padded slots are zeroed: with local error feedback their
         # transmit would otherwise leak the aliased client's error row
-        agg = (torch.sum(transmit * valid_w[:, None], dim=0)
+        valid = valid_w.view((-1,) + (1,) * (transmit.dim() - 1))
+        agg = (torch.sum(transmit * valid, dim=0)
                / torch.clamp(total_n, min=1.0))
         return (agg, torch.sum(loss_sum), torch.sum(metric_sums, dim=0),
                 total_n, new_vels, new_errs)
@@ -176,7 +194,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             (agg, loss_total, metric_totals, total_n, new_vels,
              new_errs) = per_worker_step(state, ids, batch, mask, valid_w,
                                          lr, seed)
-        if sketch is not None:
+        if sketch is not None and client_sketch is None:
             agg = sketch.sketch_vec(agg)
 
         # in-round NaN guard: a breaching round and every round after it
@@ -188,9 +206,9 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         # out-of-range ids (padded or guarded slots) write the sink row
         scatter_ids = torch.where(valid_w & ok, ids, num_clients)
 
-        update, new_opt = server_update(agg, state.opt, cfg,
-                                        1.0 if is_fedavg else lr,
-                                        sketch=sketch)
+        update, new_opt = server_update(
+            agg, state.opt, cfg, 1.0 if is_fedavg else lr, sketch=sketch,
+            noise_seed=fold_in(seed, SERVER_NOISE_FOLD))
         update = torch.where(ok, update, 0.0)
         new_opt = ServerOptState(
             Vvelocity=torch.where(ok, new_opt.Vvelocity,

@@ -1,12 +1,16 @@
 """The five server update rules (port of
 ``commefficient_tpu/federated/server.py``).
 
-``server_update(gradient, state, cfg, lr, sketch) -> (weight update (d,),
-new state)``. ``gradient`` is the round's aggregate: ``(d,)`` in every
-mode but sketch, where it is the ``(r, c_eff)`` table.
+``server_update(gradient, state, cfg, lr, sketch, noise_seed) -> (weight
+update (d,), new state)``. ``gradient`` is the round's aggregate: ``(d,)``
+in every mode but sketch, where it is the ``(r, c_eff)`` table.
 
 * fedavg: momentum only; the clients already applied the lr.
-* uncompressed: momentum, then ``lr * v`` (server DP is ROADMAP.md A5).
+* uncompressed: momentum, then ``lr * v``; under ``--dp --dp_mode
+  server`` ``lr * (v + noise_multiplier * N(0, 1))``, the noise from a
+  ``torch.Generator`` seeded with the round's fresh ``noise_seed`` on the
+  update's device (the reference's ``jax.random.normal``, matched in
+  distribution).
 * true_topk: momentum, virtual error, the exact top-k of the error, and
   both residuals masked on the update's support. ``server_fused`` auto
   runs the fused radix top-k (count kernels over err, the resid select
@@ -60,9 +64,19 @@ def _fedavg(avg_update, state, cfg, lr):
     return v, ServerOptState(Vvelocity=v, Verror=state.Verror)
 
 
-def _uncompressed(gradient, state, cfg, lr):
+def _uncompressed(gradient, state, cfg, lr, noise_seed):
     v = _momentum(gradient, state.Vvelocity, cfg.virtual_momentum)
-    return v * lr, ServerOptState(Vvelocity=v, Verror=state.Verror)
+    update = v
+    if cfg.do_dp and cfg.dp_mode == "server":
+        if noise_seed is None:
+            raise ValueError("server DP requires a fresh noise_seed per "
+                             "round")
+        gen = torch.Generator(device=update.device)
+        gen.manual_seed(int(noise_seed))
+        update = update + cfg.noise_multiplier * torch.randn(
+            update.shape, generator=gen, device=update.device,
+            dtype=update.dtype)
+    return update * lr, ServerOptState(Vvelocity=v, Verror=state.Verror)
 
 
 def _true_topk(gradient, state, cfg, lr):
@@ -107,12 +121,14 @@ def _sketched(sketched_grad, state, cfg, lr, sketch: CountSketch):
 
 
 def server_update(gradient: torch.Tensor, state: ServerOptState,
-                  cfg: FedConfig, lr, sketch: CountSketch = None):
-    """Dispatch to the mode's update rule."""
+                  cfg: FedConfig, lr, sketch: CountSketch = None,
+                  noise_seed=None):
+    """Dispatch to the mode's update rule; ``noise_seed`` seeds the
+    uncompressed rule's server DP noise."""
     if cfg.mode == "fedavg":
         return _fedavg(gradient, state, cfg, lr)
     if cfg.mode == "uncompressed":
-        return _uncompressed(gradient, state, cfg, lr)
+        return _uncompressed(gradient, state, cfg, lr, noise_seed)
     if cfg.mode == "true_topk":
         return _true_topk(gradient, state, cfg, lr)
     if cfg.mode == "local_topk":

@@ -15,7 +15,8 @@ an int64 tensor holding a uint32, and every product is taken mod 2**32 by
 signed overflow). The CUDA kernels use ``uint32_t``.
 
 The dense sketch (``sketch_range``) goes through the hand-written kernel
-of ``ops/sketch_kernels.py``; the fused unsketch + top-k through
+of ``ops/sketch_kernels.py``, which also sketches a stack of vectors in
+one launch (``sketch_vec_batched``); the fused unsketch + top-k through
 ``ops/topk_kernels.py``; ``--server_fused off`` through the estimates
 kernel of ``ops/sketch_kernels.py``. ``CountSketch.estimates`` and
 ``sketch_sparse`` are plain PyTorch: the first is the plain version the
@@ -257,6 +258,8 @@ class CountSketch:
         return topk_kernels.values_indices_from_mask(masked, mask, k)
 
     def l2estimate(self, table: torch.Tensor) -> torch.Tensor:
-        """Estimate ||vec||_2 as sqrt(median over rows of row sum-of-squares)."""
-        return torch.sqrt(torch.quantile(torch.sum(table * table, dim=1),
-                                         0.5))
+        """Estimate ||vec||_2 as sqrt(median over rows of row sum-of-squares)
+        of an (r, c_eff) table, or per table of a (..., r, c_eff) stack.
+        The median of an even r interpolates, as ``jnp.median`` does."""
+        return torch.sqrt(torch.quantile(torch.sum(table * table, dim=-1),
+                                         0.5, dim=-1))

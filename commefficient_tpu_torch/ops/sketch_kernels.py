@@ -2,10 +2,13 @@
 their plain versions.
 
 ``sketch_vec`` replaces ``commefficient_tpu/ops/sketch_kernels.py::
-_sketch_kernel`` (via ``sketch_vec_pallas``; the round reaches it at batch
-1 through ``sketch_vec_batched``). The TPU kernel keeps the whole (r,
-c_eff) table in VMEM and relies on its sequential grid: each window adds
-its blocks in ascending block order, with no atomics.
+_sketch_kernel`` in its 1-D grid (via ``sketch_vec_pallas``; the
+sketch-after-aggregate round reaches it at batch 1), ``sketch_vec_batched``
+the same kernel's batched 2-D grid (``batched_call``; the per-worker
+sketch of clipping and DP reaches it with the round's W clients). The TPU
+kernel keeps the whole (r, c_eff) table in VMEM and relies on its
+sequential grid: each window adds its blocks in ascending block order,
+with no atomics.
 
 Hopper has no sequential grid, and float atomics would change the sum
 order from run to run and break the bit-identity with the reference. A
@@ -18,7 +21,12 @@ blocks in that order from 0.0, and writes each table cell once. The signs
 are ±1, so FMA contraction cannot change a sum. Bound: bytes (the vector
 read once, the table written once: 26.3 MB + 10.0 MB at d=6,568,640,
 5 x 500,096), about 18 integer/float operations per (row, coordinate) of
-hashing on top.
+hashing on top. The batched kernel is the same template with a third grid
+axis over tiles of 8 batch rows: a CTA hashes each of its window's blocks
+once and adds it into one register accumulator per batch row, so each
+row's table is bitwise the unbatched kernel's and the hashing is paid
+once for all rows (B·(4n + 4·r·c_eff) bytes against ~18·r·n + B·r·n
+operations: bytes-bound at B = 4 and 8).
 
 ``estimates`` replaces ``_estimates_kernel`` (via ``estimates_pallas``,
 its unbatched grid; the batched grid serves the sketched client codec,
@@ -41,8 +49,8 @@ from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.ops.countsketch import LANES, CountSketch
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"sketch_launch": [_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P,
-                                 _P]}
+_SIGNATURES = {"sketch_launch": [_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _I,
+                                 _P, _P]}
 _EST_SIGNATURES = {"estimates_launch": [_P, _LL, _I, _I, _P, _P, _P]}
 
 
@@ -79,38 +87,79 @@ def sketch_vec_plain(cs: CountSketch, vec: torch.Tensor,
     return table
 
 
+def _check_range(cs: CountSketch, n: int, block_offset: int) -> None:
+    if block_offset < 0 or block_offset * LANES + n > cs.d:
+        raise ValueError(f"blocks from {block_offset} of length {n} lie "
+                         f"outside the sketch's [0, {cs.d})")
+
+
+def _launch(cs: CountSketch, vecs: torch.Tensor, block_offset: int,
+            key: str) -> torch.Tensor:
+    """(B, r, c_eff) tables of a contiguous (B, n) float32 CUDA batch, in
+    one launch of the kernel, counted under ``key``."""
+    if vecs.device.type != "cuda":
+        raise ValueError(f"{key}: unsupported device {vecs.device}")
+    if vecs.dtype != torch.float32 or not vecs.is_contiguous():
+        raise ValueError(f"{key} kernel takes a contiguous float32 input, "
+                         f"got {vecs.dtype} {tuple(vecs.shape)}")
+    B, n = vecs.shape
+    if B == 0 or n == 0:
+        return torch.zeros((B, cs.r, cs.c_eff), dtype=torch.float32,
+                           device=vecs.device)
+    tabs = cs.kernel_tables(vecs.device)
+    out = torch.empty((B, cs.r, cs.c_eff), dtype=torch.float32,
+                      device=vecs.device)
+    lib = cuda_lib.load("sketch", _SIGNATURES)
+    err = lib.sketch_launch(
+        vecs.data_ptr(), B, n, block_offset, tabs.win_ptr.data_ptr(),
+        tabs.win_blocks.data_ptr(), tabs.coeffs.data_ptr(), cs.r,
+        cs.nwindows, cs.nblocks, out.data_ptr(),
+        cuda_lib.stream_ptr(vecs.device))
+    cuda_lib.check(err, key)
+    cuda_lib.LAUNCHES[key] += 1
+    return out
+
+
 def sketch_vec(cs: CountSketch, vec: torch.Tensor,
                block_offset: int = 0) -> torch.Tensor:
     """(r, c_eff) table of ``vec`` placed at block ``block_offset``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
+    _check_range(cs, vec.shape[-1], block_offset)
     if vec.device.type == "cpu":
         return sketch_vec_plain(cs, vec, block_offset)
-    if vec.device.type != "cuda":
-        raise ValueError(f"sketch_vec: unsupported device {vec.device}")
-    if vec.dtype != torch.float32 or vec.dim() != 1 \
-            or not vec.is_contiguous():
-        raise ValueError("sketch_vec kernel takes a contiguous 1-D float32 "
-                         f"vector, got {vec.dtype} {tuple(vec.shape)}")
-    n = vec.shape[0]
-    if block_offset < 0 or block_offset * LANES + n > cs.d:
-        raise ValueError(f"blocks from {block_offset} of length {n} lie "
-                         f"outside the sketch's [0, {cs.d})")
-    if n == 0:
-        return cs.zero_table(vec.device)
-    tabs = cs.kernel_tables(vec.device)
-    out = torch.empty((cs.r, cs.c_eff), dtype=torch.float32,
-                      device=vec.device)
-    lib = cuda_lib.load("sketch", _SIGNATURES)
-    err = lib.sketch_launch(
-        vec.data_ptr(), n, block_offset, tabs.win_ptr.data_ptr(),
-        tabs.win_blocks.data_ptr(), tabs.coeffs.data_ptr(), cs.r,
-        cs.nwindows, cs.nblocks, out.data_ptr(),
-        cuda_lib.stream_ptr(vec.device))
-    cuda_lib.check(err, "sketch")
-    cuda_lib.LAUNCHES["sketch"] += 1
-    return out
+    if vec.dim() != 1:
+        raise ValueError(f"sketch_vec takes a 1-D vector, got "
+                         f"{tuple(vec.shape)}")
+    return _launch(cs, vec[None], block_offset, "sketch")[0]
+
+
+def sketch_vec_batched_plain(cs: CountSketch, vecs: torch.Tensor,
+                             block_offset: int = 0) -> torch.Tensor:
+    """Plain version of ``sketch_vec_batched``: ``sketch_vec_plain`` per
+    row, stacked."""
+    if vecs.shape[0] == 0:
+        return vecs.new_zeros((0, cs.r, cs.c_eff))
+    return torch.stack([sketch_vec_plain(cs, v, block_offset)
+                        for v in vecs])
+
+
+def sketch_vec_batched(cs: CountSketch, vecs: torch.Tensor,
+                       block_offset: int = 0) -> torch.Tensor:
+    """(B, r, c_eff) tables of the B rows of ``vecs`` (B, n), each placed
+    at block ``block_offset``: per row bitwise ``sketch_vec``, in one
+    launch.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
+    _check_range(cs, vecs.shape[-1], block_offset)
+    if vecs.device.type == "cpu":
+        return sketch_vec_batched_plain(cs, vecs, block_offset)
+    if vecs.dim() != 2:
+        raise ValueError(f"sketch_vec_batched takes a 2-D batch, got "
+                         f"{tuple(vecs.shape)}")
+    return _launch(cs, vecs, block_offset, "sketch_batched")
 
 
 def estimates_plain(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import argparse
 
-from commefficient_tpu_torch.config import ERROR_TYPES, MODES, FedConfig
+from commefficient_tpu_torch.config import (DP_MODES, ERROR_TYPES, MODES,
+                                            FedConfig)
 
 
 def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
@@ -62,10 +63,14 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--valid_batch_size", type=int, default=8)
     p.add_argument("--microbatch_size", type=int, default=-1)
     p.add_argument("--iid", action="store_true", dest="do_iid")
-    p.add_argument("--dp", action="store_true", dest="do_dp")
     p.add_argument("--client_state", choices=("dense", "sparse", "sketched"),
                    default="dense")
     p.add_argument("--client_k_dist", type=str, default="")
+    # DP
+    p.add_argument("--dp", action="store_true", dest="do_dp")
+    p.add_argument("--dp_mode", choices=DP_MODES, default="worker")
+    p.add_argument("--l2_norm_clip", type=float, default=1.0)
+    p.add_argument("--noise_multiplier", type=float, default=0.0)
     # accepted so that a reference command line parses; refused by train()
     p.add_argument("--mesh", type=str, default="")
     p.add_argument("--client_state_offload", action="store_true")

@@ -22,10 +22,9 @@ from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.ops import flash_attention as fa
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.countsketch import CountSketch
-from commefficient_tpu_torch.ops.sketch_kernels import (estimates,
-                                                        estimates_plain,
-                                                        sketch_vec,
-                                                        sketch_vec_plain)
+from commefficient_tpu_torch.ops.sketch_kernels import (
+    estimates, estimates_plain, sketch_vec, sketch_vec_batched,
+    sketch_vec_batched_plain, sketch_vec_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +53,28 @@ def test_sketch_kernel_equals_plain(dev, d, c, r, off):
     assert cuda_lib.LAUNCHES["sketch"] == before + 1
     assert _same_bits(got, sketch_vec_plain(cs, x, off))
     assert _same_bits(got, sketch_vec(cs, x, off))
+
+
+@pytest.mark.parametrize("B,d,c,r,off", [(4, 20_000, 1_000, 5, 0),
+                                         (9, 20_000, 1_000, 5, 37),
+                                         (8, 777, 300, 3, 0),
+                                         (1, 9_000, 512, 1, 2)])
+def test_sketch_batched_kernel_equals_plain(dev, B, d, c, r, off):
+    """B = 9 spans two tiles of the batch axis; row 0 is all zero."""
+    cs = CountSketch(d=d, c=c, r=r, seed=42)
+    n = d - off * 128 - (d // 7 if off else 0)
+    x = np.random.RandomState(d + B).randn(B, n).astype(np.float32)
+    x[0] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    before = cuda_lib.LAUNCHES["sketch_batched"]
+    got = sketch_vec_batched(cs, x, off)
+    assert cuda_lib.LAUNCHES["sketch_batched"] == before + 1
+    assert got.shape == (B, r, cs.c_eff)
+    assert _same_bits(got, sketch_vec_batched_plain(cs, x, off))
+    assert _same_bits(got, sketch_vec_batched(cs, x, off))
+    for b in range(B):
+        assert _same_bits(got[b], sketch_vec(cs, x[b].contiguous(), off))
+    assert not got[0].any()
 
 
 @pytest.mark.parametrize("r,k,tied", [(5, 300, False), (3, 2_500, True),

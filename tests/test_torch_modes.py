@@ -195,7 +195,6 @@ def test_cli_runs_every_mode_on_cpu(tmp_path, monkeypatch, name):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dp"], "A4/A5"), (["--max_grad_norm", "1.0"], "A5"),
     (["--microbatch_size", "4"], "A5"), (["--topk_down"], "A5"),
     (["--mode", "local_topk", "--error_type", "none", "--client_k_dist",
       "uniform:0.5,1"], "A9"),
