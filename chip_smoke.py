@@ -17,6 +17,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      row; the resid select on (err, v) at d with planted ties and with
      selected +-0.0; the estimates of the sketched table, which must also
      equal the fused selection's masked values where its mask is set;
+   - the batched estimates of 8 tables (the sketched one, an all-zero one,
+     seeded normals) at B = 8, 3 and 1, every table bitwise equal to the
+     unbatched kernel and to the plain version, and the same over two
+     runs;
    - one sketch-mode server step with --server_fused auto against off:
      update, Vvelocity and Verror bitwise equal (each step also timed);
    - the batched sketch on an (8, 6,568,640) batch (an all-zero row and a
@@ -36,7 +40,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      select_resid 3;
    - local_topk (local error and momentum 0.9, 100 clients): count_plain
      27 (8 rows a launch), select_plain 3;
-   - sketch with --server_fused off: sketch 3, estimates 3;
+   - sketch with --server_fused off: sketch 3, estimates_batched 3 (the
+     reference's off branch runs the batched grid at B = 1);
    - uncompressed (momentum 0.9) and fedavg (2 local epochs in chunks of
      16, lr decay 0.9): no kernel;
    - sketch_clip (the sketch flags + --max_grad_norm 1.0) and sketch_dp
@@ -64,7 +69,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    for sketch, count and select again at the GPT2 path's d = 124,051,201
    (a seeded vector into the same 5 x 500,096 table, k = 50,000; plain
    versions timed over 3 runs), and the batched sketch's check and times
-   at that d with B = 4;
+   at that d with B = 4; then the hardware-RNG dropout kernel against its
+   plain version, bitwise: the GPT2 path's (64, 256, 768) float32 at rates
+   0.1 and 0.5, the mc head's (64, 768), a (300, 1024) view with a partial
+   logical block and a bfloat16 case, each twice; the reference's contract
+   at (512, 1024), rate 0.1 (keep fraction within 5e-3 of 0.9, kept values
+   exactly f32(1/0.9), the gradient of the sum equal to the output, a
+   second seed differing in over 10%); its time at (64, 256, 768) beside
+   the plain version, ``torch.nn.functional.dropout`` and the bound;
 7. the GPT2 path: ``training.gpt2.train(args, max_rounds=3)`` with the
    flags of ``examples/gpt2_personachat.sh`` on SyntheticPersona at
    GPT2-small's width (d = 124,051,201, ``--attn_impl blockwise``,
@@ -79,10 +91,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    --max_grad_norm 1.0 (gpt2_clip): the per-worker path, one forward and
    backward per client, so flash_fwd, flash_bwd_dq, flash_bwd_dkv 144 each
    (12 layers x 4 clients x 3 rounds), sketch_batched 3, count 27, select
-   3, and no unbatched sketch; its round 3 profiled in the same way;
-8. a reference check of a narrow GPT2 learner (2 layers, dropout 0) on
-   CUDA (flash kernels) and on the CPU: two sketch rounds from the same
-   weights and batches, losses within 1e-4 relative, bytes equal.
+   3, and no unbatched sketch; its round 3 profiled in the same way; then
+   gpt2_tpu_bits, the gpt2 flags with ``args.dropout_impl = "tpu_bits"``
+   set on the parsed namespace (no CLI value selects it, as in the
+   reference): gpt2's launches and hw_dropout 156 (26 sites a forward, 26
+   a backward, 3 rounds), none in validation; profiled in the same way;
+8. a reference check of a narrow GPT2 learner (2 layers) on CUDA (flash
+   kernels) and on the CPU: two sketch rounds from the same weights and
+   batches, losses within 1e-4 relative, bytes equal; at dropout 0, and
+   with tpu_bits at dropout 0.1 (attention dropout on the output on both
+   sides), where the card's dropout kernel and the CPU's plain version
+   draw the same bits.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -124,8 +143,9 @@ PATHS = {
                             "--local_momentum", "0.9", "--num_clients",
                             "100", "--local_batch_size", "32"],
                    {"count_plain": 27, "select_plain": 3}, 4 * K),
+    # the reference's off branch runs the batched estimates grid at B = 1
     "sketch_server_fused_off": (HEADLINE + ["--server_fused", "off"],
-                                {"sketch": 3, "estimates": 3},
+                                {"sketch": 3, "estimates_batched": 3},
                                 4 * TABLE_FLOATS),
     "uncompressed": (_BASE + ["--mode", "uncompressed",
                               "--virtual_momentum", "0.9",
@@ -159,23 +179,35 @@ GPT2_FLAGS = ["--model", "gpt2", "--vocab_pad_to", "50262", "--attn_impl",
               "0.04", "--weight_decay", "0", "--dataset_name",
               "SyntheticPersona", "--device", "cuda"]
 D_GPT2 = 124_051_201
-# name: (extra flags, launches over 3 rounds). gpt2: 12 layers a round, the
-# sketch of d = 124M one launch a round; gpt2_clip: the per-worker path, one
-# forward and backward per client (12 layers x 4 clients a round), the 4
-# clients' tables in one batched launch a round
+# name: (extra flags, attributes set on the parsed namespace, launches over
+# 3 rounds). gpt2: 12 layers a round, the sketch of d = 124M one launch a
+# round; gpt2_clip: the per-worker path, one forward and backward per
+# client (12 layers x 4 clients a round), the 4 clients' tables in one
+# batched launch a round; gpt2_tpu_bits: dropout_impl "tpu_bits", which no
+# CLI value selects (as in the reference), so 26 hardware-RNG dropout
+# sites a forward (the embedding, each layer's attention projection and
+# MLP, the mc head; the attention probabilities stay in the flash
+# kernels) and 26 in the backward
+GPT2_SKETCH = {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+               "sketch": 3, "count": 27, "select": 3}
 GPT2_PATHS = {
-    "gpt2": ([], {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
-                  "sketch": 3, "count": 27, "select": 3}),
-    "gpt2_clip": (["--max_grad_norm", "1.0"],
+    "gpt2": ([], {}, GPT2_SKETCH),
+    "gpt2_clip": (["--max_grad_norm", "1.0"], {},
                   {"flash_fwd": 144, "flash_bwd_dq": 144,
                    "flash_bwd_dkv": 144, "sketch_batched": 3, "count": 27,
                    "select": 3}),
+    "gpt2_tpu_bits": ([], {"dropout_impl": "tpu_bits"},
+                      dict(GPT2_SKETCH, hw_dropout=156)),
 }
 GPT2_WORKERS = 4
 FLASH_SHAPE = (768, 256, 64)      # (BH, T, D) of the GPT2 path
 # gpt2_clip runs the attention one client at a time: BH = 768 / 4 = 192
 FLASH_SHAPE_CLIENT = (FLASH_SHAPE[0] // GPT2_WORKERS,) + FLASH_SHAPE[1:]
 FLASH_RATE = 0.1
+# the hardware-RNG dropout's inputs on the GPT2 path: the (64, 256, 768)
+# activations at every site but the mc head's (64, 768)
+HW_SHAPE = (64, 256, 768)
+HW_RATE = 0.1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 REPS = 25
@@ -278,6 +310,27 @@ def _select_resid_cost(n):
 
 def _estimates_cost(cs):
     return _bound(4 * cs.r * cs.c_eff + 4 * cs.d, _estimate_ops(cs))
+
+
+def _estimates_batched_cost(cs, B):
+    """B tables read and B (d,) vectors written once; the window hashes and
+    signs once per coordinate for all tables, then r gathers and products
+    and the median per (table, coordinate)."""
+    ops = (cs.d * cs.r * (_OPS_SIGN + 2) + cs.r * cs.nblocks * _OPS_BLOCK
+           + B * cs.d * (cs.r + _OPS_MEDIAN[cs.r] + 1))
+    return _bound(B * (4 * cs.r * cs.c_eff + 4 * cs.d), ops)
+
+
+# operations of the hardware-RNG dropout an element: the position's two
+# products and sum, the block seed's product and sum, the finalizer's three
+# shifts, four xors and two products, the compare, the multiply and the
+# select
+_OPS_HW = 20
+
+
+def _hw_dropout_cost(n, itemsize=4):
+    """x read and the output written once; the hash an element."""
+    return _bound(2 * itemsize * n, _OPS_HW * n)
 
 
 def phase_build():
@@ -689,7 +742,9 @@ def phase_timing_stream(cs, table, inputs):
             ms=_time_ms(lambda: estimates(cs, table)),
             plain_ms=_time_ms(lambda: estimates_plain(cs, table)),
             library_ms=None, cost=_estimates_cost(cs),
-            at=f"{cs.r}x{cs.c_eff} -> {cs.d}"),
+            at=f"{cs.r}x{cs.c_eff} -> {cs.d}; no main path launches this "
+               "unbatched grid: --server_fused off takes estimates_batched "
+               "at B=1, as the reference does"),
     }
     for name, r in rows.items():
         bound_ms, kind = r["cost"]
@@ -704,6 +759,169 @@ def phase_timing_stream(cs, table, inputs):
           f"count+select pair); estimates: no single library call",
           flush=True)
     return rows
+
+
+def phase_parity_estimates_batched(dev, cs, table, errs):
+    """The batched estimates of 8 tables (the sketched table of phase 2,
+    an all-zero one, seeded normals) at B = 8, 3 (a partial tile of 8) and
+    1, each table bitwise equal to the unbatched kernel and to the plain
+    version, and the same over two runs. Returns the 8 tables."""
+    import torch
+
+    from commefficient_tpu_torch.ops.sketch_kernels import (
+        estimates, estimates_batched, estimates_plain)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tables = torch.randn((8, cs.r, cs.c_eff), generator=gen, device=dev)
+    tables[0] = table
+    tables[1] = 0.0
+    errs["estimates_batched"] = 0.0
+    for B in (8, 3, 1):
+        got = estimates_batched(cs, tables[:B])
+        again = estimates_batched(cs, tables[:B])
+        torch.cuda.synchronize()
+        if not _same_bits(got, again):
+            raise AssertionError(f"estimates_batched differs between two "
+                                 f"runs (B={B})")
+        for b in range(B):
+            plain = estimates_plain(cs, tables[b])
+            if not (_same_bits(got[b], plain)
+                    and _same_bits(got[b], estimates(cs, tables[b]))):
+                raise AssertionError(
+                    f"estimates_batched table {b} != plain / unbatched "
+                    f"kernel (B={B}), max abs err "
+                    f"{_max_abs_err(got[b], plain)}")
+            errs["estimates_batched"] = max(errs["estimates_batched"],
+                                            _max_abs_err(got[b], plain))
+        del got, again
+    print(f"parity estimates_batched (B = 8, 3, 1, d={cs.d}): every table "
+          f"bitwise equal to plain and to the unbatched kernel, the "
+          f"sketched table and an all-zero one included, deterministic "
+          f"over 2 runs", flush=True)
+    return tables
+
+
+def phase_timing_estimates_batched(cs, table, tables):
+    """Times of the batched estimates at B = 8 beside its plain version
+    and 8 launches of the unbatched kernel, and at B = 1 beside the
+    unbatched kernel (row 4)."""
+    from commefficient_tpu_torch.ops.sketch_kernels import (
+        estimates, estimates_batched, estimates_batched_plain)
+    B = tables.shape[0]
+    one = table[None]
+    r = dict(
+        ms=_time_ms(lambda: estimates_batched(cs, tables)),
+        plain_ms=_time_ms(lambda: estimates_batched_plain(cs, tables)),
+        library_ms=None,
+        unbatched_ms=_time_ms(lambda: [estimates(cs, t) for t in tables]),
+        b1_ms=_time_ms(lambda: estimates_batched(cs, one)),
+        row4_ms=_time_ms(lambda: estimates(cs, table)),
+        cost=_estimates_batched_cost(cs, B),
+        at=f"B={B}, {cs.r}x{cs.c_eff} -> {cs.d}")
+    bound_ms, kind = r["cost"]
+    print(f"time estimates_batched ({r['at']}): kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, library none, {B} unbatched "
+          f"launches {r['unbatched_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({kind}); at B=1 {r['b1_ms']:.4f} ms against the unbatched "
+          f"kernel's {r['row4_ms']:.4f} ms (bound "
+          f"{_estimates_batched_cost(cs, 1)[0]:.5f} ms)", flush=True)
+    return r
+
+
+def phase_hw_dropout_parity(dev, errs):
+    """The hardware-RNG dropout kernel against its plain version, bitwise:
+    the GPT2 path's (64, 256, 768) at rates 0.1 and 0.5, the mc head's
+    (64, 768), a (300, 1024) view whose second logical block is partial,
+    and bfloat16; each run twice, bitwise equal. Then the reference's
+    on-device contract at (512, 1024), rate 0.1: keep fraction within
+    5e-3 of 0.9, kept values exactly f32(1/0.9), the gradient of the sum
+    equal to the output, a second seed differing in over 10%."""
+    import torch
+
+    from commefficient_tpu_torch.ops.dropout import (fold_in, hw_dropout,
+                                                     hw_dropout_plain,
+                                                     seed_words)
+    cases = [(HW_SHAPE, torch.float32, HW_RATE),
+             (HW_SHAPE, torch.float32, 0.5),
+             ((64, 768), torch.float32, HW_RATE),
+             ((300, 1024), torch.float32, HW_RATE),
+             ((16, 256, 768), torch.bfloat16, HW_RATE)]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    errs["hw_dropout"] = 0.0
+    for i, (shape, dtype, rate) in enumerate(cases):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        seeds = seed_words(fold_in(8, i))
+        got = hw_dropout(x, seeds, rate)
+        again = hw_dropout(x, seeds, rate)
+        plain = hw_dropout_plain(x, seeds, rate)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(got.view(bits), again.view(bits)):
+            raise AssertionError(f"hw_dropout differs between two runs "
+                                 f"({shape}, {dtype}, rate {rate})")
+        if got.dtype != dtype or not torch.equal(got.view(bits),
+                                                 plain.view(bits)):
+            raise AssertionError(f"hw_dropout != plain ({shape}, {dtype}, "
+                                 f"rate {rate}), max abs err "
+                                 f"{_max_abs_err(got, plain)}")
+        errs["hw_dropout"] = max(errs["hw_dropout"], _max_abs_err(got, plain))
+        print(f"parity hw_dropout ({tuple(shape)}, {dtype}, rate {rate}): "
+              f"bitwise equal to plain, deterministic over 2 runs, keep "
+              f"fraction {float((got != 0).double().mean()):.6f}",
+              flush=True)
+        del x, got, again, plain
+
+    ones = torch.ones((512, 1024), device=dev, requires_grad=True)
+    y = hw_dropout(ones, seed_words(7), HW_RATE)
+    (g,) = torch.autograd.grad(y.sum(), ones)
+    y = y.detach()
+    keep = float((y != 0).double().mean())
+    scale = float(np.float32(1.0 / (1.0 - HW_RATE)))
+    kept = y[y != 0]
+    differ = float((hw_dropout(ones.detach(), seed_words(8), HW_RATE)
+                    != y).double().mean())
+    exact = torch.equal(kept, torch.full_like(kept, scale))
+    same_mask = torch.equal(g, y)
+    if abs(keep - (1.0 - HW_RATE)) >= 5e-3 or not exact or not same_mask \
+            or differ <= 0.1:
+        raise AssertionError(f"hw_dropout contract: keep {keep}, scaling "
+                             f"exact {exact}, grad = output {same_mask}, "
+                             f"second seed differs in {differ}")
+    print(f"contract hw_dropout ((512, 1024), rate {HW_RATE}): keep "
+          f"fraction {keep:.6f}, kept values exactly {scale!r}, backward "
+          f"mask = forward mask, a second seed differs in {differ:.4f}",
+          flush=True)
+
+
+def phase_hw_dropout_timing(dev):
+    """Times of the hardware-RNG dropout at the GPT2 path's activation
+    shape beside its plain version, ``torch.nn.functional.dropout`` (the
+    library row) and the bound; the mc head's shape printed apart."""
+    import torch
+    import torch.nn.functional as F
+
+    from commefficient_tpu_torch.ops.dropout import (hw_dropout,
+                                                     hw_dropout_plain,
+                                                     seed_words)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(HW_SHAPE, generator=gen, device=dev)
+    seeds = seed_words(1234)
+    at = f"{HW_SHAPE}, f32, rate {HW_RATE}"
+    r = dict(ms=_time_ms(lambda: hw_dropout(x, seeds, HW_RATE)),
+             plain_ms=_time_ms(lambda: hw_dropout_plain(x, seeds, HW_RATE)),
+             library_ms=_time_ms(lambda: F.dropout(x, HW_RATE,
+                                                   training=True)),
+             cost=_hw_dropout_cost(x.numel()), at=at)
+    mc = x[:, 0].contiguous()
+    mc_ms = _time_ms(lambda: hw_dropout(mc, seeds, HW_RATE))
+    bound_ms, kind = r["cost"]
+    print(f"time hw_dropout ({at}): kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({kind}); at the mc head's {tuple(mc.shape)} "
+          f"{mc_ms:.4f} ms", flush=True)
+    print("  library: hw_dropout = torch.nn.functional.dropout(x, "
+          f"{HW_RATE}, training=True) at the same shape (its own bits)",
+          flush=True)
+    return r
 
 
 def phase_path(name):
@@ -959,6 +1177,7 @@ def phase_flash_timing(dev):
 # kernel classes of the round's device-time breakdown, by name substring
 _KERNEL_CLASSES = (
     ("flash attention (B5-B7)", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+    ("hardware-RNG dropout (B8)", ("hw_dropout_kernel",)),
     ("sketch and top-k (B1-B3)", ("sketch_kernel", "count_kernel",
                                   "select_kernel", "tie_count_kernel",
                                   "exclusive_scan_kernel")),
@@ -1019,9 +1238,11 @@ def phase_gpt2_path(tmpdir, name, profile=False):
     from commefficient_tpu_torch.ops import cuda_lib
     from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
                                                        train)
-    extra, want = GPT2_PATHS[name]
+    extra, namespace, want = GPT2_PATHS[name]
     args = build_gpt2_parser().parse_args(GPT2_FLAGS + extra + [
         "--dataset_dir", tmpdir])
+    for key, value in namespace.items():
+        setattr(args, key, value)
     np.random.seed(args.seed)
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.LAUNCHES.clear()
@@ -1067,9 +1288,24 @@ def phase_gpt2_path(tmpdir, name, profile=False):
     return launches
 
 
+# name: (GPT2Config attributes, launches of the card's 2 rounds). With
+# tpu_bits the attention dropout goes on the attention output on both
+# sides ("output"): under "auto" the card would drop the probabilities in
+# the flash kernels and the CPU the output. 8 sites a forward (embedding,
+# 2 x (attention output, projection, MLP), mc head), 8 in the backward.
+GPT2_REFERENCE_CASES = {
+    "dropout 0": (dict(dropout=0.0), {"flash_fwd": 4}),
+    "tpu_bits, dropout 0.1": (dict(dropout=0.1, dropout_impl="tpu_bits",
+                                   attn_dropout="output"),
+                              {"flash_fwd": 4, "hw_dropout": 32}),
+}
+
+
 def phase_gpt2_reference(dev):
     """Two sketch rounds of a narrow GPT2 learner with the flash kernels
-    on the card and on the CPU, from the same weights and batches."""
+    (and with tpu_bits the hardware-RNG dropout kernel) on the card and
+    the plain versions on the CPU, from the same weights, batches and
+    seeds, per case of ``GPT2_REFERENCE_CASES``."""
     import torch
 
     from commefficient_tpu_torch.config import FedConfig
@@ -1093,34 +1329,40 @@ def phase_gpt2_reference(dev):
     cfg = FedConfig(mode="sketch", error_type="virtual",
                     virtual_momentum=0.9, k=500, num_cols=4000, num_rows=5,
                     num_clients=8, num_workers=W, weight_decay=0.0)
-    outs = {}
-    for device in ("cpu", dev):
-        model = GPT2DoubleHeads(GPT2Config(
-            vocab_size=300, n_positions=T, n_embd=64, n_layer=2, n_head=4,
-            dropout=0.0, attn_impl="blockwise")).reset_parameters(
+    for case, (attrs, want) in GPT2_REFERENCE_CASES.items():
+        outs = {}
+        for device in ("cpu", dev):
+            gcfg = GPT2Config(vocab_size=300, n_positions=T, n_embd=64,
+                              n_layer=2, n_head=4, attn_impl="blockwise")
+            for key, value in attrs.items():
+                setattr(gcfg, key, value)
+            model = GPT2DoubleHeads(gcfg).reset_parameters(
                 torch.Generator().manual_seed(0))
-        learner = FedLearner(model, cfg, make_gpt2_train_loss(model),
-                             make_gpt2_val_loss(model), device=device)
-        before = cuda_lib.LAUNCHES["flash_fwd"]
-        ms = [learner.train_round(ids, cols, m, epoch_frac=r)
-              for r, (ids, cols, m) in enumerate(batches)]
-        outs[str(device)] = (ms, cuda_lib.LAUNCHES["flash_fwd"] - before)
-    (m_cpu, n_cpu), (m_gpu, n_gpu) = outs["cpu"], outs[str(dev)]
-    if n_cpu != 0 or n_gpu != 4:
-        raise AssertionError(f"gpt2 reference: flash_fwd launched {n_cpu} "
-                             f"times on the CPU, {n_gpu} on the card")
-    for a, b in zip(m_cpu, m_gpu):
-        if not math.isclose(a["loss"], b["loss"], rel_tol=1e-4):
-            raise AssertionError(f"gpt2 reference: loss cpu {a['loss']} != "
-                                 f"cuda {b['loss']}")
-        if (a["download_bytes"], a["upload_bytes"]) != (
-                b["download_bytes"], b["upload_bytes"]):
-            raise AssertionError("gpt2 reference: byte metrics differ")
-    print(f"reference gpt2 (2 layers, n_embd 64, T {T}, 2 sketch rounds, "
-          f"cuda flash kernels vs cpu): losses "
-          f"{[round(m['loss'], 6) for m in m_gpu]} vs "
-          f"{[round(m['loss'], 6) for m in m_cpu]}, bytes equal",
-          flush=True)
+            learner = FedLearner(model, cfg, make_gpt2_train_loss(model),
+                                 make_gpt2_val_loss(model), device=device)
+            before = dict(cuda_lib.LAUNCHES)
+            ms = [learner.train_round(ids, cols, m, epoch_frac=r)
+                  for r, (ids, cols, m) in enumerate(batches)]
+            outs[str(device)] = (ms, {
+                k: cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in want})
+        (m_cpu, n_cpu), (m_gpu, n_gpu) = outs["cpu"], outs[str(dev)]
+        if any(n_cpu.values()) or n_gpu != want:
+            raise AssertionError(f"gpt2 reference ({case}): launches "
+                                 f"{n_cpu} on the CPU, {n_gpu} on the card, "
+                                 f"expected none and {want}")
+        for a, b in zip(m_cpu, m_gpu):
+            if not math.isclose(a["loss"], b["loss"], rel_tol=1e-4):
+                raise AssertionError(f"gpt2 reference ({case}): loss cpu "
+                                     f"{a['loss']} != cuda {b['loss']}")
+            if (a["download_bytes"], a["upload_bytes"]) != (
+                    b["download_bytes"], b["upload_bytes"]):
+                raise AssertionError(f"gpt2 reference ({case}): byte "
+                                     "metrics differ")
+        print(f"reference gpt2 ({case}; 2 layers, n_embd 64, T {T}, 2 "
+              f"sketch rounds, cuda kernels {n_gpu} vs cpu): losses "
+              f"{[round(m['loss'], 6) for m in m_gpu]} vs "
+              f"{[round(m['loss'], 6) for m in m_cpu]}, bytes equal",
+              flush=True)
 
 
 SOURCES = {
@@ -1147,6 +1389,11 @@ SOURCES = {
     "sketch_batched": ("commefficient_tpu_torch/csrc/sketch.cu",
                        "commefficient_tpu/ops/sketch_kernels.py:285 "
                        "(batched grid :381)"),
+    "estimates_batched": ("commefficient_tpu_torch/csrc/estimates.cu",
+                          "commefficient_tpu/ops/sketch_kernels.py:183 "
+                          "(batched grid :248)"),
+    "hw_dropout": ("commefficient_tpu_torch/csrc/hw_dropout.cu",
+                   "commefficient_tpu/ops/dropout.py:121"),
 }
 
 
@@ -1178,7 +1425,10 @@ def main() -> int:
     inputs = phase_parity_stream(dev, cs, table, errs)
     times = phase_timing(cs, vec, table)
     times.update(phase_timing_stream(cs, table, inputs))
-    del vec, table, inputs
+    tables = phase_parity_estimates_batched(dev, cs, table, errs)
+    times["estimates_batched"] = phase_timing_estimates_batched(cs, table,
+                                                                tables)
+    del vec, table, inputs, tables
     cs, vecs = phase_parity_batched(dev, D_RESNET9, 8, errs)
     times["sketch_batched"] = phase_timing_batched(cs, vecs)
     del cs, vecs
@@ -1190,6 +1440,8 @@ def main() -> int:
     phase_reference(dev)
     phase_flash_parity(dev, errs)
     times.update(phase_flash_timing(dev))
+    phase_hw_dropout_parity(dev, errs)
+    times["hw_dropout"] = phase_hw_dropout_timing(dev)
     # the sketch-mode kernels again at the GPT2 path's d (timed apart: the
     # kernel line keeps ResNet9's d)
     cs, vec, table = phase_parity(dev, D_GPT2, errs)
@@ -1212,7 +1464,7 @@ def main() -> int:
         bound_ms, kind = r["cost"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": kind, "library_ms": r["library_ms"],

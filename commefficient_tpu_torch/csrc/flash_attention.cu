@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "counter_hash.cuh"
+
 namespace {
 
 constexpr int kBM = 64;               // query rows per tile
@@ -64,13 +66,7 @@ __device__ __forceinline__ bool keep_bit(const Drop& dr, uint32_t bh, int i,
   const uint32_t kb = (uint32_t)(j / dr.bk), c = (uint32_t)(j % dr.bk);
   const uint32_t s0 = dr.seed0 + bh * 0x9E3779B9u + qb * 0x85EBCA77u;
   const uint32_t s1 = dr.seed1 + kb * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
-  uint32_t x = r * 2654435761u + c * 2246822519u;
-  x ^= s0;
-  x = (x ^ (x >> 16)) * 2246822507u;
-  x ^= s1;
-  x = (x ^ (x >> 13)) * 3266489909u;
-  x ^= x >> 16;
-  return x >= dr.threshold;
+  return drop::counter_hash(r, c, s0, s1) >= dr.threshold;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

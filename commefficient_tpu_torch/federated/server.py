@@ -17,7 +17,8 @@ in every mode but sketch, where it is the ``(r, c_eff)`` table.
   epilogue); off runs the reference's incumbent chain, a stable sort.
 * local_topk: momentum on the sum of the clients' top-ks, no masking.
 * sketch: momentum and error in sketch space; auto runs the fused
-  unsketch + top-k kernels, off the estimates kernel and a stable sort;
+  unsketch + top-k kernels, off the batched estimates kernel at batch 1
+  (as the reference's ``estimates_batched``) and a stable sort;
   then the k survivors are re-sketched to zero their footprint.
 
 Rounding: ``g + rho*v`` runs eagerly here and rounds the product first,

@@ -28,7 +28,11 @@ kernels and raises without them.
 
 Dropout seeds: ``forward(..., train, seed)`` takes one int a call; each
 dropout site draws from ``fold_in`` of it by its place in the model, as
-flax folds the module path into the ``'dropout'`` rng.
+flax folds the module path into the ``'dropout'`` rng. ``dropout_impl``
+picks every ``FusedDropout`` site's bits: ``"xla"`` and ``"xla_rbg"`` a
+seeded ``torch.Generator``; ``"tpu_bits"`` the hardware-RNG dropout kernel
+(``ops/dropout.py::hw_dropout``) under the site's two seed words, for
+every tensor whose size is a multiple of 1024.
 
 Not ported, each raising NotImplementedError: the KV cache of the serving
 stack (ROADMAP.md A11), MoE blocks and ring attention (A12), ``remat`` and
@@ -81,7 +85,7 @@ class GPT2Config:
         self.attn_block_size = attn_block_size
         self.remat = remat
         self.moe_experts = 0
-        self.dropout_impl = "xla"
+        self.dropout_impl = "xla"     # "xla" | "xla_rbg" | "tpu_bits"
         self.attn_dropout = "auto"    # "auto" | "output" | "kernel"
         self.fused_lm_head = False
 

@@ -17,10 +17,11 @@ signed overflow). The CUDA kernels use ``uint32_t``.
 The dense sketch (``sketch_range``) goes through the hand-written kernel
 of ``ops/sketch_kernels.py``, which also sketches a stack of vectors in
 one launch (``sketch_vec_batched``); the fused unsketch + top-k through
-``ops/topk_kernels.py``; ``--server_fused off`` through the estimates
-kernel of ``ops/sketch_kernels.py``. ``CountSketch.estimates`` and
-``sketch_sparse`` are plain PyTorch: the first is the plain version the
-estimate-reading kernels are held against, the second no TPU kernel.
+``ops/topk_kernels.py``; ``--server_fused off`` through the batched
+estimates kernel of ``ops/sketch_kernels.py`` at batch 1.
+``CountSketch.estimates`` and ``sketch_sparse`` are plain PyTorch: the
+first is the plain version the estimate-reading kernels are held against,
+the second no TPU kernel.
 """
 
 from __future__ import annotations
@@ -247,13 +248,15 @@ class CountSketch:
         """(values, indices) of the recovered top-k in the exact stable
         ``lax.top_k`` order. ``fused`` runs the fused unsketch + top-k
         kernels; ``fused=False`` is the reference's ``--server_fused off``
-        chain: the estimates kernel, then the stable-sort top-k."""
+        chain: the batched estimates kernel at batch 1 (as the reference's
+        ``estimates_batched``), then the stable-sort top-k."""
         from commefficient_tpu_torch.ops import topk_kernels
         if not fused:
-            from commefficient_tpu_torch.ops.sketch_kernels import estimates
+            from commefficient_tpu_torch.ops.sketch_kernels import \
+                estimates_batched
             from commefficient_tpu_torch.ops.topk import topk_values_indices
-            return topk_values_indices(estimates(self, table), k,
-                                       use_kernel=False)
+            return topk_values_indices(
+                estimates_batched(self, table[None])[0], k, use_kernel=False)
         masked, mask = topk_kernels.unsketch_select(self, table, k)
         return topk_kernels.values_indices_from_mask(masked, mask, k)
 

@@ -13,15 +13,49 @@ or through the attention kernel's counter hash (``ops/flash_attention``).
 Each call site draws from its own seed, made by ``fold_in`` from the
 round's, as flax folds the module path into the ``'dropout'`` rng.
 
-``FusedDropout(impl="tpu_bits")`` needs the hardware-RNG kernel
-``_hw_kernel``, which is not ported (ROADMAP.md B8).
+``hw_dropout`` replaces the reference's hardware-RNG kernel ``_hw_kernel``
+(``FusedDropout(impl="tpu_bits")``): ``where(bits >= thr, x *
+f32(1/(1-rate)), 0)`` over the reference's ``(rows, 1024)`` view of x in
+``(256, 1024)`` blocks, with ``thr = min(round(rate * 2**32), 2**32 - 1)``,
+so P(keep) = 1 - rate to 2**-32. The TPU core's PRNG cannot be reproduced,
+and the reference does not promise its realized bits, only their
+distribution, exact scaling, equal forward and backward masks and seed
+sensitivity. The bits here are the reference's own counter hash
+(``ops/flash_attention.py::_hash_bits``) of each element's (row within its
+block, lane) under the seed words ``(s0 + block * 0x9E3779B9 mod 2**32,
+s1)``, the block's stream as ``_hw_kernel`` seeds it. They depend on the
+logical block only, so the CUDA kernel (``csrc/hw_dropout.cu``, launch key
+``hw_dropout``) and the plain version ``hw_dropout_plain`` draw the same
+bits whatever the tiling. The backward is the same op on the cotangent
+with the same seed words.
+
+``FusedDropout(impl="tpu_bits")`` routes as the reference does: a shape
+whose element count is no multiple of 1024 (``hw_dropout_supported``)
+takes ``masked_dropout``, any other the kernel on a CUDA tensor. Where the
+reference leaves the TPU it takes ``masked_dropout`` for every shape; the
+port on the CPU takes ``hw_dropout_plain`` instead, so the CPU tests hold
+the very bits the card draws.
 """
 
 from __future__ import annotations
 
+import ctypes
+import struct
+
 import torch
 
+from commefficient_tpu_torch.ops import cuda_lib
+
 _MASK64 = (1 << 64) - 1
+_MASK32 = 0xFFFFFFFF
+#: the reference's kernel view: (rows, 1024) lanes in (256, 1024) blocks
+HW_LANES = 1024
+HW_BLOCK_ROWS = 256
+_MIX_BLOCK = 0x9E3779B9          # the block index's seed multiplier
+_HW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _LL, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_uint, ctypes.c_float)
+_SIGNATURES = {"hw_dropout_launch": [_P, _P, _LL, _I, _U, _U, _U, _F, _P]}
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -44,6 +78,121 @@ def seed_words(seed: int):
         return u - (1 << 32) if u >= 1 << 31 else u
 
     return i32(lo), i32(hi)
+
+
+def mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2**32 for int64 tensors holding uint32 values (PyTorch
+    on the CPU has no uint32 shifts): ``b`` in 16-bit halves, so no
+    product reaches 2**49."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def counter_hash(r: torch.Tensor, c: torch.Tensor, s0, s1) -> torch.Tensor:
+    """The reference's ``_hash_bits``: uint32 bits of position (r, c)
+    under the seed words (s0, s1), all int64 tensors (or ints) holding
+    uint32 values and broadcast together."""
+    x = (mul32(r, 2654435761) + mul32(c, 2246822519)) & _MASK32
+    x = x ^ s0
+    x = mul32(x ^ (x >> 16), 2246822507)
+    x = x ^ s1
+    x = mul32(x ^ (x >> 13), 3266489909)
+    return x ^ (x >> 16)
+
+
+def hw_threshold(rate: float) -> int:
+    """keep = bits >= rate * 2**32: P(keep) = 1 - rate to 2**-32."""
+    return min(int(round(float(rate) * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def hw_dropout_supported(shape) -> bool:
+    """The reference's rule: the element count folds into (rows, 1024)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n >= HW_LANES and n % HW_LANES == 0
+
+
+def _inv_keep(rate: float) -> float:
+    """f32(1/(1-rate)), the quotient taken in double and rounded to
+    nearest float32."""
+    return struct.unpack("f", struct.pack("f", 1.0 / (1.0 - rate)))[0]
+
+
+def hw_bits(n: int, seeds, device="cpu") -> torch.Tensor:
+    """The (n,) uint32 bits (in int64) of the flattened tensor: element i
+    sits at row i // 1024, lane i % 1024 of the (rows, 1024) view, in
+    block row // 256 at its row % 256."""
+    s0, s1 = (int(s) & _MASK32 for s in seeds)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    row = i >> 10
+    s0_b = (s0 + (row >> 8) * _MIX_BLOCK) & _MASK32
+    return counter_hash(row & (HW_BLOCK_ROWS - 1), i & (HW_LANES - 1),
+                        s0_b, s1)
+
+
+def hw_dropout_plain(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
+    """Plain version of the kernel: ``where(bits >= thr, f32(x) * f32(1/(1
+    - rate)), 0)`` in x's dtype, the bits from ``hw_bits``."""
+    keep = (hw_bits(x.numel(), seeds, x.device)
+            >= hw_threshold(rate)).view(x.shape)
+    scaled = x.float() * _inv_keep(rate)
+    return torch.where(keep, scaled, 0.0).to(x.dtype)
+
+
+def _hw_kernel(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
+    """One launch of ``csrc/hw_dropout.cu`` on a CUDA tensor."""
+    if x.dtype not in _HW_DTYPES:
+        raise ValueError(f"hw_dropout kernel takes float32 or bfloat16, got "
+                         f"{x.dtype}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()          # the kernel's 16- or 8-byte vector loads
+    out = torch.empty_like(x)
+    s0, s1 = (int(s) & _MASK32 for s in seeds)
+    lib = cuda_lib.load("hw_dropout", _SIGNATURES)
+    err = lib.hw_dropout_launch(
+        x.data_ptr(), out.data_ptr(), x.numel(), _HW_DTYPES[x.dtype], s0,
+        s1, hw_threshold(rate), _inv_keep(rate),
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "hw_dropout")
+    cuda_lib.LAUNCHES["hw_dropout"] += 1
+    return out
+
+
+def _hw_apply(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return hw_dropout_plain(x, seeds, rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"hw_dropout: unsupported device {x.device}")
+    return _hw_kernel(x, seeds, rate)
+
+
+class _HwDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seeds, rate: float):
+        ctx.seeds, ctx.rate = seeds, rate
+        return _hw_apply(x, seeds, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the same seed words -> the forward's mask on the cotangent
+        return _hw_apply(g, ctx.seeds, ctx.rate), None, None
+
+
+def hw_dropout(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
+    """x * Bernoulli(1-rate)/(1-rate) with the counter-hash bits of the
+    seed words ``seeds`` (from ``seed_words``); differentiable, the
+    backward the same op with the same seeds. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    rate = float(rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"hw_dropout rate must be in [0, 1), got {rate}")
+    if not hw_dropout_supported(x.shape):
+        raise ValueError(f"hw_dropout needs an element count that is a "
+                         f"multiple of {HW_LANES}, got {tuple(x.shape)}")
+    return _HwDropout.apply(x, tuple(int(s) for s in seeds), rate)
 
 
 def _scaled_mask(seed: int, rate: float, shape, dtype, device):
@@ -74,16 +223,13 @@ def masked_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
 class FusedDropout(torch.nn.Module):
     """Drop-in for the reference's ``FusedDropout(rate, impl)``:
     ``forward(x, seed, train)``. ``impl="xla_rbg"`` only chose the TPU's
-    bit generator in the reference; here it is the same path as ``"xla"``."""
+    bit generator in the reference; here it is the same path as ``"xla"``.
+    ``impl="tpu_bits"`` takes ``hw_dropout`` where
+    ``hw_dropout_supported``, else ``masked_dropout``."""
 
     def __init__(self, rate: float, impl: str = "xla"):
         super().__init__()
-        if impl == "tpu_bits":
-            raise NotImplementedError(
-                "FusedDropout(impl='tpu_bits') needs the hardware-RNG "
-                "dropout kernel _hw_kernel, not ported to PyTorch yet "
-                "(ROADMAP.md B8)")
-        if impl not in ("xla", "xla_rbg"):
+        if impl not in ("xla", "xla_rbg", "tpu_bits"):
             raise ValueError(f"unknown dropout impl {impl!r}")
         self.rate = float(rate)
         self.impl = impl
@@ -95,4 +241,6 @@ class FusedDropout(torch.nn.Module):
             return torch.zeros_like(x)
         if seed is None:
             raise ValueError("dropout in training needs a seed")
+        if self.impl == "tpu_bits" and hw_dropout_supported(x.shape):
+            return hw_dropout(x, seed_words(seed), self.rate)
         return masked_dropout(x, seed, self.rate)

@@ -37,7 +37,8 @@ import ctypes
 import torch
 
 from commefficient_tpu_torch.ops import cuda_lib
-from commefficient_tpu_torch.ops.dropout import seed_words
+from commefficient_tpu_torch.ops.dropout import counter_hash, seed_words
+from commefficient_tpu_torch.ops.dropout import hw_threshold as _threshold
 from commefficient_tpu_torch.utils.params import round_up
 
 _NEG = -1e30
@@ -81,18 +82,6 @@ def _effective_blocks(t: int, block_q: int, block_k: int):
     return tile(min(block_q, t)), tile(min(block_k, t))
 
 
-def _threshold(rate: float) -> int:
-    """keep = bits >= rate * 2**32: P(keep) = 1 - rate to 2**-32."""
-    return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
-
-
-def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
-    """(a * b) mod 2**32 for int64 tensors holding uint32 values."""
-    lo = a * (b & 0xFFFF)
-    hi = ((a * (b >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _MASK32
-
-
 def dropout_keep_reference(seeds, batch_heads: int, t: int, *,
                            dropout_rate: float,
                            block_q: int = DEFAULT_BLOCK_Q,
@@ -115,13 +104,8 @@ def dropout_keep_reference(seeds, batch_heads: int, t: int, *,
     s1 = torch.repeat_interleave(s1, bk, dim=1)          # (BH, tk)
     r = torch.arange(tq, **kw) % bq
     c = torch.arange(tk, **kw) % bk
-    x = (_mul32(r, 2654435761)[:, None]
-         + _mul32(c, 2246822519)[None, :]) & _MASK32     # (tq, tk)
-    x = x[None] ^ s0[:, :, None]
-    x = _mul32(x ^ (x >> 16), 2246822507)
-    x = x ^ s1[:, None, :]
-    x = _mul32(x ^ (x >> 13), 3266489909)
-    x = x ^ (x >> 16)
+    x = counter_hash(r[None, :, None], c[None, None, :], s0[:, :, None],
+                     s1[:, None, :])                      # (BH, tq, tk)
     return x >= _threshold(float(dropout_rate))
 
 

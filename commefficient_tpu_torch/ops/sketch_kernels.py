@@ -28,15 +28,20 @@ row's table is bitwise the unbatched kernel's and the hashing is paid
 once for all rows (B·(4n + 4·r·c_eff) bytes against ~18·r·n + B·r·n
 operations: bytes-bound at B = 4 and 8).
 
-``estimates`` replaces ``_estimates_kernel`` (via ``estimates_pallas``,
-its unbatched grid; the batched grid serves the sketched client codec,
-not ported). One 256-thread CTA per 8,192-coordinate tile hashes its 64
-blocks once into shared memory, then computes each coordinate's r window
-reads, un-permute, sign and median in registers (``csrc/estimates.cu``,
-the same ``cs::estimate`` the fused top-k kernels use). There are no
-sums, so it is bitwise its plain version, ``CountSketch.estimates``.
-Bound: the table read once and the (d,) vector written once (10.0 MB +
-26.3 MB), against ~100 operations per coordinate at r=5.
+``estimates`` replaces ``_estimates_kernel`` in its unbatched grid (via
+``estimates_pallas``), ``estimates_batched`` the same kernel's batched 2-D
+grid (``batched_call``), which the reference's ``--server_fused off``
+reaches at batch 1 through ``CountSketch.estimates_batched``. One C entry
+serves both (``csrc/estimates.cu``): one 256-thread CTA per
+(8,192-coordinate tile, tile of up to 8 tables) hashes its 64 blocks once
+into shared memory, then computes each coordinate's r window offsets and
+signs once and, per table, the r window reads, un-permute, sign and median
+in registers (the same arithmetic as ``cs::estimate``, which the fused
+top-k kernels use and the single-table instance calls). There are no
+sums, so each table's estimates are bitwise its plain version,
+``CountSketch.estimates``, whatever B. Bound: each table read once and
+each (d,) vector written once (10.0 MB + 26.3 MB a table at d=6,568,640),
+against ~100 operations per coordinate at r=5, paid once for all tables.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from commefficient_tpu_torch.ops.countsketch import LANES, CountSketch
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"sketch_launch": [_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _I,
                                  _P, _P]}
-_EST_SIGNATURES = {"estimates_launch": [_P, _LL, _I, _I, _P, _P, _P]}
+_EST_SIGNATURES = {"estimates_launch": [_P, _I, _LL, _I, _I, _P, _P, _P]}
 
 
 def sketch_vec_plain(cs: CountSketch, vec: torch.Tensor,
@@ -167,6 +172,44 @@ def estimates_plain(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
     return cs.estimates(table)
 
 
+def estimates_batched_plain(cs: CountSketch,
+                            tables: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``estimates_batched``: ``CountSketch.estimates``
+    per table, stacked."""
+    if tables.shape[0] == 0:
+        return tables.new_zeros((0, cs.d))
+    return torch.stack([cs.estimates(t) for t in tables])
+
+
+def _launch_estimates(cs: CountSketch, tables: torch.Tensor,
+                      key: str) -> torch.Tensor:
+    """(B, d) estimates of a (B, r, c_eff) stack of CUDA tables in one
+    launch of the kernel, counted under ``key``."""
+    if tables.device.type != "cuda":
+        raise ValueError(f"{key}: unsupported device {tables.device}")
+    if tables.dtype != torch.float32 or tuple(tables.shape[1:]) != (
+            cs.r, cs.c_eff) or not tables.is_contiguous():
+        raise ValueError(f"{key} kernel takes contiguous float32 ({cs.r}, "
+                         f"{cs.c_eff}) tables, got {tables.dtype} "
+                         f"{tuple(tables.shape)}")
+    if cs.r not in (1, 3, 5):
+        raise NotImplementedError("estimates kernel has median networks "
+                                  f"for r in (1, 3, 5), not r={cs.r}")
+    B = tables.shape[0]
+    out = torch.empty((B, cs.d), dtype=torch.float32, device=tables.device)
+    if B == 0:
+        return out
+    tabs = cs.kernel_tables(tables.device)
+    lib = cuda_lib.load("estimates", _EST_SIGNATURES)
+    err = lib.estimates_launch(tables.data_ptr(), B, cs.d, cs.r,
+                               cs.nwindows, tabs.coeffs.data_ptr(),
+                               out.data_ptr(),
+                               cuda_lib.stream_ptr(tables.device))
+    cuda_lib.check(err, key)
+    cuda_lib.LAUNCHES[key] += 1
+    return out
+
+
 def estimates(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
     """(d,) median-of-rows estimates of every coordinate of ``table``.
 
@@ -174,22 +217,21 @@ def estimates(cs: CountSketch, table: torch.Tensor) -> torch.Tensor:
     or raises."""
     if table.device.type == "cpu":
         return estimates_plain(cs, table)
-    if table.device.type != "cuda":
-        raise ValueError(f"estimates: unsupported device {table.device}")
-    if table.dtype != torch.float32 or tuple(table.shape) != (
-            cs.r, cs.c_eff) or not table.is_contiguous():
-        raise ValueError("estimates kernel takes a contiguous float32 "
-                         f"({cs.r}, {cs.c_eff}) table, got {table.dtype} "
+    if table.dim() != 2:
+        raise ValueError(f"estimates takes one (r, c_eff) table, got "
                          f"{tuple(table.shape)}")
-    if cs.r not in (1, 3, 5):
-        raise NotImplementedError("estimates kernel has median networks "
-                                  f"for r in (1, 3, 5), not r={cs.r}")
-    tabs = cs.kernel_tables(table.device)
-    out = torch.empty(cs.d, dtype=torch.float32, device=table.device)
-    lib = cuda_lib.load("estimates", _EST_SIGNATURES)
-    err = lib.estimates_launch(table.data_ptr(), cs.d, cs.r, cs.nwindows,
-                               tabs.coeffs.data_ptr(), out.data_ptr(),
-                               cuda_lib.stream_ptr(table.device))
-    cuda_lib.check(err, "estimates")
-    cuda_lib.LAUNCHES["estimates"] += 1
-    return out
+    return _launch_estimates(cs, table[None], "estimates")[0]
+
+
+def estimates_batched(cs: CountSketch, tables: torch.Tensor) -> torch.Tensor:
+    """(B, d) estimates of the B tables of ``tables`` (B, r, c_eff): per
+    table bitwise ``estimates``, in one launch.
+
+    A CPU stack takes the plain version; a CUDA stack launches the kernel
+    or raises."""
+    if tables.device.type == "cpu":
+        return estimates_batched_plain(cs, tables)
+    if tables.dim() != 3:
+        raise ValueError(f"estimates_batched takes a (B, r, c_eff) stack, "
+                         f"got {tuple(tables.shape)}")
+    return _launch_estimates(cs, tables, "estimates_batched")

@@ -107,7 +107,9 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--dropout_impl", choices=("xla", "xla_rbg"),
                    default="xla",
                    help="dropout bit source; both are the same seeded "
-                        "torch.Generator path in the port")
+                        "torch.Generator path in the port (\"tpu_bits\", "
+                        "the hardware-RNG kernel, is set on the parsed "
+                        "namespace, as in the reference)")
     p.add_argument("--attn_dropout", choices=("auto", "output", "kernel"),
                    default="auto",
                    help="--attn_impl blockwise: 'auto' drops attention "

@@ -18,7 +18,10 @@ tokenizer; ``--vocab_pad_to 50262`` gives GPT2-small's published width
 Runs on CUDA unless ``--device cpu`` is given; without a CUDA device and
 without ``--device cpu`` it raises. ``--attn_impl blockwise`` on CUDA runs
 the flash kernels (``ops/flash_attention.py``), attention dropout inside
-them. Checkpoints, resume, pretrained weights (``gpt2_import``), the
+them. ``args.dropout_impl = "tpu_bits"``, set on the parsed namespace (the
+CLI offers only ``xla`` and ``xla_rbg``, as the reference's does), runs the
+model's other dropout sites through the hardware-RNG dropout kernel
+(``ops/dropout.py::hw_dropout``). Checkpoints, resume, pretrained weights (``gpt2_import``), the
 generated sample and the serving stack are ROADMAP.md A8/A10/A11.
 """
 
@@ -87,7 +90,9 @@ def gpt2_config(args, vocab_size: int):
     gcfg.n_positions = max(gcfg.n_positions, args.max_seq_len)
     gcfg.attn_impl = args.attn_impl
     gcfg.dtype = args.compute_dtype
-    gcfg.dropout_impl = args.dropout_impl
+    # no CLI value selects "tpu_bits" (as in the reference): a caller sets
+    # it on the parsed namespace, and it reaches every FusedDropout site
+    gcfg.dropout_impl = getattr(args, "dropout_impl", "xla")
     gcfg.attn_dropout = args.attn_dropout
     return gcfg
 

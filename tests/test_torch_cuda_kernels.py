@@ -10,8 +10,10 @@ small shapes, odd lengths (tails that are no multiple of a tile), a
 nonzero block offset, per-row k and planted ties included; the flash
 attention kernels match theirs within float32 rounding (O and lse atol
 1e-5, gradients 1e-4 of their largest magnitude; bf16 2e-2), with and
-without dropout, and are deterministic. ``chip_smoke.py`` repeats this at
-the main paths' full width.
+without dropout, and are deterministic; the hardware-RNG dropout kernel
+equals its plain version bitwise (float32 and bfloat16, a partial
+logical block) and meets the reference's contract. ``chip_smoke.py``
+repeats this at the main paths' full width.
 """
 
 import numpy as np
@@ -22,9 +24,12 @@ from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.ops import flash_attention as fa
 from commefficient_tpu_torch.ops import topk_kernels as tk
 from commefficient_tpu_torch.ops.countsketch import CountSketch
+from commefficient_tpu_torch.ops.dropout import (fold_in, hw_dropout,
+                                                 hw_dropout_plain, seed_words)
 from commefficient_tpu_torch.ops.sketch_kernels import (
-    estimates, estimates_plain, sketch_vec, sketch_vec_batched,
-    sketch_vec_batched_plain, sketch_vec_plain)
+    estimates, estimates_batched, estimates_batched_plain, estimates_plain,
+    sketch_vec, sketch_vec_batched, sketch_vec_batched_plain,
+    sketch_vec_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -225,3 +230,61 @@ def test_flash_attention_autograd_on_the_card(dev):
     for a, b in zip(outs["cpu"], outs[str(dev)]):
         torch.testing.assert_close(b, a, rtol=0,
                                    atol=1e-4 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("B,d,c,r", [(1, 20_000, 1_000, 5),
+                                     (3, 20_000, 1_000, 5),
+                                     (9, 777, 300, 3), (8, 9_000, 512, 1)])
+def test_estimates_batched_kernel_equals_plain(dev, B, d, c, r):
+    """B = 9 spans two tiles of 8 tables; table 0 is all zero."""
+    cs = CountSketch(d=d, c=c, r=r, seed=42)
+    tables = np.random.RandomState(d + B).randn(B, r, cs.c_eff).astype(
+        np.float32)
+    tables[0] = 0.0
+    tables = torch.from_numpy(tables).to(dev)
+    before = cuda_lib.LAUNCHES["estimates_batched"]
+    got = estimates_batched(cs, tables)
+    assert cuda_lib.LAUNCHES["estimates_batched"] == before + 1
+    assert got.shape == (B, d)
+    assert _same_bits(got, estimates_batched_plain(cs, tables))
+    assert _same_bits(got, estimates_batched(cs, tables))
+    for b in range(B):
+        assert _same_bits(got[b], estimates(cs, tables[b]))
+
+
+@pytest.mark.parametrize("shape,dtype,rate", [
+    ((4, 256, 768), torch.float32, 0.1), ((300, 1024), torch.float32, 0.5),
+    ((64, 768), torch.float32, 0.1), ((3, 512, 1024), torch.bfloat16, 0.1)])
+def test_hw_dropout_kernel_equals_plain(dev, shape, dtype, rate):
+    """(300, 1024): a full logical block and a partial one."""
+    gen = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(shape, generator=gen).to(dev, dtype)
+    seeds = seed_words(fold_in(5, len(shape)))
+    before = cuda_lib.LAUNCHES["hw_dropout"]
+    got = hw_dropout(x, seeds, rate)
+    assert cuda_lib.LAUNCHES["hw_dropout"] == before + 1
+    want = hw_dropout_plain(x, seeds, rate)
+    assert got.dtype == dtype and torch.equal(
+        got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+        want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(hw_dropout(x, seeds, rate), got)
+    # the plain version on the CPU: the same bits
+    assert torch.equal(hw_dropout_plain(x.cpu(), seeds, rate), got.cpu())
+
+
+def test_hw_dropout_contract_on_the_card(dev):
+    """The reference's on-device contract: keep fraction, exact scaling,
+    backward mask = forward mask (one more launch), seed sensitivity."""
+    x = torch.ones((512, 1024), device=dev, requires_grad=True)
+    seeds = seed_words(7)
+    before = cuda_lib.LAUNCHES["hw_dropout"]
+    y = hw_dropout(x, seeds, 0.1)
+    (g,) = torch.autograd.grad(y.sum(), x)
+    assert cuda_lib.LAUNCHES["hw_dropout"] == before + 2
+    y = y.detach()
+    assert abs(float((y != 0).double().mean()) - 0.9) < 5e-3
+    kept = y[y != 0]
+    assert torch.equal(kept, torch.full_like(kept, float(np.float32(1 / 0.9))))
+    assert torch.equal(g, y)
+    y2 = hw_dropout(x.detach(), seed_words(8), 0.1)
+    assert float((y2 != y).double().mean()) > 0.1

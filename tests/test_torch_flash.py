@@ -32,7 +32,8 @@ from commefficient_tpu.ops.dropout import _seeds_from_key
 from commefficient_tpu_torch.ops import attention
 from commefficient_tpu_torch.ops import flash_attention as fa
 from commefficient_tpu_torch.ops.dropout import (FusedDropout, fold_in,
-                                                 masked_dropout, seed_words)
+                                                 hw_dropout, masked_dropout,
+                                                 seed_words)
 
 
 def _qkv(seed, B, T, H, D):
@@ -227,8 +228,14 @@ def test_fused_dropout_module():
                        drop(x, 3, True))
     with pytest.raises(ValueError, match="seed"):
         drop(x, None, True)
-    with pytest.raises(NotImplementedError, match="B8"):
-        FusedDropout(0.1, "tpu_bits")
+    # tpu_bits: the hardware-RNG dropout where the size folds into 1024
+    # lanes, masked_dropout elsewhere (the reference's rule)
+    hw = FusedDropout(0.1, "tpu_bits")
+    y = torch.randn(4, 256)
+    assert torch.equal(hw(y, 3, True), hw_dropout(y, seed_words(3), 0.1))
+    assert torch.equal(hw(x, 3, True), masked_dropout(x, 3, 0.1))
+    with pytest.raises(ValueError, match="impl"):
+        FusedDropout(0.1, "philox")
 
 
 def test_fold_in_and_seed_words():
