@@ -11,7 +11,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    version, bitwise:
    - a seeded (6,568,640,) vector sketched into a 5 x 500,096 table
      (twice: the kernel is deterministic), then the fused unsketch + top-k
-     at k=50,000, and a table with planted ties;
+     at k=50,000, and a table with planted ties; the first port's count
+     and select kernels (on no path: the radix below replaced them)
+     against theirs;
    - the plain count and select on an (8, 6,568,640) batch with per-row
      k of 50,000 / 25,000 / 1, planted ties across tiles and an all-zero
      row; the resid select on (err, v) at d with planted ties and with
@@ -21,36 +23,54 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      seeded normals) at B = 8, 3 and 1, every table bitwise equal to the
      unbatched kernel and to the plain version, and the same over two
      runs;
+   - the estimate-once histogram radix (est_hist, two digit_hist passes,
+     the dense and the compact select) on the sketched table, planted
+     ties, an all-zero table and one with +-0.0 and NaN cells: the stored
+     estimates, each digit histogram, t and n_take (also against the count
+     kernels' radix), the dense and compact outputs bitwise equal to the
+     plain versions, and the same over two runs;
    - one sketch-mode server step with --server_fused auto against off:
-     update, Vvelocity and Verror bitwise equal (each step also timed);
+     update, Vvelocity and Verror bitwise equal; then 10 alternating pairs
+     of the two steps, timed;
+   - the sparse re-sketch of the k survivors, three planted in one bucket
+     as 1e8, 1, -1e8: the card's table bitwise the CPU's, over two runs;
    - the batched sketch on an (8, 6,568,640) batch (an all-zero row and a
      row of planted heavy coordinates among seeded ones) and on an offset
      slice of it, row by row bitwise equal to its plain version and to the
      unbatched kernel, and the same over two runs;
 3. kernel times with CUDA events (median of 25), beside the plain
    versions, one PyTorch library call for the same work where there is
-   one, and the bound computed from this run's bytes and operations;
+   one, and the bound computed from this run's bytes and operations; the
+   whole recovery (new compact, new dense, old count x 9 + select) as 20
+   alternating rounds, beside ``torch.topk`` of the squared estimates and
+   ``estimates_batched`` + ``torch.topk``;
 4. the main paths, each ``training.cv.train(args, max_rounds=3)`` at
    ResNet9's full width (d = 6,568,640) on Synthetic with 8 workers and
    k=50,000, every launch counter set to 0 just before it and read just
    after:
    - sketch (the headline FetchSGD flags, 5 x 500k, virtual error and
-     momentum 0.9, 32 images a worker): sketch 3, count 27, select 3;
+     momentum 0.9, 32 images a worker): sketch 3 and the recovery's
+     kernels: est_hist 3, digit_hist 6, radix_compact 3, segment_sum 3;
    - true_topk (virtual error, momentum 0.9): count_plain 27,
      select_resid 3;
    - local_topk (local error and momentum 0.9, 100 clients): count_plain
      27 (8 rows a launch), select_plain 3;
    - sketch with --server_fused off: sketch 3, estimates_batched 3 (the
-     reference's off branch runs the batched grid at B = 1);
+     reference's off branch runs the batched grid at B = 1), segment_sum
+     3;
    - uncompressed (momentum 0.9) and fedavg (2 local epochs in chunks of
      16, lr decay 0.9): no kernel;
    - sketch_clip (the sketch flags + --max_grad_norm 1.0) and sketch_dp
      (+ --dp --dp_mode worker --l2_norm_clip 1.0 --noise_multiplier 1e-3):
      the per-worker sketch, sketch_batched 3 (the 8 clients' tables in one
-     launch a round), count 27, select 3, and no unbatched sketch;
+     launch a round), the recovery's kernels, and no unbatched sketch;
    - uncompressed_dp_server (+ --dp --dp_mode server, the same clip and
      noise): no kernel;
    with finite losses and weights and exact upload bytes per client;
+   then the sketch path twice more from the same seed: per-round losses,
+   weights, Vvelocity and Verror bitwise equal; and one ResNet9 forward
+   and backward at its batch timed with cuDNN's deterministic mode off,
+   then on;
 5. a reference check on a small input: two rounds of a narrow ResNet9
    learner on CUDA (kernels) and on the CPU (plain versions) from the same
    weights and batches must agree, in sketch, true_topk and local_topk,
@@ -65,8 +85,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ragged end); every kernel run twice, bitwise equal; then their times
    beside the plain versions, the bound and
    ``scaled_dot_product_attention`` (forward, and its autograd backward);
-   then the checks of phase 2's first item and the kernel times of phase 3
-   for sketch, count and select again at the GPT2 path's d = 124,051,201
+   then the checks of phase 2's first item, the radix parity and the
+   server A/B, and the kernel and recovery times of phase 3 for sketch,
+   count, select and the radix again at the GPT2 path's d = 124,051,201
    (a seeded vector into the same 5 x 500,096 table, k = 50,000; plain
    versions timed over 3 runs), and the batched sketch's check and times
    at that d with B = 4; then the hardware-RNG dropout kernel against its
@@ -83,15 +104,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    sketch 5 x 500k, k = 50,000, 4 workers of 8 dialogs x 2 candidates x
    256 tokens): counters zeroed just before the rounds and read when the
    validation pass starts (flash_fwd, flash_bwd_dq, flash_bwd_dkv 36
-   each, sketch 3, count 27, select 3), the validation pass's launches
+   each, sketch 3 and the recovery's kernels), the validation pass's launches
    read apart (flash_fwd 12 per batch, nothing else); finite losses,
    weights and validation nll, exact upload bytes; round ms printed;
    then round 3's batch once more under ``torch.profiler``, its device
    time printed by kernel class beside its wall time; then the same with
    --max_grad_norm 1.0 (gpt2_clip): the per-worker path, one forward and
    backward per client, so flash_fwd, flash_bwd_dq, flash_bwd_dkv 144 each
-   (12 layers x 4 clients x 3 rounds), sketch_batched 3, count 27, select
-   3, and no unbatched sketch; its round 3 profiled in the same way; then
+   (12 layers x 4 clients x 3 rounds), sketch_batched 3, the recovery's
+   kernels, and no unbatched sketch; its round 3 profiled in the same way; then
    gpt2_tpu_bits, the gpt2 flags with ``args.dropout_impl = "tpu_bits"``
    set on the parsed namespace (no CLI value selects it, as in the
    reference): gpt2's launches and hw_dropout 156 (26 sites a forward, 26
@@ -131,10 +152,14 @@ K = 50_000
 TABLE_FLOATS = 5 * 500_096
 _BASE = ["--num_workers", "8", "--k", "50000", "--dataset_name",
          "Synthetic", "--device", "cuda"]
+# the sketch server's recovery over 3 rounds: the estimate-once histogram
+# radix (one est_hist and two digit_hist passes, the compact select) and
+# the deterministic segmented sum of the survivors' re-sketch
+RECOVERY = {"est_hist": 3, "digit_hist": 6, "radix_compact": 3,
+            "segment_sum": 3}
 # name: (flags, launches over 3 rounds, upload bytes per client)
 PATHS = {
-    "sketch": (HEADLINE, {"sketch": 3, "count": 27, "select": 3},
-               4 * TABLE_FLOATS),
+    "sketch": (HEADLINE, dict(RECOVERY, sketch=3), 4 * TABLE_FLOATS),
     "true_topk": (_BASE + ["--mode", "true_topk", "--error_type", "virtual",
                            "--virtual_momentum", "0.9",
                            "--local_batch_size", "32"],
@@ -145,8 +170,8 @@ PATHS = {
                    {"count_plain": 27, "select_plain": 3}, 4 * K),
     # the reference's off branch runs the batched estimates grid at B = 1
     "sketch_server_fused_off": (HEADLINE + ["--server_fused", "off"],
-                                {"sketch": 3, "estimates_batched": 3},
-                                4 * TABLE_FLOATS),
+                                {"sketch": 3, "estimates_batched": 3,
+                                 "segment_sum": 3}, 4 * TABLE_FLOATS),
     "uncompressed": (_BASE + ["--mode", "uncompressed",
                               "--virtual_momentum", "0.9",
                               "--local_batch_size", "32"], {},
@@ -159,7 +184,7 @@ PATHS = {
 DP_FLAGS = ["--l2_norm_clip", "1.0", "--noise_multiplier", "1e-3"]
 # the per-worker sketch: the W clients' tables in one batched launch a
 # round, and no sketch of the aggregate
-PER_WORKER_SKETCH = {"sketch_batched": 3, "count": 27, "select": 3}
+PER_WORKER_SKETCH = dict(RECOVERY, sketch_batched=3)
 PATHS.update({
     "sketch_clip": (HEADLINE + ["--max_grad_norm", "1.0"],
                     PER_WORKER_SKETCH, 4 * TABLE_FLOATS),
@@ -188,14 +213,13 @@ D_GPT2 = 124_051_201
 # sites a forward (the embedding, each layer's attention projection and
 # MLP, the mc head; the attention probabilities stay in the flash
 # kernels) and 26 in the backward
-GPT2_SKETCH = {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
-               "sketch": 3, "count": 27, "select": 3}
+GPT2_SKETCH = dict(RECOVERY, flash_fwd=36, flash_bwd_dq=36,
+                   flash_bwd_dkv=36, sketch=3)
 GPT2_PATHS = {
     "gpt2": ([], {}, GPT2_SKETCH),
     "gpt2_clip": (["--max_grad_norm", "1.0"], {},
-                  {"flash_fwd": 144, "flash_bwd_dq": 144,
-                   "flash_bwd_dkv": 144, "sketch_batched": 3, "count": 27,
-                   "select": 3}),
+                  dict(RECOVERY, flash_fwd=144, flash_bwd_dq=144,
+                       flash_bwd_dkv=144, sketch_batched=3)),
     "gpt2_tpu_bits": ([], {"dropout_impl": "tpu_bits"},
                       dict(GPT2_SKETCH, hw_dropout=156)),
 }
@@ -231,14 +255,19 @@ def _max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def _time_ms(fn, reps=REPS) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warmup."""
+def _time_ms(fn, reps=REPS, setup=None) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after warmup;
+    ``setup()`` runs before each call, outside the timed events."""
     import torch
     for _ in range(3):
+        if setup:
+            setup()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -289,6 +318,40 @@ def _count_cost(cs):
 def _select_cost(cs):
     nbytes = 4 * cs.r * cs.c_eff + 8 + 4 * cs.d + 4 * cs.d
     return _bound(nbytes, _estimate_ops(cs) + cs.d * 4)
+
+
+# operations a coordinate of the histogram radix, besides the estimate:
+# the square, the key's clamp, the prefix test, the digit's shift and mask,
+# and the warp-aggregated histogram add
+_OPS_RADIX = 6
+
+
+def _est_hist_cost(cs):
+    """The table read and the (d,) estimates written once (plus the first
+    digit's 2,048 counters); the estimates' operations and the first
+    digit's."""
+    return _bound(4 * cs.r * cs.c_eff + 4 * cs.d + 4 * 2048,
+                  _estimate_ops(cs) + _OPS_RADIX * cs.d)
+
+
+def _digit_hist_cost(cs):
+    """One digit pass: the stored estimates read once."""
+    return _bound(4 * cs.d + 4 * 2048, _OPS_RADIX * cs.d)
+
+
+def _radix_select_cost(cs, dense):
+    """The stored estimates read once; dense: the masked estimates and the
+    int32 mask written, else the k values and int64 indices."""
+    out = 8 * cs.d if dense else 12 * K
+    return _bound(4 * cs.d + out, _OPS_RADIX * cs.d)
+
+
+def _radix_design_bytes(cs, dense):
+    """The bytes the design itself moves in one recovery: the table, the
+    scratch written once and read by both digit passes and twice by the
+    select (its counts, then the select pass), and the outputs."""
+    out = 8 * cs.d if dense else 12 * K
+    return 4 * cs.r * cs.c_eff + 5 * 4 * cs.d + out
 
 
 def _count_plain_cost(rows, n):
@@ -439,14 +502,10 @@ def _resid_inputs(dev, rng, sparse):
 
 
 def phase_parity_stream(dev, cs, table, errs):
-    """The plain count and select (B = 8, per-row k), the resid select,
-    the estimates, and the server step with its two recovery routes."""
+    """The plain count and select (B = 8, per-row k), the resid select and
+    the estimates."""
     import torch
 
-    from commefficient_tpu_torch.config import FedConfig
-    from commefficient_tpu_torch.federated.server import (make_sketch,
-                                                          server_update)
-    from commefficient_tpu_torch.federated.state import ServerOptState
     from commefficient_tpu_torch.ops import topk_kernels as tk
     from commefficient_tpu_torch.ops.sketch_kernels import (estimates,
                                                             estimates_plain)
@@ -523,7 +582,20 @@ def phase_parity_stream(dev, cs, table, errs):
     print(f"parity estimates: bitwise equal to plain at d={cs.d}, and to "
           f"the fused selection's {int(sel.sum())} masked values",
           flush=True)
+    return inputs
 
+
+def phase_server_ab(dev, cs, table, pairs=10):
+    """One sketch-mode server step with --server_fused auto against off:
+    update, Vvelocity and Verror bitwise equal; then ``pairs`` alternating
+    timings of the two steps (each the median of 5 CUDA-event timings)."""
+    import torch
+
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.server import (make_sketch,
+                                                          server_update)
+    from commefficient_tpu_torch.federated.state import ServerOptState
+    rng = np.random.RandomState(2)
     cfg = FedConfig(mode="sketch", error_type="virtual",
                     virtual_momentum=0.9, k=K, num_cols=cs.c,
                     num_rows=cs.r).finalize(cs.d)
@@ -531,21 +603,29 @@ def phase_parity_stream(dev, cs, table, errs):
     state = ServerOptState(*(torch.from_numpy(
         rng.randn(*cfg.transmit_shape).astype(np.float32)).to(dev)
         for _ in range(2)))
-    outs = [server_update(table, state, replace(cfg, server_fused=f),
-                          0.1, sketch) for f in ("auto", "off")]
-    (ua, sa), (uo, so) = outs
+    cfgs = {f: replace(cfg, server_fused=f) for f in ("auto", "off")}
+    (ua, sa), (uo, so) = (server_update(table, state, cfgs[f], 0.1, sketch)
+                          for f in ("auto", "off"))
     if not (_same_bits(ua, uo) and _same_bits(sa.Vvelocity, so.Vvelocity)
             and _same_bits(sa.Verror, so.Verror)):
-        raise AssertionError("server step: --server_fused auto != off")
-    step_ms = {f: _time_ms(lambda c=replace(cfg, server_fused=f):
-                           server_update(table, state, c, 0.1, sketch))
-               for f in ("auto", "off")}
-    print(f"server A/B (sketch, k={K}): --server_fused auto and off give "
-          f"bitwise equal update ({int(ua.ne(0).sum())} nonzeros), "
-          f"Vvelocity and Verror; one server step takes "
-          f"{step_ms['auto']:.4f} ms auto, {step_ms['off']:.4f} ms off",
-          flush=True)
-    return inputs
+        raise AssertionError(f"server step (d={cs.d}): --server_fused auto "
+                             "!= off")
+    nonzeros = int(ua.ne(0).sum())
+    del ua, sa, uo, so
+    ms = {"auto": [], "off": []}
+    for i in range(pairs):
+        for f in (("auto", "off") if i % 2 == 0 else ("off", "auto")):
+            ms[f].append(_time_ms(lambda c=cfgs[f]: server_update(
+                table, state, c, 0.1, sketch), reps=5))
+    wins = sum(a < o for a, o in zip(ms["auto"], ms["off"]))
+    print(f"server A/B (sketch, d={cs.d}, k={K}): --server_fused auto and "
+          f"off give bitwise equal update ({nonzeros} nonzeros), Vvelocity "
+          f"and Verror; {pairs} alternating pairs of one server step: auto "
+          f"median {float(np.median(ms['auto'])):.4f} ms, off median "
+          f"{float(np.median(ms['off'])):.4f} ms, auto faster in {wins} of "
+          f"{pairs}; auto {[round(x, 4) for x in ms['auto']]}, off "
+          f"{[round(x, 4) for x in ms['off']]}", flush=True)
+    torch.cuda.empty_cache()
 
 
 def phase_parity_batched(dev, d, B, errs):
@@ -825,6 +905,323 @@ def phase_timing_estimates_batched(cs, table, tables):
           f"kernel's {r['row4_ms']:.4f} ms (bound "
           f"{_estimates_batched_cost(cs, 1)[0]:.5f} ms)", flush=True)
     return r
+
+
+def _radix_tables(dev, cs, table):
+    """The tables of the radix parity: the sketched vector's, planted ties
+    (few distinct magnitudes, ties spread over every tile), all zero, and
+    seeded normals with +-0.0 and NaN cells."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(cs.d % 1000)
+    ties = torch.tensor([-3, -2, -1, 1, 2, 3], dtype=torch.float32,
+                        device=dev)[torch.randint(
+                            6, (cs.r, cs.c_eff), generator=gen, device=dev)]
+    nan0 = torch.randn((cs.r, cs.c_eff), generator=gen, device=dev)
+    u = torch.rand((cs.r, cs.c_eff), generator=gen, device=dev)
+    nan0[u < 0.3] = 0.0
+    nan0[(u >= 0.3) & (u < 0.5)] = -0.0
+    nan0[u > 0.99995] = float("nan")
+    return {"sketched vector": table, "planted ties": ties,
+            "all zero": torch.zeros_like(table), "+-0.0 and NaN": nan0}
+
+
+def phase_parity_radix(dev, cs, table, errs):
+    """The estimate-once histogram radix against its plain versions at
+    ``cs.d``, bitwise, on each table of ``_radix_tables``: the stored
+    estimates, each pass's digit histogram, t and n_take (also against the
+    first port's count kernels' radix), the dense and the compact select;
+    then both entry points again, bitwise equal to the first run."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    for name in ("est_hist", "digit_hist", "radix_select", "radix_compact"):
+        errs.setdefault(name, 0.0)
+    for name, tab in _radix_tables(dev, cs, table).items():
+        est, ws = tk.unsketch_radix(cs, tab, K)
+        dense = tk.radix_select(est, cs.d, K, ws, dense=True)
+        compact = tk.radix_select(est, cs.d, K, ws, dense=False)
+        views = tk.radix_views(ws)
+        p_est = cs.estimates(tab)
+        if not _same_bits(est[:cs.d], p_est):
+            raise AssertionError(f"est_hist estimates != plain ({name}, "
+                                 f"d={cs.d})")
+        bits = tk._score_bits(p_est)
+        prefix = torch.zeros((), dtype=torch.int64, device=dev)
+        k_rem = prefix + K
+        for p, ((shift, width), hist) in enumerate(zip(tk.DIGITS,
+                                                       views["hists"])):
+            want = tk.digit_histogram_plain(bits, prefix, shift, width)
+            if not torch.equal(hist, want):
+                raise AssertionError(f"digit histogram of pass {p} != "
+                                     f"plain ({name}, d={cs.d})")
+            key = "est_hist" if p == 0 else "digit_hist"
+            errs[key] = max(errs[key], _max_abs_err(hist, want))
+            b, above = tk.digit_pick_plain(want, k_rem)
+            prefix, k_rem = (prefix << width) | b, k_rem - above
+        t, n_take = tk.radix_threshold_plain(bits, K)
+        del bits
+        got = (int(views["t"]), int(views["n_take"]))
+        ct, cn = tk._radix_threshold(lambda c: tk.count(cs, tab, c), K, dev)
+        if got != (int(t), int(n_take)) or got != (int(ct), int(cn)):
+            raise AssertionError(f"radix (t, n_take) {got} != plain "
+                                 f"{(int(t), int(n_take))} / count kernels' "
+                                 f"{(int(ct), int(cn))} ({name}, d={cs.d})")
+        p_dense = tk._select_est(p_est, t, n_take)
+        p_compact = tk.select_compact_plain(p_est, t, n_take, K)
+        if not (_same_bits(dense[0], p_dense[0])
+                and torch.equal(dense[1], p_dense[1])):
+            raise AssertionError(f"radix_select != plain ({name}, "
+                                 f"d={cs.d})")
+        if not (_same_bits(compact[0], p_compact[0])
+                and torch.equal(compact[1], p_compact[1])):
+            raise AssertionError(f"radix_compact != plain ({name}, "
+                                 f"d={cs.d})")
+        errs["radix_select"] = max(errs["radix_select"],
+                                   _max_abs_err(dense[0], p_dense[0]),
+                                   _max_abs_err(dense[1], p_dense[1]))
+        errs["radix_compact"] = max(errs["radix_compact"],
+                                    _max_abs_err(compact[0], p_compact[0]),
+                                    _max_abs_err(compact[1], p_compact[1]))
+        del p_est, p_dense, p_compact, est, ws
+        again = tk.unsketch_select(cs, tab, K)
+        if not (_same_bits(again[0], dense[0])
+                and torch.equal(again[1], dense[1])):
+            raise AssertionError(f"unsketch_select differs between two runs "
+                                 f"({name}, d={cs.d})")
+        del again
+        again = tk.unsketch_compact(cs, tab, K)
+        if not (_same_bits(again[0], compact[0])
+                and torch.equal(again[1], compact[1])):
+            raise AssertionError(f"unsketch_compact differs between two "
+                                 f"runs ({name}, d={cs.d})")
+        kept = int(dense[1].sum())
+        del again, dense, compact
+        print(f"parity radix ({name}, d={cs.d}, k={K}): stored estimates, "
+              f"the 3 digit histograms, t {got[0]}, n_take {got[1]} (= the "
+              f"count kernels' radix), dense and compact selects bitwise "
+              f"equal to plain, deterministic over 2 runs; {kept} kept",
+              flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_timing_radix(cs, table, pairs=20):
+    """Times of the histogram radix at ``cs.d``: each kernel alone (its
+    workspace restored outside the timed events) beside its plain version
+    and bound; the whole recovery, compact and dense, against the first
+    port's count x 9 + select as ``pairs`` alternating rounds in this
+    process (each side the median of 25 timings); ``torch.topk`` of the
+    squared estimates, and ``estimates_batched`` + ``torch.topk``."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    from commefficient_tpu_torch.ops.sketch_kernels import estimates_batched
+    dev, d = table.device, cs.d
+    est, ws = tk.radix_workspace(d, dev)
+    snaps = []
+    tk.est_hist(cs, table, K, est, ws)
+    snaps.append(ws.clone())
+    for p in (1, 2):
+        tk.digit_hist(est, d, K, ws, p)
+        snaps.append(ws.clone())
+    p_est = cs.estimates(table)
+    bits = tk._score_bits(p_est)
+    prefixes = [torch.zeros((), dtype=torch.int64, device=dev)]
+    k_rem = prefixes[0] + K
+    for shift, width in tk.DIGITS:
+        b, above = tk.digit_pick_plain(tk.digit_histogram_plain(
+            bits, prefixes[-1], shift, width), k_rem)
+        prefixes.append((prefixes[-1] << width) | b)
+        k_rem = k_rem - above
+    t, n_take = tk.radix_threshold_plain(bits, K)
+    scores = p_est * p_est
+    del bits
+
+    def restore(i):
+        return lambda: ws.copy_(snaps[i])
+
+    def plain_pass(p):
+        shift, width = tk.DIGITS[p]
+        est_ = cs.estimates(table) if p == 0 else p_est
+        hist = tk.digit_histogram_plain(tk._score_bits(est_), prefixes[p],
+                                        shift, width)
+        return tk.digit_pick_plain(hist, K)
+
+    topk_ms = _time_ms(lambda: torch.topk(scores, K))
+    est_topk_ms = _time_ms(lambda: torch.topk(
+        torch.square(estimates_batched(cs, table[None])[0]), K))
+    digit_ms = [_time_ms(lambda p=p: tk.digit_hist(est, d, K, ws, p),
+                         setup=restore(p - 1)) for p in (1, 2)]
+    plain_reps = REPS if d < 2 * 10 ** 7 else 3
+    rows = {
+        "est_hist": dict(
+            ms=_time_ms(lambda: tk.est_hist(cs, table, K, est, ws),
+                        setup=ws.zero_),
+            plain_ms=_time_ms(lambda: plain_pass(0), plain_reps),
+            library_ms=None, cost=_est_hist_cost(cs)),
+        "digit_hist": dict(
+            ms=float(np.mean(digit_ms)),
+            plain_ms=float(np.mean([_time_ms(lambda p=p: plain_pass(p),
+                                             plain_reps) for p in (1, 2)])),
+            library_ms=None, cost=_digit_hist_cost(cs),
+            at=f"d={d}; mean of pass 1 {digit_ms[0]:.4f} ms and pass 2 "
+               f"{digit_ms[1]:.4f} ms"),
+        "radix_compact": dict(
+            ms=_time_ms(lambda: tk.radix_select(est, d, K, ws, False),
+                        setup=restore(2)),
+            plain_ms=_time_ms(lambda: tk.select_compact_plain(
+                p_est, t, n_take, K), plain_reps),
+            library_ms=topk_ms, cost=_radix_select_cost(cs, False)),
+        "radix_select": dict(
+            ms=_time_ms(lambda: tk.radix_select(est, d, K, ws, True),
+                        setup=restore(2)),
+            plain_ms=_time_ms(lambda: tk._select_est(p_est, t, n_take),
+                              plain_reps),
+            library_ms=topk_ms, cost=_radix_select_cost(cs, True)),
+    }
+    for name, r in rows.items():
+        bound_ms, kind = r["cost"]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"time {name} ({r.get('at', f'd={d}')}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {bound_ms:.5f} ms ({kind})", flush=True)
+    del snaps, p_est, scores
+
+    def old():
+        t_, n_ = tk._radix_threshold(lambda c: tk.count(cs, table, c), K,
+                                     dev)
+        return tk.select(cs, table, t_, n_)
+
+    sides = {"old": old,
+             "new_dense": lambda: tk.unsketch_select(cs, table, K),
+             "new_compact": lambda: tk.unsketch_compact(cs, table, K)}
+    ms = {name: [] for name in sides}
+    names = list(sides)
+    for i in range(pairs):
+        order = names if i % 2 == 0 else names[::-1]
+        for name in order:
+            ms[name].append(_time_ms(sides[name]))
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    ratio = [o / n for o, n in zip(ms["old"], ms["new_dense"])]
+    pair_bound = sum(r["cost"][0] for r in
+                     (rows["est_hist"], rows["digit_hist"],
+                      rows["digit_hist"], rows["radix_compact"]))
+    design_ms = max(_radix_design_bytes(cs, False) / HBM_BYTES_PER_S * 1e3,
+                    (_estimate_ops(cs) + 5 * _OPS_RADIX * d)
+                    / CUDA_CORE_OPS_PER_S * 1e3)
+    print(f"time recovery (d={d}, k={K}, {pairs} alternating rounds): new "
+          f"compact {med['new_compact']:.4f} ms, new dense "
+          f"{med['new_dense']:.4f} ms, old count x 9 + select "
+          f"{med['old']:.4f} ms (old / new dense: median "
+          f"{float(np.median(ratio)):.3f}, min {min(ratio):.3f}, max "
+          f"{max(ratio):.3f}); torch.topk of the squared estimates "
+          f"{topk_ms:.4f} ms, estimates_batched + torch.topk "
+          f"{est_topk_ms:.4f} ms; bound of the compact recovery "
+          f"{pair_bound:.5f} ms (sum of its kernels' bounds; the design's "
+          f"own bytes and operations {design_ms:.5f} ms)", flush=True)
+    print(f"  rounds: new compact {[round(x, 4) for x in ms['new_compact']]},"
+          f" new dense {[round(x, 4) for x in ms['new_dense']]}, old "
+          f"{[round(x, 4) for x in ms['old']]}", flush=True)
+    del est, ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sketch_sparse(dev, cs, table):
+    """The deterministic sparse re-sketch on the card: the k survivors of
+    the sketched table, three of them planted in one row-0 bucket with
+    signed 1e8, 1, -1e8 (a sum that depends on the order), bitwise equal
+    to the CPU's table over two runs; timed beside ``index_add_`` a row
+    (atomic order)."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    vals, idxs = cs.unsketch_values_indices(table, K)
+    signs, buckets = cs._row_hashes(0, idxs)
+    b, counts = torch.unique(buckets, return_counts=True)
+    three = torch.nonzero(buckets == b[counts >= 3][0]).flatten()[:3]
+    vals = vals.clone()
+    vals[three] = torch.tensor([1e8, 1.0, -1e8], device=dev) * signs[three]
+    cpu = cs.sketch_sparse(vals.cpu(), idxs.cpu())
+    before = cuda_lib.LAUNCHES["segment_sum"]
+    got = cs.sketch_sparse(vals, idxs)
+    again = cs.sketch_sparse(vals, idxs)
+    if cuda_lib.LAUNCHES["segment_sum"] != before + 2:
+        raise AssertionError("sketch_sparse did not launch segment_sum")
+    if not (_same_bits(got.cpu(), cpu) and _same_bits(again, got)):
+        raise AssertionError(f"sketch_sparse on the card != CPU or differs "
+                             f"between runs (d={cs.d})")
+    hot = got.view(-1)[buckets[three[0]]]
+
+    def atomic():
+        out = cs.zero_table(dev)
+        for row in range(cs.r):
+            s_, b_ = cs._row_hashes(row, idxs)
+            out[row].index_add_(0, b_, s_ * vals)
+        return out
+
+    ms = _time_ms(lambda: cs.sketch_sparse(vals, idxs))
+    lib_ms = _time_ms(atomic)
+    print(f"parity sketch_sparse (d={cs.d}, {K} survivors, 3 planted in one "
+          f"bucket as 1e8, 1, -1e8 -> {float(hot)!r}): card bitwise equal "
+          f"to the CPU, deterministic over 2 runs; {ms:.4f} ms (sort + "
+          f"segment_sum) against {lib_ms:.4f} ms with index_add_ atomics",
+          flush=True)
+
+
+def phase_repeat(dev):
+    """Reproducibility of the headline sketch path (ROADMAP C5): two runs
+    of 3 rounds through ``training.cv.train`` from the same seed must give
+    bitwise equal per-round losses, weights, Vvelocity and Verror. Then
+    what deterministic cuDNN costs: one ResNet9 forward and backward at
+    the path's batch (8 workers x 32 images), called directly, with
+    ``torch.backends.cudnn.deterministic`` False, then True."""
+    import torch
+    import torch.nn.functional as F
+
+    from commefficient_tpu_torch.models.resnet9 import ResNet9
+    from commefficient_tpu_torch.training.args import build_parser
+    from commefficient_tpu_torch.training.cv import train
+    runs = []
+    for _ in range(2):
+        args = build_parser().parse_args(HEADLINE)
+        np.random.seed(args.seed)
+        learner, row = train(args, max_rounds=3, log=False)
+        s = learner.state
+        runs.append(([r["loss"] for r in row["rounds"]],
+                     s.weights.clone(), s.opt.Vvelocity.clone(),
+                     s.opt.Verror.clone()))
+        del learner, row, s
+    (la, *ta), (lb, *tb) = runs
+    same = [_same_bits(a, b) for a, b in zip(ta, tb)]
+    if [x.hex() for x in la] != [x.hex() for x in lb] or not all(same):
+        raise AssertionError(f"the sketch path is not reproducible: losses "
+                             f"{la} vs {lb}; weights, Vvelocity, Verror "
+                             f"bitwise equal: {same}")
+    del runs, ta, tb
+    torch.cuda.empty_cache()
+    model = ResNet9().reset_parameters(
+        torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((8 * 32, 32, 32, 3), generator=gen, device=dev)
+    y = torch.randint(10, (8 * 32,), generator=gen, device=dev)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(x), y).backward()
+
+    ms = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        ms[det] = _time_ms(step)
+    torch.backends.cudnn.deterministic = True
+    print(f"repeat sketch (3 rounds twice, same seed): losses "
+          f"{[round(v, 6) for v in la]}, losses, weights, Vvelocity and "
+          f"Verror bitwise equal; ResNet9 forward + backward (256 images): "
+          f"cudnn.deterministic False {ms[False]:.4f} ms, True "
+          f"{ms[True]:.4f} ms", flush=True)
+    del model, x, y
+    torch.cuda.empty_cache()
 
 
 def phase_hw_dropout_parity(dev, errs):
@@ -1180,7 +1577,8 @@ _KERNEL_CLASSES = (
     ("hardware-RNG dropout (B8)", ("hw_dropout_kernel",)),
     ("sketch and top-k (B1-B3)", ("sketch_kernel", "count_kernel",
                                   "select_kernel", "tie_count_kernel",
-                                  "exclusive_scan_kernel")),
+                                  "exclusive_scan_kernel", "est_hist_kernel",
+                                  "digit_hist_kernel", "segment_sum_kernel")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
 )
 
@@ -1394,6 +1792,14 @@ SOURCES = {
                           "(batched grid :248)"),
     "hw_dropout": ("commefficient_tpu_torch/csrc/hw_dropout.cu",
                    "commefficient_tpu/ops/dropout.py:121"),
+    "est_hist": ("commefficient_tpu_torch/csrc/unsketch_radix.cu",
+                 "commefficient_tpu/ops/topk_kernels.py:200"),
+    "digit_hist": ("commefficient_tpu_torch/csrc/unsketch_radix.cu",
+                   "commefficient_tpu/ops/topk_kernels.py:200"),
+    "radix_compact": ("commefficient_tpu_torch/csrc/unsketch_radix.cu",
+                      "commefficient_tpu/ops/topk_kernels.py:355"),
+    "radix_select": ("commefficient_tpu_torch/csrc/unsketch_radix.cu",
+                     "commefficient_tpu/ops/topk_kernels.py:355"),
 }
 
 
@@ -1423,8 +1829,12 @@ def main() -> int:
     errs = {}
     cs, vec, table = phase_parity(dev, D_RESNET9, errs)
     inputs = phase_parity_stream(dev, cs, table, errs)
+    phase_parity_radix(dev, cs, table, errs)
+    phase_server_ab(dev, cs, table)
+    phase_sketch_sparse(dev, cs, table)
     times = phase_timing(cs, vec, table)
     times.update(phase_timing_stream(cs, table, inputs))
+    times.update(phase_timing_radix(cs, table))
     tables = phase_parity_estimates_batched(dev, cs, table, errs)
     times["estimates_batched"] = phase_timing_estimates_batched(cs, table,
                                                                 tables)
@@ -1437,6 +1847,7 @@ def main() -> int:
     for name in PATHS:
         for kernel, n in phase_path(name).items():
             launches[kernel] = launches.get(kernel, 0) + n
+    phase_repeat(dev)
     phase_reference(dev)
     phase_flash_parity(dev, errs)
     times.update(phase_flash_timing(dev))
@@ -1445,7 +1856,10 @@ def main() -> int:
     # the sketch-mode kernels again at the GPT2 path's d (timed apart: the
     # kernel line keeps ResNet9's d)
     cs, vec, table = phase_parity(dev, D_GPT2, errs)
+    phase_parity_radix(dev, cs, table, errs)
+    phase_server_ab(dev, cs, table)
     phase_timing(cs, vec, table, plain_reps=3)
+    phase_timing_radix(cs, table)
     del cs, vec, table
     cs, vecs = phase_parity_batched(dev, D_GPT2, GPT2_WORKERS, errs)
     phase_timing_batched(cs, vecs, plain_reps=3)

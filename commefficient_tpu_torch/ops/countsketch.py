@@ -19,9 +19,9 @@ of ``ops/sketch_kernels.py``, which also sketches a stack of vectors in
 one launch (``sketch_vec_batched``); the fused unsketch + top-k through
 ``ops/topk_kernels.py``; ``--server_fused off`` through the batched
 estimates kernel of ``ops/sketch_kernels.py`` at batch 1.
-``CountSketch.estimates`` and ``sketch_sparse`` are plain PyTorch: the
-first is the plain version the estimate-reading kernels are held against,
-the second no TPU kernel.
+``CountSketch.estimates`` is plain PyTorch, the plain version the
+estimate-reading kernels are held against; ``sketch_sparse`` is no TPU
+kernel, and sums its collisions through ``sketch_kernels.segment_sum``.
 """
 
 from __future__ import annotations
@@ -133,27 +133,43 @@ class CountSketch:
         self.c_eff = pad_cols(self.c)
         self.nwindows = self.c_eff // LANES
         self._tables = {}
+        self._coeff_columns = {}
 
     # --- hashing ----------------------------------------------------------
-    def _row_signs(self, row: int, idx: torch.Tensor) -> torch.Tensor:
+    # ``row=None`` hashes every row at once: the coefficients become (r, 1)
+    # columns and the results (r, n), with the same integer arithmetic
+    def _row_coeffs(self, row, device):
+        """Row ``row``'s six hash coefficients as ints; for ``row=None``
+        every row's, as (r, 1) int64 columns on ``device`` (copied there
+        once)."""
+        if row is not None:
+            return self.coeffs[row]
+        device = torch.device(device)
+        if device not in self._coeff_columns:
+            cols = torch.tensor(self.coeffs, dtype=torch.int64).to(device)
+            self._coeff_columns[device] = tuple(cols[:, j:j + 1]
+                                                for j in range(6))
+        return self._coeff_columns[device]
+
+    def _row_signs(self, row, idx: torch.Tensor) -> torch.Tensor:
         """±1 sign per coordinate id: mixed cubic polynomial, low bit."""
-        h1, h2, h3, h4, _, _ = self.coeffs[row]
+        h1, h2, h3, h4, _, _ = self._row_coeffs(row, idx.device)
         i = idx.to(torch.int64) & _MASK32
         acc = (_mul32(i, h1) + h2) & _MASK32
         acc = (_mul32(acc, i) + h3) & _MASK32
         acc = (_mul32(acc, i) + h4) & _MASK32
         return (1 - 2 * (_mix(acc) & 1)).to(torch.float32)
 
-    def _block_hashes(self, row: int, blk: torch.Tensor):
+    def _block_hashes(self, row, blk: torch.Tensor):
         """(window base, 7-bit lane mask) per block id."""
-        _, _, _, _, h5, h6 = self.coeffs[row]
+        _, _, _, _, h5, h6 = self._row_coeffs(row, blk.device)
         b = blk.to(torch.int64) & _MASK32
         mb = _mix((_mul32(b, h6) + h5) & _MASK32)
         base = mb % self.nwindows
         lanemask = _mix(mb ^ h5) & (LANES - 1)
         return base, lanemask
 
-    def _row_hashes(self, row: int, idx: torch.Tensor):
+    def _row_hashes(self, row, idx: torch.Tensor):
         """(signs, flat buckets in [0, c_eff)) for coordinate ids."""
         i = idx.to(torch.int64) & _MASK32
         base, lanemask = self._block_hashes(row, i >> 7)
@@ -212,19 +228,26 @@ class CountSketch:
         ``sketch_vec`` of the dense vector up to float summation order in
         buckets where several nonzeros collide, at O(r*k).
 
-        ``index_add_`` sums collisions in update order on the CPU (the
-        reference's order); on CUDA it adds with atomics, whose order
-        changes from run to run, so colliding buckets there agree with the
-        reference only to float32 rounding."""
+        A bucket adds its updates from 0.0 in the order ``indices`` lists
+        them, which is the reference's ``segment_sum`` order, on every
+        device: the flat (row, bucket) keys are sorted stably and each run
+        of equal keys is summed in position order (``segment_sum``: the
+        CUDA kernel, or ``index_add_`` on the CPU). So the card's table is
+        the same in every run and bitwise the CPU's. No host sync."""
+        from commefficient_tpu_torch.ops.sketch_kernels import segment_sum
+        signs, buckets = self._row_hashes(None, indices)
+        rows = torch.arange(self.r, device=buckets.device)[:, None]
+        keys = (buckets + rows * self.c_eff).flatten()
+        signed = (signs * values).flatten()
+        order = torch.argsort(keys, stable=True)
         table = self.zero_table(values.device)
-        for row in range(self.r):
-            signs, buckets = self._row_hashes(row, indices)
-            table[row].index_add_(0, buckets, signs * values)
+        segment_sum(table.view(-1), keys[order], signed[order])
         return table
 
     def estimates(self, table: torch.Tensor) -> torch.Tensor:
         """Median-of-rows estimates of all d coordinates (plain PyTorch;
-        the fused unsketch kernels compute these per tile in registers)."""
+        the fused unsketch kernel computes each once, per tile, into a
+        scratch)."""
         dev = table.device
         blk = torch.arange(self.nblocks, dtype=torch.int64, device=dev)
         lanes = torch.arange(LANES, dtype=torch.int64, device=dev)
@@ -247,9 +270,12 @@ class CountSketch:
                                 fused: bool = True):
         """(values, indices) of the recovered top-k in the exact stable
         ``lax.top_k`` order. ``fused`` runs the fused unsketch + top-k
-        kernels; ``fused=False`` is the reference's ``--server_fused off``
-        chain: the batched estimates kernel at batch 1 (as the reference's
-        ``estimates_batched``), then the stable-sort top-k."""
+        kernels, whose compact select hands over the k survivors in index
+        order, then sorts them by (-score, index) as
+        ``values_indices_from_mask`` does; ``fused=False`` is the
+        reference's ``--server_fused off`` chain: the batched estimates
+        kernel at batch 1 (as the reference's ``estimates_batched``), then
+        the stable-sort top-k."""
         from commefficient_tpu_torch.ops import topk_kernels
         if not fused:
             from commefficient_tpu_torch.ops.sketch_kernels import \
@@ -257,8 +283,8 @@ class CountSketch:
             from commefficient_tpu_torch.ops.topk import topk_values_indices
             return topk_values_indices(
                 estimates_batched(self, table[None])[0], k, use_kernel=False)
-        masked, mask = topk_kernels.unsketch_select(self, table, k)
-        return topk_kernels.values_indices_from_mask(masked, mask, k)
+        vals, idxs = topk_kernels.unsketch_compact(self, table, k)
+        return topk_kernels.order_by_score(vals, idxs)
 
     def l2estimate(self, table: torch.Tensor) -> torch.Tensor:
         """Estimate ||vec||_2 as sqrt(median over rows of row sum-of-squares)

@@ -42,6 +42,12 @@ sums, so each table's estimates are bitwise its plain version,
 ``CountSketch.estimates``, whatever B. Bound: each table read once and
 each (d,) vector written once (10.0 MB + 26.3 MB a table at d=6,568,640),
 against ~100 operations per coordinate at r=5, paid once for all tables.
+
+``segment_sum`` is no port of a TPU kernel: it is the deterministic sum
+behind ``CountSketch.sketch_sparse`` (``csrc/segment_sum.cu``), where the
+reference has XLA's ``segment_sum``. Given stably sorted keys, it adds
+each run of equal keys in position order, so on the card it is bitwise
+its plain version, ``index_add_`` on the CPU, in every run.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"sketch_launch": [_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _I,
                                  _P, _P]}
 _EST_SIGNATURES = {"estimates_launch": [_P, _I, _LL, _I, _I, _P, _P, _P]}
+_SEGMENT_SIGNATURES = {"segment_sum_launch": [_P, _P, _LL, _P, _P]}
 
 
 def sketch_vec_plain(cs: CountSketch, vec: torch.Tensor,
@@ -235,3 +242,38 @@ def estimates_batched(cs: CountSketch, tables: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"estimates_batched takes a (B, r, c_eff) stack, "
                          f"got {tuple(tables.shape)}")
     return _launch_estimates(cs, tables, "estimates_batched")
+
+
+def segment_sum_plain(out: torch.Tensor, keys: torch.Tensor,
+                      vals: torch.Tensor) -> torch.Tensor:
+    """``out[keys[i]] += vals[i]`` in the order of i: ``index_add_``, which
+    on the CPU adds in update order."""
+    return out.index_add_(0, keys, vals)
+
+
+def segment_sum(out: torch.Tensor, keys: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """``out[keys[i]] += vals[i]`` for stably sorted int64 ``keys``, each
+    run of equal keys added in position order, in place. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    if out.device.type == "cpu":
+        return segment_sum_plain(out, keys, vals)
+    if out.device.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {out.device}")
+    if (out.dtype != torch.float32 or out.dim() != 1
+            or not out.is_contiguous() or keys.dtype != torch.int64
+            or vals.dtype != torch.float32 or keys.shape != vals.shape
+            or keys.dim() != 1 or keys.device != out.device
+            or vals.device != out.device):
+        raise ValueError("segment_sum takes a contiguous 1-D float32 out "
+                         "and (n,) int64 keys and float32 values on its "
+                         "device")
+    keys, vals = keys.contiguous(), vals.contiguous()
+    lib = cuda_lib.load("segment_sum", _SEGMENT_SIGNATURES)
+    err = lib.segment_sum_launch(keys.data_ptr(), vals.data_ptr(),
+                                 keys.shape[0], out.data_ptr(),
+                                 cuda_lib.stream_ptr(out.device))
+    cuda_lib.check(err, "segment_sum")
+    cuda_lib.LAUNCHES["segment_sum"] += 1
+    return out

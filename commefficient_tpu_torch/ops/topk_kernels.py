@@ -13,11 +13,25 @@ all three of their sources:
 
 The sources, as in the reference:
 
-* ``est`` (``count``/``select``, launch keys ``count``/``select``): the
-  value is the CountSketch estimate, computed per tile in registers from
-  the table (10 MB at 5 x 500,096, L2-resident on an H100) and never
-  stored as a (d,) vector; the select writes the masked estimates and the
-  int32 mask. The sketch-mode server runs it (``unsketch_select``).
+* ``est``: the value is the CountSketch estimate. The sketch-mode server
+  runs it through ``unsketch_compact`` (``unsketch_values_indices``), and
+  ``unsketch_select`` gives the reference's dense (masked estimates, int32
+  mask). On Hopper it is a histogram radix over estimates computed once
+  (``csrc/unsketch_radix.cu``, launch keys ``est_hist``, ``digit_hist``
+  (twice), then ``radix_compact`` or ``radix_select``): ``est_hist``
+  computes every estimate from the table (10 MB at 5 x 500,096,
+  L2-resident), stores it to a (d,) scratch and counts the first 11-bit
+  digit of its key; two ``digit_hist`` passes over the scratch count the
+  next digits (11 and 9 bits) of the keys that share the prefix; the last
+  CTA of each pass picks the digit on the device, so ``t`` and ``n_take``
+  never come to the host; the select counts ``bits > t`` and ties per
+  tile, scans them and writes bits > t plus the first ``n_take`` ties in
+  index order, dense or compacted. The key is the score bits clamped at 0,
+  because the reference's radix never goes below 0 (``radix_threshold_plain``).
+  The first port's kernels, which recompute the estimate in each of the 8
+  radix rounds, a ninth count and the select (``count``/``select``, keys
+  ``count``/``select``, ``csrc/unsketch_topk.cu``), stay beside it on no
+  path, held against ``count_plain``/``select_plain``.
 * ``plain`` (``count_rows``/``select_rows``, keys ``count_plain``/
   ``select_plain``): B rows of a dense (B, n) stream, each with its own
   candidates, ``t`` and ``n_take`` (the reference's batched per-row-k
@@ -38,15 +52,16 @@ design for every source (``csrc/topk_stream.cuh``; the est source in
 ``csrc/unsketch_topk.cu``, plain and resid in ``csrc/topk_stream.cu``).
 Coordinates at or past n neither count nor select.
 
-Bounds (d = 6,568,640): an ``est`` count reads the table once (10.0 MB)
-but recomputes r sign hashes, r gathers and the median for every
-coordinate (~133 operations each at r=5), so it is bound by operations; a
-plain count reads 4 bytes per element for 16 compares, and the plain and
-resid selects read their streams and write their outputs once: bound by
-bytes.
+Bounds (d = 6,568,640): an ``est`` count, and ``est_hist``, read the
+table once (10.0 MB) but compute r sign hashes, r gathers and the median
+for every coordinate (~133 operations each at r=5), so they are bound by
+operations; ``digit_hist``, a plain count (4 bytes per element for 16
+compares) and the selects read their streams and write their outputs
+once: bound by bytes.
 
-The radix search is PyTorch glue on the device (``_radix_threshold_batched``):
-no value comes to the host between the rounds.
+The radix search of the plain and resid sources, and of the first ``est``
+kernels, is PyTorch glue on the device (``_radix_threshold_batched``): no
+value comes to the host between the rounds.
 """
 
 from __future__ import annotations
@@ -66,6 +81,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _EST_SIGNATURES = {
     "count_launch": [_P, _LL, _I, _I, _P, _P, _P, _P],
     "select_launch": [_P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+_RADIX_SIGNATURES = {
+    "est_hist_launch": [_P, _LL, _I, _I, _P, _LL, _P, _P, _P],
+    "digit_hist_launch": [_P, _LL, _I, _LL, _P, _P],
+    "radix_select_launch": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P],
 }
 _STREAM_SIGNATURES = {
     "count_plain_launch": [_P, _LL, _I, _P, _P, _P],
@@ -182,6 +202,170 @@ def select(cs: CountSketch, table: torch.Tensor, t: torch.Tensor,
     cuda_lib.check(err, "select")
     cuda_lib.LAUNCHES["select"] += 1
     return masked, mask
+
+
+# --------------------------------------------------------------------------
+# est source, estimated once: the histogram radix (csrc/unsketch_radix.cu)
+# --------------------------------------------------------------------------
+
+#: (shift, width) of the radix digits of the 31-bit key: bits 30..20,
+#: 19..9, 8..0
+DIGITS = ((20, 11), (9, 11), (0, 9))
+# the kernels' int32 workspace (csrc/unsketch_radix.cu): three histograms,
+# control words (t at +6, n_take as int64 at +8), then the select's (2,
+# n_tiles) per-tile counts and their (2, n_tiles) offsets
+_WS_HIST = (0, 2048, 4096)
+_WS_CTRL = 4608
+_WS_COUNTS = _WS_CTRL + 16
+
+
+def _radix_key(bits: torch.Tensor) -> torch.Tensor:
+    """The radix key: score bits clamped at 0. The reference's radix
+    never goes below 0, so a negative score (a NaN with its sign bit set)
+    counts as 0 in the search, and is never selected (bits > t and
+    bits == t read the bits themselves)."""
+    return torch.clamp(bits, min=0).to(torch.int64)
+
+
+def digit_histogram_plain(bits: torch.Tensor, prefix, shift: int,
+                          width: int) -> torch.Tensor:
+    """Plain version of a histogram pass: (2**width,) int32 counts of the
+    key digit ``(key >> shift) & (2**width - 1)`` over the keys whose
+    higher bits ``key >> (shift + width)`` equal ``prefix``."""
+    key = _radix_key(bits)
+    nbins = 1 << width
+    digit = torch.where((key >> (shift + width)) == prefix,
+                        (key >> shift) & (nbins - 1), nbins)
+    hist = torch.zeros(nbins + 1, dtype=torch.int64, device=bits.device)
+    hist.scatter_add_(0, digit, torch.ones_like(digit))
+    return hist[:nbins].to(torch.int32)
+
+
+def digit_pick_plain(hist: torch.Tensor, k_rem):
+    """Plain version of the device-side digit pick: ``(b, above)``, the
+    largest bin b whose count of keys in bins >= b reaches ``k_rem`` (bin
+    0 if none does) and the count of keys in bins above it; 0-d int64."""
+    h = hist.to(torch.int64)
+    at_or_above = torch.flip(torch.cumsum(torch.flip(h, (0,)), 0), (0,))
+    bins = torch.arange(h.shape[0], device=h.device)
+    b = torch.where(at_or_above >= k_rem, bins, 0).amax()
+    return b, at_or_above[b] - h[b]
+
+
+def radix_threshold_plain(bits: torch.Tensor, k: int):
+    """``(t, n_take)`` (0-d int32, int64) of the reference's radix by the
+    digit passes: t = max{v in [0, 2**31 - 1] : #(bits >= v) >= k}, or 0
+    if there is none, and n_take = k - #(bits >= t + 1), with t + 1
+    saturating at INT32_MAX as the reference's. Equal to
+    ``_radix_threshold`` over ``_count_bits``; no host sync."""
+    zero = torch.zeros((), dtype=torch.int64, device=bits.device)
+    prefix, k_rem, above = zero, zero + k, zero
+    for shift, width in DIGITS:
+        hist = digit_histogram_plain(bits, prefix, shift, width)
+        b, a = digit_pick_plain(hist, k_rem)
+        prefix = (prefix << width) | b
+        k_rem, above = k_rem - a, above + a
+    at_t = torch.where(prefix == _I32_MAX, hist.to(torch.int64)[b], 0)
+    return prefix.to(torch.int32), k - above - at_t
+
+
+def select_compact_plain(est: torch.Tensor, t: torch.Tensor,
+                         n_take: torch.Tensor, k: int):
+    """Plain version of the compact select: the survivors of
+    ``_select_est`` as ``(values (k,), indices (k,) int64)`` in index
+    order; slots past the last survivor hold index 0 and the masked value
+    at 0."""
+    sel = _select_mask(_score_bits(est), t, n_take)
+    idx = torch.nonzero(sel).flatten()[:k]
+    indices = torch.zeros(k, dtype=torch.int64, device=est.device)
+    indices[:idx.shape[0]] = idx
+    return torch.where(sel, est, 0.0)[indices], indices
+
+
+def radix_workspace(d: int, device):
+    """``(est, ws)`` for the histogram radix at length ``d``: the (n_tiles
+    * 8192,) f32 scratch for the estimates (padded to whole tiles) and the
+    zeroed int32 workspace, both from PyTorch's caching allocator."""
+    n_tiles = -(-d // TILE_N)
+    return (torch.empty(n_tiles * TILE_N, dtype=torch.float32,
+                        device=device),
+            torch.zeros(_WS_COUNTS + 4 * n_tiles, dtype=torch.int32,
+                        device=device))
+
+
+def est_hist(cs: CountSketch, table: torch.Tensor, k: int,
+             est: torch.Tensor, ws: torch.Tensor) -> None:
+    """Pass 0 on a CUDA table: every estimate into ``est``, the first
+    digit's histogram and its pick into ``ws`` (zeroed)."""
+    _check_table(cs, table, "est_hist")
+    if not 0 <= k < 2 ** 31:
+        raise ValueError(f"k={k} outside [0, 2**31)")
+    tabs = cs.kernel_tables(table.device)
+    lib = cuda_lib.load("unsketch_radix", _RADIX_SIGNATURES)
+    err = lib.est_hist_launch(table.data_ptr(), cs.d, cs.r, cs.nwindows,
+                              tabs.coeffs.data_ptr(), k, est.data_ptr(),
+                              ws.data_ptr(), cuda_lib.stream_ptr(table.device))
+    cuda_lib.check(err, "est_hist")
+    cuda_lib.LAUNCHES["est_hist"] += 1
+
+
+def digit_hist(est: torch.Tensor, d: int, k: int, ws: torch.Tensor,
+               pass_: int) -> None:
+    """Pass 1 or 2 over the stored estimates: the next digit's histogram
+    of the keys that share the prefix, and its pick (the last pass leaves
+    t and n_take in ``ws``)."""
+    lib = cuda_lib.load("unsketch_radix", _RADIX_SIGNATURES)
+    err = lib.digit_hist_launch(est.data_ptr(), d, pass_, k, ws.data_ptr(),
+                                cuda_lib.stream_ptr(est.device))
+    cuda_lib.check(err, "digit_hist")
+    cuda_lib.LAUNCHES["digit_hist"] += 1
+
+
+def unsketch_radix(cs: CountSketch, table: torch.Tensor, k: int):
+    """The three histogram passes on a CUDA table: ``est_hist``, then
+    ``digit_hist`` twice. Returns ``(est, ws)``: the scratch whose first d
+    values are the estimates, and the workspace holding the histograms, t
+    and n_take (``radix_views``). Raises for a table off the card; nothing
+    comes to the host."""
+    est, ws = radix_workspace(cs.d, table.device)
+    est_hist(cs, table, k, est, ws)
+    for p in (1, 2):
+        digit_hist(est, cs.d, k, ws, p)
+    return est, ws
+
+
+def radix_views(ws: torch.Tensor) -> dict:
+    """Views of an ``unsketch_radix`` workspace: the three digit
+    histograms (``hists``), ``t`` (0-d int32) and ``n_take`` (0-d
+    int64)."""
+    hists = tuple(ws[o:o + (1 << w)] for o, (_, w) in zip(_WS_HIST, DIGITS))
+    return {"hists": hists, "t": ws[_WS_CTRL + 6],
+            "n_take": ws[_WS_CTRL + 8:_WS_CTRL + 10].view(torch.int64)[0]}
+
+
+def radix_select(est: torch.Tensor, d: int, k: int, ws: torch.Tensor,
+                 dense: bool):
+    """The select after ``unsketch_radix``: the per-tile counts, their
+    scan and the select pass. ``dense``: (masked (d,) f32, int32 mask
+    (d,)), launch key ``radix_select``; else (values (k,) f32, indices (k,)
+    int64) in index order, key ``radix_compact``."""
+    dev = est.device
+    lib = cuda_lib.load("unsketch_radix", _RADIX_SIGNATURES)
+    if dense:
+        out = (torch.empty(d, dtype=torch.float32, device=dev),
+               torch.empty(d, dtype=torch.int32, device=dev))
+        ptrs = (out[0].data_ptr(), out[1].data_ptr(), None, None)
+        key = "radix_select"
+    else:
+        out = (torch.empty(k, dtype=torch.float32, device=dev),
+               torch.empty(k, dtype=torch.int64, device=dev))
+        ptrs = (None, None, out[0].data_ptr(), out[1].data_ptr())
+        key = "radix_compact"
+    err = lib.radix_select_launch(est.data_ptr(), d, k, ws.data_ptr(),
+                                  *ptrs, cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, key)
+    cuda_lib.LAUNCHES[key] += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -356,22 +540,40 @@ def unsketch_select(cs: CountSketch, table: torch.Tensor, k: int):
     """Fused unsketch + exact top-k of a tiled CountSketch table:
     ``(masked estimates (d,), int32 selection mask (d,))``, bitwise the
     reference's ``unsketch_select_pallas``. A CPU table takes the plain
-    version; a CUDA table runs the count and select kernels."""
+    version; a CUDA table runs the histogram radix kernels (``est_hist``,
+    ``digit_hist`` twice, ``radix_select``) or raises."""
     if table.device.type == "cpu":
         return unsketch_select_plain(cs, table, k)
-    t, n_take = _radix_threshold(lambda c: count(cs, table, c), k,
-                                 table.device)
-    return select(cs, table, t, n_take)
+    est, ws = unsketch_radix(cs, table, k)
+    return radix_select(est, cs.d, k, ws, dense=True)
+
+
+def unsketch_compact(cs: CountSketch, table: torch.Tensor, k: int):
+    """The survivors of ``unsketch_select`` compacted: ``(values (k,) f32,
+    indices (k,) int64)`` in ascending index order, unfilled slots (fewer
+    than k survivors) holding index 0 and the masked value at 0, as the
+    reference's compaction in ``values_indices_from_mask``. A CPU table
+    takes the plain version; a CUDA table runs the histogram radix kernels
+    (``est_hist``, ``digit_hist`` twice, ``radix_compact``) or raises."""
+    if table.device.type == "cpu":
+        return unsketch_compact_plain(cs, table, k)
+    est, ws = unsketch_radix(cs, table, k)
+    return radix_select(est, cs.d, k, ws, dense=False)
 
 
 def unsketch_select_plain(cs: CountSketch, table: torch.Tensor, k: int):
-    """Plain version of ``unsketch_select`` on any device: the same radix
-    rounds over the plain counts, with the estimates computed once."""
+    """Plain version of ``unsketch_select`` on any device: the estimates
+    computed once, the digit radix, the dense select."""
     est = cs.estimates(table)
-    bits = _score_bits(est)
-    t, n_take = _radix_threshold(lambda c: _count_bits(bits, c), k,
-                                 table.device)
+    t, n_take = radix_threshold_plain(_score_bits(est), k)
     return _select_est(est, t, n_take)
+
+
+def unsketch_compact_plain(cs: CountSketch, table: torch.Tensor, k: int):
+    """Plain version of ``unsketch_compact`` on any device."""
+    est = cs.estimates(table)
+    t, n_take = radix_threshold_plain(_score_bits(est), k)
+    return select_compact_plain(est, t, n_take, k)
 
 
 def topk_select(vec: torch.Tensor, kk, k: int, with_mask: bool = False):
@@ -434,7 +636,12 @@ def values_indices_from_mask(masked: torch.Tensor, mask: torch.Tensor,
     idxs = torch.zeros(k + 1, dtype=torch.int64, device=masked.device)
     idxs.scatter_(0, slot, torch.arange(d, device=masked.device))
     idxs = idxs[:k]
-    vals = masked[idxs]
+    return order_by_score(masked[idxs], idxs)
+
+
+def order_by_score(vals: torch.Tensor, idxs: torch.Tensor):
+    """Compacted (values, indices) sorted by (-score, index), the stable
+    ``lax.top_k`` order, as the reference's two-key ``lax.sort``."""
     by_index = torch.argsort(idxs, stable=True)
     by_score = torch.argsort(-(vals * vals)[by_index], stable=True)
     order = by_index[by_score]

@@ -15,7 +15,11 @@ def resolve_device(device="cuda") -> torch.device:
 
     On CUDA this also turns TF32 off for cuDNN convolutions and cuBLAS
     matmuls: the reference trains in full float32, and cuDNN's float32
-    convolutions default to TF32 (about three decimal digits)."""
+    convolutions default to TF32 (about three decimal digits). And it
+    makes cuDNN choose deterministic algorithms, without autotuning: the
+    reference's trajectories are bitwise reproducible, and cuDNN's
+    default backward algorithms add with atomics in an order that
+    changes from run to run."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -25,6 +29,8 @@ def resolve_device(device="cuda") -> torch.device:
                 "the CPU")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev

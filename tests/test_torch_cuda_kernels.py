@@ -12,8 +12,11 @@ attention kernels match theirs within float32 rounding (O and lse atol
 1e-5, gradients 1e-4 of their largest magnitude; bf16 2e-2), with and
 without dropout, and are deterministic; the hardware-RNG dropout kernel
 equals its plain version bitwise (float32 and bfloat16, a partial
-logical block) and meets the reference's contract. ``chip_smoke.py``
-repeats this at the main paths' full width.
+logical block) and meets the reference's contract; the estimate-once
+radix of the fused unsketch + top-k equals its plain versions pass by pass
+(NaN, +-0.0 and all-zero tables included), and the sparse re-sketch's
+segmented sum equals the CPU's bitwise. ``chip_smoke.py`` repeats this at
+the main paths' full width.
 """
 
 import numpy as np
@@ -288,3 +291,98 @@ def test_hw_dropout_contract_on_the_card(dev):
     assert torch.equal(g, y)
     y2 = hw_dropout(x.detach(), seed_words(8), 0.1)
     assert float((y2 != y).double().mean()) > 0.1
+
+
+def _radix_table(case, r, c_eff, seed):
+    rng = np.random.RandomState(seed)
+    if case == "ties":
+        return rng.choice(np.array([-3, -2, -1, 1, 2, 3], np.float32),
+                          size=(r, c_eff))
+    if case == "zero":
+        return np.zeros((r, c_eff), np.float32)
+    t = rng.randn(r, c_eff).astype(np.float32)
+    if case == "nan_zeros":
+        t[rng.rand(r, c_eff) < 0.3] = 0.0
+        t[rng.rand(r, c_eff) < 0.2] = -0.0
+        t[rng.rand(r, c_eff) < 0.002] = np.nan
+    return t
+
+
+@pytest.mark.parametrize("case,d,c,r,k", [
+    ("random", 20_000, 1_000, 5, 300), ("ties", 20_000, 640, 3, 2_500),
+    ("ties", 8_192 * 3 + 5, 640, 1, 4_000), ("zero", 20_001, 700, 5, 300),
+    ("nan_zeros", 20_000, 700, 5, 400), ("nan_zeros", 20_000, 700, 5, 100),
+    ("random", 9_000, 512, 5, 1),
+    ("random", 777, 300, 3, 777)])
+def test_radix_kernels_equal_plain(dev, case, d, c, r, k):
+    """The estimate-once radix against its plain versions, pass by pass:
+    the stored estimates, each digit histogram, t and n_take (also the
+    first port's count radix), the dense and the compact select; the
+    wrappers twice, with their launches. At k = 100 the NaN estimates
+    (about 1%) outnumber k: their card squares are INT32_MAX, where the
+    reference's n_take goes negative and nothing is kept."""
+    cs = CountSketch(d=d, c=c, r=r, seed=42)
+    table = torch.from_numpy(_radix_table(case, r, cs.c_eff, d + r)).to(dev)
+    est, ws = tk.unsketch_radix(cs, table, k)
+    views = tk.radix_views(ws)
+    p_est = cs.estimates(table)
+    assert _same_bits(est[:d], p_est)
+    bits = tk._score_bits(p_est)
+    prefix = torch.zeros((), dtype=torch.int64, device=dev)
+    k_rem = prefix + k
+    for (shift, width), hist in zip(tk.DIGITS, views["hists"]):
+        want = tk.digit_histogram_plain(bits, prefix, shift, width)
+        assert torch.equal(hist, want)
+        b, above = tk.digit_pick_plain(want, k_rem)
+        prefix, k_rem = (prefix << width) | b, k_rem - above
+    t, n_take = tk.radix_threshold_plain(bits, k)
+    ct, cn = tk._radix_threshold(lambda cands: tk.count_plain(cs, table,
+                                                              cands), k, dev)
+    assert int(views["t"]) == int(t) == int(ct)
+    assert int(views["n_take"]) == int(n_take) == int(cn)
+    dense = tk.radix_select(est, d, k, ws, dense=True)
+    compact = tk.radix_select(est, d, k, ws, dense=False)
+    p_dense = tk.unsketch_select_plain(cs, table, k)
+    p_compact = tk.unsketch_compact_plain(cs, table, k)
+    assert _same_bits(dense[0], p_dense[0])
+    assert torch.equal(dense[1], p_dense[1])
+    assert _same_bits(compact[0], p_compact[0])
+    assert torch.equal(compact[1], p_compact[1])
+    before = dict(cuda_lib.LAUNCHES)
+    for _ in range(2):
+        got = tk.unsketch_select(cs, table, k)
+        assert _same_bits(got[0], dense[0]) and torch.equal(got[1], dense[1])
+        got = tk.unsketch_compact(cs, table, k)
+        assert _same_bits(got[0], compact[0])
+        assert torch.equal(got[1], compact[1])
+    grew = {key: cuda_lib.LAUNCHES[key] - before.get(key, 0)
+            for key in ("est_hist", "digit_hist", "radix_select",
+                        "radix_compact", "count", "select")}
+    assert grew == {"est_hist": 4, "digit_hist": 8, "radix_select": 2,
+                    "radix_compact": 2, "count": 0, "select": 0}
+    if case != "nan_zeros":   # NaN squares differ between card and CPU
+        vals, idxs = cs.unsketch_values_indices(table, k)
+        c_vals, c_idxs = cs.unsketch_values_indices(table.cpu(), k)
+        assert torch.equal(idxs.cpu(), c_idxs)
+        assert _same_bits(vals.cpu(), c_vals)
+
+
+def test_sketch_sparse_card_equals_cpu(dev):
+    """Order-sensitive collisions (signed 1e8, 1, -1e8 in one bucket) and
+    many ordinary ones: the card's table is bitwise the CPU's, twice."""
+    cs = CountSketch(d=50_000, c=1_000, r=5, seed=42)
+    rng = np.random.RandomState(3)
+    idx = torch.from_numpy(rng.permutation(cs.d)[:3_000].astype(np.int64))
+    _, buckets = cs._row_hashes(0, idx)
+    b, counts = torch.unique(buckets, return_counts=True)
+    three = idx[buckets == b[counts >= 3][0]][:3]
+    idx = torch.cat([three, idx[~torch.isin(idx, three)]])
+    signs, _ = cs._row_hashes(0, three)
+    vals = torch.from_numpy(rng.randn(len(idx)).astype(np.float32))
+    vals[:3] = torch.tensor([1e8, 1.0, -1e8]) * signs
+    cpu = cs.sketch_sparse(vals, idx)
+    before = cuda_lib.LAUNCHES["segment_sum"]
+    got = cs.sketch_sparse(vals.to(dev), idx.to(dev))
+    again = cs.sketch_sparse(vals.to(dev), idx.to(dev))
+    assert cuda_lib.LAUNCHES["segment_sum"] == before + 2
+    assert _same_bits(got.cpu(), cpu) and _same_bits(again, got)
