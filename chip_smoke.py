@@ -14,11 +14,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      at k=50,000, and a table with planted ties; the first port's count
      and select kernels (on no path: the radix below replaced them)
      against theirs;
-   - the plain count and select on an (8, 6,568,640) batch with per-row
-     k of 50,000 / 25,000 / 1, planted ties across tiles and an all-zero
-     row; the resid select on (err, v) at d with planted ties and with
-     selected +-0.0; the estimates of the sketched table, which must also
-     equal the fused selection's masked values where its mask is set;
+   - the first port's plain count and select (on no path now) on
+     an (8, 6,568,640) batch with per-row k of 50,000 / 25,000 / 1,
+     planted ties across tiles and an all-zero row; its resid select on
+     (err, v) at d with planted ties and with selected +-0.0; the
+     estimates of the sketched table, which must also equal the fused
+     selection's masked values where its mask is set;
    - the batched estimates of 8 tables (the sketched one, an all-zero one,
      seeded normals) at B = 8, 3 and 1, every table bitwise equal to the
      unbatched kernel and to the plain version, and the same over two
@@ -29,6 +30,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      estimates, each digit histogram, t and n_take (also against the count
      kernels' radix), the dense and compact outputs bitwise equal to the
      plain versions, and the same over two runs;
+   - the per-row histogram radix of the dense streams (rows_hist x 3,
+     then rows_select or rows_resid) on an (8, 6,568,640) batch with
+     per-row k ``KK_RADIX`` (a k = 0 row; random, all-zero, planted-tie
+     and NaN-bearing rows) and at B = 1 on true_topk's (err, v) with
+     planted ties and with selected +-0.0: each pass's per-row histograms,
+     t, n_take and the outputs bitwise equal to the plain versions, and
+     the entry points' second runs equal to the first;
    - one sketch-mode server step with --server_fused auto against off:
      update, Vvelocity and Verror bitwise equal; then 10 alternating pairs
      of the two steps, timed;
@@ -43,7 +51,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    one, and the bound computed from this run's bytes and operations; the
    whole recovery (new compact, new dense, old count x 9 + select) as 20
    alternating rounds, beside ``torch.topk`` of the squared estimates and
-   ``estimates_batched`` + ``torch.topk``;
+   ``estimates_batched`` + ``torch.topk``; the per-row radix's passes and
+   selects, and its whole top-k at B = 8 and B = 1 against the first
+   port's route (nibble glue, count_plain x 9, the select) and
+   ``torch.topk`` of the squares, as 20 alternating rounds;
 4. the main paths, each ``training.cv.train(args, max_rounds=3)`` at
    ResNet9's full width (d = 6,568,640) on Synthetic with 8 workers and
    k=50,000, every launch counter set to 0 just before it and read just
@@ -51,10 +62,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    - sketch (the headline FetchSGD flags, 5 x 500k, virtual error and
      momentum 0.9, 32 images a worker): sketch 3 and the recovery's
      kernels: est_hist 3, digit_hist 6, radix_compact 3, segment_sum 3;
-   - true_topk (virtual error, momentum 0.9): count_plain 27,
-     select_resid 3;
-   - local_topk (local error and momentum 0.9, 100 clients): count_plain
-     27 (8 rows a launch), select_plain 3;
+   - true_topk (virtual error, momentum 0.9): rows_hist 9, rows_resid 3;
+   - local_topk (local error and momentum 0.9, 100 clients): rows_hist 9
+     (8 rows a launch), rows_select 3;
    - sketch with --server_fused off: sketch 3, estimates_batched 3 (the
      reference's off branch runs the batched grid at B = 1), segment_sum
      3;
@@ -90,7 +100,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    count, select and the radix again at the GPT2 path's d = 124,051,201
    (a seeded vector into the same 5 x 500,096 table, k = 50,000; plain
    versions timed over 3 runs), and the batched sketch's check and times
-   at that d with B = 4; then the hardware-RNG dropout kernel against its
+   at that d with B = 4; the B = 1 resid top-k at that d (parity, passes,
+   20 alternating rounds against the old route and ``torch.topk``); then
+   the hardware-RNG dropout kernel against its
    plain version, bitwise: the GPT2 path's (64, 256, 768) float32 at rates
    0.1 and 0.5, the mc head's (64, 768), a (300, 1024) view with a partial
    logical block and a bfloat16 case, each twice; the reference's contract
@@ -117,6 +129,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    set on the parsed namespace (no CLI value selects it, as in the
    reference): gpt2's launches and hw_dropout 156 (26 sites a forward, 26
    a backward, 3 rounds), none in validation; profiled in the same way;
+   then the gpt2 path twice more from the same seed (ROADMAP C5b), the
+   first run freed before the second: per-round losses, weights,
+   Vvelocity and Verror bitwise equal;
 8. a reference check of a narrow GPT2 learner (2 layers) on CUDA (flash
    kernels) and on the CPU: two sketch rounds from the same weights and
    batches, losses within 1e-4 relative, bytes equal; at dropout 0, and
@@ -163,11 +178,11 @@ PATHS = {
     "true_topk": (_BASE + ["--mode", "true_topk", "--error_type", "virtual",
                            "--virtual_momentum", "0.9",
                            "--local_batch_size", "32"],
-                  {"count_plain": 27, "select_resid": 3}, 4 * D_RESNET9),
+                  {"rows_hist": 9, "rows_resid": 3}, 4 * D_RESNET9),
     "local_topk": (_BASE + ["--mode", "local_topk", "--error_type", "local",
                             "--local_momentum", "0.9", "--num_clients",
                             "100", "--local_batch_size", "32"],
-                   {"count_plain": 27, "select_plain": 3}, 4 * K),
+                   {"rows_hist": 9, "rows_select": 3}, 4 * K),
     # the reference's off branch runs the batched estimates grid at B = 1
     "sketch_server_fused_off": (HEADLINE + ["--server_fused", "off"],
                                 {"sketch": 3, "estimates_batched": 3,
@@ -196,6 +211,8 @@ PATHS.update({
 # per-row k of the batched parity check: full, an all-zero row, contested
 # ties at k/2, and k = 1
 KK_ROWS = [K, K, K // 2, 1, K, K, K, K]
+# per-row k of the per-row radix's check: KK_ROWS' values and a k = 0 row
+KK_RADIX = [K, K, K // 2, 1, 0, K, K, K]
 GPT2_FLAGS = ["--model", "gpt2", "--vocab_pad_to", "50262", "--attn_impl",
               "blockwise", "--mode", "sketch", "--error_type", "virtual",
               "--virtual_momentum", "0.9", "--num_workers", "4",
@@ -1127,6 +1144,305 @@ def phase_timing_radix(cs, table, pairs=20):
     return rows
 
 
+def _rows_stream(dev):
+    """The (8, d) stream of the per-row radix's check, one row per case:
+    seeded normals (rows 0, 3, 4, 6, 7), all zero (1), 3k planted ties at
+    3.0 (2, k/2 among them), normals with 30% +0.0, 20% -0.0 and 1% NaN
+    (5)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((len(KK_RADIX), D_RESNET9), generator=gen, device=dev)
+    x[1] = 0.0
+    x[2, torch.randperm(D_RESNET9, generator=gen, device=dev)[:3 * K]] = 3.0
+    u = torch.rand(D_RESNET9, generator=gen, device=dev)
+    x[5, u < 0.3] = 0.0
+    x[5, (u >= 0.3) & (u < 0.5)] = -0.0
+    x[5, u > 0.99] = float("nan")
+    return x
+
+
+def _check_rows_radix(tag, x, kk, ws, errs):
+    """A ``rows_radix`` workspace against the plain versions, per row:
+    each pass's histograms, t and n_take. Returns the plain (t, n_take)."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    views = tk.rows_views(ws)
+    bits = tk._score_bits(x)
+    prefix, k_rem = torch.zeros_like(kk), kk
+    for p, ((shift, width), hist) in enumerate(zip(tk.DIGITS,
+                                                   views["hists"])):
+        want = tk.digit_histogram_plain(bits, prefix, shift, width)
+        if not torch.equal(hist, want):
+            raise AssertionError(f"rows_hist pass {p} histograms != plain "
+                                 f"({tag})")
+        errs["rows_hist"] = max(errs["rows_hist"], _max_abs_err(hist, want))
+        b, above = tk.digit_pick_plain(want, k_rem)
+        prefix, k_rem = (prefix << width) | b, k_rem - above
+    t, n_take = tk.radix_threshold_rows_plain(bits, kk)
+    if not (torch.equal(views["t"], t)
+            and torch.equal(views["n_take"], n_take)):
+        raise AssertionError(f"rows_hist (t, n_take) {views['t'].tolist()}, "
+                             f"{views['n_take'].tolist()} != plain "
+                             f"{t.tolist()}, {n_take.tolist()} ({tag})")
+    return t, n_take
+
+
+def phase_parity_rows(dev, errs):
+    """The per-row histogram radix (the plain and resid sources' route)
+    against its plain versions at ResNet9's d, bitwise: at
+    B = 8 with ``KK_RADIX`` over random, all-zero, planted-tie and
+    NaN-bearing rows, each pass's per-row histograms, t and n_take, the
+    select with and without the mask; at B = 1 the resid select over
+    ``_resid_inputs`` (planted ties; selected +-0.0); every entry point
+    twice, bitwise equal. Returns the timing phase's inputs."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    for name in ("rows_hist", "rows_select", "rows_resid"):
+        errs.setdefault(name, 0.0)
+    xs = _rows_stream(dev)
+    kk = torch.tensor(KK_RADIX, device=dev)
+    ws = tk.rows_radix(xs, kk)
+    t, n_take = _check_rows_radix(f"B=8, kk {KK_RADIX}", xs, kk, ws, errs)
+    for with_mask in (True, False):
+        got = tk.rows_select(xs, ws, with_mask)
+        ref = tk.select_rows_plain(xs, t, n_take, with_mask)
+        if not _same_bits(got[0], ref[0]) or (
+                with_mask and not torch.equal(got[1], ref[1])):
+            raise AssertionError(f"rows_select != plain (mask {with_mask})")
+        errs["rows_select"] = max(errs["rows_select"],
+                                  _max_abs_err(got[0], ref[0]))
+    kept = ref[0].ne(0).sum(1).tolist()
+    again = tk.topk_select(xs, kk, K, with_mask=True)
+    if not (_same_bits(again[0], ref[0]) and torch.equal(
+            again[1], tk.select_rows_plain(xs, t, n_take, True)[1])):
+        raise AssertionError("topk_select differs from its first run / the "
+                             "plain selection")
+    taken = again[1].sum(1).tolist()
+    print(f"parity rows_hist/rows_select (8 x {D_RESNET9}, kk {KK_RADIX}; "
+          f"random, all-zero, planted ties, NaN rows): per-pass histograms, "
+          f"t {t.tolist()}, n_take {n_take.tolist()} and the select with "
+          f"and without mask bitwise equal to plain, deterministic over 2 "
+          f"runs; selected {taken}, nonzeros kept {kept}", flush=True)
+    del again, got, ref, ws
+
+    rng = np.random.RandomState(12)
+    kk1 = torch.full((1,), K, dtype=torch.int64, device=dev)
+    for name, sparse in (("planted ties", False), ("selected +-0.0", True)):
+        g, vv, ve = _resid_inputs(dev, rng, sparse)
+        v = g + 0.9 * vv
+        err = ve + v
+        ws1 = tk.rows_radix(err[None], kk1)
+        t1, n1 = _check_rows_radix(f"B=1, {name}", err[None], kk1, ws1, errs)
+        got = tk.rows_resid(err, v, ws1)
+        ref = tk.select_resid_plain(err, v, t1[0], n1[0])
+        fused = tk.fused_true_topk(g, vv, ve, K, 0.9)
+        for a, b, c in zip(got, ref, fused):
+            if not (_same_bits(a, b) and _same_bits(c, b)):
+                raise AssertionError(f"rows_resid != plain / fused_true_topk"
+                                     f" ({name})")
+            errs["rows_resid"] = max(errs["rows_resid"], _max_abs_err(a, b))
+        print(f"parity rows_hist/rows_resid (B=1, n={D_RESNET9}, k={K}, "
+              f"{name}): histograms, t {int(t1[0])}, n_take {int(n1[0])}, "
+              f"update, velocity and error bitwise equal to plain and to a "
+              f"second run through fused_true_topk", flush=True)
+    return {"xs": xs, "kk": kk, "err": err, "v": v, "kk1": kk1}
+
+
+def _rows_hist_cost(rows, n):
+    """One digit pass: the stream read once, the rows' histograms
+    written."""
+    return _bound(4 * rows * n + 4 * rows * 2048, _OPS_RADIX * rows * n)
+
+
+def _time_rows_passes(x, kk, plain_reps=REPS):
+    """Each digit pass alone (its workspace restored outside the timed
+    events) and its plain version: ``(ms [3], plain ms [3], ws after the
+    last pass)``."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    ws = tk.rows_workspace(x.shape[0], x.device)
+    snaps = [ws.clone()]
+    for p in range(3):
+        tk.rows_hist(x, kk, ws, p)
+        snaps.append(ws.clone())
+    bits = tk._score_bits(x)
+    prefixes, k_rem = [torch.zeros_like(kk)], kk
+    for shift, width in tk.DIGITS:
+        b, above = tk.digit_pick_plain(tk.digit_histogram_plain(
+            bits, prefixes[-1], shift, width), k_rem)
+        prefixes.append((prefixes[-1] << width) | b)
+        k_rem = k_rem - above
+    ms = [_time_ms(lambda p=p: tk.rows_hist(x, kk, ws, p),
+                   setup=lambda p=p: ws.copy_(snaps[p])) for p in range(3)]
+
+    def plain_pass(p):
+        shift, width = tk.DIGITS[p]
+        return tk.digit_pick_plain(tk.digit_histogram_plain(
+            tk._score_bits(x), prefixes[p], shift, width), kk)
+
+    plain = [_time_ms(lambda p=p: plain_pass(p), plain_reps)
+             for p in range(3)]
+    ws.copy_(snaps[3])
+    return ms, plain, ws
+
+
+def _alternate(sides, pairs):
+    """``pairs`` alternating rounds of every side (each the median of 25
+    CUDA-event timings): ``{side: [ms a round]}``."""
+    ms = {name: [] for name in sides}
+    names = list(sides)
+    for i in range(pairs):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            ms[name].append(_time_ms(sides[name]))
+    return ms
+
+
+def _report_route(tag, ms, bound_ms, design_ms):
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    ratio = [o / n for o, n in zip(ms["old"], ms["new"])]
+    print(f"time {tag} ({len(ms['new'])} alternating rounds): new "
+          f"{med['new']:.4f} ms, old (nibble glue + count_plain x 9 + "
+          f"select) {med['old']:.4f} ms (old / new: median "
+          f"{float(np.median(ratio)):.3f}, min {min(ratio):.3f}, max "
+          f"{max(ratio):.3f}), torch.topk of the squares {med['topk']:.4f} "
+          f"ms; bound of the function {bound_ms:.5f} ms, of the design's "
+          f"own bytes {design_ms:.5f} ms", flush=True)
+    print("  rounds: " + ", ".join(
+        f"{name} {[round(x, 4) for x in v]}" for name, v in ms.items()),
+          flush=True)
+    return med
+
+
+def phase_timing_rows(inputs, pairs=20):
+    """Times of the per-row radix at the main paths' shapes: each digit
+    pass, the select (B = 8, no mask: local_topk's call) and the resid
+    select (B = 1: true_topk's) beside their plain versions and bounds;
+    then the whole top-k by the new route, by the first port's (nibble
+    glue, count_plain x 9, select_plain or select_resid) and
+    ``torch.topk`` of the squares as ``pairs`` alternating rounds, at
+    B = 8 and B = 1."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    xs, kk = inputs["xs"], inputs["kk"]
+    err, v, kk1 = inputs["err"], inputs["v"], inputs["kk1"]
+    B, n = xs.shape
+    dev = xs.device
+    err_rows = err[None]
+    pass_ms, pass_plain, ws = _time_rows_passes(xs, kk)
+    pass1_ms, pass1_plain, ws1 = _time_rows_passes(err_rows, kk1)
+    views, views1 = tk.rows_views(ws), tk.rows_views(ws1)
+    t, n_take = views["t"], views["n_take"]
+    t1, n1 = views1["t"][0], views1["n_take"][0]
+    scores8, scores1 = xs * xs, err * err
+    topk_b8 = _time_ms(lambda: torch.topk(scores8, K, dim=-1))
+    topk_b1 = _time_ms(lambda: torch.topk(scores1, K))
+    rows = {
+        "rows_hist": dict(
+            ms=float(np.mean(pass_ms)), plain_ms=float(np.mean(pass_plain)),
+            library_ms=topk_b8, cost=_rows_hist_cost(B, n),
+            at=f"B={B}, n={n}, mean of the 3 passes: pass 0 "
+               f"{pass_ms[0]:.4f} ms, 1 {pass_ms[1]:.4f}, 2 "
+               f"{pass_ms[2]:.4f}; B=1: {pass1_ms[0]:.4f}, "
+               f"{pass1_ms[1]:.4f}, {pass1_ms[2]:.4f} (plain "
+               f"{float(np.mean(pass1_plain)):.4f}, bound "
+               f"{_rows_hist_cost(1, n)[0]:.5f})"),
+        "rows_select": dict(
+            ms=_time_ms(lambda: tk.rows_select(xs, ws)),
+            plain_ms=_time_ms(lambda: tk.select_rows_plain(xs, t, n_take)),
+            library_ms=topk_b8, cost=_select_plain_cost(B, n),
+            at=f"B={B}, n={n}, no mask; counts, scan and select"),
+        "rows_resid": dict(
+            ms=_time_ms(lambda: tk.rows_resid(err, v, ws1)),
+            plain_ms=_time_ms(lambda: tk.select_resid_plain(err, v, t1, n1)),
+            library_ms=topk_b1, cost=_select_resid_cost(n),
+            at=f"B=1, n={n}; counts, scan and select"),
+    }
+    for name, r in rows.items():
+        bound_ms, kind = r["cost"]
+        print(f"time {name} ({r['at']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({kind})", flush=True)
+    print(f"  library: rows_hist, rows_select = torch.topk(k={K}, dim=-1) "
+          f"of the 8 rows' squares; rows_resid = torch.topk(k={K}) of err's "
+          f"squares (selection only, for the whole top-k)", flush=True)
+    del ws, ws1
+
+    def old8():
+        t_, n_ = tk._radix_threshold_batched(lambda c: tk.count_rows(xs, c),
+                                             kk, dev)
+        return tk.select_rows(xs, t_, n_)
+
+    med8 = _report_route(
+        f"top-k (B={B}, n={n}, kk {KK_RADIX})",
+        _alternate({"new": lambda: tk.topk_select(xs, kk, K), "old": old8,
+                    "topk": lambda: torch.topk(scores8, K, dim=-1)}, pairs),
+        _select_plain_cost(B, n)[0],
+        6 * 4 * B * n / HBM_BYTES_PER_S * 1e3)
+    rows["rows_select"]["at"] += (f"; whole top-k {med8['new']:.4f} ms, old "
+                                  f"route {med8['old']:.4f}")
+    med1 = _time_rows_b1(err, v, kk1, scores1, pairs)
+    rows["rows_resid"]["at"] += (f"; whole top-k {med1['new']:.4f} ms, old "
+                                 f"route {med1['old']:.4f}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _time_rows_b1(err, v, kk1, scores1, pairs):
+    """true_topk's whole top-k at B = 1, new against old route and
+    ``torch.topk``, ``pairs`` alternating rounds; the momentum read, the
+    same on both routes, is left out."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    err_rows = err[None]
+    n = err.shape[0]
+
+    def old1():
+        t_, n_ = tk._radix_threshold_batched(
+            lambda c: tk.count_rows(err_rows, c), kk1, err.device)
+        return tk.select_resid(err, v, t_[0], n_[0])
+
+    return _report_route(
+        f"top-k (B=1, n={n}, k={K}, resid)",
+        _alternate({"new": lambda: tk.rows_resid(
+            err, v, tk.rows_radix(err_rows, kk1)), "old": old1,
+            "topk": lambda: torch.topk(scores1, K)}, pairs),
+        _select_resid_cost(n)[0], 4 * n * 9 / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_timing_rows_b1(dev, d, pairs=20):
+    """The B = 1 resid top-k at the GPT2 path's d (no main path runs
+    true_topk there): a seeded (err, v) pair, parity of the new route with
+    the plain versions, then the alternating rounds of ``_time_rows_b1``."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    gen = torch.Generator(device=dev).manual_seed(13)
+    err = torch.randn(d, generator=gen, device=dev)
+    v = torch.randn(d, generator=gen, device=dev)
+    kk1 = torch.full((1,), K, dtype=torch.int64, device=dev)
+    ws1 = tk.rows_radix(err[None], kk1)
+    t1, n1 = _check_rows_radix(f"B=1, n={d}", err[None], kk1, ws1,
+                               {"rows_hist": 0.0})
+    got = tk.rows_resid(err, v, ws1)
+    ref = tk.select_resid_plain(err, v, t1[0], n1[0])
+    if not all(_same_bits(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"rows_resid != plain (n={d})")
+    del got, ref, ws1
+    ms, plain, _ = _time_rows_passes(err[None], kk1, plain_reps=3)
+    print(f"parity rows_hist/rows_resid (B=1, n={d}, k={K}): bitwise equal "
+          f"to plain; passes {ms[0]:.4f}, {ms[1]:.4f}, {ms[2]:.4f} ms "
+          f"(plain {float(np.mean(plain)):.4f}, bound "
+          f"{_rows_hist_cost(1, d)[0]:.5f} a pass)", flush=True)
+    _time_rows_b1(err, v, kk1, err * err, pairs)
+    del err, v
+    torch.cuda.empty_cache()
+
+
 def phase_sketch_sparse(dev, cs, table):
     """The deterministic sparse re-sketch on the card: the k survivors of
     the sketched table, three of them planted in one row-0 bucket with
@@ -1578,7 +1894,8 @@ _KERNEL_CLASSES = (
     ("sketch and top-k (B1-B3)", ("sketch_kernel", "count_kernel",
                                   "select_kernel", "tie_count_kernel",
                                   "exclusive_scan_kernel", "est_hist_kernel",
-                                  "digit_hist_kernel", "segment_sum_kernel")),
+                                  "digit_hist_kernel", "rows_hist_kernel",
+                                  "segment_sum_kernel")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
 )
 
@@ -1684,6 +2001,40 @@ def phase_gpt2_path(tmpdir, name, profile=False):
     del learner, row
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_repeat_gpt2(tmpdir):
+    """Reproducibility of the GPT2 path (ROADMAP C5b): two runs of 3
+    rounds through ``training.gpt2.train`` with ``GPT2_FLAGS`` from the
+    same seed must give bitwise equal per-round losses, weights,
+    Vvelocity and Verror. The first run is freed before the second."""
+    import torch
+
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    runs = []
+    for _ in range(2):
+        args = build_gpt2_parser().parse_args(GPT2_FLAGS + [
+            "--dataset_dir", tmpdir])
+        np.random.seed(args.seed)
+        learner, row = train(args, max_rounds=3, log=False)
+        s = learner.state
+        runs.append(([r["loss"] for r in row["rounds"]],
+                     s.weights.clone(), s.opt.Vvelocity.clone(),
+                     s.opt.Verror.clone()))
+        del learner, row, s
+        torch.cuda.empty_cache()
+    (la, *ta), (lb, *tb) = runs
+    same = [_same_bits(a, b) for a, b in zip(ta, tb)]
+    if [x.hex() for x in la] != [x.hex() for x in lb] or not all(same):
+        raise AssertionError(f"the gpt2 path is not reproducible: losses "
+                             f"{la} vs {lb}; weights, Vvelocity, Verror "
+                             f"bitwise equal: {same}")
+    print(f"repeat gpt2 (3 rounds twice, same seed, d = {ta[0].numel()}): "
+          f"losses {[round(v, 6) for v in la]}, losses, weights, Vvelocity "
+          f"and Verror bitwise equal", flush=True)
+    del runs, ta, tb
+    torch.cuda.empty_cache()
 
 
 # name: (GPT2Config attributes, launches of the card's 2 rounds). With
@@ -1800,6 +2151,12 @@ SOURCES = {
                       "commefficient_tpu/ops/topk_kernels.py:355"),
     "radix_select": ("commefficient_tpu_torch/csrc/unsketch_radix.cu",
                      "commefficient_tpu/ops/topk_kernels.py:355"),
+    "rows_hist": ("commefficient_tpu_torch/csrc/topk_radix.cu",
+                  "commefficient_tpu/ops/topk_kernels.py:200"),
+    "rows_select": ("commefficient_tpu_torch/csrc/topk_radix.cu",
+                    "commefficient_tpu/ops/topk_kernels.py:355"),
+    "rows_resid": ("commefficient_tpu_torch/csrc/topk_radix.cu",
+                   "commefficient_tpu/ops/topk_kernels.py:355"),
 }
 
 
@@ -1830,10 +2187,13 @@ def main() -> int:
     cs, vec, table = phase_parity(dev, D_RESNET9, errs)
     inputs = phase_parity_stream(dev, cs, table, errs)
     phase_parity_radix(dev, cs, table, errs)
+    rows_inputs = phase_parity_rows(dev, errs)
     phase_server_ab(dev, cs, table)
     phase_sketch_sparse(dev, cs, table)
     times = phase_timing(cs, vec, table)
     times.update(phase_timing_stream(cs, table, inputs))
+    times.update(phase_timing_rows(rows_inputs))
+    del rows_inputs
     times.update(phase_timing_radix(cs, table))
     tables = phase_parity_estimates_batched(dev, cs, table, errs)
     times["estimates_batched"] = phase_timing_estimates_batched(cs, table,
@@ -1861,6 +2221,7 @@ def main() -> int:
     phase_timing(cs, vec, table, plain_reps=3)
     phase_timing_radix(cs, table)
     del cs, vec, table
+    phase_timing_rows_b1(dev, D_GPT2)
     cs, vecs = phase_parity_batched(dev, D_GPT2, GPT2_WORKERS, errs)
     phase_timing_batched(cs, vecs, plain_reps=3)
     del cs, vecs
@@ -1870,6 +2231,7 @@ def main() -> int:
             for kernel, n in phase_gpt2_path(tmpdir, name,
                                              profile=True).items():
                 launches[kernel] = launches.get(kernel, 0) + n
+        phase_repeat_gpt2(tmpdir)
     phase_gpt2_reference(dev)
 
     kernels = []

@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sketch", "estimates", "unsketch_topk", "unsketch_radix",
-           "topk_stream", "segment_sum", "flash_attention", "hw_dropout")
+           "topk_stream", "topk_radix", "segment_sum", "flash_attention",
+           "hw_dropout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -4,9 +4,9 @@ The rule is the reference's ``jax.lax.top_k`` over ``v*v``: the k largest
 scores, equal scores taken in ascending index order, returned in
 descending-score order. Two routes give that set, as in the reference:
 
-* the streaming radix top-k of ``ops/topk_kernels.py`` (``topk_select``):
-  the count and select kernels on a CUDA tensor, their plain versions on
-  a CPU one. It is the default (``use_kernel=None``);
+* the radix top-k of ``ops/topk_kernels.py`` (``topk_select``): the
+  per-row histogram radix kernels on a CUDA tensor, their plain versions
+  on a CPU one. It is the default (``use_kernel=None``);
 * a stable descending sort (``use_kernel=False``): the reference's
   ``lax.top_k`` chain outside any kernel, which ``--server_fused off``
   pins. ``torch.topk`` promises no order for ties, so it is not used.

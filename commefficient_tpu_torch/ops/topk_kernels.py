@@ -32,36 +32,42 @@ The sources, as in the reference:
   radix rounds, a ninth count and the select (``count``/``select``, keys
   ``count``/``select``, ``csrc/unsketch_topk.cu``), stay beside it on no
   path, held against ``count_plain``/``select_plain``.
-* ``plain`` (``count_rows``/``select_rows``, keys ``count_plain``/
-  ``select_plain``): B rows of a dense (B, n) stream, each with its own
-  candidates, ``t`` and ``n_take`` (the reference's batched per-row-k
-  grid); the select writes ``where(sel, x, 0)`` and, on request, the mask.
-  ``topk_select`` runs it; true_topk counts over its error vector with it.
-* ``resid`` (``select_resid``, key ``select_resid``): the true_topk server
-  epilogue. It streams ``(err, v)`` and writes the update and both
-  residuals, masked on ``supp = sel & (update != 0)``: a selected 0.0 or
-  -0.0 keeps its residual. ``fused_true_topk`` runs it. The momentum read
-  ``v = g + rho*vv; err = ve + v`` stays in PyTorch before the kernel, as
-  the reference keeps it outside its kernel.
+* ``plain``: B rows of a dense (B, n) stream, each with its own k (the
+  reference's batched per-row-k grid); the select writes ``where(sel, x,
+  0)`` and, on request, the mask. ``topk_select`` runs it.
+* ``resid``: the true_topk server epilogue over ``err`` (one row). It
+  streams ``(err, v)`` and writes the update and both residuals, masked
+  on ``supp = sel & (update != 0)``: a selected 0.0 or -0.0 keeps its
+  residual. ``fused_true_topk`` runs it. The momentum read ``v = g +
+  rho*vv; err = ve + v`` stays in PyTorch before the kernels, as the
+  reference keeps it outside its kernel.
 
-On Hopper the TPU kernels' sequential grid is gone: the count reduces per
-CTA and adds into the 16 counters with integer atomics, exact in any
-order; the select's cross-tile tie carry becomes per-tile tie counts, an
-exclusive scan per row, and a within-tile rank by warp ballots — one
-design for every source (``csrc/topk_stream.cuh``; the est source in
-``csrc/unsketch_topk.cu``, plain and resid in ``csrc/topk_stream.cu``).
-Coordinates at or past n neither count nor select.
+  On Hopper both are a per-row histogram radix over the stream itself
+  (``csrc/topk_radix.cu``, launch keys ``rows_hist`` (three digit passes,
+  each launch covering every row), then ``rows_select`` or
+  ``rows_resid``): the digits, pick and workspace of the est source
+  (``csrc/radix.cuh``), one workspace block per row, each row's k read
+  from a device tensor, so nothing comes to the host. The plain version is
+  ``radix_threshold_rows_plain`` and ``select_rows_plain`` /
+  ``select_resid_plain``. The first port's kernels (``count_rows``/
+  ``select_rows``/``select_resid``, keys ``count_plain``/``select_plain``/
+  ``select_resid``, ``csrc/topk_stream.cu``: a 16-candidate count per
+  4-bit round of ``_radix_threshold_batched``, nine launches, then a tie
+  count and the select) stay beside it on no path, held against
+  ``count_rows_plain``/``select_rows_plain``/``select_resid_plain``.
+
+On Hopper the TPU kernels' sequential grid is gone: counts reduce per CTA
+and add into global counters with integer atomics, exact in any order;
+the select's cross-tile tie carry becomes per-tile tie counts, an
+exclusive scan per row, and a within-tile rank by a block scan in index
+order. Coordinates at or past n neither count nor select.
 
 Bounds (d = 6,568,640): an ``est`` count, and ``est_hist``, read the
 table once (10.0 MB) but compute r sign hashes, r gathers and the median
 for every coordinate (~133 operations each at r=5), so they are bound by
-operations; ``digit_hist``, a plain count (4 bytes per element for 16
-compares) and the selects read their streams and write their outputs
-once: bound by bytes.
-
-The radix search of the plain and resid sources, and of the first ``est``
-kernels, is PyTorch glue on the device (``_radix_threshold_batched``): no
-value comes to the host between the rounds.
+operations; ``digit_hist``, ``rows_hist``, a first-port plain count (4
+bytes per element for 16 compares) and the selects read their streams and
+write their outputs once: bound by bytes.
 """
 
 from __future__ import annotations
@@ -86,6 +92,11 @@ _RADIX_SIGNATURES = {
     "est_hist_launch": [_P, _LL, _I, _I, _P, _LL, _P, _P, _P],
     "digit_hist_launch": [_P, _LL, _I, _LL, _P, _P],
     "radix_select_launch": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P],
+}
+_ROWS_SIGNATURES = {
+    "rows_hist_launch": [_P, _LL, _I, _I, _P, _P, _I, _P],
+    "rows_select_launch": [_P, _LL, _I, _P, _P, _P, _P, _I, _P],
+    "rows_resid_launch": [_P, _P, _LL, _P, _P, _P, _P, _P, _I, _P],
 }
 _STREAM_SIGNATURES = {
     "count_plain_launch": [_P, _LL, _I, _P, _P, _P],
@@ -211,9 +222,10 @@ def select(cs: CountSketch, table: torch.Tensor, t: torch.Tensor,
 #: (shift, width) of the radix digits of the 31-bit key: bits 30..20,
 #: 19..9, 8..0
 DIGITS = ((20, 11), (9, 11), (0, 9))
-# the kernels' int32 workspace (csrc/unsketch_radix.cu): three histograms,
-# control words (t at +6, n_take as int64 at +8), then the select's (2,
-# n_tiles) per-tile counts and their (2, n_tiles) offsets
+# the radix's int32 workspace of one selection (csrc/radix.cuh): three
+# histograms and the control words (t at +6, n_take as int64 at +8); the
+# est source follows it with the select's (2, n_tiles) per-tile counts and
+# their (2, n_tiles) offsets; the dense streams keep one block per row
 _WS_HIST = (0, 2048, 4096)
 _WS_CTRL = 4608
 _WS_COUNTS = _WS_CTRL + 16
@@ -229,44 +241,61 @@ def _radix_key(bits: torch.Tensor) -> torch.Tensor:
 
 def digit_histogram_plain(bits: torch.Tensor, prefix, shift: int,
                           width: int) -> torch.Tensor:
-    """Plain version of a histogram pass: (2**width,) int32 counts of the
-    key digit ``(key >> shift) & (2**width - 1)`` over the keys whose
-    higher bits ``key >> (shift + width)`` equal ``prefix``."""
+    """Plain version of a histogram pass, per row: ``(..., 2**width)``
+    int32 counts of the key digit ``(key >> shift) & (2**width - 1)`` over
+    the keys of ``bits`` (..., n) whose higher bits ``key >> (shift +
+    width)`` equal the row's ``prefix`` (...)."""
     key = _radix_key(bits)
     nbins = 1 << width
-    digit = torch.where((key >> (shift + width)) == prefix,
+    prefix = torch.as_tensor(prefix, device=bits.device)
+    digit = torch.where((key >> (shift + width)) == prefix[..., None],
                         (key >> shift) & (nbins - 1), nbins)
-    hist = torch.zeros(nbins + 1, dtype=torch.int64, device=bits.device)
-    hist.scatter_add_(0, digit, torch.ones_like(digit))
-    return hist[:nbins].to(torch.int32)
+    hist = torch.zeros(bits.shape[:-1] + (nbins + 1,), dtype=torch.int64,
+                       device=bits.device)
+    hist.scatter_add_(-1, digit, torch.ones_like(digit))
+    return hist[..., :nbins].to(torch.int32)
 
 
 def digit_pick_plain(hist: torch.Tensor, k_rem):
-    """Plain version of the device-side digit pick: ``(b, above)``, the
-    largest bin b whose count of keys in bins >= b reaches ``k_rem`` (bin
-    0 if none does) and the count of keys in bins above it; 0-d int64."""
+    """Plain version of the device-side digit pick, per row: ``(b,
+    above)``, the largest bin b whose count of keys in bins >= b reaches
+    ``k_rem`` (bin 0 if none does) and the count of keys in bins above it;
+    int64 of the rows' shape."""
     h = hist.to(torch.int64)
-    at_or_above = torch.flip(torch.cumsum(torch.flip(h, (0,)), 0), (0,))
-    bins = torch.arange(h.shape[0], device=h.device)
-    b = torch.where(at_or_above >= k_rem, bins, 0).amax()
-    return b, at_or_above[b] - h[b]
+    at_or_above = torch.flip(torch.cumsum(torch.flip(h, (-1,)), -1), (-1,))
+    bins = torch.arange(h.shape[-1], device=h.device)
+    k_rem = torch.as_tensor(k_rem, device=h.device)
+    b = torch.where(at_or_above >= k_rem[..., None], bins, 0).amax(-1)
+    at = lambda a: a.gather(-1, b[..., None])[..., 0]
+    return b, at(at_or_above) - at(h)
 
 
-def radix_threshold_plain(bits: torch.Tensor, k: int):
-    """``(t, n_take)`` (0-d int32, int64) of the reference's radix by the
-    digit passes: t = max{v in [0, 2**31 - 1] : #(bits >= v) >= k}, or 0
-    if there is none, and n_take = k - #(bits >= t + 1), with t + 1
-    saturating at INT32_MAX as the reference's. Equal to
-    ``_radix_threshold`` over ``_count_bits``; no host sync."""
-    zero = torch.zeros((), dtype=torch.int64, device=bits.device)
-    prefix, k_rem, above = zero, zero + k, zero
+def radix_threshold_rows_plain(bits: torch.Tensor, kk: torch.Tensor):
+    """``(t, n_take)`` (int32, int64, of the rows' shape) of the
+    reference's radix by the digit passes, per row of ``bits`` (..., n)
+    with the row's k in ``kk`` (...): t = max{v in [0, 2**31 - 1] :
+    #(bits >= v) >= k}, or 0 if there is none, and n_take = k - #(bits >=
+    t + 1), with t + 1 saturating at INT32_MAX as the reference's (so at
+    k = 0, t = INT32_MAX and n_take <= 0). Equal to
+    ``_radix_threshold_batched`` over ``_count_bits``; no host sync."""
+    kk = kk.to(device=bits.device, dtype=torch.int64)
+    prefix = torch.zeros_like(kk)
+    k_rem, above = kk, prefix
     for shift, width in DIGITS:
         hist = digit_histogram_plain(bits, prefix, shift, width)
         b, a = digit_pick_plain(hist, k_rem)
         prefix = (prefix << width) | b
         k_rem, above = k_rem - a, above + a
-    at_t = torch.where(prefix == _I32_MAX, hist.to(torch.int64)[b], 0)
-    return prefix.to(torch.int32), k - above - at_t
+    at_t = hist.to(torch.int64).gather(-1, b[..., None])[..., 0]
+    at_t = torch.where(prefix == _I32_MAX, at_t, 0)
+    return prefix.to(torch.int32), kk - above - at_t
+
+
+def radix_threshold_plain(bits: torch.Tensor, k: int):
+    """One-row form of ``radix_threshold_rows_plain``: ``(t, n_take)``
+    (0-d int32, int64) of the (n,) ``bits`` at k."""
+    kk = torch.zeros((), dtype=torch.int64, device=bits.device) + k
+    return radix_threshold_rows_plain(bits, kk)
 
 
 def select_compact_plain(est: torch.Tensor, t: torch.Tensor,
@@ -489,6 +518,124 @@ def select_resid(err: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# plain and resid sources: the per-row histogram radix (csrc/topk_radix.cu)
+# --------------------------------------------------------------------------
+
+def rows_workspace(rows: int, device) -> torch.Tensor:
+    """The zeroed (rows, 4624) int32 workspace of ``rows_radix``: per row
+    the three digit histograms and the control words (``_WS_*``)."""
+    return torch.zeros((rows, _WS_COUNTS), dtype=torch.int32, device=device)
+
+
+def _aligned(rows: int, n: int, *tensors) -> bool:
+    """Whether every row of every (rows, n) f32 tensor starts on 16 bytes,
+    so the kernels may move four coordinates as one float4."""
+    return (rows == 1 or n % 4 == 0) and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _check_workspace(ws: torch.Tensor, x: torch.Tensor, what: str):
+    rows = x.shape[0] if x.dim() == 2 else 1
+    if ws.dtype != torch.int32 or tuple(ws.shape) != (rows, _WS_COUNTS) \
+            or ws.device != x.device or not ws.is_contiguous():
+        raise ValueError(f"{what} takes a ({rows}, {_WS_COUNTS}) int32 "
+                         "workspace on the stream's device")
+
+
+def rows_hist(x: torch.Tensor, kk: torch.Tensor, ws: torch.Tensor,
+              pass_: int) -> None:
+    """Digit pass ``pass_`` (0, 1, 2) over the (B, n) CUDA stream ``x``:
+    each row's histogram of its next digit and the pick into ``ws`` (the
+    last pass leaves t and n_take). ``kk``: (B,) int64 on the card."""
+    _check_stream(x, "rows_hist", 2)
+    rows, n = x.shape
+    if kk.dtype != torch.int64 or tuple(kk.shape) != (rows,) \
+            or kk.device != x.device or not kk.is_contiguous():
+        raise ValueError(f"rows_hist takes a contiguous ({rows},) int64 k "
+                         "on the stream's device")
+    _check_workspace(ws, x, "rows_hist")
+    if rows == 0 or n == 0:
+        return
+    lib = cuda_lib.load("topk_radix", _ROWS_SIGNATURES)
+    err = lib.rows_hist_launch(x.data_ptr(), n, rows, pass_, kk.data_ptr(),
+                               ws.data_ptr(), _aligned(rows, n, x),
+                               cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "rows_hist")
+    cuda_lib.LAUNCHES["rows_hist"] += 1
+
+
+def rows_radix(x: torch.Tensor, kk: torch.Tensor) -> torch.Tensor:
+    """The three digit passes over the (B, n) CUDA stream ``x`` with the
+    per-row k ``kk`` ((B,) int64 on the card): returns the workspace
+    holding each row's histograms, t and n_take (``rows_views``). Raises
+    for a stream off the card; nothing comes to the host."""
+    ws = rows_workspace(x.shape[0], x.device)
+    for p in range(len(DIGITS)):
+        rows_hist(x, kk, ws, p)
+    return ws
+
+
+def rows_views(ws: torch.Tensor) -> dict:
+    """Views of a ``rows_radix`` workspace: the three digit histograms
+    ((B, 2**width) each, ``hists``), ``t`` ((B,) int32) and ``n_take``
+    ((B,) int64)."""
+    hists = tuple(ws[:, o:o + (1 << w)] for o, (_, w) in zip(_WS_HIST,
+                                                             DIGITS))
+    return {"hists": hists, "t": ws[:, _WS_CTRL + 6],
+            "n_take": ws[:, _WS_CTRL + 8:_WS_CTRL + 10].view(
+                torch.int64)[:, 0]}
+
+
+def rows_select(x: torch.Tensor, ws: torch.Tensor, with_mask: bool = False):
+    """The plain select after ``rows_radix``: per row, bits > t plus the
+    first n_take ties in index order, as (masked (B, n), int32 mask (B, n)
+    or None); launch key ``rows_select``."""
+    _check_stream(x, "rows_select", 2)
+    _check_workspace(ws, x, "rows_select")
+    rows, n = x.shape
+    masked = torch.empty_like(x)
+    mask = (torch.empty(x.shape, dtype=torch.int32, device=x.device)
+            if with_mask else None)
+    if rows == 0 or n == 0:
+        return masked, mask
+    ties = _tie_scratch(rows, n, x.device)
+    outs = (masked,) if mask is None else (masked, mask)
+    lib = cuda_lib.load("topk_radix", _ROWS_SIGNATURES)
+    err = lib.rows_select_launch(
+        x.data_ptr(), n, rows, ws.data_ptr(), ties.data_ptr(),
+        masked.data_ptr(), None if mask is None else mask.data_ptr(),
+        _aligned(rows, n, x, *outs), cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "rows_select")
+    cuda_lib.LAUNCHES["rows_select"] += 1
+    return masked, mask
+
+
+def rows_resid(err: torch.Tensor, v: torch.Tensor, ws: torch.Tensor):
+    """The true_topk epilogue after ``rows_radix`` over ``err[None]``:
+    (update, new velocity, new error), each (n,); launch key
+    ``rows_resid``."""
+    _check_stream(err, "rows_resid", 1)
+    _check_stream(v, "rows_resid", 1)
+    if v.shape != err.shape or v.device != err.device:
+        raise ValueError("rows_resid takes err and v of one shape and "
+                         "device")
+    _check_workspace(ws, err, "rows_resid")
+    n = err.shape[0]
+    outs = tuple(torch.empty_like(err) for _ in range(3))
+    if n == 0:
+        return outs
+    ties = _tie_scratch(1, n, err.device)
+    lib = cuda_lib.load("topk_radix", _ROWS_SIGNATURES)
+    code = lib.rows_resid_launch(
+        err.data_ptr(), v.data_ptr(), n, ws.data_ptr(), ties.data_ptr(),
+        *(o.data_ptr() for o in outs), _aligned(1, n, err, v, *outs),
+        cuda_lib.stream_ptr(err.device))
+    cuda_lib.check(code, "rows_resid")
+    cuda_lib.LAUNCHES["rows_resid"] += 1
+    return outs
+
+
+# --------------------------------------------------------------------------
 # the radix search (PyTorch glue on the device)
 # --------------------------------------------------------------------------
 
@@ -582,23 +729,26 @@ def topk_select(vec: torch.Tensor, kk, k: int, with_mask: bool = False):
     or a per-row (B,) tensor of valid counts <= the budget ``k``; each row
     keeps the first ``kk`` slots of the stable selection order. Returns
     the masked tensor, and with ``with_mask`` also the int32 mask. A CPU
-    tensor takes the plain versions; a CUDA tensor the count and select
-    kernels (one launch per radix round covers every row)."""
+    tensor takes the plain versions (the digit radix, then the select); a
+    CUDA tensor the per-row histogram radix kernels (``rows_hist`` three
+    times, then ``rows_select``, each launch covering every row)."""
     if vec.dim() not in (1, 2):
         raise ValueError(f"topk_select takes 1-D/2-D input, got "
                          f"{vec.dim()}-D")
     rows = vec.reshape(1, -1) if vec.dim() == 1 else vec.contiguous()
     if torch.is_tensor(kk):
         kk = kk.to(device=vec.device, dtype=torch.int64).expand(
-            rows.shape[0])
+            rows.shape[0]).contiguous()
     elif not 0 <= kk <= k:
         raise ValueError(f"kk={kk} outside the budget [0, {k}]")
     else:
         kk = torch.full((rows.shape[0],), int(kk), dtype=torch.int64,
                         device=vec.device)
-    t, n_take = _radix_threshold_batched(lambda c: count_rows(rows, c), kk,
-                                         vec.device)
-    masked, mask = select_rows(rows, t, n_take, with_mask)
+    if vec.device.type == "cpu":
+        t, n_take = radix_threshold_rows_plain(_score_bits(rows), kk)
+        masked, mask = select_rows_plain(rows, t, n_take, with_mask)
+    else:
+        masked, mask = rows_select(rows, rows_radix(rows, kk), with_mask)
     if vec.dim() == 1:
         masked = masked[0]
         mask = None if mask is None else mask[0]
@@ -611,16 +761,16 @@ def fused_true_topk(g: torch.Tensor, vvel: torch.Tensor, verr: torch.Tensor,
     momentum ``v = g + rho*vvel``, error ``err = verr + v``, the exact
     top-k of err, and both error-feedback residuals, as ``(update,
     new_Vvelocity, new_Verror)``. The momentum read runs here in PyTorch;
-    the count kernels stream err and the resid select kernel writes all
-    three outputs. A CPU tensor takes the plain versions."""
+    on a CUDA tensor the three ``rows_hist`` passes stream err and
+    ``rows_resid`` writes all three outputs. A CPU tensor takes the plain
+    versions."""
     v = g + rho * vvel
     err = verr + v
-    rows = err.reshape(1, -1)
-    t, n_take = _radix_threshold_batched(
-        lambda c: count_rows(rows, c),
-        torch.full((1,), k, dtype=torch.int64, device=err.device),
-        err.device)
-    return select_resid(err, v, t[0], n_take[0])
+    kk = torch.full((1,), k, dtype=torch.int64, device=err.device)
+    if err.device.type == "cpu":
+        t, n_take = radix_threshold_rows_plain(_score_bits(err[None]), kk)
+        return select_resid_plain(err, v, t[0], n_take[0])
+    return rows_resid(err, v, rows_radix(err[None], kk))
 
 
 def values_indices_from_mask(masked: torch.Tensor, mask: torch.Tensor,

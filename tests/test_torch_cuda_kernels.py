@@ -15,8 +15,10 @@ equals its plain version bitwise (float32 and bfloat16, a partial
 logical block) and meets the reference's contract; the estimate-once
 radix of the fused unsketch + top-k equals its plain versions pass by pass
 (NaN, +-0.0 and all-zero tables included), and the sparse re-sketch's
-segmented sum equals the CPU's bitwise. ``chip_smoke.py`` repeats this at
-the main paths' full width.
+segmented sum equals the CPU's bitwise; the per-row histogram radix of the
+dense streams (plain and resid) equals its plain versions pass by pass, on
+unaligned rows, a k = 0 row and NaN rows included. ``chip_smoke.py``
+repeats this at the main paths' full width.
 """
 
 import numpy as np
@@ -145,9 +147,13 @@ def test_plain_count_and_select_kernels_equal_plain(dev, B, n, kk):
         if with_mask:
             assert torch.equal(got[1], ref[1])
             assert torch.equal(got[1].sum(1), kk)
-    before = cuda_lib.LAUNCHES["count_plain"]
+    before = dict(cuda_lib.LAUNCHES)
     dense = tk.topk_select(x, kk, int(kk.max()))
-    assert cuda_lib.LAUNCHES["count_plain"] == before + 9
+    grew = {key: cuda_lib.LAUNCHES[key] - before.get(key, 0)
+            for key in ("rows_hist", "rows_select", "count_plain",
+                        "select_plain")}
+    assert grew == {"rows_hist": 3, "rows_select": 1, "count_plain": 0,
+                    "select_plain": 0}
     assert _same_bits(dense, tk.select_rows_plain(x, t, n_take)[0])
 
 
@@ -166,8 +172,111 @@ def test_resid_select_kernel_equals_plain(dev, n, k):
     got = tk.select_resid(err, v, t, n_take)
     ref = tk.select_resid_plain(err, v, t, n_take)
     assert all(_same_bits(a, b) for a, b in zip(got, ref))
+    before = dict(cuda_lib.LAUNCHES)
     fused = tk.fused_true_topk(g, vv, ve, k, 0.9)
     assert all(_same_bits(a, b) for a, b in zip(fused, ref))
+    grew = {key: cuda_lib.LAUNCHES[key] - before.get(key, 0)
+            for key in ("rows_hist", "rows_resid", "count_plain",
+                        "select_resid")}
+    assert grew == {"rows_hist": 3, "rows_resid": 1, "count_plain": 0,
+                    "select_resid": 0}
+
+
+def _radix_rows(case, B, n, seed):
+    """(B, n) streams of the per-row radix: seeded normals, planted ties
+    spread over every tile (an all-zero row 1), or +-0.0 and NaN."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, n).astype(np.float32)
+    if case == "ties":
+        return _tied_rows(B, n, seed)
+    if case == "nan_zeros":
+        u = rng.rand(B, n)
+        x[u < 0.3] = 0.0
+        x[(u >= 0.3) & (u < 0.5)] = -0.0
+        x[u > 0.99] = np.nan
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("case,B,n,kk,offset", [
+    ("random", 8, 8_192 * 3 + 5, [100, 100, 50, 1, 0, 100, 100, 7], 0),
+    ("ties", 4, 30_000, [500, 250, 1, 0], 0),
+    ("ties", 4, 20_001, [500, 250, 20_001, 3], 1),
+    ("nan_zeros", 3, 20_001, [400, 100, 0], 0),
+    ("random", 1, 20_001, [300], 3),
+    ("random", 1, 777, [777], 0)])
+def test_rows_radix_kernels_equal_plain(dev, case, B, n, kk, offset):
+    """The per-row radix against its plain versions, pass by pass: each
+    row's digit histograms, t and n_take (also the nibble radix over the
+    first port's count kernel), the dense select with and without the
+    mask; ``offset`` floats into a buffer makes every row unaligned. The
+    entry point twice, with its launches. NaN rows (1%) at k = 100: their
+    card squares are INT32_MAX, where the reference's n_take goes negative
+    and nothing is kept."""
+    x = _radix_rows(case, B, n, seed=n + B).to(dev)
+    buf = torch.empty(B * n + offset, device=dev)
+    x = buf[offset:].view(B, n).copy_(x)
+    kk = torch.tensor(kk, device=dev)
+    ws = tk.rows_radix(x, kk)
+    views = tk.rows_views(ws)
+    bits = tk._score_bits(x)
+    prefix, k_rem = torch.zeros_like(kk), kk
+    for (shift, width), hist in zip(tk.DIGITS, views["hists"]):
+        want = tk.digit_histogram_plain(bits, prefix, shift, width)
+        assert torch.equal(hist, want)
+        b, above = tk.digit_pick_plain(want, k_rem)
+        prefix, k_rem = (prefix << width) | b, k_rem - above
+    t, n_take = tk.radix_threshold_rows_plain(bits, kk)
+    ct, cn = tk._radix_threshold_batched(lambda c: tk.count_rows(x, c), kk,
+                                         dev)
+    assert torch.equal(views["t"], t) and torch.equal(views["t"], ct)
+    assert torch.equal(views["n_take"], n_take)
+    assert torch.equal(views["n_take"], cn)
+    for with_mask in (True, False):
+        got = tk.rows_select(x, ws, with_mask)
+        ref = tk.select_rows_plain(x, t, n_take, with_mask)
+        assert _same_bits(got[0], ref[0])
+        if with_mask:
+            assert torch.equal(got[1], ref[1])
+    before = dict(cuda_lib.LAUNCHES)
+    first = tk.topk_select(x, kk, n, with_mask=True)
+    again = tk.topk_select(x, kk, n, with_mask=True)
+    assert _same_bits(first[0], again[0]) and torch.equal(first[1], again[1])
+    assert _same_bits(first[0], ref[0])
+    grew = {key: cuda_lib.LAUNCHES[key] - before.get(key, 0)
+            for key in ("rows_hist", "rows_select", "count_plain",
+                        "select_plain")}
+    assert grew == {"rows_hist": 6, "rows_select": 2, "count_plain": 0,
+                    "select_plain": 0}
+
+
+@pytest.mark.parametrize("n,k,offset", [(20_001, 300, 0), (40_000, 25_000, 0),
+                                        (40_000, 0, 0), (20_001, 5_000, 1)])
+def test_rows_resid_kernel_equals_plain(dev, n, k, offset):
+    """The resid select after the per-row radix (one row), against
+    ``select_resid_plain`` at the plain radix's t and n_take: selected
+    -0.0 keep their residuals; ``offset`` leaves err and v unaligned."""
+    rng = np.random.RandomState(n + k)
+    g, vv, ve = (torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+                 for _ in range(3))
+    zero = torch.from_numpy(rng.permutation(n)[: n // 2]).to(dev)
+    for t_ in (g, vv, ve):
+        t_[zero] = -0.0
+    g[zero[: n // 20]] = 2.0     # ties at |err| = 2
+    vv[zero[: n // 20]] = ve[zero[: n // 20]] = 0.0
+    v, err = (torch.empty(n + offset, device=dev)[offset:] for _ in range(2))
+    v.copy_(g + 0.9 * vv)
+    err.copy_(ve + v)
+    kk = torch.full((1,), k, dtype=torch.int64, device=dev)
+    ws = tk.rows_radix(err[None], kk)
+    t, n_take = tk.radix_threshold_rows_plain(tk._score_bits(err[None]), kk)
+    views = tk.rows_views(ws)
+    assert torch.equal(views["t"], t)
+    assert torch.equal(views["n_take"], n_take)
+    got = tk.rows_resid(err, v, ws)
+    ref = tk.select_resid_plain(err, v, t[0], n_take[0])
+    assert all(_same_bits(a, b) for a, b in zip(got, ref))
+    again = tk.rows_resid(err, v, tk.rows_radix(err[None], kk))
+    assert all(_same_bits(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("d,c,r", [(20_000, 1_000, 5), (777, 300, 3),
