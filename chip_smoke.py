@@ -85,16 +85,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    learner on CUDA (kernels) and on the CPU (plain versions) from the same
    weights and batches must agree, in sketch, true_topk and local_topk,
    and in sketch with --max_grad_norm and with DP (noise 0);
-6. the flash attention kernels (forward, dq, dkv) against their plain
-   versions at the GPT2 path's shape (BH 768 = 64 sequences x 12 heads,
-   T 256, D 64): float32 at dropout 0 and 0.1 (O within 1e-5, dq/dk/dv
-   within 1e-4 of their largest magnitude), float32 at dropout 0.1 at the
-   gpt2_clip path's per-client shape (BH 192 = 16 sequences x 12 heads;
-   the same limits), bfloat16 (O within 2e-2),
-   and T 1100, D 128 at dropout 0.1 (three logical dropout tiles, a
-   ragged end); every kernel run twice, bitwise equal; then their times
-   beside the plain versions, the bound and
-   ``scaled_dot_product_attention`` (forward, and its autograd backward);
+6. the flash attention kernels (the tensor-core forward and dk/dv, dq,
+   and the first port's scalar forward and dk/dv, on no path) against
+   their plain versions and each other at the GPT2 path's shape (BH 768
+   = 64 sequences x 12 heads, T 256, D 64): float32 at dropout 0 and 0.1
+   (O within 1e-5, dq/dk/dv within 1e-4 of their largest magnitude),
+   float32 at dropout 0.1 at the gpt2_clip path's per-client shape (BH
+   192 = 16 sequences x 12 heads; the same limits), bfloat16 (O within
+   2e-2), and T 1100, D 128 at dropout 0.1 (three logical dropout tiles,
+   a ragged end); every kernel run twice, bitwise equal; then the
+   tensor-core forward and dk/dv, the scalar ones and
+   ``scaled_dot_product_attention``'s forward and autograd backward as 20
+   alternating rounds, dq and the plain versions beside them, each with
+   two bounds (3xTF32 on the tensor cores, float32 on the CUDA cores);
    then the checks of phase 2's first item, the radix parity and the
    server A/B, and the kernel and recovery times of phase 3 for sketch,
    count, select and the radix again at the GPT2 path's d = 124,051,201
@@ -251,6 +254,7 @@ HW_SHAPE = (64, 256, 768)
 HW_RATE = 0.1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+TF32_OPS_PER_S = 495e12      # H100 SXM TF32 tensor-core peak, dense
 REPS = 25
 
 
@@ -1755,40 +1759,67 @@ def _flash_args(d, rate):
             fa.DEFAULT_BLOCK_K, rate)
 
 
-def _flash_run(q, k, v, g, args):
+def _flash_run(q, k, v, g, args, v1=False):
+    """The kernels' forward and backward: the tensor-core forward and
+    dk/dv, or (``v1``) the first port's scalar ones; dq is one kernel."""
     import torch
 
     from commefficient_tpu_torch.ops import flash_attention as fa
-    o, lse = fa.flash_fwd(q, k, v, *args)
+    fwd = fa.flash_fwd_v1 if v1 else fa.flash_fwd
+    dkv = fa.flash_bwd_dkv_v1 if v1 else fa.flash_bwd_dkv
+    o, lse = fwd(q, k, v, *args)
     delta = torch.sum(g.float() * o.float(), dim=-1)
     dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, *args)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
+    dk, dv = dkv(q, k, v, g, lse, delta, *args)
     return o, lse, dq, dk, dv
 
 
+_FLASH_NAMES = ("o", "lse", "dq", "dk", "dv")
+
+
 def _flash_check(dev, bh, t, d, dtype, rate, seed):
-    """Kernels twice (bitwise equal) and against the plain versions:
-    ``({name: max abs err}, {name: err relative to max |plain|})``."""
+    """Both routes' kernels twice (bitwise equal) and against the plain
+    versions: ``{route: ({name: max abs err}, {name: err relative to max
+    |plain|})}``, route "tc" (the path's kernels) or "v1", and "v1 - tc"
+    (the two routes against each other, relative to max |plain|)."""
     import torch
 
     from commefficient_tpu_torch.ops import flash_attention as fa
     q, k, v, g = _flash_inputs(dev, bh, t, d, dtype, seed)
     args = _flash_args(d, rate)
-    got = _flash_run(q, k, v, g, args)
-    again = _flash_run(q, k, v, g, args)
-    torch.cuda.synchronize()
-    names = ("o", "lse", "dq", "dk", "dv")
-    for name, a, b in zip(names, got, again):
-        if not torch.equal(a, b):
-            raise AssertionError(f"flash kernels are not deterministic: {name}"
-                                 f" differs between two runs ({bh}, {t}, {d},"
-                                 f" {dtype}, rate {rate})")
     ref = fa.flash_fwd_plain(q, k, v, *args) + fa.flash_bwd_plain(
         q, k, v, g, *args)
-    err = {n: _max_abs_err(a, b) for n, a, b in zip(names, got, ref)}
-    rel = {n: err[n] / max(float(b.double().abs().max()), 1e-30)
-           for n, b in zip(names, ref)}
-    return err, rel
+    top = {n: max(float(b.double().abs().max()), 1e-30)
+           for n, b in zip(_FLASH_NAMES, ref)}
+    out, got = {}, {}
+    for route in ("tc", "v1"):
+        got[route] = _flash_run(q, k, v, g, args, v1=route == "v1")
+        again = _flash_run(q, k, v, g, args, v1=route == "v1")
+        torch.cuda.synchronize()
+        for name, a, b in zip(_FLASH_NAMES, got[route], again):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"flash kernels ({route}) are not deterministic: {name} "
+                    f"differs between two runs ({bh}, {t}, {d}, {dtype}, "
+                    f"rate {rate})")
+        del again
+        err = {n: _max_abs_err(a, b)
+               for n, a, b in zip(_FLASH_NAMES, got[route], ref)}
+        out[route] = (err, {n: err[n] / top[n] for n in _FLASH_NAMES})
+    err = {n: _max_abs_err(a, b)
+           for n, a, b in zip(_FLASH_NAMES, got["tc"], got["v1"])}
+    out["v1 - tc"] = (err, {n: err[n] / top[n] for n in _FLASH_NAMES})
+    return out
+
+
+def _flash_bad(dtype, err, rel):
+    """The names over the limits: float32 O and lse 1e-5 absolute, dq, dk
+    and dv 1e-4 of their largest magnitude; bfloat16 O 2e-2."""
+    import torch
+    if dtype == torch.float32:
+        return [n for n in ("o", "lse") if err[n] > 1e-5] + [
+            n for n in ("dq", "dk", "dv") if rel[n] > 1e-4]
+    return [n for n in ("o",) if err[n] > 2e-2]
 
 
 def phase_flash_parity(dev, errs):
@@ -1799,44 +1830,59 @@ def phase_flash_parity(dev, errs):
              ("f32", *FLASH_SHAPE_CLIENT, torch.float32, FLASH_RATE),
              ("bf16", bh, t, d, torch.bfloat16, FLASH_RATE),
              ("f32", 24, 1100, 128, torch.float32, FLASH_RATE)]
-    errs.update(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0)
+    errs.update(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0,
+                flash_fwd_v1=0.0, flash_bwd_dkv_v1=0.0)
     for i, (tag, bh_, t_, d_, dtype, rate) in enumerate(cases):
-        err, rel = _flash_check(dev, bh_, t_, d_, dtype, rate, seed=i)
-        print(f"parity flash ({tag}, BH={bh_}, T={t_}, D={d_}, rate "
-              f"{rate}): bitwise equal over 2 runs; max abs err O "
-              f"{err['o']:.3e}, lse {err['lse']:.3e}; relative to max |.|: "
-              f"dq {rel['dq']:.3e}, dk {rel['dk']:.3e}, dv {rel['dv']:.3e}",
-              flush=True)
-        if dtype == torch.float32:
-            bad = [n for n in ("o", "lse") if err[n] > 1e-5] + [
-                n for n in ("dq", "dk", "dv") if rel[n] > 1e-4]
-            if (t_, d_) == (t, d):
-                errs["flash_fwd"] = max(errs["flash_fwd"], err["o"])
-                errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], err["dq"])
-                errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"],
-                                            err["dk"], err["dv"])
-        else:
-            bad = [n for n in ("o",) if err[n] > 2e-2]
-        if bad:
-            raise AssertionError(f"flash kernels disagree with the plain "
-                                 f"versions ({tag}, T={t_}, D={d_}, rate "
-                                 f"{rate}) in {bad}: {err} / {rel}")
+        res = _flash_check(dev, bh_, t_, d_, dtype, rate, seed=i)
+        for route, (err, rel) in res.items():
+            how = ("the routes against each other" if route == "v1 - tc"
+                   else "bitwise equal over 2 runs")
+            print(f"parity flash {route} ({tag}, BH={bh_}, T={t_}, D={d_}, "
+                  f"rate {rate}): {how}; max abs err O "
+                  f"{err['o']:.3e}, lse {err['lse']:.3e}; relative to max "
+                  f"|.|: dq {rel['dq']:.3e}, dk {rel['dk']:.3e}, dv "
+                  f"{rel['dv']:.3e}", flush=True)
+            bad = _flash_bad(dtype, err, rel)
+            if bad:
+                raise AssertionError(
+                    f"flash kernels ({route}) disagree ({tag}, T={t_}, "
+                    f"D={d_}, rate {rate}) in {bad}: {err} / {rel}")
+        if dtype == torch.float32 and (t_, d_) == (t, d):
+            for suffix, route in (("", "tc"), ("_v1", "v1")):
+                err = res[route][0]
+                errs["flash_fwd" + suffix] = max(errs["flash_fwd" + suffix],
+                                                 err["o"])
+                errs["flash_bwd_dkv" + suffix] = max(
+                    errs["flash_bwd_dkv" + suffix], err["dk"], err["dv"])
+            errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"],
+                                       res["tc"][0]["dq"])
 
 
 def _flash_cost(kind, bh, t, d):
-    """(ms, kind) of the least time for one kernel at (bh, t, d) float32:
-    each input read once and each output written once; the causal
-    products' flops (forward 2 T^2 D BH, dq 1.5x, dkv 2x)."""
+    """The least time for one kernel at (bh, t, d) float32, two ways:
+    ``{"tensor_cores": (ms, by), "cuda_cores": (ms, by)}``. Each input is
+    read once and each output written once; the causal products' flops
+    (forward 2 T^2 D BH, dq 1.5x, dkv 2x) run either in 3xTF32 on the
+    tensor cores (3 products at 495 TFLOP/s, the least time for float32
+    accuracy) or in float32 on the CUDA cores (67 TFLOP/s)."""
     tensor, row = 4 * bh * t * d, 4 * bh * t
     flops = 2 * t * t * d * bh
-    if kind == "fwd":       # q, k, v -> O, lse
-        return _bound(4 * tensor + row, flops)
-    if kind == "dq":        # q, k, v, dO, lse, delta -> dq
-        return _bound(5 * tensor + 2 * row, 1.5 * flops)
-    return _bound(6 * tensor + 2 * row, 2 * flops)  # ... -> dk, dv
+    nbytes, ops = {
+        "fwd": (4 * tensor + row, flops),          # q, k, v -> O, lse
+        "dq": (5 * tensor + 2 * row, 1.5 * flops),  # q, k, v, dO, lse, delta
+        "dkv": (6 * tensor + 2 * row, 2 * flops),   # ... -> dk, dv
+    }[kind]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = 3 * ops / TF32_OPS_PER_S * 1e3
+    tc = (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")
+    return {"tensor_cores": tc, "cuda_cores": _bound(nbytes, ops)}
 
 
-def phase_flash_timing(dev):
+def phase_flash_timing(dev, pairs=20):
+    """The flash kernels at the GPT2 path's shape: the tensor-core forward
+    and dk/dv against the first port's scalar ones and SDPA's forward and
+    backward, as ``pairs`` alternating rounds (each side the median of 25
+    CUDA-event timings); dq and the plain versions timed once."""
     import torch
     import torch.nn.functional as F
 
@@ -1851,45 +1897,70 @@ def phase_flash_timing(dev):
     q4, k4, v4, g4 = (x.view(bh // 12, 12, t, d) for x in (q, k, v, g))
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(
         a, b, c, is_causal=True, dropout_p=FLASH_RATE)
-    lib_fwd = _time_ms(lambda: sdpa(q4, k4, v4))
     leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
     out = sdpa(*leaves)
-    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, leaves, g4,
-                                                   retain_graph=True))
+    bwd_in = (q, k, v, g, lse, delta)
+    ms = _alternate({
+        "fwd": lambda: fa.flash_fwd(q, k, v, *args),
+        "fwd_v1": lambda: fa.flash_fwd_v1(q, k, v, *args),
+        "dkv": lambda: fa.flash_bwd_dkv(*bwd_in, *args),
+        "dkv_v1": lambda: fa.flash_bwd_dkv_v1(*bwd_in, *args),
+        "sdpa_fwd": lambda: sdpa(q4, k4, v4),
+        "sdpa_bwd": lambda: torch.autograd.grad(out, leaves, g4,
+                                                retain_graph=True),
+    }, pairs)
+    med = {name: float(np.median(x)) for name, x in ms.items()}
+    plain_fwd = _time_ms(lambda: fa.flash_fwd_plain(q, k, v, *args))
     plain_bwd = _time_ms(lambda: fa.flash_bwd_plain(q, k, v, g, *args))
     at = f"BH={bh}, T={t}, D={d}, f32, rate {FLASH_RATE}"
+
+    def row(ms_, plain_ms, library_ms, kind, route):
+        cost = _flash_cost(kind, bh, t, d)
+        return dict(ms=ms_, plain_ms=plain_ms, library_ms=library_ms,
+                    cost=cost["tensor_cores"], at=at, flash_route=route,
+                    bound_cuda_cores_ms=cost["cuda_cores"][0])
     rows = {
-        "flash_fwd": dict(
-            ms=_time_ms(lambda: fa.flash_fwd(q, k, v, *args)),
-            plain_ms=_time_ms(lambda: fa.flash_fwd_plain(q, k, v, *args)),
-            library_ms=lib_fwd, cost=_flash_cost("fwd", bh, t, d), at=at),
-        "flash_bwd_dq": dict(
-            ms=_time_ms(lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta,
-                                                *args)),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
-            cost=_flash_cost("dq", bh, t, d), at=at),
-        "flash_bwd_dkv": dict(
-            ms=_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta,
-                                                 *args)),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
-            cost=_flash_cost("dkv", bh, t, d), at=at),
+        "flash_fwd": row(med["fwd"], plain_fwd, med["sdpa_fwd"], "fwd",
+                         "tensor cores, 3xTF32"),
+        "flash_fwd_v1": row(med["fwd_v1"], plain_fwd, med["sdpa_fwd"],
+                            "fwd", "CUDA cores, scalar FMA"),
+        "flash_bwd_dq": row(
+            _time_ms(lambda: fa.flash_bwd_dq(*bwd_in, *args)), plain_bwd,
+            med["sdpa_bwd"], "dq", "CUDA cores, scalar FMA"),
+        "flash_bwd_dkv": row(med["dkv"], plain_bwd, med["sdpa_bwd"], "dkv",
+                             "tensor cores, 3xTF32"),
+        "flash_bwd_dkv_v1": row(med["dkv_v1"], plain_bwd, med["sdpa_bwd"],
+                                "dkv", "CUDA cores, scalar FMA"),
     }
     for name, r in rows.items():
         bound_ms, kind = r["cost"]
-        print(f"time {name} ({at}): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({kind})", flush=True)
+        print(f"time {name} ({at}; {r['flash_route']}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({kind}; "
+              f"3xTF32 on the tensor cores), {r['bound_cuda_cores_ms']:.5f} "
+              f"ms on the CUDA cores", flush=True)
+    for new, old, lib in (("fwd", "fwd_v1", "sdpa_fwd"),
+                          ("dkv", "dkv_v1", "sdpa_bwd")):
+        ratio = [a / b for a, b in zip(ms[old], ms[new])]
+        print(f"time flash {new} ({pairs} alternating rounds): tensor cores "
+              f"{med[new]:.4f} ms, v1 {med[old]:.4f} ms (v1 / new: median "
+              f"{float(np.median(ratio)):.3f}, min {min(ratio):.3f}, max "
+              f"{max(ratio):.3f}), {lib} {med[lib]:.4f} ms", flush=True)
+    print("  rounds: " + ", ".join(
+        f"{name} {[round(x, 4) for x in v]}" for name, v in ms.items()),
+          flush=True)
     print("  library: flash_fwd = scaled_dot_product_attention(is_causal, "
           f"dropout_p={FLASH_RATE}) forward; flash_bwd_dq, flash_bwd_dkv = "
           "its whole autograd backward (dq, dk, dv together); plain ms of "
-          "both backward rows = the plain forward's autograd (dq, dk, dv "
+          "the backward rows = the plain forward's autograd (dq, dk, dv "
           "together)", flush=True)
     return rows
 
 
 # kernel classes of the round's device-time breakdown, by name substring
 _KERNEL_CLASSES = (
-    ("flash attention (B5-B7)", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+    ("flash attention (B5-B7)", ("fwd_kernel", "dq_kernel", "dkv_kernel",
+                                 "fwd_v1_kernel", "dkv_v1_kernel")),
     ("hardware-RNG dropout (B8)", ("hw_dropout_kernel",)),
     ("sketch and top-k (B1-B3)", ("sketch_kernel", "count_kernel",
                                   "select_kernel", "tie_count_kernel",
@@ -2135,6 +2206,10 @@ SOURCES = {
                      "commefficient_tpu/ops/flash_attention.py:303"),
     "flash_bwd_dkv": ("commefficient_tpu_torch/csrc/flash_attention.cu",
                       "commefficient_tpu/ops/flash_attention.py:356"),
+    "flash_fwd_v1": ("commefficient_tpu_torch/csrc/flash_attention.cu",
+                     "commefficient_tpu/ops/flash_attention.py:183"),
+    "flash_bwd_dkv_v1": ("commefficient_tpu_torch/csrc/flash_attention.cu",
+                         "commefficient_tpu/ops/flash_attention.py:356"),
     "sketch_batched": ("commefficient_tpu_torch/csrc/sketch.cu",
                        "commefficient_tpu/ops/sketch_kernels.py:285 "
                        "(batched grid :381)"),
@@ -2244,7 +2319,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": kind, "library_ms": r["library_ms"],
-            "at": r.get("at", f"d={D_RESNET9}")})
+            "at": r.get("at", f"d={D_RESNET9}"),
+            **{key: r[key] for key in ("flash_route", "bound_cuda_cores_ms")
+               if key in r}})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

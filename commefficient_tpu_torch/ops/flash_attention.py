@@ -11,6 +11,19 @@ Pallas kernels, each behind a wrapper that counts its launches:
   q, k and lse; ``delta = rowsum(dO * O)`` is computed in PyTorch between
   them, as the reference computes it outside its kernels.
 
+The forward and dk/dv kernels multiply on the tensor cores: float32 in
+"3xTF32" (``csrc/mma_tf32x3.cuh``: each operand split into a TF32 part
+and a remainder, three products, float32's accuracy at up to 165 TFLOP/s
+effective against the CUDA cores' 67), bfloat16 in one TF32 product,
+which holds its values exactly; tiles arrive by 16-byte ``cp.async``
+copies that overlap the products, so they need q, k, v and dO 16-byte
+aligned. dq is still
+the first port's scalar kernel on the CUDA cores. The first port's
+scalar forward and dk/dv stay behind ``flash_fwd_v1`` and
+``flash_bwd_dkv_v1`` (keys ``flash_fwd_v1``, ``flash_bwd_dkv_v1``) to be
+held against the plain versions and timed beside the new kernels; no path
+calls them.
+
 ``flash_attention`` is a ``torch.autograd.Function`` over the three (on a
 CPU tensor, the plain forward under autograd).
 
@@ -57,8 +70,10 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _TAIL = [_I, _I, _I, _I, _F, _I, _I, _I, _I, _U, _F, _I, _P]
 _SIGNATURES = {
     "flash_fwd_launch": [_P] * 5 + _TAIL,
+    "flash_fwd_v1_launch": [_P] * 5 + _TAIL,
     "flash_bwd_dq_launch": [_P] * 7 + _TAIL,
     "flash_bwd_dkv_launch": [_P] * 8 + _TAIL,
+    "flash_bwd_dkv_v1_launch": [_P] * 8 + _TAIL,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -149,7 +164,7 @@ def flash_bwd_plain(q3, k3, v3, do, seeds, scale: float, block_q: int,
         return torch.autograd.grad(o, (q, k, v), do)
 
 
-def _check(name, tensors):
+def _check(name, tensors, aligned=False):
     ref = tensors[0]
     if ref.dim() != 3:
         raise ValueError(f"{name}: takes (BH, T, D) tensors, got "
@@ -164,6 +179,10 @@ def _check(name, tensors):
                 or x.shape != ref.shape or not x.is_contiguous():
             raise ValueError(f"{name}: q, k, v (and dO) must be contiguous "
                              f"tensors of one shape, dtype and device")
+        if aligned and x.data_ptr() % 16:
+            raise ValueError(f"{name}: the tensor-core kernel copies rows "
+                             f"16 bytes at a time and needs q, k, v (and "
+                             f"dO) 16-byte aligned")
     return bh, t, d
 
 
@@ -182,31 +201,47 @@ def _device_of(fn_name, x):
     return True
 
 
+def _launch_fwd(entry, key, q3, k3, v3, seeds, scale, block_q, block_k,
+                rate, aligned):
+    bh, t, d = _check(key, (q3, k3, v3), aligned)
+    o = torch.empty_like(q3)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
+    lib = cuda_lib.load("flash_attention", _SIGNATURES)
+    err = getattr(lib, entry)(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, t, d, _DTYPES[q3.dtype], scale,
+        *_drop_args(seeds, t, block_q, block_k, rate),
+        cuda_lib.stream_ptr(q3.device))
+    cuda_lib.check(err, key)
+    cuda_lib.LAUNCHES[key] += 1
+    return o, lse
+
+
 def flash_fwd(q3, k3, v3, seeds, scale: float, block_q: int, block_k: int,
               rate: float):
     """``(O, lse)`` of causal attention over (BH, T, D) q, k, v.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    tensor-core kernel or raises."""
     if not _device_of("flash_fwd", q3):
         return flash_fwd_plain(q3, k3, v3, seeds, scale, block_q, block_k,
                                rate)
-    bh, t, d = _check("flash_fwd", (q3, k3, v3))
-    o = torch.empty_like(q3)
-    lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
-    lib = cuda_lib.load("flash_attention", _SIGNATURES)
-    err = lib.flash_fwd_launch(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, t, d, _DTYPES[q3.dtype], scale,
-        *_drop_args(seeds, t, block_q, block_k, rate),
-        cuda_lib.stream_ptr(q3.device))
-    cuda_lib.check(err, "flash_fwd")
-    cuda_lib.LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    return _launch_fwd("flash_fwd_launch", "flash_fwd", q3, k3, v3, seeds,
+                       scale, block_q, block_k, rate, aligned=True)
 
 
-def _bwd_inputs(name, q3, k3, v3, do, lse, delta):
-    bh, t, d = _check(name, (q3, k3, v3, do))
+def flash_fwd_v1(q3, k3, v3, seeds, scale: float, block_q: int,
+                 block_k: int, rate: float):
+    """``flash_fwd`` by the first port's scalar kernel (on no path)."""
+    if not _device_of("flash_fwd_v1", q3):
+        return flash_fwd_plain(q3, k3, v3, seeds, scale, block_q, block_k,
+                               rate)
+    return _launch_fwd("flash_fwd_v1_launch", "flash_fwd_v1", q3, k3, v3,
+                       seeds, scale, block_q, block_k, rate, aligned=False)
+
+
+def _bwd_inputs(name, q3, k3, v3, do, lse, delta, aligned=False):
+    bh, t, d = _check(name, (q3, k3, v3, do), aligned)
     for x in (lse, delta):
         if x.dtype != torch.float32 or tuple(x.shape) != (bh, t) \
                 or x.device != q3.device or not x.is_contiguous():
@@ -237,24 +272,43 @@ def flash_bwd_dq(q3, k3, v3, do, lse, delta, seeds, scale: float,
     return dq
 
 
-def flash_bwd_dkv(q3, k3, v3, do, lse, delta, seeds, scale: float,
-                  block_q: int, block_k: int, rate: float):
-    """(dk, dv) of causal attention; as ``flash_bwd_dq``."""
-    if not _device_of("flash_bwd_dkv", q3):
-        return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
-                               block_k, rate)[1:]
-    bh, t, d = _bwd_inputs("flash_bwd_dkv", q3, k3, v3, do, lse, delta)
+def _launch_dkv(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
+                block_q, block_k, rate, aligned):
+    bh, t, d = _bwd_inputs(key, q3, k3, v3, do, lse, delta, aligned)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
     lib = cuda_lib.load("flash_attention", _SIGNATURES)
-    err = lib.flash_bwd_dkv_launch(
+    err = getattr(lib, entry)(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
         t, d, _DTYPES[q3.dtype], scale,
         *_drop_args(seeds, t, block_q, block_k, rate),
         cuda_lib.stream_ptr(q3.device))
-    cuda_lib.check(err, "flash_bwd_dkv")
-    cuda_lib.LAUNCHES["flash_bwd_dkv"] += 1
+    cuda_lib.check(err, key)
+    cuda_lib.LAUNCHES[key] += 1
     return dk, dv
+
+
+def flash_bwd_dkv(q3, k3, v3, do, lse, delta, seeds, scale: float,
+                  block_q: int, block_k: int, rate: float):
+    """(dk, dv) of causal attention by the tensor-core kernel; as
+    ``flash_bwd_dq``."""
+    if not _device_of("flash_bwd_dkv", q3):
+        return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
+                               block_k, rate)[1:]
+    return _launch_dkv("flash_bwd_dkv_launch", "flash_bwd_dkv", q3, k3, v3,
+                       do, lse, delta, seeds, scale, block_q, block_k, rate,
+                       aligned=True)
+
+
+def flash_bwd_dkv_v1(q3, k3, v3, do, lse, delta, seeds, scale: float,
+                     block_q: int, block_k: int, rate: float):
+    """``flash_bwd_dkv`` by the first port's scalar kernel (on no path)."""
+    if not _device_of("flash_bwd_dkv_v1", q3):
+        return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
+                               block_k, rate)[1:]
+    return _launch_dkv("flash_bwd_dkv_v1_launch", "flash_bwd_dkv_v1", q3,
+                       k3, v3, do, lse, delta, seeds, scale, block_q,
+                       block_k, rate, aligned=False)
 
 
 class _Flash(torch.autograd.Function):

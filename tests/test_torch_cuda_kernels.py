@@ -8,9 +8,10 @@ machine with one (and without JAX, so without the suite's conftest):
 Each sketch and top-k kernel must equal its plain version bitwise at
 small shapes, odd lengths (tails that are no multiple of a tile), a
 nonzero block offset, per-row k and planted ties included; the flash
-attention kernels match theirs within float32 rounding (O and lse atol
+attention kernels (the tensor-core forward and dk/dv, and the first
+port's scalar ones) match theirs within float32 rounding (O and lse atol
 1e-5, gradients 1e-4 of their largest magnitude; bf16 2e-2), with and
-without dropout, and are deterministic; the hardware-RNG dropout kernel
+without dropout, ragged T and D from 8 to 128, and are deterministic; the hardware-RNG dropout kernel
 equals its plain version bitwise (float32 and bfloat16, a partial
 logical block) and meets the reference's contract; the estimate-once
 radix of the fused unsketch + top-k equals its plain versions pass by pass
@@ -291,10 +292,15 @@ def test_estimates_kernel_equals_plain(dev, d, c, r):
     assert _same_bits(got, estimates_plain(cs, table))
 
 
-@pytest.mark.parametrize("dtype,D,T,rate", [
+FLASH_CASES = [
     (torch.float32, 64, 256, 0.0), (torch.float32, 64, 256, 0.1),
     (torch.float32, 32, 100, 0.1), (torch.float32, 128, 200, 0.1),
-    (torch.float32, 40, 130, 0.1), (torch.bfloat16, 64, 256, 0.1)])
+    (torch.float32, 40, 130, 0.1), (torch.bfloat16, 64, 256, 0.1),
+    (torch.float32, 8, 130, 0.0), (torch.float32, 128, 1100, 0.1),
+    (torch.bfloat16, 128, 130, 0.0)]
+
+
+@pytest.mark.parametrize("dtype,D,T,rate", FLASH_CASES)
 def test_flash_kernels_match_plain(dev, dtype, D, T, rate):
     BH = 6
     gen = torch.Generator().manual_seed(T + D)
@@ -323,6 +329,57 @@ def test_flash_kernels_match_plain(dev, dtype, D, T, rate):
     assert torch.equal(fa.flash_bwd_dq(q, k, v, g, lse, delta, *args), dq)
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.parametrize("dtype,D,T,rate", FLASH_CASES)
+def test_flash_v1_kernels_match_plain_and_the_new(dev, dtype, D, T, rate):
+    """The first port's scalar forward and dk/dv (on no path) against the
+    plain versions and the tensor-core kernels, with the same limits, and
+    bitwise over two runs."""
+    BH = 6
+    gen = torch.Generator().manual_seed(T + D)
+    q, k, v, g = (torch.randn(BH, T, D, generator=gen).to(dev, dtype)
+                  for _ in range(4))
+    args = ((123, -456), D ** -0.5, 64, 96, rate)
+    before = dict(cuda_lib.LAUNCHES)
+    o1, lse1 = fa.flash_fwd_v1(q, k, v, *args)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    p_o, p_lse = fa.flash_fwd_plain(q, k, v, *args)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for want in (p_o, o):
+        torch.testing.assert_close(o1.float(), want.float(), rtol=0, atol=tol)
+    for want in (p_lse, lse):
+        torch.testing.assert_close(lse1, want, rtol=0, atol=1e-5)
+    delta = (g.float() * o.float()).sum(-1)
+    got = fa.flash_bwd_dkv_v1(q, k, v, g, lse, delta, *args)
+    new = fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
+    ref = fa.flash_bwd_plain(q, k, v, g, *args)[1:]
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, want in zip(got, new, ref):
+        scale = float(want.float().abs().max())
+        for other in (want, b):
+            torch.testing.assert_close(a.float(), other.float(), rtol=0,
+                                       atol=rel * scale)
+    for name in ("flash_fwd_v1", "flash_bwd_dkv_v1"):
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1
+    again = fa.flash_fwd_v1(q, k, v, *args)
+    assert torch.equal(again[0], o1) and torch.equal(again[1], lse1)
+    again = fa.flash_bwd_dkv_v1(q, k, v, g, lse, delta, *args)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_flash_tc_kernels_refuse_unaligned_rows(dev):
+    """The tensor-core kernels copy rows 16 bytes at a time: an input
+    that starts off a 16-byte boundary raises; the first port's kernels
+    take it."""
+    base = torch.randn(2 * 64 * 8 + 1, device=dev)
+    q = base[1:].view(2, 64, 8)
+    args = ((0, 0), 8 ** -0.5, 64, 64, 0.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(q, q, q, *args)
+    o, lse = fa.flash_fwd_v1(q, q, q, *args)
+    torch.testing.assert_close(o, fa.flash_fwd_plain(q, q, q, *args)[0],
+                               rtol=0, atol=1e-5)
 
 
 def test_flash_attention_autograd_on_the_card(dev):
