@@ -85,8 +85,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    learner on CUDA (kernels) and on the CPU (plain versions) from the same
    weights and batches must agree, in sketch, true_topk and local_topk,
    and in sketch with --max_grad_norm and with DP (noise 0);
-6. the flash attention kernels (the tensor-core forward and dk/dv, dq,
-   and the first port's scalar forward and dk/dv, on no path) against
+6. the flash attention kernels (the tensor-core forward, dq and dk/dv,
+   and the first port's scalar ones, on no path) against
    their plain versions and each other at the GPT2 path's shape (BH 768
    = 64 sequences x 12 heads, T 256, D 64): float32 at dropout 0 and 0.1
    (O within 1e-5, dq/dk/dv within 1e-4 of their largest magnitude),
@@ -94,10 +94,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    192 = 16 sequences x 12 heads; the same limits), bfloat16 (O within
    2e-2), and T 1100, D 128 at dropout 0.1 (three logical dropout tiles,
    a ragged end); every kernel run twice, bitwise equal; then the
-   tensor-core forward and dk/dv, the scalar ones and
-   ``scaled_dot_product_attention``'s forward and autograd backward as 20
-   alternating rounds, dq and the plain versions beside them, each with
-   two bounds (3xTF32 on the tensor cores, float32 on the CUDA cores);
+   tensor-core forward, dq and dk/dv, the scalar ones, the port's whole
+   backward (delta, dq, dk/dv) and ``scaled_dot_product_attention``'s
+   forward and autograd backward as 20 alternating rounds, the plain
+   versions beside them, each kernel with two bounds (3xTF32 on the
+   tensor cores, float32 on the CUDA cores);
    then the checks of phase 2's first item, the radix parity and the
    server A/B, and the kernel and recovery times of phase 3 for sketch,
    count, select and the radix again at the GPT2 path's d = 124,051,201
@@ -111,8 +112,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    logical block and a bfloat16 case, each twice; the reference's contract
    at (512, 1024), rate 0.1 (keep fraction within 5e-3 of 0.9, kept values
    exactly f32(1/0.9), the gradient of the sum equal to the output, a
-   second seed differing in over 10%); its time at (64, 256, 768) beside
-   the plain version, ``torch.nn.functional.dropout`` and the bound;
+   second seed differing in over 10%); its call against
+   ``torch.nn.functional.dropout``'s as 20 alternating rounds at (64,
+   256, 768) and at the mc head's (64, 768), each one's device time
+   alone (200 launches back to back between one pair of events), the
+   plain version and the bound;
 7. the GPT2 path: ``training.gpt2.train(args, max_rounds=3)`` with the
    flags of ``examples/gpt2_personachat.sh`` on SyntheticPersona at
    GPT2-small's width (d = 124,051,201, ``--attn_impl blockwise``,
@@ -152,6 +156,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -426,9 +431,24 @@ def phase_build():
     for name in cuda_lib.SOURCES:
         log = cuda_lib.BUILD_DIR / f"{name}.log"
         if log.exists():
+            kernel = "?"
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+                if "Function properties for" in line:
+                    kernel = _demangle(line.split(" for ", 1)[1].strip())
+                elif "registers" in line or "spill" in line:
+                    print(f"  ptxas {name} {kernel}: {line.strip()}")
+
+
+def _demangle(symbol: str) -> str:
+    """A kernel's symbol as ``name<template arguments>`` where the machine
+    has ``c++filt``, else as it is."""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", out)
+    return m.group(1) if m else (out or symbol)
 
 
 def phase_parity(dev, d, errs):
@@ -1609,10 +1629,50 @@ def phase_hw_dropout_parity(dev, errs):
           flush=True)
 
 
-def phase_hw_dropout_timing(dev):
-    """Times of the hardware-RNG dropout at the GPT2 path's activation
-    shape beside its plain version, ``torch.nn.functional.dropout`` (the
-    library row) and the bound; the mc head's shape printed apart."""
+def _back_to_back_ms(fn, n=200) -> float:
+    """Device time of one ``fn()``: ``n`` calls back to back between one
+    pair of CUDA events, over ``n``. The host's work before each launch
+    hides behind the device while it is shorter than the kernel."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _host_us(fn, n=200) -> float:
+    """Host time of one ``fn()`` in microseconds: ``n`` calls in a row
+    on the host's clock, over ``n``, the device idle at the start so
+    that no launch waits for a full queue."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return host / n * 1e6
+
+
+def phase_hw_dropout_timing(dev, pairs=20):
+    """The hardware-RNG dropout's call against
+    ``torch.nn.functional.dropout`` (the library row) at the GPT2 path's
+    activation shape and at the mc head's, as ``pairs`` alternating
+    rounds (each side the median of 25 CUDA-event timings of one call, so
+    the host's work before the launch counts); each one's device time
+    alone (``_back_to_back_ms``) and host time (``_host_us``); the plain
+    version and the bound. Every
+    input needs a gradient, as the training path's activations do, so
+    both calls record their autograd node as they do there."""
     import torch
     import torch.nn.functional as F
 
@@ -1621,20 +1681,41 @@ def phase_hw_dropout_timing(dev):
                                                      seed_words)
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn(HW_SHAPE, generator=gen, device=dev)
+    mc = x[:, 0].contiguous().requires_grad_(True)
+    x.requires_grad_(True)
     seeds = seed_words(1234)
-    at = f"{HW_SHAPE}, f32, rate {HW_RATE}"
-    r = dict(ms=_time_ms(lambda: hw_dropout(x, seeds, HW_RATE)),
-             plain_ms=_time_ms(lambda: hw_dropout_plain(x, seeds, HW_RATE)),
-             library_ms=_time_ms(lambda: F.dropout(x, HW_RATE,
-                                                   training=True)),
+    hw = lambda a: (lambda: hw_dropout(a, seeds, HW_RATE))
+    lib = lambda a: (lambda: F.dropout(a, HW_RATE, training=True))
+    ms = _alternate({"hw": hw(x), "lib": lib(x), "hw_mc": hw(mc),
+                     "lib_mc": lib(mc)}, pairs)
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    at = f"{HW_SHAPE}, f32 with requires_grad, rate {HW_RATE}"
+    r = dict(ms=med["hw"], library_ms=med["lib"],
+             plain_ms=_time_ms(lambda: hw_dropout_plain(x.detach(), seeds,
+                                                        HW_RATE)),
+             device_ms=_back_to_back_ms(hw(x)),
              cost=_hw_dropout_cost(x.numel()), at=at)
-    mc = x[:, 0].contiguous()
-    mc_ms = _time_ms(lambda: hw_dropout(mc, seeds, HW_RATE))
+    lib_device_ms = _back_to_back_ms(lib(x))
+    mc_device_ms = (_back_to_back_ms(hw(mc)), _back_to_back_ms(lib(mc)))
+    host_us = {name: _host_us(fn) for name, fn in (
+        ("hw", hw(x)), ("lib", lib(x)), ("hw_mc", hw(mc)),
+        ("lib_mc", lib(mc)))}
     bound_ms, kind = r["cost"]
-    print(f"time hw_dropout ({at}): kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({kind}); at the mc head's {tuple(mc.shape)} "
-          f"{mc_ms:.4f} ms", flush=True)
+    ratio = [a / b for a, b in zip(ms["lib"], ms["hw"])]
+    print(f"time hw_dropout ({at}; {pairs} alternating rounds of one "
+          f"call): kernel {r['ms']:.4f} ms, F.dropout {r['library_ms']:.4f} "
+          f"ms (F.dropout / hw_dropout: median {float(np.median(ratio)):.3f},"
+          f" min {min(ratio):.3f}, max {max(ratio):.3f}); device time alone "
+          f"{r['device_ms']:.4f} ms, F.dropout's {lib_device_ms:.4f} ms; "
+          f"plain {r['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({kind}); "
+          f"at the mc head's {tuple(mc.shape)} {med['hw_mc']:.4f} ms, "
+          f"F.dropout {med['lib_mc']:.4f} ms, device time alone "
+          f"{mc_device_ms[0]:.4f} and {mc_device_ms[1]:.4f} ms; host time "
+          f"of a call (us): " + ", ".join(
+              f"{name} {v:.2f}" for name, v in host_us.items()), flush=True)
+    print("  rounds: " + ", ".join(
+        f"{name} {[round(v, 4) for v in vals]}" for name, vals in ms.items()),
+          flush=True)
     print("  library: hw_dropout = torch.nn.functional.dropout(x, "
           f"{HW_RATE}, training=True) at the same shape (its own bits)",
           flush=True)
@@ -1760,16 +1841,17 @@ def _flash_args(d, rate):
 
 
 def _flash_run(q, k, v, g, args, v1=False):
-    """The kernels' forward and backward: the tensor-core forward and
-    dk/dv, or (``v1``) the first port's scalar ones; dq is one kernel."""
+    """The kernels' forward and backward: the tensor-core forward, dq and
+    dk/dv, or (``v1``) the first port's scalar ones."""
     import torch
 
     from commefficient_tpu_torch.ops import flash_attention as fa
     fwd = fa.flash_fwd_v1 if v1 else fa.flash_fwd
+    bwd_dq = fa.flash_bwd_dq_v1 if v1 else fa.flash_bwd_dq
     dkv = fa.flash_bwd_dkv_v1 if v1 else fa.flash_bwd_dkv
     o, lse = fwd(q, k, v, *args)
     delta = torch.sum(g.float() * o.float(), dim=-1)
-    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, *args)
+    dq = bwd_dq(q, k, v, g, lse, delta, *args)
     dk, dv = dkv(q, k, v, g, lse, delta, *args)
     return o, lse, dq, dk, dv
 
@@ -1831,7 +1913,7 @@ def phase_flash_parity(dev, errs):
              ("bf16", bh, t, d, torch.bfloat16, FLASH_RATE),
              ("f32", 24, 1100, 128, torch.float32, FLASH_RATE)]
     errs.update(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0,
-                flash_fwd_v1=0.0, flash_bwd_dkv_v1=0.0)
+                flash_fwd_v1=0.0, flash_bwd_dq_v1=0.0, flash_bwd_dkv_v1=0.0)
     for i, (tag, bh_, t_, d_, dtype, rate) in enumerate(cases):
         res = _flash_check(dev, bh_, t_, d_, dtype, rate, seed=i)
         for route, (err, rel) in res.items():
@@ -1852,10 +1934,10 @@ def phase_flash_parity(dev, errs):
                 err = res[route][0]
                 errs["flash_fwd" + suffix] = max(errs["flash_fwd" + suffix],
                                                  err["o"])
+                errs["flash_bwd_dq" + suffix] = max(
+                    errs["flash_bwd_dq" + suffix], err["dq"])
                 errs["flash_bwd_dkv" + suffix] = max(
                     errs["flash_bwd_dkv" + suffix], err["dk"], err["dv"])
-            errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"],
-                                       res["tc"][0]["dq"])
 
 
 def _flash_cost(kind, bh, t, d):
@@ -1879,10 +1961,11 @@ def _flash_cost(kind, bh, t, d):
 
 
 def phase_flash_timing(dev, pairs=20):
-    """The flash kernels at the GPT2 path's shape: the tensor-core forward
-    and dk/dv against the first port's scalar ones and SDPA's forward and
-    backward, as ``pairs`` alternating rounds (each side the median of 25
-    CUDA-event timings); dq and the plain versions timed once."""
+    """The flash kernels at the GPT2 path's shape: the tensor-core
+    forward, dq and dk/dv against the first port's scalar ones and SDPA's
+    forward and backward, and the port's whole backward (delta, dq, dk/dv)
+    against SDPA's, as ``pairs`` alternating rounds (each side the median
+    of 25 CUDA-event timings); the plain versions timed once."""
     import torch
     import torch.nn.functional as F
 
@@ -1900,11 +1983,20 @@ def phase_flash_timing(dev, pairs=20):
     leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
     out = sdpa(*leaves)
     bwd_in = (q, k, v, g, lse, delta)
+
+    def port_bwd():
+        # as _Flash.backward: delta, then dq, then dk/dv
+        dl = torch.sum(g * o, dim=-1)
+        fa.flash_bwd_dq(q, k, v, g, lse, dl, *args)
+        fa.flash_bwd_dkv(q, k, v, g, lse, dl, *args)
     ms = _alternate({
         "fwd": lambda: fa.flash_fwd(q, k, v, *args),
         "fwd_v1": lambda: fa.flash_fwd_v1(q, k, v, *args),
+        "dq": lambda: fa.flash_bwd_dq(*bwd_in, *args),
+        "dq_v1": lambda: fa.flash_bwd_dq_v1(*bwd_in, *args),
         "dkv": lambda: fa.flash_bwd_dkv(*bwd_in, *args),
         "dkv_v1": lambda: fa.flash_bwd_dkv_v1(*bwd_in, *args),
+        "bwd": port_bwd,
         "sdpa_fwd": lambda: sdpa(q4, k4, v4),
         "sdpa_bwd": lambda: torch.autograd.grad(out, leaves, g4,
                                                 retain_graph=True),
@@ -1919,18 +2011,19 @@ def phase_flash_timing(dev, pairs=20):
         return dict(ms=ms_, plain_ms=plain_ms, library_ms=library_ms,
                     cost=cost["tensor_cores"], at=at, flash_route=route,
                     bound_cuda_cores_ms=cost["cuda_cores"][0])
+    tc, v1 = "tensor cores, 3xTF32", "CUDA cores, scalar FMA"
     rows = {
-        "flash_fwd": row(med["fwd"], plain_fwd, med["sdpa_fwd"], "fwd",
-                         "tensor cores, 3xTF32"),
+        "flash_fwd": row(med["fwd"], plain_fwd, med["sdpa_fwd"], "fwd", tc),
         "flash_fwd_v1": row(med["fwd_v1"], plain_fwd, med["sdpa_fwd"],
-                            "fwd", "CUDA cores, scalar FMA"),
-        "flash_bwd_dq": row(
-            _time_ms(lambda: fa.flash_bwd_dq(*bwd_in, *args)), plain_bwd,
-            med["sdpa_bwd"], "dq", "CUDA cores, scalar FMA"),
+                            "fwd", v1),
+        "flash_bwd_dq": row(med["dq"], plain_bwd, med["sdpa_bwd"], "dq",
+                            tc),
+        "flash_bwd_dq_v1": row(med["dq_v1"], plain_bwd, med["sdpa_bwd"],
+                               "dq", v1),
         "flash_bwd_dkv": row(med["dkv"], plain_bwd, med["sdpa_bwd"], "dkv",
-                             "tensor cores, 3xTF32"),
+                             tc),
         "flash_bwd_dkv_v1": row(med["dkv_v1"], plain_bwd, med["sdpa_bwd"],
-                                "dkv", "CUDA cores, scalar FMA"),
+                                "dkv", v1),
     }
     for name, r in rows.items():
         bound_ms, kind = r["cost"]
@@ -1940,12 +2033,18 @@ def phase_flash_timing(dev, pairs=20):
               f"3xTF32 on the tensor cores), {r['bound_cuda_cores_ms']:.5f} "
               f"ms on the CUDA cores", flush=True)
     for new, old, lib in (("fwd", "fwd_v1", "sdpa_fwd"),
+                          ("dq", "dq_v1", "sdpa_bwd"),
                           ("dkv", "dkv_v1", "sdpa_bwd")):
         ratio = [a / b for a, b in zip(ms[old], ms[new])]
         print(f"time flash {new} ({pairs} alternating rounds): tensor cores "
               f"{med[new]:.4f} ms, v1 {med[old]:.4f} ms (v1 / new: median "
               f"{float(np.median(ratio)):.3f}, min {min(ratio):.3f}, max "
               f"{max(ratio):.3f}), {lib} {med[lib]:.4f} ms", flush=True)
+    ratio = [a / b for a, b in zip(ms["sdpa_bwd"], ms["bwd"])]
+    print(f"time flash backward ({pairs} alternating rounds): delta + dq + "
+          f"dk/dv {med['bwd']:.4f} ms, SDPA's backward {med['sdpa_bwd']:.4f}"
+          f" ms (SDPA / port: median {float(np.median(ratio)):.3f}, min "
+          f"{min(ratio):.3f}, max {max(ratio):.3f})", flush=True)
     print("  rounds: " + ", ".join(
         f"{name} {[round(x, 4) for x in v]}" for name, v in ms.items()),
           flush=True)
@@ -1960,7 +2059,8 @@ def phase_flash_timing(dev, pairs=20):
 # kernel classes of the round's device-time breakdown, by name substring
 _KERNEL_CLASSES = (
     ("flash attention (B5-B7)", ("fwd_kernel", "dq_kernel", "dkv_kernel",
-                                 "fwd_v1_kernel", "dkv_v1_kernel")),
+                                 "fwd_v1_kernel", "dq_v1_kernel",
+                                 "dkv_v1_kernel")),
     ("hardware-RNG dropout (B8)", ("hw_dropout_kernel",)),
     ("sketch and top-k (B1-B3)", ("sketch_kernel", "count_kernel",
                                   "select_kernel", "tie_count_kernel",
@@ -2208,6 +2308,8 @@ SOURCES = {
                       "commefficient_tpu/ops/flash_attention.py:356"),
     "flash_fwd_v1": ("commefficient_tpu_torch/csrc/flash_attention.cu",
                      "commefficient_tpu/ops/flash_attention.py:183"),
+    "flash_bwd_dq_v1": ("commefficient_tpu_torch/csrc/flash_attention.cu",
+                        "commefficient_tpu/ops/flash_attention.py:303"),
     "flash_bwd_dkv_v1": ("commefficient_tpu_torch/csrc/flash_attention.cu",
                          "commefficient_tpu/ops/flash_attention.py:356"),
     "sketch_batched": ("commefficient_tpu_torch/csrc/sketch.cu",
@@ -2320,8 +2422,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": kind, "library_ms": r["library_ms"],
             "at": r.get("at", f"d={D_RESNET9}"),
-            **{key: r[key] for key in ("flash_route", "bound_cuda_cores_ms")
-               if key in r}})
+            **{key: r[key] for key in ("flash_route", "bound_cuda_cores_ms",
+                                       "device_ms") if key in r}})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

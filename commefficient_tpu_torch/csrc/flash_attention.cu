@@ -32,10 +32,18 @@
 //   the reference's softmax -> dropout -> @V order). Writes O in the input
 //   dtype and lse = m + log(max(l, 1e-30)) in float32 (-1e30 on a fully
 //   masked row).
-// * dq_kernel (CUDA cores, the first port's design): one CTA per (bh,
-//   query tile) over the key tiles up to the diagonal; P is recomputed
-//   from q, k and lse, dP = dO.V^T goes through the same keep mask,
-//   dS = P * (dP - delta), dq = scale * dS.K.
+// * dq_kernel (tensor cores): the transpose of dkv_kernel, one 128-thread
+//   CTA per (bh, 64-row query tile), the longest rows launched first, each
+//   warp owning 16 query rows with their lse and delta in registers. Q and
+//   dO stay in shared memory; K and V of each key tile up to the diagonal
+//   arrive by cp.async, staggered in one buffer each (V(n + 1) lands during
+//   tile n's S, dS and dS.K; K(n + 1) during tile n + 1's dP): 70 KB at D
+//   64 in float32, 3 CTAs an SM. dP = dO.V^T and S = Q.K^T through the
+//   same 3xTF32 products, one keep draw per element, dS = P * (dP * keep /
+//   (1 - rate) - delta) rounded to the input dtype, and dq += dS.K with
+//   dS's C fragment as the A fragment (K's rows read in the matching
+//   order). Each key tile's dS.K goes into a fresh fragment added to dq in
+//   float32; dq is scaled once at the end.
 // * dkv_kernel (tensor cores): one 128-thread CTA per (bh, 64-key tile),
 //   key tile 0 (the most query tiles) launched first, each warp owning 16
 //   keys. It walks the query tiles from the diagonal on with Q, dO, lse
@@ -43,15 +51,15 @@
 //   go through the same 3xTF32 products, one keep draw serves both, and
 //   dv += (P * keep / (1 - rate))^T.dO and dk += dS^T.Q accumulate in
 //   register fragments; dk is scaled once at the end.
-// * The product loops of both have no branch: a branch ends the block in
-//   which the compiler interleaves independent products, and a warp
-//   issues in order, so each product would wait on the one before it.
+// * The product loops of all three have no branch: a branch ends the
+//   block in which the compiler interleaves independent products, and a
+//   warp issues in order, so each product would wait on the one before it.
 //   The diagonal tile's masked keys and the head's zero padding (D up to
 //   the next multiple of 32) are computed and masked instead of skipped.
-// * fwd_v1_kernel and dkv_v1_kernel: the first port's scalar kernels
-//   (256 threads, scalar FMA from shared memory), on no path; kept behind
-//   their own entry points to be held against the plain versions and
-//   timed beside the tensor-core kernels.
+// * fwd_v1_kernel, dq_v1_kernel and dkv_v1_kernel: the first port's
+//   scalar kernels (256 threads, scalar FMA from shared memory), on no
+//   path; kept behind their own entry points to be held against the plain
+//   versions and timed beside the tensor-core kernels.
 //
 // Every output element is summed by one thread in a fixed order and
 // written once: no atomics, so all the kernels are deterministic (the
@@ -65,21 +73,23 @@
 // position under the tile's seed words, in uint32 wraparound. So the mask
 // equals dropout_keep_reference bit for bit whatever tile a kernel uses.
 //
-// Bound: operations at the path's shape (BH 768, T 256, D 64, float32):
-// the causal score and value products are 2 T^2 D BH flops forward (6.4
-// GFLOP), 2x that for dk/dv, 1.5x for dq, against a few MB of q, k, v
-// and O. On the CUDA cores (67 TFLOP/s) that is 0.096 ms forward and
-// 0.19 ms for dk/dv; in 3xTF32 on the tensor cores (3 products at 495
-// TFLOP/s) 0.039 and 0.078 ms. The first port's kernels reached 13% and
-// 19% of the CUDA cores: each FMA waited on shared-memory loads (10 loads
-// for 16 FMAs), one float a thread was copied at a time with two barriers
-// around each tile, and nothing overlapped. The tensor-core kernels read
-// each operand element once per warp from shared memory for 8 (fwd) or
-// 16 (dk/dv) multiply-adds of a tensor-core product, round to TF32 with
-// integer operations rather than cvt (a conversion issues at an eighth of
-// the float32 rate), and copy the next tile while the current one
-// computes. mma.sync does not reach the 495 TFLOP/s that wgmma does; no
-// TMA or wgmma yet.
+// Bound at the path's shape (BH 768, T 256, D 64, float32): the causal
+// score and value products are 2 T^2 D BH flops forward (6.4 GFLOP), 2x
+// that for dk/dv, 1.5x for dq (S, dP and dS.K: 9.7 GFLOP), against 50 MB
+// for each of q, k, v, dO and the outputs (dq reads four and writes one:
+// 252 MB, 0.076 ms at 3.35 TB/s). On the CUDA cores (67 TFLOP/s) that is
+// 0.096 ms forward, 0.14 ms for dq and 0.19 ms for dk/dv;
+// in 3xTF32 on the tensor cores (3 products at 495 TFLOP/s) 0.039, 0.059
+// and 0.078 ms, so dq and the forward are bound by their bytes. The first
+// port's kernels reached 13-19% of the CUDA cores: each FMA waited on
+// shared-memory loads (10 loads for 16 FMAs), one float a thread was
+// copied at a time with two barriers around each tile, and nothing
+// overlapped. The tensor-core kernels read each operand element once per
+// warp from shared memory for 8 (fwd, dq) or 16 (dk/dv) multiply-adds of
+// a tensor-core product, round to TF32 with integer operations rather
+// than cvt (a conversion issues at an eighth of the float32 rate), and
+// copy the next tile while the current one computes. mma.sync does not
+// reach the 495 TFLOP/s that wgmma does; no TMA or wgmma yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -268,10 +278,10 @@ fwd_v1_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int t, int d, float scale, Drop dr) {
+dq_v1_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int t, int d, float scale, Drop dr) {
   extern __shared__ float smem[];
   const int ldk = d + 1;
   float* sQ = smem;                      // kBM x d
@@ -854,6 +864,175 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int DL>
+__global__ void __launch_bounds__(kTcThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dq, int t, int d, float scale, Drop dr) {
+  constexpr bool k3 = std::is_same<T, float>::value;
+  constexpr int DP = DL * 32, ND = DP / 8;
+  constexpr int kLd = tc_ld<T>(DP), kTile = kBM * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);   // 1 tile
+  T* sV = sK + kTile;                       // 1 tile
+  T* sQ = sV + kTile;                       // 1 tile
+  T* sO = sQ + kTile;                       // dO, 1 tile
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // the longest rows first
+  const int q0 = qt * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, lq = lane & 3;
+  const int nd_live = d / 8;
+  const size_t base = (size_t)bh * t * d;
+
+  // the groups of copies in flight, in order: {Q, dO, V(0)}, K(0), then
+  // V(n) and K(n) for each later tile n, each waited for (wait_group 1)
+  // while the next is already in flight
+  tc::load_tile_async<T, DP, kBM, kTcThreads>(sQ, q + base, q0, t, d);
+  tc::load_tile_async<T, DP, kBM, kTcThreads>(sO, dout + base, q0, t, d);
+  tc::load_tile_async<T, DP, kBM, kTcThreads>(sV, v + base, 0, t, d);
+  tc::cp_commit();
+  tc::load_tile_async<T, DP, kBM, kTcThreads>(sK, k + base, 0, t, d);
+  tc::cp_commit();
+  const T* sq = sQ + (warp * 16 + g) * kLd + lq;   // this warp's rows
+  const T* so = sO + (warp * 16 + g) * kLd + lq;
+
+  int row[2];
+  uint32_t rs0[2], rr[2];   // each row's seed word and place in its tile
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = q0 + warp * 16 + g + 8 * h;
+    const int qb = row[h] / dr.bq;
+    rr[h] = (uint32_t)(row[h] - qb * dr.bq);
+    rs0[h] = dr.seed0 + (uint32_t)bh * kMixB + (uint32_t)qb * kMixQB;
+    const bool ok = row[h] < t;
+    lse_r[h] = ok ? lse[(size_t)bh * t + row[h]] : 0.f;
+    dl_r[h] = ok ? delta[(size_t)bh * t + row[h]] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int n_kt = qt + 1;                   // key tiles up to the diagonal
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBN;
+    tc::cp_wait<1>();                        // V(kt) has landed
+    __syncthreads();
+    // no branch in the product loops, as in fwd_kernel
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {        // dP = dO.V^T
+      tc::FragA<k3> a;
+      a.set(to_f(so[kk * 8]), to_f(so[8 * kLd + kk * 8]),
+            to_f(so[kk * 8 + 4]), to_f(so[8 * kLd + kk * 8 + 4]));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const T* vr = sV + (nt * 8 + g) * kLd + kk * 8 + lq;
+        tc::FragB<k3> b;
+        b.set(to_f(vr[0]), to_f(vr[4]));
+        tc::mma(dp[nt], a, b);
+      }
+    }
+    __syncthreads();                         // V read by every warp
+    if (kt + 1 < n_kt)                       // V(kt + 1), during S and dS.K
+      tc::load_tile_async<T, DP, kBM, kTcThreads>(sV, v + base, k0 + kBN, t,
+                                                  d);
+    tc::cp_commit();
+
+    tc::cp_wait<1>();                        // K(kt) has landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {        // S = Q.K^T
+      tc::FragA<k3> a;
+      a.set(to_f(sq[kk * 8]), to_f(sq[8 * kLd + kk * 8]),
+            to_f(sq[kk * 8 + 4]), to_f(sq[8 * kLd + kk * 8 + 4]));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const T* kr = sK + (nt * 8 + g) * kLd + kk * 8 + lq;
+        tc::FragB<k3> b;
+        b.set(to_f(kr[0]), to_f(kr[4]));
+        tc::mma(s[nt], a, b);
+      }
+    }
+
+    // dS = P * (dP * keep / (1 - rate) - delta), into s
+    const TilePos cpos(k0, dr.bk);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + nt * 8 + 2 * lq + e;
+        uint32_t kb, c;
+        cpos.at(nt * 8 + 2 * lq + e, dr.bk, kb, c);
+        const uint32_t s1 = dr.seed1 + kb * kMixKB + (uint32_t)bh * kMixB2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = row[h];
+          const float sc =
+              (j <= i && j < t && i < t) ? s[nt][2 * h + e] * scale : kNeg;
+          const float p =
+              sc <= 0.5f * kNeg ? 0.f : __expf(fminf(sc - lse_r[h], 0.f));
+          // without dropout the threshold is 0 and inv 1 (make_args)
+          const bool keep =
+              drop::counter_hash(rr[h], c, rs0[h], s1) >= dr.threshold;
+          const float gg = keep ? dp[nt][2 * h + e] * dr.inv : 0.f;
+          s[nt][2 * h + e] = rnd<T>(p * (gg - dl_r[h]));
+        }
+      }
+    }
+
+    // dq += dS.K: dS's C fragment as the A fragment, K's rows 2q and
+    // 2q + 1; the tile's products in a fresh fragment, added in float32
+    float part[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nd][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      tc::FragA<k3> a;
+      a.set(s[ks][0], s[ks][2], s[ks][1], s[ks][3]);
+      const T* kr = sK + (ks * 8 + 2 * lq) * kLd + g;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        tc::FragB<k3> b;
+        b.set(to_f(kr[nd * 8]), to_f(kr[kLd + nd * 8]));
+        tc::mma(part[nd], a, b);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+    __syncthreads();                         // K read by every warp
+    if (kt + 1 < n_kt)                       // K(kt + 1), during the next dP
+      tc::load_tile_async<T, DP, kBM, kTcThreads>(sK, k + base, k0 + kBN, t,
+                                                  d);
+    tc::cp_commit();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row[h];
+    if (i >= t) continue;
+    T* qrow = dq + base + (size_t)i * d + 2 * lq;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      if (nd >= nd_live) break;
+      qrow[nd * 8] = from_f<T>(acc[nd][2 * h] * scale);
+      qrow[nd * 8 + 1] = from_f<T>(acc[nd][2 * h + 1] * scale);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *o, *lse_out, *d1, *d2;
@@ -863,7 +1042,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-enum Which { kFwd, kDq, kDkv, kFwdV1, kDkvV1 };
+enum Which { kFwd, kDq, kDkv, kFwdV1, kDqV1, kDkvV1 };
 
 template <typename Kern>
 int launch_setup(Kern kern, size_t bytes) {
@@ -912,6 +1091,16 @@ int run(Which which, const Args& a) {
     }
     case kDq: {
       auto kern = dq_kernel<T, DL>;
+      bytes = 4 * tile;                      // K, V, Q, dO
+      if ((err = launch_setup(kern, bytes))) return err;
+      kern<<<grid, kTcThreads, bytes, a.stream>>>(
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+          (const float*)a.lse, (const float*)a.delta, (T*)a.d1, a.t, d,
+          a.scale, a.dr);
+      break;
+    }
+    case kDqV1: {
+      auto kern = dq_v1_kernel<T, DL>;
       bytes = ((size_t)2 * kBM * d + 2 * kBN * (d + 1) + kBM * kBN) *
               sizeof(float);
       if ((err = launch_setup(kern, bytes))) return err;
@@ -1013,8 +1202,9 @@ int bwd(Which which, const void* q, const void* k, const void* v,
 
 // dtype: 0 float32, 1 bfloat16. Each returns cudaGetLastError() after the
 // launch (or the error that refused it). The tensor-core kernels
-// (flash_fwd_launch, flash_bwd_dkv_launch) need q, k, v and dO 16-byte
-// aligned; the _v1 entries run the first port's scalar kernels.
+// (flash_fwd_launch, flash_bwd_dq_launch, flash_bwd_dkv_launch) need q, k,
+// v and dO 16-byte aligned; the _v1 entries run the first port's scalar
+// kernels.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int t, int d,
                                 int dtype, float scale, int bq, int bk,
@@ -1043,6 +1233,19 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    float inv_keep, int dropout,
                                    void* stream) {
   return bwd(kDq, q, k, v, dout, lse, delta, dq, nullptr, bh, t, d, dtype,
+             scale, bq, bk, seed0, seed1, threshold, inv_keep, dropout,
+             stream);
+}
+
+extern "C" int flash_bwd_dq_v1_launch(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, int bh, int t, int d,
+                                      int dtype, float scale, int bq, int bk,
+                                      int seed0, int seed1,
+                                      unsigned threshold, float inv_keep,
+                                      int dropout, void* stream) {
+  return bwd(kDqV1, q, k, v, dout, lse, delta, dq, nullptr, bh, t, d, dtype,
              scale, bq, bk, seed0, seed1, threshold, inv_keep, dropout,
              stream);
 }

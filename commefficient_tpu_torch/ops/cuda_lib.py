@@ -110,5 +110,12 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as a pointer, read on every
+    launch (a caller may change it). ``torch.cuda.current_stream(device)
+    .cuda_stream`` gives the same pointer but builds a ``Stream`` object
+    on every call, host time that a small kernel's call cannot hide."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -40,6 +40,8 @@ the very bits the card draws.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import struct
 
 import torch
@@ -108,9 +110,7 @@ def hw_threshold(rate: float) -> int:
 
 def hw_dropout_supported(shape) -> bool:
     """The reference's rule: the element count folds into (rows, 1024)."""
-    n = 1
-    for s in shape:
-        n *= int(s)
+    n = math.prod(int(s) for s in shape)
     return n >= HW_LANES and n % HW_LANES == 0
 
 
@@ -118,6 +118,13 @@ def _inv_keep(rate: float) -> float:
     """f32(1/(1-rate)), the quotient taken in double and rounded to
     nearest float32."""
     return struct.unpack("f", struct.pack("f", 1.0 / (1.0 - rate)))[0]
+
+
+@functools.lru_cache(maxsize=64)
+def hw_constants(rate: float):
+    """``(hw_threshold(rate), _inv_keep(rate))``, computed once a rate:
+    the kernel's call reads them on every launch."""
+    return hw_threshold(rate), _inv_keep(rate)
 
 
 def hw_bits(n: int, seeds, device="cpu") -> torch.Tensor:
@@ -141,32 +148,40 @@ def hw_dropout_plain(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
     return torch.where(keep, scaled, 0.0).to(x.dtype)
 
 
+@functools.cache
+def _hw_entry():
+    """The kernel's ctypes entry point, resolved at the first launch."""
+    return cuda_lib.load("hw_dropout", _SIGNATURES).hw_dropout_launch
+
+
 def _hw_kernel(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
-    """One launch of ``csrc/hw_dropout.cu`` on a CUDA tensor."""
-    if x.dtype not in _HW_DTYPES:
+    """One launch of ``csrc/hw_dropout.cu`` on a CUDA tensor. The host
+    work is kept to what a call needs: the per-rate constants and the
+    entry point are looked up once, the seed words pass as given (ctypes
+    takes their low 32 bits), and a contiguous aligned x is not copied."""
+    dtype = _HW_DTYPES.get(x.dtype)
+    if dtype is None:
         raise ValueError(f"hw_dropout kernel takes float32 or bfloat16, got "
                          f"{x.dtype}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()          # the kernel's 16- or 8-byte vector loads
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        # the kernel's 16- or 8-byte vector loads
+        x = x.clone(memory_format=torch.contiguous_format)
     out = torch.empty_like(x)
-    s0, s1 = (int(s) & _MASK32 for s in seeds)
-    lib = cuda_lib.load("hw_dropout", _SIGNATURES)
-    err = lib.hw_dropout_launch(
-        x.data_ptr(), out.data_ptr(), x.numel(), _HW_DTYPES[x.dtype], s0,
-        s1, hw_threshold(rate), _inv_keep(rate),
-        cuda_lib.stream_ptr(x.device))
+    threshold, inv_keep = hw_constants(rate)
+    err = _hw_entry()(x.data_ptr(), out.data_ptr(), x.numel(), dtype,
+                      seeds[0], seeds[1], threshold, inv_keep,
+                      cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "hw_dropout")
     cuda_lib.LAUNCHES["hw_dropout"] += 1
     return out
 
 
 def _hw_apply(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
+    if x.is_cuda:
+        return _hw_kernel(x, seeds, rate)
     if x.device.type == "cpu":
         return hw_dropout_plain(x, seeds, rate)
-    if x.device.type != "cuda":
-        raise ValueError(f"hw_dropout: unsupported device {x.device}")
-    return _hw_kernel(x, seeds, rate)
+    raise ValueError(f"hw_dropout: unsupported device {x.device}")
 
 
 class _HwDropout(torch.autograd.Function):
@@ -183,16 +198,16 @@ class _HwDropout(torch.autograd.Function):
 
 def hw_dropout(x: torch.Tensor, seeds, rate: float) -> torch.Tensor:
     """x * Bernoulli(1-rate)/(1-rate) with the counter-hash bits of the
-    seed words ``seeds`` (from ``seed_words``); differentiable, the
-    backward the same op with the same seeds. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    seed words ``seeds`` (the two ints of ``seed_words``); differentiable,
+    the backward the same op with the same seeds. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     rate = float(rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"hw_dropout rate must be in [0, 1), got {rate}")
     if not hw_dropout_supported(x.shape):
         raise ValueError(f"hw_dropout needs an element count that is a "
                          f"multiple of {HW_LANES}, got {tuple(x.shape)}")
-    return _HwDropout.apply(x, tuple(int(s) for s in seeds), rate)
+    return _HwDropout.apply(x, seeds, rate)
 
 
 def _scaled_mask(seed: int, rate: float, shape, dtype, device):

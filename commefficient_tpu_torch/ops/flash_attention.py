@@ -11,18 +11,16 @@ Pallas kernels, each behind a wrapper that counts its launches:
   q, k and lse; ``delta = rowsum(dO * O)`` is computed in PyTorch between
   them, as the reference computes it outside its kernels.
 
-The forward and dk/dv kernels multiply on the tensor cores: float32 in
-"3xTF32" (``csrc/mma_tf32x3.cuh``: each operand split into a TF32 part
-and a remainder, three products, float32's accuracy at up to 165 TFLOP/s
+All three kernels multiply on the tensor cores: float32 in "3xTF32"
+(``csrc/mma_tf32x3.cuh``: each operand split into a TF32 part and a
+remainder, three products, float32's accuracy at up to 165 TFLOP/s
 effective against the CUDA cores' 67), bfloat16 in one TF32 product,
 which holds its values exactly; tiles arrive by 16-byte ``cp.async``
 copies that overlap the products, so they need q, k, v and dO 16-byte
-aligned. dq is still
-the first port's scalar kernel on the CUDA cores. The first port's
-scalar forward and dk/dv stay behind ``flash_fwd_v1`` and
-``flash_bwd_dkv_v1`` (keys ``flash_fwd_v1``, ``flash_bwd_dkv_v1``) to be
-held against the plain versions and timed beside the new kernels; no path
-calls them.
+aligned. The first port's scalar kernels stay behind ``flash_fwd_v1``,
+``flash_bwd_dq_v1`` and ``flash_bwd_dkv_v1`` (keys ``flash_fwd_v1``,
+``flash_bwd_dq_v1``, ``flash_bwd_dkv_v1``) to be held against the plain
+versions and timed beside the new kernels; no path calls them.
 
 ``flash_attention`` is a ``torch.autograd.Function`` over the three (on a
 CPU tensor, the plain forward under autograd).
@@ -72,6 +70,7 @@ _SIGNATURES = {
     "flash_fwd_launch": [_P] * 5 + _TAIL,
     "flash_fwd_v1_launch": [_P] * 5 + _TAIL,
     "flash_bwd_dq_launch": [_P] * 7 + _TAIL,
+    "flash_bwd_dq_v1_launch": [_P] * 7 + _TAIL,
     "flash_bwd_dkv_launch": [_P] * 8 + _TAIL,
     "flash_bwd_dkv_v1_launch": [_P] * 8 + _TAIL,
 }
@@ -250,26 +249,44 @@ def _bwd_inputs(name, q3, k3, v3, do, lse, delta, aligned=False):
     return bh, t, d
 
 
-def flash_bwd_dq(q3, k3, v3, do, lse, delta, seeds, scale: float,
-                 block_q: int, block_k: int, rate: float):
-    """dq of causal attention from the forward's ``lse`` and ``delta =
-    rowsum(dO * O)``. A CPU tensor takes the plain version (which needs
-    neither); a CUDA tensor launches the kernel or raises."""
-    if not _device_of("flash_bwd_dq", q3):
-        return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
-                               block_k, rate)[0]
-    bh, t, d = _bwd_inputs("flash_bwd_dq", q3, k3, v3, do, lse, delta)
+def _launch_dq(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
+               block_q, block_k, rate, aligned):
+    bh, t, d = _bwd_inputs(key, q3, k3, v3, do, lse, delta, aligned)
     dq = torch.empty_like(q3)
     lib = cuda_lib.load("flash_attention", _SIGNATURES)
-    err = lib.flash_bwd_dq_launch(
+    err = getattr(lib, entry)(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
         _DTYPES[q3.dtype], scale,
         *_drop_args(seeds, t, block_q, block_k, rate),
         cuda_lib.stream_ptr(q3.device))
-    cuda_lib.check(err, "flash_bwd_dq")
-    cuda_lib.LAUNCHES["flash_bwd_dq"] += 1
+    cuda_lib.check(err, key)
+    cuda_lib.LAUNCHES[key] += 1
     return dq
+
+
+def flash_bwd_dq(q3, k3, v3, do, lse, delta, seeds, scale: float,
+                 block_q: int, block_k: int, rate: float):
+    """dq of causal attention from the forward's ``lse`` and ``delta =
+    rowsum(dO * O)``. A CPU tensor takes the plain version (which needs
+    neither); a CUDA tensor launches the tensor-core kernel or raises."""
+    if not _device_of("flash_bwd_dq", q3):
+        return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
+                               block_k, rate)[0]
+    return _launch_dq("flash_bwd_dq_launch", "flash_bwd_dq", q3, k3, v3, do,
+                      lse, delta, seeds, scale, block_q, block_k, rate,
+                      aligned=True)
+
+
+def flash_bwd_dq_v1(q3, k3, v3, do, lse, delta, seeds, scale: float,
+                    block_q: int, block_k: int, rate: float):
+    """``flash_bwd_dq`` by the first port's scalar kernel (on no path)."""
+    if not _device_of("flash_bwd_dq_v1", q3):
+        return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
+                               block_k, rate)[0]
+    return _launch_dq("flash_bwd_dq_v1_launch", "flash_bwd_dq_v1", q3, k3,
+                      v3, do, lse, delta, seeds, scale, block_q, block_k,
+                      rate, aligned=False)
 
 
 def _launch_dkv(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,

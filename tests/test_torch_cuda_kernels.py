@@ -8,7 +8,7 @@ machine with one (and without JAX, so without the suite's conftest):
 Each sketch and top-k kernel must equal its plain version bitwise at
 small shapes, odd lengths (tails that are no multiple of a tile), a
 nonzero block offset, per-row k and planted ties included; the flash
-attention kernels (the tensor-core forward and dk/dv, and the first
+attention kernels (the tensor-core forward, dq and dk/dv, and the first
 port's scalar ones) match theirs within float32 rounding (O and lse atol
 1e-5, gradients 1e-4 of their largest magnitude; bf16 2e-2), with and
 without dropout, ragged T and D from 8 to 128, and are deterministic; the hardware-RNG dropout kernel
@@ -297,7 +297,10 @@ FLASH_CASES = [
     (torch.float32, 32, 100, 0.1), (torch.float32, 128, 200, 0.1),
     (torch.float32, 40, 130, 0.1), (torch.bfloat16, 64, 256, 0.1),
     (torch.float32, 8, 130, 0.0), (torch.float32, 128, 1100, 0.1),
-    (torch.bfloat16, 128, 130, 0.0)]
+    (torch.bfloat16, 128, 130, 0.0),
+    # D in (64, 96]: the three-fragment width, where dq_kernel<float, 3>
+    # spills registers
+    (torch.float32, 96, 200, 0.1), (torch.bfloat16, 80, 130, 0.1)]
 
 
 @pytest.mark.parametrize("dtype,D,T,rate", FLASH_CASES)
@@ -333,9 +336,9 @@ def test_flash_kernels_match_plain(dev, dtype, D, T, rate):
 
 @pytest.mark.parametrize("dtype,D,T,rate", FLASH_CASES)
 def test_flash_v1_kernels_match_plain_and_the_new(dev, dtype, D, T, rate):
-    """The first port's scalar forward and dk/dv (on no path) against the
-    plain versions and the tensor-core kernels, with the same limits, and
-    bitwise over two runs."""
+    """The first port's scalar forward, dq and dk/dv (on no path) against
+    the plain versions and the tensor-core kernels, with the same limits,
+    and bitwise over two runs."""
     BH = 6
     gen = torch.Generator().manual_seed(T + D)
     q, k, v, g = (torch.randn(BH, T, D, generator=gen).to(dev, dtype)
@@ -351,21 +354,23 @@ def test_flash_v1_kernels_match_plain_and_the_new(dev, dtype, D, T, rate):
     for want in (p_lse, lse):
         torch.testing.assert_close(lse1, want, rtol=0, atol=1e-5)
     delta = (g.float() * o.float()).sum(-1)
-    got = fa.flash_bwd_dkv_v1(q, k, v, g, lse, delta, *args)
-    new = fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
-    ref = fa.flash_bwd_plain(q, k, v, g, *args)[1:]
+    bwd = (q, k, v, g, lse, delta, *args)
+    got = (fa.flash_bwd_dq_v1(*bwd),) + fa.flash_bwd_dkv_v1(*bwd)
+    new = (fa.flash_bwd_dq(*bwd),) + fa.flash_bwd_dkv(*bwd)
+    ref = fa.flash_bwd_plain(q, k, v, g, *args)
     rel = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b, want in zip(got, new, ref):
         scale = float(want.float().abs().max())
         for other in (want, b):
             torch.testing.assert_close(a.float(), other.float(), rtol=0,
                                        atol=rel * scale)
-    for name in ("flash_fwd_v1", "flash_bwd_dkv_v1"):
+    for name in ("flash_fwd_v1", "flash_bwd_dq_v1", "flash_bwd_dkv_v1"):
         assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1
     again = fa.flash_fwd_v1(q, k, v, *args)
     assert torch.equal(again[0], o1) and torch.equal(again[1], lse1)
-    again = fa.flash_bwd_dkv_v1(q, k, v, g, lse, delta, *args)
-    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert torch.equal(fa.flash_bwd_dq_v1(*bwd), got[0])
+    again = fa.flash_bwd_dkv_v1(*bwd)
+    assert all(torch.equal(a, b) for a, b in zip(again, got[1:]))
 
 
 def test_flash_tc_kernels_refuse_unaligned_rows(dev):
@@ -380,6 +385,13 @@ def test_flash_tc_kernels_refuse_unaligned_rows(dev):
     o, lse = fa.flash_fwd_v1(q, q, q, *args)
     torch.testing.assert_close(o, fa.flash_fwd_plain(q, q, q, *args)[0],
                                rtol=0, atol=1e-5)
+    delta = (q * o).sum(-1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dq(q, q, q, q, lse, delta, *args)
+    dq = fa.flash_bwd_dq_v1(q, q, q, q, lse, delta, *args)
+    want = fa.flash_bwd_plain(q, q, q, q, *args)[0]
+    torch.testing.assert_close(dq, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 def test_flash_attention_autograd_on_the_card(dev):
@@ -457,6 +469,33 @@ def test_hw_dropout_contract_on_the_card(dev):
     assert torch.equal(g, y)
     y2 = hw_dropout(x.detach(), seed_words(8), 0.1)
     assert float((y2 != y).double().mean()) > 0.1
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+def test_hw_dropout_thin_call_equals_plain(dev, sliced):
+    """The call's host path (constants cached by rate, the entry point
+    resolved once, no copy of an aligned contiguous x) keeps the kernel
+    bitwise equal to its plain version, one launch a call, forward and
+    backward; a freshly sliced x (contiguous, 4 bytes off a 16-byte
+    boundary) is copied first and gives the same bits."""
+    gen = torch.Generator().manual_seed(11)
+    base = torch.randn(8 * 1024 + 1, generator=gen).to(dev)
+    x = base[1:] if sliced else base[:-1].clone()
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == sliced
+    x = x.view(8, 1024).requires_grad_(True)
+    seeds = seed_words(fold_in(3, int(sliced)))
+    want = hw_dropout_plain(x.detach(), seeds, 0.1)
+    before = cuda_lib.LAUNCHES["hw_dropout"]
+    y = hw_dropout(x, seeds, 0.1)
+    assert cuda_lib.LAUNCHES["hw_dropout"] == before + 1
+    assert _same_bits(y.detach(), want)
+    g = torch.randn(8, 1024, generator=gen).to(dev)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert cuda_lib.LAUNCHES["hw_dropout"] == before + 2
+    assert _same_bits(dx, hw_dropout_plain(g, seeds, 0.1))
+    with torch.no_grad():
+        assert _same_bits(hw_dropout(x, seeds, 0.1), want)
+    assert cuda_lib.LAUNCHES["hw_dropout"] == before + 3
 
 
 def _radix_table(case, r, c_eff, seed):

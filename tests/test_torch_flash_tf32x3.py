@@ -6,18 +6,21 @@ CPU.
 ``cvt.rna`` rounds (to nearest, ties away from zero), and small = x - big,
 which the tensor cores take truncated to TF32; a product sums small.big,
 then big.small, then big.big. The kernels (``fwd_kernel``,
-``dkv_kernel``) cannot run here, so this file emulates that split bitwise
-(big: add 0x1000 to the float's bits and clear the low 13, as the kernels
-do; small: clear the low 13) and the three products as float32 matmuls,
-in the kernels' own loops (the forward's online softmax over 64-key
-tiles; dk/dv from S^T = K.Q^T and dP^T = V.dO^T). It holds, at BH 4, T
-256, D 64 (the GPT2 path's T and D), with and without dropout:
+``dq_kernel``, ``dkv_kernel``) cannot run here, so this file emulates that
+split bitwise (big: add 0x1000 to the float's bits and clear the low 13,
+as the kernels do; small: clear the low 13) and the three products as
+float32 matmuls, in the kernels' own loops (the forward's online softmax
+over 64-key tiles; dq from S = Q.K^T and dP = dO.V^T per 64-key tile,
+each tile's dS.K summed apart and added in float32; dk/dv from S^T =
+K.Q^T and dP^T = V.dO^T). It holds, at BH 4, T 256, D 64 (the GPT2
+path's T and D), with and without dropout:
 
 * the emulated 3xTF32 forward within the card's limits of
   ``flash_fwd_plain`` (O and lse 1e-5 absolute), and of the reference's
   scan path ``blockwise_attention(use_kernel=False)`` at rate 0;
-* the emulated 3xTF32 dk/dv within 1e-4 of the largest magnitude of
-  ``flash_bwd_plain``'s;
+* the emulated 3xTF32 dq, dk and dv within 1e-4 of the largest magnitude
+  of ``flash_bwd_plain``'s, and dq so of the reference's ``jax.grad``
+  through the scan path at rate 0;
 * one TF32 product alone (big.big) outside those limits: the guard that
   keeps TF32 alone out of the float32 kernels.
 """
@@ -112,6 +115,26 @@ def fwd_emulated(q, k, v, scale, rate, mm):
     return acc / lc, (m + torch.log(lc))[..., 0]
 
 
+def dq_emulated(q, k, v, do, lse, delta, scale, rate, mm):
+    """The dq kernel's loop: per 64-key tile, S = Q.K^T and dP = dO.V^T,
+    one keep mask, dS = P * (dP * keep / (1 - rate) - delta), the tile's
+    dS.K summed apart (a fresh fragment) and added to dq in float32; dq
+    scaled once at the end."""
+    keep, inv = _keep(rate), 1.0 / (1.0 - rate)
+    dq = torch.zeros(BH, T, D)
+    for k0 in range(0, T, TILE):
+        kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
+        dp = mm(do, vt.transpose(1, 2))
+        s = mm(q, kt.transpose(1, 2))
+        s = torch.where(_causal(0, k0, T, TILE), s * scale, NEG)
+        p = torch.where(s <= NEG / 2, 0.0,
+                        torch.exp(torch.clamp(s - lse[..., None], max=0.0)))
+        if keep is not None:
+            dp = torch.where(keep[:, :, k0:k0 + TILE], dp * inv, 0.0)
+        dq = dq + mm(p * (dp - delta[..., None]), kt)
+    return dq * scale
+
+
 def dkv_emulated(q, k, v, do, lse, delta, scale, rate, mm):
     """The dk/dv kernel's products: S^T = K.Q^T and dP^T = V.dO^T, one
     keep mask for both, dV = P_d^T.dO and dK = scale * dS^T.Q."""
@@ -137,14 +160,25 @@ def _fwd_errors(inputs, rate, mm):
     return (float((o - p_o).abs().max()), float((lse - p_lse).abs().max()))
 
 
-def _dkv_errors(inputs, rate, mm):
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _bwd_inputs(inputs, rate):
     q, k, v, do = inputs
     o, lse = fa.flash_fwd_plain(q, k, v, *_args(rate))
-    delta = (do * o).sum(-1)
-    dk, dv = dkv_emulated(q, k, v, do, lse, delta, D ** -0.5, rate, mm)
-    _, p_dk, p_dv = fa.flash_bwd_plain(q, k, v, do, *_args(rate))
-    return tuple(float((a - b).abs().max() / b.abs().max())
-                 for a, b in ((dk, p_dk), (dv, p_dv)))
+    return q, k, v, do, lse, (do * o).sum(-1)
+
+
+def _dkv_errors(inputs, rate, mm):
+    dk, dv = dkv_emulated(*_bwd_inputs(inputs, rate), D ** -0.5, rate, mm)
+    _, p_dk, p_dv = fa.flash_bwd_plain(*inputs, *_args(rate))
+    return _rel(dk, p_dk), _rel(dv, p_dv)
+
+
+def _dq_error(inputs, rate, mm):
+    dq = dq_emulated(*_bwd_inputs(inputs, rate), D ** -0.5, rate, mm)
+    return _rel(dq, fa.flash_bwd_plain(*inputs, *_args(rate))[0])
 
 
 def test_tf32_rounding_is_cvt_rna():
@@ -175,20 +209,46 @@ def test_dkv_3xtf32_meets_the_f32_limits(inputs, rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_dq_3xtf32_meets_the_f32_limits(inputs, rate):
+    dq_rel = _dq_error(inputs, rate, mm3)
+    assert dq_rel <= 1e-4, dq_rel
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_one_tf32_product_misses_the_f32_limits(inputs, rate):
     o_err, _ = _fwd_errors(inputs, rate, mm1)
     dk_rel, dv_rel = _dkv_errors(inputs, rate, mm1)
+    dq_rel = _dq_error(inputs, rate, mm1)
     assert o_err > 1e-5, o_err
     assert max(dk_rel, dv_rel) > 1e-4, (dk_rel, dv_rel)
+    assert dq_rel > 1e-4, dq_rel
+
+
+def _as4(x):
+    """(BH, T, D) as (1, T, BH, D): one sequence of BH heads."""
+    return jnp.asarray(np.ascontiguousarray(
+        x.numpy().transpose(1, 0, 2))[None])
+
+
+def _jax_scan(q, k, v):
+    return jax_attention.blockwise_attention(q, k, v, causal=True,
+                                             use_kernel=False,
+                                             block_size=TILE)
 
 
 def test_forward_3xtf32_matches_the_jax_scan(inputs):
     q, k, v, _ = inputs
     o, _ = fwd_emulated(q, k, v, D ** -0.5, 0.0, mm3)
-    # (BH, T, D) as (1, T, BH, D): one sequence of BH heads
-    as4 = lambda x: np.ascontiguousarray(x.numpy().transpose(1, 0, 2))[None]
-    ref = jax_attention.blockwise_attention(
-        *(jnp.asarray(as4(x)) for x in (q, k, v)), causal=True,
-        use_kernel=False, block_size=TILE)
-    ref = np.asarray(ref)[0].transpose(1, 0, 2)
-    np.testing.assert_allclose(o.numpy(), ref, rtol=0, atol=1e-5)
+    ref = np.asarray(_jax_scan(*(_as4(x) for x in (q, k, v))))
+    np.testing.assert_allclose(o.numpy(), ref[0].transpose(1, 0, 2),
+                               rtol=0, atol=1e-5)
+
+
+def test_dq_3xtf32_matches_the_jax_grad(inputs):
+    q, k, v, do = inputs
+    dq = dq_emulated(*_bwd_inputs(inputs, 0.0), D ** -0.5, 0.0, mm3)
+    k4, v4, do4 = (_as4(x) for x in (k, v, do))
+    ref = jax.grad(lambda q4: jnp.sum(_jax_scan(q4, k4, v4) * do4))(
+        _as4(q))
+    ref = torch.from_numpy(np.asarray(ref)[0].transpose(1, 0, 2).copy())
+    assert _rel(dq, ref) <= 1e-4, _rel(dq, ref)

@@ -76,6 +76,16 @@ def test_threshold_matches_reference(rate):
     assert hw_threshold(rate) == want == jax_threshold(rate)
 
 
+@pytest.mark.parametrize("rate", [1e-9, 0.1, 0.5, 0.999])
+def test_cached_constants_equal_the_formulas(rate):
+    """The kernel's call reads the threshold and f32(1/(1-rate)) from a
+    cache by rate: the same values as computed afresh, on repeat too."""
+    want = (hw_threshold(rate), dr._inv_keep(rate))
+    assert dr.hw_constants(rate) == want == dr.hw_constants(float(rate))
+    assert want[0] == jax_threshold(rate)
+    assert want[1] == float(np.float32(1.0 / (1.0 - rate)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_output_matches_jnp_where_under_reference_bits(dtype, rate):
