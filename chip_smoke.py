@@ -323,12 +323,36 @@ _OPS_MEDIAN = {1: 0, 3: 4, 5: 10}
 
 def _sketch_cost(cs, B=1):
     """B vectors of length d into B tables: each vector read and each
-    table written once; the hashing once (the batched kernel shares it
-    between its rows) plus one add per (batch row, row, coordinate)."""
+    table written once; the hashing once (the least the function needs:
+    the rows of a batch could share it) plus one add per (batch row, row,
+    coordinate)."""
     nbytes = B * (4 * cs.d + 4 * cs.r * cs.c_eff)
     ops = (cs.r * cs.d * (_OPS_SIGN + 2) + cs.r * cs.nblocks * _OPS_BLOCK
            + B * cs.r * cs.d)
     return _bound(nbytes, ops)
+
+
+def _sketch_design(cs, B=1):
+    """(bytes, ms at the HBM rate) the kernel itself moves from device
+    memory for B rows at most: x r times a row (each row's warps sweep it;
+    fewer where the L2 keeps it between sweeps), the r packed window lists
+    and the table once a row."""
+    nbytes = B * (4 * cs.r * cs.d + 4 * cs.r * cs.nblocks
+                  + 4 * cs.r * cs.c_eff)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _device_ms(fn, setup=None, n=20) -> float:
+    """Device time of one ``fn()``: ``n`` calls back to back between one
+    pair of CUDA events, over ``n``; with ``setup`` (a workspace restore)
+    before each call, less the time of ``n`` setups alone."""
+    if setup is None:
+        return _back_to_back_ms(fn, n)
+
+    def both():
+        setup()
+        fn()
+    return _back_to_back_ms(both, n) - _back_to_back_ms(setup, n)
 
 
 def _estimate_ops(cs):
@@ -744,6 +768,7 @@ def phase_timing_batched(cs, vecs, plain_reps=REPS):
 
     r = dict(
         ms=_time_ms(lambda: sketch_vec_batched(cs, vecs)),
+        device_ms=_device_ms(lambda: sketch_vec_batched(cs, vecs)),
         plain_ms=_time_ms(lambda: sketch_vec_batched_plain(cs, vecs),
                           plain_reps),
         library_ms=_time_ms(library),
@@ -753,10 +778,14 @@ def phase_timing_batched(cs, vecs, plain_reps=REPS):
     del buckets, signed, flat
     torch.cuda.empty_cache()
     bound_ms, kind = r["cost"]
-    print(f"time sketch_batched ({r['at']}): kernel {r['ms']:.4f} ms, plain "
+    design_b, design_ms = _sketch_design(cs, B)
+    print(f"time sketch_batched ({r['at']}): kernel {r['ms']:.4f} ms "
+          f"(device {r['device_ms']:.4f} ms a call, 20 back to back), plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-          f"{B} unbatched launches {r['unbatched_ms']:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({kind})", flush=True)
+          f"{B} unbatched calls {r['unbatched_ms']:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({kind}); the design's bytes at most "
+          f"{design_b:,} ({design_ms:.5f} ms: x {cs.r} times a row)",
+          flush=True)
     print(f"  library: sketch_batched = {B} index_add_ calls, one per row, "
           f"of the {cs.r}x{d} signed values at precomputed buckets "
           f"(scatter only, atomic order)", flush=True)
@@ -790,6 +819,7 @@ def phase_timing(cs, vec, table, plain_reps=REPS):
     rows = {
         "sketch": dict(
             ms=_time_ms(lambda: sketch_vec(cs, vec)),
+            device_ms=_device_ms(lambda: sketch_vec(cs, vec)),
             plain_ms=_time_ms(lambda: sketch_vec_plain(cs, vec),
                               plain_reps),
             library_ms=_time_ms(lambda: flat.index_add_(0, buckets, signed)),
@@ -807,9 +837,16 @@ def phase_timing(cs, vec, table, plain_reps=REPS):
     }
     for name, r in rows.items():
         bound_ms, kind = r["cost"]
-        print(f"time {name} (d={cs.d}): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({kind})", flush=True)
+        dev_ms = (f" (device {r['device_ms']:.4f} ms a call, 20 back to "
+                  f"back)" if "device_ms" in r else "")
+        print(f"time {name} (d={cs.d}): kernel {r['ms']:.4f} ms{dev_ms}, "
+              f"plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({kind})",
+              flush=True)
+    design_b, design_ms = _sketch_design(cs)
+    print(f"  sketch: the design's bytes at most {design_b:,} "
+          f"({design_ms:.5f} ms: x {cs.r} times, once a row's sweep)",
+          flush=True)
     print(f"  library: sketch = index_add_ of the {cs.r}x{cs.d} signed "
           f"values at precomputed buckets (scatter only); count, select = "
           f"torch.topk(k={K}) of the (d,) squared estimates (selection "
@@ -861,6 +898,7 @@ def phase_timing_stream(cs, table, inputs):
             at=f"n={n}"),
         "estimates": dict(
             ms=_time_ms(lambda: estimates(cs, table)),
+            device_ms=_device_ms(lambda: estimates(cs, table)),
             plain_ms=_time_ms(lambda: estimates_plain(cs, table)),
             library_ms=None, cost=_estimates_cost(cs),
             at=f"{cs.r}x{cs.c_eff} -> {cs.d}; no main path launches this "
@@ -871,8 +909,10 @@ def phase_timing_stream(cs, table, inputs):
         bound_ms, kind = r["cost"]
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        print(f"time {name} ({r['at']}): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+        dev_ms = (f" (device {r['device_ms']:.4f} ms a call, 20 back to "
+                  f"back)" if "device_ms" in r else "")
+        print(f"time {name} ({r['at']}): kernel {r['ms']:.4f} ms{dev_ms}, "
+              f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{bound_ms:.5f} ms ({kind})", flush=True)
     print(f"  library: count_plain, select_plain = torch.topk(k={K}, "
           f"dim=-1) of the 8 rows' squares; count_plain_b1, select_resid = "
@@ -931,19 +971,23 @@ def phase_timing_estimates_batched(cs, table, tables):
     one = table[None]
     r = dict(
         ms=_time_ms(lambda: estimates_batched(cs, tables)),
+        device_ms=_device_ms(lambda: estimates_batched(cs, tables)),
         plain_ms=_time_ms(lambda: estimates_batched_plain(cs, tables)),
         library_ms=None,
         unbatched_ms=_time_ms(lambda: [estimates(cs, t) for t in tables]),
         b1_ms=_time_ms(lambda: estimates_batched(cs, one)),
+        b1_device_ms=_device_ms(lambda: estimates_batched(cs, one)),
         row4_ms=_time_ms(lambda: estimates(cs, table)),
         cost=_estimates_batched_cost(cs, B),
         at=f"B={B}, {cs.r}x{cs.c_eff} -> {cs.d}")
     bound_ms, kind = r["cost"]
-    print(f"time estimates_batched ({r['at']}): kernel {r['ms']:.4f} ms, "
+    print(f"time estimates_batched ({r['at']}): kernel {r['ms']:.4f} ms "
+          f"(device {r['device_ms']:.4f} ms a call, 20 back to back), "
           f"plain {r['plain_ms']:.4f} ms, library none, {B} unbatched "
           f"launches {r['unbatched_ms']:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({kind}); at B=1 {r['b1_ms']:.4f} ms against the unbatched "
-          f"kernel's {r['row4_ms']:.4f} ms (bound "
+          f"({kind}); at B=1 {r['b1_ms']:.4f} ms (device "
+          f"{r['b1_device_ms']:.4f} ms) against the unbatched kernel's "
+          f"{r['row4_ms']:.4f} ms (bound "
           f"{_estimates_batched_cost(cs, 1)[0]:.5f} ms)", flush=True)
     return r
 
@@ -1097,6 +1141,8 @@ def phase_timing_radix(cs, table, pairs=20):
         "est_hist": dict(
             ms=_time_ms(lambda: tk.est_hist(cs, table, K, est, ws),
                         setup=ws.zero_),
+            device_ms=_device_ms(lambda: tk.est_hist(cs, table, K, est, ws),
+                                 setup=ws.zero_),
             plain_ms=_time_ms(lambda: plain_pass(0), plain_reps),
             library_ms=None, cost=_est_hist_cost(cs)),
         "digit_hist": dict(
@@ -1123,9 +1169,13 @@ def phase_timing_radix(cs, table, pairs=20):
         bound_ms, kind = r["cost"]
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        dev_ms = (f" (device {r['device_ms']:.4f} ms a call, 20 back to "
+                  f"back, less 20 workspace restores)" if "device_ms" in r
+                  else "")
         print(f"time {name} ({r.get('at', f'd={d}')}): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{lib}, bound {bound_ms:.5f} ms ({kind})", flush=True)
+              f"{r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {bound_ms:.5f} ms ({kind})",
+              flush=True)
     del snaps, p_est, scores
 
     def old():

@@ -1,4 +1,4 @@
-// Tiled CountSketch hashing, XLA-exact float min/max and the per-tile
+// Tiled CountSketch hashing, the median of r estimates and the per-tile
 // estimate, shared by the sketch, estimates and unsketch kernels. Bit for
 // bit the reference's commefficient_tpu/ops/countsketch.py (_mix,
 // _row_signs, _block_hashes, _median_small) in uint32 arithmetic.
@@ -31,12 +31,19 @@ __device__ __forceinline__ RowCoeffs load_coeffs(const uint32_t* coeffs,
   return RowCoeffs{c[0], c[1], c[2], c[3], c[4], c[5]};
 }
 
-// +-1 from the low bit of the mixed cubic polynomial of the coordinate id
-__device__ __forceinline__ float sign_of(const RowCoeffs& h, uint32_t idx) {
+// the sign of coordinate idx as a float's sign bit (0 for +1, 1 << 31 for
+// -1): the low bit of the mixed cubic polynomial of idx
+__device__ __forceinline__ uint32_t sign_bit(const RowCoeffs& h,
+                                             uint32_t idx) {
   uint32_t acc = h.h1 * idx + h.h2;
   acc = acc * idx + h.h3;
   acc = acc * idx + h.h4;
-  return (mix(acc) & 1u) ? -1.0f : 1.0f;
+  return mix(acc) << 31;
+}
+
+// +-1.0f
+__device__ __forceinline__ float sign_of(const RowCoeffs& h, uint32_t idx) {
+  return __uint_as_float(0x3F800000u | sign_bit(h, idx));
 }
 
 // the block's mixed hash; its window is mb % nwindows
@@ -50,23 +57,33 @@ __device__ __forceinline__ uint32_t lane_mask(const RowCoeffs& h,
   return mix(mb ^ h.h5) & (kLanes - 1);
 }
 
+// --- the median of r values, XLA's min/max network ---------------------
+// On the order-preserving integer key of a float (its bits with the low
+// 31 flipped where the sign is set; the map is its own inverse) signed
+// integer min/max order every non-NaN value as XLA's float min/max do,
+// -0.0 (key -1) below +0.0 (key 0), and return one of their operands, so
+// the network on keys is bitwise the network on floats. For r = 3 and 5
+// every input reaches the output through NaN-propagating nodes, so one
+// test stands for all of them: any NaN input gives XLA's canonical NaN.
+__device__ __forceinline__ int key_of(float v) {
+  const int b = __float_as_int(v);
+  return b ^ ((b >> 31) & 0x7FFFFFFF);
+}
+
+__device__ __forceinline__ float from_key(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7FFFFFFF));
+}
+
 __device__ __forceinline__ float canonical_nan() {
   return __int_as_float(0x7fc00000);
 }
 
-// XLA's min/max: NaN-propagating, and -0.0 ordered below +0.0
-__device__ __forceinline__ float xla_min(float a, float b) {
-  if (isnan(a) || isnan(b)) return canonical_nan();
-  if (a < b) return a;
-  if (b < a) return b;
-  return signbit(a) ? a : b;
-}
-
-__device__ __forceinline__ float xla_max(float a, float b) {
-  if (isnan(a) || isnan(b)) return canonical_nan();
-  if (a > b) return a;
-  if (b > a) return b;
-  return signbit(a) ? b : a;
+template <int R>
+__device__ __forceinline__ bool any_nan(const float* v) {
+  bool nan = false;
+#pragma unroll
+  for (int i = 0; i < R; ++i) nan |= isnan(v[i]);
+  return nan;
 }
 
 // the reference's median networks, in its operand order
@@ -80,16 +97,19 @@ __device__ __forceinline__ float median<1>(const float* v) {
 
 template <>
 __device__ __forceinline__ float median<3>(const float* v) {
-  return xla_max(xla_min(v[0], v[1]), xla_min(xla_max(v[0], v[1]), v[2]));
+  const int a = key_of(v[0]), b = key_of(v[1]), c = key_of(v[2]);
+  const int m = max(min(a, b), min(max(a, b), c));
+  return any_nan<3>(v) ? canonical_nan() : from_key(m);
 }
 
 template <>
 __device__ __forceinline__ float median<5>(const float* v) {
-  float f = xla_min(v[0], v[1]), g = xla_max(v[0], v[1]);
-  float h = xla_min(v[2], v[3]), i = xla_max(v[2], v[3]);
-  float j = xla_max(f, h);
-  float k = xla_min(g, i);
-  return xla_max(xla_min(j, k), xla_min(xla_max(j, k), v[4]));
+  const int a = key_of(v[0]), b = key_of(v[1]), c = key_of(v[2]);
+  const int d = key_of(v[3]), e = key_of(v[4]);
+  const int j = max(min(a, b), min(c, d));   // drop the smaller of the mins
+  const int k = min(max(a, b), max(c, d));   // drop the larger of the maxs
+  const int m = max(min(j, k), min(max(j, k), e));
+  return any_nan<5>(v) ? canonical_nan() : from_key(m);
 }
 
 // --- per-tile estimates (the estimates kernel and the "est" top-k source)
@@ -98,10 +118,11 @@ constexpr int kTileBlocks = 64;
 constexpr int kTileN = kTileBlocks * kLanes;
 constexpr int kMaxRows = 5;
 
-// per-(row, block) window offset and lane mask of one tile, in shared memory
+// per (row, block) of one tile, in shared memory: the window base * 128
+// with the 7-bit lane mask in its low bits, so that coordinate lane l of
+// the block reads table column win ^ l = base * 128 + (l ^ mask)
 struct TileHashes {
-  uint32_t col[kMaxRows][kTileBlocks];   // window base * 128
-  uint32_t mask[kMaxRows][kTileBlocks];
+  uint32_t win[kMaxRows][kTileBlocks];
 };
 
 // all threads of the CTA fill s; a __syncthreads must follow
@@ -113,8 +134,7 @@ __device__ __forceinline__ void load_tile_hashes(TileHashes& s,
     const int row = t / kTileBlocks, bl = t % kTileBlocks;
     const RowCoeffs h = load_coeffs(coeffs, row);
     const uint32_t mb = block_mix(h, (uint32_t)tile * kTileBlocks + (uint32_t)bl);
-    s.col[row][bl] = (mb % (uint32_t)nwindows) * kLanes;
-    s.mask[row][bl] = lane_mask(h, mb);
+    s.win[row][bl] = (mb % (uint32_t)nwindows) * kLanes | lane_mask(h, mb);
   }
 }
 
@@ -131,8 +151,10 @@ __device__ __forceinline__ Coeffs<R> load_row_coeffs(const uint32_t* coeffs) {
   return c;
 }
 
-// estimate of coordinate e (0..8191) of the tile: r window reads, the XOR
-// un-permute, the sign, and the reference's median network
+// estimate of coordinate e (0..8191) of the tile: the r window reads, the
+// XOR un-permute folded into the column, the signs (FMUL by +-1: a NaN
+// read comes out as the card's canonical NaN, as in the plain version on
+// the card) and the median
 template <int R>
 __device__ __forceinline__ float estimate(const float* table,
                                           size_t row_stride,
@@ -144,11 +166,9 @@ __device__ __forceinline__ float estimate(const float* table,
   const uint32_t idx = (uint32_t)tile * kTileN + (uint32_t)e;
   float v[R];
 #pragma unroll
-  for (int row = 0; row < R; ++row) {
-    v[row] = __ldg(table + row * row_stride + s.col[row][bl]
-                   + (l ^ s.mask[row][bl]))
+  for (int row = 0; row < R; ++row)
+    v[row] = __ldg(table + row * row_stride + (s.win[row][bl] ^ l))
              * sign_of(c.h[row], idx);
-  }
   return median<R>(v);
 }
 

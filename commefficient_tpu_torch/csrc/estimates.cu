@@ -6,13 +6,14 @@
 // (batch, n_tiles) (batched_call), through one entry, estimates_launch: one
 // table takes the BT = 1 instance, more take BT = kBatchTile. A CTA of 256
 // threads owns a tile of 8,192 coordinates and a tile of up to BT tables:
-// it hashes the tile's 64 blocks per row into shared memory once, then
-// each thread computes, for 32 coordinates (a warp on 32 consecutive
-// ones), the r window offsets and signs once and, for each of its tables,
-// the r window reads, the XOR un-permute, the sign and the reference's
-// median network, and writes them. There are no sums, so every table's
-// estimates are bitwise the plain version's and the BT = 1 instance's by
-// construction. BT = 1 is today's loop over cs::estimate, unchanged.
+// it hashes the tile's 64 blocks per row into shared memory once (window
+// base and lane mask in one word), then each thread takes 32 coordinates
+// (a warp 32 consecutive ones), kUnroll at a time: their r sign hashes and
+// window columns once and, for each of its tables, the kUnroll * r window
+// reads issued together, then the signs and the median network on integer
+// keys (cs::median). Full tiles run without a bounds test; the last tile
+// is masked apart. There are no sums, so every table's estimates are
+// bitwise the plain version's and the BT = 1 instance's by construction.
 //
 // Bound: bytes and operations about alike at d = 6.57M, r = 5, B = 1: each
 // table read once (10 MB, L2-resident) and each (d,) output written once,
@@ -24,7 +25,53 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSteps = cs::kTileN / kThreads;   // 32 coordinates a thread
+constexpr int kUnroll = 4;
 constexpr int kBatchTile = 8;
+
+// kUnroll coordinates of the thread from step s0 (the tile's coordinates
+// s * 256 + threadIdx.x): their estimates in each of the nb tables, stored
+// where valid (all of them in a full tile)
+template <int R, int BT, bool FULL>
+__device__ __forceinline__ void estimate_steps(
+    const float* __restrict__ tab, size_t tab_stride, size_t row_stride,
+    const cs::TileHashes& s, const cs::Coeffs<R>& c, int tile, int s0,
+    int nb, long long d, float* __restrict__ o) {
+  uint32_t col[kUnroll][R];
+  float sg[kUnroll][R];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int e = (s0 + u) * kThreads + threadIdx.x;
+    const uint32_t l = (uint32_t)(e % cs::kLanes);
+    const uint32_t idx = (uint32_t)tile * cs::kTileN + (uint32_t)e;
+#pragma unroll
+    for (int row = 0; row < R; ++row) {
+      col[u][row] = s.win[row][e / cs::kLanes] ^ l;
+      sg[u][row] = cs::sign_of(c.h[row], idx);
+    }
+  }
+  const long long i0 = (long long)tile * cs::kTileN + threadIdx.x;
+#pragma unroll
+  for (int t = 0; t < BT; ++t) {
+    if (t >= nb) break;
+    float v[kUnroll][R];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int row = 0; row < R; ++row)
+        v[u][row] = __ldg(tab + t * tab_stride + row * row_stride
+                          + col[u][row]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + (long long)(s0 + u) * kThreads;
+      if (FULL || i < d) {
+#pragma unroll
+        for (int row = 0; row < R; ++row) v[u][row] *= sg[u][row];
+        o[(size_t)t * d + i] = cs::median<R>(v[u]);
+      }
+    }
+  }
+}
 
 template <int R, int BT>
 __global__ void __launch_bounds__(kThreads)
@@ -37,42 +84,19 @@ estimates_kernel(const float* __restrict__ table, int B, long long d,
   const cs::Coeffs<R> c = cs::load_row_coeffs<R>(coeffs);
   __syncthreads();
   const size_t row_stride = (size_t)nwindows * cs::kLanes;
-  if constexpr (BT == 1) {
-    for (int e = threadIdx.x; e < cs::kTileN; e += kThreads) {
-      const long long i = (long long)tile * cs::kTileN + e;
-      if (i >= d) break;
-      out[i] = cs::estimate<R>(table, row_stride, s, c, tile, e);
-    }
+  const size_t tab_stride = (size_t)R * row_stride;
+  const int b0 = BT == 1 ? 0 : blockIdx.y * BT;
+  const int nb = BT == 1 ? 1 : min(BT, B - b0);
+  const float* tab = table + (size_t)b0 * tab_stride;
+  float* o = out + (size_t)b0 * d;
+  if ((long long)(tile + 1) * cs::kTileN <= d) {
+    for (int s0 = 0; s0 < kSteps; s0 += kUnroll)
+      estimate_steps<R, BT, true>(tab, tab_stride, row_stride, s, c, tile,
+                                  s0, nb, d, o);
   } else {
-    const int b0 = blockIdx.y * BT;
-    const int nb = min(BT, B - b0);
-    const size_t tab_stride = (size_t)R * row_stride;
-    const float* tab = table + (size_t)b0 * tab_stride;
-    float* o = out + (size_t)b0 * d;
-    for (int e = threadIdx.x; e < cs::kTileN; e += kThreads) {
-      const long long i = (long long)tile * cs::kTileN + e;
-      if (i >= d) break;
-      const int bl = e / cs::kLanes;
-      const uint32_t l = (uint32_t)(e % cs::kLanes);
-      const uint32_t idx = (uint32_t)tile * cs::kTileN + (uint32_t)e;
-      size_t off[R];
-      float sg[R];
-#pragma unroll
-      for (int row = 0; row < R; ++row) {
-        off[row] = row * row_stride + s.col[row][bl] + (l ^ s.mask[row][bl]);
-        sg[row] = cs::sign_of(c.h[row], idx);
-      }
-#pragma unroll
-      for (int t = 0; t < BT; ++t) {
-        if (t < nb) {
-          float v[R];
-#pragma unroll
-          for (int row = 0; row < R; ++row)
-            v[row] = __ldg(tab + t * tab_stride + off[row]) * sg[row];
-          o[(size_t)t * d + i] = cs::median<R>(v);
-        }
-      }
-    }
+    for (int s0 = 0; s0 < kSteps; s0 += kUnroll)
+      estimate_steps<R, BT, false>(tab, tab_stride, row_stride, s, c, tile,
+                                   s0, nb, d, o);
   }
 }
 

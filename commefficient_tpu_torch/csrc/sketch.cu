@@ -2,96 +2,110 @@
 //
 // Replaces commefficient_tpu/ops/sketch_kernels.py::_sketch_kernel, both
 // its 1-D grid and its batched 2-D grid (batch, n_tiles), through one
-// entry, sketch_launch: one batch row takes the BT = 1 instance, more take
-// BT = kBatchTile. One 128-thread CTA per (window, row, tile of up to BT
-// batch rows): lane l sums, from 0.0 and in ascending block order,
-// x_b[j*128 + (l ^ m_b)] * sign(b*128 + (l ^ m_b)) over the window's
-// blocks b (j = b - block_offset), read from a per-row CSR built
-// on the host (CountSketch.kernel_tables). That is the order the TPU
-// kernel's sequential grid adds them in, with no atomics, so each batch
-// row's table is bit-identical to the reference's and to the unbatched
-// kernel's, and the same from run to run. Each table cell is written
-// once. Blocks outside [block_offset, block_offset + ceil(n/128)) and
-// coordinates at or past n add nothing (the reference adds +-0.0 there,
-// which leaves every sum unchanged).
+// entry, sketch_launch. Each table cell (row, window w, lane l) is the sum,
+// from 0.0 and in ascending block order, of x_b[j*128 + (l ^ m_b)] *
+// sign(b*128 + (l ^ m_b)) over the blocks b the row hashes to w (j = b -
+// block_offset). That is the order the TPU kernel's sequential grid adds
+// them in, with no atomics, so each table is bit-identical to the
+// reference's and the same from run to run.
 //
-// Bound: bytes (each vector read once, each table written once), with
-// ~18 integer and float operations of hashing per (row, coordinate). The
-// batched kernel hashes each block once per CTA and applies the lane
-// permutation and sign to all of its batch rows, each in its own register
-// accumulator: per batch row it adds one load and one add per (row,
-// coordinate), so the hashing does not scale with B. Hashing once per
-// batch row would make it operations-bound at GPT2's d.
+// The per-row window lists come from the host (CountSketch.kernel_tables):
+// each entry packs a block id and its 7-bit lane mask, (b << 7) | m_b,
+// which is also the coordinate of the block's lane 0 with the mask in its
+// low bits, so lane l's coordinate is entry ^ l and no block hash is
+// computed here. One warp owns a (row, window) of one batch row; lane j
+// holds the cells j + 32 q (q < 4), reads 32 entries at a time with one
+// coalesced load and takes them from the warp by shuffles, and per step
+// issues the x loads of kUnroll blocks (4 kUnroll a lane, each warp load
+// one 128-byte segment) and their sign hashes before the adds, which keep
+// the ascending order. A masked entry adds 0.0: no sum here is ever -0.0,
+// so that leaves it unchanged, as the reference's padding leaves it. A
+// batch runs as one launch per row from the C entry (one grid over all
+// rows, with the row offset in the kernel, took 16 more registers and ran
+// slower), each row's table bitwise the unbatched kernel's.
+//
+// Bound: operations at GPT2's d, bytes at ResNet9's: each (row,
+// coordinate) costs a cubic, a finalizer and the signed add (about 16
+// integer and float operations), against x read once and the table written
+// once. The r rows' warps each sweep x, so x comes from device memory up
+// to r times (less where the L2 keeps it: all of it at ResNet9's d).
+// Walking x in L2-sized chunks, one launch a chunk, to read it once was
+// slower (PERF.md).
 #include "countsketch.cuh"
 
 namespace {
 
-constexpr int kBatchTile = 8;
+constexpr int kWarps = 8;                  // (row, window)s of a CTA
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCells = cs::kLanes / 32;    // table cells of a lane
+constexpr int kUnroll = 4;                 // blocks in flight a step
+constexpr uint32_t kNoEntry = 0xFFFFFFFFu;  // decodes past every x
 
-template <int BT>
-__global__ void __launch_bounds__(cs::kLanes)
-sketch_kernel(const float* __restrict__ x, int nrows, long long n,
-              long long block_offset, const int* __restrict__ win_ptr,
-              const int* __restrict__ win_blocks,
-              const uint32_t* __restrict__ coeffs, int nwindows,
+__global__ void __launch_bounds__(kThreads)
+sketch_kernel(const float* __restrict__ x, uint32_t n, uint32_t origin,
+              const int* __restrict__ win_ptr,
+              const uint32_t* __restrict__ packed,
+              const uint32_t* __restrict__ coeffs, int r, int nwindows,
               int nblocks, float* __restrict__ out) {
-  const int w = blockIdx.x;
-  const int row = blockIdx.y;
-  const int r = gridDim.y;
-  // BT = 1 runs only for a single batch row: its bounds are constants
-  const int b0 = BT == 1 ? 0 : blockIdx.z * BT;
-  const int nb = BT == 1 ? 1 : min(BT, nrows - b0);
-  const uint32_t l = threadIdx.x;
+  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (item >= r * nwindows) return;
+  const int row = item / nwindows;
+  const int w = item - row * nwindows;
+  const uint32_t lane = threadIdx.x & 31;
+  const int* ptr = win_ptr + (size_t)row * (nwindows + 1) + w;
+  const int start = ptr[0];
+  const int end = ptr[1];
+  const uint32_t* list = packed + (size_t)row * nblocks;
   const cs::RowCoeffs h = cs::load_coeffs(coeffs, row);
-  const int* ptr = win_ptr + (size_t)row * (nwindows + 1);
-  const int* blocks = win_blocks + (size_t)row * nblocks;
-  const long long nb_chunk = (n + cs::kLanes - 1) / cs::kLanes;
-  const float* xb = x + (size_t)b0 * n;
-  float acc[BT];
+  float* o = out + (size_t)item * cs::kLanes + lane;
+  float acc[kCells] = {};
+  for (int base = start; base < end; base += 32) {
+    const int j = base + (int)lane;
+    const uint32_t mine = j < end ? __ldg(list + j) : kNoEntry;
+    const int cnt = min(32, end - base);
+    for (int k = 0; k < cnt; k += kUnroll) {
+      float v[kUnroll][kCells];
 #pragma unroll
-  for (int t = 0; t < BT; ++t) acc[t] = 0.0f;
-  const int end = ptr[w + 1];
-  for (int j = ptr[w]; j < end; ++j) {
-    const uint32_t b = (uint32_t)blocks[j];
-    const long long lb = (long long)b - block_offset;
-    if (lb < 0 || lb >= nb_chunk) continue;
-    const uint32_t src = l ^ cs::lane_mask(h, cs::block_mix(h, b));
-    const long long i = lb * cs::kLanes + src;
-    if (i >= n) continue;
-    const float s = cs::sign_of(h, b * (uint32_t)cs::kLanes + src);
+      for (int u = 0; u < kUnroll; ++u) {
+        const uint32_t p = __shfl_sync(0xffffffffu, mine, k + u);
 #pragma unroll
-    for (int t = 0; t < BT; ++t)
-      if (t < nb) acc[t] += xb[(size_t)t * n + i] * s;
+        for (int q = 0; q < kCells; ++q) {
+          // the coordinate, and its offset in x: past n for a block
+          // outside [origin, origin + n) and for kNoEntry (d <= 2^32 - 128)
+          const uint32_t idx = p ^ (lane + 32 * q);
+          const uint32_t i = idx - origin;
+          const float xv = i < n ? __ldg(x + i) : 0.0f;
+          v[u][q] = __uint_as_float(__float_as_uint(xv) ^ cs::sign_bit(h, idx));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int q = 0; q < kCells; ++q) acc[q] += v[u][q];
+    }
   }
 #pragma unroll
-  for (int t = 0; t < BT; ++t)
-    if (t < nb)
-      out[(((size_t)(b0 + t) * r + row) * nwindows + w) * cs::kLanes + l] =
-          acc[t];
+  for (int q = 0; q < kCells; ++q) o[32 * q] = acc[q];
 }
 
 }  // namespace
 
-// x: (nrows, n) row-major; out: (nrows, r, nwindows * 128)
+// x: (nrows, n) row-major, its coordinates starting at block block_offset;
+// win_ptr: (r, nwindows + 1) offsets of the window lists in packed (r,
+// nblocks); out: (nrows, r, nwindows * 128)
 extern "C" int sketch_launch(const void* x, int nrows, long long n,
                              long long block_offset, const void* win_ptr,
-                             const void* win_blocks, const void* coeffs,
-                             int r, int nwindows, int nblocks, void* out,
+                             const void* packed, const void* coeffs, int r,
+                             int nwindows, int nblocks, void* out,
                              void* stream) {
-  const auto* xf = (const float*)x;
-  const auto* wp = (const int*)win_ptr;
-  const auto* wb = (const int*)win_blocks;
-  const auto* co = (const uint32_t*)coeffs;
-  auto* o = (float*)out;
-  auto s = (cudaStream_t)stream;
-  if (nrows == 1) {
-    dim3 grid(nwindows, r, 1);
-    sketch_kernel<1><<<grid, cs::kLanes, 0, s>>>(
-        xf, 1, n, block_offset, wp, wb, co, nwindows, nblocks, o);
-  } else {
-    dim3 grid(nwindows, r, (nrows + kBatchTile - 1) / kBatchTile);
-    sketch_kernel<kBatchTile><<<grid, cs::kLanes, 0, s>>>(
-        xf, nrows, n, block_offset, wp, wb, co, nwindows, nblocks, o);
-  }
+  if (nrows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (r * nwindows + kWarps - 1) / kWarps;
+  const size_t table = (size_t)r * nwindows * cs::kLanes;
+  for (int b = 0; b < nrows; ++b)
+    sketch_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x + (size_t)b * n, (uint32_t)n,
+        (uint32_t)(block_offset * cs::kLanes), (const int*)win_ptr,
+        (const uint32_t*)packed, (const uint32_t*)coeffs, r, nwindows,
+        nblocks, (float*)out + b * table);
   return (int)cudaGetLastError();
 }

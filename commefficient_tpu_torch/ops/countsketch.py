@@ -107,9 +107,10 @@ def _median_small(rows: list) -> torch.Tensor:
 
 class KernelTables(NamedTuple):
     """Device-resident hash inputs of the CUDA kernels."""
-    coeffs: torch.Tensor      # (r, 6) int32: the uint32 coefficient bits
-    win_ptr: torch.Tensor     # (r, nwindows + 1) int32 CSR offsets
-    win_blocks: torch.Tensor  # (r, nblocks) int32 block ids, by window
+    coeffs: torch.Tensor   # (r, 6) int32: the uint32 coefficient bits
+    win_ptr: torch.Tensor  # (r, nwindows + 1) int32 offsets of the lists
+    packed: torch.Tensor   # (r, nblocks) int32: (block << 7) | lane mask,
+                           # grouped by window, ascending within each
 
 
 class CountSketch:
@@ -178,24 +179,35 @@ class CountSketch:
 
     def kernel_tables(self, device) -> KernelTables:
         """The CUDA kernels' hash inputs on ``device``, built once: the
-        coefficient bits, and per row a CSR of block ids grouped by window
-        in ascending block order — the order in which the reference's
-        sequential grid adds each window's blocks."""
+        coefficient bits, and per row the block ids grouped by window in
+        ascending block order (the order in which the reference's
+        sequential grid adds each window's blocks), each packed with its
+        lane mask as ``(block << 7) | mask``: the coordinate of the block's
+        lane 0 with the mask in its low bits, so that lane l reads
+        coordinate ``entry ^ l``. Blocks stay below 2**25 - 1, so an entry
+        fits in uint32 and the kernel's all-ones sentinel is no entry."""
         device = torch.device(device)
+        if self.nblocks > 2 ** 25 - 1:
+            raise ValueError(f"d = {self.d}: the kernels' packed entries "
+                             "take at most 2**25 - 1 blocks (coordinates "
+                             "in uint32)")
         if device not in self._tables:
             blk = torch.arange(self.nblocks, dtype=torch.int64)
-            ptrs, blocks = [], []
+            ptrs, packed = [], []
             for row in range(self.r):
-                base, _ = self._block_hashes(row, blk)
-                blocks.append(torch.argsort(base, stable=True))
+                base, mask = self._block_hashes(row, blk)
+                order = torch.argsort(base, stable=True)
+                packed.append((order << 7) | mask[order])
                 counts = torch.bincount(base, minlength=self.nwindows)
                 ptrs.append(torch.cat([torch.zeros(1, dtype=torch.int64),
                                        torch.cumsum(counts, 0)]))
             coeffs = np.asarray(self.coeffs, np.uint32).view(np.int32)
+            packed = torch.stack(packed)
             self._tables[device] = KernelTables(
                 coeffs=torch.from_numpy(coeffs.copy()).to(device),
                 win_ptr=torch.stack(ptrs).to(torch.int32).to(device),
-                win_blocks=torch.stack(blocks).to(torch.int32).to(device))
+                packed=torch.where(packed >= 2 ** 31, packed - 2 ** 32,
+                                   packed).to(torch.int32).to(device))
         return self._tables[device]
 
     # --- core ops ---------------------------------------------------------

@@ -13,20 +13,18 @@ with no atomics.
 Hopper has no sequential grid, and float atomics would change the sum
 order from run to run and break the bit-identity with the reference. A
 block's window is a pure function of (seed, row, block), so
-``CountSketch.kernel_tables`` builds once a per-row CSR of block ids
-grouped by window in ascending order; the kernel (``csrc/sketch.cu``)
-runs one 128-thread CTA per (row, window), lane l accumulating
-``x[b*128 + (l ^ m_b)] * sign(b*128 + (l ^ m_b))`` over the window's
-blocks in that order from 0.0, and writes each table cell once. The signs
-are ±1, so FMA contraction cannot change a sum. Bound: bytes (the vector
-read once, the table written once: 26.3 MB + 10.0 MB at d=6,568,640,
-5 x 500,096), about 18 integer/float operations per (row, coordinate) of
-hashing on top. The batched kernel is the same template with a third grid
-axis over tiles of 8 batch rows: a CTA hashes each of its window's blocks
-once and adds it into one register accumulator per batch row, so each
-row's table is bitwise the unbatched kernel's and the hashing is paid
-once for all rows (B·(4n + 4·r·c_eff) bytes against ~18·r·n + B·r·n
-operations: bytes-bound at B = 4 and 8).
+``CountSketch.kernel_tables`` builds once per row the block ids grouped by
+window in ascending order, each packed with its lane mask. The kernel
+(``csrc/sketch.cu``) gives each (row, window) a warp, lane j accumulating
+cells j + 32 q as ``x[b*128 + (l ^ m_b)] * sign(b*128 + (l ^ m_b))`` over
+the window's blocks in that order from 0.0, four blocks' loads in flight
+at a time, and writes each table cell once. The signs are ±1, so FMA
+contraction cannot change a sum. A batch runs as one launch per row from
+the C entry, one call counted once: each row's table is bitwise the
+unbatched kernel's. Bound: bytes at
+d=6,568,640 (the vector read once, the table written once: 26.3 MB + 10.0
+MB, 5 x 500,096), operations at d=124,051,201 (about 16 integer and float
+operations per (row, coordinate) of hashing).
 
 ``estimates`` replaces ``_estimates_kernel`` in its unbatched grid (via
 ``estimates_pallas``), ``estimates_batched`` the same kernel's batched 2-D
@@ -34,14 +32,15 @@ grid (``batched_call``), which the reference's ``--server_fused off``
 reaches at batch 1 through ``CountSketch.estimates_batched``. One C entry
 serves both (``csrc/estimates.cu``): one 256-thread CTA per
 (8,192-coordinate tile, tile of up to 8 tables) hashes its 64 blocks once
-into shared memory, then computes each coordinate's r window offsets and
-signs once and, per table, the r window reads, un-permute, sign and median
-in registers (the same arithmetic as ``cs::estimate``, which the fused
-top-k kernels use and the single-table instance calls). There are no
-sums, so each table's estimates are bitwise its plain version,
-``CountSketch.estimates``, whatever B. Bound: each table read once and
-each (d,) vector written once (10.0 MB + 26.3 MB a table at d=6,568,640),
-against ~100 operations per coordinate at r=5, paid once for all tables.
+into shared memory, then takes each thread's coordinates four at a time:
+their r window columns and signs once and, per table, the 4 r window reads
+issued together, the signs and the median network on order-preserving
+integer keys (``cs::median``, which the fused top-k kernels' estimate
+shares). There are no sums, so each table's estimates are bitwise its
+plain version, ``CountSketch.estimates``, whatever B. Bound: each table
+read once and each (d,) vector written once (10.0 MB + 26.3 MB a table at
+d=6,568,640), against ~100 operations per coordinate at r=5, paid once
+for all tables.
 
 ``segment_sum`` is no port of a TPU kernel: it is the deterministic sum
 behind ``CountSketch.sketch_sparse`` (``csrc/segment_sum.cu``), where the
@@ -108,7 +107,8 @@ def _check_range(cs: CountSketch, n: int, block_offset: int) -> None:
 def _launch(cs: CountSketch, vecs: torch.Tensor, block_offset: int,
             key: str) -> torch.Tensor:
     """(B, r, c_eff) tables of a contiguous (B, n) float32 CUDA batch, in
-    one launch of the kernel, counted under ``key``."""
+    one call of the kernel's C entry (a launch per row), counted once
+    under ``key``."""
     if vecs.device.type != "cuda":
         raise ValueError(f"{key}: unsupported device {vecs.device}")
     if vecs.dtype != torch.float32 or not vecs.is_contiguous():
@@ -124,9 +124,8 @@ def _launch(cs: CountSketch, vecs: torch.Tensor, block_offset: int,
     lib = cuda_lib.load("sketch", _SIGNATURES)
     err = lib.sketch_launch(
         vecs.data_ptr(), B, n, block_offset, tabs.win_ptr.data_ptr(),
-        tabs.win_blocks.data_ptr(), tabs.coeffs.data_ptr(), cs.r,
-        cs.nwindows, cs.nblocks, out.data_ptr(),
-        cuda_lib.stream_ptr(vecs.device))
+        tabs.packed.data_ptr(), tabs.coeffs.data_ptr(), cs.r, cs.nwindows,
+        cs.nblocks, out.data_ptr(), cuda_lib.stream_ptr(vecs.device))
     cuda_lib.check(err, key)
     cuda_lib.LAUNCHES[key] += 1
     return out
@@ -161,7 +160,7 @@ def sketch_vec_batched(cs: CountSketch, vecs: torch.Tensor,
                        block_offset: int = 0) -> torch.Tensor:
     """(B, r, c_eff) tables of the B rows of ``vecs`` (B, n), each placed
     at block ``block_offset``: per row bitwise ``sketch_vec``, in one
-    launch.
+    call.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""

@@ -1,25 +1,39 @@
-"""Time the 1-D sketch and estimates kernels of another checkout against
-this one's.
+"""Time the CountSketch kernels of another checkout against this one's.
 
     python -m commefficient_tpu_torch.tools.sketch_ab --parent DIR \
-        [--pairs N] [--kernels sketch,estimates]
+        [--pairs N] [--kernels sketch,sketch_batched,estimates,est_hist]
 
-Builds ``csrc/sketch.cu`` and ``csrc/estimates.cu`` of both checkouts
-(``DIR`` is the root of the other one) with the same ``nvcc`` flags, at
-once, and prints each build's register counts. Then, for each kernel at
-ResNet9's d = 6,568,640 and GPT2-small's d = 124,051,201 (a 5 x 500,096
-table, as ``chip_smoke.py``; the sketch of a seeded vector, the estimates
-of a seeded table): both kernels' outputs must be bitwise equal, and N
-pairs of timings (each the median of 25 CUDA-event timings) alternate
-other/this, this/other, ... in one process, so drift within the call
-falls on both sides alike. Prints the medians of both sides and of the
-per-pair ratio this/other, one JSON line per (kernel, d), and the card's
-name and power limit. Needs one card; exits 1 without it.
+Builds ``csrc/sketch.cu``, ``csrc/estimates.cu`` and
+``csrc/unsketch_radix.cu`` of both checkouts (``DIR`` is the root of the
+other one) with the same ``nvcc`` flags, at once, and prints each build's
+register counts. Then, for each case (a 5 x 500,096 table, as
+``chip_smoke.py``, at ResNet9's d = 6,568,640 and GPT2-small's d =
+124,051,201):
 
-Each kernel's unbatched and batched C interfaces are accepted, read from
-the source: ``sketch_launch(x, n, block_offset, ...)`` or ``(x, nrows, n,
-block_offset, ...)``, ``estimates_launch(table, d, ...)`` or ``(table, B,
-d, ...)``; a batched one is launched with one row.
+- ``sketch``: the 1-D sketch of a seeded vector at both d;
+- ``sketch_batched``: the sketch of a seeded (8, 6,568,640) and (4,
+  124,051,201) batch, the batches of sketch_clip and gpt2_clip;
+- ``estimates``: the estimates of a seeded table at batch 1, at both d;
+- ``est_hist``: the estimate-once radix's first pass (the estimates
+  stored, the first digit's histogram) at k = 50,000, its workspace
+  zeroed before each call, outside the timing;
+
+every side's outputs must be bitwise equal, and N pairs of timings (each
+the median of 25 CUDA-event timings of one call) alternate other/this,
+this/other, ... in one process, so drift within the call falls on both
+sides alike. Prints one JSON line per case (each side's median, the
+median of the per-pair ratio this/other and the pairs in which this side
+was faster), then the card's name and power limit. Needs one card; exits
+1 without it.
+
+Each C interface the sketch and estimates kernels have had is accepted,
+read from the source, and each side gets the tables it expects:
+``sketch_launch(x, n, block_offset, win_ptr, win_blocks, ...)`` (one
+row), ``(x, nrows, n, block_offset, win_ptr, win_blocks, ...)`` (block
+ids grouped by window) or ``(x, nrows, n, block_offset, win_ptr, packed,
+...)`` (each block id packed with its lane mask);
+``estimates_launch(table, d, ...)`` or ``(table, B, d, ...)``. A one-row
+sketch interface runs a batch row by row.
 """
 
 from __future__ import annotations
@@ -38,63 +52,116 @@ from commefficient_tpu_torch.ops import cuda_lib
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _BATCHED = re.compile(r'extern "C" int sketch_launch\(const void\* x, int '
                       r'nrows')
+_PACKED = re.compile(r'extern "C" int sketch_launch\([^)]*const void\* '
+                     r'packed')
 _BATCHED_ESTIMATES = re.compile(r'extern "C" int estimates_launch\(const '
                                 r'void\* table, int B')
-#: kernel -> the regex that finds its batched C interface in the source
-_INTERFACES = {"sketch": _BATCHED, "estimates": _BATCHED_ESTIMATES}
+#: source -> {interface: the regex that finds it in the source}
+_INTERFACES = {"sketch": {"batched": _BATCHED, "packed": _PACKED},
+               "estimates": {"batched": _BATCHED_ESTIMATES},
+               "unsketch_radix": {}}
+#: case -> the source its kernel is built from
+_SOURCE = {"sketch": "sketch", "sketch_batched": "sketch",
+           "estimates": "estimates", "est_hist": "unsketch_radix"}
 REPS = 25
 DS = (6_568_640, 124_051_201)
+#: the per-worker sketch's batches: sketch_clip's 8 clients at ResNet9's
+#: d, gpt2_clip's 4 at GPT2's
+BATCHES = ((8, 6_568_640), (4, 124_051_201))
+K = 50_000
 
 
-def _build(root: Path, out_dir: Path, kernel: str, tag: str):
-    """Start ``nvcc`` on ``root``'s ``{kernel}.cu``; ``(proc, lib path,
-    batched interface?)``."""
+def _build(root: Path, out_dir: Path, source: str, tag: str):
+    """Start ``nvcc`` on ``root``'s ``{source}.cu``; ``(proc, lib path,
+    {interface: found?})``."""
     csrc = root / "commefficient_tpu_torch" / "csrc"
-    src = csrc / f"{kernel}.cu"
-    lib = out_dir / f"lib{kernel}_{tag}.so"
+    src = csrc / f"{source}.cu"
+    lib = out_dir / f"lib{source}_{tag}.so"
     proc = subprocess.Popen(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(csrc), "-o",
          str(lib), str(src)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-    return proc, lib, bool(_INTERFACES[kernel].search(src.read_text()))
+    text = src.read_text()
+    return proc, lib, {name: bool(rx.search(text))
+                       for name, rx in _INTERFACES[source].items()}
 
 
-def _launcher(lib_path: Path, kernel: str, batched: bool, cs, inp, out):
-    """A no-argument function launching ``lib_path``'s unbatched
-    ``kernel`` of ``inp`` into ``out``."""
-    lib = ctypes.CDLL(str(lib_path))
-    tabs = cs.kernel_tables(inp.device)
-    stream = cuda_lib.stream_ptr(inp.device)
-    if kernel == "sketch":
-        fn = lib.sketch_launch
-        head = [_P, _I, _LL, _LL] if batched else [_P, _LL, _LL]
-        fn.argtypes = head + [_P, _P, _P, _I, _I, _I, _P, _P]
-        n = inp.shape[0]
-        args = ((inp.data_ptr(), 1, n) if batched else (inp.data_ptr(), n)) \
-            + (0, tabs.win_ptr.data_ptr(), tabs.win_blocks.data_ptr(),
-               tabs.coeffs.data_ptr(), cs.r, cs.nwindows, cs.nblocks,
-               out.data_ptr(), stream)
-    else:
-        fn = lib.estimates_launch
-        head = [_P, _I, _LL] if batched else [_P, _LL]
-        fn.argtypes = head + [_I, _I, _P, _P, _P]
-        args = ((inp.data_ptr(), 1, cs.d) if batched
-                else (inp.data_ptr(), cs.d)) \
-            + (cs.r, cs.nwindows, tabs.coeffs.data_ptr(), out.data_ptr(),
-               stream)
+def block_ids(tabs):
+    """The block-id interfaces' lists from this checkout's packed ones:
+    the same window lists without the lane masks."""
+    import torch
+    return ((tabs.packed.long() & 0xFFFFFFFF) >> 7).to(torch.int32)
+
+
+def _sketch_launcher(lib, iface, cs, x, out):
+    """A no-argument function sketching the (B, n) batch ``x`` into
+    ``out`` (B, r, c_eff) through ``lib`` with the interface ``iface``."""
+    B, n = x.shape
+    stream = cuda_lib.stream_ptr(x.device)
+    tabs = cs.kernel_tables(x.device)
+    lists = tabs.packed if iface["packed"] else block_ids(tabs)
+    tables = (0, tabs.win_ptr.data_ptr(), lists.data_ptr(),
+              tabs.coeffs.data_ptr(), cs.r, cs.nwindows, cs.nblocks)
+    fn = lib.sketch_launch
     fn.restype = _I
+    if iface["batched"]:
+        fn.argtypes = [_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _I, _P, _P]
+        calls = [(x.data_ptr(), B, n) + tables + (out.data_ptr(), stream)]
+    else:
+        fn.argtypes = [_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P, _P]
+        calls = [(x[b].data_ptr(), n) + tables + (out[b].data_ptr(), stream)
+                 for b in range(B)]
 
-    def launch():
-        cuda_lib.check(fn(*args), lib_path.name)
+    def launch(keep=(tabs, lists)):
+        for args in calls:
+            cuda_lib.check(fn(*args), "sketch_launch")
     return launch
 
 
-def _time_ms(fn) -> float:
+def _estimates_launcher(lib, iface, cs, table, out):
+    """A no-argument function writing the (d,) estimates of ``table``
+    into ``out``."""
+    tabs = cs.kernel_tables(table.device)
+    fn = lib.estimates_launch
+    fn.restype = _I
+    head = [_P, _I, _LL] if iface["batched"] else [_P, _LL]
+    fn.argtypes = head + [_I, _I, _P, _P, _P]
+    args = ((table.data_ptr(), 1, cs.d) if iface["batched"]
+            else (table.data_ptr(), cs.d)) + (
+        cs.r, cs.nwindows, tabs.coeffs.data_ptr(), out.data_ptr(),
+        cuda_lib.stream_ptr(table.device))
+
+    def launch(tabs=tabs):
+        cuda_lib.check(fn(*args), "estimates_launch")
+    return launch
+
+
+def _est_hist_launcher(lib, cs, table, est, ws):
+    """A no-argument function running the radix's first pass of ``table``
+    into the scratch ``est`` and the workspace ``ws``."""
+    tabs = cs.kernel_tables(table.device)
+    fn = lib.est_hist_launch
+    fn.restype = _I
+    fn.argtypes = [_P, _LL, _I, _I, _P, _LL, _P, _P, _P]
+    args = (table.data_ptr(), cs.d, cs.r, cs.nwindows,
+            tabs.coeffs.data_ptr(), K, est.data_ptr(), ws.data_ptr(),
+            cuda_lib.stream_ptr(table.device))
+
+    def launch(tabs=tabs):
+        cuda_lib.check(fn(*args), "est_hist_launch")
+    return launch
+
+
+def _time_ms(fn, setup=None) -> float:
     import torch
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
+        if setup:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -111,15 +178,51 @@ def _median(xs):
     return xs[m] if len(xs) % 2 else (xs[m - 1] + xs[m]) / 2
 
 
-def _inputs(kernel: str, cs, dev):
-    """The seeded input and an output buffer of ``kernel`` at ``cs.d``."""
+def _cases(kernel: str, dev, libs):
+    """Yield ``(label, {side: (launch, setup or None)}, {side: outputs})``
+    for ``kernel``; ``libs[side] = (library, interface)``."""
     import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
     gen = torch.Generator(device=dev).manual_seed(0)
-    if kernel == "sketch":
-        return (torch.randn(cs.d, generator=gen, device=dev),
-                lambda: torch.empty((cs.r, cs.c_eff), device=dev))
-    return (torch.randn(cs.r, cs.c_eff, generator=gen, device=dev),
-            lambda: torch.empty(cs.d, device=dev))
+    if kernel in ("sketch", "sketch_batched"):
+        shapes = ([(1, d) for d in DS] if kernel == "sketch"
+                  else list(BATCHES))
+        for B, d in shapes:
+            cs = CountSketch(d, 500_000, 5, seed=42)
+            x = torch.randn(B, d, generator=gen, device=dev)
+            fns, outs = {}, {}
+            for t, (lib, iface) in libs.items():
+                outs[t] = torch.empty((B, cs.r, cs.c_eff), device=dev)
+                fns[t] = (_sketch_launcher(lib, iface, cs, x, outs[t]), None)
+            yield f"B={B}, d={d}", fns, outs
+    elif kernel == "estimates":
+        for d in DS:
+            cs = CountSketch(d, 500_000, 5, seed=42)
+            table = torch.randn(cs.r, cs.c_eff, generator=gen, device=dev)
+            outs = {t: torch.empty(cs.d, device=dev) for t in libs}
+            fns = {t: (_estimates_launcher(lib, iface, cs, table, outs[t]),
+                       None) for t, (lib, iface) in libs.items()}
+            yield f"B=1, d={d}", fns, outs
+    else:
+        for d in DS:
+            cs = CountSketch(d, 500_000, 5, seed=42)
+            table = torch.randn(cs.r, cs.c_eff, generator=gen, device=dev)
+            fns, outs = {}, {}
+            for t, (lib, _) in libs.items():
+                est, ws = tk.radix_workspace(cs.d, dev)
+                outs[t] = (est[:cs.d], ws)
+                fns[t] = (_est_hist_launcher(lib, cs, table, est, ws),
+                          ws.zero_)
+            yield f"d={d}, k={K}", fns, outs
+
+
+def _same(a, b) -> bool:
+    import torch
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def main(argv=None) -> int:
@@ -127,15 +230,15 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", required=True, type=Path,
                     help="root of the other checkout")
     ap.add_argument("--pairs", type=int, default=20)
-    ap.add_argument("--kernels", default="sketch,estimates",
-                    help="comma-separated: sketch, estimates")
+    ap.add_argument("--kernels",
+                    default="sketch,sketch_batched,estimates,est_hist",
+                    help="comma-separated: " + ", ".join(_SOURCE))
     args = ap.parse_args(argv)
     kernels = args.kernels.split(",")
-    if not set(kernels) <= set(_INTERFACES):
-        ap.error(f"--kernels: choose from {sorted(_INTERFACES)}")
+    if not set(kernels) <= set(_SOURCE):
+        ap.error(f"--kernels: choose from {sorted(_SOURCE)}")
     import torch
 
-    from commefficient_tpu_torch.ops.countsketch import CountSketch
     if not torch.cuda.is_available():
         print("sketch_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -145,49 +248,50 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     here = Path(cuda_lib.__file__).resolve().parents[2]
     dev = torch.device("cuda")
+    sources = sorted({_SOURCE[k] for k in kernels})
     with tempfile.TemporaryDirectory() as tmp:
-        builds = {(kernel, tag): _build(root, Path(tmp), kernel, tag)
-                  for kernel in kernels for tag, root in
+        builds = {(src, tag): _build(root, Path(tmp), src, tag)
+                  for src in sources for tag, root in
                   (("other", args.parent.resolve()), ("this", here))}
-        for (kernel, tag), (proc, _, batched) in builds.items():
+        libs = {}
+        for (src, tag), (proc, path, iface) in builds.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc {kernel} ({tag}) failed:\n{log}")
+                raise RuntimeError(f"nvcc {src} ({tag}) failed:\n{log}")
             regs = [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln]
-            print(f"build {kernel} {tag} (batched interface: {batched}): "
+                    if "registers" in ln or "spill" in ln]
+            print(f"build {src} {tag} (interfaces {iface}): "
                   + " | ".join(regs), flush=True)
+            libs[src, tag] = (ctypes.CDLL(str(path)), iface)
         for kernel in kernels:
-            for d in DS:
-                cs = CountSketch(d, 500_000, 5, seed=42)
-                inp, new_out = _inputs(kernel, cs, dev)
-                outs = {t: new_out() for t in ("other", "this")}
-                fns = {t: _launcher(builds[kernel, t][1], kernel,
-                                    builds[kernel, t][2], cs, inp, outs[t])
-                       for t in outs}
-                for fn in fns.values():
-                    fn()
+            side_libs = {t: libs[_SOURCE[kernel], t]
+                         for t in ("other", "this")}
+            for label, fns, outs in _cases(kernel, dev, side_libs):
+                for launch, setup in fns.values():
+                    if setup:
+                        setup()
+                    launch()
                 torch.cuda.synchronize()
-                if not torch.equal(outs["this"].view(torch.int32),
-                                   outs["other"].view(torch.int32)):
-                    raise AssertionError(f"the two {kernel} kernels' outputs "
-                                         f"differ at d={d}")
+                for t in outs:
+                    if not _same(outs[t], outs["other"]):
+                        raise AssertionError(f"{kernel} ({label}): {t}'s "
+                                             "outputs differ from other's")
                 ms = {t: [] for t in fns}
                 for i in range(args.pairs):
-                    order = ("other", "this") if i % 2 == 0 else ("this",
-                                                                 "other")
+                    order = list(fns) if i % 2 == 0 else list(fns)[::-1]
                     for t in order:
-                        ms[t].append(_time_ms(fns[t]))
+                        ms[t].append(_time_ms(*fns[t]))
                 ratios = [a / b for a, b in zip(ms["this"], ms["other"])]
-                row = {"kernel": kernel, "d": d, "pairs": args.pairs,
+                row = {"kernel": kernel, "at": label, "pairs": args.pairs,
                        "bitwise_equal": True,
-                       "this_ms_median": _median(ms["this"]),
-                       "other_ms_median": _median(ms["other"]),
+                       **{f"{t}_ms_median": _median(v)
+                          for t, v in ms.items()},
                        "ratio_median": _median(ratios),
                        "ratio_min": min(ratios), "ratio_max": max(ratios),
-                       "this_ms": ms["this"], "other_ms": ms["other"]}
+                       "this_faster_pairs": sum(r < 1 for r in ratios),
+                       **{f"{t}_ms": v for t, v in ms.items()}}
                 print(json.dumps(row), flush=True)
-                del inp, outs, fns
+                del fns, outs
                 torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0

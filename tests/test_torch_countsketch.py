@@ -165,7 +165,8 @@ def test_kernel_tables_group_blocks_by_window_in_block_order():
     blk = torch.arange(t.nblocks)
     for row in range(t.r):
         base, _ = t._block_hashes(row, blk)
-        ptr, blocks = tabs.win_ptr[row].long(), tabs.win_blocks[row].long()
+        ptr = tabs.win_ptr[row].long()
+        blocks = (tabs.packed[row].long() & 0xFFFFFFFF) >> 7
         assert int(ptr[-1]) == t.nblocks
         for w in range(t.nwindows):
             members = blocks[ptr[w]:ptr[w + 1]]

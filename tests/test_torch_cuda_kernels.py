@@ -7,7 +7,9 @@ machine with one (and without JAX, so without the suite's conftest):
 
 Each sketch and top-k kernel must equal its plain version bitwise at
 small shapes, odd lengths (tails that are no multiple of a tile), a
-nonzero block offset, per-row k and planted ties included; the flash
+nonzero block offset, per-row k and planted ties included (the sketch
+also at B = 1, 3, 4, 8, 9, the estimates also on
+tables with NaNs, +-0.0, +-inf and denormals at r = 1, 3, 5); the flash
 attention kernels (the tensor-core forward, dq and dk/dv, and the first
 port's scalar ones) match theirs within float32 rounding (O and lse atol
 1e-5, gradients 1e-4 of their largest magnitude; bf16 2e-2), with and
@@ -85,6 +87,35 @@ def test_sketch_batched_kernel_equals_plain(dev, B, d, c, r, off):
     assert _same_bits(got, sketch_vec_batched(cs, x, off))
     for b in range(B):
         assert _same_bits(got[b], sketch_vec(cs, x[b].contiguous(), off))
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 9])
+@pytest.mark.parametrize("d,c,r,off", [(20_001, 1_000, 5, 0),
+                                       (20_001, 1_000, 5, 37),
+                                       (9_000, 300, 3, 2),
+                                       (5_003, 512, 1, 0)])
+def test_sketch_kernel_batches_equal_plain(dev, B, d, c, r, off):
+    """The packed window lists at d no multiple of 128, a block offset and
+    B = 1 (``sketch``) or a batch on the grid's slow axis
+    (``sketch_batched``): bitwise the plain version, the same over two
+    runs; row 0 all zero."""
+    cs = CountSketch(d=d, c=c, r=r, seed=42)
+    n = d - off * 128 - (d // 7 if off else 0)
+    x = np.random.RandomState(d + B).randn(B, n).astype(np.float32)
+    x[0] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    key = "sketch" if B == 1 else "sketch_batched"
+    before = cuda_lib.LAUNCHES[key]
+    if B == 1:
+        got = sketch_vec(cs, x[0], off)[None]
+        again = sketch_vec(cs, x[0], off)[None]
+    else:
+        got = sketch_vec_batched(cs, x, off)
+        again = sketch_vec_batched(cs, x, off)
+    assert cuda_lib.LAUNCHES[key] == before + 2
+    assert _same_bits(got, sketch_vec_batched_plain(cs, x, off))
+    assert _same_bits(got, again)
     assert not got[0].any()
 
 
@@ -431,6 +462,37 @@ def test_estimates_batched_kernel_equals_plain(dev, B, d, c, r):
     assert _same_bits(got, estimates_batched(cs, tables))
     for b in range(B):
         assert _same_bits(got[b], estimates(cs, tables[b]))
+
+
+_SPECIAL = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                     0x00000001, 0x807FFFFF, 0x7FC00000, 0xFFC00000,
+                     0x7FA00001, 0xFF812345], np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("r", [1, 3, 5])
+@pytest.mark.parametrize("B", [1, 8])
+def test_estimates_special_values_equal_plain(dev, r, B):
+    """Tables with NaNs (payloads too), +-0.0, +-inf and denormals planted
+    in a tenth of the cells and a whole all-NaN window: the median on
+    integer keys with one NaN test is bitwise the plain version (through
+    both entries at B = 1), the same over two runs."""
+    cs = CountSketch(d=20_000, c=1_000, r=r, seed=42)
+    rng = np.random.RandomState(10 * r + B)
+    tables = rng.randn(B, r, cs.c_eff).astype(np.float32)
+    planted = rng.rand(*tables.shape) < 0.1
+    tables[planted] = _SPECIAL[rng.randint(0, len(_SPECIAL),
+                                           planted.sum())]
+    tables[:, 0, :128] = np.nan
+    tables = torch.from_numpy(tables).to(dev)
+    before = cuda_lib.LAUNCHES["estimates_batched"]
+    got = estimates_batched(cs, tables)
+    again = estimates_batched(cs, tables)
+    assert cuda_lib.LAUNCHES["estimates_batched"] == before + 2
+    assert _same_bits(got, estimates_batched_plain(cs, tables))
+    assert _same_bits(got, again)
+    if B == 1:
+        assert _same_bits(got[0], estimates(cs, tables[0]))
+    assert bool(torch.isnan(got).any()) and bool((got == 0).any())
 
 
 @pytest.mark.parametrize("shape,dtype,rate", [
