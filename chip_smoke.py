@@ -56,9 +56,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    port's route (nibble glue, count_plain x 9, the select) and
    ``torch.topk`` of the squares, as 20 alternating rounds;
 4. the main paths, each ``training.cv.train(args, max_rounds=3)`` at
-   ResNet9's full width (d = 6,568,640) on Synthetic with 8 workers and
-   k=50,000, every launch counter set to 0 just before it and read just
-   after:
+   full width on Synthetic, ResNet9's (d = 6,568,640) with 8 workers and
+   k=50,000 unless named, every launch counter set to 0 just before it
+   and read just after:
    - sketch (the headline FetchSGD flags, 5 x 500k, virtual error and
      momentum 0.9, 32 images a worker): sketch 3 and the recovery's
      kernels: est_hist 3, digit_hist 6, radix_compact 3, segment_sum 3;
@@ -76,7 +76,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      launch a round), the recovery's kernels, and no unbatched sketch;
    - uncompressed_dp_server (+ --dp --dp_mode server, the same clip and
      noise): no kernel;
-   with finite losses and weights and exact upload bytes per client;
+   - fixup9_sketch (the sketch flags + --model FixupResNet9, d =
+     6,568,673): the sketch path's kernels, and the rate the Fixup
+     scalars moved at (update over recovered value) 0.1 times the
+     convolutions' (the default --scalar_lr_factor);
+   - fixup50_imagenet (the flags of examples/imagenet.sh on Synthetic's
+     32 x 32 images and 10 classes: FixupResNet50, d = 23,475,516,
+     uncompressed, iid, 7 workers of 64 images): no kernel;
+   with finite losses and weights, each path's d, and the upload bytes
+   per client (exact, as float32 counters hold them);
    then the sketch path twice more from the same seed: per-round losses,
    weights, Vvelocity and Verror bitwise equal; and one ResNet9 forward
    and backward at its batch timed with cuDNN's deterministic mode off,
@@ -127,7 +135,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    read apart (flash_fwd 12 per batch, nothing else); finite losses,
    weights and validation nll, exact upload bytes; round ms printed;
    then round 3's batch once more under ``torch.profiler``, its device
-   time printed by kernel class beside its wall time; then the same with
+   time printed by kernel class beside its wall time, with the totals of
+   the elementwise add and fill kernels; then the same with
    --max_grad_norm 1.0 (gpt2_clip): the per-worker path, one forward and
    backward per client, so flash_fwd, flash_bwd_dq, flash_bwd_dkv 144 each
    (12 layers x 4 clients x 3 rounds), sketch_batched 3, the recovery's
@@ -161,6 +170,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import nullcontext
 from dataclasses import replace
 
 import numpy as np
@@ -216,6 +226,27 @@ PATHS.update({
     "uncompressed_dp_server": (PATHS["uncompressed"][0] + [
         "--dp", "--dp_mode", "server"] + DP_FLAGS, {}, 4 * D_RESNET9),
 })
+D_FIXUP9 = 6_568_673
+D_FIXUP50 = 23_475_516   # a 10-class head: Synthetic's classes
+# the flags of examples/imagenet.sh on Synthetic (32 x 32 images, 10
+# classes, not ImageNet's)
+IMAGENET_FLAGS = ["--model", "FixupResNet50", "--mode", "uncompressed",
+                  "--iid", "--num_clients", "7", "--num_workers", "7",
+                  "--local_batch_size", "64", "--valid_batch_size", "64",
+                  "--virtual_momentum", "0.9", "--weight_decay", "1e-4",
+                  "--lr_scale", "0.4", "--pivot_epoch", "5", "--num_epochs",
+                  "24", "--dataset_name", "Synthetic", "--device", "cuda"]
+PATHS.update({
+    # the headline sketch flags on FixupResNet9, its scalars at the default
+    # --scalar_lr_factor (0.1 for Fixup models)
+    "fixup9_sketch": (HEADLINE + ["--model", "FixupResNet9"],
+                      dict(RECOVERY, sketch=3), 4 * TABLE_FLOATS),
+    # the Fixup bottlenecks and their scalar LR at full width; no kernel,
+    # as in the reference
+    "fixup50_imagenet": (IMAGENET_FLAGS, {}, 4 * D_FIXUP50),
+})
+# d of each path's model (ResNet9's elsewhere)
+PATH_D = {"fixup9_sketch": D_FIXUP9, "fixup50_imagenet": D_FIXUP50}
 # per-row k of the batched parity check: full, an all-zero row, contested
 # ties at k/2, and k = 1
 KK_ROWS = [K, K, K // 2, 1, K, K, K, K]
@@ -1772,45 +1803,115 @@ def phase_hw_dropout_timing(dev, pairs=20):
     return r
 
 
+class _ScalarLRProbe:
+    """Records, for every round of a run, the recovered top-k
+    (``CountSketch.unsketch_values_indices``) and the server's update
+    (the round's ``server_update``), which is the recovered values times
+    the round's per-coordinate lr. Adds no launch."""
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated import round as round_mod
+        from commefficient_tpu_torch.ops.countsketch import CountSketch
+        self.recovered, self.updates = [], []
+        self._saved = [(CountSketch, "unsketch_values_indices",
+                        CountSketch.unsketch_values_indices),
+                       (round_mod, "server_update", round_mod.server_update)]
+        unsketch, server_update = (f for _, _, f in self._saved)
+
+        def recover(cs, *args, **kwargs):
+            self.recovered.append(unsketch(cs, *args, **kwargs))
+            return self.recovered[-1]
+
+        def update(*args, **kwargs):
+            out = server_update(*args, **kwargs)
+            self.updates.append(out[0])
+            return out
+
+        CountSketch.unsketch_values_indices = recover
+        round_mod.server_update = update
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, f in self._saved:
+            setattr(owner, attr, f)
+
+    def ratio(self, scalar):
+        """(rate of the Fixup scalars, rate of the other coordinates):
+        update / recovered value on the recovered coordinates of the last
+        round that recovered a scalar."""
+        for (vals, idxs), upd in zip(reversed(self.recovered),
+                                     reversed(self.updates)):
+            keep = vals != 0
+            vals, idxs = vals[keep], idxs[keep]
+            on_scalar = scalar[idxs]
+            if bool(on_scalar.any()) and not bool(on_scalar.all()):
+                rate = upd[idxs] / vals
+                return (float(rate[on_scalar].mean()),
+                        float(rate[~on_scalar].mean()))
+        raise AssertionError("no round recovered a Fixup scalar")
+
+
 def phase_path(name):
     """One main path: 3 full-width rounds through ``training.cv.train``
-    with every launch counter zeroed just before and read just after."""
+    with every launch counter zeroed just before and read just after.
+    On fixup9_sketch, also the rate the Fixup scalars moved at against the
+    convolutions' (0.1, the default ``--scalar_lr_factor``)."""
     import torch
 
     from commefficient_tpu_torch.ops import cuda_lib
     from commefficient_tpu_torch.training.args import build_parser
     from commefficient_tpu_torch.training.cv import train
     flags, want, per_client = PATHS[name]
+    d = PATH_D.get(name, D_RESNET9)
     args = build_parser().parse_args(flags)
     np.random.seed(args.seed)
-    cuda_lib.LAUNCHES.clear()
-    learner, row = train(args, max_rounds=3, log=False)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    probe = _ScalarLRProbe()
+    with probe if name == "fixup9_sketch" else nullcontext():
+        cuda_lib.LAUNCHES.clear()
+        learner, row = train(args, max_rounds=3, log=False)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
     if launches != want:
         raise AssertionError(f"{name}: launch counts {launches} != {want}")
     rounds = row["rounds"]
     if len(rounds) != 3:
         raise AssertionError(f"{name}: ran {len(rounds)} rounds, expected 3")
     w = learner.state.weights
-    if learner.cfg.grad_size != D_RESNET9 or w.shape != (D_RESNET9,):
-        raise AssertionError(f"{name}: d = {learner.cfg.grad_size}")
+    if learner.cfg.grad_size != d or w.shape != (d,):
+        raise AssertionError(f"{name}: d = {learner.cfg.grad_size}, "
+                             f"expected {d}")
     if not all(math.isfinite(r["loss"]) for r in rounds) \
             or not bool(torch.isfinite(w).all()) \
             or not math.isfinite(row["test_loss"]):
         raise AssertionError(f"{name}: non-finite loss or weights")
-    # the first round has all 8 workers (the epoch tail may have fewer)
-    if rounds[0]["upload_bytes"] != 8 * per_client or any(
-            r["upload_bytes"] % per_client for r in rounds):
+    # the first round has all the workers (the epoch tail may have fewer);
+    # the byte counters are float32, as the reference's, so 7 x 4 d of
+    # fixup50_imagenet reads rounded to float32's step of 64 there
+    clients = [args.num_workers] + [round(r["upload_bytes"] / per_client)
+                                    for r in rounds[1:]]
+    if any(r["upload_bytes"] != float(np.float32(n * per_client))
+           for n, r in zip(clients, rounds)) or not all(
+               1 <= n <= args.num_workers for n in clients):
         raise AssertionError(f"{name}: upload bytes "
                              f"{[r['upload_bytes'] for r in rounds]} are "
                              f"not {per_client} per client")
+    extra = ""
+    if name == "fixup9_sketch":
+        scalar = learner.lr_scale_vec != 1.0
+        rates = probe.ratio(scalar)
+        if int(scalar.sum()) != 23 or not math.isclose(
+                rates[0] / rates[1], 0.1, rel_tol=1e-5):
+            raise AssertionError(f"{name}: {int(scalar.sum())} scalars "
+                                 f"moved at {rates[0]} against {rates[1]}")
+        extra = (f", Fixup scalars moved at {rates[0]:.6g} against "
+                 f"{rates[1]:.6g} (ratio {rates[0] / rates[1]:.6f})")
     changed = int((learner.state.last_changed >= 0).sum())
-    print(f"path {name}: launches {launches}, losses "
+    print(f"path {name}: d = {d}, launches {launches}, losses "
           f"{[round(r['loss'], 6) for r in rounds]}, round ms "
           f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, upload B "
           f"{[int(r['upload_bytes']) for r in rounds]}, test_loss "
-          f"{row['test_loss']:.6f}, {changed} weights changed", flush=True)
+          f"{row['test_loss']:.6f}, {changed} weights changed{extra}",
+          flush=True)
     del learner, row
     torch.cuda.empty_cache()
     return launches
@@ -2121,6 +2222,10 @@ _KERNEL_CLASSES = (
 )
 
 
+_ELEMENTWISE = (("add", r"AddFunctor|CUDAFunctor_add|add_kernel"),
+                ("fill", r"FillFunctor|fill_kernel"))
+
+
 def _kernel_class(name: str) -> str:
     for label, keys in _KERNEL_CLASSES:
         if any(k in name for k in keys):
@@ -2158,6 +2263,13 @@ def _profile_round(name, learner, call):
               f"{c} {ms:.3f} ms ({ms / busy_ms:.4f})"
               for c, ms in sorted(by_class.items(), key=lambda x: -x[1])),
           flush=True)
+    # the elementwise adds and fills (before the per-leaf gradient, the
+    # (d,) zero fill and add of every leaf's slice backward)
+    for label, pattern in _ELEMENTWISE:
+        hits = [e for e in kernels if re.search(pattern, e.key)]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        print(f"  {label}: {ms:.3f} ms x{sum(e.count for e in hits)} in "
+              f"{len(hits)} kernels", flush=True)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} "

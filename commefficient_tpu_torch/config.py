@@ -152,7 +152,6 @@ class FedConfig:
                 (f"--client_state {self.client_state}",
                  self.client_state != "dense", "A9"),
                 ("--grad_buckets", self.grad_buckets > 1, "A9"),
-                ("--batchnorm", self.do_batchnorm, "A6"),
                 ("--sketch_scheme global", self.sketch_scheme != "tiled",
                  "A1")):
             if on:

@@ -14,6 +14,12 @@ keep them, the clients' rows (``state.clients``).
 
 Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
 (the reference's round rng) and draws one seed from it per round.
+
+Per-coordinate LR: ``lr_scale_vec``, a (d,) vector or a callable that
+builds one from the model (``utils.params.scalar_lr_multipliers``, the
+Fixup recipe), makes each round's lr ``lr * vec`` in float32, which the
+server rules and fedavg's local steps multiply into the update as they
+do a scalar lr.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ class FedLearner:
     def __init__(self, model: torch.nn.Module, cfg: FedConfig,
                  loss_train: Callable, loss_val: Optional[Callable] = None,
                  lr_schedule: Optional[Callable] = None, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, lr_scale_vec=None):
         self.device = resolve_device(device)
         self.generator = torch.Generator().manual_seed(int(seed))
         self.model = model.to(self.device)
@@ -46,6 +52,16 @@ class FedLearner:
         self._round = build_round_step(loss_train, self.unflatten, self.cfg)
         self._eval = build_eval_step(loss_val or loss_train, self.unflatten)
         self.lr_schedule = lr_schedule or (lambda t: cfg.lr_scale)
+        if callable(lr_scale_vec):
+            lr_scale_vec = lr_scale_vec(self.model)
+        if lr_scale_vec is not None:
+            lr_scale_vec = torch.as_tensor(lr_scale_vec, dtype=torch.float32,
+                                           device=self.device)
+            if lr_scale_vec.shape != (self.cfg.grad_size,):
+                raise ValueError(
+                    f"lr_scale_vec must have shape ({self.cfg.grad_size},), "
+                    f"got {tuple(lr_scale_vec.shape)}")
+        self.lr_scale_vec = lr_scale_vec
         self.rounds_done = 0
         self.total_download_bytes = 0.0
         self.total_upload_bytes = 0.0
@@ -62,10 +78,12 @@ class FedLearner:
                         else epoch_frac)
         seed = int(torch.randint(0, 2 ** 62, (1,),
                                  generator=self.generator))
+        # the reference's lr_in: float32(lr) times the vector, rounded once
+        lr_in = lr if self.lr_scale_vec is None else lr * self.lr_scale_vec
         self.state, raw = self._round(
             self.state, self._to_device(client_ids, torch.int32),
             tuple(self._to_device(c) for c in batch),
-            self._to_device(mask, torch.float32), lr, seed)
+            self._to_device(mask, torch.float32), lr_in, seed)
         self.rounds_done += 1
         n = max(float(raw["num_datapoints"]), 1.0)
         out = {

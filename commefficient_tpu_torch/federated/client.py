@@ -27,6 +27,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.ops.countsketch import CountSketch
@@ -52,15 +53,28 @@ class ClientStepOut(NamedTuple):
 
 def _masked_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask,
                           seed=None):
-    """Gradient of the summed loss over valid examples, with respect to
-    the flat weights, plus the summed loss and metrics; ``seed`` feeds the
-    model's dropout."""
-    w = w_flat.detach().requires_grad_(True)
-    per_ex_loss, per_ex_metrics = apply_loss(unflatten(w), batch, seed,
-                                             True)
+    """Gradient of the summed loss over valid examples, in the flat
+    weights' coordinates, plus the summed loss and metrics; ``seed`` feeds
+    the model's dropout.
+
+    The gradient is taken with respect to one leaf per parameter (a
+    detached view of ``w_flat``, the leaves of ``unflatten``'s tree) and
+    each leaf's gradient is written once through the same view of a flat
+    gradient, as ``jax.grad`` through ``ravel_pytree`` joins it. Through
+    the slice views of one flat ``w``, autograd would add a zero-filled
+    (d,) gradient per leaf: a (d,) fill and add each, and every -0.0 of a
+    leaf's gradient would come out +0.0. A leaf the loss does not reach
+    gets zeros, as in JAX."""
+    views, spec = tree_flatten(unflatten(w_flat))
+    leaves = [v.detach().requires_grad_(True) for v in views]
+    per_ex_loss, per_ex_metrics = apply_loss(tree_unflatten(leaves, spec),
+                                             batch, seed, True)
     loss_sum = torch.sum(per_ex_loss * mask)
     metric_sums = torch.sum(per_ex_metrics.detach() * mask[None, :], dim=-1)
-    (grad,) = torch.autograd.grad(loss_sum, w)
+    grads = torch.autograd.grad(loss_sum, leaves, materialize_grads=True)
+    grad = torch.zeros_like(w_flat)
+    for view, g in zip(tree_flatten(unflatten(grad))[0], grads):
+        view.copy_(g)
     return grad, loss_sum.detach(), metric_sums
 
 
@@ -199,7 +213,8 @@ def fedavg_client_step(apply_loss, unflatten, ps_weights, batch, mask, lr,
     padded ghost chunks (all-zero mask tails) not counted, as in the
     reference. Local step ``s`` draws its dropout from ``fold_in(seed,
     s)``, and its DP noise (under ``--dp`` worker) from that seed's
-    ``NOISE_FOLD`` domain. Returns ``(transmit (d,), loss_sum,
+    ``NOISE_FOLD`` domain. ``lr`` is a float or a (d,) tensor of
+    per-coordinate rates. Returns ``(transmit (d,), loss_sum,
     metric_sums, n)``, the loss and metrics averaged over the epochs."""
     max_b = mask.shape[0]
     chunk = (max_b if cfg.fedavg_batch_size == -1

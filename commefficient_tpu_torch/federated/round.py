@@ -112,7 +112,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                      cfg: FedConfig) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
     lr, seed) -> (FedState, metrics)``, every tensor on the state's
-    device. The fused path draws its dropout from ``seed``; in the
+    device; ``lr`` is a float or a (d,) float32 tensor of per-coordinate
+    rates. The fused path draws its dropout from ``seed``; in the
     per-worker path client ``c`` draws from ``fold_in(seed, c)``, as the
     reference folds the client id into the round's rng. The server's DP
     noise draws from ``fold_in(seed, SERVER_NOISE_FOLD)``, the

@@ -3,7 +3,9 @@
 
 ``server_update(gradient, state, cfg, lr, sketch, noise_seed) -> (weight
 update (d,), new state)``. ``gradient`` is the round's aggregate: ``(d,)``
-in every mode but sketch, where it is the ``(r, c_eff)`` table.
+in every mode but sketch, where it is the ``(r, c_eff)`` table. ``lr`` is
+a float or a (d,) float32 tensor (per-coordinate rates, already
+``lr * vec``); every rule ends in ``update * lr``.
 
 * fedavg: momentum only; the clients already applied the lr.
 * uncompressed: momentum, then ``lr * v``; under ``--dp --dp_mode

@@ -3,13 +3,14 @@
 Same architecture as the reference: prep ConvBN(c->64), layer1 (64->128)
 + pool2, residual, layer2 (128->256) + pool2, layer3 (256->512) + pool2,
 residual, maxpool4, bias-free linear head and the 0.125 logit scale.
-Convolutions are bias-free; BatchNorm is off (ROADMAP.md A6 for
-``do_batchnorm``). The public input is NHWC, as in JAX; the forward pass
-permutes to NCHW for cuDNN.
+Convolutions are bias-free; with ``do_batchnorm`` each ConvBN has flax's
+BatchNorm (momentum 0.9) between its conv and relu (``models/norms.py``;
+the federated round refuses it, ``training/cv.py``). The public input is
+NHWC, as in JAX; the forward pass permutes to NCHW for cuDNN.
 
 Submodules carry flax's auto-names (``ConvBN_0``, ``Residual_1``,
-``Dense_0``, ``Conv_0``) so that parameter names map onto the reference's
-flax params tree one to one (utils/params.py).
+``Dense_0``, ``Conv_0``, ``BatchNorm_0``) so that parameter names map
+onto the reference's flax params tree one to one (utils/params.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from commefficient_tpu_torch.models.norms import BatchNorm, _Affine
 
 DEFAULT_CHANNELS = {"prep": 64, "layer1": 128, "layer2": 256, "layer3": 512}
 
@@ -36,26 +39,48 @@ def _variance_scaling_(w: torch.Tensor, scale: float, fan_in: int,
                               generator=generator)
 
 
-class ConvBN(nn.Module):
-    """3x3 bias-free conv, relu, optional 2x2 max-pool."""
+def he_lecun_init_(module: nn.Module,
+                   generator: Optional[torch.Generator] = None):
+    """flax's initializers as the reference's CV models set them:
+    he_normal convolutions, lecun_normal dense kernels (both flax variance
+    scaling, truncated normal, fan-in; a grouped conv's fan-in is its
+    group's), zero dense biases, norms at scale 1, bias 0."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            _variance_scaling_(m.weight, 2.0, m.weight[0].numel(), generator)
+        elif isinstance(m, nn.Linear):
+            _variance_scaling_(m.weight, 1.0, m.in_features, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, _Affine):
+            m.reset_parameters()
+    return module
 
-    def __init__(self, c_in: int, c_out: int, pool: bool = False):
+
+class ConvBN(nn.Module):
+    """3x3 bias-free conv, optional BatchNorm, relu, optional 2x2
+    max-pool."""
+
+    def __init__(self, c_in: int, c_out: int, pool: bool = False,
+                 do_batchnorm: bool = False):
         super().__init__()
         self.Conv_0 = nn.Conv2d(c_in, c_out, 3, padding=1, bias=False)
+        self.BatchNorm_0 = (BatchNorm(c_out, momentum=0.9) if do_batchnorm
+                            else nn.Identity())
         self.pool = pool
 
     def forward(self, x):
-        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
         return F.max_pool2d(x, 2) if self.pool else x
 
 
 class Residual(nn.Module):
     """x + res2(res1(x)) (reference resnet9.py:68)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, do_batchnorm: bool = False):
         super().__init__()
-        self.ConvBN_0 = ConvBN(c, c)
-        self.ConvBN_1 = ConvBN(c, c)
+        self.ConvBN_0 = ConvBN(c, c, do_batchnorm=do_batchnorm)
+        self.ConvBN_1 = ConvBN(c, c, do_batchnorm=do_batchnorm)
 
     def forward(self, x):
         return x + self.ConvBN_1(self.ConvBN_0(x))
@@ -66,30 +91,21 @@ class ResNet9(nn.Module):
                  logit_weight: float = 0.125,
                  channels: Optional[dict] = None, in_channels: int = 3):
         super().__init__()
-        if do_batchnorm:
-            raise NotImplementedError(
-                "ResNet9 BatchNorm is not ported to PyTorch yet "
-                "(ROADMAP.md A6)")
         ch = channels or DEFAULT_CHANNELS
+        bn = do_batchnorm
         self.logit_weight = logit_weight
-        self.ConvBN_0 = ConvBN(in_channels, ch["prep"])
-        self.ConvBN_1 = ConvBN(ch["prep"], ch["layer1"], pool=True)
-        self.Residual_0 = Residual(ch["layer1"])
-        self.ConvBN_2 = ConvBN(ch["layer1"], ch["layer2"], pool=True)
-        self.ConvBN_3 = ConvBN(ch["layer2"], ch["layer3"], pool=True)
-        self.Residual_1 = Residual(ch["layer3"])
+        self.ConvBN_0 = ConvBN(in_channels, ch["prep"], do_batchnorm=bn)
+        self.ConvBN_1 = ConvBN(ch["prep"], ch["layer1"], True, bn)
+        self.Residual_0 = Residual(ch["layer1"], bn)
+        self.ConvBN_2 = ConvBN(ch["layer1"], ch["layer2"], True, bn)
+        self.ConvBN_3 = ConvBN(ch["layer2"], ch["layer3"], True, bn)
+        self.Residual_1 = Residual(ch["layer3"], bn)
         self.Dense_0 = nn.Linear(ch["layer3"], num_classes, bias=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The reference's initializers: he_normal convs, lecun_normal
-        head (flax variance scaling, truncated normal, fan-in)."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                _variance_scaling_(m.weight, 2.0, fan_in, generator)
-            elif isinstance(m, nn.Linear):
-                _variance_scaling_(m.weight, 1.0, m.in_features, generator)
-        return self
+        head."""
+        return he_lecun_init_(self, generator)
 
     def forward(self, x):
         """NHWC images -> float32 logits (B, num_classes)."""

@@ -55,6 +55,10 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--lr_scale", type=float, default=default_lr)
     p.add_argument("--pivot_epoch", type=float, default=5)
     p.add_argument("--max_grad_norm", type=float, default=None)
+    p.add_argument("--scalar_lr_factor", type=float, default=None,
+                   help="LR multiplier of the size-1 parameters (Fixup's "
+                        "scalar biases and scales); None = 0.1 for Fixup* "
+                        "models, 1.0 otherwise")
     # federated dimensions
     p.add_argument("--num_clients", type=int, default=None,
                    help="None = the dataset's natural partition count")

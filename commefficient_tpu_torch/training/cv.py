@@ -6,7 +6,11 @@
 
 All five modes run: ``--mode sketch`` (``--server_fused auto|off``),
 ``true_topk``, ``local_topk``, ``uncompressed`` and ``fedavg`` (with
-``--local_batch_size -1``).
+``--local_batch_size -1``), on every ``--model`` of the registry but
+those with BatchNorm (``--batchnorm``, ResNet18, the ``norm="batch"``
+ResNets), which ``build_learner`` refuses as the reference's round fails
+on them; Fixup* models train their scalars at ``--scalar_lr_factor``
+(0.1 by default) times the LR.
 
 Runs on CUDA unless ``--device cpu`` is given; without a CUDA device and
 without ``--device cpu`` it raises. On CUDA it turns TF32 off for
@@ -23,6 +27,7 @@ from __future__ import annotations
 import math
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -31,10 +36,12 @@ from commefficient_tpu_torch.data import FedBatcher, fed_datasets, val_batches
 from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import make_cv_loss
 from commefficient_tpu_torch.models import get_model
+from commefficient_tpu_torch.models.norms import BatchNorm
 from commefficient_tpu_torch.training.args import (args_to_config,
                                                    build_parser,
                                                    refuse_unported)
 from commefficient_tpu_torch.utils.device import resolve_device
+from commefficient_tpu_torch.utils.params import scalar_lr_multipliers
 from commefficient_tpu_torch.utils.schedules import cifar_lr_schedule
 
 DATASET_CHANNELS = {"EMNIST": 1, "Digits": 1}
@@ -60,15 +67,38 @@ def make_dataset(args, train: bool):
 
 
 def build_learner(args, num_classes, channels, device):
+    """The model of ``--model`` (``--batchnorm`` goes to ResNet9 alone, as
+    in the reference), seeded from ``--seed``, in a ``FedLearner`` with
+    the CIFAR LR schedule and, where ``--scalar_lr_factor`` (0.1 for
+    Fixup* models, 1.0 otherwise) is not 1, per-coordinate LR multipliers
+    on the size-1 parameters.
+
+    A model with BatchNorm is refused: the reference's round applies
+    ``{"params": ...}`` alone (``commefficient_tpu/federated/losses.py:22``),
+    so BatchNorm's statistics have no place in it, and it fails there."""
     cfg = args_to_config(args)
-    model = get_model(args.model, num_classes=num_classes,
-                      do_batchnorm=args.do_batchnorm, in_channels=channels)
+    model_kw = dict(num_classes=num_classes, in_channels=channels)
+    if args.model == "ResNet9":
+        model_kw["do_batchnorm"] = args.do_batchnorm
+    model = get_model(args.model, **model_kw)
+    if any(isinstance(m, BatchNorm) for m in model.modules()):
+        raise ValueError(
+            f"--model {args.model}"
+            f"{' --batchnorm' if args.do_batchnorm else ''} has BatchNorm, "
+            "whose batch_stats the federated round cannot carry: the "
+            "reference's round applies {'params': ...} alone "
+            "(commefficient_tpu/federated/losses.py:22) and fails on it")
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     loss = make_cv_loss(model)
     sched = cifar_lr_schedule(args.lr_scale, args.pivot_epoch,
                               args.num_epochs)
+    factor = args.scalar_lr_factor
+    if factor is None:
+        factor = 0.1 if args.model.startswith("Fixup") else 1.0
+    lr_vec = (None if factor == 1.0 else
+              partial(scalar_lr_multipliers, scalar_factor=factor))
     return FedLearner(model, cfg, loss, loss, lr_schedule=sched,
-                      device=device)
+                      device=device, lr_scale_vec=lr_vec)
 
 
 def train(args, max_rounds=None, log=True):

@@ -88,8 +88,9 @@ def flatten_params(module: torch.nn.Module
     reference's ``ravel_pytree`` order and layout.
 
     ``unflatten(flat)`` returns ``{torch name: torch-layout view}`` of
-    ``flat`` for ``torch.func.functional_call``; autograd through those
-    views lands the gradient in flat (JAX) coordinates."""
+    ``flat`` for ``torch.func.functional_call``; a leaf's gradient written
+    through the same view of a flat gradient lands in flat (JAX)
+    coordinates."""
     params = dict(module.named_parameters())
     names = _ordered(params)
     leaves = [flax_path(n)[-1] for n in names]
@@ -109,6 +110,18 @@ def flatten_params(module: torch.nn.Module
     return flat, unflatten
 
 
+def scalar_lr_multipliers(module: torch.nn.Module,
+                          scalar_factor: float) -> torch.Tensor:
+    """(d,) float32 per-coordinate LR multipliers in ``flatten_params``
+    order: ``scalar_factor`` for the size-1 leaves (Fixup's scalar biases
+    and scales), 1.0 elsewhere (the reference's ``utils/params.py:45``)."""
+    params = dict(module.named_parameters())
+    return torch.cat([
+        torch.full((params[n].numel(),),
+                   scalar_factor if params[n].numel() == 1 else 1.0,
+                   dtype=torch.float32) for n in _ordered(params)])
+
+
 def params_from_jax(flax_params) -> Dict[str, torch.Tensor]:
     """A flax params tree (nested dicts of arrays) -> torch state_dict."""
     out = {}
@@ -125,6 +138,13 @@ def params_from_jax(flax_params) -> Dict[str, torch.Tensor]:
 
     walk(flax_params, ())
     return out
+
+
+def batch_stats_from_jax(batch_stats) -> Dict[str, torch.Tensor]:
+    """A flax ``batch_stats`` tree -> the BatchNorm buffers of the torch
+    state_dict (``.../BatchNorm_0/mean`` is ``....BatchNorm_0.mean``); its
+    leaves keep their layout."""
+    return params_from_jax(batch_stats)
 
 
 def params_to_jax(state_dict) -> dict:

@@ -20,8 +20,10 @@ radix of the fused unsketch + top-k equals its plain versions pass by pass
 (NaN, +-0.0 and all-zero tables included), and the sparse re-sketch's
 segmented sum equals the CPU's bitwise; the per-row histogram radix of the
 dense streams (plain and resid) equals its plain versions pass by pass, on
-unaligned rows, a k = 0 row and NaN rows included. ``chip_smoke.py``
-repeats this at the main paths' full width.
+unaligned rows, a k = 0 row and NaN rows included; a full-width
+FixupResNet9 sketch round through the kernels equals the same round
+through the plain versions on the card (table, server state, top-k set,
+weights). ``chip_smoke.py`` repeats this at the main paths' full width.
 """
 
 import numpy as np
@@ -653,3 +655,60 @@ def test_sketch_sparse_card_equals_cpu(dev):
     again = cs.sketch_sparse(vals.to(dev), idx.to(dev))
     assert cuda_lib.LAUNCHES["segment_sum"] == before + 2
     assert _same_bits(got.cpu(), cpu) and _same_bits(again, got)
+
+
+def test_fixup_resnet9_sketch_round_kernels_equal_plain(dev, monkeypatch):
+    """One full-width FixupResNet9 sketch round (5 x 500,000, k = 50,000,
+    Fixup's scalars at 0.1x the LR) through the kernels, then the same
+    round with the plain versions on the card: the sketched table, the
+    server state, the top-k set and the weights bitwise equal."""
+    import copy
+    from functools import partial
+
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.api import FedLearner
+    from commefficient_tpu_torch.federated.losses import make_cv_loss
+    from commefficient_tpu_torch.models import FixupResNet9
+    from commefficient_tpu_torch.ops import sketch_kernels as sk
+    from commefficient_tpu_torch.utils.params import scalar_lr_multipliers
+    model = FixupResNet9().reset_parameters(torch.Generator().manual_seed(0))
+    cfg = FedConfig(mode="sketch", error_type="virtual", virtual_momentum=0.9,
+                    k=50_000, num_cols=500_000, num_rows=5, num_clients=4,
+                    num_workers=2)
+    rng = np.random.RandomState(0)
+    batch = (rng.randn(2, 4, 32, 32, 3).astype(np.float32),
+             rng.randint(0, 10, (2, 4)).astype(np.int32))
+    ids, mask = np.array([0, 3], np.int32), np.ones((2, 4), np.float32)
+    runs = {}
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(sk, "sketch_vec", sk.sketch_vec_plain)
+            monkeypatch.setattr(sk, "segment_sum", sk.segment_sum_plain)
+            monkeypatch.setattr(tk, "unsketch_compact",
+                                tk.unsketch_compact_plain)
+        tables = []
+
+        def recorded(*args, sketch_vec=sk.sketch_vec, **kwargs):
+            tables.append(sketch_vec(*args, **kwargs))
+            return tables[-1]
+
+        monkeypatch.setattr(sk, "sketch_vec", recorded)
+        m = copy.deepcopy(model)
+        learner = FedLearner(m, cfg, make_cv_loss(m), device=dev,
+                             lr_scale_vec=partial(scalar_lr_multipliers,
+                                                  scalar_factor=0.1))
+        before = dict(cuda_lib.LAUNCHES)
+        learner.train_round(ids, batch, mask, epoch_frac=1.0)
+        torch.cuda.synchronize()
+        runs[route] = (tables[0], learner.state, {
+            k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+            if v - before.get(k, 0)})
+    (t_k, s_k, n_k), (t_p, s_p, n_p) = runs["kernels"], runs["plain"]
+    assert n_k == {"sketch": 1, "est_hist": 1, "digit_hist": 2,
+                   "radix_compact": 1, "segment_sum": 1} and n_p == {}
+    assert t_k.shape == (5, 500_096) and _same_bits(t_k, t_p)
+    for a, b in ((s_k.opt.Vvelocity, s_p.opt.Vvelocity),
+                 (s_k.opt.Verror, s_p.opt.Verror), (s_k.weights, s_p.weights)):
+        assert _same_bits(a, b)
+    assert torch.equal(s_k.last_changed, s_p.last_changed)
+    assert int((s_k.last_changed == 0).sum()) == 50_000

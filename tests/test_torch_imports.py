@@ -1,0 +1,30 @@
+"""The port stands alone: no module of ``commefficient_tpu_torch`` and
+nothing in ``chip_smoke.py`` imports JAX, flax, optax or the JAX package
+(the card's machine has none of them). Every import statement is read,
+function-level ones included."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "commefficient_tpu")
+SOURCES = sorted((ROOT / "commefficient_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_port_imports_no_jax(path):
+    names = set(_imported(ast.parse(path.read_text(), str(path))))
+    bad = {n for n in names if n.split(".")[0] in FORBIDDEN}
+    assert not bad, f"{path.name} imports {sorted(bad)}"

@@ -3,21 +3,27 @@
 The flat vector must be the reference's ``ravel_pytree`` vector bit for
 bit (the sketch hashes flat indices, top-k breaks ties by flat index).
 The narrow ResNet9's logits and flat gradient agree at rtol 1e-5 / atol
-1e-6: the convolutions sum in another order in XLA and in PyTorch."""
+1e-6: the convolutions sum in another order in XLA and in PyTorch. A
+BatchNorm model is refused by the round, as the reference's fails."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax.errors import ScopeCollectionNotFound
 from jax.flatten_util import ravel_pytree
 
+from commefficient_tpu.config import FedConfig as JaxConfig
 from commefficient_tpu.federated import client as jax_client
+from commefficient_tpu.federated.api import FedLearner as JaxLearner
 from commefficient_tpu.federated.losses import make_cv_loss as jax_cv_loss
 from commefficient_tpu.models.resnet9 import ResNet9 as JaxResNet9
 from commefficient_tpu_torch.federated.client import _masked_loss_and_grad
 from commefficient_tpu_torch.federated.losses import make_cv_loss
 from commefficient_tpu_torch.models.resnet9 import ResNet9
+from commefficient_tpu_torch.training import cv
+from commefficient_tpu_torch.training.args import build_parser
 from commefficient_tpu_torch.utils.params import (flatten_params,
                                                   params_from_jax,
                                                   params_to_jax)
@@ -105,6 +111,31 @@ def test_init_matches_reference_distribution():
     assert abs(float(head.std()) / (1 / 512) ** 0.5 - 1) < 0.05
 
 
-def test_batchnorm_refused():
-    with pytest.raises(NotImplementedError, match="A6"):
-        ResNet9(do_batchnorm=True)
+def test_batchnorm_refused(monkeypatch):
+    """BatchNorm runs in the model (``test_torch_model_zoo.py``) but not in
+    the round. The reference's round applies ``{"params": ...}`` alone, so
+    a BatchNorm model's first round raises flax's
+    ``ScopeCollectionNotFound``; the port's ``build_learner`` refuses the
+    same config up front with a ValueError naming that limit, for
+    ``--batchnorm`` and for ResNet18, whose BatchNorm needs no flag."""
+    jmodel = JaxResNet9(channels=NARROW, do_batchnorm=True)
+    cfg = dict(mode="uncompressed", num_clients=4, num_workers=2)
+    jl = JaxLearner(jmodel, JaxConfig(**cfg), jax_cv_loss(jmodel),
+                    jax_cv_loss(jmodel), jax.random.PRNGKey(0),
+                    jnp.zeros((1, 32, 32, 3)))
+    images, targets = _batch()
+    with pytest.raises(ScopeCollectionNotFound):
+        jl.train_round(np.array([0, 1], np.int32),
+                       (images.reshape(2, 2, 32, 32, 3),
+                        targets.reshape(2, 2)), np.ones((2, 2), np.float32))
+    args = build_parser().parse_args(["--mode", "uncompressed", "--device",
+                                      "cpu", "--batchnorm"])
+    with monkeypatch.context() as m:
+        m.setattr(cv, "get_model",
+                  lambda name, **kw: ResNet9(channels=NARROW, **kw))
+        with pytest.raises(ValueError, match="losses.py:22"):
+            cv.build_learner(args, 10, 3, "cpu")
+    args = build_parser().parse_args(["--mode", "uncompressed", "--device",
+                                      "cpu", "--model", "ResNet18"])
+    with pytest.raises(ValueError, match="batch_stats"):
+        cv.build_learner(args, 10, 3, "cpu")
