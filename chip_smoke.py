@@ -83,6 +83,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    - fixup50_imagenet (the flags of examples/imagenet.sh on Synthetic's
      32 x 32 images and 10 classes: FixupResNet50, d = 23,475,516,
      uncompressed, iid, 7 workers of 64 images): no kernel;
+   - sketch_bf16 (the sketch flags + --compute_dtype bfloat16: ResNet9's
+     convolutions and head in bfloat16): the sketch path's kernels;
+   - local_topk_down (the local_topk flags + --topk_down): each round's
+     download top-k of the 8 clients' weight differences and their
+     upload top-k, rows_hist 18 and rows_select 6;
+   - sketch_microbatch (the sketch flags + --microbatch_size 8: the
+     per-worker round, 4 chunks a client): the sketch path's kernels (the
+     aggregate is sketched once a round, as in the reference);
    with finite losses and weights, each path's d, and the upload bytes
    per client (exact, as float32 counters hold them);
    then the sketch path twice more from the same seed: per-round losses,
@@ -125,7 +133,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    256, 768) and at the mc head's (64, 768), each one's device time
    alone (200 launches back to back between one pair of events), the
    plain version and the bound;
-7. the GPT2 path: ``training.gpt2.train(args, max_rounds=3)`` with the
+7. ``download_counts`` (W comparison-and-count reductions) against the
+   ``bincount`` formulation it replaced, at d = 124,051,201 with W = 4
+   and d = 6,568,640 with W = 8 (random ``last_changed`` in [-2, 5], tied
+   stale rounds, a client that never pulled; and at d = 124,051,201 as
+   after 3 gpt2 rounds, all but 150,000 weights at -2): bitwise equal,
+   both timed as 6 alternating pairs;
+   the GPT2 path: ``training.gpt2.train(args, max_rounds=3)`` with the
    flags of ``examples/gpt2_personachat.sh`` on SyntheticPersona at
    GPT2-small's width (d = 124,051,201, ``--attn_impl blockwise``,
    sketch 5 x 500k, k = 50,000, 4 workers of 8 dialogs x 2 candidates x
@@ -145,9 +159,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    set on the parsed namespace (no CLI value selects it, as in the
    reference): gpt2's launches and hw_dropout 156 (26 sites a forward, 26
    a backward, 3 rounds), none in validation; profiled in the same way;
+   then gpt2_t512 (--max_seq_len 512, where --fused_ce auto turns the
+   vocab-chunked fused LM head on): gpt2's launches; and gpt2_microbatch
+   (--microbatch_size 4: the per-worker round, 2 chunks of 4 dialogs a
+   client): flash_fwd, flash_bwd_dq, flash_bwd_dkv 288 each (12 layers x
+   4 clients x 2 chunks x 3 rounds), sketch 3, the recovery's kernels;
+   each GPT2 path's profiled round runs no bincount (kernelHistogram1D),
+   and its peak memory is printed;
    then the gpt2 path twice more from the same seed (ROADMAP C5b), the
    first run freed before the second: per-round losses, weights,
-   Vvelocity and Verror bitwise equal;
+   Vvelocity and Verror bitwise equal; then GPT2-small's loss and
+   gradient on one full-width batch (32 dialogs x 2 candidates x 256
+   tokens, float32, TF32 off) with the fused LM head against the
+   materialized logits (loss within 1e-5 relative, gradient within 1e-4
+   of its largest magnitude), and with remat against without (gradients
+   bitwise equal, flash_fwd 24 against 12), each side's time and peak
+   memory printed;
 8. a reference check of a narrow GPT2 learner (2 layers) on CUDA (flash
    kernels) and on the CPU: two sketch rounds from the same weights and
    batches, losses within 1e-4 relative, bytes equal; at dropout 0, and
@@ -245,6 +272,22 @@ PATHS.update({
     # as in the reference
     "fixup50_imagenet": (IMAGENET_FLAGS, {}, 4 * D_FIXUP50),
 })
+PATHS.update({
+    # ResNet9's convolutions and head in bfloat16 (the parameters, logits
+    # and everything after them float32): the sketch path's kernels
+    "sketch_bf16": (HEADLINE + ["--compute_dtype", "bfloat16"],
+                    dict(RECOVERY, sketch=3), 4 * TABLE_FLOATS),
+    # --topk_down: the W download top-ks of the (8, d) differences ride the
+    # same per-row radix as the upload top-k, so each round runs rows_hist
+    # 3 + rows_select 1 twice
+    "local_topk_down": (PATHS["local_topk"][0] + ["--topk_down"],
+                        {"rows_hist": 18, "rows_select": 6}, 4 * K),
+    # microbatched clients (4 chunks of 8 a client) on the per-worker
+    # round; no per-worker nonlinearity, so the aggregate is sketched once
+    # a round, as in the reference
+    "sketch_microbatch": (HEADLINE + ["--microbatch_size", "8"],
+                          dict(RECOVERY, sketch=3), 4 * TABLE_FLOATS),
+})
 # d of each path's model (ResNet9's elsewhere)
 PATH_D = {"fixup9_sketch": D_FIXUP9, "fixup50_imagenet": D_FIXUP50}
 # per-row k of the batched parity check: full, an all-zero row, contested
@@ -278,11 +321,24 @@ GPT2_PATHS = {
                        flash_bwd_dkv=144, sketch_batched=3)),
     "gpt2_tpu_bits": ([], {"dropout_impl": "tpu_bits"},
                       dict(GPT2_SKETCH, hw_dropout=156)),
+    # T 512, where --fused_ce auto turns the vocab-chunked LM head on
+    "gpt2_t512": (["--max_seq_len", "512"], {}, GPT2_SKETCH),
+    # whole GPT2 clients in chunks of 4 dialogs on the per-worker round:
+    # 12 layers x 4 clients x 2 chunks a round; the aggregate is sketched
+    # once a round
+    "gpt2_microbatch": (["--microbatch_size", "4"], {},
+                        dict(RECOVERY, flash_fwd=288, flash_bwd_dq=288,
+                             flash_bwd_dkv=288, sketch=3)),
 }
 GPT2_WORKERS = 4
 FLASH_SHAPE = (768, 256, 64)      # (BH, T, D) of the GPT2 path
 # gpt2_clip runs the attention one client at a time: BH = 768 / 4 = 192
 FLASH_SHAPE_CLIENT = (FLASH_SHAPE[0] // GPT2_WORKERS,) + FLASH_SHAPE[1:]
+# gpt2_t512's training attention (T 512) and its validation batches of 8
+# dialogs (dropout off); gpt2_microbatch's chunks of 4 dialogs
+FLASH_SHAPE_T512 = (FLASH_SHAPE[0], 512, FLASH_SHAPE[2])
+FLASH_SHAPE_T512_VAL = (FLASH_SHAPE_CLIENT[0], 512, FLASH_SHAPE[2])
+FLASH_SHAPE_CHUNK = (FLASH_SHAPE[0] // 8,) + FLASH_SHAPE[1:]
 FLASH_RATE = 0.1
 # the hardware-RNG dropout's inputs on the GPT2 path: the (64, 256, 768)
 # activations at every site but the mc head's (64, 768)
@@ -2061,6 +2117,9 @@ def phase_flash_parity(dev, errs):
     cases = [("f32", bh, t, d, torch.float32, 0.0),
              ("f32", bh, t, d, torch.float32, FLASH_RATE),
              ("f32", *FLASH_SHAPE_CLIENT, torch.float32, FLASH_RATE),
+             ("f32", *FLASH_SHAPE_T512, torch.float32, FLASH_RATE),
+             ("f32", *FLASH_SHAPE_T512_VAL, torch.float32, 0.0),
+             ("f32", *FLASH_SHAPE_CHUNK, torch.float32, FLASH_RATE),
              ("bf16", bh, t, d, torch.bfloat16, FLASH_RATE),
              ("f32", 24, 1100, 128, torch.float32, FLASH_RATE)]
     errs.update(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0,
@@ -2080,7 +2139,7 @@ def phase_flash_parity(dev, errs):
                 raise AssertionError(
                     f"flash kernels ({route}) disagree ({tag}, T={t_}, "
                     f"D={d_}, rate {rate}) in {bad}: {err} / {rel}")
-        if dtype == torch.float32 and (t_, d_) == (t, d):
+        if dtype == torch.float32 and d_ == d:
             for suffix, route in (("", "tc"), ("_v1", "v1")):
                 err = res[route][0]
                 errs["flash_fwd" + suffix] = max(errs["flash_fwd" + suffix],
@@ -2236,7 +2295,8 @@ def _kernel_class(name: str) -> str:
 def _profile_round(name, learner, call):
     """One more round (round 3's batch again) under ``torch.profiler``:
     device time by kernel class and the top kernels, beside the round's
-    wall time. Prints the breakdown; checks nothing."""
+    wall time. Prints the breakdown and returns the names of the kernels
+    the round ran; checks nothing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2246,20 +2306,26 @@ def _profile_round(name, learner, call):
         t0 = time.perf_counter()
         learner.train_round(ids, batch, mask)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the host's calls that launch a kernel, as the runtime saw them
+    host_launches = sum(e.count for e in averages
+                        if e.device_type == DeviceType.CPU
+                        and re.fullmatch(r"cu(da)?LaunchKernel(ExC|Ex)?",
+                                         e.key))
     if not kernels:
         print(f"profile {name} round: the profiler recorded no device time",
               flush=True)
-        return
+        return []
     by_class = {}
     for e in kernels:
         c = _kernel_class(e.key)
         by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
     print(f"profile {name} round (torch.profiler, one round): wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.4f}; by class: " + ", ".join(
+          f"{1 - busy_ms / wall_ms:.4f}, host kernel launches "
+          f"{host_launches}; by class: " + ", ".join(
               f"{c} {ms:.3f} ms ({ms / busy_ms:.4f})"
               for c, ms in sorted(by_class.items(), key=lambda x: -x[1])),
           flush=True)
@@ -2275,6 +2341,7 @@ def _profile_round(name, learner, call):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} "
               f"{_kernel_class(e.key)}: {e.key[:90]}", flush=True)
     torch.cuda.synchronize()
+    return [e.key for e in kernels]
 
 
 def phase_gpt2_path(tmpdir, name, profile=False):
@@ -2322,7 +2389,12 @@ def phase_gpt2_path(tmpdir, name, profile=False):
                              f"{[r['upload_bytes'] for r in rounds]} are "
                              f"not {4 * TABLE_FLOATS} per client x "
                              f"{GPT2_WORKERS}")
+    fused = learner.model.config.fused_lm_head
+    if fused != (args.max_seq_len >= 512):
+        raise AssertionError(f"{name}: fused LM head {fused} at T "
+                             f"{args.max_seq_len}")
     print(f"path {name}: d = {learner.cfg.grad_size}, launches {launches}, "
+          f"T {args.max_seq_len}, fused LM head {fused}, "
           f"validation launches {val} over {row['val_batches']} batches, "
           f"losses {[round(r['loss'], 6) for r in rounds]}, round ms "
           f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, upload B "
@@ -2330,7 +2402,12 @@ def phase_gpt2_path(tmpdir, name, profile=False):
           f"{row['nll']:.6f}, mc_acc {row['mc_acc']:.4f}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if profile:
-        _profile_round(name, learner, row["last_batch"])
+        names = _profile_round(name, learner, row["last_batch"])
+        # download_counts reads last_changed W times, with no histogram
+        hist = [k for k in names
+                if re.search(r"[Bb]incount|kernelHistogram1D", k)]
+        if hist:
+            raise AssertionError(f"{name}: the profiled round ran {hist}")
     del learner, row
     torch.cuda.empty_cache()
     return launches
@@ -2367,6 +2444,246 @@ def phase_repeat_gpt2(tmpdir):
           f"losses {[round(v, 6) for v in la]}, losses, weights, Vvelocity "
           f"and Verror bitwise equal", flush=True)
     del runs, ta, tb
+    torch.cuda.empty_cache()
+
+
+def _gpt2_small_batch(dev, B=32, C=2, T=256, seed=5):
+    """One full-width batch of the headline GPT2 round's shape (32 dialogs
+    x 2 candidates x 256 tokens, byte-tokenizer ids), on the card."""
+    import torch
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 261, (B, C, T))
+    cols = (ids, rng.randint(T // 2, T, (B, C)),
+            np.where(rng.rand(B, C, T) < 0.3, ids, -1),
+            np.full((B,), C - 1), rng.randint(256, 261, (B, C, T)))
+    return tuple(torch.from_numpy(np.asarray(c, np.int32)).to(dev)
+                 for c in cols)
+
+
+def _gpt2_small(dev):
+    """GPT2-small (d = 124,051,201, blockwise attention, dropout 0.1 in
+    the flash kernels and at every other site) from seeded weights."""
+    import torch
+
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    cfg = GPT2Config.small(vocab_size=50262)
+    cfg.attn_impl = "blockwise"
+    return GPT2DoubleHeads(cfg).reset_parameters(
+        torch.Generator().manual_seed(0)).to(dev)
+
+
+def _gpt2_small_grad(model, batch, fused=False, remat=False):
+    """The flat gradient and summed loss of ``model`` with its config's
+    ``fused_lm_head`` and ``remat`` set as asked, on ``batch`` under a
+    fixed dropout seed; with the ms of the second of two such steps,
+    their peak memory and the flash launches of one step."""
+    import torch
+
+    from commefficient_tpu_torch.federated.client import \
+        _masked_loss_and_grad
+    from commefficient_tpu_torch.federated.losses import \
+        make_gpt2_train_loss
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.utils.params import flatten_params
+    model.config.fused_lm_head, model.config.remat = fused, remat
+    flat, unflatten = flatten_params(model)
+    mask = torch.ones(batch[0].shape[0], device=flat.device)
+    loss_fn = make_gpt2_train_loss(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        grad = None
+        before = cuda_lib.LAUNCHES.get("flash_fwd", 0)
+        t0 = time.perf_counter()
+        grad, loss, _ = _masked_loss_and_grad(loss_fn, unflatten, flat,
+                                              batch, mask, seed=17)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = cuda_lib.LAUNCHES.get("flash_fwd", 0) - before
+    del flat
+    return grad, float(loss), ms, peak, launches
+
+
+def _alternate_grads(model, batch, key, pairs):
+    """``pairs`` alternating rounds of ``_gpt2_small_grad`` with ``key``
+    (``fused`` or ``remat``) off and on, off first in even rounds: each
+    side's first gradient and loss, its times and flash launches a round
+    and its largest peak memory."""
+    import torch
+    out = {}
+    for i in range(pairs):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            grad, loss, ms, peak, launches = _gpt2_small_grad(
+                model, batch, **{key: on})
+            side = out.setdefault(on, dict(grad=grad, loss=loss, ms=[],
+                                           peak=0.0, launches=[]))
+            side["ms"].append(ms)
+            side["peak"] = max(side["peak"], peak)
+            side["launches"].append(launches)
+            del grad
+            torch.cuda.empty_cache()
+    return out[False], out[True]
+
+
+def _report_alternation(tag, off, on):
+    diff = [b - a for a, b in zip(off["ms"], on["ms"])]
+    print(f"  {tag} ({len(diff)} alternating rounds, the second of two "
+          f"steps each): on {[round(x, 3) for x in on['ms']]}, off "
+          f"{[round(x, 3) for x in off['ms']]}; median on "
+          f"{np.median(on['ms']):.3f} ms, off {np.median(off['ms']):.3f} "
+          f"ms, median difference {np.median(diff):.3f} ms", flush=True)
+
+
+def phase_fused_ce(model, batch, pairs=3):
+    """GPT2-small's loss and gradient on one full-width batch with the
+    vocab-chunked fused LM head against the materialized logits, float32
+    with TF32 off: loss within 1e-5 relative, gradient within 1e-4 of its
+    largest magnitude; each side's time (``pairs`` alternating rounds) and
+    peak memory printed."""
+    off, on = _alternate_grads(model, batch, "fused", pairs)
+    l0, l1 = off["loss"], on["loss"]
+    rel = abs(l1 - l0) / abs(l0)
+    err = float((on["grad"] - off["grad"]).abs().max()) / float(
+        off["grad"].abs().max())
+    print(f"fused_ce (GPT2-small, {tuple(batch[0].shape)}, f32, TF32 off): "
+          f"loss {l1:.6f} vs materialized {l0:.6f} (rel {rel:.3e}), "
+          f"gradient max err {err:.3e} of max |g|; fused peak "
+          f"{on['peak']:.2f} GiB, materialized peak {off['peak']:.2f} GiB",
+          flush=True)
+    _report_alternation("fused head against materialized logits", off, on)
+    if not (rel <= 1e-5 and err <= 1e-4):
+        raise AssertionError(f"fused_ce: loss rel {rel}, gradient {err} of "
+                             "max |g|")
+
+
+def phase_remat(model, batch, pairs=3):
+    """The same batch with ``GPT2Config.remat`` on and off: the gradients
+    bitwise equal (the recomputed forward draws the same dropout bits),
+    each flash forward launched twice under remat (24 against 12) in every
+    step; each side's peak memory, time (``pairs`` alternating rounds) and
+    launches printed."""
+    off, on = _alternate_grads(model, batch, "remat", pairs)
+    g0, g1, l0, l1 = off["grad"], on["grad"], off["loss"], on["loss"]
+    n0, n1 = set(off["launches"]), set(on["launches"])
+    print(f"remat (GPT2-small, {tuple(batch[0].shape)}): gradient bitwise "
+          f"equal {_same_bits(g0, g1)}, loss {l1:.6f} vs {l0:.6f}; remat "
+          f"peak {on['peak']:.2f} GiB, flash_fwd {n1}; without peak "
+          f"{off['peak']:.2f} GiB, flash_fwd {n0}", flush=True)
+    _report_alternation("remat against without", off, on)
+    if not _same_bits(g0, g1) or l0 != l1 or (n0, n1) != ({12}, {24}):
+        raise AssertionError(f"remat: gradient bitwise {_same_bits(g0, g1)}"
+                             f", losses {l0} {l1}, flash_fwd {n0} {n1}")
+
+
+def phase_chunk_host(model, batch, sizes=(1, 2, 4, 8, 16, 32), steps=3):
+    """Where a microbatched GPT2 client's time goes: one GPT2-small
+    forward and backward (``_masked_loss_and_grad``, as one chunk of the
+    per-worker round runs it) on the first n dialogs of ``batch``, for
+    each n of ``sizes``. Per n, the medians over the last ``steps - 1`` of
+    ``steps`` steps of the host's time until the call returns (the launch
+    queue is still draining then), the wall time to a synchronize, and the
+    device time from CUDA events around the call; with the flash forward
+    launches of a step. Where the host time is at the wall time and above
+    the device time, the step waits for the host."""
+    import torch
+
+    from commefficient_tpu_torch.federated.client import \
+        _masked_loss_and_grad
+    from commefficient_tpu_torch.federated.losses import \
+        make_gpt2_train_loss
+    from commefficient_tpu_torch.utils.params import flatten_params
+    model.config.fused_lm_head, model.config.remat = False, False
+    flat, unflatten = flatten_params(model)
+    loss_fn = make_gpt2_train_loss(model)
+    for n in sizes:
+        part = tuple(c[:n] for c in batch)
+        mask = torch.ones(n, device=flat.device)
+        host, wall, device = [], [], []
+        for _ in range(steps):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            grad, _, _ = _masked_loss_and_grad(loss_fn, unflatten, flat,
+                                               part, mask, seed=17)
+            end.record()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3)
+            wall.append((t2 - t0) * 1e3)
+            device.append(start.elapsed_time(end))
+            del grad
+        print(f"chunk host (GPT2-small, {n} dialogs x {batch[0].shape[1]} "
+              f"x {batch[0].shape[2]}): host {np.median(host[1:]):.3f} ms, "
+              f"wall {np.median(wall[1:]):.3f} ms, device (events) "
+              f"{np.median(device[1:]):.3f} ms; steps host "
+              f"{[round(x, 3) for x in host]}, wall "
+              f"{[round(x, 3) for x in wall]}", flush=True)
+    del flat
+    torch.cuda.empty_cache()
+
+
+def _download_counts_bincount(last_changed, stale_round):
+    """The port's download counts before it dropped ``bincount``: one
+    sorted search and a histogram of d buckets into W + 1 bins."""
+    import torch
+    W = stale_round.shape[0]
+    order = torch.argsort(stale_round, stable=True)
+    buckets = torch.searchsorted(stale_round[order].contiguous(),
+                                 last_changed.contiguous(), right=True)
+    below = torch.cumsum(torch.bincount(buckets, minlength=W + 1), 0)[:W]
+    counts = torch.zeros(W, dtype=torch.int32, device=last_changed.device)
+    counts[order] = (last_changed.shape[0] - below).to(torch.int32)
+    return counts
+
+
+def phase_download_counts(dev, pairs=6):
+    """``download_counts`` (W comparison-and-count reductions) against the
+    ``bincount`` formulation at GPT2's d with W = 4 and ResNet9's with W =
+    8, on random ``last_changed`` in [-2, 5] with tied stale rounds and a
+    never-pulled client, and at GPT2's d as after 3 gpt2 rounds (all but
+    3 x 50,000 weights at -2): bitwise equal; both timed as alternating
+    pairs."""
+    import torch
+
+    from commefficient_tpu_torch.federated.round import download_counts
+    rng = np.random.RandomState(8)
+    for d, W, case in ((D_GPT2, GPT2_WORKERS, "random"),
+                       (D_RESNET9, 8, "random"),
+                       (D_GPT2, GPT2_WORKERS, "3 rounds")):
+        if case == "random":
+            lc = rng.randint(-2, 6, d).astype(np.int32)
+            stale = rng.randint(-1, 6, W).astype(np.int32)
+            stale[0], stale[W // 2:] = -1, stale[W // 2]
+        else:
+            lc = np.full(d, -2, np.int32)
+            lc[rng.randint(0, d, 3 * K)] = np.repeat(
+                np.arange(3, dtype=np.int32), K)
+            stale = np.array([-1, -1, 0, 1], np.int32)
+        last_changed = torch.from_numpy(lc).to(dev)
+        stale = torch.from_numpy(stale).to(dev)
+        new = download_counts(last_changed, stale)
+        old = _download_counts_bincount(last_changed, stale)
+        if not _same_bits(new, old):
+            raise AssertionError(f"download_counts at d = {d}, W = {W}: "
+                                 f"{new.tolist()} != {old.tolist()}")
+        ms = _alternate({
+            "new": lambda: download_counts(last_changed, stale),
+            "bincount": lambda: _download_counts_bincount(last_changed,
+                                                          stale)}, pairs)
+        bound = W * 4 * d / HBM_BYTES_PER_S * 1e3
+        print(f"download_counts d = {d}, W = {W} ({case}): bitwise equal "
+              f"to the bincount formulation ({new.tolist()}); {pairs} "
+              f"alternating "
+              f"pairs, median ms: new {np.median(ms['new']):.4f}, bincount "
+              f"{np.median(ms['bincount']):.4f}; W sweeps of last_changed "
+              f"at HBM rate {bound:.4f}", flush=True)
+        del last_changed, lc
     torch.cuda.empty_cache()
 
 
@@ -2565,12 +2882,18 @@ def main() -> int:
     phase_timing_batched(cs, vecs, plain_reps=3)
     del cs, vecs
     torch.cuda.empty_cache()
+    phase_download_counts(dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         for name in GPT2_PATHS:
             for kernel, n in phase_gpt2_path(tmpdir, name,
                                              profile=True).items():
                 launches[kernel] = launches.get(kernel, 0) + n
         phase_repeat_gpt2(tmpdir)
+    model, batch = _gpt2_small(dev), _gpt2_small_batch(dev)
+    phase_fused_ce(model, batch)
+    phase_remat(model, batch)
+    phase_chunk_host(model, batch)
+    del model, batch
     phase_gpt2_reference(dev)
 
     kernels = []

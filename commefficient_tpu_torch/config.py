@@ -145,8 +145,6 @@ class FedConfig:
             raise ValueError("true_topk requires error_type == 'virtual'")
         # what the port does not run yet
         for what, on, item in (
-                ("--microbatch_size", self.microbatch_size != -1, "A5"),
-                ("--topk_down", self.do_topk_down, "A5"),
                 ("--client_k_dist", bool(self.client_k_dist), "A9"),
                 ("--topk_approx_recall", self.topk_approx_recall > 0, "A2"),
                 (f"--client_state {self.client_state}",
@@ -167,10 +165,17 @@ class FedConfig:
         return self.error_type == "local"
 
     @property
+    def needs_client_weights(self) -> bool:
+        """``--topk_down``: each client keeps the stale weights it last
+        reconstructed."""
+        return self.do_topk_down
+
+    @property
     def has_client_state(self) -> bool:
-        """Whether the mode keeps per-client rows (``--topk_down``'s stale
-        weights are refused, so only velocities and errors)."""
-        return self.needs_velocity_state or self.needs_error_state
+        """Whether the mode keeps per-client rows: velocities, errors or
+        ``--topk_down``'s stale weights."""
+        return (self.needs_velocity_state or self.needs_error_state
+                or self.needs_client_weights)
 
     # --- shapes -----------------------------------------------------------
     @property

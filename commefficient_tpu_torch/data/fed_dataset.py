@@ -6,10 +6,14 @@
 * ``do_iid`` overlays a global permutation so each client sees an iid
   slice;
 * metadata is cached in ``stats.json`` in the dataset dir;
-* validation data is centralized.
+* validation data is centralized;
+* ``PreparedArrayDataset``: one ``.npy`` of images per natural client and
+  a centralized ``test.npz``, built once from a subclass's ``_make_xy``
+  (the offline Digits and Patches32 sets, ``data/offline.py``).
 
-The reference's per-dataset transforms are ROADMAP.md A7: Synthetic, the
-one ported dataset, has none.
+The reference's per-dataset transforms are ROADMAP.md A7: the ported
+datasets (Synthetic, Digits, Patches32) have none in the reference
+either.
 """
 
 from __future__ import annotations
@@ -120,3 +124,75 @@ class FedDataset:
 
     def get_val_batch(self, idxs: np.ndarray) -> Tuple[np.ndarray, ...]:
         return tuple(self._get_val_batch(np.asarray(idxs)))
+
+
+class PreparedArrayDataset(FedDataset):
+    """The shared materialized layout (reference ``fed_dataset.py:140``):
+    one ``client<c>.npy`` of images per natural client (class-split) and a
+    centralized ``test.npz``. A subclass implements ``_make_xy``; the
+    cache, the per-client files and the batch fetch are common."""
+
+    name = "prepared"
+    #: bump in a subclass whenever its ``_make_xy`` changes what it returns;
+    #: a cache written by another version is deleted and rebuilt (caches
+    #: without the key count as version 1)
+    version = 1
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        if self.train:
+            self.client_datasets = [
+                np.load(self.client_fn(c))
+                for c in range(len(self.images_per_client))]
+        else:
+            with np.load(self.test_fn()) as t:
+                self.test_images = t["test_images"]
+                self.test_targets = t["test_targets"]
+
+    def client_fn(self, client_id: int) -> str:
+        return os.path.join(self.dataset_dir, f"client{client_id}.npy")
+
+    def test_fn(self) -> str:
+        return os.path.join(self.dataset_dir, "test.npz")
+
+    def _make_xy(self):
+        """-> (train_x, train_y, test_x, test_y, num_classes)"""
+        raise NotImplementedError
+
+    def _load_meta(self):
+        with open(self.stats_fn()) as f:
+            stats = json.load(f)
+        if stats.get("version", 1) != self.version:
+            for c in range(len(stats["images_per_client"])):
+                if os.path.exists(self.client_fn(c)):
+                    os.remove(self.client_fn(c))
+            for fn in (self.test_fn(), self.stats_fn()):
+                if os.path.exists(fn):
+                    os.remove(fn)
+            self.prepare_datasets()
+        super()._load_meta()
+
+    def prepare_datasets(self):
+        os.makedirs(self.dataset_dir, exist_ok=True)
+        train_x, train_y, test_x, test_y, n_cls = self._make_xy()
+        images_per_client = []
+        # stats.json is written last: it marks the cache valid, so an
+        # interrupted build is rebuilt on the next construction
+        for c in range(n_cls):
+            rows = train_x[train_y == c]
+            images_per_client.append(len(rows))
+            np.save(self.client_fn(c), rows)
+        np.savez(self.test_fn(), test_images=test_x, test_targets=test_y)
+        with open(self.stats_fn(), "w") as f:
+            json.dump({"images_per_client": images_per_client,
+                       "num_val_images": len(test_y),
+                       "version": self.version}, f)
+
+    def _get_train_batch(self, client_id: int, idxs: np.ndarray):
+        imgs = self.client_datasets[client_id][idxs]
+        # the target is the natural client id, which is the class
+        return imgs, np.full(len(idxs), client_id, np.int32)
+
+    def _get_val_batch(self, idxs: np.ndarray):
+        return (self.test_images[idxs],
+                self.test_targets[idxs].astype(np.int32))

@@ -1,5 +1,4 @@
-"""Client-side computation (port of ``commefficient_tpu/federated/client.py``;
-microbatching and ``--topk_down`` are ROADMAP.md A5).
+"""Client-side computation (port of ``commefficient_tpu/federated/client.py``).
 
 The reference vmaps one client's step over the round's W workers. Here
 the gradients run one worker at a time (``mean_gradient``), and the rest
@@ -12,7 +11,10 @@ one launch of the batched sketch kernel — and its sketch-space clip
 datapoints, local momentum, local error, and the local top-k, one
 batched kernel launch per radix round for all W clients. The per-worker
 gradients differ from the reference's vmapped ones only in summation
-order.
+order. Under ``--topk_down`` each client first reconstructs its forward
+weights from its stale row and the top-k of the difference, the W rows
+in one per-row radix top-k. ``--microbatch_size`` accumulates each
+client's gradient over chunks of its batch.
 
 Noise: client ``c``'s worker noise is drawn from a ``torch.Generator``
 seeded ``fold_in(client seed, NOISE_FOLD)``, a fold-in domain that no
@@ -39,6 +41,10 @@ from commefficient_tpu_torch.ops.topk import topk
 #: fedavg local step's) seed; the models' dropout sites fold in small
 #: integers, so no site draws from it
 NOISE_FOLD = 0xD9_0153
+#: fold-in domain of the microbatch chunks' seeds under a client's seed
+#: (the reference's ``fold_in(rng, 0x4d42)``): chunk i draws its dropout
+#: from ``fold_in(fold_in(seed, MICROBATCH_FOLD), i)``
+MICROBATCH_FOLD = 0x4D42
 
 
 class ClientStepOut(NamedTuple):
@@ -46,23 +52,24 @@ class ClientStepOut(NamedTuple):
                                        # gradients scaled
     velocity: Optional[torch.Tensor]   # (W, d) or None
     error: Optional[torch.Tensor]      # (W, d) or None
+    client_weights: Optional[torch.Tensor]  # (W, d) new stale rows or None
     loss_sum: torch.Tensor             # (W,)
     metric_sums: torch.Tensor          # (W, M)
     num_datapoints: torch.Tensor       # (W,)
 
 
-def _masked_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask,
-                          seed=None):
-    """Gradient of the summed loss over valid examples, in the flat
-    weights' coordinates, plus the summed loss and metrics; ``seed`` feeds
-    the model's dropout.
+def _chunk_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask, seed,
+                         grad, accumulate):
+    """Write (or, with ``accumulate``, add) the gradient of the summed
+    loss over ``batch``'s valid examples into ``grad`` (flat
+    coordinates), and return the summed loss and metrics.
 
     The gradient is taken with respect to one leaf per parameter (a
     detached view of ``w_flat``, the leaves of ``unflatten``'s tree) and
-    each leaf's gradient is written once through the same view of a flat
-    gradient, as ``jax.grad`` through ``ravel_pytree`` joins it. Through
-    the slice views of one flat ``w``, autograd would add a zero-filled
-    (d,) gradient per leaf: a (d,) fill and add each, and every -0.0 of a
+    each leaf's gradient goes once through the same view of ``grad``, as
+    ``jax.grad`` through ``ravel_pytree`` joins it. Through the slice
+    views of one flat ``w``, autograd would add a zero-filled (d,)
+    gradient per leaf: a (d,) fill and add each, and every -0.0 of a
     leaf's gradient would come out +0.0. A leaf the loss does not reach
     gets zeros, as in JAX."""
     views, spec = tree_flatten(unflatten(w_flat))
@@ -72,19 +79,63 @@ def _masked_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask,
     loss_sum = torch.sum(per_ex_loss * mask)
     metric_sums = torch.sum(per_ex_metrics.detach() * mask[None, :], dim=-1)
     grads = torch.autograd.grad(loss_sum, leaves, materialize_grads=True)
-    grad = torch.zeros_like(w_flat)
     for view, g in zip(tree_flatten(unflatten(grad))[0], grads):
-        view.copy_(g)
-    return grad, loss_sum.detach(), metric_sums
+        if accumulate:
+            view.add_(g)
+        else:
+            view.copy_(g)
+    return loss_sum.detach(), metric_sums
+
+
+def _masked_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask,
+                          seed=None, microbatch_size: int = -1):
+    """Gradient of the summed loss over valid examples, in the flat
+    weights' coordinates, plus the summed loss and metrics; ``seed`` feeds
+    the model's dropout.
+
+    ``microbatch_size`` in (0, B) splits the batch into ceil(B / mb)
+    chunks, the last padded with rows of mask 0, and adds the chunks'
+    gradients, losses and metric sums into zeros in chunk order, as the
+    reference's scan does (so a -0.0 gradient comes out +0.0 there, as in
+    the reference); chunk i draws its dropout from
+    ``fold_in(fold_in(seed, MICROBATCH_FOLD), i)``, a domain apart from
+    the DP noise's. Otherwise the batch is one chunk under ``seed``."""
+    grad = torch.zeros_like(w_flat)
+    B = mask.shape[0]
+    if microbatch_size <= 0 or microbatch_size >= B:
+        loss_sum, metric_sums = _chunk_loss_and_grad(
+            apply_loss, unflatten, w_flat, batch, mask, seed, grad, False)
+        return grad, loss_sum, metric_sums
+    mb = microbatch_size
+    n_chunks = -(-B // mb)
+    pad = n_chunks * mb - B
+
+    def padded(x):
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    batch = tuple(padded(c) for c in batch)
+    mask = padded(mask)
+    mb_seed = None if seed is None else fold_in(seed, MICROBATCH_FOLD)
+    loss_sum = metric_sums = 0.0
+    for i in range(n_chunks):
+        sl = slice(i * mb, (i + 1) * mb)
+        ls, ms = _chunk_loss_and_grad(
+            apply_loss, unflatten, w_flat, tuple(c[sl] for c in batch),
+            mask[sl], None if mb_seed is None else fold_in(mb_seed, i),
+            grad, True)
+        loss_sum = loss_sum + ls
+        metric_sums = metric_sums + ms
+    return grad, loss_sum, metric_sums
 
 
 def mean_gradient(apply_loss, unflatten, forward_weights, batch, mask,
-                  seed=None):
+                  seed=None, microbatch_size: int = -1):
     """One client's mean gradient over its valid examples, and its summed
     loss, metrics and datapoint count."""
     n = torch.sum(mask)
     grad_sum, loss_sum, metric_sums = _masked_loss_and_grad(
-        apply_loss, unflatten, forward_weights, batch, mask, seed)
+        apply_loss, unflatten, forward_weights, batch, mask, seed,
+        microbatch_size)
     return grad_sum / torch.clamp(n, min=1.0), loss_sum, metric_sums, n
 
 
@@ -154,27 +205,46 @@ def compute_gradient(apply_loss, unflatten, forward_weights, batch, mask,
     feeds its dropout and its DP noise), and its summed loss, metrics and
     datapoint count."""
     grad, loss_sum, metric_sums, n = mean_gradient(
-        apply_loss, unflatten, forward_weights, batch, mask, seed)
+        apply_loss, unflatten, forward_weights, batch, mask, seed,
+        cfg.microbatch_size)
     grad = finish_gradients(grad[None], forward_weights, cfg, [seed])[0]
     return grad, loss_sum, metric_sums, n
 
 
+def reconstruct_worker_weights(ps_weights: torch.Tensor,
+                               stale_weights: torch.Tensor,
+                               cfg: FedConfig) -> torch.Tensor:
+    """``--topk_down``: each client's stale weights plus the top-k of the
+    server's weights less them (reference ``client.py:115-119``), the W
+    ``(W, d)`` rows in one per-row top-k."""
+    return stale_weights + topk(ps_weights - stale_weights, cfg.k)
+
+
 def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
                 error, cfg: FedConfig, seeds=None,
-                sketch: CountSketch = None) -> ClientStepOut:
+                sketch: CountSketch = None,
+                stale_weights: Optional[torch.Tensor] = None
+                ) -> ClientStepOut:
     """The local step of the round's W non-fedavg clients: ``batch`` is a
-    tuple of ``(W, B, ...)`` tensors, ``mask`` ``(W, B)``, ``velocity`` and
-    ``error`` the clients' ``(W, d)`` rows or None, ``seeds`` the W
-    clients' seeds for dropout and DP noise (None: none drawn). With a
-    ``sketch`` (sketch mode under a per-worker nonlinearity) every client
-    transmits its own (r, c_eff) table."""
+    tuple of ``(W, B, ...)`` tensors, ``mask`` ``(W, B)``, ``velocity``,
+    ``error`` and (``--topk_down``) ``stale_weights`` the clients'
+    ``(W, d)`` rows or None, ``seeds`` the W clients' seeds for dropout
+    and DP noise (None: none drawn). With a ``sketch`` (sketch mode under
+    a per-worker nonlinearity) every client transmits its own (r, c_eff)
+    table. Under ``--topk_down`` client w computes at its reconstructed
+    weights, which become its new stale row (``client_weights``)."""
     W = mask.shape[0]
     seeds = [None] * W if seeds is None else seeds
-    outs = [mean_gradient(apply_loss, unflatten, ps_weights,
-                          tuple(c[w] for c in batch), mask[w], seeds[w])
+    if cfg.do_topk_down:
+        forward = reconstruct_worker_weights(ps_weights, stale_weights, cfg)
+    else:
+        forward = ps_weights.expand((W,) + tuple(ps_weights.shape))
+    outs = [mean_gradient(apply_loss, unflatten, forward[w],
+                          tuple(c[w] for c in batch), mask[w], seeds[w],
+                          cfg.microbatch_size)
             for w in range(W)]
     g, loss_sum, metric_sums, n = (torch.stack(x) for x in zip(*outs))
-    g = finish_gradients(g, ps_weights, cfg, seeds)
+    g = finish_gradients(g, forward, cfg, seeds)
     if sketch is not None:
         g = sketch_and_clip(g, cfg, sketch)
     # sum-of-gradients semantics: scale each mean back up by its batch
@@ -200,7 +270,9 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
         if cfg.local_momentum > 0:
             velocity = torch.where(support, 0.0, velocity)  # factor masking
     return ClientStepOut(transmit=to_transmit, velocity=velocity,
-                         error=error, loss_sum=loss_sum,
+                         error=error,
+                         client_weights=forward if cfg.do_topk_down
+                         else None, loss_sum=loss_sum,
                          metric_sums=metric_sums, num_datapoints=n)
 
 

@@ -23,16 +23,23 @@ from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.federated.state import ClientState
 
 
-def init_client_storage(cfg: FedConfig, device="cpu") -> ClientState:
-    """Zero rows for every field the mode keeps, plus the sink row."""
+def init_client_storage(cfg: FedConfig, flat_weights: torch.Tensor
+                        ) -> ClientState:
+    """Rows for every field the mode keeps, plus the sink row, on
+    ``flat_weights``' device: zero velocities and errors, and
+    ``--topk_down``'s stale weights at the initial weights (reference
+    ``client_store.py:342``)."""
     shape = (cfg.num_clients + 1, cfg.grad_dim)
+    device = flat_weights.device
 
     def rows(on: bool):
         return (torch.zeros(shape, dtype=torch.float32, device=device)
                 if on else None)
 
+    weights = (flat_weights.to(torch.float32).expand(shape).clone()
+               if cfg.needs_client_weights else None)
     return ClientState(velocities=rows(cfg.needs_velocity_state),
-                       errors=rows(cfg.needs_error_state))
+                       errors=rows(cfg.needs_error_state), weights=weights)
 
 
 def gather_rows(storage: Optional[torch.Tensor],

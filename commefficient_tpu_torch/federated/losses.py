@@ -6,6 +6,11 @@ loss (B,), per-example metrics (M, B))``, where ``params`` is a ``{torch
 name: tensor}`` dict for ``torch.func.functional_call`` and ``seed`` an
 int from which the model draws its dropout bits in training (the
 reference's rng; None where nothing is drawn).
+
+A GPT2 model built with ``config.fused_lm_head`` returns hidden states,
+and both GPT2 losses then take the LM NLL from the vocab-chunked fused
+head (``ops/fused_ce.py``) with the tied ``wte``: autograd adds the
+head's part of the ``wte`` gradient to the embedding's.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
+
+from commefficient_tpu_torch.ops.fused_ce import shifted_lm_nll
 
 
 def make_cv_loss(model: torch.nn.Module):
@@ -51,6 +58,17 @@ def _lm_nll_sums(lm_logits, lm_labels):
             torch.sum(valid, dim=(-2, -1)).to(torch.float32))
 
 
+def _fused_nll_sums(model, hidden, params, lm_labels):
+    """(nll token-sum, labeled-token count) per dialog from the hidden
+    states through the fused head (reference ``losses.py:77-100``),
+    summed over the candidates as ``_lm_nll_sums`` sums; the head's
+    products run in the model's compute dtype."""
+    nll_sum, tokens = shifted_lm_nll(hidden, params["wte.embedding"],
+                                     lm_labels,
+                                     compute_dtype=model.config.torch_dtype)
+    return torch.sum(nll_sum, dim=-1), torch.sum(tokens, dim=-1)
+
+
 def _forward(model, params, batch, seed, train):
     input_ids, mc_token_ids, _, _, token_type_ids = batch
     return functional_call(model, params,
@@ -62,10 +80,15 @@ def make_gpt2_train_loss(model, lm_coef: float = 1.0, mc_coef: float = 1.0):
     """LM + multiple-choice loss (reference compute_loss_train,
     gpt2_train.py:88-99): the LM NLL is the mean over each dialog's
     labeled tokens, so every dialog weighs the same in the round."""
+    fused = model.config.fused_lm_head
 
     def apply_loss(params, batch, seed, train):
-        lm_logits, mc_logits = _forward(model, params, batch, seed, train)
-        nll_sum, tokens = _lm_nll_sums(lm_logits, batch[2])
+        lm_out, mc_logits = _forward(model, params, batch, seed, train)
+        if fused:
+            nll_sum, tokens = _fused_nll_sums(model, lm_out, params,
+                                              batch[2])
+        else:
+            nll_sum, tokens = _lm_nll_sums(lm_out, batch[2])
         lm_loss = nll_sum / torch.clamp(tokens, min=1.0)
         mc_loss = F.cross_entropy(mc_logits, batch[3].long(),
                                   reduction="none")
@@ -80,10 +103,15 @@ def make_gpt2_val_loss(model):
     gpt2_train.py:77-87). Metric rows: [mc accuracy, nll token-sum,
     labeled-token count]; the rollup recovers the reference's
     token-weighted nll as sum(nll_sums) / sum(token_counts)."""
+    fused = model.config.fused_lm_head
 
     def apply_loss(params, batch, seed, train):
-        lm_logits, mc_logits = _forward(model, params, batch, None, False)
-        nll_sum, tokens = _lm_nll_sums(lm_logits, batch[2])
+        lm_out, mc_logits = _forward(model, params, batch, None, False)
+        if fused:
+            nll_sum, tokens = _fused_nll_sums(model, lm_out, params,
+                                              batch[2])
+        else:
+            nll_sum, tokens = _lm_nll_sums(lm_out, batch[2])
         acc = (torch.argmax(mc_logits, -1) == batch[3].long()).to(
             torch.float32)
         return (nll_sum / torch.clamp(tokens, min=1.0),

@@ -8,7 +8,8 @@ Two paths, as in the reference:
   ``(W*B, ...)`` batch replaces W; in sketch mode the sketch is linear,
   so the round sketches the aggregate once;
 * per worker (local_topk, fedavg, any mode with local momentum or
-  local error, and every mode under ``--dp`` or ``--max_grad_norm``):
+  local error, and every mode under ``--dp``, ``--max_grad_norm``,
+  ``--topk_down`` or ``--microbatch_size``):
   each client's step on its own batch and client-state rows, the
   transmits of padded slots zeroed, summed and divided by the
   datapoints. In sketch mode a per-worker nonlinearity breaks the
@@ -16,8 +17,10 @@ Two paths, as in the reference:
   sketched in one batched launch) and the round sums tables instead of
   sketching the aggregate. fedavg clients apply the lr themselves, so
   the server takes lr = 1; true_topk with local momentum masks the
-  clients' velocities at the global update's support; the client rows go
-  back by scatter.
+  clients' velocities at the global update's support; under
+  ``--topk_down`` each client computes at its stale weights plus the
+  top-k of the difference, which become its new stale row; the client
+  rows go back by scatter.
 
 Then the server update, the sticky NaN guard (a select, so a NaN update
 cannot leak into the weights), the per-coordinate ``last_changed`` round
@@ -69,7 +72,7 @@ def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
     return FedState(
         weights=flat_weights.to(torch.float32),
         opt=init_server_opt_state(cfg, dev),
-        clients=init_client_storage(cfg, dev),
+        clients=init_client_storage(cfg, flat_weights),
         round_idx=torch.zeros((), dtype=torch.int32, device=dev),
         # -2 = "never changed": below the -1 "never participated" sentinel
         last_changed=torch.full((d,), -2, dtype=torch.int32, device=dev),
@@ -81,19 +84,14 @@ def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
 def download_counts(last_changed: torch.Tensor,
                     stale_round: torch.Tensor) -> torch.Tensor:
     """Per participant, the number of weights changed since it last
-    pulled: ``#{i : last_changed[i] >= stale_round[w]}``, by one sorted
-    search and a histogram instead of a (W, d) comparison."""
-    W = stale_round.shape[0]
-    d_total = last_changed.shape[0]
-    order = torch.argsort(stale_round, stable=True)
-    sorted_stale = stale_round[order].contiguous()
-    buckets = torch.searchsorted(sorted_stale, last_changed.contiguous(),
-                                 right=True)
-    hist = torch.bincount(buckets, minlength=W + 1)
-    below_sorted = torch.cumsum(hist, 0)[:W]
-    counts = torch.zeros(W, dtype=torch.int32, device=last_changed.device)
-    counts[order] = (d_total - below_sorted).to(torch.int32)
-    return counts
+    pulled: ``#{i : last_changed[i] >= stale_round[w]}``, as W
+    comparison-and-count reductions over ``last_changed``, one per
+    participant, with no (W, d) comparison. The integers are the
+    reference's sorted-search histogram's (a ``bincount`` of d buckets
+    into W + 1 bins serializes on a few atomics on the card, most of all
+    when nearly every weight is still at -2)."""
+    return torch.stack([torch.sum(last_changed >= s, dtype=torch.int32)
+                        for s in stale_round])
 
 
 def fused_clients_eligible(cfg: FedConfig) -> bool:
@@ -153,17 +151,18 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                 mask[i], lr, cfg, seeds[i]) for i in range(mask.shape[0])]
             transmit, loss_sum, metric_sums, n = (torch.stack(x)
                                                   for x in zip(*outs))
-            new_vels = new_errs = None
+            new_vels = new_errs = new_stale = None
         else:
             out = client_lib.client_step(
                 apply_loss, unflatten, w, batch, mask,
                 gather_rows(state.clients.velocities, ids),
                 gather_rows(state.clients.errors, ids), cfg, seeds,
-                client_sketch)
+                client_sketch, gather_rows(state.clients.weights, ids))
             transmit, loss_sum, metric_sums, n = (
                 out.transmit, out.loss_sum, out.metric_sums,
                 out.num_datapoints)
-            new_vels, new_errs = out.velocity, out.error
+            new_vels, new_errs, new_stale = (out.velocity, out.error,
+                                             out.client_weights)
         total_n = torch.sum(n)
         # padded slots are zeroed: with local error feedback their
         # transmit would otherwise leak the aliased client's error row
@@ -171,7 +170,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         agg = (torch.sum(transmit * valid, dim=0)
                / torch.clamp(total_n, min=1.0))
         return (agg, torch.sum(loss_sum), torch.sum(metric_sums, dim=0),
-                total_n, new_vels, new_errs)
+                total_n, new_vels, new_errs, new_stale)
 
     def round_step(state: FedState, client_ids, batch, mask, lr, seed):
         w = state.weights
@@ -190,11 +189,11 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         if fused_clients:
             agg, loss_total, metric_totals, total_n = fused_step(
                 w, batch, mask, seed)
-            new_vels = new_errs = None
+            new_vels = new_errs = new_stale = None
         else:
-            (agg, loss_total, metric_totals, total_n, new_vels,
-             new_errs) = per_worker_step(state, ids, batch, mask, valid_w,
-                                         lr, seed)
+            (agg, loss_total, metric_totals, total_n, new_vels, new_errs,
+             new_stale) = per_worker_step(state, ids, batch, mask, valid_w,
+                                          lr, seed)
         if sketch is not None and client_sketch is None:
             agg = sketch.sketch_vec(agg)
 
@@ -225,7 +224,9 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             velocities=scatter_rows(state.clients.velocities, scatter_ids,
                                     new_vels),
             errors=scatter_rows(state.clients.errors, scatter_ids,
-                                new_errs))
+                                new_errs),
+            weights=scatter_rows(state.clients.weights, scatter_ids,
+                                 new_stale))
 
         new_last_changed = torch.where(update != 0, state.round_idx,
                                        state.last_changed)

@@ -22,8 +22,7 @@ class ClientState:
     """Per-client rows, indexed by client id, in the dense codec
     (``federated/client_store.py``): ``(num_clients + 1, d)`` each, the
     last row a sink for the writes of padded or guarded slots. A field is
-    None when the mode keeps no such rows; ``weights`` (``--topk_down``'s
-    stale weights) is not ported and stays None."""
+    None when the mode keeps no such rows."""
     velocities: Optional[torch.Tensor] = None  # local momentum
     errors: Optional[torch.Tensor] = None      # local error feedback
-    weights: Optional[torch.Tensor] = None
+    weights: Optional[torch.Tensor] = None     # --topk_down stale weights

@@ -34,9 +34,22 @@ seeded ``torch.Generator``; ``"tpu_bits"`` the hardware-RNG dropout kernel
 (``ops/dropout.py::hw_dropout``) under the site's two seed words, for
 every tensor whose size is a multiple of 1024.
 
+``fused_lm_head``: the forward returns the final hidden states (B, C,
+T, E) in place of the logits, and the loss applies the vocab-chunked
+fused head (``ops/fused_ce.py``) with the tied ``wte``.
+
+``remat``: in training each ``Block`` runs under
+``torch.utils.checkpoint`` (non-reentrant), so its activations are
+recomputed in the backward. The block's parameters are the checkpointed
+function's inputs, so the recomputation reads the same tensors as the
+forward under ``torch.func.functional_call``; the dropout sites draw
+from seeds folded per site and the flash and hardware-RNG dropout
+kernels from counter hashes, so the recomputed forward draws the same
+masks and the gradient is bitwise the one without remat. Each flash
+forward then launches twice a step.
+
 Not ported, each raising NotImplementedError: the KV cache of the serving
-stack (ROADMAP.md A11), MoE blocks and ring attention (A12), ``remat`` and
-the fused LM-head loss (A8).
+stack (ROADMAP.md A11), MoE blocks and ring attention (A12).
 """
 
 from __future__ import annotations
@@ -47,6 +60,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from commefficient_tpu_torch.ops.attention import (
     blockwise_attention, kernel_prob_dropout_eligible)
@@ -244,20 +259,30 @@ class Block(nn.Module):
         return x + drop(self._mlp(self.LayerNorm_1(x)))
 
 
+def _remat_block(block: Block, x, train: bool, seed: Optional[int]):
+    """``block(x, train, seed)`` under non-reentrant activation
+    checkpointing, with the block's current parameters passed in as the
+    checkpointed function's inputs (the recomputation in the backward
+    runs after ``functional_call`` has put the module's own back)."""
+    names, params = zip(*block.named_parameters())
+
+    def run(h, *ps):
+        return functional_call(block, dict(zip(names, ps)), (h, train, seed))
+
+    return checkpoint(run, x, *params, use_reentrant=False)
+
+
 class GPT2DoubleHeads(nn.Module):
     """``forward(input_ids, token_type_ids, mc_token_ids, train, seed)`` ->
-    ``(lm_logits (B, C, T, V) float32, mc_logits (B, C))``."""
+    ``(lm_logits (B, C, T, V) float32, mc_logits (B, C))``, or with
+    ``config.fused_lm_head`` ``(hidden (B, C, T, E) float32, mc_logits)``.
+    """
 
     def __init__(self, config: GPT2Config):
         super().__init__()
         cfg = self.config = config
         if cfg.moe_experts > 0:
             _todo("MoE blocks (--moe_experts)", "A12")
-        if cfg.remat:
-            _todo("remat (activation checkpointing)", "A8")
-        if cfg.fused_lm_head:
-            _todo("the fused LM-head loss (ops/fused_ce.py, --fused_ce)",
-                  "A8")
         self.wte = Embed(cfg.vocab_size, cfg.n_embd)
         self.wpe = Embed(cfg.n_positions, cfg.n_embd)
         self.emb_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
@@ -295,13 +320,22 @@ class GPT2DoubleHeads(nn.Module):
         pos = torch.arange(T, device=ids.device)[None, :]
         x = self.wte(ids) + self.wpe(pos) + self.wte(types)
         x = self.emb_drop(x, _sub(seed, 0), train)
+        remat = cfg.remat and train and torch.is_grad_enabled()
         for i in range(cfg.n_layer):
-            x = getattr(self, f"Block_{i}")(x, train, _sub(seed, 1 + i))
+            block = getattr(self, f"Block_{i}")
+            if remat:
+                x = _remat_block(block, x, train, _sub(seed, 1 + i))
+            else:
+                x = block(x, train, _sub(seed, 1 + i))
         x = x.float()
         if cfg.arch == "gpt2":
             x = self.LayerNorm_0(x)
-        lm_logits = self.wte.attend(x).reshape(B, C, T, cfg.vocab_size)
+        if cfg.fused_lm_head:
+            # the loss applies the fused head to these with the tied wte
+            lm_out = x.reshape(B, C, T, cfg.n_embd)
+        else:
+            lm_out = self.wte.attend(x).reshape(B, C, T, cfg.vocab_size)
         mc_ids = mc_token_ids.reshape(B * C).long()
         picked = x[torch.arange(B * C, device=x.device), mc_ids]
         picked = self.mc_drop(picked, _sub(seed, cfg.n_layer + 1), train)
-        return lm_logits, self.mc_head(picked).reshape(B, C)
+        return lm_out, self.mc_head(picked).reshape(B, C)

@@ -29,6 +29,10 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--dataset_dir", default="./dataset")
     p.add_argument("--batchnorm", action="store_true", dest="do_batchnorm")
     p.add_argument("--nan_threshold", type=float, default=999)
+    p.add_argument("--compute_dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="model compute dtype (params stay float32); the CV "
+                        "entry point takes bfloat16 for ResNet9 alone")
     # compression
     p.add_argument("--k", type=int, default=50000)
     p.add_argument("--num_cols", type=int, default=500000)
@@ -76,6 +80,8 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--l2_norm_clip", type=float, default=1.0)
     p.add_argument("--noise_multiplier", type=float, default=0.0)
     # accepted so that a reference command line parses; refused by train()
+    p.add_argument("--finetune", action="store_true", dest="do_finetune")
+    p.add_argument("--finetune_path", default="./finetune")
     p.add_argument("--mesh", type=str, default="")
     p.add_argument("--client_state_offload", action="store_true")
     p.add_argument("--scan_rounds", type=int, default=1)
@@ -83,7 +89,8 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
 
 
 # --fused_ce auto turns the fused LM-head loss on at T >= this (the
-# reference's threshold); the port refuses it there (ROADMAP.md A8)
+# reference's threshold): there the (B*C*T, vocab) logits would dominate
+# the round's memory
 FUSED_CE_AUTO_T = 512
 
 
@@ -122,18 +129,17 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "the output; 'kernel' requires the kernels")
     p.add_argument("--fused_ce", choices=("auto", "on", "off"),
                    default="auto",
-                   help="vocab-chunked fused LM-head loss: 'auto' means on "
-                        f"at --max_seq_len >= {FUSED_CE_AUTO_T}; not "
-                        "ported (A8), so 'on' and auto above the threshold "
-                        "are refused")
+                   help="vocab-chunked fused LM-head loss "
+                        "(ops/fused_ce.py): 'auto' means on at "
+                        f"--max_seq_len >= {FUSED_CE_AUTO_T} (off under "
+                        "ring attention)")
+    p.add_argument("--fused_lm_head", action="store_true",
+                   help="legacy alias for --fused_ce on")
     p.add_argument("--synthetic_personas", type=int, default=8,
                    help="SyntheticPersona: generated personas (= natural "
                         "clients)")
     p.add_argument("--synthetic_dialogs", type=int, default=4,
                    help="SyntheticPersona: dialogs per persona")
-    p.add_argument("--compute_dtype", choices=("float32", "bfloat16"),
-                   default="float32",
-                   help="model compute dtype (params stay float32)")
     # accepted so that a reference command line parses; refused by train()
     p.add_argument("--moe_experts", type=int, default=0)
     p.add_argument("--serve_online", action="store_true")
@@ -141,19 +147,31 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def resolve_fused_ce(args) -> bool:
-    """``--fused_ce`` -> whether the reference would run the fused
-    LM-head loss."""
-    if args.fused_ce != "auto":
-        return args.fused_ce == "on"
-    return args.attn_impl != "ring" and args.max_seq_len >= FUSED_CE_AUTO_T
+    """``--fused_ce`` (and the legacy ``--fused_lm_head``, which means
+    'on' and conflicts with 'off') -> whether the model returns hidden
+    states for the fused LM-head loss (the reference's
+    ``training/args.py:376-394`` without a mesh)."""
+    choice = args.fused_ce
+    if args.fused_lm_head:
+        if choice == "off":
+            raise ValueError("--fused_lm_head (legacy alias for "
+                             "--fused_ce on) conflicts with --fused_ce off")
+        choice = "on"
+    if choice != "auto":
+        return choice == "on"
+    if args.attn_impl == "ring":
+        return False
+    return args.max_seq_len >= FUSED_CE_AUTO_T
 
 
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: ``--mesh``,
+    flag set that the port does not run: ``--finetune``, ``--mesh``,
     ``--client_state_offload``, ``--scan_rounds > 1``, then the entry
     point's own ``extra`` ``(flag, is_set, item)`` triples."""
     for flag, on, item in (
+            ("--finetune (utils/finetune.py reads checkpoint v3)",
+             args.do_finetune, "A10"),
             ("--mesh", bool(args.mesh), "A12"),
             ("--client_state_offload", args.client_state_offload, "A9"),
             ("--scan_rounds > 1", args.scan_rounds > 1, "A7"),

@@ -10,7 +10,11 @@ All five modes run: ``--mode sketch`` (``--server_fused auto|off``),
 those with BatchNorm (``--batchnorm``, ResNet18, the ``norm="batch"``
 ResNets), which ``build_learner`` refuses as the reference's round fails
 on them; Fixup* models train their scalars at ``--scalar_lr_factor``
-(0.1 by default) times the LR.
+(0.1 by default) times the LR. ``--compute_dtype bfloat16`` runs
+ResNet9's convolutions and head in bfloat16 (parameters and logits stay
+float32) and is refused for any other model, as in the reference.
+Datasets: Synthetic, and the offline Digits and Patches32 (built from
+scikit-learn's bundled data on first use).
 
 Runs on CUDA unless ``--device cpu`` is given; without a CUDA device and
 without ``--device cpu`` it raises. On CUDA it turns TF32 off for
@@ -18,8 +22,8 @@ convolutions and matmuls: the reference trains in float32.
 
 Epoch loop over federated rounds, piecewise-linear LR through a pivot
 epoch, NaN abort, a validation pass per epoch and the byte rollup.
-Checkpoints, resume, mesh, offload and scanned rounds are ROADMAP.md
-A7/A9/A10/A12.
+Checkpoints, resume, ``--finetune``, mesh, offload and scanned rounds
+are ROADMAP.md A7/A9/A10/A12.
 """
 
 from __future__ import annotations
@@ -66,20 +70,30 @@ def make_dataset(args, train: bool):
     return cls(**kw)
 
 
-def build_learner(args, num_classes, channels, device):
+def build_learner(args, num_classes, channels, device, image_size=32):
     """The model of ``--model`` (``--batchnorm`` goes to ResNet9 alone, as
     in the reference), seeded from ``--seed``, in a ``FedLearner`` with
     the CIFAR LR schedule and, where ``--scalar_lr_factor`` (0.1 for
     Fixup* models, 1.0 otherwise) is not 1, per-coordinate LR multipliers
-    on the size-1 parameters.
+    on the size-1 parameters. ``--compute_dtype`` goes to ResNet9 alone;
+    for another model anything but float32 raises the reference's
+    ValueError. ``image_size`` sizes TinyMLP's input layer (flax infers
+    it from the sample input).
 
     A model with BatchNorm is refused: the reference's round applies
     ``{"params": ...}`` alone (``commefficient_tpu/federated/losses.py:22``),
     so BatchNorm's statistics have no place in it, and it fails there."""
     cfg = args_to_config(args)
     model_kw = dict(num_classes=num_classes, in_channels=channels)
+    compute_dtype = getattr(args, "compute_dtype", "float32")
     if args.model == "ResNet9":
         model_kw["do_batchnorm"] = args.do_batchnorm
+        model_kw["dtype"] = compute_dtype
+    elif compute_dtype != "float32":
+        raise ValueError(f"--compute_dtype {compute_dtype} is only "
+                         f"supported for ResNet9 (got {args.model})")
+    if args.model == "TinyMLP":
+        model_kw["image_size"] = image_size
     model = get_model(args.model, **model_kw)
     if any(isinstance(m, BatchNorm) for m in model.modules()):
         raise ValueError(
@@ -117,8 +131,9 @@ def train(args, max_rounds=None, log=True):
                          seed=args.seed)
     # the reference draws one probe round for its sample input before
     # training; drawing it too keeps the two packages' rounds identical
-    next(iter(batcher.epoch()))
-    learner = build_learner(args, num_classes, channels, device)
+    _, probe_cols, _ = next(iter(batcher.epoch()))
+    learner = build_learner(args, num_classes, channels, device,
+                            image_size=probe_cols[0].shape[2])
     spe = batcher.steps_per_epoch()
     total_rounds = 0
     t_start = time.perf_counter()

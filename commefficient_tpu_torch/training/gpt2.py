@@ -21,8 +21,14 @@ the flash kernels (``ops/flash_attention.py``), attention dropout inside
 them. ``args.dropout_impl = "tpu_bits"``, set on the parsed namespace (the
 CLI offers only ``xla`` and ``xla_rbg``, as the reference's does), runs the
 model's other dropout sites through the hardware-RNG dropout kernel
-(``ops/dropout.py::hw_dropout``). Checkpoints, resume, pretrained weights (``gpt2_import``), the
-generated sample and the serving stack are ROADMAP.md A8/A10/A11.
+(``ops/dropout.py::hw_dropout``). ``--fused_ce on`` (or ``auto`` at
+``--max_seq_len`` >= 512, or the legacy ``--fused_lm_head``) takes the LM
+loss through the vocab-chunked fused head (``ops/fused_ce.py``) without
+materializing the logits. ``--model gpt2`` / ``openai-gpt`` with an HF
+tokenizer in the local cache start from the cached HF weights where they
+are cached too (``models/gpt2_import.py``); neither is fetched.
+Checkpoints, resume, the generated sample and the serving stack are
+ROADMAP.md A10/A11.
 """
 
 from __future__ import annotations
@@ -37,11 +43,13 @@ import torch
 from commefficient_tpu_torch.data import FedBatcher, val_batches
 from commefficient_tpu_torch.data.persona import (FedPERSONA,
                                                   SyntheticPersona)
-from commefficient_tpu_torch.data.tokenizer import get_tokenizer
+from commefficient_tpu_torch.data.tokenizer import (HFTokenizerWrapper,
+                                                    get_tokenizer)
 from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import (make_gpt2_train_loss,
                                                       make_gpt2_val_loss)
 from commefficient_tpu_torch.models import GPT2_CONFIGS, GPT2DoubleHeads
+from commefficient_tpu_torch.models.gpt2_import import try_load_hf_pretrained
 from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    args_to_config,
@@ -56,10 +64,7 @@ def _refuse_unported(args):
     refuse_unported(args, (
         ("--moe_experts", args.moe_experts > 0, "A12"),
         ("--serve_online", args.serve_online, "A11"),
-        ("--attn_impl ring", args.attn_impl == "ring", "A12"),
-        ("the fused LM-head loss (--fused_ce on, or auto at "
-         "--max_seq_len >= 512; ops/fused_ce.py)",
-         resolve_fused_ce(args), "A8")))
+        ("--attn_impl ring", args.attn_impl == "ring", "A12")))
     if args.model not in GPT2_CONFIGS:
         raise ValueError(f"--model {args.model!r} is not a GPT2 model; "
                          f"choices: {sorted(GPT2_CONFIGS)}")
@@ -94,6 +99,7 @@ def gpt2_config(args, vocab_size: int):
     # it on the parsed namespace, and it reaches every FusedDropout site
     gcfg.dropout_impl = getattr(args, "dropout_impl", "xla")
     gcfg.attn_dropout = args.attn_dropout
+    gcfg.fused_lm_head = resolve_fused_ce(args)
     return gcfg
 
 
@@ -113,6 +119,17 @@ def train(args, max_rounds=None, log=True):
 
     model = GPT2DoubleHeads(gpt2_config(args, tokenizer.vocab_size))
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
+    if args.model in ("gpt2", "openai-gpt") and isinstance(
+            tokenizer, HFTokenizerWrapper):
+        # finetune from the HF weights when they are cached locally; the
+        # byte tokenizer's rows would not line up with them
+        imported = try_load_hf_pretrained(
+            dict(model.named_parameters()), args.model_checkpoint,
+            verbose=log, arch=model.config.arch)
+        if imported is not None:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(imported[name])
     batcher = FedBatcher(train_set, args.num_workers, args.local_batch_size,
                          seed=args.seed)
     spe = batcher.steps_per_epoch()
@@ -126,7 +143,8 @@ def train(args, max_rounds=None, log=True):
     if log:
         print(f"gpt2: d = {learner.cfg.grad_size}, vocab "
               f"{model.config.vocab_size}, attn_impl "
-              f"{model.config.attn_impl}, device {device}", flush=True)
+              f"{model.config.attn_impl}, fused LM head "
+              f"{model.config.fused_lm_head}, device {device}", flush=True)
 
     total_rounds = 0
     t_start = time.perf_counter()

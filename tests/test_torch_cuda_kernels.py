@@ -23,7 +23,11 @@ dense streams (plain and resid) equals its plain versions pass by pass, on
 unaligned rows, a k = 0 row and NaN rows included; a full-width
 FixupResNet9 sketch round through the kernels equals the same round
 through the plain versions on the card (table, server state, top-k set,
-weights). ``chip_smoke.py`` repeats this at the main paths' full width.
+weights). Beside the kernels: the fused LM head on the card against the
+CPU's (float32, TF32 off: 1e-5), GPT2's remat gradient on the card
+bitwise the one without remat (flash kernels launched twice as often),
+and ``download_counts`` on the card bitwise the CPU's. ``chip_smoke.py``
+repeats this at the main paths' full width.
 """
 
 import numpy as np
@@ -712,3 +716,76 @@ def test_fixup_resnet9_sketch_round_kernels_equal_plain(dev, monkeypatch):
         assert _same_bits(a, b)
     assert torch.equal(s_k.last_changed, s_p.last_changed)
     assert int((s_k.last_changed == 0).sum()) == 50_000
+
+
+def test_fused_ce_card_equals_cpu(dev):
+    from commefficient_tpu_torch.ops.fused_ce import lm_head_nll
+    rng = np.random.RandomState(0)
+    N, E, V = 300, 64, 20_000          # 3 chunks of 8192, the last short
+    hidden = torch.from_numpy(rng.randn(N, E).astype(np.float32))
+    wte = torch.from_numpy((0.1 * rng.randn(V, E)).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, V, N))
+    labels[:3] = torch.tensor([0, V - 1, 8192])
+    g = torch.from_numpy(rng.rand(N).astype(np.float32))
+    outs = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", dev):
+            h = hidden.to(device).requires_grad_(True)
+            w = wte.to(device).requires_grad_(True)
+            nll = lm_head_nll(h, w, labels.to(device), 8192, torch.float32)
+            dh, dw = torch.autograd.grad(torch.sum(nll * g.to(device)),
+                                         (h, w))
+            outs.append([t.detach().cpu() for t in (nll, dh, dw)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+def test_gpt2_remat_gradient_bitwise_on_the_card(dev):
+    from commefficient_tpu_torch.federated.client import \
+        _masked_loss_and_grad
+    from commefficient_tpu_torch.federated.losses import \
+        make_gpt2_train_loss
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    from commefficient_tpu_torch.utils.params import flatten_params
+    rng = np.random.RandomState(1)
+    B, C, T = 2, 2, 64
+    ids = rng.randint(0, 300, (B, C, T))
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (
+        ids, rng.randint(T // 2, T, (B, C)),
+        np.where(rng.rand(B, C, T) < 0.3, ids, -1),
+        np.full((B,), C - 1), rng.randint(256, 261, (B, C, T))))
+    grads, launches = [], []
+    for remat in (False, True):
+        cfg = GPT2Config(vocab_size=300, n_positions=T, n_embd=64,
+                         n_layer=2, n_head=4, dropout=0.1,
+                         attn_impl="blockwise", remat=remat)
+        model = GPT2DoubleHeads(cfg).reset_parameters(
+            torch.Generator().manual_seed(0)).to(dev)
+        flat, unflatten = flatten_params(model)
+        before = cuda_lib.LAUNCHES.get("flash_fwd", 0)
+        grads.append(_masked_loss_and_grad(
+            make_gpt2_train_loss(model), unflatten, flat + 0.01, batch,
+            torch.ones(B, device=dev), seed=3)[0])
+        torch.cuda.synchronize()
+        launches.append(cuda_lib.LAUNCHES.get("flash_fwd", 0) - before)
+    assert launches == [2, 4]
+    assert _same_bits(grads[0], grads[1])
+
+
+def test_download_counts_card_equals_cpu(dev):
+    from commefficient_tpu_torch.federated.round import download_counts
+    rng = np.random.RandomState(2)
+    for W, d in ((1, 1_000), (4, 1_000_003), (8, 65_536)):
+        last_changed = torch.from_numpy(
+            rng.randint(-2, 6, d).astype(np.int32))
+        stale = torch.from_numpy(rng.randint(-1, 6, W).astype(np.int32))
+        stale[W // 2:] = stale[W // 2]
+        want = download_counts(last_changed, stale)
+        got = download_counts(last_changed.to(dev), stale.to(dev))
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)

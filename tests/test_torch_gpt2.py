@@ -167,13 +167,10 @@ def test_gpt2_small_width():
 
 
 def test_model_refusals():
-    for attr, value, item in (("moe_experts", 2, "A12"), ("remat", True,
-                                                          "A8"),
-                              ("fused_lm_head", True, "A8")):
-        cfg = GPT2Config(**NARROW)
-        setattr(cfg, attr, value)
-        with pytest.raises(NotImplementedError, match=item):
-            GPT2DoubleHeads(cfg)
+    cfg = GPT2Config(**NARROW)
+    cfg.moe_experts = 2
+    with pytest.raises(NotImplementedError, match="A12"):
+        GPT2DoubleHeads(cfg)
     with pytest.raises(NotImplementedError, match="A12"):
         GPT2DoubleHeads(GPT2Config(**dict(NARROW, attn_impl="ring")))
     model = GPT2DoubleHeads(GPT2Config(**NARROW))

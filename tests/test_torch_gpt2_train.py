@@ -124,7 +124,6 @@ def test_cli_refuses_cuda_without_a_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--fused_ce", "on"], "A8"), (["--max_seq_len", "512"], "A8"),
     (["--moe_experts", "4"], "A12"), (["--mesh", "clients=2"], "A12"),
     (["--serve_online"], "A11"), (["--attn_impl", "ring"], "A12")])
 def test_cli_refuses_unported_flags(tmp_path, extra, item):

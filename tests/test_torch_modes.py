@@ -195,7 +195,7 @@ def test_cli_runs_every_mode_on_cpu(tmp_path, monkeypatch, name):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--microbatch_size", "4"], "A5"), (["--topk_down"], "A5"),
+    (["--finetune"], "A10"),
     (["--mode", "local_topk", "--error_type", "none", "--client_k_dist",
       "uniform:0.5,1"], "A9"),
     (["--topk_approx_recall", "0.95"], "A2"),

@@ -224,8 +224,7 @@ def test_entry_points_refuse_cuda_without_a_device(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override,item", [
     (dict(sketch_scheme="global"), "A1"), (dict(grad_buckets=2), "A9"),
-    (dict(microbatch_size=4), "A5"),
-    (dict(do_topk_down=True), "A5"), (dict(topk_approx_recall=0.95), "A2")])
+    (dict(topk_approx_recall=0.95), "A2")])
 def test_config_refuses_what_is_not_ported(override, item):
     with pytest.raises(NotImplementedError, match=item):
         FedConfig(**dict(SKETCH, **override)).finalize(1_000)
