@@ -91,8 +91,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    - sketch_microbatch (the sketch flags + --microbatch_size 8: the
      per-worker round, 4 chunks a client): the sketch path's kernels (the
      aggregate is sketched once a round, as in the reference);
-   with finite losses and weights, each path's d, and the upload bytes
-   per client (exact, as float32 counters hold them);
+   - local_topk_kdist (the local_topk flags + --client_k_dist
+     uniform:0.25,1.0): local_topk's launches with 8 different per-row k
+     a round; each transmit's support is min(k_i, nnz), k_i from
+     ``cohort_client_ks`` of the round's ids; upload 4 k a client;
+   - local_topk_offload (+ --client_state_offload: 100 clients' dense
+     rows in host memory) and local_topk_sparse_offload (+ --client_state
+     sparse: k index/value pairs a row, encoded and decoded on the card):
+     local_topk's launches;
+   - local_topk_sketched (local error, no momentum, --client_state
+     sketched: a (3, 128) global sketch a client): rows_hist 18,
+     rows_select 6 (the decode's top-k beside the transmit's),
+     segment_sum 3 (the W tables of a round in one);
+   - sketch_buckets (the sketch flags + --grad_buckets 4, which the
+     planner cuts into 3 buckets at ResNet9's leaves): sketch 9 at
+     128-aligned offsets and the recovery's kernels;
+   - sketch_global (+ --sketch_scheme global, 5 x 500,000): segment_sum 6
+     (the aggregate's sketch and the survivors' re-sketch), rows_hist 9,
+     rows_select 3 (the B = 1 radix top-k of the global estimates);
+   with finite losses and weights, each path's d, the upload bytes
+   per client (exact, as float32 counters hold them) and its peak memory;
+   then ``phase_offload_parity``: local_topk against local_topk_offload,
+   sparse client state on the card against sparse offload, and sparse
+   offload at depth 2 against the same run flushed after every round
+   (losses, bytes, weights and every client's rows bitwise); true_topk
+   against --grad_buckets 4 (bitwise); sketch against sketch_buckets
+   (round 1's loss bitwise, round 1's table within the float32
+   association bound of the whole, bytes exact);
    then the sketch path twice more from the same seed: per-round losses,
    weights, Vvelocity and Verror bitwise equal; and one ResNet9 forward
    and backward at its batch timed with cuDNN's deterministic mode off,
@@ -164,6 +189,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (--microbatch_size 4: the per-worker round, 2 chunks of 4 dialogs a
    client): flash_fwd, flash_bwd_dq, flash_bwd_dkv 288 each (12 layers x
    4 clients x 2 chunks x 3 rounds), sketch 3, the recovery's kernels;
+   and gpt2_local_topk_sparse_offload (examples/gpt2_personachat.sh's
+   single-card flags: --mode local_topk --error_type local
+   --local_momentum 0.9 --client_state sparse --client_state_offload, 64
+   clients' rows as k pairs in host memory): flash_fwd, flash_bwd_dq,
+   flash_bwd_dkv 144 each, rows_hist 9 and rows_select 3 (the (4, 124M)
+   top-k), upload 4 k a client;
    each GPT2 path's profiled round runs no bincount (kernelHistogram1D),
    and its peak memory is printed;
    then the gpt2 path twice more from the same seed (ROADMAP C5b), the
@@ -288,6 +319,44 @@ PATHS.update({
     "sketch_microbatch": (HEADLINE + ["--microbatch_size", "8"],
                           dict(RECOVERY, sketch=3), 4 * TABLE_FLOATS),
 })
+LOCAL_TOPK = {"rows_hist": 9, "rows_select": 3}
+KDIST = "uniform:0.25,1.0"
+PATHS.update({
+    # each client keeps the first k_i of its top-k slots, k_i its own draw:
+    # 8 different per-row k a round in the same rows_hist/rows_select
+    # launches; the upload is still charged at k a client
+    "local_topk_kdist": (PATHS["local_topk"][0] + ["--client_k_dist",
+                                                   KDIST],
+                         LOCAL_TOPK, 4 * K),
+    # the 100 clients' dense rows (2 fields x 26.3 MB) in host memory:
+    # gather-ahead and lazy writeback on the copy stream
+    "local_topk_offload": (PATHS["local_topk"][0]
+                           + ["--client_state_offload"], LOCAL_TOPK, 4 * K),
+    # k index/value pairs a row (cap = k < d/2: truncating), encoded and
+    # decoded on the card, the arena and the pending rows encoded
+    "local_topk_sparse_offload": (PATHS["local_topk"][0] + [
+        "--client_state", "sparse", "--client_state_offload"], LOCAL_TOPK,
+        4 * K),
+    # each client's error row as a (3, 128) global sketch: the W tables in
+    # one segment_sum a round, their decode's top-k in the per-row radix
+    # beside the transmit's
+    "local_topk_sketched": (_BASE + [
+        "--mode", "local_topk", "--error_type", "local", "--local_momentum",
+        "0", "--num_clients", "100", "--local_batch_size", "32",
+        "--client_state", "sketched"],
+        {"rows_hist": 18, "rows_select": 6, "segment_sum": 3}, 4 * K),
+    # the aggregate sketched bucket by bucket at 128-aligned offsets: the
+    # reference's planner cuts ResNet9 into 3 buckets at K = 4 (two cuts
+    # snap to one leaf boundary)
+    "sketch_buckets": (HEADLINE + ["--grad_buckets", "4"],
+                       dict(RECOVERY, sketch=9), 4 * TABLE_FLOATS),
+    # the global scheme: the aggregate's sketch and the survivors'
+    # re-sketch through segment_sum, the recovery as the global estimates
+    # and the B = 1 radix top-k; a 5 x 500,000 table with no lane padding
+    "sketch_global": (HEADLINE + ["--sketch_scheme", "global"],
+                      {"segment_sum": 6, "rows_hist": 9, "rows_select": 3},
+                      4 * 5 * 500_000),
+})
 # d of each path's model (ResNet9's elsewhere)
 PATH_D = {"fixup9_sketch": D_FIXUP9, "fixup50_imagenet": D_FIXUP50}
 # per-row k of the batched parity check: full, an all-zero row, contested
@@ -329,7 +398,21 @@ GPT2_PATHS = {
     "gpt2_microbatch": (["--microbatch_size", "4"], {},
                         dict(RECOVERY, flash_fwd=288, flash_bwd_dq=288,
                              flash_bwd_dkv=288, sketch=3)),
+    # examples/gpt2_personachat.sh's single-card setting: 64 clients' error
+    # and momentum rows as k index/value pairs in host memory (64 x 2 x
+    # 400 KB; dense rows on the card would take 2 x 65 x 496 MB), the
+    # per-worker round (flash 12 layers x 4 clients a round) and the
+    # (4, 124M) radix top-k
+    "gpt2_local_topk_sparse_offload": (
+        ["--mode", "local_topk", "--error_type", "local", "--local_momentum",
+         "0.9", "--client_state", "sparse", "--client_state_offload",
+         "--synthetic_personas", "64"], {},
+        dict(LOCAL_TOPK, flash_fwd=144, flash_bwd_dq=144,
+             flash_bwd_dkv=144)),
 }
+# upload bytes a client a round: the 5 x 500,096 table, or k floats
+GPT2_UPLOAD = {name: 4 * (K if "local_topk" in name else TABLE_FLOATS)
+               for name in GPT2_PATHS}
 GPT2_WORKERS = 4
 FLASH_SHAPE = (768, 256, 64)      # (BH, T, D) of the GPT2 path
 # gpt2_clip runs the attention one client at a time: BH = 768 / 4 = 192
@@ -1907,11 +1990,69 @@ class _ScalarLRProbe:
         raise AssertionError("no round recovered a Fixup scalar")
 
 
+class _KdistProbe:
+    """Records, for every local top-k of a run, each row's nonzeros in and
+    out and its budget (``client.topk``), and each cohort's drawn budgets
+    (``api.cohort_client_ks``). The counts read the device; it adds no
+    launch."""
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated import api, client
+        self.tops, self.draws = [], []
+        self._saved = [(client, "topk", client.topk),
+                       (api, "cohort_client_ks", api.cohort_client_ks)]
+        topk, draw = (f for _, _, f in self._saved)
+
+        def top(vec, k, row_k=None, use_kernel=None):
+            out = topk(vec, k, row_k=row_k, use_kernel=use_kernel)
+            self.tops.append(((vec != 0).sum(-1).cpu(),
+                              (out != 0).sum(-1).cpu(),
+                              None if row_k is None else row_k.cpu()))
+            return out
+
+        def cohort(seed, ids, *args, **kwargs):
+            ks = draw(seed, ids, *args, **kwargs)
+            self.draws.append((np.array(ids), ks.copy()))
+            return ks
+
+        client.topk = top
+        api.cohort_client_ks = cohort
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, f in self._saved:
+            setattr(owner, attr, f)
+
+    def check(self, seed):
+        """Each transmit's support is min(k_i, nnz) with k_i from a fresh
+        ``cohort_client_ks`` of the round's ids; returns the budgets."""
+        from commefficient_tpu_torch.federated.faults import cohort_client_ks
+        if len(self.tops) != len(self.draws) or not self.draws:
+            raise AssertionError("local_topk_kdist: the probe saw "
+                                 f"{len(self.tops)} top-ks for "
+                                 f"{len(self.draws)} cohorts")
+        for (nnz_in, nnz_out, row_k), (ids, ks) in zip(self.tops,
+                                                        self.draws):
+            fresh = cohort_client_ks(seed, ids, K, KDIST)
+            if not (np.array_equal(fresh, ks)
+                    and np.array_equal(row_k.numpy(), ks)
+                    and np.array_equal(nnz_out.numpy(), np.minimum(
+                        ks, nnz_in.numpy()))
+                    and len(set(ks.tolist())) > 1):
+                raise AssertionError(
+                    f"local_topk_kdist: budgets {ks} (fresh {fresh}, "
+                    f"passed {row_k.tolist()}), nonzeros in "
+                    f"{nnz_in.tolist()}, out {nnz_out.tolist()}")
+        return [ks.tolist() for _, ks in self.draws]
+
+
 def phase_path(name):
     """One main path: 3 full-width rounds through ``training.cv.train``
     with every launch counter zeroed just before and read just after.
     On fixup9_sketch, also the rate the Fixup scalars moved at against the
-    convolutions' (0.1, the default ``--scalar_lr_factor``)."""
+    convolutions' (0.1, the default ``--scalar_lr_factor``); on
+    local_topk_kdist, each client's transmit support against its budget
+    (``_KdistProbe``)."""
     import torch
 
     from commefficient_tpu_torch.ops import cuda_lib
@@ -1921,8 +2062,10 @@ def phase_path(name):
     d = PATH_D.get(name, D_RESNET9)
     args = build_parser().parse_args(flags)
     np.random.seed(args.seed)
-    probe = _ScalarLRProbe()
-    with probe if name == "fixup9_sketch" else nullcontext():
+    probe = {"fixup9_sketch": _ScalarLRProbe,
+             "local_topk_kdist": _KdistProbe}.get(name, nullcontext)()
+    torch.cuda.reset_peak_memory_stats()
+    with probe:
         cuda_lib.LAUNCHES.clear()
         learner, row = train(args, max_rounds=3, log=False)
         torch.cuda.synchronize()
@@ -1961,16 +2104,212 @@ def phase_path(name):
                                  f"moved at {rates[0]} against {rates[1]}")
         extra = (f", Fixup scalars moved at {rates[0]:.6g} against "
                  f"{rates[1]:.6g} (ratio {rates[0] / rates[1]:.6f})")
+    if name == "local_topk_kdist":
+        extra = f", budgets a round {probe.check(args.seed)}"
+    if learner.host_store is not None:
+        extra += (f", host arenas {learner.host_store.nbytes()} B, "
+                  f"pipeline {learner._offload_pipe.stats}")
     changed = int((learner.state.last_changed >= 0).sum())
     print(f"path {name}: d = {d}, launches {launches}, losses "
           f"{[round(r['loss'], 6) for r in rounds]}, round ms "
           f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, upload B "
           f"{[int(r['upload_bytes']) for r in rounds]}, test_loss "
-          f"{row['test_loss']:.6f}, {changed} weights changed{extra}",
+          f"{row['test_loss']:.6f}, {changed} weights changed, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{extra}",
           flush=True)
     del learner, row
     torch.cuda.empty_cache()
     return launches
+
+
+class _FlushEachRound:
+    """Makes ``training.cv.train``'s rounds flush the offload pipeline
+    after each one (the synchronous writeback), by flushing after every
+    ``finalize_round_metrics``."""
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        self._saved = FedLearner.finalize_round_metrics
+
+        def finalize(learner, raw):
+            out = self._saved(learner, raw)
+            learner.flush_offload()
+            return out
+        FedLearner.finalize_round_metrics = finalize
+        return self
+
+    def __exit__(self, *exc):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        FedLearner.finalize_round_metrics = self._saved
+
+
+class _RoundTables:
+    """Records each round's aggregate (the server's ``gradient``: the
+    sketched table in sketch mode) and, where the round sketches it
+    whole, the dense aggregate it sketched."""
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated import round as round_mod
+        from commefficient_tpu_torch.ops.countsketch import CountSketch
+        self.tables, self.dense = [], []
+        self._saved = [(round_mod, "server_update", round_mod.server_update),
+                       (CountSketch, "sketch_vec", CountSketch.sketch_vec)]
+        server_update, sketch_vec = (f for _, _, f in self._saved)
+
+        def update(gradient, *args, **kwargs):
+            self.tables.append(gradient.clone())
+            return server_update(gradient, *args, **kwargs)
+
+        def sketch(cs, vec):
+            self.dense.append(vec.clone())
+            return sketch_vec(cs, vec)
+        round_mod.server_update = update
+        CountSketch.sketch_vec = sketch
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, f in self._saved:
+            setattr(owner, attr, f)
+
+
+def _cv_run(flags, context=None):
+    """3 rounds of ``training.cv.train`` with ``flags``: (learner, row)."""
+    from commefficient_tpu_torch.training.args import build_parser
+    from commefficient_tpu_torch.training.cv import train
+    args = build_parser().parse_args(flags)
+    np.random.seed(args.seed)
+    with context or nullcontext():
+        return train(args, max_rounds=3, log=False)
+
+
+def _rows_of(learner):
+    """Every client's stored rows, field by field, as CPU trees: the
+    device storage without its sink row, or the host arenas."""
+    from torch.utils._pytree import tree_map
+    out = {}
+    for field in ("velocities", "errors", "weights"):
+        if learner.host_store is not None:
+            view = learner.host_store.view(field)
+            out[field] = (None if view is None
+                          else learner.host_store.arena(field))
+        else:
+            rows = getattr(learner.state.clients, field)
+            out[field] = (None if rows is None else tree_map(
+                lambda t: t[:-1].cpu(), rows))
+    return out
+
+
+def _same_trees(a, b) -> bool:
+    from torch.utils._pytree import tree_flatten
+    if a is None or b is None:
+        return a is b
+    la, sa = tree_flatten(a)
+    lb, sb = tree_flatten(b)
+    return sa == sb and all(_same_bits(x, y) for x, y in zip(la, lb))
+
+
+def _assert_same_runs(tag, a, b):
+    """Two runs' losses, bytes, weights, server state and every client's
+    rows bitwise equal."""
+    (la, ra), (lb, rb) = a, b
+    for x, y in zip(ra["rounds"], rb["rounds"]):
+        if (x["loss"].hex(), x["upload_bytes"], x["download_bytes"]) != (
+                y["loss"].hex(), y["upload_bytes"], y["download_bytes"]):
+            raise AssertionError(f"{tag}: round {x} != {y}")
+    for what, x, y in (("weights", la.state.weights, lb.state.weights),
+                       ("Vvelocity", la.state.opt.Vvelocity,
+                        lb.state.opt.Vvelocity),
+                       ("client_last_round", la.state.client_last_round,
+                        lb.state.client_last_round)):
+        if not _same_bits(x, y):
+            raise AssertionError(f"{tag}: {what} differ")
+    rows_a, rows_b = _rows_of(la), _rows_of(lb)
+    for field in rows_a:
+        if not _same_trees(rows_a[field], rows_b[field]):
+            raise AssertionError(f"{tag}: the clients' {field} differ")
+
+
+def phase_offload_parity():
+    """The offloaded rows against the device-resident ones and the
+    bucketed transmits against the whole, 3 full-width rounds from one
+    seed each, in this process: local_topk against local_topk_offload and
+    sparse client state on the card against sparse offload (losses,
+    bytes, weights, every client's rows bitwise); sparse offload at depth
+    2 against the same run flushed after every round (bitwise); true_topk
+    against --grad_buckets 4 (bitwise); sketch against sketch_buckets:
+    round 1's loss bitwise, round 1's table within the float32
+    association bound of the whole table, the bytes exact."""
+    import torch
+    local = PATHS["local_topk"][0]
+    sparse = ["--client_state", "sparse"]
+    offload = ["--client_state_offload"]
+
+    def pair(tag, flags_a, flags_b, ctx_b=None):
+        a = _cv_run(flags_a)
+        b = _cv_run(flags_b, ctx_b)
+        _assert_same_runs(tag, a, b)
+        stats = [ln._offload_pipe.stats for ln, _ in (a, b)
+                 if ln._offload_pipe is not None]
+        print(f"offload parity {tag}: losses "
+              f"{[round(r['loss'], 6) for r in a[1]['rounds']]}, weights, "
+              f"bytes and every client's rows bitwise equal; pipeline "
+              f"{stats}", flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+    pair("local_topk vs local_topk_offload", local, local + offload)
+    pair("sparse on the card vs sparse offload", local + sparse,
+         local + sparse + offload)
+    pair("sparse offload depth 2 vs flushed every round",
+         local + sparse + offload, local + sparse + offload,
+         _FlushEachRound())
+    true_topk = PATHS["true_topk"][0]
+    a, b = _cv_run(true_topk), _cv_run(true_topk + ["--grad_buckets", "4"])
+    if b[0].grad_buckets is None:
+        raise AssertionError("true_topk --grad_buckets 4: no bucket plan")
+    _assert_same_runs("true_topk vs --grad_buckets 4", a, b)
+    print(f"offload parity true_topk vs --grad_buckets 4 "
+          f"({b[0].grad_buckets.num_buckets} buckets at "
+          f"{list(b[0].grad_buckets.offsets)}): weights bitwise equal",
+          flush=True)
+    del a, b
+    whole, parts = _RoundTables(), _RoundTables()
+    a = _cv_run(HEADLINE, whole)
+    b = _cv_run(HEADLINE + ["--grad_buckets", "4"], parts)
+    ra, rb = a[1]["rounds"], b[1]["rounds"]
+    if ra[0]["loss"].hex() != rb[0]["loss"].hex() or parts.dense:
+        raise AssertionError("sketch_buckets: round 1's loss differs, or "
+                             "the bucketed round sketched a whole vector")
+    if any((x["upload_bytes"], x["download_bytes"]) != (
+            y["upload_bytes"], y["download_bytes"]) for x, y in zip(ra, rb)):
+        raise AssertionError("sketch_buckets: bytes differ")
+    # each cell's sum over its m terms, associated bucket by bucket: both
+    # sums within (m - 1) u sum|x_i| of the exact one, u = 2**-24
+    from commefficient_tpu_torch.federated.server import make_sketch
+    cs = make_sketch(a[0].cfg)
+    agg = whole.dense[0]
+    _, buckets = cs._row_hashes(None, torch.arange(agg.shape[0],
+                                                    device=agg.device))
+    keys = (buckets + torch.arange(cs.r, device=agg.device)[:, None]
+            * cs.c_eff).flatten()
+    abs_sum = torch.zeros(cs.r * cs.c_eff, dtype=torch.float64,
+                          device=agg.device).index_add_(
+        0, keys, agg.abs().double().repeat(cs.r))
+    terms = torch.bincount(keys, minlength=cs.r * cs.c_eff).double()
+    bound = 2 * torch.clamp(terms - 1, min=0) * 2.0 ** -24 * abs_sum
+    diff = (parts.tables[0].double() - whole.tables[0].double()).abs()
+    diff = diff.flatten()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"sketch_buckets: round 1's table off by "
+                             f"{float(diff.max())} beyond the bound")
+    share = float((diff / bound.clamp(min=1e-45)).max())
+    print(f"offload parity sketch vs sketch_buckets: round 1 loss "
+          f"{ra[0]['loss']:.6f} bitwise, its table within the association "
+          f"bound (largest difference {float(diff.max()):.3e}, its largest "
+          f"share of the bound {share:.4f}, {int((diff != 0).sum())} of "
+          f"{diff.numel()} cells differ), bytes equal", flush=True)
+    del a, b, whole, parts
+    torch.cuda.empty_cache()
 
 
 REFERENCE_CONFIGS = {
@@ -2383,12 +2722,16 @@ def phase_gpt2_path(tmpdir, name, profile=False):
             or not bool(torch.isfinite(w).all()) \
             or not math.isfinite(row["nll"]):
         raise AssertionError(f"{name}: non-finite loss, weights or val nll")
-    if any(r["upload_bytes"] != GPT2_WORKERS * 4 * TABLE_FLOATS
+    if any(r["upload_bytes"] != GPT2_WORKERS * GPT2_UPLOAD[name]
            for r in rounds):
         raise AssertionError(f"{name}: upload bytes "
                              f"{[r['upload_bytes'] for r in rounds]} are "
-                             f"not {4 * TABLE_FLOATS} per client x "
+                             f"not {GPT2_UPLOAD[name]} per client x "
                              f"{GPT2_WORKERS}")
+    if learner.host_store is not None:
+        print(f"path {name}: host arenas {learner.host_store.nbytes()} B "
+              f"for {learner.host_store.num_rows} clients, pipeline "
+              f"{learner._offload_pipe.stats}", flush=True)
     fused = learner.model.config.fused_lm_head
     if fused != (args.max_seq_len >= 512):
         raise AssertionError(f"{name}: fused LM head {fused} at T "
@@ -2863,6 +3206,7 @@ def main() -> int:
     for name in PATHS:
         for kernel, n in phase_path(name).items():
             launches[kernel] = launches.get(kernel, 0) + n
+    phase_offload_parity()
     phase_repeat(dev)
     phase_reference(dev)
     phase_flash_parity(dev, errs)

@@ -2,10 +2,10 @@
 
 Same field names, ``finalize``, ``grad_dim``, ``sketch_cols``,
 ``transmit_shape``, ``upload_floats_per_client`` and client-state
-predicates as the reference, cut to the CV round's five modes.
-``validate`` keeps the reference's checks that apply here and refuses,
-with NotImplementedError naming the ROADMAP item, every feature the port
-does not run yet.
+predicates as the reference, cut to the fields the ported round reads.
+``validate`` keeps the reference's checks that apply here, with its
+messages, and refuses ``--topk_approx_recall`` with NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,6 +33,9 @@ class FedConfig:
     data, model and schedule flags stay on the CLI's ``args``)."""
 
     mode: str = "sketch"
+    # seeds the --client_k_dist budgets and the sketched client codec's
+    # hashes (the reference's ``FedConfig.seed``)
+    seed: int = 21
     do_batchnorm: bool = False
     nan_threshold: float = 999.0
 
@@ -67,7 +70,18 @@ class FedConfig:
     num_workers: int = 1
     local_batch_size: int = 8  # -1 => each client's whole dataset per round
     microbatch_size: int = -1
+    # per-client rows in host arenas, only the W sampled rows on the
+    # device a round (federated/client_store.HostArenaStore,
+    # api.HostOffloadPipeline)
+    client_state_offload: bool = False
+    # the rows' representation: dense (d,), sparse (cap = k index/value
+    # pairs) or sketched (a per-client (r, c) global CountSketch)
     client_state: str = "dense"
+    client_sketch_rows: int = 3
+    client_sketch_cols: int = 128
+    # rounds of output rows the offload pipeline keeps pending before it
+    # writes them back to the arenas (2 = double buffering)
+    offload_pipeline_depth: int = 2
 
     # differential privacy: each client's gradient is clipped to
     # l2_norm_clip; 'worker' adds noise_multiplier * sqrt(W) * N(0, 1) on
@@ -110,17 +124,67 @@ class FedConfig:
         if self.sketch_scheme not in ("tiled", "global"):
             raise ValueError("sketch_scheme must be 'tiled' or 'global', "
                              f"got {self.sketch_scheme!r}")
+        if self.offload_pipeline_depth < 1:
+            raise ValueError("offload_pipeline_depth must be >= 1, got "
+                             f"{self.offload_pipeline_depth}")
+        # reference config.py:301-320, 394-433, 450-459
         if self.client_state not in CLIENT_STATE_REPS:
             raise ValueError(f"client_state must be one of "
                              f"{CLIENT_STATE_REPS}, got {self.client_state!r}")
+        if self.client_state == "sparse":
+            if self.mode != "local_topk":
+                raise ValueError(
+                    "client_state='sparse' stores local_topk residual rows "
+                    "as (k,) index/value pairs; mode "
+                    f"{self.mode!r} keeps no k-sparse client rows")
+            if self.do_topk_down:
+                raise ValueError(
+                    "client_state='sparse' cannot represent topk_down "
+                    "stale-weight rows (dense by construction); drop "
+                    "--topk_down or use client_state='dense'")
+        if self.client_state == "sketched":
+            if self.error_type != "local":
+                raise ValueError(
+                    "client_state='sketched' sketches per-client error "
+                    f"rows; error_type {self.error_type!r} keeps no "
+                    "per-client error state")
+            if self.local_momentum > 0 and self.mode != "sketch":
+                raise ValueError(
+                    "client_state='sketched' cannot carry local momentum "
+                    "rows (momentum factor masking needs the exact "
+                    "support); set local_momentum 0 or use "
+                    "client_state='dense'")
+            if self.do_topk_down:
+                raise ValueError(
+                    "client_state='sketched' cannot represent topk_down "
+                    "stale-weight rows; drop --topk_down or use "
+                    "client_state='dense'")
+            if self.client_sketch_rows < 1 or self.client_sketch_cols < 1:
+                raise ValueError(
+                    "client_state='sketched' needs client_sketch_rows >= 1 "
+                    "and client_sketch_cols >= 1, got "
+                    f"({self.client_sketch_rows}, {self.client_sketch_cols})")
         if self.grad_buckets < 1:
             raise ValueError("grad_buckets must be >= 1, got "
                              f"{self.grad_buckets}")
-        if self.client_k_dist and self.mode != "local_topk":
+        if self.grad_buckets > 1 and self.mode == "sketch" and (
+                self.do_dp or self.max_grad_norm is not None):
             raise ValueError(
-                "--client_k_dist draws a per-client transmit budget k_i <= "
-                f"k, which only mode='local_topk' spends (got mode="
-                f"{self.mode!r})")
+                "grad_buckets > 1 requires a dense transmit; with "
+                "mode='sketch' under DP or gradient clipping each "
+                "worker transmits an already-compressed (r, c) table, "
+                "so there is nothing left to bucket")
+        if self.client_k_dist:
+            if self.mode != "local_topk":
+                raise ValueError(
+                    "--client_k_dist draws a per-client transmit budget "
+                    "k_i <= k, which only mode='local_topk' spends (got "
+                    f"mode={self.mode!r}); sketch capacity heterogeneity "
+                    "is a different axis and is not implemented")
+            # fail at validate() time, not first-round time
+            from commefficient_tpu_torch.federated.faults import \
+                parse_k_dist
+            parse_k_dist(self.client_k_dist)
         # parse-time invariants, reference utils.py:225-228
         if self.mode == "fedavg":
             if self.local_batch_size != -1:
@@ -143,17 +207,8 @@ class FedConfig:
             raise ValueError("local_topk supports error_type in {none, local}")
         if self.mode == "true_topk" and self.error_type != "virtual":
             raise ValueError("true_topk requires error_type == 'virtual'")
-        # what the port does not run yet
-        for what, on, item in (
-                ("--client_k_dist", bool(self.client_k_dist), "A9"),
-                ("--topk_approx_recall", self.topk_approx_recall > 0, "A2"),
-                (f"--client_state {self.client_state}",
-                 self.client_state != "dense", "A9"),
-                ("--grad_buckets", self.grad_buckets > 1, "A9"),
-                ("--sketch_scheme global", self.sketch_scheme != "tiled",
-                 "A1")):
-            if on:
-                _todo(what, item)
+        if self.topk_approx_recall > 0:
+            _todo("--topk_approx_recall", "A2")
 
     # --- per-client state -------------------------------------------------
     @property
@@ -169,6 +224,12 @@ class FedConfig:
         """``--topk_down``: each client keeps the stale weights it last
         reconstructed."""
         return self.do_topk_down
+
+    @property
+    def client_k_active(self) -> bool:
+        """Whether the round takes per-client budgets (validate()
+        guarantees local_topk when set)."""
+        return bool(self.client_k_dist)
 
     @property
     def has_client_state(self) -> bool:

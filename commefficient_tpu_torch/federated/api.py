@@ -1,6 +1,6 @@
-"""High-level federated training API (port of ``FedLearner`` in
-``commefficient_tpu/federated/api.py``; mesh, host offload, scanned
-rounds and pipelines are ROADMAP.md A7/A9/A12).
+"""High-level federated training API (port of ``FedLearner`` and
+``HostOffloadPipeline`` in ``commefficient_tpu/federated/api.py``; mesh,
+scanned rounds and ``RoundPipeline`` are ROADMAP.md A7b/A12).
 
     learner = FedLearner(model, cfg, loss_train, loss_val, device="cuda")
     metrics = learner.train_round(client_ids, batch, mask)   # one fed round
@@ -10,7 +10,24 @@ The model's current parameters are the initial weights; the learner
 keeps them as one flat vector in the reference's coordinates
 (utils/params.py) and runs the model functionally on views of it. Its
 ``state`` carries the server's momentum and error and, in the modes that
-keep them, the clients' rows (``state.clients``).
+keep them, the clients' rows (``state.clients``) in the ``--client_state``
+codec's encoding; under ``--client_state_offload`` the rows live in host
+arenas instead (``host_store``, ``host_clients``) and a
+``HostOffloadPipeline`` moves the sampled ones.
+
+``train_round_async`` dispatches a round and returns its metrics as
+device tensors, ``finalize_round_metrics`` reads them on the host;
+``train_round`` is both, then ``flush_offload``. A loop that passes the
+next round's ids (``next_client_ids``) lets the pipeline gather them
+while this round computes.
+
+``--grad_buckets``: the learner plans the buckets at parameter leaf
+boundaries in the flat vector's order (``state.make_grad_buckets``),
+aligned to the tiled sketch's 128-lane blocks in sketch mode.
+
+``--client_k_dist``: each round's (W,) budgets are drawn on the host from
+the keyed Philox stream (``faults.cohort_client_ks``, memoized per
+client) and passed to the round as one device tensor.
 
 Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
 (the reference's round rng) and draws one seed from it per round.
@@ -24,16 +41,26 @@ do a scalar lr.
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 from commefficient_tpu_torch.config import FedConfig
+from commefficient_tpu_torch.federated.client_store import (HostArenaStore,
+                                                            make_codec)
+from commefficient_tpu_torch.federated.faults import cohort_client_ks
 from commefficient_tpu_torch.federated.round import (FedState,
                                                      build_eval_step,
                                                      build_round_step,
                                                      init_fed_state)
+from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
+                                                     ClientState,
+                                                     make_grad_buckets)
+from commefficient_tpu_torch.ops.countsketch import LANES
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.params import flatten_params
 
@@ -49,7 +76,27 @@ class FedLearner:
         flat, self.unflatten = flatten_params(self.model)
         self.cfg = cfg.finalize(flat.shape[0])
         self.state: FedState = init_fed_state(self.cfg, flat)
-        self._round = build_round_step(loss_train, self.unflatten, self.cfg)
+        self.codec = make_codec(self.cfg)
+        self._offload = (self.cfg.client_state_offload
+                         and self.cfg.has_client_state)
+        self.host_store = self.host_clients = self._offload_pipe = None
+        if self._offload:
+            # --topk_down's stale weights start at the initial weights
+            fill = (flat.detach().cpu() if self.cfg.needs_client_weights
+                    else None)
+            self.host_store = HostArenaStore(self.cfg, self.codec,
+                                             flat_weights=fill)
+            self.host_clients = {f: self.host_store.view(f)
+                                 for f in CLIENT_STATE_FIELDS}
+            self._offload_pipe = HostOffloadPipeline(
+                self, depth=self.cfg.offload_pipeline_depth)
+        self.grad_buckets = make_grad_buckets(
+            [t.numel() for t in self.unflatten(flat).values()],
+            self.cfg.grad_dim, self.cfg.grad_buckets,
+            align=LANES if (self.cfg.mode == "sketch"
+                            and self.cfg.sketch_scheme == "tiled") else 1)
+        self._round = build_round_step(loss_train, self.unflatten, self.cfg,
+                                       buckets=self.grad_buckets)
         self._eval = build_eval_step(loss_val or loss_train, self.unflatten)
         self.lr_schedule = lr_schedule or (lambda t: cfg.lr_scale)
         if callable(lr_scale_vec):
@@ -62,6 +109,7 @@ class FedLearner:
                     f"lr_scale_vec must have shape ({self.cfg.grad_size},), "
                     f"got {tuple(lr_scale_vec.shape)}")
         self.lr_scale_vec = lr_scale_vec
+        self._client_k_memo = {}
         self.rounds_done = 0
         self.total_download_bytes = 0.0
         self.total_upload_bytes = 0.0
@@ -72,19 +120,62 @@ class FedLearner:
     def _to_device(self, x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
-    def train_round(self, client_ids, batch, mask, epoch_frac=None):
-        """Run one federated round and return its host metrics."""
+    def _client_ks(self, client_ids) -> torch.Tensor:
+        """The cohort's (W,) ``--client_k_dist`` budgets as one device
+        tensor (a pure function of (cfg.seed, client), memoized)."""
+        return self._to_device(cohort_client_ks(
+            self.cfg.seed, np.asarray(client_ids), self.cfg.k,
+            self.cfg.client_k_dist, memo=self._client_k_memo), torch.int64)
+
+    def flush_offload(self):
+        """Drain the offload pipeline: every pending writeback lands in
+        the arenas and the gather-ahead buffer is dropped. No-op off the
+        offload path. ``train_round`` calls it, so a synchronous caller
+        always sees current ``host_clients``; a loop calls it at every
+        epoch's end and before an abort returns."""
+        if self._offload_pipe is not None:
+            self._offload_pipe.flush_all()
+
+    def train_round_async(self, client_ids, batch, mask, epoch_frac=None,
+                          next_client_ids=None):
+        """Dispatch one round and return its metrics as device tensors
+        (read them with ``finalize_round_metrics``). ``next_client_ids``:
+        the next round's ids, whose rows the offload pipeline then gathers
+        while this round computes (ignored off the offload path)."""
         lr = self.lr_at(self.rounds_done if epoch_frac is None
                         else epoch_frac)
         seed = int(torch.randint(0, 2 ** 62, (1,),
                                  generator=self.generator))
         # the reference's lr_in: float32(lr) times the vector, rounded once
         lr_in = lr if self.lr_scale_vec is None else lr * self.lr_scale_vec
-        self.state, raw = self._round(
-            self.state, self._to_device(client_ids, torch.int32),
-            tuple(self._to_device(c) for c in batch),
-            self._to_device(mask, torch.float32), lr_in, seed)
+        args = (self._to_device(client_ids, torch.int32),
+                tuple(self._to_device(c) for c in batch),
+                self._to_device(mask, torch.float32), lr_in, seed)
+        ks = (self._client_ks(client_ids) if self.cfg.client_k_active
+              else None)
+        if self._offload:
+            ids_np = np.asarray(client_ids).astype(np.int64)
+            rows = self._offload_pipe.gather(ids_np)
+            self.state, out_rows, raw = self._round(
+                self.state, *args, rows=rows, client_ks=ks)
+            self._offload_pipe.push(ids_np, np.asarray(mask).any(axis=1),
+                                    out_rows)
+            if next_client_ids is not None:
+                self._offload_pipe.prefetch(
+                    np.asarray(next_client_ids).astype(np.int64))
+        else:
+            self.state, raw = self._round(self.state, *args, client_ks=ks)
         self.rounds_done += 1
+        raw["lr"] = lr
+        return raw
+
+    def finalize_round_metrics(self, raw):
+        """Read one round's device metrics on the host and add its bytes
+        to the totals."""
+        if "lr" not in raw:
+            raise ValueError("round metrics were already finalized "
+                             "(finalize_round_metrics consumes its input)")
+        lr = raw.pop("lr")
         n = max(float(raw["num_datapoints"]), 1.0)
         out = {
             "loss": float(raw["loss_sum"]) / n,
@@ -98,6 +189,15 @@ class FedLearner:
         }
         self.total_download_bytes += out["download_bytes"]
         self.total_upload_bytes += out["upload_bytes"]
+        return out
+
+    def train_round(self, client_ids, batch, mask, epoch_frac=None):
+        """Run one federated round and return its host metrics; offloaded
+        rows are flushed to the arenas after it."""
+        out = self.finalize_round_metrics(
+            self.train_round_async(client_ids, batch, mask,
+                                   epoch_frac=epoch_frac))
+        self.flush_offload()
         return out
 
     def evaluate(self, batches: Iterable):
@@ -117,3 +217,228 @@ class FedLearner:
                 "metrics": (metric_sums if metric_sums is not None
                             else np.zeros(1)) / n,
                 "num_datapoints": n, "num_batches": num_batches}
+
+
+class HostOffloadPipeline:
+    """Gather-ahead and lazy writeback of host-offloaded client rows.
+
+    The rows live in the learner's ``HostArenaStore`` in the run's codec
+    encoding, and cross to the device encoded; the round decodes and
+    encodes them there (``client_store.py``).
+
+    * gather-ahead: with the next round's ids (``prefetch``), their rows
+      are stacked into a pinned staging buffer and copied to the device on
+      a side stream while the current round computes; the compute stream
+      waits on the copy's event before it reads them.
+    * lazy writeback: a round's output rows wait in a queue of at most
+      ``depth`` rounds as device tensors, and are copied back (on the side
+      stream, into a pinned buffer, then into the arenas) when the queue
+      overflows or ``flush_all`` runs.
+
+    A gather resolves each id against the queue newest-first before the
+    arena, so a round sees the latest value of every row whenever its
+    writeback lands; the queue holds encoded rows, what the arena will
+    hold, so a flush never changes what a gather sees. The round returns
+    the input encoding for padded and guarded slots, and padded slots are
+    never written back. ``stats`` counts gathers, gather-ahead hits and
+    rows read from the queue, and the host seconds of gathers and
+    writebacks.
+
+    Copy-stream hazards: the arena stays pageable and only the
+    ``(W, row)`` staging buffers are pinned (pinning gigabytes costs
+    seconds); a staging buffer is rewritten only after the event of its
+    last copy; a tensor made on the side stream and read on the compute
+    stream (and the reverse) is ``record_stream``-ed so that the caching
+    allocator does not hand out its memory early."""
+
+    def __init__(self, learner: FedLearner, depth: int = 2):
+        if int(depth) < 1:
+            raise ValueError(f"offload_pipeline_depth must be >= 1, got "
+                             f"{depth}")
+        self.learner = learner
+        self.depth = int(depth)
+        self.device = learner.device
+        self._cuda = self.device.type == "cuda"
+        self._copy_stream = (torch.cuda.Stream(device=self.device)
+                             if self._cuda else None)
+        self._pending = deque()   # (ids_np, valid_np, out_rows, event)
+        self._prefetched = None   # (ids key, rows ClientState)
+        self._pushes = 0          # pending-queue generation counter
+        self._prefetch_gen = -1
+        # pinned staging: two for gathers (the one of the gather-ahead may
+        # still be in flight while the next is built), one for writebacks,
+        # pinned here rather than in the middle of a round
+        self._staging = {}
+        self._staging_events = {}
+        self._gather_slot = 0
+        if self._cuda:
+            W = learner.cfg.num_workers
+            for field in CLIENT_STATE_FIELDS:
+                if learner.host_store.view(field) is not None:
+                    for slot in (0, 1, "flush"):
+                        self._staging_for((field, slot, W))
+        self.stats = {"gathers": 0, "prefetch_hits": 0,
+                      "rows_from_pending": 0, "flushed_rounds": 0,
+                      "gather_s": 0.0, "scatter_s": 0.0}
+
+    # --- staging ---------------------------------------------------------
+    def _staging_for(self, key):
+        """A host tree shaped like ``W`` encoded rows of ``field``, for
+        ``key = (field, slot, W)``: pinned and reused on CUDA, once the
+        event of its last copy has passed; fresh tensors on the CPU, where
+        the round reads it directly."""
+        field, _, W = key
+        proto = self.learner.host_store.arena(field)
+
+        def alloc(a):
+            return torch.empty((W,) + tuple(a.shape[1:]), dtype=a.dtype,
+                               pin_memory=self._cuda)
+        if not self._cuda:
+            return tree_map(alloc, proto)
+        if key not in self._staging:
+            self._staging[key] = tree_map(alloc, proto)
+        event = self._staging_events.pop(key, None)
+        if event is not None:
+            event.synchronize()
+        return self._staging[key]
+
+    # --- gather side -----------------------------------------------------
+    def _pending_row(self, field: str, cid: int):
+        """The newest not-yet-written output row of client ``cid`` as
+        (device tree, slot), or None. Within a round the last valid slot
+        wins, as in the ascending-slot writeback."""
+        for ids_np, valid, out, _ in reversed(self._pending):
+            if getattr(out, field) is None:
+                continue
+            for w in range(len(ids_np) - 1, -1, -1):
+                if valid[w] and ids_np[w] == cid:
+                    return getattr(out, field), w
+        return None
+
+    def _build_gather(self, ids_np):
+        """The sampled clients' encoded rows, W-leading, on the device.
+        Out-of-range ids (padded slots) clamp, as a device gather would;
+        their rows are inert (zero mask)."""
+        store = self.learner.host_store
+        t0 = time.perf_counter()
+        slot = self._gather_slot
+        self._gather_slot ^= 1
+        W = len(ids_np)
+        fields = {}
+        for field in CLIENT_STATE_FIELDS:
+            if store.view(field) is None:
+                fields[field] = None
+                continue
+            cids = [int(np.clip(i, 0, store.num_rows - 1)) for i in ids_np]
+            hits = {}
+            key = (field, slot, W)
+            host = self._staging_for(key)
+            for w, cid in enumerate(cids):
+                hit = self._pending_row(field, cid)
+                if hit is not None:
+                    hits[w] = hit
+                    self.stats["rows_from_pending"] += 1
+                    continue
+                tree_map(lambda o, r: o[w].copy_(r), host,
+                         store.row(field, cid))
+            rows = self._to_device(host, key)
+            for w, (tree, src) in hits.items():
+                tree_map(lambda o, p: o[w].copy_(p[src]), rows, tree)
+            fields[field] = rows
+        self.stats["gathers"] += 1
+        self.stats["gather_s"] += time.perf_counter() - t0
+        return ClientState(**fields)
+
+    def _to_device(self, host, key):
+        """``host`` (a staging tree) on the device, copied on the side
+        stream; the compute stream waits for the copy."""
+        if not self._cuda:
+            return host
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            rows = tree_map(lambda a: a.to(self.device, non_blocking=True),
+                            host)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        self._staging_events[key] = done
+        compute.wait_event(done)
+        # made on the side stream, read on the compute stream
+        tree_map(lambda a: a.record_stream(compute), rows)
+        return rows
+
+    def gather(self, ids_np):
+        """Rows for a round about to run: the gather-ahead buffer if it
+        matches (same ids, no round pushed since it was built), else a
+        fresh gather."""
+        if self._prefetched is not None:
+            key, rows = self._prefetched
+            self._prefetched = None
+            if (key == tuple(int(i) for i in ids_np)
+                    and self._prefetch_gen == self._pushes):
+                self.stats["prefetch_hits"] += 1
+                return rows
+        return self._build_gather(ids_np)
+
+    def prefetch(self, ids_np):
+        """Gather the next round's rows now: their copies overlap the
+        current round's compute."""
+        self._prefetched = (tuple(int(i) for i in ids_np),
+                            self._build_gather(ids_np))
+        self._prefetch_gen = self._pushes
+
+    # --- scatter side ----------------------------------------------------
+    def push(self, ids_np, valid, out_rows: ClientState):
+        """Queue a finished round's output rows for lazy writeback."""
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._pending.append((np.asarray(ids_np), np.asarray(valid),
+                              out_rows, event))
+        self._pushes += 1
+        while len(self._pending) > self.depth:
+            self._flush_one()
+
+    def _to_host(self, rows, event, field: str):
+        """A device tree's values on the host: on CUDA copied on the side
+        stream, after the round that made it, into pinned staging."""
+        if not self._cuda:
+            return rows
+        host = self._staging_for((field, "flush", _slots(rows)))
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(event)
+            tree_map(lambda h, d: h.copy_(d, non_blocking=True), host, rows)
+            # made on the compute stream, read on the side stream
+            tree_map(lambda d: d.record_stream(self._copy_stream), rows)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        done.synchronize()
+        return host
+
+    def _flush_one(self):
+        store = self.learner.host_store
+        t0 = time.perf_counter()
+        ids_np, valid, out, event = self._pending.popleft()
+        for field in CLIENT_STATE_FIELDS:
+            new = getattr(out, field)
+            if store.view(field) is None or new is None:
+                continue
+            host = self._to_host(new, event, field)
+            for w, cid in enumerate(ids_np):
+                if valid[w] and 0 <= cid < store.num_rows:
+                    store.set_row(field, int(cid),
+                                  tree_map(lambda a: a[w], host))
+        self.stats["flushed_rounds"] += 1
+        self.stats["scatter_s"] += time.perf_counter() - t0
+
+    def flush_all(self):
+        """Apply every pending writeback and drop the gather-ahead
+        buffer."""
+        while self._pending:
+            self._flush_one()
+        self._prefetched = None
+
+
+def _slots(tree) -> int:
+    """The leading (slot) extent of an encoded row tree."""
+    return tree_leaves(tree)[0].shape[0]

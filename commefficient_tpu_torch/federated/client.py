@@ -34,7 +34,6 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.ops.countsketch import CountSketch
 from commefficient_tpu_torch.ops.dropout import fold_in
-from commefficient_tpu_torch.ops.sketch_kernels import sketch_vec_batched
 from commefficient_tpu_torch.ops.topk import topk
 
 #: fold-in domain of the worker DP noise seed under a client's (or a
@@ -189,10 +188,10 @@ def finish_gradients(grads: torch.Tensor, forward_weights: torch.Tensor,
 
 def sketch_and_clip(grads: torch.Tensor, cfg: FedConfig,
                     sketch: CountSketch) -> torch.Tensor:
-    """The W clients' (W, r, c_eff) sketches in one batched launch, each
+    """The W clients' (W, r, c_eff) sketches in one batched call, each
     scaled down to ``max_grad_norm`` where its ``l2estimate`` exceeds it
     (reference ``client.py:165-178``)."""
-    tables = sketch_vec_batched(sketch, grads)
+    tables = sketch.sketch_rows(grads)
     if cfg.max_grad_norm is not None:
         scale = _clip_scale(sketch.l2estimate(tables), cfg.max_grad_norm)
         tables = tables * scale[:, None, None]
@@ -223,8 +222,8 @@ def reconstruct_worker_weights(ps_weights: torch.Tensor,
 def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
                 error, cfg: FedConfig, seeds=None,
                 sketch: CountSketch = None,
-                stale_weights: Optional[torch.Tensor] = None
-                ) -> ClientStepOut:
+                stale_weights: Optional[torch.Tensor] = None,
+                client_ks: Optional[torch.Tensor] = None) -> ClientStepOut:
     """The local step of the round's W non-fedavg clients: ``batch`` is a
     tuple of ``(W, B, ...)`` tensors, ``mask`` ``(W, B)``, ``velocity``,
     ``error`` and (``--topk_down``) ``stale_weights`` the clients'
@@ -232,7 +231,11 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
     and DP noise (None: none drawn). With a ``sketch`` (sketch mode under
     a per-worker nonlinearity) every client transmits its own (r, c_eff)
     table. Under ``--topk_down`` client w computes at its reconstructed
-    weights, which become its new stale row (``client_weights``)."""
+    weights, which become its new stale row (``client_weights``).
+    ``client_ks`` (``--client_k_dist``, a (W,) device tensor) are the
+    clients' own budgets k_i <= k: each keeps the first k_i slots of its
+    top-k selection in one per-row launch, and the coordinates past its
+    budget stay in its error row."""
     W = mask.shape[0]
     seeds = [None] * W if seeds is None else seeds
     if cfg.do_topk_down:
@@ -263,7 +266,7 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
         to_transmit = carrier
 
     if cfg.mode == "local_topk":
-        to_transmit = topk(to_transmit, cfg.k)
+        to_transmit = topk(to_transmit, cfg.k, row_k=client_ks)
         support = to_transmit != 0
         if cfg.error_type == "local":
             error = torch.where(support, 0.0, error)       # error feedback

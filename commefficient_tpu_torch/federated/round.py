@@ -22,6 +22,22 @@ Two paths, as in the reference:
   top-k of the difference, which become its new stale row; the client
   rows go back by scatter.
 
+Client rows cross the round boundary through the ``--client_state``
+codec (``federated/client_store.py``): decoded on gather, encoded on
+scatter. Under ``--client_state_offload`` the state keeps no rows: the
+round takes the W sampled clients' encoded rows as an argument and
+returns their new encodings, a frozen slot (padded, or in a guarded
+round) its input encoding bitwise, for the host pipeline to write back.
+Under ``--client_k_dist`` the local top-k takes each client's budget.
+
+``--grad_buckets`` (a ``GradBuckets`` plan) builds the aggregate bucket
+by bucket: dense modes slice the transmit's reduce at the bucket edges
+and join the chunks by concatenation (bitwise the unbucketed
+aggregate); a sketch-after-aggregate round sketches each chunk at its
+offset and adds the tables in bucket order (equal to the monolithic
+table up to float32 association at the bucket edges). A per-worker
+sketched transmit is a table already, with nothing to bucket.
+
 Then the server update, the sticky NaN guard (a select, so a NaN update
 cannot leak into the weights), the per-coordinate ``last_changed`` round
 and the exact upload/download byte metrics, all on the device with no
@@ -31,18 +47,19 @@ host sync.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.federated import client as client_lib
 from commefficient_tpu_torch.federated.client_store import (
-    gather_rows, init_client_storage, scatter_rows)
+    gather_rows, init_client_storage, make_codec, scatter_rows, select_rows)
 from commefficient_tpu_torch.federated.server import (init_server_opt_state,
                                                       make_sketch,
                                                       server_update)
 from commefficient_tpu_torch.federated.state import (ClientState,
+                                                     GradBuckets,
                                                      ServerOptState)
 from commefficient_tpu_torch.ops.dropout import fold_in
 
@@ -57,7 +74,7 @@ class FedState:
     quarantine or buffer)."""
     weights: torch.Tensor            # (d,) f32
     opt: ServerOptState              # virtual momentum / error
-    clients: ClientState             # (num_clients + 1, d) rows
+    clients: ClientState             # (num_clients + 1, ...) encoded rows
     round_idx: torch.Tensor          # () int32
     last_changed: torch.Tensor       # (d,) int32: round each weight changed
     client_last_round: torch.Tensor  # (num_clients,) int32
@@ -69,10 +86,15 @@ def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
     if flat_weights.shape != (d,):
         raise ValueError(f"flat weights of shape {tuple(flat_weights.shape)}"
                          f", expected ({d},)")
+    if cfg.client_state_offload and cfg.has_client_state:
+        # the rows live in the learner's host arenas
+        clients = ClientState()
+    else:
+        clients = init_client_storage(cfg, make_codec(cfg), flat_weights)
     return FedState(
         weights=flat_weights.to(torch.float32),
         opt=init_server_opt_state(cfg, dev),
-        clients=init_client_storage(cfg, flat_weights),
+        clients=clients,
         round_idx=torch.zeros((), dtype=torch.int32, device=dev),
         # -2 = "never changed": below the -1 "never participated" sentinel
         last_changed=torch.full((d,), -2, dtype=torch.int32, device=dev),
@@ -107,15 +129,19 @@ def fused_clients_eligible(cfg: FedConfig) -> bool:
 
 
 def build_round_step(apply_loss: Callable, unflatten: Callable,
-                     cfg: FedConfig) -> Callable:
+                     cfg: FedConfig,
+                     buckets: Optional[GradBuckets] = None) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
-    lr, seed) -> (FedState, metrics)``, every tensor on the state's
-    device; ``lr`` is a float or a (d,) float32 tensor of per-coordinate
-    rates. The fused path draws its dropout from ``seed``; in the
-    per-worker path client ``c`` draws from ``fold_in(seed, c)``, as the
-    reference folds the client id into the round's rng. The server's DP
-    noise draws from ``fold_in(seed, SERVER_NOISE_FOLD)``, the
-    reference's ``noise_rng``."""
+    lr, seed, rows=None, client_ks=None) -> (FedState, metrics)``, every
+    tensor on the state's device; ``lr`` is a float or a (d,) float32
+    tensor of per-coordinate rates. Under ``--client_state_offload``
+    ``rows`` is the W clients' encoded ``ClientState`` and the step
+    returns ``(FedState, out_rows, metrics)``; ``client_ks`` is the (W,)
+    device tensor of ``--client_k_dist`` budgets. The fused path draws its
+    dropout from ``seed``; in the per-worker path client ``c`` draws from
+    ``fold_in(seed, c)``, as the reference folds the client id into the
+    round's rng. The server's DP noise draws from ``fold_in(seed,
+    SERVER_NOISE_FOLD)``, the reference's ``noise_rng``."""
     cfg.validate()
     sketch = make_sketch(cfg) if cfg.mode == "sketch" else None
     is_fedavg = cfg.mode == "fedavg"
@@ -125,6 +151,31 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
     # between; then each client sketches its own gradient
     client_sketch = (sketch if cfg.do_dp or cfg.max_grad_norm is not None
                      else None)
+    sketch_after_aggregate = sketch is not None and client_sketch is None
+    codec = make_codec(cfg)
+    offload = cfg.client_state_offload and cfg.has_client_state
+    bucketed = (buckets is not None and buckets.num_buckets > 1
+                and (cfg.mode != "sketch" or sketch_after_aggregate))
+    if bucketed and sum(buckets.sizes) != cfg.grad_dim:
+        raise ValueError(f"GradBuckets plan covers {sum(buckets.sizes)} "
+                         f"coordinates, round has {cfg.grad_dim}")
+
+    def compress(chunk_of):
+        """The round's aggregate from ``chunk_of(offset, size)``, the
+        aggregated (size,) slice: the whole vector, sketched once in
+        sketch mode; or bucket by bucket, the chunks joined by
+        concatenation (dense) or their tables added in bucket order."""
+        if not bucketed:
+            agg = chunk_of(0, cfg.grad_dim)
+            return sketch.sketch_vec(agg) if sketch_after_aggregate else agg
+        chunks = [chunk_of(o, n)
+                  for o, n in zip(buckets.offsets, buckets.sizes)]
+        if not sketch_after_aggregate:
+            return torch.cat(chunks)
+        table = sketch.sketch_range(chunks[0], buckets.offsets[0])
+        for off, chunk in zip(buckets.offsets[1:], chunks[1:]):
+            table = table + sketch.sketch_range(chunk, off)
+        return table
 
     def fused_step(w, batch, mask, seed):
         flat_cols = tuple(c.reshape((-1,) + tuple(c.shape[2:]))
@@ -138,10 +189,23 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             # each valid worker adds (wd/W)*w scaled by its datapoints
             grad_sum = grad_sum + (cfg.weight_decay / cfg.num_workers) \
                 * w * total_n
-        agg = grad_sum / torch.clamp(total_n, min=1.0)
+        denom = torch.clamp(total_n, min=1.0)
+        agg = compress(lambda o, n: grad_sum[o:o + n] / denom)
         return agg, loss_total, metric_totals, total_n
 
-    def per_worker_step(state, ids, batch, mask, valid_w, lr, seed):
+    def client_rows(state, ids, rows):
+        """The W clients' dense (velocity, error, stale weight) rows."""
+        if offload:
+            return tuple(None if enc is None else codec.decode_rows(enc)
+                         for enc in (rows.velocities, rows.errors,
+                                     rows.weights))
+        return tuple(gather_rows(storage, ids, codec)
+                     for storage in (state.clients.velocities,
+                                     state.clients.errors,
+                                     state.clients.weights))
+
+    def per_worker_step(state, ids, batch, mask, valid_w, lr, seed, rows,
+                        client_ks):
         w = state.weights
         # one host read of the W ids: the seeds are host ints
         seeds = [fold_in(seed, c) for c in ids.tolist()]
@@ -153,11 +217,10 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                                                   for x in zip(*outs))
             new_vels = new_errs = new_stale = None
         else:
+            vels, errs, stales = client_rows(state, ids, rows)
             out = client_lib.client_step(
-                apply_loss, unflatten, w, batch, mask,
-                gather_rows(state.clients.velocities, ids),
-                gather_rows(state.clients.errors, ids), cfg, seeds,
-                client_sketch, gather_rows(state.clients.weights, ids))
+                apply_loss, unflatten, w, batch, mask, vels, errs, cfg,
+                seeds, client_sketch, stales, client_ks=client_ks)
             transmit, loss_sum, metric_sums, n = (
                 out.transmit, out.loss_sum, out.metric_sums,
                 out.num_datapoints)
@@ -167,12 +230,19 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         # padded slots are zeroed: with local error feedback their
         # transmit would otherwise leak the aliased client's error row
         valid = valid_w.view((-1,) + (1,) * (transmit.dim() - 1))
-        agg = (torch.sum(transmit * valid, dim=0)
-               / torch.clamp(total_n, min=1.0))
+        denom = torch.clamp(total_n, min=1.0)
+        if client_sketch is not None:
+            agg = torch.sum(transmit * valid, dim=0) / denom
+        else:
+            agg = compress(lambda o, k: torch.sum(
+                transmit[:, o:o + k] * valid, dim=0) / denom)
         return (agg, torch.sum(loss_sum), torch.sum(metric_sums, dim=0),
                 total_n, new_vels, new_errs, new_stale)
 
-    def round_step(state: FedState, client_ids, batch, mask, lr, seed):
+    def round_step(state: FedState, client_ids, batch, mask, lr, seed,
+                   rows: Optional[ClientState] = None, client_ks=None):
+        if offload and rows is None:
+            raise ValueError("an offloaded round takes the clients' rows")
         w = state.weights
         ids = client_ids.long()
         num_clients = state.client_last_round.shape[0]
@@ -193,9 +263,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         else:
             (agg, loss_total, metric_totals, total_n, new_vels, new_errs,
              new_stale) = per_worker_step(state, ids, batch, mask, valid_w,
-                                          lr, seed)
-        if sketch is not None and client_sketch is None:
-            agg = sketch.sketch_vec(agg)
+                                          lr, seed, rows, client_ks)
 
         # in-round NaN guard: a breaching round and every round after it
         # leave weights, state and accounting untouched
@@ -220,13 +288,28 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             # momentum factor masking of the participating clients'
             # velocities at the global top-k support
             new_vels = torch.where((update != 0)[None, :], 0.0, new_vels)
-        clients = ClientState(
-            velocities=scatter_rows(state.clients.velocities, scatter_ids,
-                                    new_vels),
-            errors=scatter_rows(state.clients.errors, scatter_ids,
-                                new_errs),
-            weights=scatter_rows(state.clients.weights, scatter_ids,
-                                 new_stale))
+        new_rows = (new_vels, new_errs, new_stale)
+        if offload:
+            keep = valid_w & ok
+
+            def frozen(new_dense, old_enc):
+                # a frozen slot returns its input encoding bitwise
+                if old_enc is None or new_dense is None:
+                    return old_enc
+                return select_rows(keep, codec.encode_rows(new_dense),
+                                   old_enc)
+
+            out_rows = ClientState(*(
+                frozen(new, old) for new, old in zip(
+                    new_rows, (rows.velocities, rows.errors, rows.weights))))
+            clients = state.clients
+        else:
+            out_rows = None
+            clients = ClientState(*(
+                scatter_rows(storage, scatter_ids, new, codec)
+                for storage, new in zip(
+                    (state.clients.velocities, state.clients.errors,
+                     state.clients.weights), new_rows)))
 
         new_last_changed = torch.where(update != 0, state.round_idx,
                                        state.last_changed)
@@ -253,6 +336,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                              * torch.sum(valid_w.to(torch.float32)) * okf),
             "update_l2": torch.linalg.vector_norm(update),
         }
+        if offload:
+            return new_state, out_rows, metrics
         return new_state, metrics
 
     return round_step

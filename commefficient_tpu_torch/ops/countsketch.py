@@ -1,8 +1,10 @@
-"""CountSketch, tiled scheme (port of ``commefficient_tpu/ops/countsketch.py``).
+"""CountSketch, tiled and global schemes (port of
+``commefficient_tpu/ops/countsketch.py``).
 
-Coordinates are grouped into blocks of L=128; block ``b`` hashes to a
-128-wide window of columns and each coordinate to a lane of that window
-through a per-(row, block) XOR lane permutation:
+Tiled scheme (the default): coordinates are grouped into blocks of
+L=128; block ``b`` hashes to a 128-wide window of columns and each
+coordinate to a lane of that window through a per-(row, block) XOR lane
+permutation:
 
     bucket(i) = base(i // L) * L + (i % L) ^ lanemask(i // L)
 
@@ -22,6 +24,21 @@ estimates kernel of ``ops/sketch_kernels.py`` at batch 1.
 ``CountSketch.estimates`` is plain PyTorch, the plain version the
 estimate-reading kernels are held against; ``sketch_sparse`` is no TPU
 kernel, and sums its collisions through ``sketch_kernels.segment_sum``.
+
+Global scheme (``--sketch_scheme global``, and the sketched client
+codec): each coordinate hashes on its own, ``bucket(i) = mix(h5 * i +
+h6) mod c``, into an ``(r, c)`` table with no lane padding. No TPU kernel
+serves it in the reference (its ``use_kernel`` has no effect there): the
+dense sketch is XLA's ``segment_sum`` over every coordinate, the recovery
+the estimates followed by the exact top-k. Here the dense sketch is
+``sketch_sparse`` over every coordinate: the (row, bucket) keys of a
+coordinate range are sorted stably once (the plan is kept per range and
+device) and each run of equal keys is summed in coordinate order by the
+``segment_sum`` kernel, the reference's order, bitwise, on both devices.
+Float atomics (``index_add_`` on CUDA) would change that order from run
+to run. The recovery's top-k runs the per-row radix kernels of
+``ops/topk_kernels.py``. A global table has no windows, so it never
+builds ``kernel_tables``.
 """
 
 from __future__ import annotations
@@ -115,26 +132,30 @@ class KernelTables(NamedTuple):
 
 class CountSketch:
     """Stateless CountSketch over vectors of length ``d`` into
-    ``(r, c_eff)`` tables, ``c_eff`` = c rounded up to a multiple of 128."""
+    ``(r, c_eff)`` tables: ``c_eff`` = c rounded up to a multiple of 128
+    for the tiled scheme, c for the global scheme."""
 
     def __init__(self, d: int, c: int, r: int, seed: int = 42,
                  scheme: str = "tiled"):
-        if scheme != "tiled":
-            raise NotImplementedError(
-                f"sketch scheme {scheme!r} is not ported to PyTorch yet "
-                "(ROADMAP.md A1)")
+        if scheme not in ("tiled", "global"):
+            raise ValueError(f"scheme must be 'tiled' or 'global', "
+                             f"got {scheme!r}")
         self.d = int(d)
         self.c = int(c)
         self.r = int(r)
         self.seed = int(seed)
         self.scheme = scheme
         self.coeffs = _hash_coeffs(seed, r)
-        self.nblocks = -(-self.d // LANES)
-        self.d_pad = self.nblocks * LANES
-        self.c_eff = pad_cols(self.c)
-        self.nwindows = self.c_eff // LANES
+        if scheme == "tiled":
+            self.nblocks = -(-self.d // LANES)
+            self.d_pad = self.nblocks * LANES
+            self.c_eff = pad_cols(self.c)
+            self.nwindows = self.c_eff // LANES
+        else:
+            self.c_eff = self.c
         self._tables = {}
         self._coeff_columns = {}
+        self._plans = {}
 
     # --- hashing ----------------------------------------------------------
     # ``row=None`` hashes every row at once: the coefficients become (r, 1)
@@ -171,10 +192,15 @@ class CountSketch:
         return base, lanemask
 
     def _row_hashes(self, row, idx: torch.Tensor):
-        """(signs, flat buckets in [0, c_eff)) for coordinate ids."""
+        """(signs, flat buckets in [0, c_eff)) for coordinate ids, under
+        either scheme."""
         i = idx.to(torch.int64) & _MASK32
-        base, lanemask = self._block_hashes(row, i >> 7)
-        buckets = base * LANES + ((i & (LANES - 1)) ^ lanemask)
+        if self.scheme == "global":
+            _, _, _, _, h5, h6 = self._row_coeffs(row, idx.device)
+            buckets = _mix((_mul32(i, h5) + h6) & _MASK32) % self.c
+        else:
+            base, lanemask = self._block_hashes(row, i >> 7)
+            buckets = base * LANES + ((i & (LANES - 1)) ^ lanemask)
         return self._row_signs(row, i), buckets
 
     def kernel_tables(self, device) -> KernelTables:
@@ -187,6 +213,9 @@ class CountSketch:
         coordinate ``entry ^ l``. Blocks stay below 2**25 - 1, so an entry
         fits in uint32 and the kernel's all-ones sentinel is no entry."""
         device = torch.device(device)
+        if self.scheme != "tiled":
+            raise ValueError("a global sketch has no windows: its kernels "
+                             "are segment_sum and the per-row radix")
         if self.nblocks > 2 ** 25 - 1:
             raise ValueError(f"d = {self.d}: the kernels' packed entries "
                              "take at most 2**25 - 1 blocks (coordinates "
@@ -223,16 +252,64 @@ class CountSketch:
                      ) -> torch.Tensor:
         """Sketch the slice ``vec[offset : offset+len(chunk)]`` of a
         conceptual length-d vector into a full table (hashes keyed by
-        global coordinate and block ids). ``offset`` must be 128-aligned."""
+        global coordinate and block ids). The tiled scheme needs a
+        128-aligned ``offset``; the global scheme takes any."""
         from commefficient_tpu_torch.ops.sketch_kernels import sketch_vec
-        n = chunk.shape[0]
+        self._check_range(chunk.shape[-1], offset)
+        if self.scheme == "global":
+            return self._sketch_global(chunk[None], offset)[0]
+        return sketch_vec(self, chunk, block_offset=offset // LANES)
+
+    def sketch_rows(self, vecs: torch.Tensor, offset: int = 0
+                    ) -> torch.Tensor:
+        """(B, r, c_eff) tables of the B rows of ``vecs`` (B, n), each the
+        slice at ``offset``: the tiled scheme's batched sketch kernel in
+        one call, or the global scheme's sorted plan and one
+        ``segment_sum`` over every row."""
+        from commefficient_tpu_torch.ops.sketch_kernels import \
+            sketch_vec_batched
+        self._check_range(vecs.shape[-1], offset)
+        if self.scheme == "global":
+            return self._sketch_global(vecs, offset)
+        return sketch_vec_batched(self, vecs, block_offset=offset // LANES)
+
+    def _check_range(self, n: int, offset: int) -> None:
         if offset < 0 or offset + n > self.d:
             raise ValueError(f"slice [{offset}, {offset + n}) outside the "
                              f"sketch's coordinate space [0, {self.d})")
-        if offset % LANES:
+        if self.scheme == "tiled" and offset % LANES:
             raise ValueError(f"tiled sketch_range needs a {LANES}-aligned "
                              f"offset, got {offset}")
-        return sketch_vec(self, chunk, block_offset=offset // LANES)
+
+    def _dense_plan(self, offset: int, n: int, device):
+        """The global dense sketch of coordinates [offset, offset + n):
+        the flat (row, bucket) keys sorted stably, the coordinate and the
+        sign at each sorted position. Built once per (offset, n, device):
+        20 bytes a (row, coordinate)."""
+        key = (int(offset), int(n), torch.device(device))
+        if key not in self._plans:
+            idx = torch.arange(offset, offset + n, device=device)
+            signs, buckets = self._row_hashes(None, idx)
+            rows = torch.arange(self.r, device=device)[:, None]
+            keys, order = torch.sort((buckets + rows * self.c).flatten(),
+                                     stable=True)
+            self._plans[key] = (keys, order % n, signs.flatten()[order])
+        return self._plans[key]
+
+    def _sketch_global(self, vecs: torch.Tensor, offset: int
+                       ) -> torch.Tensor:
+        from commefficient_tpu_torch.ops.sketch_kernels import segment_sum
+        B, n = vecs.shape
+        keys, coord, signs = self._dense_plan(offset, n, vecs.device)
+        vals = (vecs[:, coord] * signs).flatten()
+        if B > 1:
+            # each row's table takes its own r * c keys, in row order
+            keys = (keys + torch.arange(B, device=vecs.device)[:, None]
+                    * (self.r * self.c)).flatten()
+        out = torch.zeros(B * self.r * self.c, dtype=torch.float32,
+                          device=vecs.device)
+        segment_sum(out, keys, vals)
+        return out.view(B, self.r, self.c)
 
     def sketch_sparse(self, values: torch.Tensor,
                       indices: torch.Tensor) -> torch.Tensor:
@@ -260,6 +337,8 @@ class CountSketch:
         """Median-of-rows estimates of all d coordinates (plain PyTorch;
         the fused unsketch kernel computes each once, per tile, into a
         scratch)."""
+        if self.scheme == "global":
+            return self.estimates_rows(table[None])[0]
         dev = table.device
         blk = torch.arange(self.nblocks, dtype=torch.int64, device=dev)
         lanes = torch.arange(LANES, dtype=torch.int64, device=dev)
@@ -272,8 +351,22 @@ class CountSketch:
             per_row.append(est.reshape(-1)[:self.d])
         return _median_small(per_row)
 
+    def estimates_rows(self, tables: torch.Tensor) -> torch.Tensor:
+        """(B, d) estimates of a (B, r, c) stack of global tables, the
+        hashes computed once for all B (the reference's ``table[row,
+        buckets] * signs`` and median, per table)."""
+        if self.scheme != "global":
+            raise ValueError("estimates_rows reads global tables")
+        idx = torch.arange(self.d, device=tables.device)
+        signs, buckets = self._row_hashes(None, idx)
+        return _median_small([tables[:, row][:, buckets[row]] * signs[row]
+                              for row in range(self.r)])
+
     def unsketch(self, table: torch.Tensor, k: int) -> torch.Tensor:
         """Recover the top-k coordinates (dense d-vector, zeros elsewhere)."""
+        if self.scheme == "global":
+            from commefficient_tpu_torch.ops.topk import topk
+            return topk(self.estimates(table), k)
         from commefficient_tpu_torch.ops.topk_kernels import unsketch_select
         masked, _ = unsketch_select(self, table, k)
         return masked
@@ -289,6 +382,12 @@ class CountSketch:
         kernel at batch 1 (as the reference's ``estimates_batched``), then
         the stable-sort top-k."""
         from commefficient_tpu_torch.ops import topk_kernels
+        if self.scheme == "global":
+            # no fused kernel: the estimates, then the exact top-k (the
+            # per-row radix at B = 1, or the stable sort when not fused)
+            from commefficient_tpu_torch.ops.topk import topk_values_indices
+            return topk_values_indices(self.estimates(table), k,
+                                       use_kernel=None if fused else False)
         if not fused:
             from commefficient_tpu_torch.ops.sketch_kernels import \
                 estimates_batched

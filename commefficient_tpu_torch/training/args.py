@@ -73,7 +73,17 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--iid", action="store_true", dest="do_iid")
     p.add_argument("--client_state", choices=("dense", "sparse", "sketched"),
                    default="dense")
-    p.add_argument("--client_k_dist", type=str, default="")
+    p.add_argument("--client_sketch_rows", type=int, default=3)
+    p.add_argument("--client_sketch_cols", type=int, default=128)
+    p.add_argument("--client_state_offload", action="store_true",
+                   help="keep the client rows in host memory and move only "
+                        "the sampled ones to the device each round")
+    p.add_argument("--offload_pipeline_depth", type=int, default=2,
+                   help="rounds of output rows that wait on the device "
+                        "before they are written back to the host")
+    p.add_argument("--client_k_dist", type=str, default="",
+                   help="per-client transmit budgets under local_topk, "
+                        "'uniform:lo,hi' fractions of --k")
     # DP
     p.add_argument("--dp", action="store_true", dest="do_dp")
     p.add_argument("--dp_mode", choices=DP_MODES, default="worker")
@@ -83,7 +93,6 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--finetune", action="store_true", dest="do_finetune")
     p.add_argument("--finetune_path", default="./finetune")
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--client_state_offload", action="store_true")
     p.add_argument("--scan_rounds", type=int, default=1)
     return p
 
@@ -166,14 +175,14 @@ def resolve_fused_ce(args) -> bool:
 
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: ``--finetune``, ``--mesh``,
-    ``--client_state_offload``, ``--scan_rounds > 1``, then the entry
-    point's own ``extra`` ``(flag, is_set, item)`` triples."""
+    flag set that the port does not run: ``--finetune`` (A10),
+    ``--mesh`` (A12), ``--scan_rounds > 1`` (A7), then the entry point's
+    own ``extra`` ``(flag, is_set, item)`` triples. The config refuses
+    ``--topk_approx_recall`` (A2)."""
     for flag, on, item in (
             ("--finetune (utils/finetune.py reads checkpoint v3)",
              args.do_finetune, "A10"),
             ("--mesh", bool(args.mesh), "A12"),
-            ("--client_state_offload", args.client_state_offload, "A9"),
             ("--scan_rounds > 1", args.scan_rounds > 1, "A7"),
             *extra):
         if on:

@@ -20,10 +20,17 @@ Runs on CUDA unless ``--device cpu`` is given; without a CUDA device and
 without ``--device cpu`` it raises. On CUDA it turns TF32 off for
 convolutions and matmuls: the reference trains in float32.
 
-Epoch loop over federated rounds, piecewise-linear LR through a pivot
-epoch, NaN abort, a validation pass per epoch and the byte rollup.
-Checkpoints, resume, ``--finetune``, mesh, offload and scanned rounds
-are ROADMAP.md A7/A9/A10/A12.
+The client-state and transmit flags run in every mode that takes them:
+``--client_state dense|sparse|sketched`` (``--client_sketch_rows/cols``),
+``--client_state_offload`` (``--offload_pipeline_depth``),
+``--client_k_dist``, ``--grad_buckets`` and ``--sketch_scheme global``.
+
+Epoch loop over federated rounds, each dispatched with the next round's
+client ids for the offload pipeline's gather-ahead; piecewise-linear LR
+through a pivot epoch, NaN abort, the offloaded rows flushed at every
+epoch's end, a validation pass per epoch and the byte rollup.
+Checkpoints, resume, ``--finetune``, mesh and scanned rounds are
+ROADMAP.md A7/A10/A12.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.data import FedBatcher, fed_datasets, val_batches
+from commefficient_tpu_torch.data.prefetch import with_lookahead
 from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import make_cv_loss
 from commefficient_tpu_torch.models import get_model
@@ -147,10 +155,13 @@ def train(args, max_rounds=None, log=True):
                       else max(1, int(round(spe * epoch_fraction))))
         rounds = []
         t_epoch = time.perf_counter()
-        for ids, cols, mask in batcher.epoch():
+        # the one-item lookahead feeds the offload pipeline's
+        # gather-ahead (the next round's rows copy while this one runs)
+        for (ids, cols, mask), nxt in with_lookahead(batcher.epoch()):
             t0 = time.perf_counter()
-            out = learner.train_round(ids, cols, mask,
-                                      epoch_frac=total_rounds / max(spe, 1))
+            out = learner.finalize_round_metrics(learner.train_round_async(
+                ids, cols, mask, epoch_frac=total_rounds / max(spe, 1),
+                next_client_ids=None if nxt is None else nxt[0]))
             out["round_s"] = time.perf_counter() - t0
             rounds.append(out)
             history.append(out)
@@ -163,11 +174,15 @@ def train(args, max_rounds=None, log=True):
             if out["aborted"]:
                 print(f"NaN/divergent loss ({out['loss']}); aborting "
                       f"(threshold {args.nan_threshold})")
+                learner.flush_offload()   # settle the host rows first
                 return learner, {"aborted": True, "loss": out["loss"],
                                  "rounds": history}
             if (args.do_test or len(rounds) >= rounds_cap
                     or (max_rounds and total_rounds >= max_rounds)):
                 break
+        # epoch boundary: pending writebacks land in the host rows, and a
+        # gather-ahead for a round that never ran is dropped
+        learner.flush_offload()
         train_time = time.perf_counter() - t_epoch
         t_val = time.perf_counter()
         val = learner.evaluate(val_batches(val_set, args.valid_batch_size))

@@ -27,6 +27,9 @@ loss through the vocab-chunked fused head (``ops/fused_ce.py``) without
 materializing the logits. ``--model gpt2`` / ``openai-gpt`` with an HF
 tokenizer in the local cache start from the cached HF weights where they
 are cached too (``models/gpt2_import.py``); neither is fetched.
+``--mode local_topk --error_type local --client_state sparse
+--client_state_offload`` keeps each client's rows as k index/value pairs
+in host memory (``examples/gpt2_personachat.sh``'s single-card setting).
 Checkpoints, resume, the generated sample and the serving stack are
 ROADMAP.md A10/A11.
 """
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.data import FedBatcher, val_batches
+from commefficient_tpu_torch.data.prefetch import with_lookahead
 from commefficient_tpu_torch.data.persona import (FedPERSONA,
                                                   SyntheticPersona)
 from commefficient_tpu_torch.data.tokenizer import (HFTokenizerWrapper,
@@ -152,11 +156,14 @@ def train(args, max_rounds=None, log=True):
     for epoch in range(int(math.ceil(args.num_epochs))):
         rounds = []
         t_epoch = time.perf_counter()
-        for ids, cols, mask in batcher.epoch():
+        # the one-item lookahead feeds the offload pipeline's
+        # gather-ahead (the next round's rows copy while this one runs)
+        for (ids, cols, mask), nxt in with_lookahead(batcher.epoch()):
             t0 = time.perf_counter()
             # the schedule decays per round: lr_at(total rounds so far)
-            out = learner.train_round(ids, cols, mask,
-                                      epoch_frac=total_rounds)
+            out = learner.finalize_round_metrics(learner.train_round_async(
+                ids, cols, mask, epoch_frac=total_rounds,
+                next_client_ids=None if nxt is None else nxt[0]))
             out["round_s"] = time.perf_counter() - t0
             rounds.append(out)
             history.append(out)
@@ -169,10 +176,14 @@ def train(args, max_rounds=None, log=True):
             if out["aborted"]:
                 print(f"NaN/divergent loss ({out['loss']}); aborting "
                       f"(threshold {args.nan_threshold})")
+                learner.flush_offload()   # settle the host rows first
                 return learner, {"aborted": True, "loss": out["loss"],
                                  "rounds": history}
             if args.do_test or (max_rounds and total_rounds >= max_rounds):
                 break
+        # epoch boundary: pending writebacks land in the host rows, and a
+        # gather-ahead for a round that never ran is dropped
+        learner.flush_offload()
         train_time = time.perf_counter() - t_epoch
         launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
         t_val = time.perf_counter()

@@ -175,15 +175,37 @@ def server_opt_from_arrays(opt, device="cpu"):
                           Verror=_tensor(opt.Verror, device))
 
 
+def _rows_with_sink(arr, device):
+    """One field's ``(num_clients, ...)`` storage (an array, or a dict of
+    arrays: a codec's encoding) as tensors with the port's zero sink row
+    appended (``federated/client_store``)."""
+    if arr is None:
+        return None
+    if isinstance(arr, dict):
+        return {key: _rows_with_sink(val, device) for key, val in arr.items()}
+    t = torch.from_numpy(np.array(arr)).to(device)
+    return torch.cat([t, torch.zeros_like(t[:1])])
+
+
 def client_state_from_arrays(clients, device="cpu"):
-    """A ``ClientState`` from any object with ``(num_clients, d)``
-    ``velocities``/``errors`` arrays or None (the reference's dense rows),
-    with the port's zero sink row appended (``federated/client_store``)."""
+    """A ``ClientState`` from any object with ``(num_clients, ...)``
+    ``velocities``/``errors``/``weights`` storage or None (the reference's
+    device rows in any codec: dense arrays, sparse ``{"idx", "val"}``,
+    sketched ``{"table"}``), each with the port's zero sink row appended."""
     from commefficient_tpu_torch.federated.state import ClientState
+    return ClientState(**{
+        field: _rows_with_sink(getattr(clients, field, None), device)
+        for field in ("velocities", "errors", "weights")})
 
-    def rows(arr):
-        t = _tensor(arr, device)
-        return None if t is None else torch.cat([t, torch.zeros_like(t[:1])])
 
-    return ClientState(velocities=rows(clients.velocities),
-                       errors=rows(clients.errors))
+def host_store_from_arrays(store, host_clients) -> None:
+    """Fill a port ``HostArenaStore`` with the rows of the reference
+    learner's ``host_clients`` (``{field: per-client row view or None}``,
+    each row an array or a dict of arrays in the run's encoding)."""
+    for field, rows in host_clients.items():
+        if rows is None:
+            continue
+        for cid in range(len(rows)):
+            row = rows[cid]
+            store.set_row(field, cid, {k: np.array(v) for k, v in row.items()}
+                          if isinstance(row, dict) else np.array(row))

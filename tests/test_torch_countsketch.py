@@ -153,8 +153,10 @@ def test_geometry_and_refusals():
     t = tcs.CountSketch(d=6_568_640, c=500_000, r=5, seed=42)
     assert (t.c_eff, t.nblocks, t.nwindows) == (500_096, 51_318, 3_907)
     assert tcs.pad_cols(500_000) == 500_096
-    with pytest.raises(NotImplementedError, match="A1"):
-        tcs.CountSketch(d=100, c=10, r=1, scheme="global")
+    g = tcs.CountSketch(d=100, c=10, r=1, scheme="global")
+    assert g.c_eff == 10 and g.zero_table().shape == (1, 10)
+    with pytest.raises(ValueError, match="'tiled' or 'global'"):
+        tcs.CountSketch(d=100, c=10, r=1, scheme="blocked")
     with pytest.raises(ValueError, match="aligned"):
         t.sketch_range(torch.zeros(256), 5)
 

@@ -26,8 +26,11 @@ through the plain versions on the card (table, server state, top-k set,
 weights). Beside the kernels: the fused LM head on the card against the
 CPU's (float32, TF32 off: 1e-5), GPT2's remat gradient on the card
 bitwise the one without remat (flash kernels launched twice as often),
-and ``download_counts`` on the card bitwise the CPU's. ``chip_smoke.py``
-repeats this at the main paths' full width.
+and ``download_counts`` on the card bitwise the CPU's; the global
+scheme's dense sketch and recovery, the sparse and sketched client
+codecs on the card bitwise the CPU's, and offloaded local_topk rounds
+(dense and sparse rows) bitwise the device-resident ones.
+``chip_smoke.py`` repeats this at the main paths' full width.
 """
 
 import numpy as np
@@ -789,3 +792,113 @@ def test_download_counts_card_equals_cpu(dev):
         got = download_counts(last_changed.to(dev), stale.to(dev))
         assert got.dtype == torch.int32
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d,c,r,off,B", [(50_000, 1_000, 5, 0, 1),
+                                         (30_000, 128, 3, 0, 8),
+                                         (20_000, 777, 3, 1_234, 3)])
+def test_global_sketch_card_equals_cpu(dev, d, c, r, off, B):
+    """The global scheme's dense sketch (a sorted plan and one segment_sum
+    launch) on the card bitwise the CPU's, at a (3, 128) table's long
+    runs too, and the same over two runs."""
+    cs = CountSketch(d=d, c=c, r=r, seed=7, scheme="global")
+    n = d - off
+    x = np.random.RandomState(d + B).randn(B, n).astype(np.float32)
+    x[:, ::9] = 0.0
+    before = cuda_lib.LAUNCHES["segment_sum"]
+    got = cs.sketch_rows(torch.from_numpy(x).to(dev), off)
+    assert cuda_lib.LAUNCHES["segment_sum"] == before + 1
+    want = cs.sketch_rows(torch.from_numpy(x), off)
+    assert _same_bits(got.cpu(), want)
+    assert _same_bits(got, cs.sketch_rows(torch.from_numpy(x).to(dev), off))
+
+
+def test_global_recovery_card_equals_cpu(dev):
+    """Global estimates (PyTorch on both devices) and their top-k (the
+    per-row radix on the card, its plain version on the CPU), fused and
+    not, bitwise."""
+    cs = CountSketch(d=40_000, c=500, r=5, seed=3, scheme="global")
+    table = torch.from_numpy(np.random.RandomState(1).randn(5, 500).astype(
+        np.float32))
+    tables = torch.stack([table, -table, torch.zeros_like(table)])
+    assert _same_bits(cs.estimates_rows(tables.to(dev)).cpu(),
+                      cs.estimates_rows(tables))
+    for fused in (True, False):
+        v1, i1 = cs.unsketch_values_indices(table.to(dev), 2_000, fused)
+        v0, i0 = cs.unsketch_values_indices(table, 2_000, fused)
+        assert torch.equal(i1.cpu(), i0) and _same_bits(v1.cpu(), v0)
+
+
+@pytest.mark.parametrize("rep", ["sparse", "sketched"])
+def test_client_codecs_card_equal_cpu(dev, rep):
+    """The sparse encode (a stable sort by |x| a row) and decode, and the
+    sketched encode and decode, on the card bitwise the CPU's."""
+    from commefficient_tpu_torch.federated import client_store as store
+    d = 30_000
+    codec = (store.SparseCodec(d, cap=1_000) if rep == "sparse" else
+             store.SketchedCodec(d, r=3, c=128, k=1_000, seed=21))
+    rows = np.random.RandomState(2).randn(4, d).astype(np.float32)
+    rows[0, 5_000:] = 0.0
+    rows[1, ::2] = rows[1, 1::2]           # |x| ties across pairs
+    rows[2, :40] = 1e-23                   # squares underflow to 0
+    enc_cpu = codec.encode_rows(torch.from_numpy(rows))
+    enc_dev = codec.encode_rows(torch.from_numpy(rows).to(dev))
+    for key in enc_cpu:
+        assert _same_bits(enc_dev[key].cpu(), enc_cpu[key]), key
+    assert _same_bits(codec.decode_rows(enc_dev).cpu(),
+                      codec.decode_rows(enc_cpu))
+
+
+@pytest.mark.parametrize("rep", ["dense", "sparse"])
+def test_offload_round_card_bitwise_device_resident(dev, rep):
+    """local_topk rounds on the card with the rows offloaded (pinned
+    staging, the side stream, gather-ahead, lazy writeback at depth 2)
+    bitwise the same rounds with the rows on the card, over rounds that
+    share clients, a padded slot and an abort."""
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.api import FedLearner
+    from commefficient_tpu_torch.federated.losses import make_cv_loss
+    from commefficient_tpu_torch.models.toy import TinyMLP
+    n, W, B = 8, 3, 4
+    rng = np.random.RandomState(0)
+    rounds = []
+    for r in range(8):
+        xs = rng.randn(W, B, 8).astype(np.float32)
+        mask = np.ones((W, B), np.float32)
+        if r == 2:
+            mask[-1] = 0.0
+        if r == 5:
+            xs[0, 0, 0] = np.nan
+        rounds.append((np.arange(r, r + W) % n,
+                       (xs, rng.randint(0, 2, (W, B)).astype(np.int32)),
+                       mask))
+    learners = []
+    for offload in (False, True):
+        model = TinyMLP(num_classes=2, hidden=64, in_channels=8,
+                        image_size=1).reset_parameters(
+            torch.Generator().manual_seed(1))
+        cfg = FedConfig(mode="local_topk", error_type="local",
+                        local_momentum=0.9, k=50, num_workers=W,
+                        num_clients=n, client_state=rep,
+                        client_state_offload=offload)
+        ln = FedLearner(model, cfg, make_cv_loss(model), device=dev)
+        outs = []
+        for i, (ids, batch, mask) in enumerate(rounds):
+            nxt = rounds[i + 1][0] if i + 1 < len(rounds) else None
+            outs.append(ln.finalize_round_metrics(ln.train_round_async(
+                ids, batch, mask, next_client_ids=nxt)))
+        ln.flush_offload()
+        learners.append((ln, outs))
+    (dev_ln, a), (off_ln, b) = learners
+    assert [x["loss"] for x in a[:5]] == [x["loss"] for x in b[:5]]
+    assert a[-1]["aborted"] and b[-1]["aborted"]
+    assert _same_bits(dev_ln.state.weights, off_ln.state.weights)
+    assert off_ln._offload_pipe.stats["rows_from_pending"] > 0
+    for field in ("velocities", "errors"):
+        stored = getattr(dev_ln.state.clients, field)
+        arena = off_ln.host_store.arena(field)
+        if rep == "dense":
+            assert _same_bits(stored[:n].cpu(), arena)
+        else:
+            for key in ("idx", "val"):
+                assert _same_bits(stored[key][:n].cpu(), arena[key])

@@ -196,11 +196,8 @@ def test_cli_runs_every_mode_on_cpu(tmp_path, monkeypatch, name):
 
 @pytest.mark.parametrize("flag,item", [
     (["--finetune"], "A10"),
-    (["--mode", "local_topk", "--error_type", "none", "--client_k_dist",
-      "uniform:0.5,1"], "A9"),
     (["--topk_approx_recall", "0.95"], "A2"),
-    (["--client_state", "sparse"], "A9"), (["--grad_buckets", "2"], "A9"),
-    (["--batchnorm"], "batch_stats"), (["--sketch_scheme", "global"], "A1")])
+    (["--batchnorm"], "batch_stats")])
 def test_cli_refuses_unported_config_flags(tmp_path, flag, item):
     """Each flag the port does not run raises NotImplementedError naming
     its ROADMAP item; ``--batchnorm`` runs in the model but the round
@@ -212,3 +209,38 @@ def test_cli_refuses_unported_config_flags(tmp_path, flag, item):
                   else (NotImplementedError, f"ROADMAP.md {item}"))
     with pytest.raises(exc, match=match):
         cv.train(args, log=False)
+
+
+# the client-state and transmit flags that the CLI refused before they
+# were ported (ROADMAP A9, A1's global scheme), on a TinyMLP
+A9_CLI = {
+    "client_k_dist": ["--mode", "local_topk", "--error_type", "none",
+                      "--client_k_dist", "uniform:0.5,1"],
+    "client_state_sparse": ["--mode", "local_topk", "--error_type", "local",
+                            "--client_state", "sparse"],
+    "grad_buckets": ["--mode", "sketch", "--error_type", "virtual",
+                     "--grad_buckets", "2"],
+    "sketch_scheme_global": ["--mode", "sketch", "--error_type", "virtual",
+                             "--sketch_scheme", "global"],
+}
+
+
+@pytest.mark.parametrize("name", list(A9_CLI))
+def test_cli_runs_client_state_and_transmit_flags(tmp_path, name):
+    args = _cli_args(tmp_path, "--model", "TinyMLP", "--local_batch_size",
+                     "4", *A9_CLI[name])
+    learner, row = cv.train(args, max_rounds=2, log=False)
+    rounds = row["rounds"]
+    assert len(rounds) == 2 and all(np.isfinite(r["loss"]) for r in rounds)
+    cfg = learner.cfg
+    per_client = 4 * {"sketch": cfg.num_rows * cfg.sketch_cols,
+                      "local_topk": cfg.k}[cfg.mode]
+    assert all(r["upload_bytes"] == 2 * per_client for r in rounds)
+    if name == "grad_buckets":
+        assert learner.grad_buckets.num_buckets == 2
+        assert learner.grad_buckets.offsets[1] % 128 == 0
+    if name == "sketch_scheme_global":
+        assert learner.state.opt.Verror.shape == (3, 5_000)
+    if name == "client_state_sparse":
+        assert set(learner.state.clients.errors) == {"idx", "val"}
+    assert bool(torch.isfinite(learner.state.weights).all())

@@ -223,15 +223,39 @@ def test_entry_points_refuse_cuda_without_a_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(sketch_scheme="global"), "A1"), (dict(grad_buckets=2), "A9"),
     (dict(topk_approx_recall=0.95), "A2")])
 def test_config_refuses_what_is_not_ported(override, item):
     with pytest.raises(NotImplementedError, match=item):
         FedConfig(**dict(SKETCH, **override)).finalize(1_000)
 
 
+@pytest.mark.parametrize("override", [dict(sketch_scheme="global"),
+                                      dict(grad_buckets=2)])
+def test_config_takes_what_was_refused(override):
+    cfg = FedConfig(**dict(SKETCH, **override)).finalize(1_000)
+    assert cfg.transmit_shape == ((5, 2_000) if cfg.sketch_scheme
+                                  == "global" else (5, 2_048))
+
+
+def test_cli_runs_client_state_offload(tmp_path):
+    args = _cli_args(tmp_path, "--device", "cpu", "--num_epochs", "1",
+                     "--model", "TinyMLP", "--mode", "local_topk",
+                     "--error_type", "local", "--local_momentum", "0.9",
+                     "--client_state_offload", "--offload_pipeline_depth",
+                     "3")
+    args.do_test = False
+    learner, row = train(args, max_rounds=3, log=False)
+    assert len(row["rounds"]) == 3
+    assert learner.state.clients.errors is None
+    assert learner._offload_pipe.depth == 3
+    # the loop flushed at the epoch's end: every round's rows landed
+    assert not learner._offload_pipe._pending
+    stats = learner._offload_pipe.stats
+    assert stats["flushed_rounds"] == 3 and stats["prefetch_hits"] == 2
+    assert learner.host_store.shard_writes.sum() == 2 * 3 * 2
+
+
 @pytest.mark.parametrize("flag", [["--mesh", "clients=2"],
-                                  ["--client_state_offload"],
                                   ["--scan_rounds", "4"],
                                   ["--dataset_name", "CIFAR10"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
