@@ -111,6 +111,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      rows_select 3 (the B = 1 radix top-k of the global estimates);
    with finite losses and weights, each path's d, the upload bytes
    per client (exact, as float32 counters hold them) and its peak memory;
+   then sketch_scan: the sketch flags with --scan_rounds 4 for 8 rounds
+   (two windows; Synthetic at 512 images a class in a fresh dataset dir)
+   against the same 8 rounds in the pipelined loop and in the blocking
+   loop of earlier slices (weights, losses, bytes bitwise), no host sync
+   inside a window (the CUDA sync debug mode, each sync with its frames),
+   the three round periods, and 4 more rounds profiled as a window and
+   as pipelined single rounds (wall against device busy); and
+   cifar10_fetchsgd: examples/cifar10_fetchsgd.sh's flags (100 non-iid
+   clients, --scan_rounds 8) on CIFAR-10 python pickles written from a
+   seed at the real size, 16 rounds with the real transforms and one
+   validation pass over 10,000 images: the sketch path's launches, exact
+   bytes, the data feed's host time a batch beside the round period;
    then ``phase_offload_parity``: local_topk against local_topk_offload,
    sparse client state on the card against sparse offload, and sparse
    offload at depth 2 against the same run flushed after every round
@@ -199,7 +211,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and its peak memory is printed;
    then the gpt2 path twice more from the same seed (ROADMAP C5b), the
    first run freed before the second: per-round losses, weights,
-   Vvelocity and Verror bitwise equal; then GPT2-small's loss and
+   Vvelocity and Verror bitwise equal; then gpt2_scan, the gpt2 flags
+   with --scan_rounds 3 (one window): the gpt2 path's launches, no host
+   sync inside the window, losses and weights bitwise the first of those
+   runs; then GPT2-small's loss and
    gradient on one full-width batch (32 dialogs x 2 candidates x 256
    tokens, float32, TF32 off) with the fused LM head against the
    materialized logits (loss within 1e-5 relative, gradient within 1e-4
@@ -223,6 +238,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2312,6 +2328,325 @@ def phase_offload_parity():
     torch.cuda.empty_cache()
 
 
+# the sketch path's launches a round
+SKETCH_ROUND = {k: v // 3 for k, v in dict(RECOVERY, sketch=3).items()}
+SCAN_K = 4
+SCAN_ROUNDS = 8
+# examples/cifar10_fetchsgd.sh's flags (its --num_epochs 24 aside: the
+# phase stops after CIFAR_ROUNDS rounds and one validation pass)
+CIFAR_FLAGS = ["--dataset_name", "CIFAR10", "--model", "ResNet9", "--mode",
+               "sketch", "--error_type", "virtual", "--virtual_momentum",
+               "0.9", "--num_clients", "100", "--num_workers", "8",
+               "--local_batch_size", "32", "--k", "50000", "--num_rows", "5",
+               "--num_cols", "500000", "--pivot_epoch", "5", "--lr_scale",
+               "0.4", "--scan_rounds", "8", "--device", "cuda"]
+CIFAR_ROUNDS = 16
+
+
+class _SyncWatch:
+    """Records the host syncs that the CUDA sync debug mode reports inside
+    each ``FedLearner.train_rounds_scan`` call (the K rounds' dispatch,
+    not the read of their metrics), each with the Python frames that made
+    it."""
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        import torch
+
+        from commefficient_tpu_torch.federated.api import FedLearner
+        self._saved = FedLearner.train_rounds_scan
+        self.windows, self.syncs = 0, []
+        saved = self._saved
+
+        def show(message, category, *args, **kwargs):
+            if "synchronizing CUDA operation" in str(message):
+                frames = traceback.format_stack(limit=6)[:-1]
+                self.syncs.append(" | ".join(
+                    f.strip().splitlines()[0] for f in frames))
+
+        def scan(learner, *args, **kwargs):
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = saved(learner, *args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            self.windows += 1
+            return out
+        FedLearner.train_rounds_scan = scan
+        return self
+
+    def __exit__(self, *exc):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        FedLearner.train_rounds_scan = self._saved
+
+
+class _BlockingLoop:
+    """Makes ``training.cv.train`` run the loop it ran before the round
+    pipeline: no device prefetch (the batches stay numpy arrays), each
+    round's inputs copied from pageable host memory inside its dispatch,
+    and its metrics read right after it."""
+
+    class _Now:
+        def __init__(self, learner):
+            self.learner = learner
+
+        def push(self, raw):
+            return self.learner.finalize_round_metrics(raw)
+
+        def flush(self):
+            return None
+
+    def __enter__(self):
+        import torch
+
+        from commefficient_tpu_torch.federated.api import FedLearner
+        from commefficient_tpu_torch.training import cv
+        self._saved = [(cv, "device_prefetch", cv.device_prefetch),
+                       (FedLearner, "_to_device", FedLearner._to_device),
+                       (FedLearner, "pipeline", FedLearner.pipeline)]
+        cv.device_prefetch = lambda batches, **kwargs: batches
+        FedLearner._to_device = lambda learner, x, dtype=None: \
+            torch.as_tensor(np.asarray(x), dtype=dtype,
+                            device=learner.device)
+        FedLearner.pipeline = lambda learner: self._Now(learner)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, f in self._saved:
+            setattr(owner, attr, f)
+
+
+def _profile_loop(tag, learner, k=SCAN_K):
+    """``k`` more sketch rounds of seeded full-width batches (8 workers of
+    32 images) on ``learner``, as one window and then through the
+    one-round pipeline, each under ``torch.profiler``: the wall time a
+    round on the host's clock (to the last metrics' read) beside the
+    device's busy time a round and the idle share. Checks nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(11)
+    W, B = learner.cfg.num_workers, 32
+    rounds = [(rng.choice(learner.cfg.num_clients, W, replace=False),
+               (rng.randn(W, B, 32, 32, 3).astype(np.float32),
+                rng.randint(0, 10, (W, B)).astype(np.int32)),
+               np.ones((W, B), np.float32)) for _ in range(k)]
+    dev = learner.device
+
+    def window():
+        stacked = (np.stack([r[0] for r in rounds]),
+                   tuple(torch.from_numpy(np.stack([r[1][i] for r in rounds]))
+                         .to(dev) for i in range(2)),
+                   np.stack([r[2] for r in rounds]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.finalize_scan_metrics(learner.train_rounds_scan(*stacked))
+        return time.perf_counter() - t0
+
+    def pipelined():
+        cols = [tuple(torch.from_numpy(c).to(dev) for c in r[1])
+                for r in rounds]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = learner.pipeline()
+        for (ids, _, mask), c in zip(rounds, cols):
+            pipe.push(learner.train_round_async(ids, c, mask))
+        pipe.flush()
+        return time.perf_counter() - t0
+
+    parts = []
+    for name, run in (("window", window), ("pipelined", pipelined)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        parts.append(f"{name}: wall {1e3 * wall / k:.3f} ms a round, "
+                     f"device busy {1e3 * busy / k:.3f} ms a round, idle "
+                     f"share {1 - busy / wall:.4f}")
+    print(f"profile {tag} ({k} rounds each, torch.profiler): "
+          + "; ".join(parts), flush=True)
+
+
+def _period_ms(rounds):
+    """The mean round period (``round_s``) of a run's rounds, in ms."""
+    return 1e3 * sum(r["round_s"] for r in rounds) / len(rounds)
+
+
+def _check_sketch_bytes(tag, rounds, workers):
+    """Every round's upload bytes are the float32 value of the exact count
+    (``workers`` clients' 5 x 500,096 tables)."""
+    want = float(np.float32(workers * 4 * TABLE_FLOATS))
+    if any(r["upload_bytes"] != want for r in rounds):
+        raise AssertionError(f"{tag}: upload bytes "
+                             f"{[r['upload_bytes'] for r in rounds]} != "
+                             f"{want} a round")
+
+
+def phase_sketch_scan():
+    """sketch_scan: the sketch path's flags with --scan_rounds 4 for 8
+    rounds (two windows, within Synthetic's first epoch of 20 rounds)
+    through ``training.cv.train``, the launch
+    counters zeroed just before and read just after; the host syncs inside
+    each window's dispatch recorded (``_SyncWatch``: none on this fused
+    path); then the same 8 rounds at --scan_rounds 1 (the pipelined
+    loop) and in the loop as it was before the pipeline (``_BlockingLoop``):
+    weights, per-round losses and bytes bitwise equal. Prints the three
+    runs' round periods, then profiles 4 more rounds as a window and as
+    pipelined single rounds (``_profile_loop``)."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.args import build_parser
+    from commefficient_tpu_torch.training.cv import train
+    runs = {}
+    for k in (SCAN_K, 1, "blocking"):
+        # a fresh --dataset_dir: Synthetic's 512 images a class, 20 full
+        # rounds an epoch (the committed dataset/stats.json holds 64)
+        with tempfile.TemporaryDirectory() as root:
+            args = build_parser().parse_args(HEADLINE + [
+                "--scan_rounds", str(SCAN_K if k == SCAN_K else 1),
+                "--dataset_dir", root])
+            np.random.seed(args.seed)
+            cuda_lib.LAUNCHES.clear()
+            context = {SCAN_K: _SyncWatch, "blocking": _BlockingLoop}.get(
+                k, nullcontext)
+            with context() as watch:
+                learner, row = train(args, max_rounds=SCAN_ROUNDS,
+                                     log=False)
+        torch.cuda.synchronize()
+        launches = {n: v for n, v in cuda_lib.LAUNCHES.items() if v}
+        want = {n: v * SCAN_ROUNDS for n, v in SKETCH_ROUND.items()}
+        if launches != want:
+            raise AssertionError(f"sketch_scan (K {k}): launch counts "
+                                 f"{launches} != {want}")
+        rounds = row["rounds"]
+        if len(rounds) != SCAN_ROUNDS or not all(
+                math.isfinite(r["loss"]) for r in rounds):
+            raise AssertionError(f"sketch_scan (K {k}): rounds {rounds}")
+        _check_sketch_bytes(f"sketch_scan (K {k})", rounds, 8)
+        runs[k] = (learner.state.weights.clone(), rounds, launches)
+        if k == "blocking":
+            _profile_loop("sketch_scan", learner)
+        if k == SCAN_K:
+            if watch.windows != SCAN_ROUNDS // SCAN_K or watch.syncs:
+                raise AssertionError(
+                    f"sketch_scan: {watch.windows} windows, host syncs "
+                    f"inside them: {watch.syncs}")
+        del learner, row
+        torch.cuda.empty_cache()
+    w_scan, r_scan, launches = runs[SCAN_K]
+    for k in (1, "blocking"):
+        w, r, _ = runs[k]
+        same_rounds = all(
+            (a["loss"].hex(), a["upload_bytes"], a["download_bytes"])
+            == (b["loss"].hex(), b["upload_bytes"], b["download_bytes"])
+            for a, b in zip(r_scan, r))
+        if not _same_bits(w_scan, w) or not same_rounds:
+            raise AssertionError(
+                f"sketch_scan: --scan_rounds {SCAN_K} and the {k} loop "
+                f"differ: losses {[x['loss'] for x in r_scan]} vs "
+                f"{[x['loss'] for x in r]}")
+    periods = ", ".join(
+        f"{_period_ms(runs[k][1]):.3f} ms ({name})" for k, name in (
+            (SCAN_K, f"windows of {SCAN_K}"), (1, "pipelined"),
+            ("blocking", "blocking, as before the pipeline")))
+    rounds_ms = "; ".join(
+        f"{k}: {[round(x['round_s'] * 1e3, 3) for x in runs[k][1]]}"
+        for k in runs)
+    print(f"path sketch_scan: {SCAN_ROUNDS} rounds in windows of {SCAN_K} "
+          f"against the pipelined and the blocking loop, launches "
+          f"{launches}, losses {[round(r['loss'], 6) for r in r_scan]}, "
+          f"weights, losses and bytes bitwise equal, no host sync inside a "
+          f"window; round period {periods}; round ms {rounds_ms}",
+          flush=True)
+    del runs, w_scan
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_cifar10_pickles(root, per_batch=10_000, n_test=10_000, seed=0):
+    """CIFAR-10's python-pickle batches (``cifar-10-batches-py``: five
+    train batches and a test batch of uint8 rows of 3 x 32 x 32 pixels,
+    balanced labels) with seeded random pixels, under ``root``."""
+    import pickle
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d, exist_ok=True)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for name, n in zip(names, [per_batch] * 5 + [n_test]):
+        labels = np.arange(n) % 10
+        rng.shuffle(labels)
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({"data": rng.randint(0, 256, (n, 3072), np.uint8),
+                         "labels": labels.tolist()}, f)
+
+
+def phase_cifar10_fetchsgd():
+    """cifar10_fetchsgd: examples/cifar10_fetchsgd.sh's flags (100 non-iid
+    clients, 8 a round, --scan_rounds 8) through ``training.cv.train`` on
+    CIFAR-10 pickles written from a seed at the real format and size,
+    with the real train (normalize, reflect-pad 4 and crop, flip) and test
+    transforms: 16 rounds (two windows), then one validation pass over the
+    10,000 test images; launches counted over both; every round's bytes
+    the float32 value of the exact count. Prints the data feed's host time
+    a batch (sampling, gathering, transforms) beside the round period."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.args import build_parser
+    from commefficient_tpu_torch.training.cv import train
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_cifar10_pickles(root)
+        gen_s = time.perf_counter() - t0
+        args = build_parser().parse_args(CIFAR_FLAGS + ["--dataset_dir",
+                                                        root])
+        np.random.seed(args.seed)
+        cuda_lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        learner, row = train(args, max_rounds=CIFAR_ROUNDS, log=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = {n: v for n, v in cuda_lib.LAUNCHES.items() if v}
+    want = {n: v * CIFAR_ROUNDS for n, v in SKETCH_ROUND.items()}
+    if launches != want:
+        raise AssertionError(f"cifar10_fetchsgd: launch counts {launches} "
+                             f"!= {want}")
+    rounds = row["rounds"]
+    w = learner.state.weights
+    if len(rounds) != CIFAR_ROUNDS or learner.cfg.grad_size != D_RESNET9 \
+            or learner.cfg.num_clients != 100:
+        raise AssertionError(f"cifar10_fetchsgd: {len(rounds)} rounds, d = "
+                             f"{learner.cfg.grad_size}, "
+                             f"{learner.cfg.num_clients} clients")
+    if not all(math.isfinite(r["loss"]) for r in rounds) \
+            or not bool(torch.isfinite(w).all()) \
+            or not math.isfinite(row["test_loss"]) \
+            or not 0 <= row["test_acc"] <= 1:
+        raise AssertionError("cifar10_fetchsgd: non-finite loss, weights "
+                             "or validation")
+    _check_sketch_bytes("cifar10_fetchsgd", rounds, 8)
+    print(f"path cifar10_fetchsgd: d = {learner.cfg.grad_size}, launches "
+          f"{launches}, losses {[round(r['loss'], 6) for r in rounds]}, "
+          f"test_loss {row['test_loss']:.6f} test_acc "
+          f"{row['test_acc']:.4f} over 10,000 images, round period "
+          f"{_period_ms(rounds):.3f} ms, data feed "
+          f"{1e3 * row['feed_s'] / row['feed_batches']:.3f} ms a batch "
+          f"(host; {row['feed_batches']} batches, transforms included), "
+          f"train {row['train_time']:.3f} s, validation "
+          f"{row['test_time']:.3f} s, whole train() {wall_s:.3f} s after "
+          f"{gen_s:.3f} s writing 184 MB of pickles", flush=True)
+    del learner, row, w
+    torch.cuda.empty_cache()
+    return launches
+
+
 REFERENCE_CONFIGS = {
     "sketch": dict(mode="sketch", error_type="virtual", virtual_momentum=0.9,
                    num_cols=2000, num_rows=5),
@@ -2786,8 +3121,61 @@ def phase_repeat_gpt2(tmpdir):
     print(f"repeat gpt2 (3 rounds twice, same seed, d = {ta[0].numel()}): "
           f"losses {[round(v, 6) for v in la]}, losses, weights, Vvelocity "
           f"and Verror bitwise equal", flush=True)
+    ref = (la, ta[0])
     del runs, ta, tb
     torch.cuda.empty_cache()
+    return ref
+
+
+GPT2_SCAN_K = 3
+
+
+def phase_gpt2_scan(tmpdir, ref):
+    """gpt2_scan: ``GPT2_FLAGS`` with --scan_rounds 3 through
+    ``training.gpt2.train`` for 3 rounds (one window), the launch counters
+    zeroed just before and read when the validation pass starts (the gpt2
+    path's); the host syncs inside the window's dispatch recorded (none);
+    per-round losses and weights bitwise those of the gpt2 path's 3
+    rounds, ``ref`` = (losses, weights) from ``phase_repeat_gpt2``."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    args = build_gpt2_parser().parse_args(GPT2_FLAGS + [
+        "--scan_rounds", str(GPT2_SCAN_K), "--dataset_dir", tmpdir])
+    np.random.seed(args.seed)
+    cuda_lib.LAUNCHES.clear()
+    with _SyncWatch() as watch:
+        learner, row = train(args, max_rounds=GPT2_SCAN_K, log=False)
+    torch.cuda.synchronize()
+    launches = row["launches_after_rounds"]
+    if launches != GPT2_PATHS["gpt2"][2]:
+        raise AssertionError(f"gpt2_scan: launch counts {launches} != "
+                             f"{GPT2_PATHS['gpt2'][2]}")
+    if watch.windows != 1 or watch.syncs:
+        raise AssertionError(f"gpt2_scan: {watch.windows} windows, host "
+                             f"syncs inside them: {watch.syncs}")
+    rounds = row["rounds"]
+    losses, weights = ref
+    if [r["loss"].hex() for r in rounds] != [v.hex() for v in losses] \
+            or not _same_bits(learner.state.weights, weights):
+        raise AssertionError(f"gpt2_scan: losses "
+                             f"{[r['loss'] for r in rounds]} vs {losses}, "
+                             f"or the weights differ from the gpt2 path's")
+    if any(r["upload_bytes"] != GPT2_WORKERS * GPT2_UPLOAD["gpt2"]
+           for r in rounds):
+        raise AssertionError(f"gpt2_scan: upload bytes "
+                             f"{[r['upload_bytes'] for r in rounds]}")
+    print(f"path gpt2_scan: {GPT2_SCAN_K} rounds in one window, launches "
+          f"{launches}, losses {[round(r['loss'], 6) for r in rounds]}, "
+          f"losses and weights bitwise the gpt2 path's, no host sync inside "
+          f"the window; round ms "
+          f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, val nll "
+          f"{row['nll']:.6f}", flush=True)
+    del learner, row
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _gpt2_small_batch(dev, B=32, C=2, T=256, seed=5):
@@ -3206,6 +3594,9 @@ def main() -> int:
     for name in PATHS:
         for kernel, n in phase_path(name).items():
             launches[kernel] = launches.get(kernel, 0) + n
+    for phase in (phase_sketch_scan, phase_cifar10_fetchsgd):
+        for kernel, n in phase().items():
+            launches[kernel] = launches.get(kernel, 0) + n
     phase_offload_parity()
     phase_repeat(dev)
     phase_reference(dev)
@@ -3232,7 +3623,10 @@ def main() -> int:
             for kernel, n in phase_gpt2_path(tmpdir, name,
                                              profile=True).items():
                 launches[kernel] = launches.get(kernel, 0) + n
-        phase_repeat_gpt2(tmpdir)
+        gpt2_ref = phase_repeat_gpt2(tmpdir)
+        for kernel, n in phase_gpt2_scan(tmpdir, gpt2_ref).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        del gpt2_ref
     model, batch = _gpt2_small(dev), _gpt2_small_batch(dev)
     phase_fused_ce(model, batch)
     phase_remat(model, batch)

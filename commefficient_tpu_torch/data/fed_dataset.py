@@ -7,13 +7,13 @@
   slice;
 * metadata is cached in ``stats.json`` in the dataset dir;
 * validation data is centralized;
+* ``transform`` (``data/transforms.py``, ``fn(cols, rng) -> cols``) runs
+  on every train and validation batch with the dataset's own
+  ``RandomState`` (``self.rng``), after the iid permutation's draw;
 * ``PreparedArrayDataset``: one ``.npy`` of images per natural client and
   a centralized ``test.npz``, built once from a subclass's ``_make_xy``
-  (the offline Digits and Patches32 sets, ``data/offline.py``).
-
-The reference's per-dataset transforms are ROADMAP.md A7: the ported
-datasets (Synthetic, Digits, Patches32) have none in the reference
-either.
+  (CIFAR10/100, ``data/cifar.py``; the offline Digits and Patches32 sets,
+  ``data/offline.py``).
 """
 
 from __future__ import annotations
@@ -28,11 +28,12 @@ import numpy as np
 class FedDataset:
     def __init__(self, dataset_dir: str = "./dataset", do_iid: bool = False,
                  num_clients: Optional[int] = None, train: bool = True,
-                 seed: int = 0):
+                 transform=None, seed: int = 0):
         self.dataset_dir = dataset_dir
         self.do_iid = do_iid
         self._num_clients = num_clients
         self.train = train
+        self.transform = transform
         self.rng = np.random.RandomState(seed)
 
         if not do_iid and num_clients == 1:
@@ -120,10 +121,16 @@ class FedDataset:
             parts.append(self._get_train_batch(int(c), rows))
         cols = [np.concatenate([p[i] for p in parts])
                 for i in range(len(parts[0]))]
-        return tuple(c[inv] for c in cols)  # restore request order
+        cols = [c[inv] for c in cols]  # restore request order
+        if self.transform is not None:
+            cols = self.transform(cols, self.rng)
+        return tuple(cols)
 
     def get_val_batch(self, idxs: np.ndarray) -> Tuple[np.ndarray, ...]:
-        return tuple(self._get_val_batch(np.asarray(idxs)))
+        cols = list(self._get_val_batch(np.asarray(idxs)))
+        if self.transform is not None:
+            cols = self.transform(cols, self.rng)
+        return tuple(cols)
 
 
 class PreparedArrayDataset(FedDataset):

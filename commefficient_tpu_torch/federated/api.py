@@ -1,6 +1,6 @@
-"""High-level federated training API (port of ``FedLearner`` and
-``HostOffloadPipeline`` in ``commefficient_tpu/federated/api.py``; mesh,
-scanned rounds and ``RoundPipeline`` are ROADMAP.md A7b/A12).
+"""High-level federated training API (port of ``FedLearner``,
+``HostOffloadPipeline``, ``RoundPipeline`` and ``ScanWindow`` in
+``commefficient_tpu/federated/api.py``; the mesh is ROADMAP.md A12).
 
     learner = FedLearner(model, cfg, loss_train, loss_val, device="cuda")
     metrics = learner.train_round(client_ids, batch, mask)   # one fed round
@@ -19,7 +19,17 @@ arenas instead (``host_store``, ``host_clients``) and a
 device tensors, ``finalize_round_metrics`` reads them on the host;
 ``train_round`` is both, then ``flush_offload``. A loop that passes the
 next round's ids (``next_client_ids``) lets the pipeline gather them
-while this round computes.
+while this round computes. ``pipeline()`` gives a one-round
+``RoundPipeline``: a loop pushes each dispatched round and reads the
+previous one's metrics, so the host's read overlaps the next round.
+
+``--scan_rounds K``: ``train_rounds_scan`` enqueues K rounds from one
+window of stacked inputs, copied to the device once, with no host read
+between them on the fused paths, and stacks their metrics on the device
+for one copy to the host (``finalize_scan_metrics``); ``scan_window(K)``
+buffers a loop's rounds into such windows. A window equals K single
+rounds bitwise: the same seeds in the same order from ``generator``, the
+same schedule points, the same round step.
 
 ``--grad_buckets``: the learner plans the buckets at parameter leaf
 boundaries in the flat vector's order (``state.make_grad_buckets``),
@@ -97,6 +107,10 @@ class FedLearner:
                             and self.cfg.sketch_scheme == "tiled") else 1)
         self._round = build_round_step(loss_train, self.unflatten, self.cfg,
                                        buckets=self.grad_buckets)
+        if self._round.sketch is not None:
+            # the kernels' hash tables reach the card here, not by blocking
+            # copies inside the first round
+            self._round.sketch.prepare(self.device)
         self._eval = build_eval_step(loss_val or loss_train, self.unflatten)
         self.lr_schedule = lr_schedule or (lambda t: cfg.lr_scale)
         if callable(lr_scale_vec):
@@ -118,7 +132,19 @@ class FedLearner:
         return float(self.lr_schedule(t))
 
     def _to_device(self, x, dtype=None):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """``x`` on the learner's device: a tensor (already there, as
+        ``data.prefetch.device_prefetch`` leaves it) is taken as it is,
+        anything else is copied from the host. To a CUDA device the copy
+        goes from pinned memory without blocking the host: a copy from
+        pageable memory would wait for the work queued on the stream,
+        every round, and the pinned block is not reused before the copy
+        has run (PyTorch's host allocator records the copy's event)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
+        host = torch.as_tensor(np.asarray(x), dtype=dtype)
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _client_ks(self, client_ids) -> torch.Tensor:
         """The cohort's (W,) ``--client_k_dist`` budgets as one device
@@ -136,6 +162,14 @@ class FedLearner:
         if self._offload_pipe is not None:
             self._offload_pipe.flush_all()
 
+    def _next_seed(self) -> int:
+        """The next round's seed from ``generator``: one draw a round."""
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self.generator))
+
+    def _lr_in(self, lr: float):
+        # the reference's lr_in: float32(lr) times the vector, rounded once
+        return lr if self.lr_scale_vec is None else lr * self.lr_scale_vec
+
     def train_round_async(self, client_ids, batch, mask, epoch_frac=None,
                           next_client_ids=None):
         """Dispatch one round and return its metrics as device tensors
@@ -144,13 +178,10 @@ class FedLearner:
         while this round computes (ignored off the offload path)."""
         lr = self.lr_at(self.rounds_done if epoch_frac is None
                         else epoch_frac)
-        seed = int(torch.randint(0, 2 ** 62, (1,),
-                                 generator=self.generator))
-        # the reference's lr_in: float32(lr) times the vector, rounded once
-        lr_in = lr if self.lr_scale_vec is None else lr * self.lr_scale_vec
+        seed = self._next_seed()
         args = (self._to_device(client_ids, torch.int32),
                 tuple(self._to_device(c) for c in batch),
-                self._to_device(mask, torch.float32), lr_in, seed)
+                self._to_device(mask, torch.float32), self._lr_in(lr), seed)
         ks = (self._client_ks(client_ids) if self.cfg.client_k_active
               else None)
         if self._offload:
@@ -170,23 +201,16 @@ class FedLearner:
         return raw
 
     def finalize_round_metrics(self, raw):
-        """Read one round's device metrics on the host and add its bytes
-        to the totals."""
+        """Read one round's device metrics on the host, with one copy, and
+        add its bytes to the totals."""
         if "lr" not in raw:
             raise ValueError("round metrics were already finalized "
-                             "(finalize_round_metrics consumes its input)")
+                             "(finalize_* consumes its input)")
+        if isinstance(raw["lr"], list):
+            raise TypeError("this is a train_rounds_scan result; use "
+                            "finalize_scan_metrics")
         lr = raw.pop("lr")
-        n = max(float(raw["num_datapoints"]), 1.0)
-        out = {
-            "loss": float(raw["loss_sum"]) / n,
-            "metrics": raw["metric_sums"].cpu().numpy() / n,
-            "num_datapoints": n,
-            "download_bytes": float(raw["download_bytes"]),
-            "upload_bytes": float(raw["upload_bytes"]),
-            "update_l2": float(raw["update_l2"]),
-            "aborted": bool(raw["aborted"]),
-            "lr": lr,
-        }
+        out = _unpack_metrics(_pack_metrics(raw).cpu().numpy(), lr)
         self.total_download_bytes += out["download_bytes"]
         self.total_upload_bytes += out["upload_bytes"]
         return out
@@ -199,6 +223,85 @@ class FedLearner:
                                    epoch_frac=epoch_frac))
         self.flush_offload()
         return out
+
+    def train_rounds_scan(self, client_ids, batches, masks,
+                          epoch_fracs=None):
+        """Dispatch K rounds from one window: ``client_ids`` (K, W), each
+        column of ``batches`` stacked to (K, W, B, ...), ``masks`` (K, W,
+        B). The stacked inputs go to the device in one copy each (or are
+        taken as they are where they are there already), the K rounds are
+        enqueued back to back and their metrics stacked on the device.
+        The seeds are K draws from ``generator`` in the order of K
+        ``train_round_async`` calls and the LRs the schedule's at
+        ``rounds_done + k`` (or ``epoch_fracs`` (K,)), so the window
+        equals K single rounds bitwise. Returns the raw stacked metrics for
+        ``finalize_scan_metrics``."""
+        if self._offload:
+            raise ValueError(
+                "train_rounds_scan needs device-resident client state "
+                "(offloaded rows are host-gathered per round); run with "
+                "scan_rounds=1 under client_state_offload")
+        ids_host = np.asarray(client_ids)
+        K = ids_host.shape[0]
+        ts = (np.asarray(epoch_fracs, np.float64) if epoch_fracs is not None
+              else np.arange(self.rounds_done, self.rounds_done + K))
+        lrs = [self.lr_at(float(t)) for t in ts]
+        seeds = [self._next_seed() for _ in range(K)]
+        ids = self._to_device(ids_host, torch.int32)
+        cols = tuple(self._to_device(c) for c in batches)
+        m = self._to_device(masks, torch.float32)
+        ks = None
+        if self.cfg.client_k_active:
+            # the (K, W) budgets, one row a round: the per-round draws
+            ks = self._to_device(np.stack([
+                cohort_client_ks(self.cfg.seed, row, self.cfg.k,
+                                 self.cfg.client_k_dist,
+                                 memo=self._client_k_memo)
+                for row in ids_host]), torch.int64)
+        packed = []
+        for k in range(K):
+            self.state, raw = self._round(
+                self.state, ids[k], tuple(c[k] for c in cols), m[k],
+                self._lr_in(lrs[k]), seeds[k],
+                client_ks=None if ks is None else ks[k])
+            packed.append(_pack_metrics(raw))
+        self.rounds_done += K
+        # host-known, so the dispatch stays asynchronous
+        return {"packed": torch.stack(packed), "lr": lrs}
+
+    def finalize_scan_metrics(self, raw):
+        """Read a ``train_rounds_scan`` result with one copy to the host:
+        a list of K per-round dicts of ``finalize_round_metrics``' schema;
+        each round's bytes are added to the totals."""
+        if "lr" not in raw:
+            raise ValueError("scan metrics were already finalized "
+                             "(finalize_* consumes its input)")
+        if not isinstance(raw["lr"], list):
+            raise TypeError("this is a single-round result; use "
+                            "finalize_round_metrics")
+        lrs = raw.pop("lr")
+        rows = raw["packed"].cpu().numpy()
+        results = []
+        for row, lr in zip(rows, lrs):
+            out = _unpack_metrics(row, lr)
+            self.total_download_bytes += out["download_bytes"]
+            self.total_upload_bytes += out["upload_bytes"]
+            results.append(out)
+        return results
+
+    def pipeline(self) -> "RoundPipeline":
+        """A one-round software pipeline over this learner (see
+        ``RoundPipeline``)."""
+        return RoundPipeline(self)
+
+    def scan_window(self, k: int) -> "ScanWindow":
+        """A K-round window buffer over this learner (see ``ScanWindow``)."""
+        if self._offload:
+            raise ValueError(
+                "--scan_rounds K>1 is incompatible with "
+                "--client_state_offload (rows are host-gathered per "
+                "round); use scan_rounds=1")
+        return ScanWindow(self, k)
 
     def evaluate(self, batches: Iterable):
         """Centralized validation over an iterable of (batch_tuple, mask)."""
@@ -217,6 +320,105 @@ class FedLearner:
                 "metrics": (metric_sums if metric_sums is not None
                             else np.zeros(1)) / n,
                 "num_datapoints": n, "num_batches": num_batches}
+
+
+#: the scalar metrics of a round, in the order ``_pack_metrics`` lays them
+#: out ahead of ``metric_sums``
+_PACKED_SCALARS = ("loss_sum", "num_datapoints", "download_bytes",
+                   "upload_bytes", "update_l2", "aborted")
+
+
+def _pack_metrics(raw) -> torch.Tensor:
+    """One round's device metrics as one float32 row: the scalars of
+    ``_PACKED_SCALARS`` (each a float32 value or a bool, so exact), then
+    ``metric_sums``."""
+    return torch.cat([torch.stack([raw[key].to(torch.float32)
+                                   for key in _PACKED_SCALARS]),
+                      raw["metric_sums"].to(torch.float32)])
+
+
+def _unpack_metrics(row: np.ndarray, lr: float) -> dict:
+    """``finalize_round_metrics``' dict from a packed row on the host."""
+    v = dict(zip(_PACKED_SCALARS, (float(x) for x in row)))
+    n = max(v["num_datapoints"], 1.0)
+    return {
+        "loss": v["loss_sum"] / n,
+        "metrics": row[len(_PACKED_SCALARS):] / n,
+        "num_datapoints": n,
+        "download_bytes": v["download_bytes"],
+        "upload_bytes": v["upload_bytes"],
+        "update_l2": v["update_l2"],
+        "aborted": bool(v["aborted"]),
+        "lr": float(lr),
+    }
+
+
+class RoundPipeline:
+    """One-round software pipeline over a ``FedLearner``.
+
+    ``push`` takes a dispatched round's raw (device) metrics and returns
+    the previous round's finalized metrics (None for the first), so that
+    the host's read of round t overlaps round t+1 on the device; ``flush``
+    after the loop returns the last round's. A loop therefore sees each
+    round's metrics one round late: a NaN abort lags one round, and the
+    round's sticky device guard keeps the rounds after a breach from
+    changing anything."""
+
+    def __init__(self, learner: FedLearner):
+        self.learner = learner
+        self._pending = None
+
+    def push(self, raw):
+        out = self.flush()
+        self._pending = raw
+        return out
+
+    def flush(self):
+        out = None
+        if self._pending is not None:
+            out = self.learner.finalize_round_metrics(self._pending)
+            self._pending = None
+        return out
+
+
+class ScanWindow:
+    """Buffers a loop's rounds and runs every K of them as one
+    ``train_rounds_scan`` window (``--scan_rounds K``). ``push`` returns
+    the window's finalized per-round metrics (a list) when it ran one,
+    else None; ``flush`` after the loop runs the shorter tail window."""
+
+    def __init__(self, learner: FedLearner, k: int):
+        self.learner = learner
+        self.k = max(1, int(k))
+        self._buf = []
+
+    def push(self, client_ids, cols, mask, epoch_frac):
+        self._buf.append((np.asarray(client_ids), tuple(cols), mask,
+                          epoch_frac))
+        if len(self._buf) >= self.k:
+            return self.flush()
+        return None
+
+    def flush(self):
+        if not self._buf:
+            return []
+        ids_k = np.stack([b[0] for b in self._buf])
+        cols_k = tuple(_stack([b[1][i] for b in self._buf])
+                       for i in range(len(self._buf[0][1])))
+        mask_k = _stack([b[2] for b in self._buf])
+        fracs = [b[3] for b in self._buf]
+        self._buf.clear()
+        return self.learner.finalize_scan_metrics(
+            self.learner.train_rounds_scan(ids_k, cols_k, mask_k,
+                                           epoch_fracs=fracs))
+
+
+def _stack(items):
+    """Stack a window's arrays: on their device where they are tensors
+    (prefetched), on the host otherwise."""
+    if isinstance(items[0], torch.Tensor):
+        return torch.stack(items)
+    return np.stack([np.asarray(a) for a in items])
 
 
 class HostOffloadPipeline:

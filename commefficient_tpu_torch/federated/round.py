@@ -133,7 +133,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                      buckets: Optional[GradBuckets] = None) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
     lr, seed, rows=None, client_ks=None) -> (FedState, metrics)``, every
-    tensor on the state's device; ``lr`` is a float or a (d,) float32
+    tensor on the state's device (its ``sketch`` attribute: the round's
+    ``CountSketch``, or None); ``lr`` is a float or a (d,) float32
     tensor of per-coordinate rates. Under ``--client_state_offload``
     ``rows`` is the W clients' encoded ``ClientState`` and the step
     returns ``(FedState, out_rows, metrics)``; ``client_ks`` is the (W,)
@@ -340,6 +341,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             return new_state, out_rows, metrics
         return new_state, metrics
 
+    round_step.sketch = sketch
     return round_step
 
 

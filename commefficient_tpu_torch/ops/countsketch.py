@@ -239,6 +239,20 @@ class CountSketch:
                                    packed).to(torch.int32).to(device))
         return self._tables[device]
 
+    def prepare(self, device):
+        """Copy the hash inputs that the kernels read to a CUDA ``device``
+        now (the coefficient columns and, in the tiled scheme, the window
+        lists), so that the first round on it enqueues no blocking copy."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return
+        if device.index is None:
+            # the key the round's tensors look the tables up by
+            device = torch.device("cuda", torch.cuda.current_device())
+        self._row_coeffs(None, device)
+        if self.scheme == "tiled" and self.nblocks <= 2 ** 25 - 1:
+            self.kernel_tables(device)
+
     # --- core ops ---------------------------------------------------------
     def zero_table(self, device="cpu") -> torch.Tensor:
         return torch.zeros((self.r, self.c_eff), dtype=torch.float32,

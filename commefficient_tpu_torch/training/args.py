@@ -21,6 +21,13 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--test", action="store_true", dest="do_test")
     p.add_argument("--mode", choices=MODES, default="sketch")
     p.add_argument("--seed", type=int, default=21)
+    p.add_argument("--tensorboard", dest="use_tensorboard",
+                   action="store_true",
+                   help="export the epoch scalars under runs/ "
+                        "(utils/logging.py ScalarWriter)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the "
+                        "training loop to DIR/trace.json")
     # model/data
     p.add_argument("--model", default="ResNet9")
     p.add_argument("--dataset_name", default="Synthetic",
@@ -29,6 +36,8 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--dataset_dir", default="./dataset")
     p.add_argument("--batchnorm", action="store_true", dest="do_batchnorm")
     p.add_argument("--nan_threshold", type=float, default=999)
+    p.add_argument("--eval_before_start", action="store_true",
+                   help="run a validation pass before training")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"),
                    default="float32",
                    help="model compute dtype (params stay float32); the CV "
@@ -89,11 +98,14 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--dp_mode", choices=DP_MODES, default="worker")
     p.add_argument("--l2_norm_clip", type=float, default=1.0)
     p.add_argument("--noise_multiplier", type=float, default=0.0)
+    p.add_argument("--scan_rounds", type=int, default=1,
+                   help="rounds a window (FedLearner.train_rounds_scan): "
+                        "the same trajectory, one host read of the metrics "
+                        "a window; below 1 means 1")
     # accepted so that a reference command line parses; refused by train()
     p.add_argument("--finetune", action="store_true", dest="do_finetune")
     p.add_argument("--finetune_path", default="./finetune")
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--scan_rounds", type=int, default=1)
     return p
 
 
@@ -176,18 +188,22 @@ def resolve_fused_ce(args) -> bool:
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
     flag set that the port does not run: ``--finetune`` (A10),
-    ``--mesh`` (A12), ``--scan_rounds > 1`` (A7), then the entry point's
-    own ``extra`` ``(flag, is_set, item)`` triples. The config refuses
-    ``--topk_approx_recall`` (A2)."""
+    ``--mesh`` (A12), then the entry point's own ``extra`` ``(flag,
+    is_set, item)`` triples. The config refuses ``--topk_approx_recall``
+    (A2)."""
     for flag, on, item in (
             ("--finetune (utils/finetune.py reads checkpoint v3)",
              args.do_finetune, "A10"),
             ("--mesh", bool(args.mesh), "A12"),
-            ("--scan_rounds > 1", args.scan_rounds > 1, "A7"),
             *extra):
         if on:
             raise NotImplementedError(f"{flag} is not ported to PyTorch "
                                       f"yet (ROADMAP.md {item})")
+
+
+def scan_rounds(args) -> int:
+    """``--scan_rounds``, at least 1."""
+    return max(1, int(getattr(args, "scan_rounds", 1) or 1))
 
 
 def args_to_config(args) -> FedConfig:

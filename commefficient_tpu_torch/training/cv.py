@@ -1,8 +1,10 @@
 """CV training entry point (port of ``commefficient_tpu/training/cv.py``).
 
-    python -m commefficient_tpu_torch.training.cv --mode sketch \
-        --error_type virtual --virtual_momentum 0.9 --num_workers 8 \
-        --local_batch_size 32 --k 50000 --num_rows 5 --num_cols 500000
+    python -m commefficient_tpu_torch.training.cv --dataset_name CIFAR10 \
+        --dataset_dir ./dataset/cifar10 --model ResNet9 --mode sketch \
+        --error_type virtual --virtual_momentum 0.9 --num_clients 100 \
+        --num_workers 8 --local_batch_size 32 --k 50000 --num_rows 5 \
+        --num_cols 500000 --pivot_epoch 5 --lr_scale 0.4 --scan_rounds 8
 
 All five modes run: ``--mode sketch`` (``--server_fused auto|off``),
 ``true_topk``, ``local_topk``, ``uncompressed`` and ``fedavg`` (with
@@ -13,8 +15,11 @@ on them; Fixup* models train their scalars at ``--scalar_lr_factor``
 (0.1 by default) times the LR. ``--compute_dtype bfloat16`` runs
 ResNet9's convolutions and head in bfloat16 (parameters and logits stay
 float32) and is refused for any other model, as in the reference.
-Datasets: Synthetic, and the offline Digits and Patches32 (built from
-scikit-learn's bundled data on first use).
+Datasets: CIFAR10/100 (the python-pickle batches under
+``--dataset_dir``), EMNIST (LEAF json shards), ImageNet (the extracted
+JPEG tree; PIL decodes it once), each with the reference's train and
+test transforms; Synthetic; and the offline Digits and Patches32 (built
+from scikit-learn's bundled data on first use).
 
 Runs on CUDA unless ``--device cpu`` is given; without a CUDA device and
 without ``--device cpu`` it raises. On CUDA it turns TF32 off for
@@ -25,46 +30,61 @@ The client-state and transmit flags run in every mode that takes them:
 ``--client_state_offload`` (``--offload_pipeline_depth``),
 ``--client_k_dist``, ``--grad_buckets`` and ``--sketch_scheme global``.
 
-Epoch loop over federated rounds, each dispatched with the next round's
-client ids for the offload pipeline's gather-ahead; piecewise-linear LR
-through a pivot epoch, NaN abort, the offloaded rows flushed at every
-epoch's end, a validation pass per epoch and the byte rollup.
-Checkpoints, resume, ``--finetune``, mesh and scanned rounds are
-ROADMAP.md A7/A10/A12.
+Epoch loop over federated rounds: the batches go to the device ahead of
+their rounds (``data/prefetch.device_prefetch``), each round is
+dispatched with the next round's client ids for the offload pipeline's
+gather-ahead, and its metrics are read one round later
+(``RoundPipeline``) or a window at a time under ``--scan_rounds K``
+(``ScanWindow``; refused with ``--client_state_offload``, as in the
+reference). Piecewise-linear LR through a pivot epoch, NaN abort, the
+offloaded rows flushed at every epoch's end, a validation pass per epoch
+(and one before training under ``--eval_before_start``), the byte rollup,
+``TableLogger`` rows, ``--tensorboard`` scalars and a ``--profile``
+trace. Checkpoints, resume, ``--finetune`` and the mesh are ROADMAP.md
+A10/A12.
 """
 
 from __future__ import annotations
 
 import math
 import sys
-import time
 from functools import partial
 
 import numpy as np
 import torch
 
 from commefficient_tpu_torch.data import FedBatcher, fed_datasets, val_batches
-from commefficient_tpu_torch.data.prefetch import with_lookahead
+from commefficient_tpu_torch.data.prefetch import (device_prefetch,
+                                                   with_lookahead)
+from commefficient_tpu_torch.data.transforms import get_transforms
 from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import make_cv_loss
 from commefficient_tpu_torch.models import get_model
 from commefficient_tpu_torch.models.norms import BatchNorm
 from commefficient_tpu_torch.training.args import (args_to_config,
                                                    build_parser,
-                                                   refuse_unported)
+                                                   refuse_unported,
+                                                   scan_rounds)
+from commefficient_tpu_torch.training.loop import (FeedClock, RoundFeed,
+                                                   first_abort)
 from commefficient_tpu_torch.utils.device import resolve_device
+from commefficient_tpu_torch.utils.logging import (ScalarWriter, TableLogger,
+                                                   Timer, make_logdir,
+                                                   profile_ctx)
 from commefficient_tpu_torch.utils.params import scalar_lr_multipliers
 from commefficient_tpu_torch.utils.schedules import cifar_lr_schedule
 
+DATASET_CLASSES = {"CIFAR10": 10, "CIFAR100": 100, "EMNIST": 62,
+                   "ImageNet": 1000, "Synthetic": 10, "Digits": 10,
+                   "Patches32": 10}
 DATASET_CHANNELS = {"EMNIST": 1, "Digits": 1}
 
 
 def _refuse_unported(args):
     refuse_unported(args)
     if args.dataset_name not in fed_datasets:
-        raise NotImplementedError(
-            f"dataset {args.dataset_name!r} is not ported to PyTorch yet "
-            f"(ROADMAP.md A7); ported: {sorted(fed_datasets)}")
+        raise ValueError(f"--dataset_name {args.dataset_name!r} is not a CV "
+                         f"dataset; choices: {sorted(fed_datasets)}")
     # the config's refusals, before any data is made
     args_to_config(args).validate()
 
@@ -72,7 +92,9 @@ def _refuse_unported(args):
 def make_dataset(args, train: bool):
     cls = fed_datasets[args.dataset_name]
     kw = dict(dataset_dir=args.dataset_dir, do_iid=args.do_iid,
-              num_clients=args.num_clients, train=train, seed=args.seed)
+              num_clients=args.num_clients, train=train,
+              transform=get_transforms(args.dataset_name, train),
+              seed=args.seed)
     if args.dataset_name == "Synthetic":
         kw.update(per_class=64 if args.do_test else 512)
     return cls(**kw)
@@ -125,14 +147,17 @@ def build_learner(args, num_classes, channels, device, image_size=32):
 
 def train(args, max_rounds=None, log=True):
     """Train per ``args``; returns ``(learner, last epoch's row)``. The row
-    carries every round's metrics and host time, over all epochs, under
-    ``"rounds"``."""
+    carries every finalized round's metrics in order, over all epochs,
+    under ``"rounds"`` (each with its ``round_s``, ``training/loop.py``),
+    and the host seconds and batches of the data feed (``"feed_s"``,
+    ``"feed_batches"``)."""
     _refuse_unported(args)
     device = resolve_device(args.device)
     train_set = make_dataset(args, train=True)
     val_set = make_dataset(args, train=False)
     args.num_clients = train_set.num_clients
-    num_classes = train_set.num_classes
+    num_classes = getattr(train_set, "num_classes",
+                          DATASET_CLASSES[args.dataset_name])
     channels = DATASET_CHANNELS.get(args.dataset_name, 3)
 
     batcher = FedBatcher(train_set, args.num_workers, args.local_batch_size,
@@ -142,69 +167,116 @@ def train(args, max_rounds=None, log=True):
     _, probe_cols, _ = next(iter(batcher.epoch()))
     learner = build_learner(args, num_classes, channels, device,
                             image_size=probe_cols[0].shape[2])
+    scan_k = scan_rounds(args)
+    table = TableLogger() if log else None
+    writer = (ScalarWriter(make_logdir(args)) if args.use_tensorboard
+              else None)
+    timer = Timer()
+    feed = FeedClock()
     spe = batcher.steps_per_epoch()
     total_rounds = 0
-    t_start = time.perf_counter()
-    n_epochs = int(math.ceil(args.num_epochs))
     row, history = {}, []
-    for epoch in range(n_epochs):
-        # fractional num_epochs truncates the last epoch's round count
-        epoch_fraction = (args.num_epochs - epoch
-                          if epoch == n_epochs - 1 else 1.0)
-        rounds_cap = (spe if epoch_fraction >= 1
-                      else max(1, int(round(spe * epoch_fraction))))
-        rounds = []
-        t_epoch = time.perf_counter()
-        # the one-item lookahead feeds the offload pipeline's
-        # gather-ahead (the next round's rows copy while this one runs)
-        for (ids, cols, mask), nxt in with_lookahead(batcher.epoch()):
-            t0 = time.perf_counter()
-            out = learner.finalize_round_metrics(learner.train_round_async(
-                ids, cols, mask, epoch_frac=total_rounds / max(spe, 1),
-                next_client_ids=None if nxt is None else nxt[0]))
-            out["round_s"] = time.perf_counter() - t0
-            rounds.append(out)
-            history.append(out)
-            total_rounds += 1
+    try:
+        if args.eval_before_start:
+            # a logging flag must not move the trajectory: the learner's
+            # generator is put back as it was
+            gen_state = learner.generator.get_state()
+            val0 = learner.evaluate(val_batches(val_set,
+                                                args.valid_batch_size))
+            learner.generator.set_state(gen_state)
             if log:
-                print(f"round {total_rounds}: loss={out['loss']:.6f} "
-                      f"down={out['download_bytes']:.0f}B "
-                      f"up={out['upload_bytes']:.0f}B "
-                      f"time={out['round_s'] * 1e3:.1f}ms", flush=True)
-            if out["aborted"]:
-                print(f"NaN/divergent loss ({out['loss']}); aborting "
+                print(f"eval before start: loss={val0['loss']:.4f} "
+                      f"acc={float(val0['metrics'][0]):.4f}")
+            if writer:
+                writer.add_scalar("test_loss", val0["loss"], 0)
+                writer.add_scalar("test_acc", float(val0["metrics"][0]), 0)
+        n_epochs = int(math.ceil(args.num_epochs))
+        for epoch in range(n_epochs):
+            # fractional num_epochs truncates the last epoch's round count
+            epoch_fraction = (args.num_epochs - epoch
+                              if epoch == n_epochs - 1 else 1.0)
+            rounds_cap = (spe if epoch_fraction >= 1
+                          else max(1, int(round(spe * epoch_fraction))))
+            rounds_in_epoch = 0
+            epoch_metrics = []
+            # the one-round pipeline (or a K-round window): the host reads
+            # round t's metrics while round t+1 runs, so an abort is seen
+            # one round (or window) late; the round's sticky device guard
+            # keeps the rounds after a breach from changing anything
+            rounds = RoundFeed(learner, scan_k)
+
+            def record(outs):
+                for out in outs:
+                    epoch_metrics.append(out)
+                    history.append(out)
+                    if log:
+                        print(f"round {len(history)}: loss={out['loss']:.6f} "
+                              f"down={out['download_bytes']:.0f}B "
+                              f"up={out['upload_bytes']:.0f}B "
+                              f"time={out['round_s'] * 1e3:.1f}ms",
+                              flush=True)
+                return first_abort(outs)
+
+            def abort(bad):
+                print(f"NaN/divergent loss ({bad['loss']}); aborting "
                       f"(threshold {args.nan_threshold})")
                 learner.flush_offload()   # settle the host rows first
-                return learner, {"aborted": True, "loss": out["loss"],
+                return learner, {"aborted": True, "loss": bad["loss"],
                                  "rounds": history}
-            if (args.do_test or len(rounds) >= rounds_cap
-                    or (max_rounds and total_rounds >= max_rounds)):
+
+            # the next rounds' batches copy to the device while this one
+            # computes; the one-item lookahead feeds the offload pipeline's
+            # gather-ahead (the next round's rows copy meanwhile too)
+            for (ids, cols, mask), nxt in with_lookahead(device_prefetch(
+                    feed.wrap(batcher.epoch()), device=learner.device)):
+                bad = record(rounds.push(
+                    ids, cols, mask, total_rounds / max(spe, 1),
+                    next_client_ids=None if nxt is None else nxt[0]))
+                total_rounds += 1
+                rounds_in_epoch += 1
+                if bad:
+                    return abort(bad)
+                if (args.do_test or rounds_in_epoch >= rounds_cap
+                        or (max_rounds and total_rounds >= max_rounds)):
+                    break
+            # epoch boundary: pending writebacks land in the host rows, a
+            # gather-ahead for a round that never ran is dropped, and the
+            # last round (or window) is read
+            learner.flush_offload()
+            if bad := record(rounds.flush()):
+                return abort(bad)
+            train_time = timer()
+            val = learner.evaluate(val_batches(val_set,
+                                               args.valid_batch_size))
+            val_time = timer()
+            row = {
+                "epoch": epoch + 1,
+                "lr": epoch_metrics[-1]["lr"],
+                "train_loss": float(np.mean([m["loss"]
+                                             for m in epoch_metrics])),
+                "train_acc": float(np.mean([m["metrics"][0]
+                                            for m in epoch_metrics])),
+                "train_time": train_time,
+                "test_loss": val["loss"],
+                "test_acc": float(val["metrics"][0]),
+                "test_time": val_time,
+                "down (MiB)": learner.total_download_bytes / 2**20,
+                "up (MiB)": learner.total_upload_bytes / 2**20,
+                "total_time": timer.total_time,
+            }
+            if table:
+                table.append(row)
+            if writer:
+                for tag in ("train_loss", "train_acc", "train_time",
+                            "test_loss", "test_acc", "test_time", "lr"):
+                    writer.add_scalar(tag, row[tag], epoch + 1)
+            row.update(rounds=history, feed_s=feed.seconds,
+                       feed_batches=feed.batches)
+            if args.do_test or (max_rounds and total_rounds >= max_rounds):
                 break
-        # epoch boundary: pending writebacks land in the host rows, and a
-        # gather-ahead for a round that never ran is dropped
-        learner.flush_offload()
-        train_time = time.perf_counter() - t_epoch
-        t_val = time.perf_counter()
-        val = learner.evaluate(val_batches(val_set, args.valid_batch_size))
-        row = {
-            "epoch": epoch + 1,
-            "lr": rounds[-1]["lr"],
-            "train_loss": float(np.mean([m["loss"] for m in rounds])),
-            "train_acc": float(np.mean([m["metrics"][0] for m in rounds])),
-            "train_time": train_time,
-            "test_loss": val["loss"],
-            "test_acc": float(val["metrics"][0]),
-            "test_time": time.perf_counter() - t_val,
-            "down (MiB)": learner.total_download_bytes / 2**20,
-            "up (MiB)": learner.total_upload_bytes / 2**20,
-            "total_time": time.perf_counter() - t_start,
-        }
-        if log:
-            print({k: round(v, 4) if isinstance(v, float) else v
-                   for k, v in row.items()}, flush=True)
-        row["rounds"] = history
-        if args.do_test or (max_rounds and total_rounds >= max_rounds):
-            break
+    finally:
+        if writer:
+            writer.close()
     return learner, row
 
 
@@ -218,8 +290,10 @@ def main(argv=None):
         args.num_rows = min(args.num_rows, 1)
         args.num_epochs = 1
     np.random.seed(args.seed)
-    _, final = train(args)
-    final.pop("rounds", None)
+    with profile_ctx(args.profile):
+        _, final = train(args)
+    for key in ("rounds", "feed_s", "feed_batches"):
+        final.pop(key, None)
     print("final:", {k: round(v, 4) if isinstance(v, float) else v
                      for k, v in final.items()})
     return 0

@@ -30,6 +30,9 @@ are cached too (``models/gpt2_import.py``); neither is fetched.
 ``--mode local_topk --error_type local --client_state sparse
 --client_state_offload`` keeps each client's rows as k index/value pairs
 in host memory (``examples/gpt2_personachat.sh``'s single-card setting).
+The loop is the CV entry point's (``training/loop.py``): device prefetch,
+the one-round pipeline or ``--scan_rounds K`` windows,
+``--eval_before_start``, ``--tensorboard`` and ``--profile``.
 Checkpoints, resume, the generated sample and the serving stack are
 ROADMAP.md A10/A11.
 """
@@ -38,13 +41,13 @@ from __future__ import annotations
 
 import math
 import sys
-import time
 
 import numpy as np
 import torch
 
 from commefficient_tpu_torch.data import FedBatcher, val_batches
-from commefficient_tpu_torch.data.prefetch import with_lookahead
+from commefficient_tpu_torch.data.prefetch import (device_prefetch,
+                                                   with_lookahead)
 from commefficient_tpu_torch.data.persona import (FedPERSONA,
                                                   SyntheticPersona)
 from commefficient_tpu_torch.data.tokenizer import (HFTokenizerWrapper,
@@ -59,8 +62,14 @@ from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    args_to_config,
                                                    build_parser,
                                                    refuse_unported,
-                                                   resolve_fused_ce)
+                                                   resolve_fused_ce,
+                                                   scan_rounds)
+from commefficient_tpu_torch.training.loop import (FeedClock, RoundFeed,
+                                                   first_abort)
 from commefficient_tpu_torch.utils.device import resolve_device
+from commefficient_tpu_torch.utils.logging import (ScalarWriter, TableLogger,
+                                                   Timer, make_logdir,
+                                                   profile_ctx)
 from commefficient_tpu_torch.utils.schedules import gpt2_lr_schedule
 
 
@@ -109,11 +118,13 @@ def gpt2_config(args, vocab_size: int):
 
 def train(args, max_rounds=None, log=True):
     """Train per ``args``; returns ``(learner, last epoch's row)``. Beside
-    the epoch's metrics the row carries every round's metrics and host time
-    (``"rounds"``), the kernel launch counters as they stood when the
-    epoch's rounds ended (``"launches_after_rounds"``), the number of
-    validation batches (``"val_batches"``) and the last round's
-    ``(client_ids, batch, mask)`` (``"last_batch"``)."""
+    the epoch's metrics the row carries every finalized round's metrics in
+    order with its ``round_s`` (``"rounds"``), the kernel launch counters
+    as they stood when the epoch's rounds ended
+    (``"launches_after_rounds"``), the number of validation batches
+    (``"val_batches"``), the last round's ``(client_ids, batch, mask)``
+    (``"last_batch"``, the batch and mask on the device) and the data
+    feed's host seconds and batches (``"feed_s"``, ``"feed_batches"``)."""
     _refuse_unported(args)
     device = resolve_device(args.device)
     tokenizer = get_tokenizer(args.model_checkpoint, verbose=log)
@@ -150,72 +161,119 @@ def train(args, max_rounds=None, log=True):
               f"{model.config.attn_impl}, fused LM head "
               f"{model.config.fused_lm_head}, device {device}", flush=True)
 
+    scan_k = scan_rounds(args)
+    table = TableLogger() if log else None
+    writer = (ScalarWriter(make_logdir(args)) if args.use_tensorboard
+              else None)
+    timer = Timer()
+    feed = FeedClock()
     total_rounds = 0
-    t_start = time.perf_counter()
     row, history = {}, []
-    for epoch in range(int(math.ceil(args.num_epochs))):
-        rounds = []
-        t_epoch = time.perf_counter()
-        # the one-item lookahead feeds the offload pipeline's
-        # gather-ahead (the next round's rows copy while this one runs)
-        for (ids, cols, mask), nxt in with_lookahead(batcher.epoch()):
-            t0 = time.perf_counter()
-            # the schedule decays per round: lr_at(total rounds so far)
-            out = learner.finalize_round_metrics(learner.train_round_async(
-                ids, cols, mask, epoch_frac=total_rounds,
-                next_client_ids=None if nxt is None else nxt[0]))
-            out["round_s"] = time.perf_counter() - t0
-            rounds.append(out)
-            history.append(out)
-            last_batch = (ids, cols, mask)
-            total_rounds += 1
+    try:
+        if args.eval_before_start:
+            # a logging flag must not move the trajectory: the learner's
+            # generator is put back as it was
+            gen_state = learner.generator.get_state()
+            val0 = learner.evaluate(val_batches(val_set,
+                                                args.valid_batch_size))
+            learner.generator.set_state(gen_state)
+            nll0 = _token_nll(val0)
             if log:
-                print(f"round {total_rounds}: loss={out['loss']:.6f} "
-                      f"up={out['upload_bytes']:.0f}B "
-                      f"time={out['round_s'] * 1e3:.1f}ms", flush=True)
-            if out["aborted"]:
-                print(f"NaN/divergent loss ({out['loss']}); aborting "
+                print(f"eval before start: nll={nll0:.4f} "
+                      f"ppl={float(np.exp(min(nll0, 20.0))):.2f}")
+            if writer:
+                writer.add_scalar("nll", nll0, 0)
+        for epoch in range(int(math.ceil(args.num_epochs))):
+            epoch_metrics = []
+            # the one-round pipeline (or a K-round window; see
+            # training/cv.py): an abort is seen one round (or window) late
+            rounds = RoundFeed(learner, scan_k)
+
+            def record(outs):
+                for out in outs:
+                    epoch_metrics.append(out)
+                    history.append(out)
+                    if log:
+                        print(f"round {len(history)}: loss={out['loss']:.6f} "
+                              f"up={out['upload_bytes']:.0f}B "
+                              f"time={out['round_s'] * 1e3:.1f}ms",
+                              flush=True)
+                return first_abort(outs)
+
+            def abort(bad):
+                print(f"NaN/divergent loss ({bad['loss']}); aborting "
                       f"(threshold {args.nan_threshold})")
                 learner.flush_offload()   # settle the host rows first
-                return learner, {"aborted": True, "loss": out["loss"],
+                return learner, {"aborted": True, "loss": bad["loss"],
                                  "rounds": history}
+
+            # the next rounds' batches copy to the device while this one
+            # computes; the lookahead feeds the offload pipeline's
+            # gather-ahead
+            for (ids, cols, mask), nxt in with_lookahead(device_prefetch(
+                    feed.wrap(batcher.epoch()), device=learner.device)):
+                # the schedule decays per round: lr_at(total rounds so far)
+                bad = record(rounds.push(
+                    ids, cols, mask, total_rounds,
+                    next_client_ids=None if nxt is None else nxt[0]))
+                last_batch = (ids, cols, mask)
+                total_rounds += 1
+                if bad:
+                    return abort(bad)
+                if args.do_test or (max_rounds and total_rounds >= max_rounds):
+                    break
+            # epoch boundary: pending writebacks land in the host rows, a
+            # gather-ahead for a round that never ran is dropped, and the
+            # last round (or window) is read
+            learner.flush_offload()
+            if bad := record(rounds.flush()):
+                return abort(bad)
+            train_time = timer()
+            launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            val = learner.evaluate(val_batches(val_set,
+                                               args.valid_batch_size))
+            nll = _token_nll(val)
+            row = {
+                "epoch": epoch + 1,
+                "lr": epoch_metrics[-1]["lr"],
+                "train_loss": float(np.mean([m["loss"]
+                                             for m in epoch_metrics])),
+                "nll": nll,
+                "ppl": float(np.exp(min(nll, 20.0))),
+                "vocab": tokenizer.vocab_size,
+                "mc_acc": float(val["metrics"][0]),
+                "train_time": train_time,
+                "test_time": timer(),
+                "down (MiB)": learner.total_download_bytes / 2**20,
+                "up (MiB)": learner.total_upload_bytes / 2**20,
+                "total_time": timer.total_time,
+            }
+            if table:
+                table.append(row)
+            if writer:
+                for tag in ("train_loss", "nll", "ppl", "mc_acc", "lr"):
+                    writer.add_scalar(tag, row[tag], epoch + 1)
+            row.update(rounds=history, launches_after_rounds=launches,
+                       val_batches=val["num_batches"], last_batch=last_batch,
+                       feed_s=feed.seconds, feed_batches=feed.batches)
             if args.do_test or (max_rounds and total_rounds >= max_rounds):
                 break
-        # epoch boundary: pending writebacks land in the host rows, and a
-        # gather-ahead for a round that never ran is dropped
-        learner.flush_offload()
-        train_time = time.perf_counter() - t_epoch
-        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
-        t_val = time.perf_counter()
-        val = learner.evaluate(val_batches(val_set, args.valid_batch_size))
-        # token-weighted nll = the reference's flat
-        # CrossEntropyLoss(ignore_index=-1) (gpt2_train.py:77-87)
-        nll = float(val["metrics"][1]) / max(float(val["metrics"][2]), 1e-9)
-        row = {
-            "epoch": epoch + 1,
-            "lr": rounds[-1]["lr"],
-            "train_loss": float(np.mean([m["loss"] for m in rounds])),
-            "nll": nll,
-            "ppl": float(np.exp(min(nll, 20.0))),
-            "vocab": tokenizer.vocab_size,
-            "mc_acc": float(val["metrics"][0]),
-            "train_time": train_time,
-            "test_time": time.perf_counter() - t_val,
-            "down (MiB)": learner.total_download_bytes / 2**20,
-            "up (MiB)": learner.total_upload_bytes / 2**20,
-            "total_time": time.perf_counter() - t_start,
-        }
-        if log:
-            print({k: round(v, 4) if isinstance(v, float) else v
-                   for k, v in row.items()}, flush=True)
-        row.update(rounds=history, launches_after_rounds=launches,
-                   val_batches=val["num_batches"], last_batch=last_batch)
-        if args.do_test or (max_rounds and total_rounds >= max_rounds):
-            break
+    finally:
+        if writer:
+            writer.close()
     if log and not args.do_test:
         print("generation sample: not ported (KV-cached decoding, "
               "ROADMAP.md A11)")
     return learner, row
+
+
+def _token_nll(val) -> float:
+    """The token-weighted nll of a validation pass (the reference's flat
+    ``CrossEntropyLoss(ignore_index=-1)``); an empty split's placeholder
+    metrics fall back to the dialog-weighted loss."""
+    if np.size(val["metrics"]) >= 3:
+        return float(val["metrics"][1]) / max(float(val["metrics"][2]), 1e-9)
+    return float(val["loss"])
 
 
 def build_gpt2_parser():
@@ -239,9 +297,10 @@ def main(argv=None):
         args.num_cols = min(args.num_cols, 100)
         args.num_rows = min(args.num_rows, 1)
     np.random.seed(args.seed)
-    _, final = train(args)
+    with profile_ctx(args.profile):
+        _, final = train(args)
     for key in ("rounds", "launches_after_rounds", "val_batches",
-                "last_batch"):
+                "last_batch", "feed_s", "feed_batches"):
         final.pop(key, None)
     print("final:", {k: round(v, 4) if isinstance(v, float) else v
                      for k, v in final.items()})

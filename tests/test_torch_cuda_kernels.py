@@ -902,3 +902,91 @@ def test_offload_round_card_bitwise_device_resident(dev, rep):
         else:
             for key in ("idx", "val"):
                 assert _same_bits(stored[key][:n].cpu(), arena[key])
+
+
+@pytest.mark.parametrize("size", [1, 3])
+def test_device_prefetch_pinned_copies_on_the_card(dev, size):
+    """``device_prefetch`` to the card: the columns arrive on the device
+    with their values and dtypes and in order, from pinned memory on the
+    side stream, the ids and the mask stay host numpy arrays, and an
+    array the producer rewrites after its item was put keeps the values
+    it had then."""
+    from commefficient_tpu_torch.data.prefetch import device_prefetch
+    rng = np.random.RandomState(size)
+    items = [(rng.randint(0, 100, 4).astype(np.int32),
+              (rng.randn(4, 8, 32, 32, 3).astype(np.float32),
+               rng.randint(0, 10, (4, 8)).astype(np.int32)),
+              (rng.rand(4, 8) > 0.2).astype(np.float32)) for _ in range(6)]
+    want = [(i.copy(), tuple(c.copy() for c in cols), m.copy())
+            for i, cols, m in items]
+
+    def produce():
+        for ids, cols, mask in items:
+            yield ids, cols, mask
+            cols[0][...] = -1.0   # the producer reuses its buffer
+    out = list(device_prefetch(produce(), size=size, device=dev))
+    torch.cuda.synchronize()
+    assert len(out) == len(want)
+    for (ids, cols, mask), (wi, wc, wm) in zip(out, want):
+        assert isinstance(ids, np.ndarray)
+        np.testing.assert_array_equal(ids, wi)
+        for c, w in zip(cols, wc):
+            assert c.device.type == "cuda" and c.dtype == torch.from_numpy(
+                w).dtype
+            np.testing.assert_array_equal(c.cpu().numpy(), w)
+        assert isinstance(mask, np.ndarray)
+        np.testing.assert_array_equal(mask, wm)
+
+
+def test_scan_window_on_the_card_bitwise_single_rounds(dev):
+    """A sketch-mode window of 3 rounds on the card (the sketch and
+    recovery kernels) bitwise 3 pipelined single rounds: per-round
+    metrics, weights and server state; the window's dispatch makes no
+    host sync (sync debug mode "error")."""
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.api import FedLearner
+    from commefficient_tpu_torch.federated.losses import make_cv_loss
+    from commefficient_tpu_torch.models.toy import TinyMLP
+    W, B = 3, 4
+    rng = np.random.RandomState(2)
+    rounds = [(rng.choice(8, W, replace=False).astype(np.int32),
+               (rng.randn(W, B, 8).astype(np.float32),
+                rng.randint(0, 2, (W, B)).astype(np.int32)),
+               np.ones((W, B), np.float32)) for _ in range(3)]
+    learners = []
+    for _ in range(2):
+        model = TinyMLP(num_classes=2, hidden=512, in_channels=8,
+                        image_size=1).reset_parameters(
+            torch.Generator().manual_seed(3))
+        cfg = FedConfig(mode="sketch", error_type="virtual",
+                        virtual_momentum=0.9, k=200, num_rows=5,
+                        num_cols=1000, num_workers=W, num_clients=8)
+        learners.append(FedLearner(model, cfg, make_cv_loss(model),
+                                   device=dev))
+    one, win = learners
+    pipe = one.pipeline()
+    outs_one = [o for o in (pipe.push(one.train_round_async(*r))
+                            for r in rounds) if o is not None]
+    outs_one.append(pipe.flush())
+    stacked = (np.stack([r[0] for r in rounds]),
+               tuple(torch.from_numpy(np.stack([r[1][i] for r in rounds]))
+                     .to(dev) for i in range(2)),
+               torch.from_numpy(np.stack([r[2] for r in rounds])).to(dev))
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        raw = win.train_rounds_scan(*stacked)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_lib.LAUNCHES["sketch"] == 3
+    outs_win = win.finalize_scan_metrics(raw)
+    for a, b in zip(outs_one, outs_win):
+        assert (a["loss"], a["upload_bytes"], a["download_bytes"],
+                a["update_l2"]) == (b["loss"], b["upload_bytes"],
+                                    b["download_bytes"], b["update_l2"])
+        np.testing.assert_array_equal(a["metrics"], b["metrics"])
+    for x, y in ((one.state.weights, win.state.weights),
+                 (one.state.opt.Vvelocity, win.state.opt.Vvelocity),
+                 (one.state.opt.Verror, win.state.opt.Verror)):
+        assert _same_bits(x, y)

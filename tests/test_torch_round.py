@@ -256,8 +256,8 @@ def test_cli_runs_client_state_offload(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "clients=2"],
-                                  ["--scan_rounds", "4"],
-                                  ["--dataset_name", "CIFAR10"]])
+                                  ["--finetune"],
+                                  ["--topk_approx_recall", "0.95"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(_cli_args(tmp_path, "--device", "cpu", *flag), log=False)
