@@ -134,6 +134,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    weights, Vvelocity and Verror bitwise equal; and one ResNet9 forward
    and backward at its batch timed with cuDNN's deterministic mode off,
    then on;
+   then the robustness layer (ROADMAP A10), each with its launches:
+   buffered_lockstep (the sketch flags + --server_mode buffered, no fault
+   model: losses, bytes, weights, Vvelocity and Verror bitwise that
+   sketch run's); buffered_faults (+ FAULT_FLAGS: dropouts, crashes,
+   chronic stragglers, alpha 0.5, M 4; 7 cohorts, which draw two dropouts
+   and one crash, and the final flush, twice: bitwise, each apply one sketch and one recovery, the fault
+   stats, applies and sim_time equal to a CPU replay of the same
+   cohorts); quarantine (--client_quarantine, worker 0's images NaN in
+   round 2: that contribution alone dropped, its client benched, no
+   abort); sigkill_resume (6 rounds with --checkpoint_every_rounds 2 in
+   this process, then the CLI in a child process SIGKILLed once its first
+   step file exists and a second child with --resume auto: the export
+   bitwise this process's, the kernels not rebuilt; a checkpoint's save
+   and load timed at d = 6,568,640); finetune (--finetune from that
+   export, 2 rounds: only the head's 5,120 coordinates move); and, with
+   the paths above, buffered_local_topk (the reference's preemption
+   config for the buffered server at ResNet9's width);
 5. a reference check on a small input: two rounds of a narrow ResNet9
    learner on CUDA (kernels) and on the CPU (plain versions) from the same
    weights and batches must agree, in sketch, true_topk and local_topk,
@@ -214,7 +231,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    Vvelocity and Verror bitwise equal; then gpt2_scan, the gpt2 flags
    with --scan_rounds 3 (one window): the gpt2 path's launches, no host
    sync inside the window, losses and weights bitwise the first of those
-   runs; then GPT2-small's loss and
+   runs; then gpt2_resume: 3 rounds with --checkpoint_every_rounds 2,
+   then a fresh learner resumed from round 2's step file for round 3,
+   losses and weights bitwise those 3 rounds (the torch generator, which
+   dropout draws from, is in the checkpoint), and a checkpoint's save and
+   load timed at d = 124,051,201; then GPT2-small's loss and
    gradient on one full-width batch (32 dialogs x 2 candidates x 256
    tokens, float32, TF32 off) with the fused LM head against the
    materialized logits (loss within 1e-5 relative, gradient within 1e-4
@@ -1751,7 +1772,9 @@ def phase_repeat(dev):
     bitwise equal per-round losses, weights, Vvelocity and Verror. Then
     what deterministic cuDNN costs: one ResNet9 forward and backward at
     the path's batch (8 workers x 32 images), called directly, with
-    ``torch.backends.cudnn.deterministic`` False, then True."""
+    ``torch.backends.cudnn.deterministic`` False, then True. Returns the
+    run's (losses, weights, Vvelocity, Verror, (upload, download) bytes a
+    round)."""
     import torch
     import torch.nn.functional as F
 
@@ -1767,6 +1790,8 @@ def phase_repeat(dev):
         runs.append(([r["loss"] for r in row["rounds"]],
                      s.weights.clone(), s.opt.Vvelocity.clone(),
                      s.opt.Verror.clone()))
+        nbytes = [(r["upload_bytes"], r["download_bytes"])
+                  for r in row["rounds"]]
         del learner, row, s
     (la, *ta), (lb, *tb) = runs
     same = [_same_bits(a, b) for a, b in zip(ta, tb)]
@@ -1774,6 +1799,7 @@ def phase_repeat(dev):
         raise AssertionError(f"the sketch path is not reproducible: losses "
                              f"{la} vs {lb}; weights, Vvelocity, Verror "
                              f"bitwise equal: {same}")
+    ref = (la, *ta, nbytes)
     del runs, ta, tb
     torch.cuda.empty_cache()
     model = ResNet9().reset_parameters(
@@ -1798,6 +1824,7 @@ def phase_repeat(dev):
           f"{ms[True]:.4f} ms", flush=True)
     del model, x, y
     torch.cuda.empty_cache()
+    return ref
 
 
 def phase_hw_dropout_parity(dev, errs):
@@ -2188,14 +2215,15 @@ class _RoundTables:
             setattr(owner, attr, f)
 
 
-def _cv_run(flags, context=None):
-    """3 rounds of ``training.cv.train`` with ``flags``: (learner, row)."""
+def _cv_run(flags, context=None, rounds=3):
+    """``rounds`` rounds of ``training.cv.train`` with ``flags``:
+    (learner, row)."""
     from commefficient_tpu_torch.training.args import build_parser
     from commefficient_tpu_torch.training.cv import train
     args = build_parser().parse_args(flags)
     np.random.seed(args.seed)
     with context or nullcontext():
-        return train(args, max_rounds=3, log=False)
+        return train(args, max_rounds=rounds, log=False)
 
 
 def _rows_of(learner):
@@ -2643,6 +2671,531 @@ def phase_cifar10_fetchsgd():
           f"{row['test_time']:.3f} s, whole train() {wall_s:.3f} s after "
           f"{gen_s:.3f} s writing 184 MB of pickles", flush=True)
     del learner, row, w
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Robustness (ROADMAP A10): the buffered server, the fault model,
+# quarantine, checkpoints, resume and finetune
+# --------------------------------------------------------------------------
+
+SKETCH_LAUNCHES = dict(RECOVERY, sketch=3)
+FAULT_FLAGS = ["--server_mode", "buffered", "--fault_seed", "7",
+               "--fault_dropout_prob", "0.1", "--fault_crash_prob", "0.05",
+               "--straggler_frac", "0.25", "--staleness_alpha", "0.5",
+               "--num_workers", "8", "--buffer_m", "4"]
+# cohorts of the faulted run: fault seed 7 draws its first dropouts (two)
+# and its first crash in cohort 7 of the headline Synthetic run (epochs of
+# 3 rounds)
+FAULT_COHORTS = 7
+# the reference's preemption config for the buffered server
+# (tests/test_preemption.py _CONFIGS["buffered"]) at ResNet9's width: the
+# lock-step server, the per-row radix top-k at k 5
+PATHS["buffered_local_topk"] = (
+    _BASE + ["--mode", "local_topk", "--error_type", "local", "--k", "5",
+             "--local_batch_size", "32", "--server_mode", "buffered"],
+    LOCAL_TOPK, 4 * 5)
+QUARANTINE_ROUNDS = 5
+HEAD_RESNET9 = 512 * 10   # Dense_0 (bias-free), the head finetune trains
+
+
+def _launches():
+    from commefficient_tpu_torch.ops import cuda_lib
+    return {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+
+
+def _scaled(launches, n, of=3):
+    """Per-round launch counts of ``launches`` (over ``of`` rounds) times
+    ``n``."""
+    return {k: v // of * n for k, v in launches.items()}
+
+
+def phase_buffered_lockstep(ref):
+    """--server_mode buffered with no fault model at alpha 0: 3 rounds of
+    the headline sketch flags, bitwise the sync path's (``ref`` from
+    ``phase_repeat``: losses, weights, Vvelocity, Verror, bytes) with
+    the sketch path's launches."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    cuda_lib.LAUNCHES.clear()
+    learner, row = _cv_run(HEADLINE + ["--server_mode", "buffered"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    if launches != SKETCH_LAUNCHES:
+        raise AssertionError(f"buffered_lockstep: launch counts {launches} "
+                             f"!= {SKETCH_LAUNCHES}")
+    losses, weights, vvel, verr, nbytes = ref
+    rounds = row["rounds"]
+    s = learner.state
+    got = [(r["upload_bytes"], r["download_bytes"]) for r in rounds]
+    if ([r["loss"].hex() for r in rounds] != [v.hex() for v in losses]
+            or got != nbytes
+            or not all(_same_bits(a, b) for a, b in (
+                (s.weights, weights), (s.opt.Vvelocity, vvel),
+                (s.opt.Verror, verr)))
+            or learner.applies_done != 3
+            or int(s.weights_version) != int(s.round_idx) != 3):
+        raise AssertionError(f"buffered_lockstep: not the sync path's "
+                             f"trajectory: losses "
+                             f"{[r['loss'] for r in rounds]} vs {losses}, "
+                             f"bytes {got} vs {nbytes}")
+    print(f"path buffered_lockstep: launches {launches}, losses "
+          f"{[round(r['loss'], 6) for r in rounds]}, round ms "
+          f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}; losses, "
+          f"bytes, weights, Vvelocity and Verror bitwise the sync sketch "
+          f"path's; {learner.applies_done} applies", flush=True)
+    del learner, row, s
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _CohortLog:
+    """Records each cohort a ``BufferedFedLearner`` dispatches: its client
+    ids and mask on the host."""
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated.buffer import \
+            BufferedFedLearner
+        self.cohorts = []
+        self._saved = BufferedFedLearner.train_round_async
+        saved = self._saved
+
+        def dispatch(learner, client_ids, batch, mask, **kwargs):
+            self.cohorts.append((np.array(client_ids),
+                                 np.array(mask.cpu() if hasattr(mask, "cpu")
+                                          else mask)))
+            return saved(learner, client_ids, batch, mask, **kwargs)
+        BufferedFedLearner.train_round_async = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from commefficient_tpu_torch.federated.buffer import \
+            BufferedFedLearner
+        BufferedFedLearner.train_round_async = self._saved
+
+
+def _replay_schedule_on_cpu(args, num_clients, cohorts):
+    """The same cohorts (ids, masks) through a CPU ``BufferedFedLearner``
+    of a 2-class toy model, with the run's fault flags, buffer and
+    dispatch interval: the host event loop's schedule (fault_stats,
+    applies, sim_time) does not depend on the model or the device."""
+    import torch
+
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.buffer import BufferedFedLearner
+    from commefficient_tpu_torch.federated.losses import make_cv_loss
+    from commefficient_tpu_torch.models.toy import TinyMLP
+    from commefficient_tpu_torch.training.args import make_fault_model
+    model = TinyMLP(num_classes=2, hidden=2, in_channels=1, image_size=1)
+    cfg = FedConfig(mode="uncompressed", num_workers=args.num_workers,
+                    num_clients=num_clients, server_mode="buffered",
+                    buffer_m=args.buffer_m,
+                    staleness_alpha=args.staleness_alpha)
+    learner = BufferedFedLearner(
+        model, cfg, make_cv_loss(model), device="cpu",
+        fault_model=make_fault_model(args, num_clients),
+        dispatch_interval=args.dispatch_interval)
+    for ids, mask in cohorts:
+        W, B = mask.shape
+        batch = (np.zeros((W, B, 1, 1, 1), np.float32),
+                 np.zeros((W, B), np.int64))
+        learner.train_round(ids, batch, mask)
+    learner.flush_faults()
+    del torch
+    return learner.fault_stats, learner.applies_done, learner.sim_time
+
+
+def phase_buffered_faults():
+    """The buffered server under a seeded fault schedule (FAULT_FLAGS: 8
+    workers, M 4, alpha 0.5, dropouts, crashes, chronic stragglers),
+    FAULT_COHORTS cohorts of the headline sketch flags (the seed's
+    schedule drops two clients and crashes one in them) and the
+    end-of-training flush, twice: weights, losses, bytes, fault_stats, applies and sim_time
+    bitwise equal; each apply sketches the aggregate once and recovers
+    (the sketch path's launches per apply); the schedule equal to a CPU
+    replay of the same cohorts."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.args import build_parser
+    runs = []
+    for _ in range(2):
+        cuda_lib.LAUNCHES.clear()
+        with _CohortLog() as log:
+            learner, row = _cv_run(HEADLINE + FAULT_FLAGS,
+                                   rounds=FAULT_COHORTS)
+        torch.cuda.synchronize()
+        runs.append(dict(
+            launches=_launches(), weights=learner.state.weights.clone(),
+            losses=[r["loss"].hex() for r in row["rounds"]],
+            stats=dict(learner.fault_stats), applies=learner.applies_done,
+            sim_time=learner.sim_time, cohorts=log.cohorts,
+            num_clients=learner.cfg.num_clients,
+            bytes=(learner.total_upload_bytes,
+                   learner.total_download_bytes),
+            version=int(learner.state.weights_version),
+            round_ms=[round(r["round_s"] * 1e3, 3) for r in row["rounds"]]))
+        del learner, row
+        torch.cuda.empty_cache()
+    a, b = runs
+    for key in ("launches", "losses", "stats", "applies", "sim_time",
+                "bytes", "version"):
+        if a[key] != b[key]:
+            raise AssertionError(f"buffered_faults: {key} differs between "
+                                 f"two runs: {a[key]} vs {b[key]}")
+    if not _same_bits(a["weights"], b["weights"]):
+        raise AssertionError("buffered_faults: the weights differ between "
+                             "two runs")
+    if not torch.isfinite(a["weights"]).all() or a["applies"] < 1 \
+            or a["version"] != a["applies"]:
+        raise AssertionError(f"buffered_faults: {a['applies']} applies, "
+                             f"version {a['version']}")
+    if min(a["stats"]["dropouts"], a["stats"]["crashes"]) < 1:
+        raise AssertionError(f"buffered_faults: the schedule drew no "
+                             f"dropout or no crash: {a['stats']}")
+    want = _scaled(SKETCH_LAUNCHES, a["applies"])
+    if a["launches"] != want:
+        raise AssertionError(f"buffered_faults: launch counts "
+                             f"{a['launches']} != {want} "
+                             f"({a['applies']} applies)")
+    args = build_parser().parse_args(HEADLINE + FAULT_FLAGS)
+    cpu = _replay_schedule_on_cpu(args, a["num_clients"], a["cohorts"])
+    if cpu != (a["stats"], a["applies"], a["sim_time"]):
+        raise AssertionError(f"buffered_faults: the card's schedule "
+                             f"{(a['stats'], a['applies'], a['sim_time'])} "
+                             f"!= the CPU replay's {cpu}")
+    print(f"path buffered_faults: launches {a['launches']}, "
+          f"{len(a['cohorts'])} cohorts, {a['applies']} applies, fault "
+          f"stats {a['stats']}, sim_time {a['sim_time']!r}, upload B "
+          f"{a['bytes'][0]:.0f}, round ms {a['round_ms']}; two runs "
+          f"bitwise equal, schedule equal to the CPU replay", flush=True)
+    return a["launches"]
+
+
+class _Timed:
+    """Times every call of ``owner.attr`` (seconds in ``self.seconds``)."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+
+    def __enter__(self):
+        self.seconds = []
+        self._saved = getattr(self.owner, self.attr)
+        saved = self._saved
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = saved(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        setattr(self.owner, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self._saved)
+
+
+class _PoisonRound:
+    """Makes worker 0's images NaN in round ``at`` (1-based) of a run and
+    records every round's quarantine metrics (read on the host after the
+    dispatch)."""
+
+    def __init__(self, at=2):
+        self.at = at
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        self.seen, self.poisoned = [], None
+        self._saved = FedLearner.train_round_async
+        saved = self._saved
+
+        def dispatch(learner, client_ids, batch, mask, **kwargs):
+            if len(self.seen) + 1 == self.at:
+                images = batch[0].clone()
+                images[0] = float("nan")
+                batch = (images,) + tuple(batch[1:])
+                self.poisoned = int(np.asarray(client_ids)[0])
+            raw = saved(learner, client_ids, batch, mask, **kwargs)
+            self.seen.append((float(raw["dropped_contributions"]),
+                              int(raw["num_quarantined"])))
+            return raw
+        FedLearner.train_round_async = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        FedLearner.train_round_async = self._saved
+
+
+def phase_quarantine():
+    """--client_quarantine in the sync server, worker 0's batch NaN in
+    round 2 of the headline sketch flags: the per-worker round, the
+    aggregate sketched once a round (the sketch path's launches), that
+    contribution alone excluded, its client benched for the remaining
+    rounds, no abort, finite weights."""
+    import torch
+
+    from commefficient_tpu_torch.federated.round import \
+        fused_clients_eligible
+    from commefficient_tpu_torch.ops import cuda_lib
+    cuda_lib.LAUNCHES.clear()
+    with _PoisonRound(at=2) as poison:
+        learner, row = _cv_run(HEADLINE + ["--client_quarantine"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    rounds = row["rounds"]
+    q = learner.state.quarantine.cpu()
+    bench = QUARANTINE_ROUNDS - 1   # benched in round 2, ticked in round 3
+    if (launches != SKETCH_LAUNCHES
+            or fused_clients_eligible(learner.cfg)
+            or poison.seen != [(0.0, 0), (1.0, 1), (0.0, 1)]
+            or any(r["aborted"] for r in rounds)
+            or not all(math.isfinite(r["loss"]) for r in rounds)
+            or not bool(torch.isfinite(learner.state.weights).all())
+            or int((q > 0).sum()) != 1
+            or int(q[poison.poisoned]) != bench):
+        raise AssertionError(f"quarantine: launches {launches}, "
+                             f"(dropped, num_quarantined) a round "
+                             f"{poison.seen}, bench {q.tolist()}, client "
+                             f"{poison.poisoned}, rounds {rounds}")
+    print(f"path quarantine: launches {launches}, client "
+          f"{poison.poisoned} poisoned in round 2: (dropped, quarantined) "
+          f"a round {poison.seen}, bench left {int(q[poison.poisoned])}, "
+          f"losses {[round(r['loss'], 6) for r in rounds]}, round ms "
+          f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, upload B "
+          f"{[int(r['upload_bytes']) for r in rounds]}, no abort, finite "
+          f"weights", flush=True)
+    del learner, row
+    torch.cuda.empty_cache()
+    return launches
+
+
+RESUME_EPOCHS = "2"   # 3 rounds an epoch on Synthetic at 64 images a class
+
+
+def _export(path, name):
+    with np.load(os.path.join(path, f"{name}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _same_export(a, b) -> bool:
+    keys = [k for k in a if k.startswith(("arr_", "host_"))] + [
+        "rounds_done", "total_download_bytes", "total_upload_bytes",
+        "torch_generator"]
+    return sorted(k for k in a if k.startswith(("arr_", "host_"))) == \
+        sorted(k for k in b if k.startswith(("arr_", "host_"))) and all(
+            np.array_equal(a[k], b[k]) for k in keys)
+
+
+def _build_snapshot():
+    from commefficient_tpu_torch.ops import cuda_lib
+    return {p.name: p.stat().st_mtime_ns
+            for p in cuda_lib.BUILD_DIR.glob("*.so")}
+
+
+def phase_sigkill_resume(tmpdir):
+    """The preemption contract on the card: the headline sketch flags for
+    2 epochs (6 rounds) with --checkpoint_every_rounds 2 and the final
+    export, once in this process; then a child process (the CLI) SIGKILLed
+    once its first step file appears, and a second child with --resume
+    auto: its export bitwise this process's. The children load the
+    kernels built here (the build directory unchanged). Also the save
+    and load time of a checkpoint at d = 6,568,640. Returns (launches of
+    the in-process run, the export's path)."""
+    import signal
+
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.args import build_parser
+    from commefficient_tpu_torch.training.cv import train
+    from commefficient_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                          save_checkpoint)
+
+    def flags(where):
+        return HEADLINE + ["--num_epochs", RESUME_EPOCHS, "--checkpoint",
+                           "--checkpoint_path", where,
+                           "--checkpoint_every_rounds", "2"]
+    base = os.path.join(tmpdir, "resume_base")
+    args = build_parser().parse_args(flags(base))
+    np.random.seed(args.seed)
+    cuda_lib.LAUNCHES.clear()
+    learner, row = train(args, log=False)
+    torch.cuda.synchronize()
+    launches = _launches()
+    n = len(row["rounds"])
+    if launches != _scaled(SKETCH_LAUNCHES, n) or n != 6:
+        raise AssertionError(f"resume: {n} rounds, launches {launches}")
+    t0 = time.perf_counter()
+    fn = save_checkpoint(os.path.join(tmpdir, "timing"), learner, "t")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_checkpoint(fn, learner)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size = os.path.getsize(fn)
+    del learner, row
+    torch.cuda.empty_cache()
+    want = _export(base, args.model)
+    built = _build_snapshot()
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    env.pop("COMMEFF_CRASH_POINT", None)
+    ckpt = os.path.join(tmpdir, "resume_killed")
+    cmd = [sys.executable, "-m", "commefficient_tpu_torch.training.cv",
+           *flags(ckpt)]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    killed_at = None
+    try:
+        while time.perf_counter() - t0 < 300:
+            if child.poll() is not None:
+                raise AssertionError(f"resume: the child exited "
+                                     f"(rc={child.returncode}) before the "
+                                     f"kill:\n{child.stdout.read()}")
+            if os.path.isdir(ckpt) and any("_r" in f and f.endswith(".npz")
+                                           for f in os.listdir(ckpt)):
+                child.send_signal(signal.SIGKILL)
+                killed_at = sorted(os.listdir(ckpt))
+                break
+            time.sleep(0.01)
+        out, _ = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    first_s = time.perf_counter() - t0
+    if child.returncode != -signal.SIGKILL \
+            or os.path.exists(os.path.join(ckpt, f"{args.model}.npz")):
+        raise AssertionError(f"resume: the child ended with "
+                             f"{child.returncode}:\n{out}")
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd + ["--resume", "auto"], env=env,
+                          capture_output=True, text=True, timeout=300)
+    second_s = time.perf_counter() - t0
+    if done.returncode != 0 or "resumed from" not in done.stdout:
+        raise AssertionError(f"resume: the resumed child failed "
+                             f"({done.returncode}):\n{done.stdout}\n"
+                             f"{done.stderr}")
+    if _build_snapshot() != built or not built:
+        raise AssertionError("resume: a child rebuilt the kernels")
+    if not _same_export(want, _export(ckpt, args.model)):
+        raise AssertionError("resume: the resumed run's export is not the "
+                             "uninterrupted run's")
+    line = next(x for x in done.stdout.splitlines()
+                if x.startswith("resumed from"))
+    print(f"path sigkill_resume: {n} rounds in process, launches "
+          f"{launches}; child killed at {killed_at} after {first_s:.3f} s; "
+          f"the resumed child ({second_s:.3f} s): '{line}'; its export "
+          f"bitwise the uninterrupted run's (state, bytes, generator); "
+          f"kernels not rebuilt; checkpoint at d = {D_RESNET9}: "
+          f"{size} B, save {save_s * 1e3:.3f} ms, load "
+          f"{load_s * 1e3:.3f} ms", flush=True)
+    return launches, os.path.join(base, f"{args.model}.npz")
+
+
+def phase_finetune(export):
+    """--finetune from ``export`` (the resume phase's ResNet9 export) for
+    2 rounds of the headline sketch flags: the frozen coordinates keep the
+    export's weights bitwise and never change (last_changed -2), the head
+    (Dense_0, 5,120 coordinates) moves."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.args import build_parser
+    from commefficient_tpu_torch.training.cv import train
+    args = build_parser().parse_args(HEADLINE + [
+        "--finetune", "--finetune_path", export])
+    np.random.seed(args.seed)
+    cuda_lib.LAUNCHES.clear()
+    learner, row = train(args, max_rounds=2, log=False)
+    torch.cuda.synchronize()
+    launches = _launches()
+    mask = learner._trainable_mask.cpu() > 0
+    with np.load(export) as z:
+        saved = torch.from_numpy(z["arr_0"])
+    w = learner.state.weights.cpu()
+    changed = learner.state.last_changed.cpu() >= 0
+    head = int(mask.sum())
+    if (launches != _scaled(SKETCH_LAUNCHES, 2) or head != HEAD_RESNET9
+            or not _same_bits(w[~mask], saved[~mask])
+            or bool(changed[~mask].any()) or not bool(changed[mask].any())
+            or not all(math.isfinite(r["loss"]) for r in row["rounds"])):
+        raise AssertionError(f"finetune: launches {launches}, head {head}, "
+                             f"{int(changed[mask].sum())} head and "
+                             f"{int(changed[~mask].sum())} frozen "
+                             f"coordinates changed")
+    print(f"path finetune: launches {launches}, head {head} coordinates, "
+          f"{int(changed[mask].sum())} of them moved, the other "
+          f"{int((~mask).sum())} bitwise the export's; losses "
+          f"{[round(r['loss'], 6) for r in row['rounds']]}, round ms "
+          f"{[round(r['round_s'] * 1e3, 3) for r in row['rounds']]}",
+          flush=True)
+    del learner, row
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gpt2_resume(tmpdir, ref):
+    """GPT2-small, in process: 3 rounds of ``GPT2_FLAGS`` with
+    --checkpoint_every_rounds 2 (the step file of round 2), bitwise the
+    gpt2 path's 3 rounds (``ref`` = (losses, weights)); then a fresh
+    learner resumed from round 2 runs round 3, bitwise too (the torch
+    generator, which the dropout draws from, is in the checkpoint). The
+    checkpointer's save and load are timed (d = 124,051,201)."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training import preempt
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    ckpt = os.path.join(tmpdir, "gpt2_resume")
+    flags = GPT2_FLAGS + ["--dataset_dir", tmpdir, "--checkpoint_path",
+                          ckpt, "--checkpoint_every_rounds", "2"]
+    losses, weights = ref
+    launches = {}
+    for resume in ([], ["--resume", "auto"]):
+        args = build_gpt2_parser().parse_args(flags + resume)
+        np.random.seed(args.seed)
+        cuda_lib.LAUNCHES.clear()
+        with _Timed(preempt, "save_checkpoint") as save, \
+                _Timed(preempt, "load_checkpoint") as load:
+            learner, row = train(args, max_rounds=3, log=False)
+        torch.cuda.synchronize()
+        if resume:
+            load_s = load.seconds
+        else:
+            save_s = save.seconds
+        got = [r["loss"].hex() for r in row["rounds"]]
+        want = [v.hex() for v in losses[3 - len(got):]]
+        if got != want or not _same_bits(learner.state.weights, weights) \
+                or learner.rounds_done != 3:
+            raise AssertionError(f"gpt2_resume {resume}: losses "
+                                 f"{[r['loss'] for r in row['rounds']]} vs "
+                                 f"{losses}, or the weights differ")
+        if not resume and not os.path.exists(
+                os.path.join(ckpt, f"{args.model}_r00000002.npz")):
+            raise AssertionError(f"gpt2_resume: no step file of round 2 in "
+                                 f"{os.listdir(ckpt)}")
+        for k, v in row["launches_after_rounds"].items():
+            launches[k] = launches.get(k, 0) + v
+        if not resume:
+            del learner, row
+            torch.cuda.empty_cache()
+    if launches != _scaled(GPT2_SKETCH, 4):
+        raise AssertionError(f"gpt2_resume: launch counts {launches}")
+    if len(save_s) != 1 or len(load_s) != 1:
+        raise AssertionError(f"gpt2_resume: saves {save_s}, loads {load_s}")
+    size = os.path.getsize(os.path.join(ckpt, f"{args.model}_r00000002.npz"))
+    print(f"path gpt2_resume: 3 rounds with a save at round 2, then a "
+          f"fresh learner from it for round 3: losses and weights bitwise "
+          f"the gpt2 path's; launches {launches}; checkpoint at d = "
+          f"{D_GPT2}: {size} B, save {save_s[0]:.3f} s, load "
+          f"{load_s[0]:.3f} s",
+          flush=True)
+    del learner, row
     torch.cuda.empty_cache()
     return launches
 
@@ -3598,7 +4151,16 @@ def main() -> int:
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n
     phase_offload_parity()
-    phase_repeat(dev)
+    sketch_ref = phase_repeat(dev)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        robust = [phase_buffered_lockstep(sketch_ref),
+                  phase_buffered_faults(), phase_quarantine()]
+        resume_launches, export = phase_sigkill_resume(tmpdir)
+        robust += [resume_launches, phase_finetune(export)]
+    for counts in robust:
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    del sketch_ref, robust
     phase_reference(dev)
     phase_flash_parity(dev, errs)
     times.update(phase_flash_timing(dev))
@@ -3624,8 +4186,9 @@ def main() -> int:
                                              profile=True).items():
                 launches[kernel] = launches.get(kernel, 0) + n
         gpt2_ref = phase_repeat_gpt2(tmpdir)
-        for kernel, n in phase_gpt2_scan(tmpdir, gpt2_ref).items():
-            launches[kernel] = launches.get(kernel, 0) + n
+        for phase in (phase_gpt2_scan, phase_gpt2_resume):
+            for kernel, n in phase(tmpdir, gpt2_ref).items():
+                launches[kernel] = launches.get(kernel, 0) + n
         del gpt2_ref
     model, batch = _gpt2_small(dev), _gpt2_small_batch(dev)
     phase_fused_ce(model, batch)

@@ -20,6 +20,7 @@ MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
 ERROR_TYPES = ("none", "local", "virtual")
 CLIENT_STATE_REPS = ("dense", "sparse", "sketched")
 DP_MODES = ("worker", "server")
+SERVER_MODES = ("sync", "buffered")
 
 
 def _todo(what: str, item: str):
@@ -91,6 +92,20 @@ class FedConfig:
     dp_mode: str = "worker"
     l2_norm_clip: float = 1.0
     noise_multiplier: float = 0.0
+
+    # the server's aggregation: 'sync' applies every round's cohort;
+    # 'buffered' (federated/buffer.py, FedBuff) lands contributions in a
+    # buffer of buffer_m slots (0 = num_workers) and applies when it
+    # fills, each scaled by 1/(1+tau)^staleness_alpha. With no fault
+    # model and alpha 0 it is the sync round bitwise.
+    server_mode: str = "sync"
+    buffer_m: int = 0
+    staleness_alpha: float = 0.0
+    # per-client NaN quarantine: a non-finite contribution is excluded
+    # from the aggregate and its client benched for quarantine_rounds
+    # applied rounds; only a post-exclusion breach trips the sticky abort
+    client_quarantine: bool = False
+    quarantine_rounds: int = 5
 
     # derived (set by finalize): the flat-vector length
     grad_size: int = 0
@@ -167,13 +182,29 @@ class FedConfig:
         if self.grad_buckets < 1:
             raise ValueError("grad_buckets must be >= 1, got "
                              f"{self.grad_buckets}")
-        if self.grad_buckets > 1 and self.mode == "sketch" and (
-                self.do_dp or self.max_grad_norm is not None):
-            raise ValueError(
-                "grad_buckets > 1 requires a dense transmit; with "
-                "mode='sketch' under DP or gradient clipping each "
-                "worker transmits an already-compressed (r, c) table, "
-                "so there is nothing left to bucket")
+        if self.grad_buckets > 1:
+            if self.server_mode == "buffered":
+                raise ValueError(
+                    "grad_buckets > 1 is incompatible with "
+                    "server_mode='buffered' (the contribution buffer "
+                    "deposits whole transmits; bucketing only restructures "
+                    "the lock-step reduce)")
+            if self.mode == "sketch" and (
+                    self.do_dp or self.max_grad_norm is not None):
+                raise ValueError(
+                    "grad_buckets > 1 requires a dense transmit; with "
+                    "mode='sketch' under DP or gradient clipping each "
+                    "worker transmits an already-compressed (r, c) table, "
+                    "so there is nothing left to bucket")
+        if self.server_mode not in SERVER_MODES:
+            raise ValueError(f"server_mode must be one of {SERVER_MODES}, "
+                             f"got {self.server_mode!r}")
+        if self.staleness_alpha < 0:
+            raise ValueError("staleness_alpha must be >= 0")
+        if self.quarantine_rounds < 1:
+            raise ValueError("quarantine_rounds must be >= 1")
+        if self.server_mode == "buffered" and self.effective_buffer_m < 1:
+            raise ValueError("buffered server_mode needs buffer_m >= 1")
         if self.client_k_dist:
             if self.mode != "local_topk":
                 raise ValueError(
@@ -224,6 +255,12 @@ class FedConfig:
         """``--topk_down``: each client keeps the stale weights it last
         reconstructed."""
         return self.do_topk_down
+
+    @property
+    def effective_buffer_m(self) -> int:
+        """Buffer slots M of the buffered server (0 => num_workers, the
+        lock-step default)."""
+        return self.buffer_m if self.buffer_m > 0 else self.num_workers
 
     @property
     def client_k_active(self) -> bool:

@@ -28,14 +28,23 @@ class FedBatcher:
                 pad_size = local_batch_size
         self.pad_size = pad_size
 
-    def epoch(self) -> Iterator[Tuple[np.ndarray, tuple, np.ndarray]]:
+    def epoch(self, skip: int = 0
+              ) -> Iterator[Tuple[np.ndarray, tuple, np.ndarray]]:
+        """One epoch of rounds. ``skip`` replays the first ``skip`` rounds
+        without yielding them: the sampler and the dataset's augmentation
+        generator (the train transforms draw from ``dataset.rng`` per
+        fetched batch) advance as if those rounds had run, so a resumed
+        run sees the uninterrupted run's rounds bitwise."""
         W, B = self.num_workers, self.pad_size
+        self._epoch_start_aug = self._aug_state()
         for round_batches in self.sampler.epoch():
             ids = np.zeros(W, np.int32)
             mask = np.zeros((W, B), np.float32)
             cols = None
             for w, (client_id, flat_idxs) in enumerate(round_batches):
                 data = self.dataset.get_flat_batch(flat_idxs)
+                if skip > 0:
+                    continue
                 if cols is None:
                     cols = [np.zeros((W, B) + d.shape[1:], d.dtype)
                             for d in data]
@@ -44,11 +53,40 @@ class FedBatcher:
                 mask[w, :n] = 1.0
                 for c, d in zip(cols, data):
                     c[w, :n] = d[:n]
+            if skip > 0:
+                skip -= 1
+                continue
             if cols is None:
                 continue
             # epoch-tail rounds can carry fewer than W clients: padded
             # workers have all-zero masks and contribute nothing
             yield ids, tuple(cols), mask
+
+    # -- the resume cursor (training/preempt.py) -------------------------
+
+    def _aug_state(self):
+        rng = getattr(self.dataset, "rng", None)
+        return rng.get_state() if rng is not None else None
+
+    def cursor(self, in_epoch: bool) -> dict:
+        """The sampler's cursor with the dataset's augmentation generator:
+        its epoch-start state mid-epoch (the resumed epoch replays its
+        fetches), its live state at a boundary."""
+        cur = {"sampler": self.sampler.cursor(in_epoch)}
+        aug = (getattr(self, "_epoch_start_aug", None) if in_epoch
+               else self._aug_state())
+        if aug is not None:
+            kind, keys, pos, has_gauss, cached = aug
+            cur["aug"] = [kind, [int(x) for x in keys], int(pos),
+                          int(has_gauss), float(cached)]
+        return cur
+
+    def restore_cursor(self, cur: dict, in_epoch: bool) -> None:
+        self.sampler.restore_cursor(cur["sampler"], in_epoch)
+        if cur.get("aug") is not None:
+            kind, keys, pos, has_gauss, cached = cur["aug"]
+            self.dataset.rng.set_state(
+                (kind, np.asarray(keys, np.uint32), pos, has_gauss, cached))
 
     def steps_per_epoch(self) -> int:
         return self.sampler.steps_per_epoch()

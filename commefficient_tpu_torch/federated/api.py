@@ -46,7 +46,8 @@ Per-coordinate LR: ``lr_scale_vec``, a (d,) vector or a callable that
 builds one from the model (``utils.params.scalar_lr_multipliers``, the
 Fixup recipe), makes each round's lr ``lr * vec`` in float32, which the
 server rules and fedavg's local steps multiply into the update as they
-do a scalar lr.
+do a scalar lr. ``trainable_mask``, a (d,) 0/1 vector, freezes the
+coordinates where it is 0 (``utils/finetune.py``).
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ class FedLearner:
     def __init__(self, model: torch.nn.Module, cfg: FedConfig,
                  loss_train: Callable, loss_val: Optional[Callable] = None,
                  lr_schedule: Optional[Callable] = None, device="cuda",
-                 seed: int = 0, lr_scale_vec=None):
+                 seed: int = 0, lr_scale_vec=None, trainable_mask=None):
         self.device = resolve_device(device)
         self.generator = torch.Generator().manual_seed(int(seed))
         self.model = model.to(self.device)
@@ -105,8 +106,20 @@ class FedLearner:
             self.cfg.grad_dim, self.cfg.grad_buckets,
             align=LANES if (self.cfg.mode == "sketch"
                             and self.cfg.sketch_scheme == "tiled") else 1)
+        if trainable_mask is not None:
+            trainable_mask = torch.as_tensor(
+                trainable_mask, dtype=torch.float32, device=self.device)
+            if trainable_mask.shape != (self.cfg.grad_dim,):
+                raise ValueError(
+                    f"trainable_mask must have shape ({self.cfg.grad_dim},)"
+                    f", got {tuple(trainable_mask.shape)}")
+        # kept for subclasses that build more programs over the same loss
+        # (federated/buffer.BufferedFedLearner)
+        self._loss_train = loss_train
+        self._trainable_mask = trainable_mask
         self._round = build_round_step(loss_train, self.unflatten, self.cfg,
-                                       buckets=self.grad_buckets)
+                                       buckets=self.grad_buckets,
+                                       trainable_mask=trainable_mask)
         if self._round.sketch is not None:
             # the kernels' hash tables reach the card here, not by blocking
             # copies inside the first round

@@ -166,17 +166,25 @@ def _worker_noise(like: torch.Tensor, seeds) -> torch.Tensor:
 
 
 def finish_gradients(grads: torch.Tensor, forward_weights: torch.Tensor,
-                     cfg: FedConfig, seeds) -> torch.Tensor:
+                     cfg: FedConfig, seeds,
+                     trainable_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """The (W, d) mean gradients after the reference's per-client steps
-    before compression (``client.py:141-161``): the raw-gradient clip in
-    the dense modes, weight decay ``(wd / W) * w`` (every worker adds it
-    and the server sums), then under ``--dp`` the clip to
-    ``l2_norm_clip`` and, in ``dp_mode`` worker, noise
+    before compression (``client.py:135-161``): the frozen coordinates of
+    a ``trainable_mask`` zeroed, the raw-gradient clip in the dense
+    modes, weight decay ``(wd / W) * w`` on the trainable coordinates
+    (every worker adds it and the server sums), then under ``--dp`` the
+    clip to ``l2_norm_clip`` and, in ``dp_mode`` worker, noise
     ``noise_multiplier * sqrt(W) * N(0, 1)`` from client w's ``seeds[w]``."""
+    if trainable_mask is not None:
+        grads = grads * trainable_mask
     if cfg.max_grad_norm is not None and cfg.mode != "sketch":
         grads = _clip_to_norm(grads, cfg.max_grad_norm)
     if cfg.weight_decay != 0:
-        grads = grads + (cfg.weight_decay / cfg.num_workers) * forward_weights
+        wd = (cfg.weight_decay / cfg.num_workers) * forward_weights
+        if trainable_mask is not None:
+            wd = wd * trainable_mask
+        grads = grads + wd
     if cfg.do_dp:
         grads = _clip_to_norm(grads, cfg.l2_norm_clip)
         if cfg.dp_mode == "worker":
@@ -199,14 +207,15 @@ def sketch_and_clip(grads: torch.Tensor, cfg: FedConfig,
 
 
 def compute_gradient(apply_loss, unflatten, forward_weights, batch, mask,
-                     cfg: FedConfig, seed=None):
+                     cfg: FedConfig, seed=None, trainable_mask=None):
     """One client's mean gradient after ``finish_gradients`` (``seed``
     feeds its dropout and its DP noise), and its summed loss, metrics and
     datapoint count."""
     grad, loss_sum, metric_sums, n = mean_gradient(
         apply_loss, unflatten, forward_weights, batch, mask, seed,
         cfg.microbatch_size)
-    grad = finish_gradients(grad[None], forward_weights, cfg, [seed])[0]
+    grad = finish_gradients(grad[None], forward_weights, cfg, [seed],
+                            trainable_mask)[0]
     return grad, loss_sum, metric_sums, n
 
 
@@ -223,7 +232,9 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
                 error, cfg: FedConfig, seeds=None,
                 sketch: CountSketch = None,
                 stale_weights: Optional[torch.Tensor] = None,
-                client_ks: Optional[torch.Tensor] = None) -> ClientStepOut:
+                client_ks: Optional[torch.Tensor] = None,
+                trainable_mask: Optional[torch.Tensor] = None
+                ) -> ClientStepOut:
     """The local step of the round's W non-fedavg clients: ``batch`` is a
     tuple of ``(W, B, ...)`` tensors, ``mask`` ``(W, B)``, ``velocity``,
     ``error`` and (``--topk_down``) ``stale_weights`` the clients'
@@ -235,7 +246,8 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
     ``client_ks`` (``--client_k_dist``, a (W,) device tensor) are the
     clients' own budgets k_i <= k: each keeps the first k_i slots of its
     top-k selection in one per-row launch, and the coordinates past its
-    budget stay in its error row."""
+    budget stay in its error row. A ``trainable_mask`` zeroes the frozen
+    coordinates of every gradient before compression."""
     W = mask.shape[0]
     seeds = [None] * W if seeds is None else seeds
     if cfg.do_topk_down:
@@ -247,7 +259,7 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
                           cfg.microbatch_size)
             for w in range(W)]
     g, loss_sum, metric_sums, n = (torch.stack(x) for x in zip(*outs))
-    g = finish_gradients(g, forward, cfg, seeds)
+    g = finish_gradients(g, forward, cfg, seeds, trainable_mask)
     if sketch is not None:
         g = sketch_and_clip(g, cfg, sketch)
     # sum-of-gradients semantics: scale each mean back up by its batch
@@ -280,7 +292,7 @@ def client_step(apply_loss, unflatten, ps_weights, batch, mask, velocity,
 
 
 def fedavg_client_step(apply_loss, unflatten, ps_weights, batch, mask, lr,
-                       cfg: FedConfig, seed=None):
+                       cfg: FedConfig, seed=None, trainable_mask=None):
     """FedAvg for one client: ``num_fedavg_epochs`` of local SGD over its
     whole (padded) data in chunks of ``fedavg_batch_size``, transmitting
     the weight delta scaled by its datapoint count. The lr decays per real
@@ -312,7 +324,8 @@ def fedavg_client_step(apply_loss, unflatten, ps_weights, batch, mask, lr,
         sl = slice(b_idx * chunk, (b_idx + 1) * chunk)
         g, ls, ms, n = compute_gradient(
             apply_loss, unflatten, w, tuple(c[sl] for c in batch),
-            mask_p[sl], cfg, None if seed is None else fold_in(seed, step))
+            mask_p[sl], cfg, None if seed is None else fold_in(seed, step),
+            trainable_mask)
         eff_step = epoch * n_real_chunks + b_idx
         decay = torch.pow(cfg.fedavg_lr_decay, eff_step)
         # g is already the mean gradient over the chunk

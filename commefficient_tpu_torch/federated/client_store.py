@@ -324,6 +324,24 @@ class HostArenaStore:
         shapes and dtypes."""
         return self._arenas[field][0]
 
+    def stacked(self, field: str):
+        """Every client's encoded row of ``field``, (num_rows, ...) leaves
+        (the shards joined in row order; a copy)."""
+        shards = self._arenas[field]
+        return tree_map(lambda *leaves: torch.cat(leaves), *shards)
+
+    def assign(self, field: str, rows) -> None:
+        """Overwrite every row of ``field`` from (num_rows, ...) leaves of
+        the arena's dtypes."""
+        for s, shard in enumerate(self._arenas[field]):
+            lo = s * self.rows_per_shard
+
+            def put(a, r):
+                a.copy_(torch.as_tensor(np.asarray(
+                    r[lo:lo + self.rows_per_shard])).to(a.dtype))
+                return a
+            tree_map(put, shard, rows)
+
     def nbytes(self) -> int:
         total = 0
         for arenas in self._arenas.values():

@@ -38,10 +38,19 @@ offset and adds the tables in bucket order (equal to the monolithic
 table up to float32 association at the bucket edges). A per-worker
 sketched transmit is a table already, with nothing to bucket.
 
-Then the server update, the sticky NaN guard (a select, so a NaN update
-cannot leak into the weights), the per-coordinate ``last_changed`` round
-and the exact upload/download byte metrics, all on the device with no
-host sync.
+Then the server tail (``build_server_tail``, shared with the buffered
+server's apply): the server update, the sticky NaN guard (a select, so a
+NaN update cannot leak into the weights), the client-row writeback, the
+per-coordinate ``last_changed`` round and the exact upload/download byte
+metrics, all on the device with no host sync.
+
+``--client_quarantine`` forces the per-worker path: a client on the
+bench (``state.quarantine``) neither pulls nor uploads, a non-finite
+contribution is excluded from the aggregate by a select (NaN * 0 is
+NaN) and its client benched for ``quarantine_rounds`` applied rounds,
+and only a post-exclusion breach trips the sticky guard. A
+``trainable_mask`` (the finetune path) zeroes the frozen coordinates of
+every gradient before compression and of the update.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ from commefficient_tpu_torch.federated.client_store import (
 from commefficient_tpu_torch.federated.server import (init_server_opt_state,
                                                       make_sketch,
                                                       server_update)
-from commefficient_tpu_torch.federated.state import (ClientState,
+from commefficient_tpu_torch.federated.state import (BufferState,
+                                                     ClientState,
                                                      GradBuckets,
                                                      ServerOptState)
 from commefficient_tpu_torch.ops.dropout import fold_in
@@ -70,8 +80,7 @@ SERVER_NOISE_FOLD = 0x5E77E7
 
 @dataclass
 class FedState:
-    """What persists across rounds (the reference's ``FedState`` without
-    quarantine or buffer)."""
+    """What persists across rounds (the reference's ``FedState``)."""
     weights: torch.Tensor            # (d,) f32
     opt: ServerOptState              # virtual momentum / error
     clients: ClientState             # (num_clients + 1, ...) encoded rows
@@ -79,6 +88,13 @@ class FedState:
     last_changed: torch.Tensor       # (d,) int32: round each weight changed
     client_last_round: torch.Tensor  # (num_clients,) int32
     aborted: torch.Tensor            # () bool: NaN guard tripped (sticky)
+    # () int32: server applies that moved the weights (round_idx in sync
+    # mode; the version buffered contributions are stamped with)
+    weights_version: torch.Tensor
+    # (num_clients,) int32: applied rounds of bench left per client
+    quarantine: torch.Tensor
+    # the buffered server's M-slot buffer (federated/buffer.py), or None
+    buffer: Optional[BufferState] = None
 
 
 def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
@@ -100,7 +116,21 @@ def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
         last_changed=torch.full((d,), -2, dtype=torch.int32, device=dev),
         client_last_round=torch.full((cfg.num_clients,), -1,
                                      dtype=torch.int32, device=dev),
-        aborted=torch.zeros((), dtype=torch.bool, device=dev))
+        aborted=torch.zeros((), dtype=torch.bool, device=dev),
+        weights_version=torch.zeros((), dtype=torch.int32, device=dev),
+        quarantine=torch.zeros((cfg.num_clients,), dtype=torch.int32,
+                               device=dev))
+
+
+def set_at(vec: torch.Tensor, ids: torch.Tensor, value) -> torch.Tensor:
+    """A copy of the (n,) ``vec`` with ``value`` (a scalar or one per id)
+    written at ``ids``; an id of n (a dropped slot) writes nothing, as
+    the reference's ``.at[ids].set(value, mode="drop")``. Written into a
+    copy one longer, so nothing syncs with the host."""
+    n = vec.shape[0]
+    out = torch.cat([vec, vec.new_zeros(1)])
+    out[ids] = torch.as_tensor(value, dtype=vec.dtype, device=vec.device)
+    return out[:n]
 
 
 def download_counts(last_changed: torch.Tensor,
@@ -119,18 +149,220 @@ def download_counts(last_changed: torch.Tensor,
 def fused_clients_eligible(cfg: FedConfig) -> bool:
     """Whether the round may take the fused-gradient path: no per-client
     state or nonlinearity, so the sum of the clients' gradients is the
-    gradient of the summed loss."""
+    gradient of the summed loss. Quarantine judges each contribution, so
+    it needs the per-worker path."""
     return (cfg.mode in ("uncompressed", "sketch", "true_topk")
             and not cfg.do_dp and cfg.max_grad_norm is None
             and not cfg.do_topk_down
             and not cfg.needs_velocity_state
             and cfg.error_type != "local"
-            and cfg.microbatch_size == -1)
+            and cfg.microbatch_size == -1
+            and not cfg.client_quarantine)
+
+
+def client_sketch_of(cfg: FedConfig, sketch):
+    """The sketch each client applies to its own gradient, or None. The
+    sum of sketches is the sketch of the sum unless a per-worker
+    nonlinearity (the DP clip and noise, the sketch-space clip) comes
+    between; then each client sketches its own gradient."""
+    return sketch if cfg.do_dp or cfg.max_grad_norm is not None else None
+
+
+def build_client_phase(apply_loss: Callable, unflatten: Callable,
+                       cfg: FedConfig, sketch=None,
+                       trainable_mask: Optional[torch.Tensor] = None
+                       ) -> Callable:
+    """``clients(state, ids (W,) int64, batch, mask, lr, seed, rows=None,
+    client_ks=None) -> ClientStepOut``: the per-worker clients' steps
+    against ``state.weights``, shared by the sync round's per-worker path
+    and the buffered server's cohort. Client ``c`` draws from
+    ``fold_in(seed, c)``, as the reference folds the client id into the
+    round's rng. Under offload ``rows`` are the clients' encoded rows."""
+    is_fedavg = cfg.mode == "fedavg"
+    client_sketch = client_sketch_of(cfg, sketch)
+    codec = make_codec(cfg)
+    offload = cfg.client_state_offload and cfg.has_client_state
+
+    def client_rows(state, ids, rows):
+        """The W clients' dense (velocity, error, stale weight) rows."""
+        if offload:
+            return tuple(None if enc is None else codec.decode_rows(enc)
+                         for enc in (rows.velocities, rows.errors,
+                                     rows.weights))
+        return tuple(gather_rows(storage, ids, codec)
+                     for storage in (state.clients.velocities,
+                                     state.clients.errors,
+                                     state.clients.weights))
+
+    def clients(state, ids, batch, mask, lr, seed, rows=None,
+                client_ks=None) -> client_lib.ClientStepOut:
+        w = state.weights
+        # one host read of the W ids: the seeds are host ints
+        seeds = [fold_in(seed, c) for c in ids.tolist()]
+        if is_fedavg:
+            outs = [client_lib.fedavg_client_step(
+                apply_loss, unflatten, w, tuple(c[i] for c in batch),
+                mask[i], lr, cfg, seeds[i], trainable_mask=trainable_mask)
+                for i in range(mask.shape[0])]
+            transmit, loss_sum, metric_sums, n = (torch.stack(x)
+                                                  for x in zip(*outs))
+            return client_lib.ClientStepOut(transmit, None, None, None,
+                                            loss_sum, metric_sums, n)
+        vels, errs, stales = client_rows(state, ids, rows)
+        return client_lib.client_step(
+            apply_loss, unflatten, w, batch, mask, vels, errs, cfg,
+            seeds, client_sketch, stales, client_ks=client_ks,
+            trainable_mask=trainable_mask)
+
+    return clients
+
+
+def finite_contributions(out: client_lib.ClientStepOut) -> torch.Tensor:
+    """(W,) bool: the client's loss and every coordinate of its transmit
+    are finite (quarantine's per-contribution verdict)."""
+    W = out.transmit.shape[0]
+    return (torch.isfinite(out.loss_sum)
+            & torch.all(torch.isfinite(out.transmit.reshape(W, -1)), dim=1))
+
+
+def last_of(ids: torch.Tensor, sink: int) -> torch.Tensor:
+    """``ids`` with every id but its last occurrence replaced by ``sink``:
+    a scatter of per-slot values then writes each id once, from its last
+    slot (the order a sequential scatter leaves), on any device."""
+    later = torch.triu(ids[:, None] == ids[None, :], diagonal=1).any(dim=1)
+    return torch.where(later, sink, ids)
+
+
+def build_server_tail(cfg: FedConfig, sketch=None,
+                      trainable_mask: Optional[torch.Tensor] = None
+                      ) -> Callable:
+    """``server_tail(state, agg, loss_mean, ids, contrib_w, pull_w, finite_w,
+    pulled_at, new_rows, download_floats, lr, seed) -> (FedState,
+    writeback, metrics)``: what follows the aggregation, shared by the sync
+    round and the buffered server's apply.
+
+    The slots (W clients, or M buffer slots) carry client ``ids`` (an id
+    of ``num_clients`` is the sink); ``pull_w`` marks the slots that
+    pulled and uploaded, ``contrib_w`` those in the aggregate, and
+    ``finite_w`` (quarantine only, else None) the finite contributions;
+    ``pulled_at`` is the version each slot pulled at (a scalar, or one per
+    slot); ``new_rows`` the slots' dense (velocity, error, stale weight)
+    rows, each None if absent. The tail runs the breach check on
+    ``loss_mean``, the server update gated by it and by the trainable
+    mask, the client-row writeback of the contributing slots (by scatter,
+    or under offload returned as ``writeback = (ids, encoded rows)``, the
+    others' ids ``num_clients``), ``last_changed``, the download
+    baseline, the bench clock and the byte metrics. The returned state
+    keeps ``state.buffer``."""
+    is_fedavg = cfg.mode == "fedavg"
+    codec = make_codec(cfg)
+    offload = cfg.client_state_offload and cfg.has_client_state
+    quarantine = cfg.client_quarantine
+
+    def server_tail(state: FedState, agg, loss_mean, ids, contrib_w, pull_w,
+                    finite_w, pulled_at, new_rows, download_floats, lr,
+                    seed):
+        num_clients = state.client_last_round.shape[0]
+        # the sticky NaN guard: a breaching round and every round after it
+        # leave weights, state and accounting untouched; under quarantine
+        # the loss is the post-exclusion one, so only a server-side breach
+        # trips it
+        breach = ~torch.isfinite(loss_mean) | (loss_mean > cfg.nan_threshold)
+        ok = ~breach & ~state.aborted
+        okf = ok.to(torch.float32)
+        oki = ok.to(torch.int32)
+
+        update, new_opt = server_update(
+            agg, state.opt, cfg, 1.0 if is_fedavg else lr, sketch=sketch,
+            noise_seed=fold_in(seed, SERVER_NOISE_FOLD))
+        if trainable_mask is not None:
+            update = update * trainable_mask
+        update = torch.where(ok, update, 0.0)
+        new_opt = ServerOptState(
+            Vvelocity=torch.where(ok, new_opt.Vvelocity,
+                                  state.opt.Vvelocity),
+            Verror=torch.where(ok, new_opt.Verror, state.opt.Verror))
+
+        new_vels, new_errs, new_stale = new_rows
+        if cfg.mode == "true_topk" and new_vels is not None:
+            # momentum factor masking of the participating clients'
+            # velocities at the global top-k support
+            new_vels = torch.where((update != 0)[None, :], 0.0, new_vels)
+        new_rows = (new_vels, new_errs, new_stale)
+        # out-of-range ids (padded, benched, excluded or guarded slots, and
+        # all but the last slot of a client) write the sink row
+        scatter_ids = last_of(torch.where(contrib_w & ok, ids, num_clients),
+                              num_clients)
+        writeback = None
+        if offload:
+            writeback = (scatter_ids, ClientState(*(
+                None if r is None else codec.encode_rows(r)
+                for r in new_rows)))
+            clients_state = state.clients
+        else:
+            clients_state = ClientState(*(
+                scatter_rows(storage, scatter_ids, new, codec)
+                for storage, new in zip(
+                    (state.clients.velocities, state.clients.errors,
+                     state.clients.weights), new_rows)))
+
+        # stamps in version units (round_idx in sync mode): a weight
+        # changed at version u was unseen by a client that pulled at
+        # version v iff u >= v
+        new_last_changed = torch.where(update != 0, state.weights_version,
+                                       state.last_changed)
+        if quarantine:
+            # every client that pulled re-syncs its download baseline,
+            # even if its contribution was then excluded; a non-finite
+            # one is benched, and every bench clock ticks once an applied
+            # round
+            dropped_w = pull_w & ~finite_w
+            new_client_last = set_at(
+                state.client_last_round,
+                last_of(torch.where(pull_w & ok, ids, num_clients),
+                        num_clients), pulled_at)
+            new_quarantine = set_at(
+                torch.clamp(state.quarantine - oki, min=0),
+                torch.where(dropped_w & ok, ids, num_clients),
+                cfg.quarantine_rounds)
+        else:
+            new_client_last = set_at(state.client_last_round, scatter_ids,
+                                     pulled_at)
+            new_quarantine = state.quarantine
+
+        aborted = state.aborted | breach
+        new_state = FedState(
+            weights=state.weights - update, opt=new_opt,
+            clients=clients_state,
+            round_idx=state.round_idx + oki,
+            last_changed=new_last_changed,
+            client_last_round=new_client_last,
+            aborted=aborted,
+            weights_version=state.weights_version + oki,
+            quarantine=new_quarantine,
+            buffer=state.buffer)
+        metrics = {
+            "aborted": aborted,
+            "download_bytes": 4.0 * download_floats * okf,
+            "upload_bytes": (4.0 * cfg.upload_floats_per_client
+                             * torch.sum(pull_w.to(torch.float32)) * okf),
+            "update_l2": torch.linalg.vector_norm(update),
+        }
+        if quarantine:
+            metrics["dropped_contributions"] = torch.sum(
+                dropped_w.to(torch.float32)) * okf
+            metrics["num_quarantined"] = torch.sum(
+                (new_quarantine > 0).to(torch.int32))
+        return new_state, writeback, metrics
+
+    return server_tail
 
 
 def build_round_step(apply_loss: Callable, unflatten: Callable,
                      cfg: FedConfig,
-                     buckets: Optional[GradBuckets] = None) -> Callable:
+                     buckets: Optional[GradBuckets] = None,
+                     trainable_mask: Optional[torch.Tensor] = None
+                     ) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
     lr, seed, rows=None, client_ks=None) -> (FedState, metrics)``, every
     tensor on the state's device (its ``sketch`` attribute: the round's
@@ -142,24 +374,24 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
     dropout from ``seed``; in the per-worker path client ``c`` draws from
     ``fold_in(seed, c)``, as the reference folds the client id into the
     round's rng. The server's DP noise draws from ``fold_in(seed,
-    SERVER_NOISE_FOLD)``, the reference's ``noise_rng``."""
+    SERVER_NOISE_FOLD)``, the reference's ``noise_rng``.
+    ``trainable_mask``: an optional (d,) float32 0/1 vector; its zeros
+    freeze those weights (the finetune path)."""
     cfg.validate()
     sketch = make_sketch(cfg) if cfg.mode == "sketch" else None
-    is_fedavg = cfg.mode == "fedavg"
     fused_clients = fused_clients_eligible(cfg)
-    # sum of sketches == sketch of the sum unless a per-worker
-    # nonlinearity (the DP clip and noise, the sketch-space clip) comes
-    # between; then each client sketches its own gradient
-    client_sketch = (sketch if cfg.do_dp or cfg.max_grad_norm is not None
-                     else None)
+    client_sketch = client_sketch_of(cfg, sketch)
     sketch_after_aggregate = sketch is not None and client_sketch is None
-    codec = make_codec(cfg)
     offload = cfg.client_state_offload and cfg.has_client_state
+    quarantine = cfg.client_quarantine
     bucketed = (buckets is not None and buckets.num_buckets > 1
                 and (cfg.mode != "sketch" or sketch_after_aggregate))
     if bucketed and sum(buckets.sizes) != cfg.grad_dim:
         raise ValueError(f"GradBuckets plan covers {sum(buckets.sizes)} "
                          f"coordinates, round has {cfg.grad_dim}")
+    clients = build_client_phase(apply_loss, unflatten, cfg, sketch,
+                                 trainable_mask)
+    server_tail = build_server_tail(cfg, sketch, trainable_mask)
 
     def compress(chunk_of):
         """The round's aggregate from ``chunk_of(offset, size)``, the
@@ -185,60 +417,54 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         grad_sum, loss_total, metric_totals = \
             client_lib._masked_loss_and_grad(apply_loss, unflatten, w,
                                              flat_cols, flat_mask, seed)
+        if trainable_mask is not None:
+            grad_sum = grad_sum * trainable_mask
         total_n = torch.sum(flat_mask)
         if cfg.weight_decay != 0:
             # each valid worker adds (wd/W)*w scaled by its datapoints
-            grad_sum = grad_sum + (cfg.weight_decay / cfg.num_workers) \
-                * w * total_n
+            wd = (cfg.weight_decay / cfg.num_workers) * w * total_n
+            if trainable_mask is not None:
+                wd = wd * trainable_mask
+            grad_sum = grad_sum + wd
         denom = torch.clamp(total_n, min=1.0)
         agg = compress(lambda o, n: grad_sum[o:o + n] / denom)
         return agg, loss_total, metric_totals, total_n
 
-    def client_rows(state, ids, rows):
-        """The W clients' dense (velocity, error, stale weight) rows."""
-        if offload:
-            return tuple(None if enc is None else codec.decode_rows(enc)
-                         for enc in (rows.velocities, rows.errors,
-                                     rows.weights))
-        return tuple(gather_rows(storage, ids, codec)
-                     for storage in (state.clients.velocities,
-                                     state.clients.errors,
-                                     state.clients.weights))
+    def aggregate(out: client_lib.ClientStepOut, contrib_w, select: bool):
+        """The contributions' (aggregate, loss, metrics, datapoints).
+        Padded slots are zeroed: with local error feedback their transmit
+        would otherwise leak the aliased client's error row. ``select``:
+        excluded slots are dropped by a select, so a NaN slot stays out
+        (quarantine); else they are zeroed by a multiply, the reference's
+        op."""
+        transmit = out.transmit
+        cb = contrib_w.view((-1,) + (1,) * (transmit.dim() - 1))
+        if select:
+            total_n = torch.sum(torch.where(contrib_w, out.num_datapoints,
+                                            0.0))
 
-    def per_worker_step(state, ids, batch, mask, valid_w, lr, seed, rows,
-                        client_ks):
-        w = state.weights
-        # one host read of the W ids: the seeds are host ints
-        seeds = [fold_in(seed, c) for c in ids.tolist()]
-        if is_fedavg:
-            outs = [client_lib.fedavg_client_step(
-                apply_loss, unflatten, w, tuple(c[i] for c in batch),
-                mask[i], lr, cfg, seeds[i]) for i in range(mask.shape[0])]
-            transmit, loss_sum, metric_sums, n = (torch.stack(x)
-                                                  for x in zip(*outs))
-            new_vels = new_errs = new_stale = None
+            def masked(x):
+                return torch.where(cb, x, 0.0)
         else:
-            vels, errs, stales = client_rows(state, ids, rows)
-            out = client_lib.client_step(
-                apply_loss, unflatten, w, batch, mask, vels, errs, cfg,
-                seeds, client_sketch, stales, client_ks=client_ks)
-            transmit, loss_sum, metric_sums, n = (
-                out.transmit, out.loss_sum, out.metric_sums,
-                out.num_datapoints)
-            new_vels, new_errs, new_stale = (out.velocity, out.error,
-                                             out.client_weights)
-        total_n = torch.sum(n)
-        # padded slots are zeroed: with local error feedback their
-        # transmit would otherwise leak the aliased client's error row
-        valid = valid_w.view((-1,) + (1,) * (transmit.dim() - 1))
+            total_n = torch.sum(out.num_datapoints)
+
+            def masked(x):
+                return x * cb
         denom = torch.clamp(total_n, min=1.0)
         if client_sketch is not None:
-            agg = torch.sum(transmit * valid, dim=0) / denom
+            agg = torch.sum(masked(transmit), dim=0) / denom
         else:
             agg = compress(lambda o, k: torch.sum(
-                transmit[:, o:o + k] * valid, dim=0) / denom)
-        return (agg, torch.sum(loss_sum), torch.sum(metric_sums, dim=0),
-                total_n, new_vels, new_errs, new_stale)
+                masked(transmit[:, o:o + k]), dim=0) / denom)
+        if select:
+            loss_total = torch.sum(torch.where(contrib_w, out.loss_sum,
+                                               0.0))
+            metric_totals = torch.sum(torch.where(
+                contrib_w[:, None], out.metric_sums, 0.0), dim=0)
+        else:
+            loss_total = torch.sum(out.loss_sum)
+            metric_totals = torch.sum(out.metric_sums, dim=0)
+        return agg, loss_total, metric_totals, total_n
 
     def round_step(state: FedState, client_ids, batch, mask, lr, seed,
                    rows: Optional[ClientState] = None, client_ks=None):
@@ -250,96 +476,55 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         # epoch-tail rounds carry fewer than W real clients: padded slots
         # have all-zero masks and neither transmit nor count in the bytes
         valid_w = torch.any(mask > 0, dim=1)
+        if quarantine:
+            # benched clients sit the round out: no pull, no upload (their
+            # slot still computes, and every consumer masks it)
+            pull_w = valid_w & ~(state.quarantine[ids] > 0)
+        else:
+            pull_w = valid_w
 
         # download accounting before this round's update
         stale_round = state.client_last_round[ids]
         counts = download_counts(state.last_changed, stale_round)
         download_floats = torch.sum(
-            counts * valid_w.to(torch.int32)).to(torch.float32)
+            counts * pull_w.to(torch.int32)).to(torch.float32)
 
         if fused_clients:
             agg, loss_total, metric_totals, total_n = fused_step(
                 w, batch, mask, seed)
-            new_vels = new_errs = new_stale = None
+            out = None
+            contrib_w, finite_w = valid_w, None
         else:
-            (agg, loss_total, metric_totals, total_n, new_vels, new_errs,
-             new_stale) = per_worker_step(state, ids, batch, mask, valid_w,
-                                          lr, seed, rows, client_ks)
+            out = clients(state, ids, batch, mask, lr, seed, rows,
+                          client_ks)
+            if quarantine:
+                finite_w = finite_contributions(out)
+                contrib_w = pull_w & finite_w
+            else:
+                contrib_w, finite_w = valid_w, None
+            agg, loss_total, metric_totals, total_n = aggregate(
+                out, contrib_w, select=quarantine)
 
-        # in-round NaN guard: a breaching round and every round after it
-        # leave weights, state and accounting untouched
-        loss_mean = loss_total / torch.clamp(total_n, min=1.0)
-        breach = ~torch.isfinite(loss_mean) | (loss_mean > cfg.nan_threshold)
-        ok = ~breach & ~state.aborted
-        okf = ok.to(torch.float32)
-        # out-of-range ids (padded or guarded slots) write the sink row
-        scatter_ids = torch.where(valid_w & ok, ids, num_clients)
-
-        update, new_opt = server_update(
-            agg, state.opt, cfg, 1.0 if is_fedavg else lr, sketch=sketch,
-            noise_seed=fold_in(seed, SERVER_NOISE_FOLD))
-        update = torch.where(ok, update, 0.0)
-        new_opt = ServerOptState(
-            Vvelocity=torch.where(ok, new_opt.Vvelocity,
-                                  state.opt.Vvelocity),
-            Verror=torch.where(ok, new_opt.Verror, state.opt.Verror))
-        new_w = w - update
-
-        if cfg.mode == "true_topk" and new_vels is not None:
-            # momentum factor masking of the participating clients'
-            # velocities at the global top-k support
-            new_vels = torch.where((update != 0)[None, :], 0.0, new_vels)
-        new_rows = (new_vels, new_errs, new_stale)
-        if offload:
-            keep = valid_w & ok
-
-            def frozen(new_dense, old_enc):
-                # a frozen slot returns its input encoding bitwise
-                if old_enc is None or new_dense is None:
-                    return old_enc
-                return select_rows(keep, codec.encode_rows(new_dense),
-                                   old_enc)
-
-            out_rows = ClientState(*(
-                frozen(new, old) for new, old in zip(
-                    new_rows, (rows.velocities, rows.errors, rows.weights))))
-            clients = state.clients
-        else:
-            out_rows = None
-            clients = ClientState(*(
-                scatter_rows(storage, scatter_ids, new, codec)
-                for storage, new in zip(
-                    (state.clients.velocities, state.clients.errors,
-                     state.clients.weights), new_rows)))
-
-        new_last_changed = torch.where(update != 0, state.round_idx,
-                                       state.last_changed)
-        new_client_last = torch.cat([
-            state.client_last_round,
-            torch.zeros(1, dtype=torch.int32, device=w.device)])
-        new_client_last[scatter_ids] = state.round_idx
-        new_client_last = new_client_last[:num_clients]
-
-        aborted = state.aborted | breach
-        new_state = FedState(
-            weights=new_w, opt=new_opt, clients=clients,
-            round_idx=state.round_idx + ok.to(torch.int32),
-            last_changed=new_last_changed,
-            client_last_round=new_client_last,
-            aborted=aborted)
-        metrics = {
-            "loss_sum": loss_total,
-            "metric_sums": metric_totals,
-            "num_datapoints": total_n,
-            "aborted": aborted,
-            "download_bytes": 4.0 * download_floats * okf,
-            "upload_bytes": (4.0 * cfg.upload_floats_per_client
-                             * torch.sum(valid_w.to(torch.float32)) * okf),
-            "update_l2": torch.linalg.vector_norm(update),
-        }
-        if offload:
-            return new_state, out_rows, metrics
-        return new_state, metrics
+        new_rows = ((None,) * 3 if out is None else
+                    (out.velocity, out.error, out.client_weights))
+        new_state, writeback, tail_metrics = server_tail(
+            state, agg, loss_total / torch.clamp(total_n, min=1.0), ids,
+            contrib_w, pull_w, finite_w, state.round_idx, new_rows,
+            download_floats, lr, seed)
+        metrics = {"loss_sum": loss_total, "metric_sums": metric_totals,
+                   "num_datapoints": total_n, **tail_metrics}
+        if not offload:
+            return new_state, metrics
+        # a slot the tail did not write back (padded, benched, excluded or
+        # guarded) returns its input encoding bitwise
+        wb_ids, enc = writeback
+        keep = wb_ids < num_clients
+        out_rows = ClientState(*(
+            old if old is None or new is None else select_rows(keep, new, old)
+            for new, old in ((enc.velocities, rows.velocities),
+                             (enc.errors, rows.errors),
+                             (enc.weights, rows.weights))))
+        return new_state, out_rows, metrics
 
     round_step.sketch = sketch
     return round_step

@@ -1,7 +1,7 @@
-"""Server optimizer and per-client state, and the transmit's bucket plan
-(port of ``ServerOptState``, ``ClientState``, ``CLIENT_STATE_FIELDS``,
-``GradBuckets`` and ``make_grad_buckets`` in
-``commefficient_tpu/federated/state.py``)."""
+"""Server optimizer and per-client state, the buffered server's slots, and
+the transmit's bucket plan (port of ``ServerOptState``, ``ClientState``,
+``CLIENT_STATE_FIELDS``, ``BufferState``, ``GradBuckets`` and
+``make_grad_buckets`` in ``commefficient_tpu/federated/state.py``)."""
 
 from __future__ import annotations
 
@@ -103,3 +103,25 @@ class ClientState:
     velocities: Optional[object] = None  # local momentum
     errors: Optional[object] = None      # local error feedback
     weights: Optional[object] = None     # --topk_down stale weights
+
+
+@dataclass
+class BufferState:
+    """The buffered server's contribution slots (``server_mode
+    buffered``; reference ``state.py:145-175``). A cohort emits one with
+    W slots, and the deposit copies its arrived slots into the server's
+    M-slot buffer in arrival order. The clients' rows ride in the slots
+    dense, so they land in client state only when their contribution is
+    applied."""
+    transmit: torch.Tensor         # (M, *transmit_shape)
+    loss_sum: torch.Tensor         # (M,)
+    metric_sums: torch.Tensor      # (M, n_metrics)
+    num_datapoints: torch.Tensor   # (M,)
+    download_floats: torch.Tensor  # (M,) f32: weights pulled at start
+    cid: torch.Tensor              # (M,) int64 client id (num_clients = none)
+    start_version: torch.Tensor    # (M,) int32 weights_version pulled
+    valid: torch.Tensor            # (M,) bool: slot holds a contribution
+    count: torch.Tensor            # () int32: filled slots
+    velocities: Optional[torch.Tensor] = None  # (M, d) rows at finish
+    errors: Optional[torch.Tensor] = None      # (M, d)
+    weights: Optional[torch.Tensor] = None     # (M, d) topk_down stale

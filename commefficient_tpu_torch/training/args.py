@@ -2,7 +2,8 @@
 ``commefficient_tpu/training/args.py``, same names and defaults) plus
 ``--device``; ``add_gpt2_flags`` adds the GPT2 entry point's. Flags for
 what the port does not run yet parse, and the config or entry point
-refuses them naming the ROADMAP item."""
+refuses them naming the ROADMAP item. ``learner_factory`` picks the
+learner of ``--server_mode`` with its ``--fault_*`` schedule."""
 
 from __future__ import annotations
 
@@ -38,6 +39,26 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--nan_threshold", type=float, default=999)
     p.add_argument("--eval_before_start", action="store_true",
                    help="run a validation pass before training")
+    p.add_argument("--checkpoint", action="store_true", dest="do_checkpoint",
+                   help="export the final state to --checkpoint_path")
+    p.add_argument("--checkpoint_path", default="./checkpoint")
+    p.add_argument("--checkpoint_every_rounds", type=int, default=0,
+                   help="write a crash-consistent step checkpoint every N "
+                        "rounds (0 = off) under --checkpoint_path, with a "
+                        ".latest pointer and bounded retention; also arms "
+                        "the SIGTERM/SIGINT finish-round-save-exit handler")
+    p.add_argument("--resume", default=None, metavar="auto|PATH",
+                   help="resume training from a checkpoint: 'auto' picks "
+                        "the newest valid checkpoint under "
+                        "--checkpoint_path (fresh start if none), a path "
+                        "names a file or directory. Restores learner "
+                        "state, data-order cursor, and LR-schedule step; "
+                        "a config-fingerprint mismatch fails loudly")
+    p.add_argument("--finetune", action="store_true", dest="do_finetune",
+                   help="start from the weights of --finetune_path (a "
+                        "checkpoint file or directory) with a fresh "
+                        "classifier head, the rest frozen")
+    p.add_argument("--finetune_path", default="./finetune")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"),
                    default="float32",
                    help="model compute dtype (params stay float32); the CV "
@@ -102,9 +123,56 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
                    help="rounds a window (FedLearner.train_rounds_scan): "
                         "the same trajectory, one host read of the metrics "
                         "a window; below 1 means 1")
+    # the buffered server and the fault model (federated/{buffer,faults}.py)
+    p.add_argument("--server_mode", choices=("sync", "buffered"),
+                   default="sync",
+                   help="'buffered' = FedBuff-style asynchronous server: "
+                        "contributions land in a --buffer_m slot buffer "
+                        "as they arrive (per --fault_* schedule) and the "
+                        "server applies whenever it fills, scaling each "
+                        "by staleness 1/(1+tau)^alpha. With no --fault_"
+                        "seed it runs lock-step and matches sync "
+                        "bit-for-bit at alpha=0")
+    p.add_argument("--buffer_m", type=int, default=0,
+                   help="buffered server's apply threshold M; 0 = "
+                        "num_workers")
+    p.add_argument("--staleness_alpha", type=float, default=0.0,
+                   help="staleness-discount exponent alpha in "
+                        "s(tau)=1/(1+tau)^alpha (0 = no discounting)")
+    p.add_argument("--client_quarantine", action="store_true",
+                   help="per-client NaN quarantine: a non-finite client "
+                        "contribution is excluded from the aggregate "
+                        "(instead of aborting the run) and its client "
+                        "benched for --quarantine_rounds applied rounds; "
+                        "only a post-exclusion server-side breach trips "
+                        "the sticky abort")
+    p.add_argument("--quarantine_rounds", type=int, default=5,
+                   help="bench duration for a client whose update came "
+                        "back non-finite")
+    p.add_argument("--fault_seed", type=int, default=None,
+                   help="enable the seeded client fault model "
+                        "(federated/faults.py): per-(round, client) "
+                        "dropout/crash/latency draws, replayable from "
+                        "this seed. None = no faults (lock-step)")
+    p.add_argument("--fault_dropout_prob", type=float, default=0.0,
+                   help="per-(round, client) probability the client never "
+                        "starts")
+    p.add_argument("--fault_crash_prob", type=float, default=0.0,
+                   help="probability a started client crashes mid-round "
+                        "(pulls weights, never uploads)")
+    p.add_argument("--straggler_frac", type=float, default=0.0,
+                   help="fraction of clients that are CHRONIC stragglers "
+                        "under this fault seed (a per-client property)")
+    p.add_argument("--straggler_mult", type=float, default=10.0,
+                   help="latency multiplier for chronic stragglers")
+    p.add_argument("--base_latency", type=float, default=1.0,
+                   help="median client round-trip in simulated time units")
+    p.add_argument("--latency_sigma", type=float, default=0.25,
+                   help="log-normal spread of client latency")
+    p.add_argument("--dispatch_interval", type=float, default=None,
+                   help="simulated time between cohort dispatches "
+                        "(buffered server); None = base_latency")
     # accepted so that a reference command line parses; refused by train()
-    p.add_argument("--finetune", action="store_true", dest="do_finetune")
-    p.add_argument("--finetune_path", default="./finetune")
     p.add_argument("--mesh", type=str, default="")
     return p
 
@@ -187,18 +255,59 @@ def resolve_fused_ce(args) -> bool:
 
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: ``--finetune`` (A10),
-    ``--mesh`` (A12), then the entry point's own ``extra`` ``(flag,
-    is_set, item)`` triples. The config refuses ``--topk_approx_recall``
-    (A2)."""
+    flag set that the port does not run: ``--mesh`` (A12), then the entry
+    point's own ``extra`` ``(flag, is_set, item)`` triples. The config
+    refuses ``--topk_approx_recall`` (A2)."""
     for flag, on, item in (
-            ("--finetune (utils/finetune.py reads checkpoint v3)",
-             args.do_finetune, "A10"),
             ("--mesh", bool(args.mesh), "A12"),
             *extra):
         if on:
             raise NotImplementedError(f"{flag} is not ported to PyTorch "
                                       f"yet (ROADMAP.md {item})")
+
+
+def make_fault_model(args, num_clients: int):
+    """``--fault_*`` flags -> a seeded ``FaultModel``, or None without
+    ``--fault_seed`` (lock-step)."""
+    if getattr(args, "fault_seed", None) is None:
+        return None
+    from commefficient_tpu_torch.federated.faults import FaultModel
+    return FaultModel(
+        args.fault_seed, num_clients,
+        base_latency=args.base_latency,
+        latency_sigma=args.latency_sigma,
+        straggler_frac=args.straggler_frac,
+        straggler_mult=args.straggler_mult,
+        dropout_prob=args.fault_dropout_prob,
+        crash_prob=args.fault_crash_prob)
+
+
+def learner_factory(args, num_clients: int):
+    """(learner class, extra constructor kwargs) for ``--server_mode``.
+    The buffered server takes the fault flags on its host event loop; the
+    sync server has no fault model, so ``--fault_seed`` with it raises
+    instead of doing nothing."""
+    if getattr(args, "server_mode", "sync") != "buffered":
+        if getattr(args, "fault_seed", None) is not None:
+            raise ValueError(
+                "--fault_seed needs --server_mode buffered (the sync "
+                "fault baseline is driven by results.py --straggler)")
+        from commefficient_tpu_torch.federated.api import FedLearner
+        return FedLearner, {}
+    from commefficient_tpu_torch.federated.buffer import BufferedFedLearner
+    return BufferedFedLearner, {
+        "fault_model": make_fault_model(args, num_clients),
+        "dispatch_interval": getattr(args, "dispatch_interval", None),
+    }
+
+
+def refuse_buffered_scan(args) -> None:
+    """The buffered server's refusal of ``--scan_rounds`` > 1."""
+    if (scan_rounds(args) > 1
+            and getattr(args, "server_mode", "sync") != "sync"):
+        raise ValueError("--scan_rounds > 1 is a sync-mode optimization; "
+                         "the buffered server dispatches cohorts through "
+                         "a host event loop")
 
 
 def scan_rounds(args) -> int:

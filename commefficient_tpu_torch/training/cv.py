@@ -35,13 +35,22 @@ their rounds (``data/prefetch.device_prefetch``), each round is
 dispatched with the next round's client ids for the offload pipeline's
 gather-ahead, and its metrics are read one round later
 (``RoundPipeline``) or a window at a time under ``--scan_rounds K``
-(``ScanWindow``; refused with ``--client_state_offload``, as in the
-reference). Piecewise-linear LR through a pivot epoch, NaN abort, the
-offloaded rows flushed at every epoch's end, a validation pass per epoch
-(and one before training under ``--eval_before_start``), the byte rollup,
-``TableLogger`` rows, ``--tensorboard`` scalars and a ``--profile``
-trace. Checkpoints, resume, ``--finetune`` and the mesh are ROADMAP.md
-A10/A12.
+(``ScanWindow``; refused with ``--client_state_offload`` and with the
+buffered server, as in the reference). Piecewise-linear LR through a
+pivot epoch, NaN abort, the offloaded rows flushed at every epoch's end,
+a validation pass per epoch (and one before training under
+``--eval_before_start``), the byte rollup, ``TableLogger`` rows,
+``--tensorboard`` scalars and a ``--profile`` trace.
+
+Robustness: ``--server_mode buffered`` with the ``--fault_*`` schedule
+(``federated/buffer.py``; its in-flight contributions are delivered and
+a partial buffer applied at the end), ``--client_quarantine``,
+``--checkpoint`` (the final export under ``--checkpoint_path``),
+``--checkpoint_every_rounds N`` with the SIGTERM/SIGINT guard and
+``--resume auto|PATH`` (``training/preempt.py``: a resumed epoch replays
+its first rounds' data draws without training them, and the run ends
+bitwise where the uninterrupted one does), and ``--finetune`` from
+``--finetune_path`` (``utils/finetune.py``). The mesh is ROADMAP.md A12.
 """
 
 from __future__ import annotations
@@ -57,17 +66,23 @@ from commefficient_tpu_torch.data import FedBatcher, fed_datasets, val_batches
 from commefficient_tpu_torch.data.prefetch import (device_prefetch,
                                                    with_lookahead)
 from commefficient_tpu_torch.data.transforms import get_transforms
-from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import make_cv_loss
 from commefficient_tpu_torch.models import get_model
 from commefficient_tpu_torch.models.norms import BatchNorm
 from commefficient_tpu_torch.training.args import (args_to_config,
                                                    build_parser,
+                                                   learner_factory,
+                                                   refuse_buffered_scan,
                                                    refuse_unported,
                                                    scan_rounds)
-from commefficient_tpu_torch.training.loop import (FeedClock, RoundFeed,
-                                                   first_abort)
+from commefficient_tpu_torch.training.loop import (FeedClock, RoundAborted,
+                                                   RoundFeed, end_aborted,
+                                                   finish_run, raise_on_abort)
+from commefficient_tpu_torch.training.preempt import TrainCheckpointer
+from commefficient_tpu_torch.utils.checkpoint import save_checkpoint
 from commefficient_tpu_torch.utils.device import resolve_device
+from commefficient_tpu_torch.utils.finetune import \
+    load_pretrained_for_finetune
 from commefficient_tpu_torch.utils.logging import (ScalarWriter, TableLogger,
                                                    Timer, make_logdir,
                                                    profile_ctx)
@@ -82,6 +97,7 @@ DATASET_CHANNELS = {"EMNIST": 1, "Digits": 1}
 
 def _refuse_unported(args):
     refuse_unported(args)
+    refuse_buffered_scan(args)
     if args.dataset_name not in fed_datasets:
         raise ValueError(f"--dataset_name {args.dataset_name!r} is not a CV "
                          f"dataset; choices: {sorted(fed_datasets)}")
@@ -112,7 +128,12 @@ def build_learner(args, num_classes, channels, device, image_size=32):
 
     A model with BatchNorm is refused: the reference's round applies
     ``{"params": ...}`` alone (``commefficient_tpu/federated/losses.py:22``),
-    so BatchNorm's statistics have no place in it, and it fails there."""
+    so BatchNorm's statistics have no place in it, and it fails there.
+
+    ``--finetune`` loads ``--finetune_path``'s weights into every
+    coordinate but the head's and freezes them; ``--server_mode
+    buffered`` builds a ``BufferedFedLearner`` with the ``--fault_*``
+    schedule (``learner_factory``)."""
     cfg = args_to_config(args)
     model_kw = dict(num_classes=num_classes, in_channels=channels)
     compute_dtype = getattr(args, "compute_dtype", "float32")
@@ -133,6 +154,21 @@ def build_learner(args, num_classes, channels, device, image_size=32):
             "reference's round applies {'params': ...} alone "
             "(commefficient_tpu/federated/losses.py:22) and fails on it")
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
+    trainable_mask = None
+    if args.do_finetune:
+        def pretrained_model(meta):
+            # the pretrained model of a head swap: the file's name and
+            # classes, this run's input
+            kw = dict(model_kw, num_classes=meta["num_classes"])
+            if meta["model"] != args.model:
+                kw = {k: v for k, v in kw.items()
+                      if k in ("num_classes", "in_channels")}
+            if (meta["model"] == "ResNet9"
+                    and meta.get("do_batchnorm") is not None):
+                kw["do_batchnorm"] = meta["do_batchnorm"]
+            return get_model(meta["model"], **kw)
+        model, trainable_mask = load_pretrained_for_finetune(
+            model, args.finetune_path, make_model=pretrained_model)
     loss = make_cv_loss(model)
     sched = cifar_lr_schedule(args.lr_scale, args.pivot_epoch,
                               args.num_epochs)
@@ -141,8 +177,9 @@ def build_learner(args, num_classes, channels, device, image_size=32):
         factor = 0.1 if args.model.startswith("Fixup") else 1.0
     lr_vec = (None if factor == 1.0 else
               partial(scalar_lr_multipliers, scalar_factor=factor))
-    return FedLearner(model, cfg, loss, loss, lr_schedule=sched,
-                      device=device, lr_scale_vec=lr_vec)
+    cls, extra = learner_factory(args, cfg.num_clients)
+    return cls(model, cfg, loss, loss, lr_schedule=sched, device=device,
+               lr_scale_vec=lr_vec, trainable_mask=trainable_mask, **extra)
 
 
 def train(args, max_rounds=None, log=True):
@@ -150,7 +187,8 @@ def train(args, max_rounds=None, log=True):
     carries every finalized round's metrics in order, over all epochs,
     under ``"rounds"`` (each with its ``round_s``, ``training/loop.py``),
     and the host seconds and batches of the data feed (``"feed_s"``,
-    ``"feed_batches"``)."""
+    ``"feed_batches"``). A run stopped by SIGTERM/SIGINT returns after its
+    checkpoint with ``"preempted"`` in the row."""
     _refuse_unported(args)
     device = resolve_device(args.device)
     train_set = make_dataset(args, train=True)
@@ -164,9 +202,17 @@ def train(args, max_rounds=None, log=True):
                          seed=args.seed)
     # the reference draws one probe round for its sample input before
     # training; drawing it too keeps the two packages' rounds identical
+    # (a resume's cursor then overwrites the draws it made)
     _, probe_cols, _ = next(iter(batcher.epoch()))
     learner = build_learner(args, num_classes, channels, device,
                             image_size=probe_cols[0].shape[2])
+    meta = {"model": args.model, "num_classes": num_classes,
+            "do_batchnorm": args.do_batchnorm}
+    ckpt = TrainCheckpointer(args, learner, batcher, entry="cv", meta=meta,
+                             log=log)
+    cursor = ckpt.resume()
+    start_epoch = cursor["epoch"] if cursor else 0
+    skip0 = cursor["rounds_in_epoch"] if cursor else 0
     scan_k = scan_rounds(args)
     table = TableLogger() if log else None
     writer = (ScalarWriter(make_logdir(args)) if args.use_tensorboard
@@ -174,9 +220,10 @@ def train(args, max_rounds=None, log=True):
     timer = Timer()
     feed = FeedClock()
     spe = batcher.steps_per_epoch()
-    total_rounds = 0
+    total_rounds = cursor["total_rounds"] if cursor else 0
     row, history = {}, []
     try:
+        ckpt.guard.__enter__()
         if args.eval_before_start:
             # a logging flag must not move the trajectory: the learner's
             # generator is put back as it was
@@ -191,13 +238,16 @@ def train(args, max_rounds=None, log=True):
                 writer.add_scalar("test_loss", val0["loss"], 0)
                 writer.add_scalar("test_acc", float(val0["metrics"][0]), 0)
         n_epochs = int(math.ceil(args.num_epochs))
-        for epoch in range(n_epochs):
+        for epoch in range(start_epoch, n_epochs):
             # fractional num_epochs truncates the last epoch's round count
             epoch_fraction = (args.num_epochs - epoch
                               if epoch == n_epochs - 1 else 1.0)
             rounds_cap = (spe if epoch_fraction >= 1
                           else max(1, int(round(spe * epoch_fraction))))
-            rounds_in_epoch = 0
+            # a resumed epoch replays its first rounds' data draws without
+            # training them
+            skip = skip0 if epoch == start_epoch else 0
+            rounds_in_epoch = skip
             epoch_metrics = []
             # the one-round pipeline (or a K-round window): the host reads
             # round t's metrics while round t+1 runs, so an abort is seen
@@ -215,36 +265,36 @@ def train(args, max_rounds=None, log=True):
                               f"up={out['upload_bytes']:.0f}B "
                               f"time={out['round_s'] * 1e3:.1f}ms",
                               flush=True)
-                return first_abort(outs)
-
-            def abort(bad):
-                print(f"NaN/divergent loss ({bad['loss']}); aborting "
-                      f"(threshold {args.nan_threshold})")
-                learner.flush_offload()   # settle the host rows first
-                return learner, {"aborted": True, "loss": bad["loss"],
-                                 "rounds": history}
+                raise_on_abort(outs)
 
             # the next rounds' batches copy to the device while this one
             # computes; the one-item lookahead feeds the offload pipeline's
             # gather-ahead (the next round's rows copy meanwhile too)
             for (ids, cols, mask), nxt in with_lookahead(device_prefetch(
-                    feed.wrap(batcher.epoch()), device=learner.device)):
-                bad = record(rounds.push(
+                    feed.wrap(batcher.epoch(skip=skip)),
+                    device=learner.device)):
+                record(rounds.push(
                     ids, cols, mask, total_rounds / max(spe, 1),
                     next_client_ids=None if nxt is None else nxt[0]))
                 total_rounds += 1
                 rounds_in_epoch += 1
-                if bad:
-                    return abort(bad)
-                if (args.do_test or rounds_in_epoch >= rounds_cap
-                        or (max_rounds and total_rounds >= max_rounds)):
+                # no next batch: this round is the epoch's last, whatever
+                # the estimate of steps_per_epoch says
+                at_boundary = (args.do_test or rounds_in_epoch >= rounds_cap
+                               or (max_rounds and total_rounds >= max_rounds)
+                               or nxt is None)
+                if ckpt.after_round(epoch, rounds_in_epoch, total_rounds,
+                                    at_boundary,
+                                    lambda: record(rounds.flush())):
+                    return learner, {"preempted": True, "epoch": epoch + 1,
+                                     "rounds": history}
+                if at_boundary:
                     break
             # epoch boundary: pending writebacks land in the host rows, a
             # gather-ahead for a round that never ran is dropped, and the
             # last round (or window) is read
             learner.flush_offload()
-            if bad := record(rounds.flush()):
-                return abort(bad)
+            record(rounds.flush())
             train_time = timer()
             val = learner.evaluate(val_batches(val_set,
                                                args.valid_batch_size))
@@ -272,11 +322,20 @@ def train(args, max_rounds=None, log=True):
                     writer.add_scalar(tag, row[tag], epoch + 1)
             row.update(rounds=history, feed_s=feed.seconds,
                        feed_batches=feed.batches)
-            if args.do_test or (max_rounds and total_rounds >= max_rounds):
+            stop = args.do_test or (max_rounds and total_rounds >= max_rounds)
+            if ckpt.at_epoch_end(epoch, n_epochs, total_rounds, stop):
+                return learner, dict(row, preempted=True)
+            if stop:
                 break
+    except RoundAborted as e:
+        return end_aborted(learner, e.metrics, history, args.nan_threshold)
     finally:
+        ckpt.guard.__exit__()
         if writer:
             writer.close()
+    finish_run(learner, row, log)
+    if args.do_checkpoint:
+        save_checkpoint(args.checkpoint_path, learner, args.model, meta=meta)
     return learner, row
 
 

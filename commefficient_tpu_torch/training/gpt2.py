@@ -32,14 +32,21 @@ are cached too (``models/gpt2_import.py``); neither is fetched.
 in host memory (``examples/gpt2_personachat.sh``'s single-card setting).
 The loop is the CV entry point's (``training/loop.py``): device prefetch,
 the one-round pipeline or ``--scan_rounds K`` windows,
-``--eval_before_start``, ``--tensorboard`` and ``--profile``.
-Checkpoints, resume, the generated sample and the serving stack are
-ROADMAP.md A10/A11.
+``--eval_before_start``, ``--tensorboard`` and ``--profile``, with the
+robustness flags: ``--server_mode buffered`` and the ``--fault_*``
+schedule, ``--client_quarantine``, ``--checkpoint_every_rounds``, the
+SIGTERM/SIGINT guard and ``--resume`` (the learner's generator, which
+the dropout draws from, is in the checkpoint), and ``--checkpoint``'s
+export (``gpt2.npz``, ``config.json``, ``tokenizer.json`` under
+``--checkpoint_path``). The generated sample and the serving stack are
+ROADMAP.md A11.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import sys
 
 import numpy as np
@@ -52,7 +59,6 @@ from commefficient_tpu_torch.data.persona import (FedPERSONA,
                                                   SyntheticPersona)
 from commefficient_tpu_torch.data.tokenizer import (HFTokenizerWrapper,
                                                     get_tokenizer)
-from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import (make_gpt2_train_loss,
                                                       make_gpt2_val_loss)
 from commefficient_tpu_torch.models import GPT2_CONFIGS, GPT2DoubleHeads
@@ -61,11 +67,16 @@ from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    args_to_config,
                                                    build_parser,
+                                                   learner_factory,
+                                                   refuse_buffered_scan,
                                                    refuse_unported,
                                                    resolve_fused_ce,
                                                    scan_rounds)
-from commefficient_tpu_torch.training.loop import (FeedClock, RoundFeed,
-                                                   first_abort)
+from commefficient_tpu_torch.training.loop import (FeedClock, RoundAborted,
+                                                   RoundFeed, end_aborted,
+                                                   finish_run, raise_on_abort)
+from commefficient_tpu_torch.training.preempt import TrainCheckpointer
+from commefficient_tpu_torch.utils.checkpoint import save_checkpoint
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.logging import (ScalarWriter, TableLogger,
                                                    Timer, make_logdir,
@@ -78,6 +89,7 @@ def _refuse_unported(args):
         ("--moe_experts", args.moe_experts > 0, "A12"),
         ("--serve_online", args.serve_online, "A11"),
         ("--attn_impl ring", args.attn_impl == "ring", "A12")))
+    refuse_buffered_scan(args)
     if args.model not in GPT2_CONFIGS:
         raise ValueError(f"--model {args.model!r} is not a GPT2 model; "
                          f"choices: {sorted(GPT2_CONFIGS)}")
@@ -85,6 +97,21 @@ def _refuse_unported(args):
         raise ValueError(f"--dataset_name {args.dataset_name!r}: the GPT2 "
                          "entry point reads SyntheticPersona or PERSONA")
     args_to_config(args).validate()
+
+
+def save_pretrained(log_dir: str, learner, gpt2_config,
+                    tokenizer) -> None:
+    """Export the weights and state (``gpt2.npz``), the model config and
+    the tokenizer's identity under ``log_dir``, as the reference does."""
+    os.makedirs(log_dir, exist_ok=True)
+    save_checkpoint(log_dir, learner, "gpt2")
+    with open(os.path.join(log_dir, "config.json"), "w") as f:
+        json.dump({k: getattr(gpt2_config, k)
+                   for k in ("vocab_size", "n_positions", "n_embd",
+                             "n_layer", "n_head", "dropout")}, f)
+    with open(os.path.join(log_dir, "tokenizer.json"), "w") as f:
+        json.dump({"type": type(tokenizer).__name__,
+                   "vocab_size": tokenizer.vocab_size}, f)
 
 
 def make_persona(args, tokenizer, train: bool):
@@ -150,16 +177,22 @@ def train(args, max_rounds=None, log=True):
     spe = batcher.steps_per_epoch()
     sched = gpt2_lr_schedule(args.lr_scale,
                              max(1, int(args.num_epochs * spe)))
-    learner = FedLearner(model, args_to_config(args),
-                         make_gpt2_train_loss(model, args.lm_coef,
-                                              args.mc_coef),
-                         make_gpt2_val_loss(model), lr_schedule=sched,
-                         device=device, seed=args.seed)
+    cls, extra = learner_factory(args, args.num_clients)
+    learner = cls(model, args_to_config(args),
+                  make_gpt2_train_loss(model, args.lm_coef, args.mc_coef),
+                  make_gpt2_val_loss(model), lr_schedule=sched,
+                  device=device, seed=args.seed, **extra)
     if log:
         print(f"gpt2: d = {learner.cfg.grad_size}, vocab "
               f"{model.config.vocab_size}, attn_impl "
               f"{model.config.attn_impl}, fused LM head "
               f"{model.config.fused_lm_head}, device {device}", flush=True)
+    # this entry point draws no probe round: the restored cursor is the
+    # only thing that moves the sampler before the loop
+    ckpt = TrainCheckpointer(args, learner, batcher, entry="gpt2", log=log)
+    cursor = ckpt.resume()
+    start_epoch = cursor["epoch"] if cursor else 0
+    skip0 = cursor["rounds_in_epoch"] if cursor else 0
 
     scan_k = scan_rounds(args)
     table = TableLogger() if log else None
@@ -167,9 +200,11 @@ def train(args, max_rounds=None, log=True):
               else None)
     timer = Timer()
     feed = FeedClock()
-    total_rounds = 0
+    total_rounds = cursor["total_rounds"] if cursor else 0
+    n_epochs = int(math.ceil(args.num_epochs))
     row, history = {}, []
     try:
+        ckpt.guard.__enter__()
         if args.eval_before_start:
             # a logging flag must not move the trajectory: the learner's
             # generator is put back as it was
@@ -183,7 +218,9 @@ def train(args, max_rounds=None, log=True):
                       f"ppl={float(np.exp(min(nll0, 20.0))):.2f}")
             if writer:
                 writer.add_scalar("nll", nll0, 0)
-        for epoch in range(int(math.ceil(args.num_epochs))):
+        for epoch in range(start_epoch, n_epochs):
+            skip = skip0 if epoch == start_epoch else 0
+            rounds_in_epoch = skip
             epoch_metrics = []
             # the one-round pipeline (or a K-round window; see
             # training/cv.py): an abort is seen one round (or window) late
@@ -198,36 +235,35 @@ def train(args, max_rounds=None, log=True):
                               f"up={out['upload_bytes']:.0f}B "
                               f"time={out['round_s'] * 1e3:.1f}ms",
                               flush=True)
-                return first_abort(outs)
-
-            def abort(bad):
-                print(f"NaN/divergent loss ({bad['loss']}); aborting "
-                      f"(threshold {args.nan_threshold})")
-                learner.flush_offload()   # settle the host rows first
-                return learner, {"aborted": True, "loss": bad["loss"],
-                                 "rounds": history}
+                raise_on_abort(outs)
 
             # the next rounds' batches copy to the device while this one
             # computes; the lookahead feeds the offload pipeline's
             # gather-ahead
             for (ids, cols, mask), nxt in with_lookahead(device_prefetch(
-                    feed.wrap(batcher.epoch()), device=learner.device)):
+                    feed.wrap(batcher.epoch(skip=skip)),
+                    device=learner.device)):
                 # the schedule decays per round: lr_at(total rounds so far)
-                bad = record(rounds.push(
+                record(rounds.push(
                     ids, cols, mask, total_rounds,
                     next_client_ids=None if nxt is None else nxt[0]))
                 last_batch = (ids, cols, mask)
                 total_rounds += 1
-                if bad:
-                    return abort(bad)
+                rounds_in_epoch += 1
+                at_boundary = (args.do_test or nxt is None
+                               or (max_rounds and total_rounds >= max_rounds))
+                if ckpt.after_round(epoch, rounds_in_epoch, total_rounds,
+                                    at_boundary,
+                                    lambda: record(rounds.flush())):
+                    return learner, {"preempted": True, "epoch": epoch + 1,
+                                     "rounds": history}
                 if args.do_test or (max_rounds and total_rounds >= max_rounds):
                     break
             # epoch boundary: pending writebacks land in the host rows, a
             # gather-ahead for a round that never ran is dropped, and the
             # last round (or window) is read
             learner.flush_offload()
-            if bad := record(rounds.flush()):
-                return abort(bad)
+            record(rounds.flush())
             train_time = timer()
             launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
             val = learner.evaluate(val_batches(val_set,
@@ -256,14 +292,24 @@ def train(args, max_rounds=None, log=True):
             row.update(rounds=history, launches_after_rounds=launches,
                        val_batches=val["num_batches"], last_batch=last_batch,
                        feed_s=feed.seconds, feed_batches=feed.batches)
-            if args.do_test or (max_rounds and total_rounds >= max_rounds):
+            stop = args.do_test or (max_rounds and total_rounds >= max_rounds)
+            if ckpt.at_epoch_end(epoch, n_epochs, total_rounds, stop):
+                return learner, dict(row, preempted=True)
+            if stop:
                 break
+    except RoundAborted as e:
+        return end_aborted(learner, e.metrics, history, args.nan_threshold)
     finally:
+        ckpt.guard.__exit__()
         if writer:
             writer.close()
+    finish_run(learner, row, log)
     if log and not args.do_test:
         print("generation sample: not ported (KV-cached decoding, "
               "ROADMAP.md A11)")
+    if args.do_checkpoint:
+        save_pretrained(args.checkpoint_path, learner, model.config,
+                        tokenizer)
     return learner, row
 
 

@@ -9,6 +9,7 @@ end. Each returned round carries ``round_s``: the host seconds between
 its metrics' read and the previous read, the loop's round period, split
 evenly over the rounds of one read. ``FeedClock`` counts the host
 seconds spent making the batches (sampling, gathering, transforms).
+``finish_run`` is the buffered server's end-of-training barrier.
 """
 
 from __future__ import annotations
@@ -56,6 +57,32 @@ def first_abort(outs):
     return next((o for o in outs if o["aborted"]), None)
 
 
+class RoundAborted(Exception):
+    """A round's device guard tripped: the entry point's loop ends the run
+    with that round's metrics (``metrics``)."""
+
+    def __init__(self, metrics: dict):
+        super().__init__(f"NaN/divergent loss ({metrics['loss']})")
+        self.metrics = metrics
+
+
+def raise_on_abort(outs) -> None:
+    """Raise ``RoundAborted`` for the first aborted round of ``outs``."""
+    bad = first_abort(outs)
+    if bad is not None:
+        raise RoundAborted(bad)
+
+
+def end_aborted(learner, bad: dict, history: list, nan_threshold: float):
+    """An entry point's result after the aborted round ``bad``: the host
+    rows settled first."""
+    print(f"NaN/divergent loss ({bad['loss']}); aborting "
+          f"(threshold {nan_threshold})")
+    learner.flush_offload()
+    return learner, {"aborted": True, "loss": bad["loss"],
+                     "rounds": history}
+
+
 class FeedClock:
     """Host seconds and batches spent in the iterators it wraps."""
 
@@ -75,3 +102,21 @@ class FeedClock:
                 self.seconds += time.perf_counter() - t0
             self.batches += 1
             yield item
+
+
+def finish_run(learner, row: dict, log: bool = True) -> None:
+    """The buffered server's end of training: every contribution in flight
+    is delivered and a partial buffer applied, so the final weights and
+    byte totals count all dispatched work; ``row`` gets ``sim_time`` and
+    the new byte totals. No-op for the sync server."""
+    if not hasattr(learner, "flush_faults"):
+        return
+    learner.flush_faults()
+    row["sim_time"] = learner.sim_time
+    row["down (MiB)"] = learner.total_download_bytes / 2**20
+    row["up (MiB)"] = learner.total_upload_bytes / 2**20
+    if log:
+        print(f"buffered server: {learner.applies_done} applies over "
+              f"{learner.cohorts_done} cohorts, sim_time="
+              f"{learner.sim_time:.1f} units, faults="
+              f"{learner.fault_stats}")

@@ -29,7 +29,10 @@ bitwise the one without remat (flash kernels launched twice as often),
 and ``download_counts`` on the card bitwise the CPU's; the global
 scheme's dense sketch and recovery, the sparse and sketched client
 codecs on the card bitwise the CPU's, and offloaded local_topk rounds
-(dense and sparse rows) bitwise the device-resident ones.
+(dense and sparse rows) bitwise the device-resident ones; a checkpoint
+restored onto the card bitwise, the buffered server in lock-step bitwise
+the sync one and a faulted schedule replayed bitwise (its event counters
+the CPU's), and quarantine of a NaN client in a sketch round.
 ``chip_smoke.py`` repeats this at the main paths' full width.
 """
 
@@ -990,3 +993,102 @@ def test_scan_window_on_the_card_bitwise_single_rounds(dev):
                  (one.state.opt.Vvelocity, win.state.opt.Vvelocity),
                  (one.state.opt.Verror, win.state.opt.Verror)):
         assert _same_bits(x, y)
+
+
+def _sketch_learner(dev, fault_model=None, **kw):
+    """A narrow sketch-mode learner on ``dev`` (TinyMLP, d = 5,634)."""
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.losses import make_cv_loss
+    from commefficient_tpu_torch.models.toy import TinyMLP
+    model = TinyMLP(num_classes=2, hidden=512, in_channels=8,
+                    image_size=1).reset_parameters(
+        torch.Generator().manual_seed(4))
+    cfg = FedConfig(mode="sketch", error_type="virtual",
+                    virtual_momentum=0.9, k=200, num_rows=5, num_cols=1000,
+                    num_workers=3, num_clients=8, **kw)
+    if cfg.server_mode == "buffered":
+        from commefficient_tpu_torch.federated.buffer import \
+            BufferedFedLearner
+        return BufferedFedLearner(model, cfg, make_cv_loss(model),
+                                  device=dev, fault_model=fault_model)
+    from commefficient_tpu_torch.federated.api import FedLearner
+    return FedLearner(model, cfg, make_cv_loss(model), device=dev)
+
+
+def _robust_rounds(n=6, seed=6):
+    rng = np.random.RandomState(seed)
+    return [(rng.choice(8, 3, replace=False).astype(np.int32),
+             (rng.randn(3, 4, 8).astype(np.float32),
+              rng.randint(0, 2, (3, 4)).astype(np.int32)),
+             np.ones((3, 4), np.float32)) for _ in range(n)]
+
+
+def test_checkpoint_roundtrip_on_the_card(dev, tmp_path):
+    """A sketch learner's checkpoint on the card: a fresh learner loads
+    every state tensor onto the card in its dtype, bitwise, with the sink
+    row zero, and its next round is bitwise the saved learner's."""
+    from commefficient_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                          save_checkpoint,
+                                                          state_leaves)
+    rounds = _robust_rounds(3)
+    a, b = _sketch_learner(dev), _sketch_learner(dev)
+    for r in rounds[:2]:
+        a.train_round(*r)
+    load_checkpoint(save_checkpoint(str(tmp_path), a, "t", step=2), b)
+    for (p, x, _), (_, y, _) in zip(state_leaves(a.state),
+                                    state_leaves(b.state)):
+        assert y.device == x.device and y.dtype == x.dtype, p
+        assert (_same_bits(x, y) if x.dtype == torch.float32
+                else torch.equal(x, y)), p
+    assert a.rounds_done == b.rounds_done == 2
+    ma, mb = a.train_round(*rounds[2]), b.train_round(*rounds[2])
+    assert (ma["loss"], ma["upload_bytes"]) == (mb["loss"],
+                                                mb["upload_bytes"])
+    assert _same_bits(a.state.weights, b.state.weights)
+
+
+def test_buffered_server_on_the_card(dev):
+    """The lock-step buffered learner on the card bitwise the sync one;
+    a faulted schedule twice, bitwise, its event loop's counters equal
+    to the same learner's on the CPU."""
+    from commefficient_tpu_torch.federated.faults import FaultModel
+    rounds = _robust_rounds()
+    runs = []
+    for kw in ({}, {"server_mode": "buffered"}):
+        ln = _sketch_learner(dev, **kw)
+        runs.append((ln, [ln.train_round(*r)["loss"] for r in rounds]))
+    (sync, sync_losses), (lockstep, lockstep_losses) = runs
+    assert sync_losses == lockstep_losses
+    assert _same_bits(sync.state.weights, lockstep.state.weights)
+    faulted = []
+    for device in (dev, dev, torch.device("cpu")):
+        ln = _sketch_learner(
+            device, server_mode="buffered", buffer_m=2, staleness_alpha=0.5,
+            fault_model=FaultModel(5, 8, straggler_frac=0.3,
+                                   dropout_prob=0.1, crash_prob=0.1))
+        for r in rounds:
+            ln.train_round(*r)
+        ln.flush_faults()
+        faulted.append(ln)
+    x, y, cpu = faulted
+    assert _same_bits(x.state.weights, y.state.weights)
+    assert x.applies_done > 1 and x.fault_stats == y.fault_stats
+    assert (x.fault_stats, x.applies_done, x.sim_time) == (
+        cpu.fault_stats, cpu.applies_done, cpu.sim_time)
+
+
+def test_quarantine_on_the_card(dev):
+    """--client_quarantine on the card: a NaN client's contribution is
+    excluded from the sketched aggregate, its client benched, and the
+    weights stay finite."""
+    rounds = _robust_rounds(3)
+    ids, (xs, ys), mask = rounds[1]
+    xs = xs.copy()
+    xs[0, 0, 0] = np.nan
+    rounds[1] = (ids, (xs, ys), mask)
+    ln = _sketch_learner(dev, client_quarantine=True, quarantine_rounds=2)
+    outs = [ln.train_round(*r) for r in rounds]
+    assert not any(o["aborted"] for o in outs)
+    assert bool(torch.isfinite(ln.state.weights).all())
+    q = ln.state.quarantine.cpu()
+    assert int((q > 0).sum()) == 1 and int(q[int(ids[0])]) == 1

@@ -28,3 +28,18 @@ def test_port_imports_no_jax(path):
     names = set(_imported(ast.parse(path.read_text(), str(path))))
     bad = {n for n in names if n.split(".")[0] in FORBIDDEN}
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+ROBUSTNESS = ("federated.buffer", "federated.faults", "utils.checkpoint",
+              "utils.finetune", "training.preempt")
+
+
+@pytest.mark.parametrize("name", ROBUSTNESS)
+def test_robustness_modules_are_checked_and_import(name):
+    """The robustness layer's modules are among the files read above, and
+    each imports (building nothing: no kernel at import)."""
+    import importlib
+    path = ROOT / "commefficient_tpu_torch" / (name.replace(".", "/")
+                                                + ".py")
+    assert path in SOURCES
+    importlib.import_module(f"commefficient_tpu_torch.{name}")

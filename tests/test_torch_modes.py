@@ -202,11 +202,16 @@ def test_cli_refuses_unported_config_flags(tmp_path, flag, item):
     """Each flag the port does not run raises NotImplementedError naming
     its ROADMAP item; ``--batchnorm`` runs in the model but the round
     refuses it with a ValueError, as the reference's round cannot carry
-    BatchNorm's ``batch_stats``."""
+    BatchNorm's ``batch_stats``. ``--finetune`` runs since A10: with no
+    checkpoint at ``--finetune_path`` it fails loudly rather than training
+    from scratch."""
+    if item == "A10":
+        flag = flag + ["--finetune_path", str(tmp_path / "missing.npz")]
     args = _cli_args(tmp_path, "--mode", "sketch", "--error_type",
                      "virtual", *flag)
-    exc, match = ((ValueError, item) if item == "batch_stats"
-                  else (NotImplementedError, f"ROADMAP.md {item}"))
+    exc, match = {"batch_stats": (ValueError, item),
+                  "A10": (FileNotFoundError, "missing.npz")}.get(
+        item, (NotImplementedError, f"ROADMAP.md {item}"))
     with pytest.raises(exc, match=match):
         cv.train(args, log=False)
 

@@ -259,5 +259,11 @@ def test_cli_runs_client_state_offload(tmp_path):
                                   ["--finetune"],
                                   ["--topk_approx_recall", "0.95"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``--finetune`` runs since ROADMAP A10: a missing checkpoint at
+    ``--finetune_path`` raises instead of a refusal."""
+    exc, match = NotImplementedError, "ROADMAP"
+    if flag == ["--finetune"]:
+        flag = flag + ["--finetune_path", str(tmp_path / "missing.npz")]
+        exc, match = FileNotFoundError, "missing.npz"
+    with pytest.raises(exc, match=match):
         train(_cli_args(tmp_path, "--device", "cpu", *flag), log=False)
