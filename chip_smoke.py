@@ -247,7 +247,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    batches, losses within 1e-4 relative, bytes equal; at dropout 0, and
    with tpu_bits at dropout 0.1 (attention dropout on the output on both
    sides), where the card's dropout kernel and the CPU's plain version
-   draw the same bits.
+   draw the same bits;
+9. the serving and online stack (ROADMAP A11) at GPT2-small's width
+   (d = 124,051,201, float32, blockwise attention, seeded weights):
+   serve_gpt2, a burst of the first 32 prompts of the online loop's
+   traffic (``online.build_traffic`` over the GPT2 entry point's
+   SyntheticPersona at --max_seq_len 256; greedy, <= 24 new tokens)
+   through a paged ``ContinuousBatchingServer`` of 8 slots with a 256-token
+   prefill window, after a short warm-up burst, the counters zeroed just
+   before it (flash_fwd 12 a prefill, nothing else), the flash forward
+   held against its plain version on the burst's own prefill inputs,
+   every reply token-identical to the request decoded alone by the
+   dense-cache engine and the first 4 to ``sample_reply``'s full
+   recompute; tokens/s, time to first token, ms a decode step, pages and
+   memory above the burst's start printed, and 8 decode steps profiled;
+   serve_variants on the same weights and prompts: speculation (k 4) with
+   a 2-layer drafter cut from the target (its embeddings, first 2 blocks
+   and head) and self-drafting, which must accept some drafts,
+   ``--serve_disagg`` and ``--kv_quant none`` token-identical to the plain
+   server, int8 and int4 pools holding at least 3x and 7x the users
+   (their agreement with float32 and pool bytes printed); serve_online,
+   the entry point's ``--serve_online`` (``ONLINE_FLAGS``) twice from one
+   seed: at least 2 applies and 1 hot swap, rows_hist and rows_select
+   launched by the cohorts, the flash kernels and the per-row top-k held
+   against their plain versions on the first run's own inputs, the
+   replies and final weights of the two runs equal.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -4100,6 +4124,510 @@ SOURCES = {
 }
 
 
+# ---- the serving and online stack (ROADMAP A11) -------------------------
+
+SERVE_SLOTS = 8
+SERVE_REQUESTS = 32
+SERVE_NEW = 24
+SERVE_PREFILL = 256       # the GPT2 entry point's --max_seq_len: its window
+SERVE_MAX_LEN = 288       # prompt and reply: 256 + 24, rounded up to pages
+SERVE_PAGE = 16
+SERVE_FULL_RECOMPUTE = 4
+SERVE_WARMUP_NEW = 2      # the warm-up burst: the first 8 prompts, 2 tokens
+SPEC_K = 4
+# the online entry point at GPT2-small's width: 8 personas, two workers of
+# two single-candidate examples a cohort, a cohort every 2 interactions
+# and a swap after every apply, until 2 swaps
+ONLINE_FLAGS = ["--model", "gpt2", "--vocab_pad_to", "50262", "--attn_impl",
+                "blockwise", "--mode", "local_topk", "--error_type", "local",
+                "--client_state", "sparse", "--k", "50000", "--server_mode",
+                "buffered", "--serve_personalized", "--serve_online",
+                "--serve_slots", "8", "--online_train_every", "2",
+                "--online_swap_every", "1", "--max_seq_len", "128",
+                "--num_workers", "2", "--local_batch_size", "2",
+                "--lr_scale", "0.04", "--weight_decay", "0", "--seed", "3",
+                "--device", "cuda"]
+
+
+def _serve_model(dev, n_layer=12, seed=0):
+    """GPT2-small (or its first ``n_layer`` layers' shape) from seeded
+    weights, float32, blockwise attention, with its params dict."""
+    import torch
+
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    cfg = GPT2Config.small(vocab_size=50262)
+    cfg.attn_impl = "blockwise"
+    cfg.n_layer = n_layer
+    model = GPT2DoubleHeads(cfg).reset_parameters(
+        torch.Generator().manual_seed(seed)).to(dev)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    return model, params
+
+
+def _serve_prompts(tmpdir, n):
+    """The first ``n`` interactions of the online loop's traffic
+    (``online.build_traffic``: users round-robin) over the GPT2 entry
+    point's SyntheticPersona at --max_seq_len ``SERVE_PREFILL``, with the
+    tokenizer: each as (persona, history, ids, types), where persona and
+    history are the raw dialogs' context that ``sample_reply`` builds the
+    same prompt from."""
+    from commefficient_tpu_torch.data.persona import (
+        build_input_from_segments, tokenize_tree)
+    from commefficient_tpu_torch.data.tokenizer import get_tokenizer
+    from commefficient_tpu_torch.online import build_traffic
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       make_persona)
+    args = build_gpt2_parser().parse_args([
+        "--model", "gpt2", "--max_seq_len", str(SERVE_PREFILL),
+        "--dataset_dir", os.path.join(tmpdir, "serve")])
+    tok = get_tokenizer(args.model_checkpoint, verbose=False)
+    train_set = make_persona(args, tok, train=True)
+    traffic, _ = build_traffic(train_set)
+    contexts = {}
+    for dialog in train_set._raw_dialogs()["train"]:
+        persona = tokenize_tree(dialog["personality"], tok)
+        for utt in dialog["utterances"]:
+            history = tokenize_tree(
+                utt["history"][-(2 * args.max_history + 1):], tok)
+            ids = build_input_from_segments(persona, history, [], tok,
+                                            with_eos=False)["input_ids"]
+            contexts.setdefault(tuple(ids), (persona, history))
+    out = []
+    for item in traffic[:n]:
+        if tuple(item["prompt"]) not in contexts:
+            raise AssertionError("serve_gpt2: a traffic prompt has no "
+                                 "context in the raw dialogs")
+        out.append(contexts[tuple(item["prompt"])] + (item["prompt"],
+                                                      item["types"]))
+    if len(out) != n:
+        raise AssertionError(f"serve_gpt2: {len(out)} traffic items, not {n}")
+    return tok, out
+
+
+def _cloned(x):
+    import torch
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(y) for y in x)
+    return x
+
+
+def _topk_select_plain(vec, kk, k, with_mask=False):
+    """``topk_select``'s plain versions (the digit radix, then the select)
+    on the card: what its CPU branch computes."""
+    import torch
+
+    from commefficient_tpu_torch.ops import topk_kernels as tk
+    rows = vec.reshape(1, -1) if vec.dim() == 1 else vec
+    kk = (kk.to(device=vec.device, dtype=torch.int64).expand(rows.shape[0])
+          if torch.is_tensor(kk) else
+          torch.full((rows.shape[0],), int(kk), dtype=torch.int64,
+                     device=vec.device))
+    t, n_take = tk.radix_threshold_rows_plain(tk._score_bits(rows), kk)
+    masked, mask = tk.select_rows_plain(rows, t, n_take, with_mask)
+    if vec.dim() == 1:
+        masked = masked[0]
+        mask = None if mask is None else mask[0]
+    return (masked, mask) if with_mask else masked
+
+
+class _KernelInputs:
+    """Keeps the inputs and outputs of the first call on the card, at each
+    distinct (shape, dtype, dropout rate), of the flash kernels' wrappers
+    (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) and, at each
+    distinct shape, of ``topk_select`` (the per-row radix: ``rows_hist``
+    and ``rows_select``), so that ``check`` holds each against its plain
+    version on those very inputs after the run. Copies tensors; adds no
+    counted launch."""
+
+    FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def __enter__(self):
+        from commefficient_tpu_torch.ops import flash_attention as fa
+        from commefficient_tpu_torch.ops import topk_kernels as tk
+        self.calls = {}
+        self._saved = [(fa, n, getattr(fa, n)) for n in self.FLASH] + [
+            (tk, "topk_select", tk.topk_select)]
+        for owner, name, f in self._saved:
+            setattr(owner, name, self._recording(name, f))
+        return self
+
+    def _recording(self, name, f):
+        def call(*args, **kwargs):
+            out = f(*args, **kwargs)
+            x = args[0]
+            key = (name, tuple(x.shape), x.dtype,
+                   args[-1] if name in self.FLASH else None)
+            if x.is_cuda and key not in self.calls:
+                self.calls[key] = (_cloned(args), dict(kwargs), _cloned(out))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for owner, name, f in self._saved:
+            setattr(owner, name, f)
+
+    def check(self, tag, errs):
+        """Each kept call against its plain version on its own inputs: the
+        flash kernels within ``phase_flash_parity``'s limits
+        (``_flash_bad``), the top-k's masked rows and mask bitwise. Folds
+        the errors into ``errs``; prints each. Returns the names seen."""
+        import torch
+
+        from commefficient_tpu_torch.ops import flash_attention as fa
+        for (name, shape, dtype, rate), (args, kwargs,
+                                         out) in self.calls.items():
+            if name == "topk_select":
+                vec, kk, k = args[:3]
+                with_mask = kwargs.get("with_mask",
+                                       args[3] if len(args) > 3 else False)
+                ref = _topk_select_plain(vec, kk, k, with_mask)
+                got, ref = ((out, ref) if with_mask else ((out,), (ref,)))
+                if not (_same_bits(got[0], ref[0]) and (
+                        not with_mask or torch.equal(got[1], ref[1]))):
+                    raise AssertionError(f"{tag}: topk_select {shape} (k "
+                                         f"{k}) != its plain version on the "
+                                         f"run's own input")
+                for kernel in ("rows_hist", "rows_select"):
+                    errs[kernel] = max(errs[kernel],
+                                       _max_abs_err(got[0], ref[0]))
+                print(f"{tag}: topk_select (rows_hist, rows_select) at "
+                      f"{shape}, k {k}: masked rows"
+                      f"{' and mask' if with_mask else ''} bitwise equal "
+                      f"to the plain version on the run's own input, "
+                      f"{int(got[0].ne(0).sum())} kept", flush=True)
+                continue
+            if name == "flash_fwd":
+                ref, names = fa.flash_fwd_plain(*args), ("o", "lse")
+            else:
+                q, k, v, do, _, _, *cfg = args
+                dq, dk, dv = fa.flash_bwd_plain(q, k, v, do, *cfg)
+                ref, names = (((dq,), ("dq",)) if name == "flash_bwd_dq"
+                              else ((dk, dv), ("dk", "dv")))
+            got = out if isinstance(out, tuple) else (out,)
+            err = dict.fromkeys(_FLASH_NAMES, 0.0)
+            rel = dict.fromkeys(_FLASH_NAMES, 0.0)
+            for n, a, b in zip(names, got, ref):
+                err[n] = _max_abs_err(a, b)
+                rel[n] = err[n] / max(float(b.double().abs().max()), 1e-30)
+            bad = _flash_bad(dtype, err, rel)
+            if bad:
+                raise AssertionError(f"{tag}: {name} at {shape} rate {rate} "
+                                     f"disagrees with its plain version on "
+                                     f"the run's own inputs in {bad}: {err}")
+            errs[name] = max([errs[name]] + [err[n] for n in names])
+            print(f"{tag}: {name} at (BH, T, D) {shape}, {dtype}, rate "
+                  f"{rate} against its plain version on the run's own "
+                  f"inputs: max abs err " + ", ".join(
+                      f"{n} {err[n]:.3e}" for n in names) + "; relative "
+                  f"to max |.|: " + ", ".join(f"{n} {rel[n]:.3e}"
+                                              for n in names), flush=True)
+        return {name for name, *_ in self.calls}
+
+
+def _serve_burst(srv, prompts, max_new=SERVE_NEW):
+    """Submit every prompt at once and step the server until it drains:
+    replies in submission order, with the host clock of each request's
+    first token (the end of the step that admitted it), of every step
+    that only decoded, the peak pages in use and the wall time."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [srv.submit(ids, types, types[-1], max_new)
+            for _, _, ids, types in prompts]
+    first, replies, decode_ms, peak_pages = {}, {}, [], 0
+    while srv._queued() or any(r is not None for r in srv._slot_req):
+        queued = sum(len(q) for q in [srv._queue] + srv._shard_queue)
+        ts = time.perf_counter()
+        for rid, toks in srv.step():
+            replies[rid] = toks
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        admitted = queued - sum(len(q) for q in [srv._queue]
+                                + srv._shard_queue)
+        if admitted == 0:
+            decode_ms.append((te - ts) * 1e3)
+        live = {r.rid for r in srv._slot_req if r is not None}
+        for rid in rids:
+            if rid not in first and (rid in live or rid in replies):
+                first[rid] = te - t0
+        if srv.pager is not None:
+            peak_pages = max(peak_pages, srv.pager.pages_in_use)
+    wall = time.perf_counter() - t0
+    return ([replies[r] for r in rids], [first[r] for r in rids], decode_ms,
+            peak_pages, wall)
+
+
+def _serve_server(engine, **kw):
+    from commefficient_tpu_torch.serving import ContinuousBatchingServer
+    return ContinuousBatchingServer(engine, slots=SERVE_SLOTS,
+                                    prefill_len=SERVE_PREFILL,
+                                    page_size=SERVE_PAGE, **kw)
+
+
+def _profile_decode(srv, prompts, steps=8):
+    """``steps`` decode-only steps of ``srv`` over 8 fresh requests under
+    ``torch.profiler``: wall and device-busy ms a step, the idle share,
+    host kernel launches a step and the host's costliest operators.
+    Prints; checks nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _, _, ids, types in prompts[:SERVE_SLOTS]:
+        srv.submit(ids, types, types[-1], SERVE_NEW)
+    srv.step()                                   # the admissions
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            srv.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    srv.run()
+    ev = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ev
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    launches = sum(e.count for e in ev if e.device_type == DeviceType.CPU
+                   and re.fullmatch(r"cu(da)?LaunchKernel(ExC|Ex)?",
+                                    e.key)) / steps
+    top = sorted((e for e in ev if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:10]
+    print(f"profile serve decode step (torch.profiler, {steps} steps of "
+          f"{SERVE_SLOTS} rows): wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}, host "
+          f"kernel launches {launches:.0f} a step; host self time: " +
+          ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / steps:.3f} ms "
+                    f"x{e.count / steps:.0f}" for e in top), flush=True)
+
+
+def phase_serve_gpt2(dev, tmpdir, errs):
+    """serve_gpt2: the first 32 prompts of the online loop's traffic
+    (``_serve_prompts``; greedy, at most 24 new tokens each) through a
+    paged ``ContinuousBatchingServer`` of 8 slots with a 256-token prefill
+    window over GPT2-small (d = 124,051,201, float32, blockwise attention)
+    from seeded weights. A warm-up burst (8 prompts, 2 tokens) runs first;
+    the launch counters are zeroed just before the timed burst: every
+    prefill launches the flash forward once a layer, and the forward
+    agrees with its plain version on the burst's own prefill inputs;
+    every reply is token-identical to the request decoded alone by the
+    dense-cache engine, and the first 4 to ``sample_reply``'s full
+    recompute. Prints tokens/s, time to first token, ms a decode step,
+    pages, the weights' and KV pool's bytes and the peak memory above the
+    burst's start. Returns (launches, engine, prompts, replies)."""
+    import torch
+
+    from commefficient_tpu_torch.models.gpt2_generate import sample_reply
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.serving import DecodeEngine
+    tok, prompts = _serve_prompts(tmpdir, SERVE_REQUESTS)
+    model, params = _serve_model(dev)
+    d = sum(p.numel() for p in params.values())
+    if d != D_GPT2:
+        raise AssertionError(f"serve_gpt2: d = {d}")
+    eos = tok.convert_tokens_to_ids("<eos>")
+    engine = DecodeEngine(model, params, eos_id=eos, max_len=SERVE_MAX_LEN)
+    srv = _serve_server(engine, kv_cache="paged")
+    _serve_burst(srv, prompts[:SERVE_SLOTS], max_new=SERVE_WARMUP_NEW)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.LAUNCHES.clear()
+    with _KernelInputs() as probe:
+        replies, ttft, decode_ms, pages, wall = _serve_burst(srv, prompts)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    above = (torch.cuda.max_memory_allocated() - start) / 2**30
+    n_layer = model.config.n_layer
+    if launches != {"flash_fwd": n_layer * SERVE_REQUESTS}:
+        raise AssertionError(f"serve_gpt2: launches {launches}, expected "
+                             f"flash_fwd {n_layer} a prefill x "
+                             f"{SERVE_REQUESTS}")
+    if probe.check("serve_gpt2", errs) != {"flash_fwd"}:
+        raise AssertionError(f"serve_gpt2: the probe saw {list(probe.calls)}")
+    del probe
+    if srv.pager.pages_in_use != 0:
+        raise AssertionError(f"serve_gpt2: {srv.pager.pages_in_use} pages "
+                             f"left in use after the burst")
+    solo = [engine.generate([(ids, types)], [types[-1]], max_new=SERVE_NEW)[0]
+            for _, _, ids, types in prompts]
+    bad = [i for i, (a, b) in enumerate(zip(replies, solo)) if a != b]
+    if bad:
+        raise AssertionError(f"serve_gpt2: replies {bad} differ from the "
+                             f"dense engine alone: {replies[bad[0]]} vs "
+                             f"{solo[bad[0]]}")
+    for i, (persona, history, _, _) in enumerate(
+            prompts[:SERVE_FULL_RECOMPUTE]):
+        full = sample_reply(model, params, tok, persona, history,
+                            max_seq_len=SERVE_MAX_LEN,
+                            max_reply_len=SERVE_NEW)
+        if full != replies[i]:
+            raise AssertionError(f"serve_gpt2: reply {i} {replies[i]} is not "
+                                 f"sample_reply's full recompute {full}")
+    _profile_decode(_serve_server(engine, kv_cache="paged"), prompts)
+    tokens = sum(len(r) for r in replies)
+    lengths = [len(ids) for _, _, ids, _ in prompts]
+    print(f"serve_gpt2 (GPT2-small d = {d}, float32, blockwise, paged KV "
+          f"page {SERVE_PAGE}, {SERVE_SLOTS} slots, prefill window "
+          f"{SERVE_PREFILL}, capacity {SERVE_MAX_LEN}; {SERVE_REQUESTS} "
+          f"traffic prompts of {min(lengths)}-{max(lengths)} tokens (median "
+          f"{np.median(lengths):.1f}) at once, greedy, <= {SERVE_NEW} new, "
+          f"after a warm-up burst): {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tokens/s; time to first token median "
+          f"{np.median(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f} ms; "
+          f"decode step median {np.median(decode_ms):.3f} ms over "
+          f"{len(decode_ms)} decode-only steps; peak pages {pages} of "
+          f"{srv.pager.num_pages}; weights {d * 4 / 2**30:.3f} GiB, KV pool "
+          f"{srv.stats()['kv_pool_bytes'] / 2**30:.3f} GiB, peak memory "
+          f"{above:.3f} GiB above the {start / 2**30:.3f} GiB allocated at "
+          f"the burst's start; launches {launches}; replies token-identical "
+          f"to the dense engine alone (all {SERVE_REQUESTS}) and to "
+          f"sample_reply's full recompute (first {SERVE_FULL_RECOMPUTE}); "
+          f"{len({t for r in replies for t in r})} distinct tokens in the "
+          f"replies; reply lengths {[len(r) for r in replies]}", flush=True)
+    return launches, engine, prompts, replies
+
+
+def phase_serve_variants(engine, prompts, plain):
+    """serve_variants on serve_gpt2's weights and prompts: speculation
+    (k 4, greedy) with a 2-layer drafter cut from the target (its
+    embeddings, first 2 blocks and head) and self-drafting, which must
+    accept at least one draft; --serve_disagg and --kv_quant none;
+    each token-identical to the plain server's ``plain`` replies; int8
+    and int4 pools hold at least 3x and 7x the users of float32 ones,
+    their agreement with float32 printed."""
+    import torch
+
+    from commefficient_tpu_torch.ops import kv_quant as kvq
+    dmodel, _ = _serve_model(engine.device, n_layer=2)
+    dparams = {n: engine.params[n] for n, _ in dmodel.named_parameters()}
+    variants = {
+        "speculate_k 4, 2-layer drafter cut from the target": dict(
+            kv_cache="paged", speculate_k=SPEC_K, drafter_model=dmodel,
+            drafter_params=dparams),
+        "speculate_k 4, self-drafting": dict(kv_cache="paged",
+                                             speculate_k=SPEC_K),
+        "serve_disagg": dict(kv_cache="paged", disaggregate=True),
+        "kv_quant none": dict(kv_cache="paged", kv_quant="none"),
+    }
+    for name, kw in variants.items():
+        srv = _serve_server(engine, **kw)
+        replies, _, decode_ms, _, wall = _serve_burst(srv, prompts)
+        bad = [i for i, (a, b) in enumerate(zip(replies, plain)) if a != b]
+        if bad:
+            raise AssertionError(f"serve_variants {name}: replies {bad} "
+                                 f"differ from the plain server's")
+        st = srv.stats()
+        if name.endswith("self-drafting") and not st["accepted"] > 0:
+            raise AssertionError(f"serve_variants {name}: no draft accepted "
+                                 f"of {st['drafted']}")
+        extra = (f", drafted {st['drafted']}, accepted {st['accepted']}, "
+                 f"rejected {st['drafted'] - st['accepted']}, acceptance "
+                 f"{st['acceptance_rate']:.4f}" if "drafted" in st else "")
+        print(f"serve_variants {name}: token-identical to the plain server "
+              f"({SERVE_REQUESTS} replies); "
+              f"{sum(len(r) for r in replies) / wall:.1f} tokens/s, step "
+              f"median {np.median(decode_ms):.3f} ms{extra}", flush=True)
+        del srv
+    for mode, want in (("int8", 3.0), ("int4", 7.0)):
+        srv = _serve_server(engine, kv_cache="paged", kv_quant=mode)
+        replies, _, decode_ms, _, wall = _serve_burst(srv, prompts)
+        st = srv.stats()
+        mult = st["kv_capacity_multiplier_vs_f32"]
+        if mult < want:
+            raise AssertionError(f"serve_variants {mode}: capacity "
+                                 f"multiplier {mult} < {want}")
+        same = sum(a == b for x, y in zip(replies, plain)
+                   for a, b in zip(x, y))
+        total = sum(len(r) for r in plain)
+        cfg = engine.model.config
+        f32 = kvq.pool_bytes(srv.pager.num_pages, SERVE_PAGE, cfg.n_head,
+                             cfg.n_embd // cfg.n_head, cfg.n_layer, "none")
+        print(f"serve_variants kv_quant {mode}: pool {st['kv_pool_bytes']} B "
+              f"against {f32} B float32 ({mult:.4f}x the users); token "
+              f"agreement with float32 {same}/{total} = {same / total:.4f} "
+              f"(the reference holds 0.9 at tiny scale only); "
+              f"{sum(len(r) for r in replies) / wall:.1f} tokens/s, step "
+              f"median {np.median(decode_ms):.3f} ms", flush=True)
+        del srv
+    del dmodel, dparams
+    torch.cuda.empty_cache()
+
+
+def phase_serve_online(tmpdir, errs):
+    """serve_online: the GPT2 entry point's --serve_online
+    (``ONLINE_FLAGS``, what its ``main`` runs) twice from the same seed,
+    the launch counters zeroed just before each: at least 2 buffered
+    applies and 1 hot swap, no dirty or refused swap, rows_hist and
+    rows_select launched by the cohorts and the flash forward by the
+    prefills; on the first run, the flash kernels and the cohorts' top-k
+    held against their plain versions on the run's own inputs; the two
+    runs' replies token for token and final weights bitwise equal
+    (ROADMAP C5b). Returns the first run's launches."""
+    import torch
+
+    from commefficient_tpu_torch.online import run_online
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.gpt2 import (_refuse_unported,
+                                                       build_gpt2_parser)
+    runs = []
+    for i in range(2):
+        args = build_gpt2_parser().parse_args(ONLINE_FLAGS + [
+            "--dataset_dir", os.path.join(tmpdir, "online")])
+        _refuse_unported(args)
+        np.random.seed(args.seed)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with _KernelInputs() if i == 0 else nullcontext() as probe:
+            learner, loop, res = run_online(args, log=False)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        d = learner.cfg.grad_size
+        if (res["applies"] < 2 or res["swaps"] < 1 or res["dirty_swaps"]
+                or res["refused_swaps"] or d != D_GPT2):
+            raise AssertionError(f"serve_online: {res}, d = {d}")
+        if not all(launches.get(k, 0) > 0 for k in ("rows_hist",
+                                                    "rows_select",
+                                                    "flash_fwd")):
+            raise AssertionError(f"serve_online: launches {launches}")
+        if not all(math.isfinite(x) for x in res["train_losses"]):
+            raise AssertionError(f"serve_online: losses "
+                                 f"{res['train_losses']}")
+        if probe is not None:
+            seen = probe.check("serve_online", errs)
+            if seen != {*_KernelInputs.FLASH, "topk_select"}:
+                raise AssertionError(f"serve_online: the probe saw "
+                                     f"{list(probe.calls)}")
+            del probe
+        print(f"serve_online run {i + 1} (d = {d}): {wall:.1f} s, "
+              f"{res['steps']} steps, {res['interactions']} interactions, "
+              f"{res['rounds']} cohorts, {res['applies']} applies, "
+              f"{res['swaps']} swaps, losses "
+              f"{[round(x, 6) for x in res['train_losses']]}, held-out nll "
+              f"{res['heldout_nll_first']:.6f} -> "
+              f"{res['heldout_nll_last']:.6f}, launches {launches}, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        runs.append((dict(loop.replies), learner.state.weights.clone(),
+                     launches))
+        del learner, loop, res
+        torch.cuda.empty_cache()
+    (ra, wa, la), (rb, wb, _) = runs
+    if ra != rb or not _same_bits(wa, wb):
+        raise AssertionError(f"serve_online is not reproducible: replies "
+                             f"equal {ra == rb}, weights bitwise equal "
+                             f"{_same_bits(wa, wb)}")
+    print(f"serve_online: the two runs' {len(ra)} replies token for token "
+          f"and final weights bitwise equal", flush=True)
+    del runs, wa, wb
+    torch.cuda.empty_cache()
+    return la
+
+
 def main() -> int:
     try:
         import torch
@@ -4196,6 +4724,17 @@ def main() -> int:
     phase_chunk_host(model, batch)
     del model, batch
     phase_gpt2_reference(dev)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        serve_launches, engine, prompts, replies = phase_serve_gpt2(
+            dev, tmpdir, errs)
+    phase_serve_variants(engine, prompts, replies)
+    del engine, prompts, replies
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        online_launches = phase_serve_online(tmpdir, errs)
+    for counts in (serve_launches, online_launches):
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -4,8 +4,9 @@ Same field names, ``finalize``, ``grad_dim``, ``sketch_cols``,
 ``transmit_shape``, ``upload_floats_per_client`` and client-state
 predicates as the reference, cut to the fields the ported round reads.
 ``validate`` keeps the reference's checks that apply here, with its
-messages, and refuses ``--topk_approx_recall`` with NotImplementedError
-naming its ROADMAP item.
+messages. ``--topk_approx_recall`` runs the exact top-k: the reference's
+``lax.approx_max_k`` is intentionally inexact, and exact selection meets
+any recall target.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ class FedConfig:
     grad_buckets: int = 1
     do_topk_down: bool = False
     client_k_dist: str = ""
+    # the reference's approximate top-k recall target; the port selects
+    # exactly at any value (exact selection meets every recall target)
     topk_approx_recall: float = 0.0
     # 'auto': the servers' exact top-k runs the fused kernels (true_topk's
     # resid epilogue, sketch's unsketch + select); 'off': the reference's
@@ -107,6 +110,18 @@ class FedConfig:
     client_quarantine: bool = False
     quarantine_rounds: int = 5
 
+    # serving and train-while-serve (serving/, online/)
+    serve_personalized: bool = False
+    serve_sample: str = "greedy"
+    speculate_k: int = 0
+    kv_quant: str = "none"
+    serve_tp: int = 1
+    serve_slots: int = 8
+    serve_disagg: bool = False
+    serve_online: bool = False
+    online_train_every: int = 4
+    online_swap_every: int = 2
+
     # derived (set by finalize): the flat-vector length
     grad_size: int = 0
 
@@ -157,6 +172,55 @@ class FedConfig:
                     "client_state='sparse' cannot represent topk_down "
                     "stale-weight rows (dense by construction); drop "
                     "--topk_down or use client_state='dense'")
+        if self.serve_personalized and self.client_state != "sparse":
+            raise ValueError(
+                "--serve_personalized applies per-user O(k) idx/val "
+                "weight deltas at serving time, which only the sparse "
+                "client-state rows provide; got client_state="
+                f"{self.client_state!r} — add --client_state sparse")
+        if self.serve_sample not in ("greedy", "topk"):
+            raise ValueError(f"serve_sample must be 'greedy' or 'topk', "
+                             f"got {self.serve_sample!r}")
+        if self.speculate_k < 0:
+            raise ValueError(
+                f"--speculate_k must be >= 0, got {self.speculate_k}: "
+                f"use a draft length >= 1 to speculate, or 0 to serve "
+                f"non-speculatively")
+        if self.kv_quant not in ("none", "int8", "int4"):
+            raise ValueError(
+                f"--kv_quant must be 'none', 'int8' or 'int4', got "
+                f"{self.kv_quant!r}")
+        if self.serve_tp < 1:
+            raise ValueError(f"--serve_tp must be >= 1, got "
+                             f"{self.serve_tp}")
+        if self.serve_slots < 1:
+            raise ValueError(f"--serve_slots must be >= 1, got "
+                             f"{self.serve_slots}")
+        if self.serve_tp > 1:
+            _todo("--serve_tp > 1 (tensor-parallel serving)", "A12")
+        if self.serve_disagg and self.serve_slots < 2:
+            raise ValueError(
+                f"--serve_disagg splits serving into prefill and decode "
+                f"slot pools; --serve_slots {self.serve_slots} < 2 "
+                f"cannot hold both pools")
+        if self.serve_online:
+            if self.server_mode != "buffered":
+                raise ValueError(
+                    "--serve_online interleaves federated cohorts with "
+                    "decode steps on the buffered host event loop "
+                    "(federated/buffer.py pump_events); run with "
+                    "--server_mode buffered")
+            if not self.serve_personalized:
+                raise ValueError(
+                    "--serve_online trains the sparse client rows the "
+                    "server reads as per-user deltas — without "
+                    "--serve_personalized (and --client_state sparse) "
+                    "there is nothing for live traffic to personalize")
+        if self.online_train_every < 1 or self.online_swap_every < 1:
+            raise ValueError(
+                f"online cadences must be >= 1, got online_train_every="
+                f"{self.online_train_every}, online_swap_every="
+                f"{self.online_swap_every}")
         if self.client_state == "sketched":
             if self.error_type != "local":
                 raise ValueError(
@@ -238,8 +302,6 @@ class FedConfig:
             raise ValueError("local_topk supports error_type in {none, local}")
         if self.mode == "true_topk" and self.error_type != "virtual":
             raise ValueError("true_topk requires error_type == 'virtual'")
-        if self.topk_approx_recall > 0:
-            _todo("--topk_approx_recall", "A2")
 
     # --- per-client state -------------------------------------------------
     @property

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -131,6 +131,12 @@ class FedDataset:
         if self.transform is not None:
             cols = self.transform(cols, self.rng)
         return tuple(cols)
+
+    def client_slices(self) -> List[Tuple[int, int]]:
+        """[start, end) flat range of each (overlay) client."""
+        cumsum = np.cumsum(self.data_per_client)
+        starts = np.hstack([[0], cumsum[:-1]])
+        return list(zip(starts.tolist(), cumsum.tolist()))
 
 
 class PreparedArrayDataset(FedDataset):

@@ -48,8 +48,23 @@ kernels from counter hashes, so the recomputed forward draws the same
 masks and the gradient is bitwise the one without remat. Each flash
 forward then launches twice a step.
 
-Not ported, each raising NotImplementedError: the KV cache of the serving
-stack (ROADMAP.md A11), MoE blocks and ring attention (A12).
+KV-cached inference (the serving stack, ``serving/``): ``forward(...,
+train=False, cache=..., position=..., logits_at=...)`` returns
+``(lm_logits (B*C, V), mc_logits, new_cache)``, the LM logits only at
+each row's ``logits_at`` (default its last token). The cache is a tuple of
+per-layer dicts, written in place: dense ``{"k", "v"}`` of (B, S, H, hd)
+from ``init_decode_cache``, or paged ``{"k", "v", "pt"}`` (pools of
+(num_pages, page_size, H, hd) and a (B, M) page table, plus ``k_scale``
+and ``v_scale`` when quantized, ``ops/kv_quant.py``). T > 1 prefills from
+position 0 (k/v written at offset 0, causal attention within the window:
+under ``blockwise`` on a CUDA tensor that is the flash forward); T == 1
+decodes, writing each row at its own position clipped to the capacity;
+``verify=True`` with T > 1 writes T tokens at ``position + arange(T)``,
+dropping writes past the capacity (the paged form routes them to the
+garbage page), and with ``logits_all`` returns (B*C, T, V) logits.
+
+Not ported, each raising NotImplementedError: MoE blocks and ring
+attention (ROADMAP.md A12).
 """
 
 from __future__ import annotations
@@ -64,7 +79,8 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from commefficient_tpu_torch.ops.attention import (
-    blockwise_attention, kernel_prob_dropout_eligible)
+    blockwise_attention, decode_attention, full_attention,
+    kernel_prob_dropout_eligible, paged_verify_attention)
 from commefficient_tpu_torch.ops.dropout import FusedDropout, fold_in
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -179,8 +195,6 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         C, dt = cfg.n_embd, cfg.torch_dtype
-        if cfg.attn_impl == "ring":
-            _todo("attn_impl='ring' (sequence-parallel attention)", "A12")
         if cfg.attn_dropout not in ("auto", "output", "kernel"):
             raise ValueError(f"unknown attn_dropout {cfg.attn_dropout!r}")
         self.n_head = cfg.n_head
@@ -194,11 +208,22 @@ class CausalSelfAttention(nn.Module):
         self.attn_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
         self.resid_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
 
-    def forward(self, x, train: bool, seed: Optional[int]):
+    def forward(self, x, train: bool, seed: Optional[int], cache=None,
+                position=None, verify: bool = False):
         B, T, C = x.shape
         q, k, v = torch.split(self.Dense_0(x), C, dim=-1)
         heads = lambda t: t.reshape(B, T, self.n_head, C // self.n_head)
         q, k, v = heads(q), heads(k), heads(v)
+        if cache is not None:
+            if self.attn_impl == "ring":
+                raise ValueError("KV-cache decoding does not compose with "
+                                 "attn_impl='ring' (no shard_map at serve "
+                                 "time); serve with 'full' or 'blockwise'")
+            y = self._cached(q, k, v, cache, position, verify)
+            y = self.Dense_1(y.reshape(B, T, C))
+            return self.resid_drop(y, _sub(seed, 1), train), cache
+        if self.attn_impl == "ring":
+            _todo("attn_impl='ring' (sequence-parallel attention)", "A12")
         if self.attn_impl == "blockwise":
             rate = self.rate if train else 0.0
             in_kernel = (rate > 0.0 and self.attn_dropout != "output"
@@ -232,6 +257,70 @@ class CausalSelfAttention(nn.Module):
         y = self.Dense_1(y.reshape(B, T, C))
         return self.resid_drop(y, _sub(seed, 1), train)
 
+    def _cached(self, q, k, v, cache, position, verify):
+        """Attention of the cached forms, writing k/v into ``cache`` in
+        place (see the module docstring)."""
+        B, T, H, hd = q.shape
+        dev = q.device
+        if "pt" in cache:
+            if T != 1 and not verify:
+                raise ValueError(
+                    "paged KV cache decodes one token per step "
+                    "(or a verify=True multi-token window); "
+                    "prefill runs dense and is packed host-side")
+            Pg = cache["k"].shape[1]
+            M = cache["pt"].shape[1]
+            b = torch.arange(B, device=dev)[:, None]
+            p = position.long()[:, None] + torch.arange(T, device=dev)
+            # writes past the capacity go to the garbage page (page 0),
+            # not to a clipped position that would collide with a real one
+            in_range = p < M * Pg
+            pc = torch.clamp(p, max=M * Pg - 1)
+            phys = torch.where(in_range, cache["pt"].long()[b, pc // Pg], 0)
+            off = pc % Pg
+            q_pos = torch.clamp(position.long(), max=M * Pg - 1)
+            if "k_scale" in cache:
+                from commefficient_tpu_torch.ops import kv_quant
+                mode = kv_quant.infer_mode(cache["k"], hd)
+                kv_quant.insert_tokens(cache["k"], cache["k_scale"], k,
+                                       phys, off, mode)
+                kv_quant.insert_tokens(cache["v"], cache["v_scale"], v,
+                                       phys, off, mode)
+                return paged_verify_attention(
+                    q, cache["k"], cache["v"], cache["pt"], q_pos,
+                    k_scale=cache["k_scale"], v_scale=cache["v_scale"])
+            cache["k"][phys, off] = k.to(cache["k"].dtype)
+            cache["v"][phys, off] = v.to(cache["v"].dtype)
+            return paged_verify_attention(q, cache["k"], cache["v"],
+                                          cache["pt"], q_pos)
+        S = cache["k"].shape[1]
+        if verify and T > 1:
+            # T rows at each row's own positions; writes past the capacity
+            # are dropped
+            p = position.long()[:, None] + torch.arange(T, device=dev)
+            keep = p < S
+            b = torch.arange(B, device=dev)[:, None].expand(B, T)
+            cache["k"][b[keep], p[keep]] = k[keep].to(cache["k"].dtype)
+            cache["v"][b[keep], p[keep]] = v[keep].to(cache["v"].dtype)
+            return decode_attention(q, cache["k"], cache["v"],
+                                    torch.clamp(position.long(), max=S - 1))
+        if T == 1:
+            p = torch.clamp(position.long(), max=S - 1)
+            b = torch.arange(B, device=dev)
+            cache["k"][b, p] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][b, p] = v[:, 0].to(cache["v"].dtype)
+            return decode_attention(q, cache["k"], cache["v"], p)
+        if T > S:
+            raise ValueError(f"prefill length {T} exceeds cache capacity {S}")
+        cache["k"][:, :T] = k.to(cache["k"].dtype)
+        cache["v"][:, :T] = v.to(cache["v"].dtype)
+        if self.attn_impl == "blockwise":
+            # the flash forward on a CUDA tensor, by the same rule as
+            # training's dispatch
+            return blockwise_attention(q, k, v, causal=True,
+                                       block_size=self.attn_block_size)
+        return full_attention(q, k, v, causal=True)
+
 
 class Block(nn.Module):
     def __init__(self, cfg: GPT2Config):
@@ -249,8 +338,14 @@ class Block(nn.Module):
     def _mlp(self, h):
         return self.Dense_1(F.gelu(self.Dense_0(h), approximate="tanh"))
 
-    def forward(self, x, train: bool, seed: Optional[int]):
-        attn = lambda h: self.CausalSelfAttention_0(h, train, _sub(seed, 0))
+    def forward(self, x, train: bool, seed: Optional[int], cache=None,
+                position=None, verify: bool = False):
+        def attn(h):
+            if cache is None:
+                return self.CausalSelfAttention_0(h, train, _sub(seed, 0))
+            return self.CausalSelfAttention_0(h, train, _sub(seed, 0),
+                                              cache, position, verify)[0]
+
         drop = lambda t: self.mlp_drop(t, _sub(seed, 1), train)
         if self.post_ln:
             x = self.LayerNorm_0(x + attn(x))
@@ -310,27 +405,49 @@ class GPT2DoubleHeads(nn.Module):
         return self
 
     def forward(self, input_ids, token_type_ids, mc_token_ids,
-                train: bool = True, seed: Optional[int] = None, cache=None):
-        if cache is not None:
-            _todo("KV-cached decoding (the serving stack)", "A11")
+                train: bool = True, seed: Optional[int] = None, cache=None,
+                position=None, logits_at=None, verify: bool = False,
+                logits_all: bool = False):
         cfg = self.config
+        if cache is not None and train:
+            raise ValueError("cache decoding is inference-only; "
+                             "call with train=False")
         B, C, T = input_ids.shape
         ids = input_ids.reshape(B * C, T).long()
         types = token_type_ids.reshape(B * C, T).long()
         pos = torch.arange(T, device=ids.device)[None, :]
+        if cache is not None:
+            pos = position.long()[:, None] + pos   # per-row decode offsets
+            if verify:
+                pos = torch.clamp(pos, max=cfg.n_positions - 1)
         x = self.wte(ids) + self.wpe(pos) + self.wte(types)
         x = self.emb_drop(x, _sub(seed, 0), train)
-        remat = cfg.remat and train and torch.is_grad_enabled()
+        remat = (cfg.remat and train and torch.is_grad_enabled()
+                 and cache is None)
         for i in range(cfg.n_layer):
             block = getattr(self, f"Block_{i}")
-            if remat:
+            if cache is not None:
+                x = block(x, train, _sub(seed, 1 + i), cache[i], position,
+                          verify)
+            elif remat:
                 x = _remat_block(block, x, train, _sub(seed, 1 + i))
             else:
                 x = block(x, train, _sub(seed, 1 + i))
         x = x.float()
         if cfg.arch == "gpt2":
             x = self.LayerNorm_0(x)
-        if cfg.fused_lm_head:
+        if cache is not None:
+            # logits at the sampled positions only: (B*C, V), or (B*C, T,
+            # V) for a verify window
+            if logits_all:
+                lm_out = self.wte.attend(x)
+            else:
+                idx = (torch.full((B * C,), T - 1, dtype=torch.long,
+                                  device=x.device)
+                       if logits_at is None else logits_at.long())
+                lm_out = self.wte.attend(
+                    x[torch.arange(B * C, device=x.device), idx])
+        elif cfg.fused_lm_head:
             # the loss applies the fused head to these with the tied wte
             lm_out = x.reshape(B, C, T, cfg.n_embd)
         else:
@@ -338,4 +455,25 @@ class GPT2DoubleHeads(nn.Module):
         mc_ids = mc_token_ids.reshape(B * C).long()
         picked = x[torch.arange(B * C, device=x.device), mc_ids]
         picked = self.mc_drop(picked, _sub(seed, cfg.n_layer + 1), train)
-        return lm_out, self.mc_head(picked).reshape(B, C)
+        mc_logits = self.mc_head(picked).reshape(B, C)
+        if cache is not None:
+            return lm_out, mc_logits, cache
+        return lm_out, mc_logits
+
+
+def init_decode_cache(config: GPT2Config, batch_size: int, max_len: int,
+                      device=None):
+    """Zero KV cache for cached inference: one ``{"k", "v"}`` dict per
+    layer, each (batch, max_len, n_head, head_dim) in the compute dtype.
+    ``max_len`` (prompt plus generated tokens) is bounded by the position
+    table."""
+    if max_len > config.n_positions:
+        raise ValueError(f"cache capacity {max_len} exceeds n_positions "
+                         f"{config.n_positions}")
+    head_dim = config.n_embd // config.n_head
+    shape = (batch_size, max_len, config.n_head, head_dim)
+    return tuple({"k": torch.zeros(shape, dtype=config.torch_dtype,
+                                   device=device),
+                  "v": torch.zeros(shape, dtype=config.torch_dtype,
+                                   device=device)}
+                 for _ in range(config.n_layer))

@@ -10,9 +10,18 @@
   the reference's online softmax over key/value blocks as a loop in plain
   PyTorch (no dropout there: it would need the (T, T) mask).
 
-Layout: q/k/v are (B, T, H, D); ``kv_mask`` (B, T) marks valid keys.
-``decode_attention``, the paged variants and ring attention are ROADMAP.md
-A11/A12.
+* ``decode_attention`` — the decode mode: a few query rows against a
+  (B, S, H, D) key/value cache with per-row positions; scores are
+  (B, H, Tq, S), never (B, H, S, S).
+* ``paged_verify_attention`` / ``paged_decode_attention`` — the same
+  against block-paged pools reached through a (B, M) page table, masked
+  by logical position; the verify form takes Tq = speculate_k + 1
+  queries, the decode form Tq = 1. Quantized pools (``ops/kv_quant.py``)
+  are dequantized after the gather, never as a whole.
+
+The decode forms are plain PyTorch, as the reference computes them
+outside any Pallas kernel. Layout: q/k/v are (B, T, H, D); ``kv_mask``
+(B, T) marks valid keys. Ring attention is ROADMAP.md A12.
 """
 
 from __future__ import annotations
@@ -45,6 +54,73 @@ def full_attention(q, k, v, *, causal: bool = True,
         return out
     any_valid = torch.any(s > _NEG / 2, dim=-1)            # (B, H, Tq)
     return torch.where(any_valid.permute(0, 2, 1)[..., None], out, 0.0)
+
+
+def decode_attention(q, k, v, q_pos, *,
+                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``q`` (B, Tq, H, D) with small Tq against the cache ``k``/``v`` (B,
+    S, H, D); ``q_pos`` (B,) is each row's position of its first query.
+    Key position kp is attended iff kp <= q_pos[b] + t, so slots above a
+    row's position may hold anything. Every query sees at least its own
+    position: no fully masked rows."""
+    B, Tq, H, D = q.shape
+    S = k.shape[1]
+    dev = q.device
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    kp = torch.arange(S, device=dev)
+    qp = q_pos.long()[:, None] + torch.arange(Tq, device=dev)[None, :]
+    mask = kp[None, None, :] <= qp[:, :, None]             # (B, Tq, S)
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, :].bool()
+    s = s + torch.where(mask, 0.0, _NEG)[:, None]          # broadcast H
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def paged_verify_attention(q, k_pool, v_pool, page_table, q_pos, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``q`` (B, Tq, H, D) against the pools (num_pages, page_size, H, D)
+    through ``page_table`` (B, M): row b's logical page m is pool page
+    ``page_table[b, m]`` (page 0 is the never-attended garbage page). The
+    mask is by logical position ``m * page_size + p <= q_pos[b] + t``, so
+    unallocated pages and rejected speculative entries above a row's
+    frontier are never attended. With ``k_scale``/``v_scale`` ((num_pages,
+    H) float32) the pools are quantized and only the gathered (B, M, P,
+    H, D) pages are dequantized."""
+    B, Tq, H, D = q.shape
+    P = k_pool.shape[1]
+    M = page_table.shape[1]
+    dev = q.device
+    pt = page_table.long()
+    k = k_pool[pt]                                         # (B, M, P, H, D)
+    v = v_pool[pt]
+    if k_scale is not None:
+        from commefficient_tpu_torch.ops import kv_quant
+        mode = kv_quant.infer_mode(k_pool, D)
+        k = kv_quant.dequantize_pages(k, k_scale[pt], mode).to(q.dtype)
+        v = kv_quant.dequantize_pages(v, v_scale[pt], mode).to(q.dtype)
+    s = torch.einsum("bqhd,bmphd->bhqmp", q.float(),
+                     k.float()) / math.sqrt(D)
+    logical = (torch.arange(M, device=dev)[:, None] * P
+               + torch.arange(P, device=dev)[None, :])     # (M, P)
+    qp = q_pos.long()[:, None] + torch.arange(Tq, device=dev)[None, :]
+    mask = logical[None, None] <= qp[:, :, None, None]     # (B, Tq, M, P)
+    s = s + torch.where(mask, 0.0, _NEG)[:, None]          # broadcast H
+    p = torch.softmax(s.reshape(B, H, Tq, M * P), dim=-1)
+    p = p.reshape(B, H, Tq, M, P).to(q.dtype)
+    return torch.einsum("bhqmp,bmphd->bqhd", p, v)
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The Tq == 1 decode against the paged pools: the same math as
+    ``paged_verify_attention``."""
+    return paged_verify_attention(q, k_pool, v_pool, page_table, q_pos,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def _fold_block(acc, q, kb, vb, q_pos, k_pos, kv_mask_b, causal):

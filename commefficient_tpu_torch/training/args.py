@@ -67,6 +67,9 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--k", type=int, default=50000)
     p.add_argument("--num_cols", type=int, default=500000)
     p.add_argument("--num_rows", type=int, default=5)
+    # the reference's CSVec memory knob, which its sketch ignores; parsed so
+    # that checkpoint fingerprints agree between the two packages
+    p.add_argument("--num_blocks", type=int, default=20)
     p.add_argument("--sketch_scheme", choices=("tiled", "global"),
                    default="tiled")
     p.add_argument("--grad_buckets", type=int, default=1)
@@ -172,6 +175,45 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
     p.add_argument("--dispatch_interval", type=float, default=None,
                    help="simulated time between cohort dispatches "
                         "(buffered server); None = base_latency")
+    # serving and train-while-serve (serving/, online/)
+    p.add_argument("--serve_personalized", action="store_true",
+                   help="serve per-user weight deltas from the sparse "
+                        "client rows (serving/personalize.py): a request's "
+                        "row is added to the served params at admission and "
+                        "taken out at eviction; needs --client_state sparse")
+    p.add_argument("--serve_sample", choices=("greedy", "topk"),
+                   default="greedy",
+                   help="serving-time sampling of the decode engine")
+    p.add_argument("--speculate_k", type=int, default=0,
+                   help="speculative decoding draft length (serving/"
+                        "speculative.py); greedy replies are unchanged, "
+                        "topk keeps its distribution. 0 disables")
+    p.add_argument("--kv_quant", choices=("none", "int8", "int4"),
+                   default="none",
+                   help="codec of the paged KV pools (ops/kv_quant.py): "
+                        "int8 or nibble-packed int4 pages with per-page, "
+                        "per-head float32 scales")
+    p.add_argument("--serve_tp", type=int, default=1,
+                   help="tensor-parallel serving degree; above 1 is not "
+                        "ported (ROADMAP.md A12)")
+    p.add_argument("--serve_slots", type=int, default=8,
+                   help="continuous-batching slots (the decode batch)")
+    p.add_argument("--serve_disagg", action="store_true",
+                   help="step the decode pool first and admit at most a "
+                        "quarter of the slots' prefills a step (needs the "
+                        "paged cache and >= 2 slots)")
+    p.add_argument("--serve_online", action="store_true",
+                   help="train-while-serve (online/): serve persona "
+                        "traffic, train the buffered cohorts on it and "
+                        "hot-swap the new base weights into the server; "
+                        "needs --server_mode buffered and "
+                        "--serve_personalized")
+    p.add_argument("--online_train_every", type=int, default=4,
+                   help="--serve_online: one buffered cohort every this "
+                        "many served interactions")
+    p.add_argument("--online_swap_every", type=int, default=2,
+                   help="--serve_online: a hot swap every this many "
+                        "buffered applies")
     # accepted so that a reference command line parses; refused by train()
     p.add_argument("--mesh", type=str, default="")
     return p
@@ -231,7 +273,6 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="SyntheticPersona: dialogs per persona")
     # accepted so that a reference command line parses; refused by train()
     p.add_argument("--moe_experts", type=int, default=0)
-    p.add_argument("--serve_online", action="store_true")
     return p
 
 
@@ -257,7 +298,7 @@ def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
     flag set that the port does not run: ``--mesh`` (A12), then the entry
     point's own ``extra`` ``(flag, is_set, item)`` triples. The config
-    refuses ``--topk_approx_recall`` (A2)."""
+    refuses ``--serve_tp`` above 1 (A12)."""
     for flag, on, item in (
             ("--mesh", bool(args.mesh), "A12"),
             *extra):

@@ -38,8 +38,20 @@ schedule, ``--client_quarantine``, ``--checkpoint_every_rounds``, the
 SIGTERM/SIGINT guard and ``--resume`` (the learner's generator, which
 the dropout draws from, is in the checkpoint), and ``--checkpoint``'s
 export (``gpt2.npz``, ``config.json``, ``tokenizer.json`` under
-``--checkpoint_path``). The generated sample and the serving stack are
-ROADMAP.md A11.
+``--checkpoint_path``). After training a greedy reply to the first
+validation dialog is printed (``models/gpt2_generate.sample_reply``).
+
+``--serve_online`` runs train-while-serve instead (``online/loop.py``):
+
+    python -m commefficient_tpu_torch.training.gpt2 --serve_online \
+        --server_mode buffered --serve_personalized --client_state sparse \
+        --mode local_topk --error_type local ...
+
+serves persona traffic through a paged, personalized
+``ContinuousBatchingServer``, trains the buffered cohorts on it and
+hot-swaps the new base weights into the server (``--serve_slots``,
+``--serve_sample``, ``--speculate_k``, ``--kv_quant``, ``--serve_disagg``,
+``--online_train_every``, ``--online_swap_every``).
 """
 
 from __future__ import annotations
@@ -87,7 +99,6 @@ from commefficient_tpu_torch.utils.schedules import gpt2_lr_schedule
 def _refuse_unported(args):
     refuse_unported(args, (
         ("--moe_experts", args.moe_experts > 0, "A12"),
-        ("--serve_online", args.serve_online, "A11"),
         ("--attn_impl ring", args.attn_impl == "ring", "A12")))
     refuse_buffered_scan(args)
     if args.model not in GPT2_CONFIGS:
@@ -305,12 +316,41 @@ def train(args, max_rounds=None, log=True):
             writer.close()
     finish_run(learner, row, log)
     if log and not args.do_test:
-        print("generation sample: not ported (KV-cached decoding, "
-              "ROADMAP.md A11)")
+        _print_sample(args, model, learner, tokenizer, val_set)
     if args.do_checkpoint:
         save_pretrained(args.checkpoint_path, learner, model.config,
                         tokenizer)
     return learner, row
+
+
+def _print_sample(args, model, learner, tokenizer, val_set):
+    """A greedy reply to the first validation dialog's last utterance
+    (the reference's qualitative sample)."""
+    import copy
+
+    from commefficient_tpu_torch.data.persona import tokenize_tree
+    from commefficient_tpu_torch.models.gpt2_generate import sample_reply
+    from commefficient_tpu_torch.online.swap import learner_params
+    try:
+        gen_model = model
+        if model.config.fused_lm_head:
+            # generation needs the logits: the same params through a twin
+            # without the fused head
+            cfg = copy.copy(model.config)
+            cfg.fused_lm_head = False
+            gen_model = GPT2DoubleHeads(cfg)
+        raw = val_set._raw_dialogs()
+        d = raw.get("valid", raw.get("train"))[0]
+        utt = d["utterances"][0]
+        persona = tokenize_tree(d["personality"], tokenizer)
+        history = tokenize_tree(
+            utt["history"][-(2 * args.max_history + 1):], tokenizer)
+        reply = sample_reply(gen_model, learner_params(learner), tokenizer,
+                             persona, history, max_seq_len=args.max_seq_len)
+        print("context:", " / ".join(utt["history"][-2:]))
+        print("sample reply:", tokenizer.decode(reply))
+    except Exception as e:  # a qualitative sample must not end the run
+        print(f"generation sample skipped ({type(e).__name__}: {e})")
 
 
 def _token_nll(val) -> float:
@@ -343,6 +383,17 @@ def main(argv=None):
         args.num_cols = min(args.num_cols, 100)
         args.num_rows = min(args.num_rows, 1)
     np.random.seed(args.seed)
+    if args.serve_online:
+        # train-while-serve: serve persona traffic, train on it through the
+        # buffered event loop, hot-swap the new weights into the server
+        from commefficient_tpu_torch.online import run_online
+        _refuse_unported(args)
+        with profile_ctx(args.profile):
+            _, _, results = run_online(args)
+        print("final:", {k: (round(v, 4) if isinstance(v, float) else v)
+                         for k, v in results.items()
+                         if not isinstance(v, (list, dict))})
+        return 0
     with profile_ctx(args.profile):
         _, final = train(args)
     for key in ("rounds", "launches_after_rounds", "val_batches",

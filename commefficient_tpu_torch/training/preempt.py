@@ -1,6 +1,5 @@
 """Preemption tolerance of the entry points (port of
-``commefficient_tpu/training/preempt.py``; the online loop's cursor is
-ROADMAP.md A11).
+``commefficient_tpu/training/preempt.py``).
 
 * ``PreemptionGuard``: latches SIGTERM/SIGINT. The first signal sets
   ``triggered``: the loop finishes the round in flight, saves and exits
@@ -13,8 +12,11 @@ ROADMAP.md A11).
 * ``TrainCheckpointer``: ``--checkpoint_every_rounds`` and ``--resume``,
   and the save policy both entry points' loops follow (``after_round``,
   ``at_epoch_end``). ``save`` writes a step checkpoint whose cursor
-  holds the epoch and round, the batcher's data-order cursor and, for the
-  buffered server, the event loop's cursor; ``resume`` finds the newest
+  holds the epoch and round, the batcher's data-order cursor, for the
+  buffered server the event loop's cursor and, under ``--serve_online``,
+  the online loop's (``online=``: traffic position, cadences, swaps and
+  the collector's pending interactions; the online entry point has no
+  batcher); ``resume`` finds the newest
   valid checkpoint (past a torn or corrupt one), restores the learner
   and the cursors, and returns where to continue.
 
@@ -124,7 +126,7 @@ class TrainCheckpointer:
     periodic checkpoints."""
 
     def __init__(self, args, learner, batcher, entry: str, meta: dict = None,
-                 log: bool = True):
+                 log: bool = True, online=None):
         self.every = int(getattr(args, "checkpoint_every_rounds", 0) or 0)
         self.resume_spec = getattr(args, "resume", None)
         self.path = args.checkpoint_path
@@ -132,6 +134,7 @@ class TrainCheckpointer:
         self.learner = learner
         self.batcher = batcher
         self.entry = entry
+        self.online = online
         self.meta = meta
         self.log = log
         self.fingerprint = config_fingerprint(args, entry)
@@ -187,9 +190,12 @@ class TrainCheckpointer:
         cursor = {"entry": self.entry, "epoch": epoch,
                   "rounds_in_epoch": rounds_in_epoch,
                   "total_rounds": total_rounds, "in_epoch": in_epoch,
-                  "data": self.batcher.cursor(in_epoch)}
+                  "data": (self.batcher.cursor(in_epoch)
+                           if self.batcher is not None else None)}
         if hasattr(self.learner, "event_cursor"):
             cursor["buffered"] = self.learner.event_cursor()
+        if self.online is not None:
+            cursor["online"] = self.online.cursor()
         fn = save_checkpoint(self.path, self.learner, self.name,
                              meta=self.meta, step=total_rounds,
                              cursor=cursor, fingerprint=self.fingerprint)
@@ -233,11 +239,13 @@ class TrainCheckpointer:
             raise ValueError(
                 f"--resume {fn!r}: checkpoint was written by the "
                 f"{cursor.get('entry')!r} entrypoint, this is {self.entry!r}")
-        if cursor.get("data") is not None:
+        if self.batcher is not None and cursor.get("data") is not None:
             self.batcher.restore_cursor(cursor["data"], cursor["in_epoch"])
         if "buffered" in cursor and hasattr(self.learner,
                                             "restore_event_cursor"):
             self.learner.restore_event_cursor(cursor["buffered"])
+        if self.online is not None and "online" in cursor:
+            self.online.restore_cursor(cursor["online"])
         if self.log:
             print(f"resumed from {fn}: epoch {cursor['epoch']}, "
                   f"round {cursor['total_rounds']}", flush=True)

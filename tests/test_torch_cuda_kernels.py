@@ -32,7 +32,10 @@ codecs on the card bitwise the CPU's, and offloaded local_topk rounds
 (dense and sparse rows) bitwise the device-resident ones; a checkpoint
 restored onto the card bitwise, the buffered server in lock-step bitwise
 the sync one and a faulted schedule replayed bitwise (its event counters
-the CPU's), and quarantine of a NaN client in a sketch round.
+the CPU's), and quarantine of a NaN client in a sketch round; the
+serving stack (a narrow GPT2's prefill through the flash forward, the
+paged server's replies equal to the dense engine's, ``kv_quant`` bitwise
+the CPU's, decode and paged attention within 1e-5 of the CPU's).
 ``chip_smoke.py`` repeats this at the main paths' full width.
 """
 
@@ -1092,3 +1095,67 @@ def test_quarantine_on_the_card(dev):
     assert bool(torch.isfinite(ln.state.weights).all())
     q = ln.state.quarantine.cpu()
     assert int((q > 0).sum()) == 1 and int(q[int(ids[0])]) == 1
+
+
+def _narrow_gpt2(dev):
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    cfg = GPT2Config(vocab_size=300, n_positions=64, n_embd=128, n_layer=2,
+                     n_head=4, dropout=0.0, attn_impl="blockwise")
+    model = GPT2DoubleHeads(cfg).reset_parameters(
+        torch.Generator().manual_seed(0)).to(dev)
+    return model, {n: p.detach() for n, p in model.named_parameters()}
+
+
+def test_serving_prefill_runs_flash_and_paged_replies_match_dense(dev):
+    """A narrow GPT2 served on the card: every admission's prefill
+    launches the flash forward once a layer, and the paged server's greedy
+    replies equal each request decoded alone by the dense-cache engine."""
+    from commefficient_tpu_torch.serving import (ContinuousBatchingServer,
+                                                 DecodeEngine)
+    model, params = _narrow_gpt2(dev)
+    engine = DecodeEngine(model, params, eos_id=257, max_len=48)
+    rng = np.random.RandomState(0)
+    prompts = [(rng.randint(0, 256, n).tolist(), [259] * n)
+               for n in (5, 16, 9, 12, 3, 7)]
+    srv = ContinuousBatchingServer(engine, slots=3, prefill_len=16,
+                                   kv_cache="paged", page_size=4)
+    rids = [srv.submit(ids, types, 260, 10) for ids, types in prompts]
+    cuda_lib.LAUNCHES.clear()
+    replies = srv.run()
+    assert cuda_lib.LAUNCHES["flash_fwd"] == 2 * len(prompts)
+    solo = [engine.generate([p], [260], max_new=10)[0] for p in prompts]
+    assert [replies[r] for r in rids] == solo
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_kv_quant_on_the_card_bitwise_the_cpu(dev, mode):
+    from commefficient_tpu_torch.ops import kv_quant as kvq
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(6, 16, 12, 64, generator=g)
+    q, s = kvq.quantize_pages(x.to(dev), mode)
+    qc, sc = kvq.quantize_pages(x, mode)
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    assert torch.equal(kvq.dequantize_pages(q, s, mode).cpu(),
+                       kvq.dequantize_pages(qc, sc, mode))
+
+
+def test_decode_attention_on_the_card_matches_the_cpu(dev):
+    from commefficient_tpu_torch.ops.attention import (
+        decode_attention, paged_verify_attention)
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(4, 3, 12, 64, generator=g)
+    k = torch.randn(4, 96, 12, 64, generator=g)
+    v = torch.randn(4, 96, 12, 64, generator=g)
+    pos = torch.tensor([0, 17, 50, 93])
+    want = decode_attention(q, k, v, pos)
+    got = decode_attention(q.to(dev), k.to(dev), v.to(dev), pos.to(dev))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    pools = (k.reshape(24, 16, 12, 64), v.reshape(24, 16, 12, 64))
+    pt = torch.arange(24, dtype=torch.int32).reshape(4, 6)
+    want = paged_verify_attention(q, *pools, pt, pos)
+    got = paged_verify_attention(q.to(dev), pools[0].to(dev),
+                                 pools[1].to(dev), pt.to(dev), pos.to(dev))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())

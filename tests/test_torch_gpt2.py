@@ -42,7 +42,8 @@ from commefficient_tpu_torch.federated.client import _masked_loss_and_grad
 from commefficient_tpu_torch.federated.losses import (make_gpt2_train_loss,
                                                       make_gpt2_val_loss)
 from commefficient_tpu_torch.models import GPT2_CONFIGS, get_model
-from commefficient_tpu_torch.models.gpt2 import GPT2Config, GPT2DoubleHeads
+from commefficient_tpu_torch.models.gpt2 import (GPT2Config, GPT2DoubleHeads,
+                                                 init_decode_cache)
 from commefficient_tpu_torch.utils.params import (flatten_params,
                                                   params_from_jax,
                                                   params_to_jax)
@@ -171,13 +172,21 @@ def test_model_refusals():
     cfg.moe_experts = 2
     with pytest.raises(NotImplementedError, match="A12"):
         GPT2DoubleHeads(cfg)
-    with pytest.raises(NotImplementedError, match="A12"):
-        GPT2DoubleHeads(GPT2Config(**dict(NARROW, attn_impl="ring")))
-    model = GPT2DoubleHeads(GPT2Config(**NARROW))
     z = torch.zeros((1, 1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        model(z, z, torch.zeros((1, 1), dtype=torch.int32), train=False,
-              cache=())
+    zc = torch.zeros((1, 1), dtype=torch.int32)
+    ring = GPT2DoubleHeads(GPT2Config(**dict(NARROW, attn_impl="ring")))
+    with pytest.raises(NotImplementedError, match="A12"):
+        ring(z, z, zc, train=False)
+    # the KV cache runs since A11; ring attention with it keeps the
+    # reference's ValueError, and so does a cache in training
+    cache = init_decode_cache(ring.config, 1, 8)
+    with pytest.raises(ValueError, match="ring"):
+        ring(z, z, zc, train=False, cache=cache,
+             position=torch.zeros(1, dtype=torch.int64))
+    model = GPT2DoubleHeads(GPT2Config(**NARROW))
+    with pytest.raises(ValueError, match="inference-only"):
+        model(z, z, zc, train=True, cache=cache,
+              position=torch.zeros(1, dtype=torch.int64))
     cfg = GPT2Config(**dict(NARROW, attn_impl="blockwise", dropout=0.1))
     cfg.attn_dropout = "kernel"
     with pytest.raises(ValueError, match="not eligible"):

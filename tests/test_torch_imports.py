@@ -43,3 +43,20 @@ def test_robustness_modules_are_checked_and_import(name):
                                                 + ".py")
     assert path in SOURCES
     importlib.import_module(f"commefficient_tpu_torch.{name}")
+
+
+SERVING = ("ops.kv_quant", "models.gpt2_generate", "serving",
+           "serving.paged_cache", "serving.decode", "serving.speculative",
+           "serving.personalize", "serving.server", "online",
+           "online.collector", "online.swap", "online.loop")
+
+
+@pytest.mark.parametrize("name", SERVING)
+def test_serving_modules_are_checked_and_import(name):
+    """The serving and online modules are among the files read above, and
+    each imports (building nothing)."""
+    import importlib
+    base = ROOT / "commefficient_tpu_torch" / name.replace(".", "/")
+    path = base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+    assert path in SOURCES
+    importlib.import_module(f"commefficient_tpu_torch.{name}")

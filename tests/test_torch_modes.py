@@ -196,7 +196,6 @@ def test_cli_runs_every_mode_on_cpu(tmp_path, monkeypatch, name):
 
 @pytest.mark.parametrize("flag,item", [
     (["--finetune"], "A10"),
-    (["--topk_approx_recall", "0.95"], "A2"),
     (["--batchnorm"], "batch_stats")])
 def test_cli_refuses_unported_config_flags(tmp_path, flag, item):
     """Each flag the port does not run raises NotImplementedError naming
@@ -214,6 +213,25 @@ def test_cli_refuses_unported_config_flags(tmp_path, flag, item):
         item, (NotImplementedError, f"ROADMAP.md {item}"))
     with pytest.raises(exc, match=match):
         cv.train(args, log=False)
+
+
+@pytest.mark.parametrize("mode", ["local_topk", "true_topk"])
+def test_cli_topk_approx_recall_runs_the_exact_topk(tmp_path, mode):
+    """``--topk_approx_recall`` (ROADMAP A2) selects exactly: the run
+    equals the one without the flag, weights and losses bitwise."""
+    flags = {"local_topk": ["--error_type", "none"],
+             "true_topk": ["--error_type", "virtual"]}[mode]
+    runs = []
+    for extra in ([], ["--topk_approx_recall", "0.95"]):
+        args = _cli_args(tmp_path, "--model", "TinyMLP",
+                         "--local_batch_size", "4", "--mode", mode, *flags,
+                         *extra)
+        learner, row = cv.train(args, max_rounds=2, log=False)
+        runs.append(([r["loss"] for r in row["rounds"]],
+                     learner.state.weights.clone()))
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert learner.cfg.topk_approx_recall == 0.95
 
 
 # the client-state and transmit flags that the CLI refused before they

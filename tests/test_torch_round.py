@@ -223,7 +223,7 @@ def test_entry_points_refuse_cuda_without_a_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(topk_approx_recall=0.95), "A2")])
+    (dict(serve_tp=2), "A12")])
 def test_config_refuses_what_is_not_ported(override, item):
     with pytest.raises(NotImplementedError, match=item):
         FedConfig(**dict(SKETCH, **override)).finalize(1_000)
@@ -257,7 +257,7 @@ def test_cli_runs_client_state_offload(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh", "clients=2"],
                                   ["--finetune"],
-                                  ["--topk_approx_recall", "0.95"]])
+                                  ["--serve_tp", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     """``--finetune`` runs since ROADMAP A10: a missing checkpoint at
     ``--finetune_path`` raises instead of a refusal."""
