@@ -6,7 +6,8 @@
 Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
-   CUDA kernel from csrc/ (one nvcc per source, all at once), timed;
+   CUDA kernel from csrc/ (one nvcc per source, all at once) and of the
+   C++ host data plane (g++, beside them), timed;
 2. kernel parity at full width, every kernel against its plain PyTorch
    version, bitwise:
    - a seeded (6,568,640,) vector sketched into a 5 x 500,096 table
@@ -122,7 +123,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    clients, --scan_rounds 8) on CIFAR-10 python pickles written from a
    seed at the real size, 16 rounds with the real transforms and one
    validation pass over 10,000 images: the sketch path's launches, exact
-   bytes, the data feed's host time a batch beside the round period;
+   bytes, the data feed's host time a batch beside the round period; run
+   three times from one seed, with the C++ data plane (its pad-crop calls
+   counted), with COMMEFFICIENT_NO_NATIVE=1 (the numpy stages, no
+   native call) and with the C++ plane again, losses and weights bitwise
+   equal; before it
+   native_feed, on the host: the C++ pad-crop at that path's train batch
+   (256 x 32 x 32 x 3, bitwise the numpy stages), RandomResizedCrop at an
+   ImageNet batch (64 uint8 images of 256 x 256 x 3 to 224, within 2e-4,
+   the RandomState equal afterwards) and the row gather of 64 rows of a
+   np.memmap (bitwise), each timed against numpy with its thread count;
    then ``phase_offload_parity``: local_topk against local_topk_offload,
    sparse client state on the card against sparse offload, and sparse
    offload at depth 2 against the same run flushed after every round
@@ -235,7 +245,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    then a fresh learner resumed from round 2's step file for round 3,
    losses and weights bitwise those 3 rounds (the torch generator, which
    dropout draws from, is in the checkpoint), and a checkpoint's save and
-   load timed at d = 124,051,201; then GPT2-small's loss and
+   load timed at d = 124,051,201; then gpt2_moe, the gpt2 flags with
+   --moe_experts 4 (each block's MLP a Switch FFN of 4 experts, capacity
+   factor 1.25, aux weight 1e-2; d = 294,095,665) for 3 rounds, twice
+   from one seed: the gpt2 path's launches, bitwise over the two runs,
+   round 1's sketch of the aggregate and its recovery bitwise against
+   their plain versions on the run's own inputs at that d, the aux term
+   and the peak memory printed, and Block 0's MoE layer on the card
+   against the CPU on 4,096 seeded tokens (assignments and keep mask
+   equal but for counted near-ties, output within 1e-5 of its largest
+   magnitude); then GPT2-small's loss and
    gradient on one full-width batch (32 dialogs x 2 candidates x 256
    tokens, float32, TF32 off) with the fused LM head against the
    materialized logits (loss within 1e-5 relative, gradient within 1e-4
@@ -678,11 +697,32 @@ def _hw_dropout_cost(n, itemsize=4):
 
 
 def phase_build():
+    """Every CUDA source (one nvcc each, at once) and, beside them, the
+    C++ host data plane (g++)."""
+    import threading
+
+    from commefficient_tpu_torch import native
     from commefficient_tpu_torch.ops import cuda_lib
+    host = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native.lib()
+        except Exception as e:  # noqa: BLE001 - raised below, in order
+            host["error"] = e
+        host["s"] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    thread = threading.Thread(target=build_native)
+    thread.start()
     built = cuda_lib.build_all()
+    thread.join()
+    if "error" in host:
+        raise host["error"]
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{sorted(built) or 'nothing (cached)'}", flush=True)
+          f"{sorted(built) or 'nothing (cached)'}; the C++ data plane "
+          f"{native.lib_path().name} in {host['s']:.1f} s", flush=True)
     for name in cuda_lib.SOURCES:
         log = cuda_lib.BUILD_DIR / f"{name}.log"
         if log.exists():
@@ -2639,6 +2679,36 @@ def write_cifar10_pickles(root, per_batch=10_000, n_test=10_000, seed=0):
                          "labels": labels.tolist()}, f)
 
 
+FEED_BATCHES = 32
+
+
+def _feed_alone(args):
+    """The CIFAR train feed alone, on the host (no round runs): median ms
+    of ``FEED_BATCHES`` batches of ``args``' batcher (sampling, gathering,
+    train transforms), with the C++ data plane and with the numpy stages,
+    alternated twice."""
+    from commefficient_tpu_torch import native
+    from commefficient_tpu_torch.data import FedBatcher
+    from commefficient_tpu_torch.training.cv import make_dataset
+    ds = make_dataset(args, True)
+    out = {"native": [], "numpy": []}
+    for feed in ("native", "numpy") * 2:
+        if feed == "numpy":
+            os.environ[native.OPT_OUT] = "1"
+        try:
+            times = []
+            batches = FedBatcher(ds, args.num_workers, args.local_batch_size,
+                                 seed=args.seed).epoch()
+            for _ in range(FEED_BATCHES):
+                t0 = time.perf_counter()
+                next(batches)
+                times.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            os.environ.pop(native.OPT_OUT, None)
+        out[feed].append(float(np.median(times)))
+    return out
+
+
 def phase_cifar10_fetchsgd():
     """cifar10_fetchsgd: examples/cifar10_fetchsgd.sh's flags (100 non-iid
     clients, 8 a round, --scan_rounds 8) through ``training.cv.train`` on
@@ -2646,56 +2716,99 @@ def phase_cifar10_fetchsgd():
     with the real train (normalize, reflect-pad 4 and crop, flip) and test
     transforms: 16 rounds (two windows), then one validation pass over the
     10,000 test images; launches counted over both; every round's bytes
-    the float32 value of the exact count. Prints the data feed's host time
-    a batch (sampling, gathering, transforms) beside the round period."""
+    the float32 value of the exact count. Run three times from the same
+    seed: with the C++ data plane (its native calls above 0), with
+    ``COMMEFFICIENT_NO_NATIVE=1`` (the numpy stages, no native call) and
+    with the C++ data plane again (the first run also pays the process's
+    first read of the data); the runs' losses and weights bitwise equal.
+    Prints each run's data feed host time a batch (sampling, gathering,
+    transforms) beside its round period, and first the feed alone
+    (``_feed_alone``). Returns the first run's launches."""
     import torch
 
+    from commefficient_tpu_torch import native
     from commefficient_tpu_torch.ops import cuda_lib
     from commefficient_tpu_torch.training.args import build_parser
     from commefficient_tpu_torch.training.cv import train
+    runs = []
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         write_cifar10_pickles(root)
         gen_s = time.perf_counter() - t0
-        args = build_parser().parse_args(CIFAR_FLAGS + ["--dataset_dir",
-                                                        root])
-        np.random.seed(args.seed)
-        cuda_lib.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        learner, row = train(args, max_rounds=CIFAR_ROUNDS, log=False)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    launches = {n: v for n, v in cuda_lib.LAUNCHES.items() if v}
-    want = {n: v * CIFAR_ROUNDS for n, v in SKETCH_ROUND.items()}
-    if launches != want:
-        raise AssertionError(f"cifar10_fetchsgd: launch counts {launches} "
-                             f"!= {want}")
-    rounds = row["rounds"]
-    w = learner.state.weights
-    if len(rounds) != CIFAR_ROUNDS or learner.cfg.grad_size != D_RESNET9 \
-            or learner.cfg.num_clients != 100:
-        raise AssertionError(f"cifar10_fetchsgd: {len(rounds)} rounds, d = "
-                             f"{learner.cfg.grad_size}, "
-                             f"{learner.cfg.num_clients} clients")
-    if not all(math.isfinite(r["loss"]) for r in rounds) \
-            or not bool(torch.isfinite(w).all()) \
-            or not math.isfinite(row["test_loss"]) \
-            or not 0 <= row["test_acc"] <= 1:
-        raise AssertionError("cifar10_fetchsgd: non-finite loss, weights "
-                             "or validation")
-    _check_sketch_bytes("cifar10_fetchsgd", rounds, 8)
-    print(f"path cifar10_fetchsgd: d = {learner.cfg.grad_size}, launches "
-          f"{launches}, losses {[round(r['loss'], 6) for r in rounds]}, "
-          f"test_loss {row['test_loss']:.6f} test_acc "
-          f"{row['test_acc']:.4f} over 10,000 images, round period "
-          f"{_period_ms(rounds):.3f} ms, data feed "
-          f"{1e3 * row['feed_s'] / row['feed_batches']:.3f} ms a batch "
-          f"(host; {row['feed_batches']} batches, transforms included), "
-          f"train {row['train_time']:.3f} s, validation "
-          f"{row['test_time']:.3f} s, whole train() {wall_s:.3f} s after "
-          f"{gen_s:.3f} s writing 184 MB of pickles", flush=True)
-    del learner, row, w
-    torch.cuda.empty_cache()
+        alone = _feed_alone(build_parser().parse_args(CIFAR_FLAGS + [
+            "--dataset_dir", root]))
+        print(f"cifar10_fetchsgd feed alone (host, median of "
+              f"{FEED_BATCHES} batches of 8 x 32 images, alternated): "
+              f"native {alone['native']} ms, numpy {alone['numpy']} ms a "
+              f"batch; {_smi()}", flush=True)
+        for feed in ("native", "numpy", "native"):
+            if feed == "numpy":
+                os.environ[native.OPT_OUT] = "1"
+            try:
+                args = build_parser().parse_args(CIFAR_FLAGS + [
+                    "--dataset_dir", root])
+                np.random.seed(args.seed)
+                cuda_lib.LAUNCHES.clear()
+                calls = dict(native.CALLS)
+                t0 = time.perf_counter()
+                learner, row = train(args, max_rounds=CIFAR_ROUNDS,
+                                     log=False)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            finally:
+                os.environ.pop(native.OPT_OUT, None)
+            made = {k: v - calls.get(k, 0) for k, v in native.CALLS.items()
+                    if v - calls.get(k, 0)}
+            launches = {n: v for n, v in cuda_lib.LAUNCHES.items() if v}
+            want = {n: v * CIFAR_ROUNDS for n, v in SKETCH_ROUND.items()}
+            if launches != want:
+                raise AssertionError(f"cifar10_fetchsgd ({feed}): launch "
+                                     f"counts {launches} != {want}")
+            if (feed == "native") != bool(made.get("pad_crop_batch")):
+                raise AssertionError(f"cifar10_fetchsgd ({feed}): native "
+                                     f"calls {made}")
+            rounds = row["rounds"]
+            w = learner.state.weights
+            if len(rounds) != CIFAR_ROUNDS \
+                    or learner.cfg.grad_size != D_RESNET9 \
+                    or learner.cfg.num_clients != 100:
+                raise AssertionError(f"cifar10_fetchsgd: {len(rounds)} "
+                                     f"rounds, d = {learner.cfg.grad_size},"
+                                     f" {learner.cfg.num_clients} clients")
+            if not all(math.isfinite(r["loss"]) for r in rounds) \
+                    or not bool(torch.isfinite(w).all()) \
+                    or not math.isfinite(row["test_loss"]) \
+                    or not 0 <= row["test_acc"] <= 1:
+                raise AssertionError("cifar10_fetchsgd: non-finite loss, "
+                                     "weights or validation")
+            _check_sketch_bytes("cifar10_fetchsgd", rounds, 8)
+            print(f"path cifar10_fetchsgd ({feed} feed): d = "
+                  f"{learner.cfg.grad_size}, launches {launches}, native "
+                  f"calls {made}, losses "
+                  f"{[round(r['loss'], 6) for r in rounds]}, test_loss "
+                  f"{row['test_loss']:.6f} test_acc {row['test_acc']:.4f} "
+                  f"over 10,000 images, round period "
+                  f"{_period_ms(rounds):.3f} ms (the second window's "
+                  f"{_period_ms(rounds[CIFAR_ROUNDS // 2:]):.3f}), data feed "
+                  f"{1e3 * row['feed_s'] / row['feed_batches']:.3f} ms a "
+                  f"batch (host; {row['feed_batches']} batches, transforms "
+                  f"included), train {row['train_time']:.3f} s, validation "
+                  f"{row['test_time']:.3f} s, whole train() {wall_s:.3f} s "
+                  f"after {gen_s:.3f} s writing 184 MB of pickles; "
+                  f"{_smi()}", flush=True)
+            runs.append(([r["loss"] for r in rounds], w.clone(), launches))
+            del learner, row, w
+            torch.cuda.empty_cache()
+    (la, wa, launches), *rest = runs
+    for lb, wb, _ in rest:
+        if [x.hex() for x in la] != [x.hex() for x in lb] \
+                or not _same_bits(wa, wb):
+            raise AssertionError(f"cifar10_fetchsgd: the native-fed and "
+                                 f"numpy-fed runs differ: losses {la} vs "
+                                 f"{lb}, weights bitwise equal "
+                                 f"{_same_bits(wa, wb)}")
+    print(f"cifar10_fetchsgd: the native-fed and numpy-fed runs' losses and "
+          f"weights after {CIFAR_ROUNDS} rounds bitwise equal", flush=True)
     return launches
 
 
@@ -4628,6 +4741,331 @@ def phase_serve_online(tmpdir, errs):
     return la
 
 
+# ---- the C++ host data plane (ROADMAP A7c) and GPT2's Switch MoE ------
+
+# cifar10_fetchsgd's train batch of a round (8 workers x 32 images) and an
+# ImageNet batch of the reference's storage size, cropped to 224
+CIFAR_BATCH = (256, 32, 32, 3)
+IMAGENET_BATCH = (64, 256, 256, 3)
+IMAGENET_ROWS = 512       # rows of the memory-mapped client file
+NATIVE_REPS = 9
+RRC_TOL = 2e-4
+# GPT2_FLAGS + --moe_experts 4: each block's MLP a 4-expert Switch FFN at
+# the default capacity factor 1.25 and aux weight 1e-2
+MOE_FLAGS = ["--moe_experts", "4"]
+D_GPT2_MOE = 124_051_201 + 12 * (18_892_804 - 4_722_432)
+MOE_TOKENS = 4096         # one client's 8 dialogs x 2 candidates x 256
+MOE_TOL = 1e-5
+NEAR_TIE = 1e-6
+
+
+def _host_ms(fn, reps=NATIVE_REPS) -> float:
+    """Median host ms of ``fn()`` over ``reps`` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _same_rng(a, b) -> bool:
+    sa, sb = a.get_state(), b.get_state()
+    return sa[0] == sb[0] and np.array_equal(sa[1], sb[1]) \
+        and sa[2:] == sb[2:]
+
+
+def phase_native_feed():
+    """native_feed, on the card machine's host: the C++ data plane against
+    the numpy stages on the same inputs and draws: ``pad_crop_batch`` at
+    cifar10_fetchsgd's train batch (bitwise), ``rrc_batch`` at an
+    ImageNet batch of 64 uint8 images of 256 x 256 x 3 cropped to 224
+    (within 2e-4, the ``RandomState`` equal afterwards) and
+    ``gather_rows`` of 64 sorted rows from a ``np.memmap`` of 512 such
+    images (bitwise; a warm read: the file was just written); each as the
+    median host ms of both and the thread count of the native pass."""
+    from commefficient_tpu_torch import native
+    from commefficient_tpu_torch.data import transforms as T
+    calls = dict(native.CALLS)
+    rng = np.random.RandomState(0)
+    res = {}
+
+    imgs = rng.randint(0, 256, CIFAR_BATCH, np.uint8)
+    numpy_fn = T.compose(T.normalize(T.CIFAR10_MEAN, T.CIFAR10_STD),
+                         T.random_crop(32, 4, "reflect"), T.random_hflip())
+    fused = T.cifar10_train_transforms
+    a = fused([imgs], np.random.RandomState(1))[0]
+    b = numpy_fn([imgs], np.random.RandomState(1))[0]
+    if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+        raise AssertionError("native_feed: pad_crop_batch != the numpy "
+                             "stages")
+    res["pad_crop_batch"] = (
+        _host_ms(lambda: fused([imgs], np.random.RandomState(1))),
+        _host_ms(lambda: numpy_fn([imgs], np.random.RandomState(1))))
+
+    imgs = rng.randint(0, 256, IMAGENET_BATCH, np.uint8)
+    numpy_fn = T.compose(T.random_resized_crop(224), T.random_hflip(),
+                         T.normalize(T.IMAGENET_MEAN, T.IMAGENET_STD))
+    fused = T.imagenet_train_transforms
+    ra, rb = np.random.RandomState(2), np.random.RandomState(2)
+    a, b = fused([imgs], ra)[0], numpy_fn([imgs], rb)[0]
+    err = float(np.abs(a.astype(np.float64) - b).max())
+    if a.shape != (64, 224, 224, 3) or err > RRC_TOL or not _same_rng(ra,
+                                                                      rb):
+        raise AssertionError(f"native_feed: rrc_batch {a.shape}, max abs "
+                             f"err {err} (limit {RRC_TOL}), RandomState "
+                             f"equal {_same_rng(ra, rb)}")
+    res["rrc_batch"] = (
+        _host_ms(lambda: fused([imgs], np.random.RandomState(2))),
+        _host_ms(lambda: numpy_fn([imgs], np.random.RandomState(2)), 3))
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "train_client_00000.npy")
+        np.save(path, rng.randint(0, 256, (IMAGENET_ROWS,)
+                                  + IMAGENET_BATCH[1:], np.uint8))
+        arr = np.load(path, mmap_mode="r")
+        order = np.sort(rng.choice(IMAGENET_ROWS, IMAGENET_BATCH[0],
+                                   replace=False))
+        if not np.array_equal(native.gather_rows(arr, order),
+                              np.asarray(arr[order])):
+            raise AssertionError("native_feed: gather_rows != numpy")
+        res["gather_rows"] = (
+            _host_ms(lambda: native.gather_rows(arr, order)),
+            _host_ms(lambda: np.asarray(arr[order])))
+        del arr
+    made = {k: v - calls.get(k, 0) for k, v in native.CALLS.items()}
+    if not all(made.get(k, 0) > 0 for k in res):
+        raise AssertionError(f"native_feed: native calls {made}")
+    smi = _smi()
+    out_bytes = {"pad_crop_batch": 4 * int(np.prod(CIFAR_BATCH)),
+                 "rrc_batch": 4 * IMAGENET_BATCH[0] * 224 * 224 * 3,
+                 "gather_rows": int(np.prod(IMAGENET_BATCH))}
+    shapes = {"pad_crop_batch": f"{CIFAR_BATCH} uint8 -> float32, reflect "
+                                "pad 4, flips",
+              "rrc_batch": f"{IMAGENET_BATCH} uint8 -> (64, 224, 224, 3), "
+                           f"max abs err {err:.3e}, RandomState equal",
+              "gather_rows": f"64 of {IMAGENET_ROWS} rows of "
+                             f"{IMAGENET_BATCH[1:]} uint8 from a memmap "
+                             "(warm)"}
+    for name, (ms, numpy_ms) in res.items():
+        print(f"native_feed {name} ({shapes[name]}): {ms:.3f} ms native "
+              f"against {numpy_ms:.3f} ms numpy (median host ms), "
+              f"{native.threads_for(out_bytes[name])} threads; bitwise"
+              f"{' within 2e-4' if name == 'rrc_batch' else ''}; {smi}",
+              flush=True)
+    return res
+
+
+def _moe_aux(learner, call):
+    """The blocks' mean load-balancing term on ``call``'s batch at the
+    learner's weights (no gradient)."""
+    import torch
+    from torch.func import functional_call
+    _, batch, _ = call
+    ids, mc, _, _, types = (c.reshape((-1,) + tuple(c.shape[2:]))
+                            for c in batch)
+    with torch.no_grad():
+        out = functional_call(learner.model,
+                              learner.unflatten(learner.state.weights),
+                              (ids, types, mc),
+                              {"train": False, "return_aux": True})
+    return float(out[2])
+
+
+def phase_moe_layer(learner, dev):
+    """Block 0's ``MoEFFN`` at the trained weights on the card against the
+    same layer on the CPU, on MOE_TOKENS seeded tokens: assignments and
+    keep mask identical but for near-ties (top two probabilities within
+    1e-6), counted; the output within 1e-5 of its largest magnitude on the
+    tokens routed alike."""
+    import torch
+
+    from commefficient_tpu_torch.ops.moe import MoEFFN
+    params = learner.unflatten(learner.state.weights)
+    prefix = "Block_0.moe."
+    state = {k[len(prefix):]: v.detach().cpu() for k, v in params.items()
+             if k.startswith(prefix)}
+    C = learner.model.config.n_embd
+    layers = {}
+    for device in ("cpu", dev):
+        layer = MoEFFN(C, 4, 4 * C).to(device)
+        layer.load_state_dict(state)
+        layers[str(device)] = layer
+    x = torch.from_numpy(np.random.RandomState(11).randn(
+        MOE_TOKENS, C).astype(np.float32))
+    with torch.no_grad():
+        (yc, auxc), rc = layers["cpu"](x), layers["cpu"].route(x)
+        (yg, auxg), rg = layers[str(dev)](x.to(dev)), layers[str(dev)].route(
+            x.to(dev))
+    yg, eg, kg = yg.cpu(), rg.expert.cpu(), rg.keep.cpu()
+    top2 = torch.sort(rc.probs, dim=-1).values[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0]) <= NEAR_TIE
+    flips = eg != rc.expert
+    if bool((flips & ~tie).any()) or (not bool(flips.any())
+                                      and not torch.equal(kg, rc.keep)):
+        raise AssertionError(f"moe layer: {int(flips.sum())} flips, "
+                             f"{int((flips & ~tie).sum())} off a near-tie; "
+                             f"keep equal {torch.equal(kg, rc.keep)}")
+    alike = ~flips & (kg == rc.keep)
+    err = float((yg[alike] - yc[alike]).abs().max())
+    rel = err / float(yc.abs().max())
+    if rel > MOE_TOL:
+        raise AssertionError(f"moe layer: card vs CPU max abs err {err}, "
+                             f"{rel:.3e} of the largest |y|")
+    print(f"moe layer (Block_0, {MOE_TOKENS} tokens, capacity "
+          f"{rc.capacity}, {int(rc.keep.sum())} kept): card vs CPU "
+          f"assignments equal but {int(flips.sum())} near-tie flips, keep "
+          f"masks equal, output max abs err {err:.3e} ({rel:.3e} of the "
+          f"largest |y|), aux {float(auxg):.6f} vs {float(auxc):.6f}",
+          flush=True)
+
+
+class _SketchRecovery:
+    """Keeps the inputs and outputs of the first card call of the tiled
+    sketch (``sketch_kernels.sketch_vec``, the round's aggregate) and of
+    the compact recovery (``topk_kernels.unsketch_compact``, est_hist,
+    digit_hist and radix_compact) so that ``check`` holds both against
+    their plain versions on those very inputs after the run. Copies
+    tensors; adds no counted launch."""
+
+    def __enter__(self):
+        from commefficient_tpu_torch.ops import sketch_kernels as sk
+        from commefficient_tpu_torch.ops import topk_kernels as tk
+        self.calls = {}
+        self._saved = [(sk, "sketch_vec", sk.sketch_vec),
+                       (tk, "unsketch_compact", tk.unsketch_compact)]
+        for owner, name, f in self._saved:
+            setattr(owner, name, self._recording(name, f))
+        return self
+
+    def _recording(self, name, f):
+        def call(*args, **kwargs):
+            out = f(*args, **kwargs)
+            if args[1].is_cuda and name not in self.calls:
+                self.calls[name] = (args[0], _cloned(args[1:]),
+                                    dict(kwargs), _cloned(out))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for owner, name, f in self._saved:
+            setattr(owner, name, f)
+
+    def check(self, tag, errs):
+        import torch
+
+        from commefficient_tpu_torch.ops import topk_kernels as tk
+        from commefficient_tpu_torch.ops.sketch_kernels import \
+            sketch_vec_plain
+        if set(self.calls) != {"sketch_vec", "unsketch_compact"}:
+            raise AssertionError(f"{tag}: the probe saw {list(self.calls)}")
+        cs, (vec, *rest), kwargs, table = self.calls.pop("sketch_vec")
+        plain = sketch_vec_plain(cs, vec, *rest, **kwargs)
+        if not _same_bits(table, plain):
+            raise AssertionError(f"{tag}: the sketch of the round's "
+                                 f"aggregate at d = {vec.numel()} != its "
+                                 "plain version")
+        errs["sketch"] = max(errs["sketch"], _max_abs_err(table, plain))
+        del vec, table, plain
+        cs, (tab, k), kwargs, (vals, idxs) = self.calls.pop(
+            "unsketch_compact")
+        p_vals, p_idxs = tk.unsketch_compact_plain(cs, tab, k)
+        if not (_same_bits(vals, p_vals) and torch.equal(idxs, p_idxs)):
+            raise AssertionError(f"{tag}: the recovery of round 1's table "
+                                 f"at d = {cs.d} != its plain version")
+        for name in ("est_hist", "digit_hist", "radix_compact"):
+            errs[name] = max(errs[name], _max_abs_err(vals, p_vals))
+        print(f"{tag}: round 1's sketch of the aggregate (d = {cs.d}, "
+              f"{cs.r} x {cs.c_eff}) and its recovery (est_hist, digit_hist "
+              f"x 2, radix_compact; k = {k}, {int((vals != 0).sum())} "
+              f"nonzero) bitwise equal to their plain versions on the run's "
+              f"own inputs", flush=True)
+        torch.cuda.empty_cache()
+
+
+def phase_gpt2_moe(tmpdir, errs, dev):
+    """gpt2_moe: ``GPT2_FLAGS`` + --moe_experts 4 at GPT2-small's widths (d
+    = 294,095,665) through ``training.gpt2.train`` for 3 rounds, twice
+    from one seed, the launch counters zeroed just before each: the gpt2
+    path's launches, flash_fwd 12 a validation batch; finite losses,
+    weights and validation nll, exact upload bytes; on the first run the
+    round's sketch and recovery held against their plain versions on the
+    run's own aggregate and table, the blocks' aux term on the last batch,
+    and Block 0's layer on the card against the CPU
+    (``phase_moe_layer``); the two runs' losses, weights, Vvelocity and
+    Verror bitwise equal. Returns the first run's launches."""
+    import torch
+
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    runs = []
+    for i in range(2):
+        args = build_gpt2_parser().parse_args(GPT2_FLAGS + MOE_FLAGS + [
+            "--dataset_dir", tmpdir])
+        np.random.seed(args.seed)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.LAUNCHES.clear()
+        with _SketchRecovery() if i == 0 else nullcontext() as probe:
+            learner, row = train(args, max_rounds=3, log=False)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = row["launches_after_rounds"]
+        val = {k: v - launches.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+               if v - launches.get(k, 0)}
+        if launches != GPT2_SKETCH or val != {
+                "flash_fwd": 12 * row["val_batches"]}:
+            raise AssertionError(f"gpt2_moe: launches {launches}, "
+                                 f"validation {val}")
+        rounds, s = row["rounds"], learner.state
+        if learner.cfg.grad_size != D_GPT2_MOE or len(rounds) != 3 \
+                or learner.model.config.moe_experts != 4:
+            raise AssertionError(f"gpt2_moe: d = {learner.cfg.grad_size}, "
+                                 f"{len(rounds)} rounds")
+        if not all(math.isfinite(r["loss"]) for r in rounds) \
+                or not bool(torch.isfinite(s.weights).all()) \
+                or not math.isfinite(row["nll"]):
+            raise AssertionError("gpt2_moe: non-finite loss, weights or "
+                                 "validation nll")
+        if any(r["upload_bytes"] != GPT2_WORKERS * GPT2_UPLOAD["gpt2"]
+               for r in rounds):
+            raise AssertionError(f"gpt2_moe: upload bytes "
+                                 f"{[r['upload_bytes'] for r in rounds]}")
+        aux = ""
+        if probe is not None:
+            aux = (f", aux term on the last batch "
+                   f"{_moe_aux(learner, row['last_batch']):.6f}")
+        print(f"path gpt2_moe run {i + 1}: d = {learner.cfg.grad_size}, "
+              f"launches {launches}, validation launches {val} over "
+              f"{row['val_batches']} batches, losses "
+              f"{[round(r['loss'], 6) for r in rounds]}, round ms "
+              f"{[round(r['round_s'] * 1e3, 3) for r in rounds]}, val nll "
+              f"{row['nll']:.6f}{aux}, peak memory {peak:.2f} GiB; "
+              f"{_smi()}", flush=True)
+        if probe is not None:
+            phase_moe_layer(learner, dev)
+        runs.append(([r["loss"] for r in rounds], s.weights.clone(),
+                     s.opt.Vvelocity.clone(), s.opt.Verror.clone(),
+                     launches))
+        del learner, row, s
+        torch.cuda.empty_cache()
+        if probe is not None:
+            probe.check("gpt2_moe", errs)
+            del probe
+    (la, *ta, launches), (lb, *tb, _) = runs
+    same = [_same_bits(a, b) for a, b in zip(ta, tb)]
+    if [x.hex() for x in la] != [x.hex() for x in lb] or not all(same):
+        raise AssertionError(f"gpt2_moe is not reproducible: losses {la} "
+                             f"vs {lb}; weights, Vvelocity, Verror bitwise "
+                             f"equal: {same}")
+    print("gpt2_moe: the two runs' losses, weights, Vvelocity and Verror "
+          "bitwise equal", flush=True)
+    del runs, ta, tb
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4675,6 +5113,7 @@ def main() -> int:
     for name in PATHS:
         for kernel, n in phase_path(name).items():
             launches[kernel] = launches.get(kernel, 0) + n
+    phase_native_feed()
     for phase in (phase_sketch_scan, phase_cifar10_fetchsgd):
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n
@@ -4718,6 +5157,10 @@ def main() -> int:
             for kernel, n in phase(tmpdir, gpt2_ref).items():
                 launches[kernel] = launches.get(kernel, 0) + n
         del gpt2_ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for kernel, n in phase_gpt2_moe(tmpdir, errs, dev).items():
+            launches[kernel] = launches.get(kernel, 0) + n
     model, batch = _gpt2_small(dev), _gpt2_small_batch(dev)
     phase_fused_ce(model, batch)
     phase_remat(model, batch)

@@ -7,11 +7,13 @@ Expects the standard extracted layout ``<dir>/{train,val}/<wnid>/*.JPEG``.
   imported there) into per-client uint8 arrays at ``storage_size``
   (shorter side, aspect kept, centre crop): ``train_client_xxxxx.npy``
   per wnid, plus the validation arrays. Training never touches a JPEG:
-  batches are rows of memory-mapped uint8 arrays.
+  batches are rows of memory-mapped uint8 arrays, copied out by the
+  native threaded gather (``commefficient_tpu_torch.native``).
 * augmentation is ``data/transforms.py``: RandomResizedCrop(224) + flip +
-  normalize for train, resize(256) + centre crop(224) + normalize for
-  validation, batched numpy on the uint8 rows. Crops are sampled from the
-  stored 256 x 256 centre crop, not the full original image.
+  normalize for train (one native pass), resize(256) + centre crop(224)
+  + normalize for validation (numpy), batched on the uint8 rows. Crops
+  are sampled from the stored 256 x 256 centre crop, not the full
+  original image.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from commefficient_tpu_torch import native
 from commefficient_tpu_torch.data.fed_dataset import FedDataset
 
 
@@ -146,9 +149,12 @@ class FedImageNet(FedDataset):
     @staticmethod
     def _gather(arr, idxs: np.ndarray) -> np.ndarray:
         """Rows ``arr[idxs]``, read in sorted order (mmap locality), then
-        put back in request order."""
+        put back in request order; a C-contiguous source (a memory map
+        included) by the native threaded copy."""
         order = np.sort(np.asarray(idxs))
         inv = np.argsort(np.argsort(idxs))
+        if native.lib() is not None and arr.flags["C_CONTIGUOUS"]:
+            return native.gather_rows(arr, order)[inv]
         return np.asarray(arr[order])[inv]
 
     def _get_train_batch(self, client_id: int, idxs: np.ndarray):

@@ -6,17 +6,22 @@ Images flow as NHWC arrays. Each transform is ``fn(cols, rng) -> cols``
 over the batch's column list (the first column is the image batch), so
 pipelines compose with plain function composition.
 
-``fused_pad_crop_train`` and ``fused_rrc_train`` are the reference's
-names for its C++ single-pass pipelines; here they are the numpy stages
-those pipelines reproduce, with the random draws in the same order from
-the same ``RandomState``: per image ``y`` then ``x`` (or the crop
-window's draws), then one ``rand(B)`` for the batch's flips. A C++ host
-path of its own is ROADMAP.md A7c.
+``fused_pad_crop_train`` and ``fused_rrc_train`` run the geometric
+stages as one threaded C++ pass (``commefficient_tpu_torch.native``),
+as the reference's do: the random draws stay here, in the numpy stages'
+order from the same ``RandomState`` (per image ``y`` then ``x``, or the
+crop window's draws; then one ``rand(B)`` for the batch's flips), so the
+pad-crop batches are bitwise the numpy stages' and RandomResizedCrop's
+agree to float rounding (2e-4). A batch whose shape or dtype the C++
+pass does not take goes to the numpy stages, which fail loudly on a
+mismatch; so does every batch under ``COMMEFFICIENT_NO_NATIVE=1``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from commefficient_tpu_torch import native
 
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2471, 0.2435, 0.2616], np.float32)
@@ -163,20 +168,60 @@ def compose(*fns):
 
 def fused_rrc_train(mean, std, size: int, hflip_p: float = 0.5,
                     scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3)):
-    """RandomResizedCrop, horizontal flip, normalize."""
-    return compose(random_resized_crop(size, scale, ratio),
-                   random_hflip(hflip_p), normalize(mean, std))
+    """RandomResizedCrop, horizontal flip, normalize: one native pass over
+    a uint8 batch of ``len(mean)`` channels (the crop windows and flips
+    drawn here first), the numpy stages otherwise."""
+    numpy_fn = compose(random_resized_crop(size, scale, ratio),
+                       random_hflip(hflip_p), normalize(mean, std))
+    # the affine on raw uint8: (v / 255 - mean) / std == v * kscale + kbias
+    kscale = (1.0 / (255.0 * std)).astype(np.float32)
+    kbias = (-mean / std).astype(np.float32)
+
+    def fn(cols, rng):
+        img = cols[0]
+        if (native.lib() is None or img.dtype != np.uint8
+                or img.shape[3] != len(kscale)):
+            return numpy_fn(cols, rng)
+        B, h, w = img.shape[:3]
+        params = np.empty((B, 5), np.int32)
+        for i in range(B):
+            params[i, :4] = rrc_crop_params(h, w, rng, scale, ratio)
+        params[:, 4] = rng.rand(B) < hflip_p
+        cols[0] = native.rrc_batch(img, params, size, kscale, kbias)
+        return cols
+    return fn
 
 
 def fused_pad_crop_train(mean, std, size: int, padding: int,
                          mode: str = "reflect", fill: float = 0.0,
                          hflip_p: float = 0.5):
-    """Normalize, pad-and-crop, then (for ``hflip_p > 0``) flip. Normalize
-    runs first, so a constant ``fill`` lands in the output as it is, in
-    normalized units."""
+    """Normalize, then pad-and-crop and (for ``hflip_p > 0``) flip as one
+    native pass of copies, bitwise the numpy stages. Normalize runs first,
+    so a constant ``fill`` lands in the output as it is, in normalized
+    units. The pass takes ``size == H == W`` only (as the numpy stage,
+    which writes into ``empty_like(img)``); any other batch goes to the
+    numpy stages."""
     aug = ([random_crop(size, padding, mode, fill)]
            + ([random_hflip(hflip_p)] if hflip_p > 0 else []))
-    return compose(normalize(mean, std), *aug)
+    numpy_fn = compose(normalize(mean, std), *aug)
+    norm_fn = normalize(mean, std)
+
+    def fn(cols, rng):
+        img = cols[0]
+        if (native.lib() is None or img.shape[1] != size
+                or img.shape[2] != size):
+            return numpy_fn(cols, rng)
+        cols = norm_fn(cols, rng)
+        B = cols[0].shape[0]
+        params = np.empty((B, 3), np.int32)
+        for i in range(B):
+            params[i, 0] = rng.randint(0, 2 * padding + 1)
+            params[i, 1] = rng.randint(0, 2 * padding + 1)
+        params[:, 2] = (rng.rand(B) < hflip_p) if hflip_p > 0 else 0
+        cols[0] = native.pad_crop_batch(cols[0], params, padding,
+                                        mode == "reflect", fill)
+        return cols
+    return fn
 
 
 cifar10_train_transforms = fused_pad_crop_train(

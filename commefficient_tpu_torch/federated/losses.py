@@ -11,6 +11,11 @@ A GPT2 model built with ``config.fused_lm_head`` returns hidden states,
 and both GPT2 losses then take the LM NLL from the vocab-chunked fused
 head (``ops/fused_ce.py``) with the tied ``wte``: autograd adds the
 head's part of the ``wte`` gradient to the embedding's.
+
+With an MoE model (``config.moe_experts > 0``) the training loss adds
+``moe_aux_weight`` times the blocks' Switch load-balancing term, averaged
+over the layers, to every per-example entry (reference ``losses.py:
+98-145``); the validation loss leaves it out.
 """
 
 from __future__ import annotations
@@ -69,21 +74,27 @@ def _fused_nll_sums(model, hidden, params, lm_labels):
     return torch.sum(nll_sum, dim=-1), torch.sum(tokens, dim=-1)
 
 
-def _forward(model, params, batch, seed, train):
+def _forward(model, params, batch, seed, train, return_aux=False):
     input_ids, mc_token_ids, _, _, token_type_ids = batch
     return functional_call(model, params,
                            (input_ids, token_type_ids, mc_token_ids),
-                           {"train": train, "seed": seed})
+                           {"train": train, "seed": seed,
+                            "return_aux": return_aux})
 
 
-def make_gpt2_train_loss(model, lm_coef: float = 1.0, mc_coef: float = 1.0):
+def make_gpt2_train_loss(model, lm_coef: float = 1.0, mc_coef: float = 1.0,
+                         moe_aux_weight: float = 1e-2):
     """LM + multiple-choice loss (reference compute_loss_train,
     gpt2_train.py:88-99): the LM NLL is the mean over each dialog's
-    labeled tokens, so every dialog weighs the same in the round."""
+    labeled tokens, so every dialog weighs the same in the round. An MoE
+    model adds ``moe_aux_weight`` times its load-balancing term to each
+    entry, so the round's datapoint-weighted mean carries exactly that."""
     fused = model.config.fused_lm_head
+    moe = model.config.moe_experts > 0
 
     def apply_loss(params, batch, seed, train):
-        lm_out, mc_logits = _forward(model, params, batch, seed, train)
+        lm_out, mc_logits, *aux = _forward(model, params, batch, seed, train,
+                                           return_aux=moe)
         if fused:
             nll_sum, tokens = _fused_nll_sums(model, lm_out, params,
                                               batch[2])
@@ -93,6 +104,8 @@ def make_gpt2_train_loss(model, lm_coef: float = 1.0, mc_coef: float = 1.0):
         mc_loss = F.cross_entropy(mc_logits, batch[3].long(),
                                   reduction="none")
         loss = lm_coef * lm_loss + mc_coef * mc_loss
+        if moe:
+            loss = loss + moe_aux_weight * aux[0]
         return loss, torch.zeros((1, loss.shape[0]), device=loss.device)
 
     return apply_loss

@@ -63,8 +63,14 @@ decodes, writing each row at its own position clipped to the capacity;
 dropping writes past the capacity (the paged form routes them to the
 garbage page), and with ``logits_all`` returns (B*C, T, V) logits.
 
-Not ported, each raising NotImplementedError: MoE blocks and ring
-attention (ROADMAP.md A12).
+``moe_experts`` > 0: each block's MLP is the Switch MoE FFN
+(``ops/moe.py``) under the submodule name ``moe``, with
+``moe_capacity_factor``; ``forward(..., return_aux=True)`` also returns
+the blocks' load-balancing term averaged over the layers, in the order
+the reference's loss collects it (the block names sorted as strings). A
+KV cache with MoE blocks raises the reference's ValueError.
+
+Not ported, raising NotImplementedError: ring attention (ROADMAP.md A12).
 """
 
 from __future__ import annotations
@@ -82,6 +88,7 @@ from commefficient_tpu_torch.ops.attention import (
     blockwise_attention, decode_attention, full_attention,
     kernel_prob_dropout_eligible, paged_verify_attention)
 from commefficient_tpu_torch.ops.dropout import FusedDropout, fold_in
+from commefficient_tpu_torch.ops.moe import MoEFFN
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -116,6 +123,7 @@ class GPT2Config:
         self.attn_block_size = attn_block_size
         self.remat = remat
         self.moe_experts = 0
+        self.moe_capacity_factor = 1.25
         self.dropout_impl = "xla"     # "xla" | "xla_rbg" | "tpu_bits"
         self.attn_dropout = "auto"    # "auto" | "output" | "kernel"
         self.fused_lm_head = False
@@ -331,15 +339,24 @@ class Block(nn.Module):
         self.LayerNorm_0 = LayerNorm(C, dt)
         self.LayerNorm_1 = LayerNorm(C, dt)
         self.CausalSelfAttention_0 = CausalSelfAttention(cfg)
-        self.Dense_0 = Dense(C, 4 * C, dt)
-        self.Dense_1 = Dense(4 * C, C, dt)
+        if cfg.moe_experts > 0:
+            self.moe = MoEFFN(C, cfg.moe_experts, 4 * C,
+                              cfg.moe_capacity_factor, dt)
+        else:
+            self.Dense_0 = Dense(C, 4 * C, dt)
+            self.Dense_1 = Dense(4 * C, C, dt)
         self.mlp_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
 
     def _mlp(self, h):
-        return self.Dense_1(F.gelu(self.Dense_0(h), approximate="tanh"))
+        """(MLP output, the MoE layer's aux or None)."""
+        if hasattr(self, "moe"):
+            return self.moe(h)
+        return self.Dense_1(F.gelu(self.Dense_0(h), approximate="tanh")), None
 
     def forward(self, x, train: bool, seed: Optional[int], cache=None,
                 position=None, verify: bool = False):
+        """``(output, aux)``: aux the MoE layer's load-balancing term, None
+        for a dense block."""
         def attn(h):
             if cache is None:
                 return self.CausalSelfAttention_0(h, train, _sub(seed, 0))
@@ -349,9 +366,11 @@ class Block(nn.Module):
         drop = lambda t: self.mlp_drop(t, _sub(seed, 1), train)
         if self.post_ln:
             x = self.LayerNorm_0(x + attn(x))
-            return self.LayerNorm_1(x + drop(self._mlp(x)))
+            m, aux = self._mlp(x)
+            return self.LayerNorm_1(x + drop(m)), aux
         x = x + attn(self.LayerNorm_0(x))
-        return x + drop(self._mlp(self.LayerNorm_1(x)))
+        m, aux = self._mlp(self.LayerNorm_1(x))
+        return x + drop(m), aux
 
 
 def _remat_block(block: Block, x, train: bool, seed: Optional[int]):
@@ -370,14 +389,14 @@ def _remat_block(block: Block, x, train: bool, seed: Optional[int]):
 class GPT2DoubleHeads(nn.Module):
     """``forward(input_ids, token_type_ids, mc_token_ids, train, seed)`` ->
     ``(lm_logits (B, C, T, V) float32, mc_logits (B, C))``, or with
-    ``config.fused_lm_head`` ``(hidden (B, C, T, E) float32, mc_logits)``.
+    ``config.fused_lm_head`` ``(hidden (B, C, T, E) float32, mc_logits)``;
+    with ``return_aux`` a third entry, the MoE blocks' mean load-balancing
+    term (0 for a dense model).
     """
 
     def __init__(self, config: GPT2Config):
         super().__init__()
         cfg = self.config = config
-        if cfg.moe_experts > 0:
-            _todo("MoE blocks (--moe_experts)", "A12")
         self.wte = Embed(cfg.vocab_size, cfg.n_embd)
         self.wpe = Embed(cfg.n_positions, cfg.n_embd)
         self.emb_drop = FusedDropout(cfg.dropout, cfg.dropout_impl)
@@ -389,16 +408,17 @@ class GPT2DoubleHeads(nn.Module):
         self.mc_head = Dense(cfg.n_embd, 1)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """The reference's initializers: normal(0.02) kernels and token
-        embeddings, normal(0.01) positions, zero biases, unit scales."""
+        """The reference's initializers: normal(0.02) kernels, expert
+        weights and token embeddings, normal(0.01) positions, zero biases,
+        unit scales."""
         with torch.no_grad():
             for name, p in self.named_parameters():
                 leaf = name.rsplit(".", 1)[-1]
                 if name == "wpe.embedding":
                     p.normal_(0.0, 0.01, generator=generator)
-                elif leaf in ("weight", "embedding"):
+                elif leaf in ("weight", "embedding", "moe_w1", "moe_w2"):
                     p.normal_(0.0, 0.02, generator=generator)
-                elif leaf == "bias":
+                elif leaf in ("bias", "moe_b1", "moe_b2"):
                     p.zero_()
                 else:
                     p.fill_(1.0)
@@ -407,11 +427,14 @@ class GPT2DoubleHeads(nn.Module):
     def forward(self, input_ids, token_type_ids, mc_token_ids,
                 train: bool = True, seed: Optional[int] = None, cache=None,
                 position=None, logits_at=None, verify: bool = False,
-                logits_all: bool = False):
+                logits_all: bool = False, return_aux: bool = False):
         cfg = self.config
         if cache is not None and train:
             raise ValueError("cache decoding is inference-only; "
                              "call with train=False")
+        if cache is not None and cfg.moe_experts > 0:
+            raise ValueError("KV-cache decoding does not support MoE "
+                             "blocks yet (capacity routing at T=1)")
         B, C, T = input_ids.shape
         ids = input_ids.reshape(B * C, T).long()
         types = token_type_ids.reshape(B * C, T).long()
@@ -424,15 +447,18 @@ class GPT2DoubleHeads(nn.Module):
         x = self.emb_drop(x, _sub(seed, 0), train)
         remat = (cfg.remat and train and torch.is_grad_enabled()
                  and cache is None)
+        auxes = {}
         for i in range(cfg.n_layer):
             block = getattr(self, f"Block_{i}")
             if cache is not None:
-                x = block(x, train, _sub(seed, 1 + i), cache[i], position,
-                          verify)
+                x, aux = block(x, train, _sub(seed, 1 + i), cache[i],
+                               position, verify)
             elif remat:
-                x = _remat_block(block, x, train, _sub(seed, 1 + i))
+                x, aux = _remat_block(block, x, train, _sub(seed, 1 + i))
             else:
-                x = block(x, train, _sub(seed, 1 + i))
+                x, aux = block(x, train, _sub(seed, 1 + i))
+            if aux is not None:
+                auxes[f"Block_{i}"] = aux
         x = x.float()
         if cfg.arch == "gpt2":
             x = self.LayerNorm_0(x)
@@ -458,6 +484,10 @@ class GPT2DoubleHeads(nn.Module):
         mc_logits = self.mc_head(picked).reshape(B, C)
         if cache is not None:
             return lm_out, mc_logits, cache
+        if return_aux:
+            # the reference sums the sown terms in its tree's key order
+            aux = sum(auxes[k] for k in sorted(auxes)) / max(len(auxes), 1)
+            return lm_out, mc_logits, aux
         return lm_out, mc_logits
 
 

@@ -398,7 +398,8 @@ def run_online(args, mesh=None, log: bool = True,
     learner_cls, learner_extra = learner_factory(args, num_clients)
     learner = learner_cls(model, cfg,
                           make_gpt2_train_loss(model, args.lm_coef,
-                                               args.mc_coef),
+                                               args.mc_coef,
+                                               args.moe_aux_weight),
                           make_gpt2_val_loss(model), lr_schedule=None,
                           device=device, seed=args.seed, **learner_extra)
     store = LearnerClientStore(learner)

@@ -271,8 +271,13 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "clients)")
     p.add_argument("--synthetic_dialogs", type=int, default=4,
                    help="SyntheticPersona: dialogs per persona")
-    # accepted so that a reference command line parses; refused by train()
-    p.add_argument("--moe_experts", type=int, default=0)
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="Switch-MoE FFN blocks with this many experts "
+                        "(ops/moe.py); 0 = dense MLP")
+    p.add_argument("--moe_capacity_factor", type=float, default=1.25)
+    p.add_argument("--moe_aux_weight", type=float, default=1e-2,
+                   help="weight of the Switch load-balancing aux loss "
+                        "added to the training objective")
     return p
 
 

@@ -27,6 +27,9 @@ loss through the vocab-chunked fused head (``ops/fused_ce.py``) without
 materializing the logits. ``--model gpt2`` / ``openai-gpt`` with an HF
 tokenizer in the local cache start from the cached HF weights where they
 are cached too (``models/gpt2_import.py``); neither is fetched.
+``--moe_experts E`` makes each block's MLP a Switch MoE FFN
+(``ops/moe.py``) with ``--moe_capacity_factor`` and adds the
+load-balancing term at ``--moe_aux_weight`` to the training loss.
 ``--mode local_topk --error_type local --client_state sparse
 --client_state_offload`` keeps each client's rows as k index/value pairs
 in host memory (``examples/gpt2_personachat.sh``'s single-card setting).
@@ -96,10 +99,37 @@ from commefficient_tpu_torch.utils.logging import (ScalarWriter, TableLogger,
 from commefficient_tpu_torch.utils.schedules import gpt2_lr_schedule
 
 
+def _mesh_axes(spec: str) -> dict:
+    """``--mesh``'s axis sizes (``key=value`` pairs), read only for the
+    reference's MoE errors: the port builds no mesh (A12)."""
+    axes = {}
+    for part in filter(None, spec.split(",")):
+        key, _, val = part.partition("=")
+        axes[key.strip()] = int(val) if val.strip().isdigit() else 0
+    return axes
+
+
+def _refuse_moe_combinations(args):
+    """The reference's own errors for MoE (``training/gpt2.py:146-160``):
+    an expert axis without experts, and MoE with the seq (ring) or stage
+    losses, which do not collect the load-balancing term."""
+    axes = _mesh_axes(args.mesh)
+    if axes.get("expert", 1) > 1 and args.moe_experts <= 0:
+        raise ValueError("--mesh expert=E shards MoE expert weights; "
+                         "pass --moe_experts > 0 (got 0)")
+    if args.moe_experts > 0 and (axes.get("seq", 1) > 1
+                                 or axes.get("stage", 1) > 1
+                                 or args.attn_impl == "ring"):
+        raise ValueError(
+            "--moe_experts composes with --mesh clients=/expert=/model= "
+            "federation; the seq (ring) and stage (GPipe) losses do not "
+            "collect the Switch load-balancing aux loss")
+
+
 def _refuse_unported(args):
+    _refuse_moe_combinations(args)
     refuse_unported(args, (
-        ("--moe_experts", args.moe_experts > 0, "A12"),
-        ("--attn_impl ring", args.attn_impl == "ring", "A12")))
+        ("--attn_impl ring", args.attn_impl == "ring", "A12"),))
     refuse_buffered_scan(args)
     if args.model not in GPT2_CONFIGS:
         raise ValueError(f"--model {args.model!r} is not a GPT2 model; "
@@ -151,6 +181,8 @@ def gpt2_config(args, vocab_size: int):
     gcfg.dropout_impl = getattr(args, "dropout_impl", "xla")
     gcfg.attn_dropout = args.attn_dropout
     gcfg.fused_lm_head = resolve_fused_ce(args)
+    gcfg.moe_experts = args.moe_experts
+    gcfg.moe_capacity_factor = args.moe_capacity_factor
     return gcfg
 
 
@@ -190,7 +222,8 @@ def train(args, max_rounds=None, log=True):
                              max(1, int(args.num_epochs * spe)))
     cls, extra = learner_factory(args, args.num_clients)
     learner = cls(model, args_to_config(args),
-                  make_gpt2_train_loss(model, args.lm_coef, args.mc_coef),
+                  make_gpt2_train_loss(model, args.lm_coef, args.mc_coef,
+                                       args.moe_aux_weight),
                   make_gpt2_val_loss(model), lr_schedule=sched,
                   device=device, seed=args.seed, **extra)
     if log:

@@ -16,7 +16,10 @@ needs no per-model table: a torch parameter name maps to its flax path by
 renaming ``weight`` to ``kernel``, and only a ``weight`` changes layout,
 torch's ``(out, in, kh, kw)`` / ``(out, in)`` permuted to flax's. Every
 other leaf keeps its layout (an embedding table is ``(num, features)`` on
-both sides).
+both sides; so do GPT2's stacked MoE experts, ``moe_w1``/``moe_b1``/
+``moe_w2``/``moe_b2`` under ``Block_i.moe``, whose router is a ``weight``
+like any dense kernel), and the sorted flax paths put ``moe``'s leaves
+in the reference's flat order.
 """
 
 from __future__ import annotations

@@ -35,7 +35,10 @@ the sync one and a faulted schedule replayed bitwise (its event counters
 the CPU's), and quarantine of a NaN client in a sketch round; the
 serving stack (a narrow GPT2's prefill through the flash forward, the
 paged server's replies equal to the dense engine's, ``kv_quant`` bitwise
-the CPU's, decode and paged attention within 1e-5 of the CPU's).
+the CPU's, decode and paged attention within 1e-5 of the CPU's); the
+Switch MoE FFN's routing, output and gradients within 1e-5 of the CPU's,
+with the capacity binding and not, and a narrow 4-expert GPT2's sketch
+rounds on the card against the CPU's.
 ``chip_smoke.py`` repeats this at the main paths' full width.
 """
 
@@ -1159,3 +1162,83 @@ def test_decode_attention_on_the_card_matches_the_cpu(dev):
                                  pools[1].to(dev), pt.to(dev), pos.to(dev))
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_ffn_on_the_card_matches_the_cpu(dev, capacity_factor):
+    """The Switch MoE FFN's routing, output, aux and gradients on the card
+    against the CPU's (float32, TF32 off): the same assignments and keep
+    mask (no near-tie at these seeds), values within 1e-5 of their largest
+    magnitude."""
+    from commefficient_tpu_torch.ops.moe import MoEFFN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    layers = [MoEFFN(64, 4, 256, capacity_factor) for _ in range(2)]
+    with torch.no_grad():
+        for p in layers[0].parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    layers[1].load_state_dict(layers[0].state_dict())
+    layers[1].to(dev)
+    x = torch.randn(512, 64, generator=g)
+    w = torch.randn(512, 64, generator=g)
+    outs = []
+    for layer, d in zip(layers, ("cpu", dev)):
+        xx = x.to(d, copy=True).requires_grad_(True)
+        y, aux = layer(xx)
+        (torch.sum(y * w.to(d)) + aux).backward()
+        r = layer.route(x.to(d))
+        outs.append([r.expert.cpu(), r.keep.cpu(), y.detach().cpu(),
+                     aux.detach().cpu(), xx.grad.cpu()]
+                    + [p.grad.cpu() for p in layer.parameters()])
+    (ec, kc, *vc), (eg, kg, *vg) = outs
+    assert torch.equal(ec, eg) and torch.equal(kc, kg)
+    if capacity_factor < 1:
+        assert not bool(kc.all())
+    for a, b in zip(vc, vg):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+def test_moe_gpt2_sketch_rounds_on_the_card_match_the_cpu(dev):
+    """Two sketch rounds of a narrow 4-expert GPT2 learner on the card
+    (flash kernels, sketch and recovery) and on the CPU from the same
+    weights and batches: losses within 1e-4 relative, bytes equal."""
+    from commefficient_tpu_torch.config import FedConfig
+    from commefficient_tpu_torch.federated.api import FedLearner
+    from commefficient_tpu_torch.federated.losses import (
+        make_gpt2_train_loss, make_gpt2_val_loss)
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    W, B, C, T = 2, 2, 2, 64
+    rng = np.random.RandomState(4)
+    batches = []
+    for _ in range(2):
+        ids = rng.randint(0, 261, (W, B, C, T)).astype(np.int32)
+        cols = (ids, rng.randint(T // 2, T, (W, B, C)).astype(np.int32),
+                np.where(rng.rand(W, B, C, T) < 0.3, ids, -1).astype(
+                    np.int32), np.full((W, B), C - 1, np.int32),
+                rng.randint(256, 261, (W, B, C, T)).astype(np.int32))
+        batches.append((rng.choice(4, W, replace=False).astype(np.int32),
+                        cols, np.ones((W, B), np.float32)))
+    cfg = FedConfig(mode="sketch", error_type="virtual",
+                    virtual_momentum=0.9, k=500, num_cols=4000, num_rows=5,
+                    num_clients=4, num_workers=W, weight_decay=0.0)
+    outs = []
+    for device in ("cpu", dev):
+        gcfg = GPT2Config(vocab_size=300, n_positions=T, n_embd=64,
+                          n_layer=2, n_head=4, dropout=0.0,
+                          attn_impl="blockwise")
+        gcfg.moe_experts = 4
+        model = GPT2DoubleHeads(gcfg).reset_parameters(
+            torch.Generator().manual_seed(0))
+        learner = FedLearner(model, cfg, make_gpt2_train_loss(model),
+                             make_gpt2_val_loss(model), device=device)
+        cuda_lib.LAUNCHES.clear()
+        outs.append([learner.train_round(ids, cols, m, epoch_frac=r)
+                     for r, (ids, cols, m) in enumerate(batches)])
+    assert cuda_lib.LAUNCHES["flash_fwd"] == 4
+    assert cuda_lib.LAUNCHES["sketch"] == 2
+    for a, b in zip(*outs):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(a["loss"])
+        assert (a["download_bytes"], a["upload_bytes"]) == (
+            b["download_bytes"], b["upload_bytes"])

@@ -168,12 +168,16 @@ def test_gpt2_small_width():
 
 
 def test_model_refusals():
-    cfg = GPT2Config(**NARROW)
-    cfg.moe_experts = 2
-    with pytest.raises(NotImplementedError, match="A12"):
-        GPT2DoubleHeads(cfg)
     z = torch.zeros((1, 1, 4), dtype=torch.int32)
     zc = torch.zeros((1, 1), dtype=torch.int32)
+    # MoE blocks run; with a KV cache they keep the reference's
+    # ValueError
+    cfg = GPT2Config(**NARROW)
+    cfg.moe_experts = 2
+    with pytest.raises(ValueError, match="does not support MoE"):
+        GPT2DoubleHeads(cfg)(z, z, zc, train=False,
+                             cache=init_decode_cache(cfg, 1, 8),
+                             position=torch.zeros(1, dtype=torch.int64))
     ring = GPT2DoubleHeads(GPT2Config(**dict(NARROW, attn_impl="ring")))
     with pytest.raises(NotImplementedError, match="A12"):
         ring(z, z, zc, train=False)

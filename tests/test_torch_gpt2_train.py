@@ -6,7 +6,8 @@ CPU, and the GPT2 entry point.
   batches, in sketch mode (the fused path) and in local_topk (the
   per-worker path): loss rtol 1e-5, bytes exact, weights atol 1e-6;
 * the CLI runs one round on the CPU when asked, refuses CUDA without a
-  card, and refuses every unported flag naming its ROADMAP item.
+  card, and refuses every unported flag naming its ROADMAP item (MoE
+  runs; with an expert mesh axis the mesh is refused).
 """
 
 import jax
@@ -124,7 +125,8 @@ def test_cli_refuses_cuda_without_a_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--moe_experts", "4"], "A12"), (["--mesh", "clients=2"], "A12"),
+    (["--moe_experts", "4", "--mesh", "clients=2,expert=2"], "A12"),
+    (["--mesh", "clients=2"], "A12"),
     (["--serve_tp", "2"], "A12"), (["--attn_impl", "ring"], "A12")])
 def test_cli_refuses_unported_flags(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -60,3 +60,18 @@ def test_serving_modules_are_checked_and_import(name):
     path = base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
     assert path in SOURCES
     importlib.import_module(f"commefficient_tpu_torch.{name}")
+
+
+SLICE_17 = ("native", "ops.moe")
+
+
+@pytest.mark.parametrize("name", SLICE_17)
+def test_native_and_moe_modules_are_checked_and_import(name):
+    """The C++ data plane's loader and the MoE layer are among the files
+    read above, and each imports (building nothing: the library is built
+    at first use)."""
+    import importlib
+    base = ROOT / "commefficient_tpu_torch" / name.replace(".", "/")
+    path = base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+    assert path in SOURCES
+    importlib.import_module(f"commefficient_tpu_torch.{name}")

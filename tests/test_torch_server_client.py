@@ -12,7 +12,9 @@ the CPU.
   ``client_step``, on a small linear model: the transmitted support and
   the masked rows exact, values rtol 1e-5 / atol 1e-6 (summation order);
 * ``fedavg_client_step`` with a ragged tail chunk, a ghost chunk and
-  lr decay 0.9 over two local epochs, at the same tolerance."""
+  lr decay 0.9 over two local epochs, at the same tolerance;
+* the verify recipe's toy (``tools/toy_server_rules.py``): every mode
+  drives w to 1 in both packages, the ends within 1e-6."""
 
 import jax
 import jax.numpy as jnp
@@ -205,3 +207,35 @@ def test_fedavg_client_step_matches_jax():
         _close(loss_sum, ref.loss_sum)
         _close(metric_sums, ref.metric_sums)
         assert float(n) == float(ref.num_datapoints) == n_real
+
+
+@pytest.mark.parametrize("mode", ["uncompressed", "true_topk", "local_topk",
+                                  "sketch", "fedavg"])
+def test_toy_server_rules_converge_on_both_packages(mode):
+    """The verify recipe's toy (``tools/toy_server_rules.py``): each mode
+    drives w to 1 within its tolerance in both packages, and the two
+    trajectories' ends agree within 1e-6."""
+    from commefficient_tpu.ops import topk as jax_topk
+    from commefficient_tpu_torch.tools import toy_server_rules as toy
+    got = toy.run(mode)
+    cfg = JaxConfig(virtual_momentum=toy.MOMENTUM, local_momentum=0.0,
+                    **toy.CONFIGS[mode]).finalize(toy.D)
+    sketch = jax_server.make_sketch(cfg) if mode == "sketch" else None
+    state = jax_server.init_server_opt_state(cfg)
+    w = -jnp.arange(toy.D, dtype=jnp.float32) / toy.D
+    for _ in range(toy.ROUNDS):
+        g = 7.0 * (w - 1.0)
+        if mode == "sketch":
+            g = sketch.sketch_vec(g)
+        elif mode == "local_topk":
+            g = jax_topk(g, toy.K)
+        elif mode == "fedavg":
+            g = toy.LR * g
+        update, state = jax_server.server_update(
+            g, state, cfg, 1.0 if mode == "fedavg" else toy.LR,
+            sketch=sketch)
+        w = w - update
+    assert float((got - 1.0).abs().max()) <= toy.TOL
+    assert float(jnp.abs(w - 1.0).max()) <= toy.TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=0,
+                               atol=1e-6)
