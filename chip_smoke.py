@@ -158,9 +158,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    step file exists and a second child with --resume auto: the export
    bitwise this process's, the kernels not rebuilt; a checkpoint's save
    and load timed at d = 6,568,640); finetune (--finetune from that
-   export, 2 rounds: only the head's 5,120 coordinates move); and, with
+   export, 3 rounds, the second a middle round to time: only the
+   head's 5,120 coordinates move); and, with
    the paths above, buffered_local_topk (the reference's preemption
-   config for the buffered server at ResNet9's width);
+   config for the buffered server at ResNet9's width); the one-card
+   baselines of the mesh (A10b): local_topk's flags under FAULT_FLAGS,
+   and with --client_quarantine and a NaN client, each offloaded and
+   device-resident, bitwise;
 5. a reference check on a small input: two rounds of a narrow ResNet9
    learner on CUDA (kernels) and on the CPU (plain versions) from the same
    weights and batches must agree, in sketch, true_topk and local_topk,
@@ -245,7 +249,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    then a fresh learner resumed from round 2's step file for round 3,
    losses and weights bitwise those 3 rounds (the torch generator, which
    dropout draws from, is in the checkpoint), and a checkpoint's save and
-   load timed at d = 124,051,201; then gpt2_moe, the gpt2 flags with
+   load timed at d = 124,051,201; then gpt2_buffered (lock-step: bitwise
+   the gpt2 path) and gpt2_quarantine (the per-worker path, 2 rounds);
+   then the ``clients`` mesh (A12, ``parallel/``): mesh_nccl1 (the sketch
+   flags with --mesh clients=1 through the launcher the CLI uses, a ring
+   of one over NCCL: bitwise the sketch path), then one launch of 2 ranks
+   sharing the card over gloo (``tools/mesh_run.py``): mesh_sketch
+   (twice: the ranks bitwise every round, the runs bitwise, round 1's
+   table against one process's within MESH_TABLE_SLACK times the
+   distance of the same round's two half-batch gradients summed in one
+   process, the trajectory against the sketch path's),
+   mesh_local_topk_offload (offloaded rows bitwise the device-resident
+   mesh rows; each rank's own arena shard read and written),
+   mesh_buffered (lock-step bitwise the sync mesh; FAULT_FLAGS' schedule
+   equal to its CPU replay), mesh_gpt2 (GPT2_FLAGS: the ranks' state
+   bitwise, launches, peak and round time a rank) and the uninterrupted
+   run of mesh_kill_resume (the reference's buffered_mesh arm), whose
+   child is then SIGKILLed after its first step file and resumed with
+   --resume auto: its export bitwise, and loadable in one process;
+   then gpt2_moe, the gpt2 flags with
    --moe_experts 4 (each block's MLP a Switch FFN of 4 experts, capacity
    factor 1.25, aux weight 1e-2; d = 294,095,665) for 3 rounds, twice
    from one seed: the gpt2 path's launches, bitwise over the two runs,
@@ -3233,11 +3255,15 @@ def phase_sigkill_resume(tmpdir):
     return launches, os.path.join(base, f"{args.model}.npz")
 
 
+FINETUNE_ROUNDS = 3   # a middle round to time (the epoch's last is ~0.3 ms)
+
+
 def phase_finetune(export):
     """--finetune from ``export`` (the resume phase's ResNet9 export) for
-    2 rounds of the headline sketch flags: the frozen coordinates keep the
-    export's weights bitwise and never change (last_changed -2), the head
-    (Dense_0, 5,120 coordinates) moves."""
+    FINETUNE_ROUNDS rounds of the headline sketch flags: the frozen
+    coordinates keep the export's weights bitwise and never change
+    (last_changed -2), the head (Dense_0, 5,120 coordinates) moves; the
+    middle round's period is finetune's round time."""
     import torch
 
     from commefficient_tpu_torch.ops import cuda_lib
@@ -3247,7 +3273,7 @@ def phase_finetune(export):
         "--finetune", "--finetune_path", export])
     np.random.seed(args.seed)
     cuda_lib.LAUNCHES.clear()
-    learner, row = train(args, max_rounds=2, log=False)
+    learner, row = train(args, max_rounds=FINETUNE_ROUNDS, log=False)
     torch.cuda.synchronize()
     launches = _launches()
     mask = learner._trainable_mask.cpu() > 0
@@ -3256,7 +3282,8 @@ def phase_finetune(export):
     w = learner.state.weights.cpu()
     changed = learner.state.last_changed.cpu() >= 0
     head = int(mask.sum())
-    if (launches != _scaled(SKETCH_LAUNCHES, 2) or head != HEAD_RESNET9
+    if (launches != _scaled(SKETCH_LAUNCHES, FINETUNE_ROUNDS)
+            or head != HEAD_RESNET9
             or not _same_bits(w[~mask], saved[~mask])
             or bool(changed[~mask].any()) or not bool(changed[mask].any())
             or not all(math.isfinite(r["loss"]) for r in row["rounds"])):
@@ -5066,6 +5093,565 @@ def phase_gpt2_moe(tmpdir, errs, dev):
     return launches
 
 
+# --------------------------------------------------------------------------
+# The clients mesh (A12's clients axis): two ranks share the one card over
+# gloo (NCCL refuses a second rank on a device it already holds); a ring
+# of one runs over NCCL
+# --------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_BACKEND = "gloo"
+# round 1's aggregate table on 2 ranks against one process's, in float32
+# ulps of the table's largest magnitude: the limit is this multiple of
+# the distance between one process's table and the table of the same two
+# half-batch gradients summed in one process (the mesh's reassociation,
+# measured without a mesh)
+MESH_TABLE_SLACK = 2
+# the mesh's trajectory against one process's after round 1: the top-k
+# of a reassociated table may pick other near-threshold coordinates
+MESH_LOSS_RTOL = 1e-3
+MESH_GPT2_ROUNDS = 4
+# the A10b baselines check the placements' equality, not the arenas' size:
+# 20 clients (a multiple of the 10 classes, the non-iid split's partition)
+ROBUST_CLIENTS = 20
+# the reference's buffered_mesh preemption arm (tests/test_preemption.py
+# _CONFIGS) at ResNet9's width, 2 epochs of 3 rounds
+MESH_KILL_FLAGS = _BASE + [
+    "--mode", "local_topk", "--error_type", "local", "--k", "5",
+    "--local_batch_size", "32", "--server_mode", "buffered",
+    "--client_state_offload", "--client_k_dist", "uniform:0.5,1.0",
+    "--num_epochs", RESUME_EPOCHS]
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _sha_of(t) -> str:
+    import hashlib
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _mesh_spec(tmpdir, tag, argv, entry="cv", **kw):
+    return dict(kw, entry=entry, argv=list(argv),
+                out=os.path.join(tmpdir, tag))
+
+
+def _mesh_ranks_agree(tag, recs):
+    """Every rank's replicated state bitwise rank 0's: after every round
+    (where recorded) and at the end, with the same losses and bytes."""
+    a = recs[0]
+    for b in recs[1:]:
+        for key in ("digests", "weights_sha", "vvel_sha", "verr_sha",
+                    "rows_sha", "round_idx"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{tag}: rank {b['rank']}'s {key} "
+                                     f"differs from rank 0's")
+        if [(x["loss_hex"], x["upload_bytes"], x["download_bytes"])
+                for x in a["rounds"]] != [
+                (x["loss_hex"], x["upload_bytes"], x["download_bytes"])
+                for x in b["rounds"]]:
+            raise AssertionError(f"{tag}: rank {b['rank']}'s rounds differ")
+    for rec in recs:
+        if not rec["finite"]:
+            raise AssertionError(f"{tag}: rank {rec['rank']}'s weights are "
+                                 f"not finite")
+
+
+def _mesh_launches(tag, recs, want):
+    """Each rank's launches of its rounds are ``want``; returns their sum
+    over the ranks."""
+    total = {}
+    for rec in recs:
+        if rec["launches"] != want:
+            raise AssertionError(f"{tag}: rank {rec['rank']} launched "
+                                 f"{rec['launches']}, expected {want}")
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _round_ms(rec):
+    return [round(x["round_s"] * 1e3, 3) for x in rec["rounds"]]
+
+
+def _peaks(recs):
+    """Each rank's peak device GiB ("not measured" off the card)."""
+    return [round(r["peak_gib"], 2) if r["peak_gib"] is not None
+            else "not measured" for r in recs]
+
+
+def _ulps_of_largest(got, want) -> float:
+    """max |got - want| in float32 ulps of max |want|."""
+    big = float(np.abs(want).max())
+    ulp = float(np.spacing(np.float32(big)))
+    return float(np.abs(got.astype(np.float64) - want).max()) / ulp
+
+
+def phase_mesh_nccl1(tmpdir, ref):
+    """mesh_nccl1: the headline sketch flags with ``--mesh clients=1``
+    through the launcher the CLI uses, a ring of one over NCCL in this
+    process: 3 rounds bitwise the sketch path (``ref`` from
+    ``phase_repeat``), with its launches."""
+    from commefficient_tpu_torch.tools import mesh_run
+    t0 = time.perf_counter()
+    (rec,), = mesh_run.launch(_mesh_spec(tmpdir, "mesh_nccl1", HEADLINE,
+                                         max_rounds=3, digests=False),
+                              1, "nccl")
+    wall = time.perf_counter() - t0
+    losses, weights, vvel, verr, nbytes = ref
+    got = [(x["upload_bytes"], x["download_bytes"]) for x in rec["rounds"]]
+    if (rec["backend"] != "nccl"
+            or [x["loss_hex"] for x in rec["rounds"]]
+            != [v.hex() for v in losses] or got != nbytes
+            or (rec["weights_sha"], rec["vvel_sha"], rec["verr_sha"])
+            != (_sha_of(weights), _sha_of(vvel), _sha_of(verr))):
+        raise AssertionError(f"mesh_nccl1: not the sketch path's "
+                             f"trajectory: {rec['rounds']} vs {losses}, "
+                             f"{nbytes}")
+    launches = _mesh_launches("mesh_nccl1", [rec], SKETCH_LAUNCHES)
+    print(f"path mesh_nccl1: backend {rec['backend']}, 1 rank, launches "
+          f"{launches}, round ms {_round_ms(rec)}, peak GiB "
+          f"{_peaks([rec])}; losses, bytes, weights, Vvelocity "
+          f"and Verror bitwise the sketch path's ({wall:.1f} s)",
+          flush=True)
+    return launches
+
+
+class _FirstRound:
+    """Keeps the first round's learner, weights, columns and mask."""
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        self.inputs = None
+        self._saved = FedLearner.train_round_async
+        saved = self._saved
+
+        def dispatch(learner, client_ids, batch, mask, **kwargs):
+            if self.inputs is None:
+                self.inputs = (learner, learner.state.weights.clone(),
+                               tuple(batch), np.array(mask))
+            return saved(learner, client_ids, batch, mask, **kwargs)
+        FedLearner.train_round_async = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        FedLearner.train_round_async = self._saved
+
+
+def _one_process_round1_tables():
+    """The sketch path's round-1 aggregate table in this process, and the
+    table of the same round's two half-batch gradients (workers 0-3 and
+    4-7, a mesh rank's each) summed here as the 2-rank fused round sums
+    them: (g0 + g1 + weight decay) / datapoints, then the sketch."""
+    import torch
+
+    from commefficient_tpu_torch.federated import client as client_lib
+    with _RoundTables() as rec, _FirstRound() as first:
+        _cv_run(HEADLINE, rounds=1)
+    learner, w0, cols, mask = first.inputs
+    cfg = learner.cfg
+    m = torch.as_tensor(mask, dtype=torch.float32, device=w0.device)
+    half = cfg.num_workers // MESH_RANKS
+    grads, counts = [], []
+    for r in range(MESH_RANKS):
+        sl = slice(r * half, (r + 1) * half)
+        flat = tuple(c[sl].reshape((-1,) + tuple(c.shape[2:]))
+                     for c in cols)
+        g, _, _ = client_lib._masked_loss_and_grad(
+            learner._loss_train, learner.unflatten, w0, flat,
+            m[sl].reshape(-1), 0)
+        grads.append(g)
+        counts.append(torch.sum(m[sl]))
+    total_n = counts[0] + counts[1]
+    wd = (cfg.weight_decay / cfg.num_workers) * w0 * total_n
+    agg = (grads[0] + grads[1] + wd) / torch.clamp(total_n, min=1.0)
+    halves = learner._round.sketch.sketch_vec(agg).cpu().numpy()
+    whole = rec.tables[0].cpu().numpy()
+    del learner, rec, first, grads, agg, wd, w0, cols
+    _sync()
+    return whole, halves
+
+
+def _check_mesh_sketch(tmpdir, recs_a, recs_b, ref, tables1):
+    """mesh_sketch's checks (see ``phase_mesh``)."""
+    _mesh_ranks_agree("mesh_sketch", recs_a)
+    _mesh_ranks_agree("mesh_sketch (second run)", recs_b)
+    a, b = recs_a[0], recs_b[0]
+    for key in ("weights_sha", "vvel_sha", "verr_sha"):
+        if a[key] != b[key]:
+            raise AssertionError(f"mesh_sketch: the two runs' {key} differ")
+    if [(x["loss_hex"], x["upload_bytes"], x["download_bytes"])
+            for x in a["rounds"]] != [
+            (x["loss_hex"], x["upload_bytes"], x["download_bytes"])
+            for x in b["rounds"]]:
+        raise AssertionError("mesh_sketch: the two runs' rounds differ")
+    tables = [np.load(os.path.join(tmpdir, f"mesh_sketch_rank{r}_table.npy"))
+              for r in range(MESH_RANKS)]
+    if not all(np.array_equal(tables[0], t) for t in tables[1:]):
+        raise AssertionError("mesh_sketch: the ranks' round-1 tables differ")
+    whole, halves = tables1
+    ulps = _ulps_of_largest(tables[0], whole)
+    limit = MESH_TABLE_SLACK * _ulps_of_largest(halves, whole)
+    if ulps > limit:
+        raise AssertionError(f"mesh_sketch: round 1's table {ulps:.1f} ulps "
+                             f"of its largest cell from one process's "
+                             f"(limit {limit:.1f})")
+    same_as_halves = bool(np.array_equal(tables[0], halves))
+    losses, _, _, _, nbytes = ref
+    got = [x["loss"] for x in a["rounds"]]
+    up = [x["upload_bytes"] for x in a["rounds"]]
+    down = [x["download_bytes"] for x in a["rounds"]]
+    if (up != [n[0] for n in nbytes] or down[:2] != [n[1] for n in
+                                                     nbytes[:2]]
+            or not math.isclose(got[0], losses[0], rel_tol=1e-5)
+            or not all(math.isclose(x, y, rel_tol=MESH_LOSS_RTOL)
+                       for x, y in zip(got, losses))):
+        raise AssertionError(f"mesh_sketch: trajectory {got}, up {up}, "
+                             f"down {down} against the sketch path's "
+                             f"{losses}, {nbytes}")
+    return (ulps, limit, same_as_halves), got, down
+
+
+def phase_mesh(tmpdir, ref):
+    """The mesh paths on 2 ranks sharing the card over gloo, in one
+    launch (the ranks start once), the counters zeroed in each rank just
+    before each run:
+
+    * mesh_sketch: the headline sketch flags, twice (the second with no
+      per-round digest, for its round times): the ranks bitwise each
+      other every round; the two runs' losses, bytes and final state
+      bitwise; round 1's aggregate
+      table within MESH_TABLE_SLACK times the distance of the half-batch
+      sum's table from this process's (``_one_process_round1_tables``),
+      and whether it is bitwise that sum's; against the sketch path
+      (``ref``): upload bytes every
+      round, download bytes of rounds 1-2 exact, round 1's loss rtol
+      1e-5 and every loss within MESH_LOSS_RTOL;
+    * mesh_gpt2: ``GPT2_FLAGS``, MESH_GPT2_ROUNDS rounds, no per-round
+      digest (it reads the state back and would stretch the rounds): the
+      ranks' final state bitwise; flash, sketch and recovery launches per
+      rank; peak GiB a rank; steady round ms;
+    * mesh_local_topk_offload: local_topk's flags with
+      --client_state_offload, and without: the offloaded rows bitwise the
+      device-resident mesh rows after 3 rounds; each rank reads and
+      writes its own arena shard;
+    * mesh_buffered: the sketch flags with --server_mode buffered
+      (lock-step), bitwise mesh_sketch; then FAULT_FLAGS over
+      FAULT_COHORTS cohorts, its schedule equal to its one-process CPU
+      replay of the same cohorts;
+    * the uninterrupted run of mesh_kill_resume (``phase_mesh_kill``).
+
+    Returns (launches summed over the ranks, the kill arm's export)."""
+    from commefficient_tpu_torch.tools import mesh_run
+    from commefficient_tpu_torch.training.args import build_parser
+    tables1 = _one_process_round1_tables()
+    base = os.path.join(tmpdir, "mesh_kill_base")
+    specs = [
+        _mesh_spec(tmpdir, "mesh_sketch", HEADLINE, max_rounds=3,
+                   record_table=True),
+        _mesh_spec(tmpdir, "mesh_sketch_b", HEADLINE, max_rounds=3,
+                   digests=False),
+        _mesh_spec(tmpdir, "mesh_offload", PATHS["local_topk_offload"][0],
+                   max_rounds=3),
+        _mesh_spec(tmpdir, "mesh_device_rows", PATHS["local_topk"][0],
+                   max_rounds=3),
+        _mesh_spec(tmpdir, "mesh_lockstep",
+                   HEADLINE + ["--server_mode", "buffered"], max_rounds=3),
+        _mesh_spec(tmpdir, "mesh_faults", HEADLINE + FAULT_FLAGS,
+                   max_rounds=FAULT_COHORTS, record_cohorts=True),
+        _mesh_spec(tmpdir, "mesh_kill_base", MESH_KILL_FLAGS + [
+            "--checkpoint", "--checkpoint_path", base,
+            "--checkpoint_every_rounds", "2"]),
+        _mesh_spec(tmpdir, "mesh_gpt2", GPT2_FLAGS + [
+            "--dataset_dir", tmpdir], entry="gpt2",
+            max_rounds=MESH_GPT2_ROUNDS, digests=False),
+    ]
+    t0 = time.perf_counter()
+    (sk_a, sk_b, off, dev_rows, lock, faults, kill_base,
+     gpt2) = mesh_run.launch(specs, MESH_RANKS, MESH_BACKEND)
+    wall = time.perf_counter() - t0
+    if any(r["backend"] != MESH_BACKEND or r["world"] != MESH_RANKS
+           for recs in (sk_a, gpt2) for r in recs):
+        raise AssertionError("mesh: not the 2-rank gloo group")
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # mesh_sketch
+    (ulps, limit, same), losses, down = _check_mesh_sketch(
+        tmpdir, sk_a, sk_b, ref, tables1)
+    add(_mesh_launches("mesh_sketch", sk_a, SKETCH_LAUNCHES))
+    add(_mesh_launches("mesh_sketch", sk_b, SKETCH_LAUNCHES))
+    print(f"path mesh_sketch: {MESH_RANKS} ranks on one card over "
+          f"{MESH_BACKEND}, launches a rank {sk_a[0]['launches']}; ranks "
+          f"bitwise every round, two runs bitwise; round 1's table "
+          f"{ulps:.2f} ulps of its largest cell from one process's (limit "
+          f"{limit:.2f}: {MESH_TABLE_SLACK}x the half-batch sum's), bitwise "
+          f"the half-batch sum's table: {same}; losses "
+          f"{[round(x, 6) for x in losses]} "
+          f"against the sketch path's {[round(x, 6) for x in ref[0]]}, "
+          f"download B {down} against {[n[1] for n in ref[4]]}; round ms "
+          f"(the second run, no digest) rank 0 {_round_ms(sk_b[0])}, rank 1 "
+          f"{_round_ms(sk_b[1])}; peak GiB {_peaks(sk_a)}", flush=True)
+    # mesh_gpt2
+    _mesh_ranks_agree("mesh_gpt2", gpt2)
+    add(_mesh_launches("mesh_gpt2", gpt2,
+                       _scaled(GPT2_SKETCH, MESH_GPT2_ROUNDS)))
+    if gpt2[0]["d"] != D_GPT2:
+        raise AssertionError(f"mesh_gpt2: d = {gpt2[0]['d']}")
+    steady = [x["round_s"] * 1e3 for x in gpt2[0]["rounds"][1:3]]
+    print(f"path mesh_gpt2: d = {D_GPT2}, launches a rank "
+          f"{gpt2[0]['launches']}, ranks' final state bitwise; losses "
+          f"{[round(x['loss'], 6) for x in gpt2[0]['rounds']]}; round ms "
+          f"rank 0 {_round_ms(gpt2[0])}, rank 1 {_round_ms(gpt2[1])} "
+          f"(steady {np.mean(steady):.3f}); peak GiB {_peaks(gpt2)}",
+          flush=True)
+    # mesh_local_topk_offload
+    for tag, recs in (("mesh_local_topk_offload", off),
+                      ("mesh_device_rows", dev_rows)):
+        _mesh_ranks_agree(tag, recs)
+        add(_mesh_launches(tag, recs, LOCAL_TOPK))
+    if (off[0]["rows_sha"], off[0]["weights_sha"], off[0]["digests"]) != (
+            dev_rows[0]["rows_sha"], dev_rows[0]["weights_sha"],
+            dev_rows[0]["digests"]):
+        raise AssertionError("mesh_local_topk_offload: the offloaded rows "
+                             "or state are not the device-resident mesh's")
+    for r, rec in enumerate(off):
+        own = (rec["shard_reads"][r], rec["shard_writes"][r])
+        other = [x for s, x in enumerate(rec["shard_reads"]
+                                         + rec["shard_writes"])
+                 if s % MESH_RANKS != r]
+        if min(own) <= 0 or any(other):
+            raise AssertionError(f"mesh_local_topk_offload: rank {r}'s "
+                                 f"shard reads {rec['shard_reads']}, "
+                                 f"writes {rec['shard_writes']}")
+    print(f"path mesh_local_topk_offload: launches a rank "
+          f"{off[0]['launches']}; rows and state after 3 rounds bitwise "
+          f"the device-resident mesh run's; shard reads "
+          f"{[r['shard_reads'] for r in off]}, writes "
+          f"{[r['shard_writes'] for r in off]}; arena "
+          f"{off[0]['arena_bytes']} B a rank; round ms offload "
+          f"{_round_ms(off[0])}, device {_round_ms(dev_rows[0])}",
+          flush=True)
+    # mesh_buffered
+    _mesh_ranks_agree("mesh_buffered lock-step", lock)
+    _mesh_ranks_agree("mesh_buffered faults", faults)
+    add(_mesh_launches("mesh_buffered lock-step", lock, SKETCH_LAUNCHES))
+    if (lock[0]["digests"], lock[0]["weights_sha"], lock[0]["vvel_sha"]) \
+            != (sk_a[0]["digests"], sk_a[0]["weights_sha"],
+                sk_a[0]["vvel_sha"]) or lock[0]["applies"] != 3:
+        raise AssertionError("mesh_buffered: lock-step is not the sync mesh "
+                             "run")
+    fa = faults[0]
+    add(_mesh_launches("mesh_buffered faults", faults,
+                       _scaled(SKETCH_LAUNCHES, fa["applies"])))
+    with np.load(os.path.join(tmpdir, "mesh_faults_rank0_cohorts.npz")) as z:
+        cohorts = list(zip(z["ids"], z["masks"]))
+    args = build_parser().parse_args(HEADLINE + FAULT_FLAGS)
+    stats, applies, sim_time = _replay_schedule_on_cpu(
+        args, fa["num_clients"], cohorts)
+    if (dict(stats), applies, sim_time) != (fa["fault_stats"], fa["applies"],
+                                            fa["sim_time"]):
+        raise AssertionError(f"mesh_buffered: the mesh's schedule "
+                             f"{fa['fault_stats']}, {fa['applies']}, "
+                             f"{fa['sim_time']} != the CPU replay's "
+                             f"{stats}, {applies}, {sim_time}")
+    if min(fa["fault_stats"]["dropouts"], fa["fault_stats"]["crashes"]) < 1:
+        raise AssertionError(f"mesh_buffered: no dropout or crash drawn: "
+                             f"{fa['fault_stats']}")
+    print(f"path mesh_buffered: lock-step bitwise the sync mesh run every "
+          f"round; faults: {len(cohorts)} cohorts, {fa['applies']} applies, "
+          f"stats {fa['fault_stats']}, sim_time {fa['sim_time']!r}, equal "
+          f"to the one-process CPU replay; launches a rank "
+          f"{fa['launches']}; cohort ms {_round_ms(fa)}", flush=True)
+    _mesh_ranks_agree("mesh_kill_resume (uninterrupted)", kill_base)
+    add(_mesh_launches("mesh_kill_resume (uninterrupted)", kill_base,
+                       _scaled(LOCAL_TOPK, 6)))
+    print(f"mesh: one launch of {len(specs)} runs on {MESH_RANKS} ranks in "
+          f"{wall:.1f} s", flush=True)
+    return launches, base
+
+
+def phase_mesh_kill(tmpdir, base):
+    """mesh_kill_resume: the reference's buffered_mesh arm
+    (MESH_KILL_FLAGS: lock-step buffered local_topk at k 5, offloaded
+    rows, per-client budgets) on 2 ranks, through
+    ``tools.mesh_run``'s command line: a child SIGKILLed (its process
+    group: the launcher and both ranks) once its first step file is
+    there, then one with --resume auto: its export bitwise the
+    uninterrupted run's (``base``, from ``phase_mesh``), the previous
+    step file intact; the export then loads in a one-process run."""
+    import signal
+
+    from commefficient_tpu_torch.training.args import build_parser
+    from commefficient_tpu_torch.utils.checkpoint import load_checkpoint
+    name = build_parser().parse_args(MESH_KILL_FLAGS).model
+    ckpt = os.path.join(tmpdir, "mesh_kill")
+    flags = MESH_KILL_FLAGS + ["--checkpoint", "--checkpoint_path", ckpt,
+                               "--checkpoint_every_rounds", "2"]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    cmd = [sys.executable, "-m", "commefficient_tpu_torch.tools.mesh_run",
+           "--entry", "cv", "--ranks", str(MESH_RANKS), "--backend",
+           MESH_BACKEND, "--out", os.path.join(tmpdir, "mesh_kill")]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd + ["--"] + flags, env=env,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             start_new_session=True)
+    killed_at = None
+    try:
+        while time.perf_counter() - t0 < 300:
+            if child.poll() is not None:
+                raise AssertionError(f"mesh_kill_resume: the child exited "
+                                     f"(rc={child.returncode}) before the "
+                                     f"kill:\n{child.stdout.read()}")
+            if os.path.isdir(ckpt) and any(
+                    "_r" in f and f.endswith(".npz")
+                    for f in os.listdir(ckpt)):
+                os.killpg(child.pid, signal.SIGKILL)
+                killed_at = sorted(os.listdir(ckpt))
+                break
+            time.sleep(0.01)
+        out, _ = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            os.killpg(child.pid, signal.SIGKILL)
+            child.wait()
+    first_s = time.perf_counter() - t0
+    if child.returncode != -signal.SIGKILL \
+            or os.path.exists(os.path.join(ckpt, f"{name}.npz")):
+        raise AssertionError(f"mesh_kill_resume: the child ended with "
+                             f"{child.returncode}:\n{out}")
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd + ["--", *flags, "--resume", "auto"],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    second_s = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"mesh_kill_resume: the resumed child failed "
+                             f"({done.returncode}):\n{done.stdout}\n"
+                             f"{done.stderr}")
+    if not _same_export(_export(base, name), _export(ckpt, name)):
+        raise AssertionError("mesh_kill_resume: the resumed run's export "
+                             "is not the uninterrupted run's")
+    learner, _ = _cv_run([f for f in MESH_KILL_FLAGS], rounds=1)
+    export = os.path.join(ckpt, f"{name}.npz")
+    load_checkpoint(export, learner)
+    with np.load(export) as z:
+        saved = z[f"arr_{int(z['weights_idx'])}"]
+    if not np.array_equal(learner.state.weights.cpu().numpy(), saved):
+        raise AssertionError("mesh_kill_resume: the mesh export does not "
+                             "load in one process")
+    del learner
+    _sync()
+    print(f"path mesh_kill_resume: child (launcher + {MESH_RANKS} ranks) "
+          f"SIGKILLed at {killed_at} after {first_s:.3f} s; the resumed "
+          f"child ({second_s:.3f} s): its export bitwise the "
+          f"uninterrupted mesh run's (state, host rows, bytes, generator); "
+          f"the export loads in one process", flush=True)
+
+
+def phase_offload_robust():
+    """A10b's one-card baselines of the mesh phases: local_topk's flags at
+    ROBUST_CLIENTS clients (1) under FAULT_FLAGS for FAULT_COHORTS cohorts
+    with --client_state_offload and without, and (2) with
+    --client_quarantine, worker 0's images NaN in round 2, offloaded and
+    not: in each pair the client rows and the state bitwise (ROADMAP
+    C14)."""
+    from commefficient_tpu_torch.ops import cuda_lib
+    flags = PATHS["local_topk"][0] + ["--num_clients", str(ROBUST_CLIENTS)]
+    out = {}
+    for tag, extra, rounds, ctx in (
+            ("buffered_offload_faults", FAULT_FLAGS, FAULT_COHORTS,
+             nullcontext),
+            ("quarantine_offload", ["--client_quarantine"], 3,
+             lambda: _PoisonRound(at=2))):
+        runs = []
+        for offload in ([], ["--client_state_offload"]):
+            cuda_lib.LAUNCHES.clear()
+            with ctx() as probe:
+                learner, row = _cv_run(flags + extra + offload,
+                                       rounds=rounds)
+            _sync()
+            runs.append(((learner, row), _launches(),
+                         getattr(probe, "seen", None),
+                         [round(r["round_s"] * 1e3, 3)
+                          for r in row["rounds"]]))
+        (a, la, sa, ma), (b, lb, sb, mb) = runs
+        _assert_same_runs(tag, a, b)
+        if la != lb or sa != sb:
+            raise AssertionError(f"{tag}: launches {la} vs {lb}, "
+                                 f"quarantine {sa} vs {sb}")
+        if tag == "quarantine_offload" and sa[1] != (1.0, 1):
+            raise AssertionError(f"{tag}: (dropped, quarantined) {sa}")
+        for k, v in la.items():
+            out[k] = out.get(k, 0) + 2 * v
+        print(f"path {tag}: launches {la}; rows, weights, Vvelocity and "
+              f"losses bitwise offloaded and device-resident"
+              f"{'; (dropped, quarantined) a round ' + str(sa) if sa else ''}"
+              f"; round ms device {ma}, offload {mb}", flush=True)
+        del runs, a, b
+        _sync()
+    return out
+
+
+def phase_gpt2_robust(tmpdir, ref):
+    """The buffered server and quarantine on the GPT2 entry point:
+    ``GPT2_FLAGS`` with --server_mode buffered (lock-step), 3 rounds
+    bitwise the gpt2 path's (``ref`` from ``phase_repeat_gpt2``); and with
+    --client_quarantine, 2 rounds of the per-worker path (a forward and
+    backward a client), nothing excluded, finite."""
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    losses, weights = ref
+    out = {}
+    for tag, extra, rounds, want in (
+            ("gpt2_buffered", ["--server_mode", "buffered"], 3,
+             GPT2_SKETCH),
+            ("gpt2_quarantine", ["--client_quarantine"], 2,
+             _scaled(dict(RECOVERY, flash_fwd=144, flash_bwd_dq=144,
+                          flash_bwd_dkv=144, sketch=3), 2))):
+        args = build_gpt2_parser().parse_args(GPT2_FLAGS + extra + [
+            "--dataset_dir", tmpdir])
+        np.random.seed(args.seed)
+        cuda_lib.LAUNCHES.clear()
+        learner, row = train(args, max_rounds=rounds, log=False)
+        _sync()
+        got = row["launches_after_rounds"]
+        rs = row["rounds"]
+        if got != want or not all(math.isfinite(r["loss"]) for r in rs) \
+                or any(r["aborted"] for r in rs):
+            raise AssertionError(f"{tag}: launches {got} != {want}, or "
+                                 f"rounds {rs}")
+        if tag == "gpt2_buffered" and (
+                [r["loss"].hex() for r in rs] != [v.hex() for v in losses]
+                or not _same_bits(learner.state.weights, weights)):
+            raise AssertionError("gpt2_buffered: not the gpt2 path's "
+                                 "trajectory")
+        if tag == "gpt2_quarantine" and int(
+                (learner.state.quarantine > 0).sum()) != 0:
+            raise AssertionError("gpt2_quarantine: a finite client benched")
+        for k, v in got.items():
+            out[k] = out.get(k, 0) + v
+        print(f"path {tag}: launches {got}, losses "
+              f"{[round(r['loss'], 6) for r in rs]}, round ms "
+              f"{[round(r['round_s'] * 1e3, 3) for r in rs]}"
+              f"{', bitwise the gpt2 path' if tag == 'gpt2_buffered' else ''}",
+              flush=True)
+        del learner, row
+        _sync()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5121,13 +5707,14 @@ def main() -> int:
     sketch_ref = phase_repeat(dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         robust = [phase_buffered_lockstep(sketch_ref),
-                  phase_buffered_faults(), phase_quarantine()]
+                  phase_buffered_faults(), phase_quarantine(),
+                  phase_offload_robust()]
         resume_launches, export = phase_sigkill_resume(tmpdir)
         robust += [resume_launches, phase_finetune(export)]
     for counts in robust:
         for kernel, n in counts.items():
             launches[kernel] = launches.get(kernel, 0) + n
-    del sketch_ref, robust
+    del robust
     phase_reference(dev)
     phase_flash_parity(dev, errs)
     times.update(phase_flash_timing(dev))
@@ -5153,10 +5740,19 @@ def main() -> int:
                                              profile=True).items():
                 launches[kernel] = launches.get(kernel, 0) + n
         gpt2_ref = phase_repeat_gpt2(tmpdir)
-        for phase in (phase_gpt2_scan, phase_gpt2_resume):
+        for phase in (phase_gpt2_scan, phase_gpt2_resume,
+                      phase_gpt2_robust):
             for kernel, n in phase(tmpdir, gpt2_ref).items():
                 launches[kernel] = launches.get(kernel, 0) + n
         del gpt2_ref
+        # the clients mesh, mesh_gpt2 on the persona cache made above
+        mesh = [phase_mesh_nccl1(tmpdir, sketch_ref)]
+        mesh_launches, base = phase_mesh(tmpdir, sketch_ref)
+        phase_mesh_kill(tmpdir, base)
+        for counts in mesh + [mesh_launches]:
+            for kernel, n in counts.items():
+                launches[kernel] = launches.get(kernel, 0) + n
+        del sketch_ref
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmpdir:
         for kernel, n in phase_gpt2_moe(tmpdir, errs, dev).items():

@@ -60,7 +60,7 @@ class _CudaCopier:
 
 
 def device_prefetch(batches: Iterable, size: int = 2,
-                    device="cuda") -> Iterator:
+                    device="cuda", workers: slice = slice(None)) -> Iterator:
     """Yield the ``(client_ids, cols, mask)`` items of ``batches`` in order,
     with the columns of up to ``size`` of them already on their way to
     ``device``.
@@ -71,7 +71,8 @@ def device_prefetch(batches: Iterable, size: int = 2,
     slots the mask marks valid) and the per-worker seeds (the ids); a read
     of a device copy would wait for the rounds queued before it. The
     learner copies them (a few hundred bytes) from pinned memory without
-    blocking. On a CUDA device the columns' copies run from pinned memory
+    blocking. ``workers``: the columns' worker slots to move (a mesh
+    rank's ``worker_block``; the ids and mask stay whole). On a CUDA device the columns' copies run from pinned memory
     on a side stream (``_CudaCopier``); on the CPU the tensors share the
     arrays' memory."""
     if size < 1:
@@ -81,6 +82,7 @@ def device_prefetch(batches: Iterable, size: int = 2,
 
     def put(item):
         ids, cols, mask = item
+        cols = [np.asarray(a)[workers] for a in cols]
         if copier is None:
             tensors = [torch.as_tensor(np.asarray(a)) for a in cols]
             return ids, tensors, mask, None

@@ -1,6 +1,6 @@
 """High-level federated training API (port of ``FedLearner``,
 ``HostOffloadPipeline``, ``RoundPipeline`` and ``ScanWindow`` in
-``commefficient_tpu/federated/api.py``; the mesh is ROADMAP.md A12).
+``commefficient_tpu/federated/api.py``).
 
     learner = FedLearner(model, cfg, loss_train, loss_val, device="cuda")
     metrics = learner.train_round(client_ids, batch, mask)   # one fed round
@@ -39,6 +39,14 @@ aligned to the tiled sketch's 128-lane blocks in sketch mode.
 the keyed Philox stream (``faults.cohort_client_ks``, memoized per
 client) and passed to the round as one device tensor.
 
+``mesh=`` (``parallel/mesh.py``, a ``DeviceMesh`` with a ``clients``
+dimension; every rank builds the same learner and is fed the same
+batches): the learner keeps the rank's row block of the client rows (or
+its shard of the host arenas), hands the round its workers' columns and
+the whole ids and mask, and every rank's weights and server state stay
+bitwise the others'. The generator is seeded alike on every rank, so the
+rounds' seeds, and the server's draws from them, are the same on all.
+
 Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
 (the reference's round rng) and draws one seed from it per round.
 
@@ -72,6 +80,7 @@ from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      ClientState,
                                                      make_grad_buckets)
 from commefficient_tpu_torch.ops.countsketch import LANES
+from commefficient_tpu_torch.parallel import mesh as mesh_lib
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.params import flatten_params
 
@@ -80,13 +89,26 @@ class FedLearner:
     def __init__(self, model: torch.nn.Module, cfg: FedConfig,
                  loss_train: Callable, loss_val: Optional[Callable] = None,
                  lr_schedule: Optional[Callable] = None, device="cuda",
-                 seed: int = 0, lr_scale_vec=None, trainable_mask=None):
+                 seed: int = 0, lr_scale_vec=None, trainable_mask=None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.generator = torch.Generator().manual_seed(int(seed))
         self.model = model.to(self.device)
         flat, self.unflatten = flatten_params(self.model)
         self.cfg = cfg.finalize(flat.shape[0])
-        self.state: FedState = init_fed_state(self.cfg, flat)
+        self.mesh = mesh
+        self.worker_slice = slice(None)
+        num_rows = None
+        if mesh is not None:
+            # the reference's _check_mesh, before anything is allocated
+            from commefficient_tpu_torch.federated.round import check_mesh
+            check_mesh(self.cfg, mesh)
+            self.worker_slice = mesh_lib.worker_block(self.cfg.num_workers,
+                                                      mesh)
+            lo, hi = mesh_lib.row_block(self.cfg.num_clients, mesh)
+            num_rows = hi - lo
+        self.state: FedState = init_fed_state(self.cfg, flat,
+                                              num_rows=num_rows)
         self.codec = make_codec(self.cfg)
         self._offload = (self.cfg.client_state_offload
                          and self.cfg.has_client_state)
@@ -95,8 +117,11 @@ class FedLearner:
             # --topk_down's stale weights start at the initial weights
             fill = (flat.detach().cpu() if self.cfg.needs_client_weights
                     else None)
-            self.host_store = HostArenaStore(self.cfg, self.codec,
-                                             flat_weights=fill)
+            self.host_store = HostArenaStore(
+                self.cfg, self.codec, flat_weights=fill,
+                num_shards=mesh_lib.clients_size(mesh),
+                local_shard=(None if mesh is None
+                             else mesh_lib.clients_rank(mesh)))
             self.host_clients = {f: self.host_store.view(f)
                                  for f in CLIENT_STATE_FIELDS}
             self._offload_pipe = HostOffloadPipeline(
@@ -119,7 +144,8 @@ class FedLearner:
         self._trainable_mask = trainable_mask
         self._round = build_round_step(loss_train, self.unflatten, self.cfg,
                                        buckets=self.grad_buckets,
-                                       trainable_mask=trainable_mask)
+                                       trainable_mask=trainable_mask,
+                                       mesh=mesh)
         if self._round.sketch is not None:
             # the kernels' hash tables reach the card here, not by blocking
             # copies inside the first round
@@ -159,6 +185,14 @@ class FedLearner:
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
 
+    def _cols(self, c, stacked: bool = False):
+        """A batch column on the device: on a mesh this rank's workers
+        only (a prefetched column arrives sliced already)."""
+        if (self.mesh is not None
+                and c.shape[1 if stacked else 0] == self.cfg.num_workers):
+            c = c[:, self.worker_slice] if stacked else c[self.worker_slice]
+        return self._to_device(c)
+
     def _client_ks(self, client_ids) -> torch.Tensor:
         """The cohort's (W,) ``--client_k_dist`` budgets as one device
         tensor (a pure function of (cfg.seed, client), memoized)."""
@@ -193,7 +227,7 @@ class FedLearner:
                         else epoch_frac)
         seed = self._next_seed()
         args = (self._to_device(client_ids, torch.int32),
-                tuple(self._to_device(c) for c in batch),
+                tuple(self._cols(c) for c in batch),
                 self._to_device(mask, torch.float32), self._lr_in(lr), seed)
         ks = (self._client_ks(client_ids) if self.cfg.client_k_active
               else None)
@@ -261,7 +295,7 @@ class FedLearner:
         lrs = [self.lr_at(float(t)) for t in ts]
         seeds = [self._next_seed() for _ in range(K)]
         ids = self._to_device(ids_host, torch.int32)
-        cols = tuple(self._to_device(c) for c in batches)
+        cols = tuple(self._cols(c, stacked=True) for c in batches)
         m = self._to_device(masks, torch.float32)
         ks = None
         if self.cfg.client_k_active:
@@ -533,7 +567,9 @@ class HostOffloadPipeline:
     def _build_gather(self, ids_np):
         """The sampled clients' encoded rows, W-leading, on the device.
         Out-of-range ids (padded slots) clamp, as a device gather would;
-        their rows are inert (zero mask)."""
+        their rows are inert (zero mask). On a mesh only the slots of the
+        clients this rank's arena owns are filled: the round routes them
+        to their workers' ranks."""
         store = self.learner.host_store
         t0 = time.perf_counter()
         slot = self._gather_slot
@@ -549,6 +585,8 @@ class HostOffloadPipeline:
             key = (field, slot, W)
             host = self._staging_for(key)
             for w, cid in enumerate(cids):
+                if not store.owns(cid):
+                    continue
                 hit = self._pending_row(field, cid)
                 if hit is not None:
                     hits[w] = hit
@@ -640,7 +678,7 @@ class HostOffloadPipeline:
                 continue
             host = self._to_host(new, event, field)
             for w, cid in enumerate(ids_np):
-                if valid[w] and 0 <= cid < store.num_rows:
+                if valid[w] and store.owns(cid):
                     store.set_row(field, int(cid),
                                   tree_map(lambda a: a[w], host))
         self.stats["flushed_rounds"] += 1

@@ -1,5 +1,5 @@
 """Buffered asynchronous aggregation (FedBuff) under the seeded fault model
-(port of ``commefficient_tpu/federated/buffer.py`` without its mesh).
+(port of ``commefficient_tpu/federated/buffer.py``).
 
 The sync round is a lock-step barrier: the server waits for every sampled
 client, so one straggler or dropout stalls the cohort. The buffered
@@ -36,6 +36,15 @@ excluded at apply by a select and its client benched; under
 learner's ``HostOffloadPipeline`` and the apply hands the rows it would
 scatter back to the pipeline, the dropped slots marked by the sentinel
 id ``num_clients`` (the sink row's index).
+
+On a ``mesh`` the buffer is sharded as the reference's
+``buffer_state_shardings``: rank r owns the slots ``slot_block(M)`` (and
+a sink of its own). A cohort runs each rank's workers and joins their
+contributions in worker order on every rank; a deposit writes each taken
+slot on the rank that owns its buffer slot; the apply sums each rank's
+slots and joins the sums with ``all_reduce``, and the tail writes the
+slots' rows back to their owners. The fault schedule is the host's and
+reads only the whole cohort, so it does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -49,20 +58,24 @@ import torch
 from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.faults import FaultModel
+from commefficient_tpu_torch.federated.client import ClientStepOut
 from commefficient_tpu_torch.federated.round import (FedState,
                                                      build_client_phase,
                                                      build_server_tail,
                                                      client_sketch_of,
                                                      download_counts,
-                                                     finite_contributions)
+                                                     finite_contributions,
+                                                     mesh_client_rows)
 from commefficient_tpu_torch.federated.server import make_sketch
 from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      BufferState)
+from commefficient_tpu_torch.parallel import mesh as mesh_lib
+
 
 def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
                           cfg: FedConfig,
                           trainable_mask: Optional[torch.Tensor] = None,
-                          sketch=None):
+                          sketch=None, mesh=None):
     """``(cohort, deposit, apply)`` for this config (``cfg`` finalized):
 
         cohort(state, ids (W,) int64, batch, mask, lr, seed, rows=None,
@@ -72,12 +85,30 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
         apply(state, lr, seed) -> (state, metrics), or under offload
             (state, (writeback ids (M,), encoded rows), metrics)
 
-    ``sketch``: the round's ``CountSketch`` to share (else one is made)."""
+    ``sketch``: the round's ``CountSketch`` to share (else one is made).
+    On a ``mesh`` the cohort takes this rank's workers' columns (the ids
+    and mask whole) and returns every worker's slot, and the buffer holds
+    this rank's ``slot_block`` of M plus a sink."""
     cfg.validate()
     if cfg.server_mode != "buffered":
         raise ValueError("build_buffer_programs needs server_mode="
                          f"'buffered', got {cfg.server_mode!r}")
     M = cfg.effective_buffer_m
+    ws, m_lo, m_hi = slice(None), 0, M
+    if mesh is not None:
+        n_shards = mesh_lib.clients_size(mesh)
+        for name, val in (("num_workers", cfg.num_workers),
+                          ("num_clients", cfg.num_clients),
+                          ("buffer_m", M)):
+            if val % n_shards:
+                raise ValueError(
+                    f"{name} ({val}) must be divisible by the mesh "
+                    f"'clients' axis size ({n_shards}) — buffered slot "
+                    f"rows shard over that axis (each shard owns its "
+                    f"own slots)")
+        ws = mesh_lib.worker_block(cfg.num_workers, mesh)
+        m_lo, m_hi = mesh_lib.slot_block(M, mesh)
+    m_loc = m_hi - m_lo
     if cfg.mode == "sketch" and sketch is None:
         sketch = make_sketch(cfg)
     offload = cfg.client_state_offload and cfg.has_client_state
@@ -88,7 +119,16 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
                               and client_sketch_of(cfg, sketch) is None)
     clients = build_client_phase(apply_loss, unflatten, cfg, sketch,
                                  trainable_mask)
-    server_tail = build_server_tail(cfg, sketch, trainable_mask)
+    server_tail = build_server_tail(cfg, sketch, trainable_mask, mesh)
+
+    def gather(x):
+        """A rank's block joined into the whole on every rank (identity
+        off a mesh)."""
+        return x if mesh is None or x is None else \
+            mesh_lib.all_gather_cat(x, mesh)
+
+    def reduce(x):
+        return x if mesh is None else mesh_lib.all_reduce_sum(x, mesh)
 
     def cohort(state: FedState, ids, batch, mask, lr, seed, rows=None,
                client_ks=None):
@@ -101,7 +141,15 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
         # billed at apply, gated by that apply's guard
         counts = download_counts(state.last_changed,
                                  state.client_last_round[ids])
-        out = clients(state, ids, batch, mask, lr, seed, rows, client_ks)
+        if mesh is None:
+            out = clients(state, ids, batch, mask, lr, seed, rows,
+                          client_ks)
+        else:
+            out = clients(state, ids[ws], batch, mask[ws], lr, seed,
+                          mesh_client_rows(state, ids.tolist(), rows, mesh,
+                                           ws),
+                          None if client_ks is None else client_ks[ws])
+            out = ClientStepOut(*(gather(x) for x in out))
         contrib = BufferState(
             transmit=out.transmit, loss_sum=out.loss_sum,
             metric_sums=out.metric_sums,
@@ -141,6 +189,10 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
         ti = take_eff.to(torch.int32)
         slots = torch.where(take_eff, buf.count + torch.cumsum(ti, 0) - 1,
                             M).long()
+        if mesh is not None:
+            # this rank writes the taken slots it owns
+            slots = torch.where((slots >= m_lo) & (slots < m_hi),
+                                slots - m_lo, m_loc)
         for field in ("transmit", "loss_sum", "metric_sums",
                       "num_datapoints", "download_floats", "cid",
                       "start_version") + CLIENT_STATE_FIELDS:
@@ -148,21 +200,21 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
             if dst is not None and src is not None:
                 dst[slots] = src
         buf.valid[slots] = True
-        buf.valid[M] = False
+        buf.valid[m_loc] = False
         buf.count = buf.count + torch.sum(ti)
         return buf
 
     def apply(state: FedState, lr, seed):
         buf = state.buffer
-        transmit, loss_sum, n = (buf.transmit[:M], buf.loss_sum[:M],
-                                 buf.num_datapoints[:M])
-        cid, start = buf.cid[:M], buf.start_version[:M]
-        vmask = buf.valid[:M] & (torch.arange(M, device=cid.device)
-                                 < buf.count)
+        transmit, loss_sum, n = (buf.transmit[:m_loc], buf.loss_sum[:m_loc],
+                                 buf.num_datapoints[:m_loc])
+        cid, start = buf.cid[:m_loc], buf.start_version[:m_loc]
+        vmask = buf.valid[:m_loc] & (
+            torch.arange(m_lo, m_hi, device=cid.device) < buf.count)
         if quarantine:
             # per-contribution exclusion by a select (NaN * 0 is NaN)
             finite_b = (torch.isfinite(loss_sum) & torch.all(
-                torch.isfinite(transmit.reshape(M, -1)), dim=1))
+                torch.isfinite(transmit.reshape(m_loc, -1)), dim=1))
             contrib_b = vmask & finite_b
         else:
             finite_b, contrib_b = None, vmask
@@ -177,23 +229,28 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
             wt_n = s * n
         cb = contrib_b.view((-1,) + (1,) * (transmit.dim() - 1))
         total_n = torch.sum(torch.where(contrib_b, wt_n, 0.0))
-        agg = (torch.sum(torch.where(cb, wt_t, 0.0), dim=0)
-               / torch.clamp(total_n, min=1.0))
-        if sketch_after_aggregate:
-            agg = sketch.sketch_vec(agg)
         # the breach check reads the unweighted post-exclusion loss
         loss_total = torch.sum(torch.where(contrib_b, loss_sum, 0.0))
         n_raw = torch.sum(torch.where(contrib_b, n, 0.0))
+        download = torch.sum(torch.where(vmask, buf.download_floats[:m_loc],
+                                         0.0))
+        if mesh is not None:
+            total_n, loss_total, n_raw, download = reduce(torch.stack(
+                [total_n, loss_total, n_raw, download]))
+        agg = (reduce(torch.sum(torch.where(cb, wt_t, 0.0), dim=0))
+               / torch.clamp(total_n, min=1.0))
+        if sketch_after_aggregate:
+            agg = sketch.sketch_vec(agg)
         # the rows computed at cohort time land in client state only when
         # their contribution is applied; each client pulled at its slot's
         # start version
-        new_rows = tuple(None if r is None else r[:M]
+        new_rows = tuple(None if r is None else r[:m_loc]
                          for r in (buf.velocities, buf.errors, buf.weights))
+        cid, contrib_b, vmask, finite_b, start, tau = (
+            gather(x) for x in (cid, contrib_b, vmask, finite_b, start, tau))
         new_state, writeback, metrics = server_tail(
             state, agg, loss_total / torch.clamp(n_raw, min=1.0), cid,
-            contrib_b, vmask, finite_b, start, new_rows,
-            torch.sum(torch.where(vmask, buf.download_floats[:M], 0.0)),
-            lr, seed)
+            contrib_b, vmask, finite_b, start, new_rows, download, lr, seed)
         new_state.buffer = _reset(buf, state.client_last_round.shape[0])
         metrics.update(
             applied=(~metrics["aborted"]).to(torch.float32),
@@ -283,18 +340,22 @@ class BufferedFedLearner(FedLearner):
                  lr_schedule=None, device="cuda", seed: int = 0,
                  lr_scale_vec=None, trainable_mask=None,
                  fault_model: Optional[FaultModel] = None,
-                 dispatch_interval: Optional[float] = None):
+                 dispatch_interval: Optional[float] = None, mesh=None):
         if cfg.server_mode != "buffered":
             raise ValueError("BufferedFedLearner needs cfg.server_mode="
                              f"'buffered', got {cfg.server_mode!r}")
         super().__init__(model, cfg, loss_train, loss_val,
                          lr_schedule=lr_schedule, device=device, seed=seed,
                          lr_scale_vec=lr_scale_vec,
-                         trainable_mask=trainable_mask)
+                         trainable_mask=trainable_mask, mesh=mesh)
         self.M = self.cfg.effective_buffer_m
         self._cohort, self._deposit, self._apply = build_buffer_programs(
             self._loss_train, self.unflatten, self.cfg,
-            trainable_mask=self._trainable_mask, sketch=self._round.sketch)
+            trainable_mask=self._trainable_mask, sketch=self._round.sketch,
+            mesh=mesh)
+        lo, hi = ((0, self.M) if mesh is None
+                  else mesh_lib.slot_block(self.M, mesh))
+        self._m_local = hi - lo
         self._num_clients = int(self.state.client_last_round.shape[0])
         self.fault_model = fault_model
         self.dispatch_interval = float(
@@ -372,7 +433,7 @@ class BufferedFedLearner(FedLearner):
 
     def _ensure_buffer(self, contrib: BufferState):
         if self.state.buffer is None:
-            self.state.buffer = init_buffer(contrib, self.M,
+            self.state.buffer = init_buffer(contrib, self._m_local,
                                             self._num_clients)
 
     # -- FedLearner surface ----------------------------------------------
@@ -400,7 +461,7 @@ class BufferedFedLearner(FedLearner):
         seed = self._next_seed()
         ids_np = np.asarray(client_ids)
         ids = self._to_device(ids_np, torch.int64)
-        cols = tuple(self._to_device(c) for c in batch)
+        cols = tuple(self._cols(c) for c in batch)
         m = self._to_device(mask, torch.float32)
         lr_in = self._lr_in(lr)
         # the applies this call triggers from here on use its lr and seed

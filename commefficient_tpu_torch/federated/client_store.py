@@ -205,13 +205,15 @@ def select_rows(keep: torch.Tensor, new_enc, old_enc):
     return tree_map(sel, new_enc, old_enc)
 
 
-def init_client_storage(cfg: FedConfig, codec, flat_weights: torch.Tensor
-                        ) -> ClientState:
+def init_client_storage(cfg: FedConfig, codec, flat_weights: torch.Tensor,
+                        num_rows: Optional[int] = None) -> ClientState:
     """Encoded rows for every field the mode keeps, plus the sink row, on
     ``flat_weights``' device: zero velocities and errors, and
     ``--topk_down``'s stale weights at the initial weights (reference
-    ``client_store.py:342``)."""
-    n, dev = cfg.num_clients + 1, flat_weights.device
+    ``client_store.py:342``). ``num_rows``: the clients held (a mesh
+    rank's row block; all of them by default)."""
+    n = (cfg.num_clients if num_rows is None else num_rows) + 1
+    dev = flat_weights.device
     return ClientState(
         velocities=(codec.init_rows(n, device=dev)
                     if cfg.needs_velocity_state else None),
@@ -256,10 +258,15 @@ class HostArenaStore:
     layout in which a mesh's ``clients`` axis would own the rows; each
     shard's arena is one contiguous pageable CPU tensor per encoded leaf.
     ``shard_reads``/``shard_writes`` count the row traffic of each shard.
-    Memory: ``num_rows * codec.row_floats() * 4`` bytes."""
+    Memory: ``num_rows * codec.row_floats() * 4`` bytes.
+
+    On a mesh each rank's store holds its own shard only (``local_shard``
+    = its ``clients`` rank, ``num_shards`` = the axis size): ``owns(cid)``
+    says whether a row is here, and another shard's row raises. The
+    rows cross ranks in the round (``parallel/mesh.route_rows``)."""
 
     def __init__(self, cfg: FedConfig, codec, flat_weights=None,
-                 num_shards: int = 1):
+                 num_shards: int = 1, local_shard: Optional[int] = None):
         n = int(cfg.num_clients)
         if num_shards < 1 or n % num_shards:
             raise ValueError(
@@ -275,9 +282,12 @@ class HostArenaStore:
                 else torch.as_tensor(flat_weights, dtype=torch.float32,
                                      device="cpu"))
 
+        self.local_shard = local_shard
+
         def alloc(fill=None):
             return [codec.init_rows(self.rows_per_shard, fill=fill)
-                    for _ in range(self.num_shards)]
+                    if self._holds(s) else None
+                    for s in range(self.num_shards)]
 
         self._arenas = {
             "velocities": alloc() if cfg.needs_velocity_state else None,
@@ -287,9 +297,16 @@ class HostArenaStore:
         }
         assert set(self._arenas) == set(CLIENT_STATE_FIELDS)
 
+    def _holds(self, shard: int) -> bool:
+        return self.local_shard is None or shard == self.local_shard
+
     def owner(self, cid: int) -> int:
         """The shard owning client ``cid``'s row."""
         return int(cid) // self.rows_per_shard
+
+    def owns(self, cid: int) -> bool:
+        """Whether client ``cid``'s row is in this store."""
+        return 0 <= int(cid) < self.num_rows and self._holds(self.owner(cid))
 
     def _locate(self, cid: int):
         cid = int(cid)
@@ -297,6 +314,9 @@ class HostArenaStore:
             raise IndexError(f"client id {cid} out of range "
                              f"[0, {self.num_rows})")
         s = cid // self.rows_per_shard
+        if not self._holds(s):
+            raise IndexError(f"client {cid}'s row lives on shard {s}, "
+                             f"this store holds shard {self.local_shard}")
         return s, cid - s * self.rows_per_shard
 
     def view(self, field: str) -> Optional[_ArenaView]:
@@ -320,20 +340,22 @@ class HostArenaStore:
         tree_map(assign, self._arenas[field][s], row)
 
     def arena(self, field: str):
-        """Shard 0's arena of ``field``: its leaves give the encoded rows'
-        shapes and dtypes."""
-        return self._arenas[field][0]
+        """The first held shard's arena of ``field``: its leaves give the
+        encoded rows' shapes and dtypes."""
+        return next(a for a in self._arenas[field] if a is not None)
 
     def stacked(self, field: str):
-        """Every client's encoded row of ``field``, (num_rows, ...) leaves
-        (the shards joined in row order; a copy)."""
-        shards = self._arenas[field]
+        """The held clients' encoded rows of ``field``, (rows, ...) leaves
+        (the held shards joined in row order; a copy)."""
+        shards = [a for a in self._arenas[field] if a is not None]
         return tree_map(lambda *leaves: torch.cat(leaves), *shards)
 
     def assign(self, field: str, rows) -> None:
-        """Overwrite every row of ``field`` from (num_rows, ...) leaves of
-        the arena's dtypes."""
+        """Overwrite the held rows of ``field`` from (num_rows, ...) leaves
+        of the arena's dtypes (every client's rows)."""
         for s, shard in enumerate(self._arenas[field]):
+            if shard is None:
+                continue
             lo = s * self.rows_per_shard
 
             def put(a, r):
@@ -348,5 +370,6 @@ class HostArenaStore:
             if arenas is None:
                 continue
             for shard in arenas:
-                total += sum(a.nbytes for a in tree_leaves(shard))
+                if shard is not None:
+                    total += sum(a.nbytes for a in tree_leaves(shard))
         return total

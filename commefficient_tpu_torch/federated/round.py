@@ -59,6 +59,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+from torch.utils._pytree import tree_map
 
 from commefficient_tpu_torch.config import FedConfig
 from commefficient_tpu_torch.federated import client as client_lib
@@ -72,6 +73,7 @@ from commefficient_tpu_torch.federated.state import (BufferState,
                                                      GradBuckets,
                                                      ServerOptState)
 from commefficient_tpu_torch.ops.dropout import fold_in
+from commefficient_tpu_torch.parallel import mesh as mesh_lib
 
 #: fold-in domain of the server's DP noise seed under the round's seed
 #: (the reference's ``noise_rng = fold_in(rng, 0x5e77e7)``)
@@ -97,7 +99,10 @@ class FedState:
     buffer: Optional[BufferState] = None
 
 
-def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
+def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor,
+                   num_rows: Optional[int] = None) -> FedState:
+    """The round-0 state. ``num_rows``: the client rows this process
+    holds (its ``row_block`` on a mesh; every client's by default)."""
     d, dev = cfg.grad_dim, flat_weights.device
     if flat_weights.shape != (d,):
         raise ValueError(f"flat weights of shape {tuple(flat_weights.shape)}"
@@ -106,7 +111,8 @@ def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor) -> FedState:
         # the rows live in the learner's host arenas
         clients = ClientState()
     else:
-        clients = init_client_storage(cfg, make_codec(cfg), flat_weights)
+        clients = init_client_storage(cfg, make_codec(cfg), flat_weights,
+                                      num_rows=num_rows)
     return FedState(
         weights=flat_weights.to(torch.float32),
         opt=init_server_opt_state(cfg, dev),
@@ -177,15 +183,17 @@ def build_client_phase(apply_loss: Callable, unflatten: Callable,
     against ``state.weights``, shared by the sync round's per-worker path
     and the buffered server's cohort. Client ``c`` draws from
     ``fold_in(seed, c)``, as the reference folds the client id into the
-    round's rng. Under offload ``rows`` are the clients' encoded rows."""
+    round's rng. ``rows``: the clients' encoded rows (under offload, or
+    on a mesh), else they are gathered from ``state``."""
     is_fedavg = cfg.mode == "fedavg"
     client_sketch = client_sketch_of(cfg, sketch)
     codec = make_codec(cfg)
-    offload = cfg.client_state_offload and cfg.has_client_state
 
     def client_rows(state, ids, rows):
-        """The W clients' dense (velocity, error, stale weight) rows."""
-        if offload:
+        """The W clients' dense (velocity, error, stale weight) rows: the
+        given encoded ``rows`` (offloaded, or routed from their owners on
+        a mesh) decoded, else gathered from the state."""
+        if rows is not None:
             return tuple(None if enc is None else codec.decode_rows(enc)
                          for enc in (rows.velocities, rows.errors,
                                      rows.weights))
@@ -234,8 +242,8 @@ def last_of(ids: torch.Tensor, sink: int) -> torch.Tensor:
 
 
 def build_server_tail(cfg: FedConfig, sketch=None,
-                      trainable_mask: Optional[torch.Tensor] = None
-                      ) -> Callable:
+                      trainable_mask: Optional[torch.Tensor] = None,
+                      mesh=None) -> Callable:
     """``server_tail(state, agg, loss_mean, ids, contrib_w, pull_w, finite_w,
     pulled_at, new_rows, download_floats, lr, seed) -> (FedState,
     writeback, metrics)``: what follows the aggregation, shared by the sync
@@ -253,7 +261,13 @@ def build_server_tail(cfg: FedConfig, sketch=None,
     or under offload returned as ``writeback = (ids, encoded rows)``, the
     others' ids ``num_clients``), ``last_changed``, the download
     baseline, the bench clock and the byte metrics. The returned state
-    keeps ``state.buffer``."""
+    keeps ``state.buffer``.
+
+    On a ``mesh`` every argument but ``new_rows`` is the whole (replicated)
+    slot vector and ``new_rows`` are this rank's block of slots: each rank
+    encodes its block, the blocks are joined in slot order, and each rank
+    writes the rows of the clients it owns into its row block (under
+    offload the writeback carries every slot, for the owners' arenas)."""
     is_fedavg = cfg.mode == "fedavg"
     codec = make_codec(cfg)
     offload = cfg.client_state_offload and cfg.has_client_state
@@ -294,7 +308,22 @@ def build_server_tail(cfg: FedConfig, sketch=None,
         scatter_ids = last_of(torch.where(contrib_w & ok, ids, num_clients),
                               num_clients)
         writeback = None
-        if offload:
+        if mesh is not None:
+            enc = [None if r is None
+                   else mesh_lib.all_gather_tree(codec.encode_rows(r), mesh)
+                   for r in new_rows]
+            clients_state = state.clients
+            if offload:
+                writeback = (scatter_ids, ClientState(*enc))
+            else:
+                local = mesh_lib.local_row_ids(scatter_ids, num_clients, mesh)
+                for storage, e in zip((state.clients.velocities,
+                                       state.clients.errors,
+                                       state.clients.weights), enc):
+                    if storage is not None and e is not None:
+                        tree_map(lambda a, b: a.index_put_((local,), b),
+                                 storage, e)
+        elif offload:
             writeback = (scatter_ids, ClientState(*(
                 None if r is None else codec.encode_rows(r)
                 for r in new_rows)))
@@ -358,11 +387,54 @@ def build_server_tail(cfg: FedConfig, sketch=None,
     return server_tail
 
 
+def check_mesh(cfg: FedConfig, mesh) -> None:
+    """The reference's ``_check_mesh``: the worker and client axes must
+    divide the mesh's ``clients`` axis."""
+    n_shards = mesh_lib.clients_size(mesh)
+    if cfg.num_workers % n_shards:
+        raise ValueError(
+            f"num_workers ({cfg.num_workers}) must be divisible by "
+            f"the mesh 'clients' axis size ({n_shards})")
+    if cfg.num_clients % n_shards:
+        raise ValueError(
+            f"num_clients ({cfg.num_clients}) must be divisible by "
+            f"the mesh 'clients' axis size ({n_shards})")
+
+
+def mesh_seed(seed: int, mesh) -> int:
+    """A rank's stream of worker-side draws on the fused path (its
+    clients' dropout): rank 0 keeps the round's seed, so a ring of one is
+    the one-process round bitwise."""
+    r = mesh_lib.clients_rank(mesh)
+    return seed if r == 0 else fold_in(seed, r)
+
+
+def mesh_client_rows(state: FedState, ids_host, rows, mesh, wslice: slice):
+    """On a mesh, the encoded rows of this rank's workers (``wslice`` of
+    the W slots), from their owners: ``rows``, the W slots in which this
+    rank filled the clients it owns (its offload arena's gather), or else
+    the rows of its row block in ``state.clients``. None when the mode
+    keeps no client rows."""
+    num_clients = state.client_last_round.shape[0]
+    if rows is None:
+        local = mesh_lib.local_row_ids(
+            torch.as_tensor(ids_host, device=state.weights.device),
+            num_clients, mesh)
+        rows = ClientState(*(
+            None if s is None else tree_map(lambda a: a[local], s)
+            for s in (state.clients.velocities, state.clients.errors,
+                      state.clients.weights)))
+    if all(r is None for r in (rows.velocities, rows.errors,
+                               rows.weights)):
+        return None
+    return mesh_lib.route_rows(rows, ids_host, num_clients, mesh, wslice)
+
+
 def build_round_step(apply_loss: Callable, unflatten: Callable,
                      cfg: FedConfig,
                      buckets: Optional[GradBuckets] = None,
-                     trainable_mask: Optional[torch.Tensor] = None
-                     ) -> Callable:
+                     trainable_mask: Optional[torch.Tensor] = None,
+                     mesh=None) -> Callable:
     """``round_step(state, client_ids (W,), batch (W, B, ...), mask (W, B),
     lr, seed, rows=None, client_ks=None) -> (FedState, metrics)``, every
     tensor on the state's device (its ``sketch`` attribute: the round's
@@ -376,8 +448,22 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
     round's rng. The server's DP noise draws from ``fold_in(seed,
     SERVER_NOISE_FOLD)``, the reference's ``noise_rng``.
     ``trainable_mask``: an optional (d,) float32 0/1 vector; its zeros
-    freeze those weights (the finetune path)."""
+    freeze those weights (the finetune path).
+
+    On a ``mesh`` (``parallel/mesh.py``) the batch's columns are this
+    rank's ``worker_block`` and the ids, mask and ``client_ks`` the whole
+    W; ``state.clients`` holds the rank's ``row_block``, and under offload
+    ``rows`` is W slots in which the rank has filled the clients it owns
+    (``out_rows`` likewise). Each rank runs its workers (the fused path
+    fuses its own; its dropout from ``mesh_seed``), sums their transmits,
+    and joins the sums with one ``all_reduce`` a bucket (one more for the
+    loss, metric and datapoint sums); the clients' rows go from their
+    owners to their workers' ranks before the clients' steps and back
+    after the tail. The tail runs replicated, the byte counts from the
+    whole W, so every rank's state stays bitwise the others'."""
     cfg.validate()
+    if mesh is not None:
+        check_mesh(cfg, mesh)
     sketch = make_sketch(cfg) if cfg.mode == "sketch" else None
     fused_clients = fused_clients_eligible(cfg)
     client_sketch = client_sketch_of(cfg, sketch)
@@ -391,7 +477,21 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                          f"coordinates, round has {cfg.grad_dim}")
     clients = build_client_phase(apply_loss, unflatten, cfg, sketch,
                                  trainable_mask)
-    server_tail = build_server_tail(cfg, sketch, trainable_mask)
+    server_tail = build_server_tail(cfg, sketch, trainable_mask, mesh)
+    ws = (slice(None) if mesh is None
+          else mesh_lib.worker_block(cfg.num_workers, mesh))
+
+    def reduce(x):
+        """The sum over the mesh's ranks (identity off a mesh)."""
+        return x if mesh is None else mesh_lib.all_reduce_sum(x, mesh)
+
+    def reduce_sums(total_n, loss_total, metric_totals):
+        """The scalar sums of every rank, in one ``all_reduce``."""
+        if mesh is None:
+            return total_n, loss_total, metric_totals
+        packed = reduce(torch.cat([torch.stack([total_n, loss_total]),
+                                   metric_totals]))
+        return packed[0], packed[1], packed[2:]
 
     def compress(chunk_of):
         """The round's aggregate from ``chunk_of(offset, size)``, the
@@ -415,20 +515,27 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                           for c in batch)
         flat_mask = mask.reshape(-1)
         grad_sum, loss_total, metric_totals = \
-            client_lib._masked_loss_and_grad(apply_loss, unflatten, w,
-                                             flat_cols, flat_mask, seed)
+            client_lib._masked_loss_and_grad(
+                apply_loss, unflatten, w, flat_cols, flat_mask,
+                seed if mesh is None else mesh_seed(seed, mesh))
         if trainable_mask is not None:
             grad_sum = grad_sum * trainable_mask
-        total_n = torch.sum(flat_mask)
+        total_n, loss_total, metric_totals = reduce_sums(
+            torch.sum(flat_mask), loss_total, metric_totals)
+        wd = None
         if cfg.weight_decay != 0:
             # each valid worker adds (wd/W)*w scaled by its datapoints
             wd = (cfg.weight_decay / cfg.num_workers) * w * total_n
             if trainable_mask is not None:
                 wd = wd * trainable_mask
-            grad_sum = grad_sum + wd
+            if mesh is None:
+                grad_sum, wd = grad_sum + wd, None
         denom = torch.clamp(total_n, min=1.0)
-        agg = compress(lambda o, n: grad_sum[o:o + n] / denom)
-        return agg, loss_total, metric_totals, total_n
+
+        def chunk_of(o, n):
+            g = reduce(grad_sum[o:o + n])
+            return (g if wd is None else g + wd[o:o + n]) / denom
+        return compress(chunk_of), loss_total, metric_totals, total_n
 
     def aggregate(out: client_lib.ClientStepOut, contrib_w, select: bool):
         """The contributions' (aggregate, loss, metrics, datapoints).
@@ -436,34 +543,34 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         would otherwise leak the aliased client's error row. ``select``:
         excluded slots are dropped by a select, so a NaN slot stays out
         (quarantine); else they are zeroed by a multiply, the reference's
-        op."""
+        op. On a mesh ``out`` and ``contrib_w`` are the rank's workers'."""
         transmit = out.transmit
         cb = contrib_w.view((-1,) + (1,) * (transmit.dim() - 1))
         if select:
             total_n = torch.sum(torch.where(contrib_w, out.num_datapoints,
                                             0.0))
+            loss_total = torch.sum(torch.where(contrib_w, out.loss_sum,
+                                               0.0))
+            metric_totals = torch.sum(torch.where(
+                contrib_w[:, None], out.metric_sums, 0.0), dim=0)
 
             def masked(x):
                 return torch.where(cb, x, 0.0)
         else:
             total_n = torch.sum(out.num_datapoints)
+            loss_total = torch.sum(out.loss_sum)
+            metric_totals = torch.sum(out.metric_sums, dim=0)
 
             def masked(x):
                 return x * cb
+        total_n, loss_total, metric_totals = reduce_sums(
+            total_n, loss_total, metric_totals)
         denom = torch.clamp(total_n, min=1.0)
         if client_sketch is not None:
-            agg = torch.sum(masked(transmit), dim=0) / denom
+            agg = reduce(torch.sum(masked(transmit), dim=0)) / denom
         else:
-            agg = compress(lambda o, k: torch.sum(
-                masked(transmit[:, o:o + k]), dim=0) / denom)
-        if select:
-            loss_total = torch.sum(torch.where(contrib_w, out.loss_sum,
-                                               0.0))
-            metric_totals = torch.sum(torch.where(
-                contrib_w[:, None], out.metric_sums, 0.0), dim=0)
-        else:
-            loss_total = torch.sum(out.loss_sum)
-            metric_totals = torch.sum(out.metric_sums, dim=0)
+            agg = compress(lambda o, k: reduce(torch.sum(
+                masked(transmit[:, o:o + k]), dim=0)) / denom)
         return agg, loss_total, metric_totals, total_n
 
     def round_step(state: FedState, client_ids, batch, mask, lr, seed,
@@ -491,19 +598,26 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
 
         if fused_clients:
             agg, loss_total, metric_totals, total_n = fused_step(
-                w, batch, mask, seed)
+                w, batch, mask[ws], seed)
             out = None
             contrib_w, finite_w = valid_w, None
         else:
-            out = clients(state, ids, batch, mask, lr, seed, rows,
-                          client_ks)
+            ks = None if client_ks is None else client_ks[ws]
+            if mesh is None:
+                out = clients(state, ids, batch, mask, lr, seed, rows, ks)
+            else:
+                out = clients(state, ids[ws], batch, mask[ws], lr, seed,
+                              mesh_client_rows(state, ids.tolist(), rows,
+                                               mesh, ws), ks)
             if quarantine:
                 finite_w = finite_contributions(out)
+                if mesh is not None:
+                    finite_w = mesh_lib.all_gather_cat(finite_w, mesh)
                 contrib_w = pull_w & finite_w
             else:
                 contrib_w, finite_w = valid_w, None
             agg, loss_total, metric_totals, total_n = aggregate(
-                out, contrib_w, select=quarantine)
+                out, contrib_w[ws], select=quarantine)
 
         new_rows = ((None,) * 3 if out is None else
                     (out.velocity, out.error, out.client_weights))

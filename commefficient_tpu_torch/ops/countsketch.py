@@ -155,6 +155,7 @@ class CountSketch:
             self.c_eff = self.c
         self._tables = {}
         self._coeff_columns = {}
+        self._cpu_block_signs = {}
         self._plans = {}
 
     # --- hashing ----------------------------------------------------------
@@ -181,6 +182,24 @@ class CountSketch:
         acc = (_mul32(acc, i) + h3) & _MASK32
         acc = (_mul32(acc, i) + h4) & _MASK32
         return (1 - 2 * (_mix(acc) & 1)).to(torch.float32)
+
+    def block_signs(self, row, blk0: int, nb: int, device) -> torch.Tensor:
+        """(nb, LANES) signs of the coordinates of blocks [blk0, blk0 +
+        nb). On the CPU, where the plain versions run every round, they
+        are computed once per row and block range (at ResNet9's d a row's
+        are ~0.1 s of int64 arithmetic, and a sketch round asks for them
+        several times); on the card only comparisons ask, so nothing is
+        kept."""
+        device = torch.device(device)
+        key = (row, int(blk0), int(nb))
+        if device.type == "cpu" and key in self._cpu_block_signs:
+            return self._cpu_block_signs[key]
+        lanes = torch.arange(LANES, dtype=torch.int64, device=device)
+        blk = blk0 + torch.arange(nb, dtype=torch.int64, device=device)
+        signs = self._row_signs(row, blk[:, None] * LANES + lanes[None, :])
+        if device.type == "cpu":
+            self._cpu_block_signs[key] = signs
+        return signs
 
     def _block_hashes(self, row, blk: torch.Tensor):
         """(window base, 7-bit lane mask) per block id."""
@@ -356,12 +375,12 @@ class CountSketch:
         dev = table.device
         blk = torch.arange(self.nblocks, dtype=torch.int64, device=dev)
         lanes = torch.arange(LANES, dtype=torch.int64, device=dev)
-        idx = blk[:, None] * LANES + lanes[None, :]
         per_row = []
         for row in range(self.r):
             base, lanemask = self._block_hashes(row, blk)
             cols = base[:, None] * LANES + (lanes[None, :] ^ lanemask[:, None])
-            est = table[row][cols] * self._row_signs(row, idx)
+            est = table[row][cols] * self.block_signs(row, 0, self.nblocks,
+                                                      dev)
             per_row.append(est.reshape(-1)[:self.d])
         return _median_small(per_row)
 

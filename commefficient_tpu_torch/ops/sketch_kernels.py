@@ -80,10 +80,9 @@ def sketch_vec_plain(cs: CountSketch, vec: torch.Tensor,
     vp = vp.view(nb, LANES)
     lanes = torch.arange(LANES, dtype=torch.int64, device=dev)
     blk = block_offset + torch.arange(nb, dtype=torch.int64, device=dev)
-    idx = blk[:, None] * LANES + lanes[None, :]
     for row in range(cs.r):
         base, lanemask = cs._block_hashes(row, blk)
-        signed = vp * cs._row_signs(row, idx)
+        signed = vp * cs.block_signs(row, block_offset, nb, dev)
         win = signed.gather(1, lanes[None, :] ^ lanemask[:, None])
         # rank of each block within its window, in ascending block order
         order = torch.argsort(base, stable=True)

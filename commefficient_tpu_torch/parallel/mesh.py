@@ -1,0 +1,241 @@
+"""The ``clients`` mesh and its layout (port of
+``commefficient_tpu/parallel/mesh.py``).
+
+The reference shards the round over a ``jax.sharding.Mesh`` with one
+``clients`` axis: each chip simulates W/N of the sampled clients, the
+per-client state rows are split into blocks along the axis, the server
+state is replicated, and XLA inserts the reduce of the transmits. Here
+each rank is one process of a ``torch.distributed`` group and the mesh a
+``DeviceMesh`` with a ``clients`` dimension; the layout is the
+reference's, written out:
+
+* rank ``r`` runs workers ``worker_block(W, mesh)`` = ``[r W/N, (r+1)
+  W/N)``, the block split of ``batch_shardings``;
+* it owns client rows ``row_block(n, mesh)`` = ``[r n/N, (r+1) n/N)``, as
+  jax's leading-dim sharding and ``HostArenaStore``'s block partition give
+  them, and the buffered server's slots ``slot_block(M, mesh)`` alike;
+* weights and server state are replicated, and every rank's copy stays
+  bitwise the others' (the reduce is an ``all_reduce``, whose result is
+  the same on every rank, and the rest is deterministic).
+
+``padded_num_clients`` rounds the client rows up to a multiple of the
+axis, as the reference's entry points do.
+
+The collectives here take bool tensors as uint8 (gloo reduces no bool).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_map
+
+from commefficient_tpu_torch.utils.params import round_up
+
+AXIS = "clients"
+INNER_AXES = ("seq", "model", "stage", "expert")
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """A parsed ``--mesh``: the axis sizes, before any process joins. It
+    answers ``shape`` and ``axis_names`` as the reference's ``Mesh`` does,
+    so ``round_up_workers_for_mesh`` and the entry points' checks read
+    either."""
+    clients: int
+    inner: dict = field(default_factory=dict)
+
+    @property
+    def shape(self) -> dict:
+        return {AXIS: self.clients, **{k: v for k, v in self.inner.items()
+                                       if v > 1}}
+
+    @property
+    def axis_names(self):
+        return tuple(self.shape)
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
+              seq: int = 1, model: int = 1, stage: int = 1,
+              expert: int = 1, device_type: str = "cpu"):
+    """A ``DeviceMesh`` with one ``clients`` dimension over the process
+    group (joined first: ``distributed.initialize``/``launch``). Inner
+    axes of size 1 are accepted; an inner axis above 1 is ROADMAP.md
+    A12."""
+    if sum(s > 1 for s in (seq, model, stage, expert)) > 1:
+        raise ValueError("choose ONE inner axis: seq (ring attention), "
+                         "model (tensor parallelism), stage (GPipe "
+                         "pipeline), or expert (MoE expert parallelism)")
+    for name, size in zip(INNER_AXES, (seq, model, stage, expert)):
+        if size > 1:
+            raise NotImplementedError(
+                f"--mesh {name}={size} is not ported to PyTorch yet "
+                f"(ROADMAP.md A12)")
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = n_devices or world
+    if n != world:
+        raise ValueError(f"asked for a {n}-rank mesh, the process group "
+                         f"has {world} ranks")
+    return init_device_mesh(device_type, (n,), mesh_dim_names=(axis,))
+
+
+def clients_size(mesh, axis: str = AXIS) -> int:
+    """The ``clients`` axis size of a mesh or a ``MeshSpec`` (1 for none)."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, MeshSpec):
+        return mesh.clients
+    return mesh[axis].size()
+
+
+def clients_rank(mesh, axis: str = AXIS) -> int:
+    return 0 if mesh is None else mesh.get_local_rank(axis)
+
+
+def clients_group(mesh, axis: str = AXIS):
+    return mesh.get_group(axis)
+
+
+def padded_num_clients(num_clients: int, mesh, axis: str = AXIS) -> int:
+    """Client rows must divide the mesh axis; pad with inert rows
+    (samplers only emit real client ids, so a padded row is never
+    gathered or written)."""
+    if mesh is None:
+        return num_clients
+    return round_up(num_clients, clients_size(mesh, axis))
+
+
+def _block(n: int, mesh) -> tuple:
+    N, r = clients_size(mesh), clients_rank(mesh)
+    per = n // N
+    return r * per, (r + 1) * per
+
+
+def worker_block(num_workers: int, mesh) -> slice:
+    """This rank's workers: ``batch_shardings``' leading-dim block."""
+    lo, hi = _block(num_workers, mesh)
+    return slice(lo, hi)
+
+
+def row_block(num_rows: int, mesh) -> tuple:
+    """``(lo, hi)``: the client rows this rank owns."""
+    return _block(num_rows, mesh)
+
+
+def slot_block(m: int, mesh) -> tuple:
+    """``(lo, hi)``: the buffered server's slots this rank owns
+    (``buffer_state_shardings``)."""
+    return _block(m, mesh)
+
+
+# --------------------------------------------------------------------------
+# Collectives
+# --------------------------------------------------------------------------
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+
+
+def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``t`` over the ranks, the same bits on every rank."""
+    out = t.clone()
+    dist.all_reduce(out, group=clients_group(mesh))
+    return out
+
+
+def all_gather_cat(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``t`` joined along dim 0 in rank order (a rank's
+    worker or slot block back into the whole)."""
+    if t is None:
+        return None
+    w = _wire(t)
+    parts = [torch.empty_like(w) for _ in range(clients_size(mesh))]
+    dist.all_gather(parts, w, group=clients_group(mesh))
+    out = torch.cat(parts)
+    return out.to(torch.bool) if t.dtype == torch.bool else out
+
+
+def all_gather_tree(tree, mesh):
+    return tree_map(lambda t: all_gather_cat(t, mesh), tree)
+
+
+def broadcast_from(t: torch.Tensor, src: int, mesh) -> torch.Tensor:
+    """``t`` of rank ``src`` (in the mesh's group) on every rank; ``t``
+    gives the shape and dtype elsewhere."""
+    group = clients_group(mesh)
+    w = _wire(t)
+    dist.broadcast(w, src=dist.get_global_rank(group, src), group=group)
+    return w.to(torch.bool) if t.dtype == torch.bool else w
+
+
+def barrier(mesh) -> None:
+    dist.barrier(group=clients_group(mesh))
+
+
+@contextlib.contextmanager
+def main_first(mesh):
+    """Rank 0 runs the block first, the others after it (a dataset cache
+    written on first use is then read, never raced); no-op off a mesh."""
+    late = mesh is not None and clients_rank(mesh) != 0
+    if late:
+        barrier(mesh)
+    yield
+    if mesh is not None and not late:
+        barrier(mesh)
+
+
+def any_rank(flag: bool, mesh) -> bool:
+    """Whether ``flag`` holds on any rank (one host read)."""
+    t = torch.tensor([1.0 if flag else 0.0], device=mesh.device_type)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=clients_group(mesh))
+    return bool(t.item())
+
+
+def route_rows(owned, ids: Sequence[int], num_rows: int, mesh,
+               wslice: slice):
+    """Client rows from their owners to the ranks that run them.
+
+    ``owned`` is a ``ClientState`` of W-slot encoded rows in which this
+    rank has filled the slots whose client it owns (``row_block``);
+    ``ids`` the W sampled ids on the host (an out-of-range id, a padded
+    slot, counts as its clamped owner's). Each owner broadcasts its slots
+    in one tensor a leaf, so the rows cross exactly, with no arithmetic.
+    Returns the rows of this rank's ``wslice``."""
+    N = clients_size(mesh)
+    per = num_rows // N
+    owner = [min(max(int(c), 0), num_rows - 1) // per for c in ids]
+    by_owner = [[w for w, o in enumerate(owner) if o == src]
+                for src in range(N)]
+    me = clients_rank(mesh)
+
+    def route(leaf):
+        out = torch.empty_like(leaf)
+        for src, slots in enumerate(by_owner):
+            if not slots:
+                continue
+            idx = torch.tensor(slots, device=leaf.device)
+            buf = (leaf[idx] if src == me else
+                   torch.empty((len(slots),) + tuple(leaf.shape[1:]),
+                               dtype=leaf.dtype, device=leaf.device))
+            out[idx] = broadcast_from(buf, src, mesh)
+        return out[wslice]
+    return type(owned)(*(
+        None if getattr(owned, f.name) is None
+        else tree_map(route, getattr(owned, f.name))
+        for f in dataclasses.fields(owned)))
+
+
+def local_row_ids(ids: torch.Tensor, num_rows: int, mesh) -> torch.Tensor:
+    """Global client ids -> indices into this rank's row block, whose
+    sink is its last row (``per``): ids outside the block (other owners',
+    the global sink ``num_rows``) go to the sink."""
+    lo, hi = row_block(num_rows, mesh)
+    inside = (ids >= lo) & (ids < hi)
+    return torch.where(inside, ids - lo, hi - lo)

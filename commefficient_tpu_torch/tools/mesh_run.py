@@ -1,0 +1,229 @@
+"""An entry point's ``train`` on a ``clients`` mesh, with what each rank saw.
+
+    python -m commefficient_tpu_torch.tools.mesh_run --entry cv \
+        --ranks 2 --backend gloo --out PREFIX [--max_rounds 3] -- FLAGS...
+
+runs ``training.{cv,gpt2}.train(args, mesh=...)`` on ``--ranks`` local
+ranks (``parallel.distributed.launch``; ``--backend gloo`` lets several
+ranks share one card) and writes ``PREFIX_rank{r}.json`` for each rank:
+the rounds' metrics (losses also as float hex), a digest of the
+replicated state after every dispatched round (unless ``digests`` is
+False), sha256 of the final
+weights, server momentum and error and of every client's joined rows,
+the kernel launches of the rounds (every counter zeroed just before
+``train``), the peak device memory, the offload shards' reads and
+writes, the buffered server's schedule, and the backend that ran. With
+``record_table`` the first aggregate table the round sketched is saved
+as ``PREFIX_rank{r}_table.npy``; with ``record_cohorts`` the dispatched
+cohorts' ids and masks as ``PREFIX_rank{r}_cohorts.npz``.
+
+``launch(specs, ranks, backend)`` does the same from Python for one spec
+or a list of them, which the same ranks run in turn. FLAGS are the entry
+point's; ``--mesh clients=N`` is added.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from commefficient_tpu_torch.parallel import distributed
+from commefficient_tpu_torch.parallel import mesh as mesh_lib
+
+
+def _sha(t) -> str:
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+class _Record:
+    """Per-round state digests of every dispatched round (the outermost
+    ``train_round_async`` of a learner only), the first sketched table and
+    the dispatched cohorts."""
+
+    def __init__(self, table: bool, digests: bool):
+        self.digests, self.cohorts, self.table = [], [], None
+        self._want_table = table
+        self._want_digests = digests
+        self._depth = 0
+
+    def __enter__(self):
+        from commefficient_tpu_torch.federated.api import FedLearner
+        from commefficient_tpu_torch.federated.buffer import \
+            BufferedFedLearner
+        from commefficient_tpu_torch.ops.countsketch import CountSketch
+        from commefficient_tpu_torch.tools.mesh_cases import state_digest
+        self._saved = [(cls, "train_round_async", cls.train_round_async)
+                       for cls in (FedLearner, BufferedFedLearner)]
+        self._saved.append((CountSketch, "sketch_vec",
+                            CountSketch.sketch_vec))
+        rec = self
+
+        def wrap(saved):
+            def dispatch(learner, client_ids, batch, mask, **kw):
+                rec._depth += 1
+                try:
+                    raw = saved(learner, client_ids, batch, mask, **kw)
+                finally:
+                    rec._depth -= 1
+                if rec._depth == 0:
+                    rec.cohorts.append((np.array(client_ids),
+                                        np.array(mask)))
+                    if rec._want_digests:
+                        rec.digests.append(state_digest(learner))
+                return raw
+            return dispatch
+        for cls, attr, saved in self._saved[:2]:
+            setattr(cls, attr, wrap(saved))
+        sketch_vec = self._saved[2][2]
+
+        def sketch(cs, vec):
+            out = sketch_vec(cs, vec)
+            if rec._want_table and rec.table is None:
+                rec.table = out.detach().cpu().numpy().copy()
+            return out
+        CountSketch.sketch_vec = sketch
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, f in self._saved:
+            setattr(owner, attr, f)
+
+
+def run_specs(specs: list) -> None:
+    """The launcher's target: ``run_rank`` of each spec in turn, on one
+    process group (the ranks start once)."""
+    for spec in specs:
+        run_rank(spec)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def run_rank(spec: dict) -> None:
+    """The launcher's target: one rank of ``spec`` (``entry``, ``argv``,
+    ``out``, optional ``max_rounds``, ``attrs`` set on the parsed flags,
+    ``record_table``, ``record_cohorts``, and ``digests``: False skips the
+    per-round digests, which read the state back to the host and so
+    stretch the rounds' times)."""
+    from commefficient_tpu_torch.ops import cuda_lib
+    from commefficient_tpu_torch.tools.mesh_cases import joined_rows
+    from commefficient_tpu_torch.training import cv, gpt2
+    from commefficient_tpu_torch.training.args import (
+        build_parser, round_up_workers_for_mesh)
+    entry = spec["entry"]
+    parser = (build_parser() if entry == "cv"
+              else gpt2.build_gpt2_parser())
+    n = distributed.world_size()
+    args = parser.parse_args(list(spec["argv"]) + ["--mesh",
+                                                   f"clients={n}"])
+    for k, v in spec.get("attrs", {}).items():
+        setattr(args, k, v)
+    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(n))
+    np.random.seed(args.seed)
+    device_type = torch.device(args.device).type
+    mesh = mesh_lib.make_mesh(n, device_type=device_type)
+    r = mesh_lib.clients_rank(mesh)
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    train = cv.train if entry == "cv" else gpt2.train
+    with _Record(spec.get("record_table", False),
+                 spec.get("digests", True)) as rec:
+        cuda_lib.LAUNCHES.clear()
+        learner, row = train(args, mesh=mesh,
+                             max_rounds=spec.get("max_rounds"), log=False)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(row.get("launches_after_rounds") or
+                        {k: v for k, v in cuda_lib.LAUNCHES.items() if v})
+    s = learner.state
+    rows = joined_rows(learner)
+    h = hashlib.sha256()
+    for k in sorted(rows):
+        h.update(k.encode())
+        h.update(rows[k].tobytes())
+    out = {
+        "rank": r, "world": n, "backend": dist.get_backend(),
+        "device": str(learner.device),
+        "rounds": [{"loss": x["loss"], "loss_hex": float(x["loss"]).hex(),
+                    "upload_bytes": x["upload_bytes"],
+                    "download_bytes": x["download_bytes"],
+                    "round_s": x.get("round_s")}
+                   for x in row.get("rounds", [])],
+        "test_loss": row.get("test_loss", row.get("nll")),
+        "preempted": bool(row.get("preempted", False)),
+        "digests": rec.digests,
+        "weights_sha": _sha(s.weights), "vvel_sha": _sha(s.opt.Vvelocity),
+        "verr_sha": _sha(s.opt.Verror), "rows_sha": h.hexdigest(),
+        "round_idx": int(s.round_idx), "d": int(s.weights.shape[0]),
+        "finite": bool(torch.isfinite(s.weights).all()),
+        "launches": launches,
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                     if cuda else None),
+    }
+    store = learner.host_store
+    if store is not None:
+        out.update(shard_reads=store.shard_reads.tolist(),
+                   shard_writes=store.shard_writes.tolist(),
+                   arena_bytes=store.nbytes())
+    if hasattr(learner, "fault_stats"):
+        out.update(fault_stats=dict(learner.fault_stats),
+                   applies=learner.applies_done, sim_time=learner.sim_time,
+                   num_clients=learner.cfg.num_clients)
+    prefix = f"{spec['out']}_rank{r}"
+    if rec.table is not None:
+        np.save(prefix + "_table.npy", rec.table)
+    if spec.get("record_cohorts"):
+        np.savez(prefix + "_cohorts.npz",
+                 ids=np.stack([c[0] for c in rec.cohorts]),
+                 masks=np.stack([c[1] for c in rec.cohorts]))
+    with open(prefix + ".json", "w") as f:
+        json.dump(out, f)
+
+
+def launch(specs, ranks: int, backend: Optional[str] = None) -> list:
+    """``specs`` (one spec, or a list run in turn by the same ranks) on
+    ``ranks`` local ranks; returns each spec's list of rank records."""
+    specs = [specs] if isinstance(specs, dict) else list(specs)
+    argv = list(specs[0]["argv"])
+    device = argv[argv.index("--device") + 1] if "--device" in argv \
+        else "cuda"
+    distributed.launch(run_specs, ranks, (specs,), backend=backend,
+                       device_type=torch.device(device).type)
+    out = []
+    for spec in specs:
+        recs = []
+        for r in range(ranks):
+            with open(f"{spec['out']}_rank{r}.json") as f:
+                recs.append(json.load(f))
+        out.append(recs)
+    return out
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    flags = []
+    if "--" in argv:
+        i = argv.index("--")
+        argv, flags = argv[:i], argv[i + 1:]
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--entry", choices=("cv", "gpt2"), required=True)
+    p.add_argument("--ranks", type=int, default=2)
+    p.add_argument("--backend", default=None)
+    p.add_argument("--out", required=True)
+    p.add_argument("--max_rounds", type=int, default=None)
+    a = p.parse_args(argv)
+    launch({"entry": a.entry, "argv": flags, "out": a.out,
+            "max_rounds": a.max_rounds}, a.ranks, a.backend)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -8,6 +8,8 @@ learner of ``--server_mode`` with its ``--fault_*`` schedule."""
 from __future__ import annotations
 
 import argparse
+import math
+import os
 
 from commefficient_tpu_torch.config import (DP_MODES, ERROR_TYPES, MODES,
                                             FedConfig)
@@ -301,15 +303,107 @@ def resolve_fused_ce(args) -> bool:
 
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: ``--mesh`` (A12), then the entry
-    point's own ``extra`` ``(flag, is_set, item)`` triples. The config
-    refuses ``--serve_tp`` above 1 (A12)."""
+    flag set that the port does not run: a ``--mesh`` axis other than
+    ``clients`` above 1 (A12), then the entry point's own ``extra``
+    ``(flag, is_set, item)`` triples. The config refuses ``--serve_tp``
+    above 1 (A12)."""
+    inner = mesh_inner_axes(getattr(args, "mesh", ""))
     for flag, on, item in (
-            ("--mesh", bool(args.mesh), "A12"),
+            *((f"--mesh {name}={size}", size > 1, "A12")
+              for name, size in inner.items()),
             *extra):
         if on:
             raise NotImplementedError(f"{flag} is not ported to PyTorch "
                                       f"yet (ROADMAP.md {item})")
+
+
+def _mesh_kv(spec: str) -> dict:
+    kv = {}
+    for part in spec.split(","):
+        key, sep, val = part.partition("=")
+        if not sep:
+            raise ValueError(f"--mesh: expected key=value, got {part!r}")
+        kv[key.strip()] = val.strip()
+    unknown = set(kv) - {"clients", "seq", "model", "stage", "expert"}
+    if unknown:
+        raise ValueError(f"--mesh: unknown axes {sorted(unknown)} "
+                         f"(supported: clients=N[,seq=M | ,model=M | "
+                         f",stage=S | ,expert=E])")
+    return kv
+
+
+def mesh_inner_axes(spec: str) -> dict:
+    """``--mesh``'s inner axis sizes (``seq``, ``model``, ``stage``,
+    ``expert``; 1 where absent), checked as ``parse_mesh`` checks them."""
+    if not spec:
+        return {}
+    kv = _mesh_kv(spec)
+    inner = {}
+    for name in ("seq", "model", "stage", "expert"):
+        inner[name] = int(kv.get(name, 1))
+        if inner[name] <= 0:
+            raise ValueError(f"--mesh: {name} must be positive, "
+                             f"got {inner[name]}")
+    return inner
+
+
+def parse_mesh(spec: str):
+    """``--mesh`` string -> a ``parallel.mesh.MeshSpec`` (None for no
+    mesh), in the reference's grammar and messages (``training/args.py:
+    441-487``): ``clients=N[,seq=M | ,model=M | ,stage=S | ,expert=E]``,
+    the inner axes mutually exclusive. ``clients=all`` (or ``auto``)
+    means ``WORLD_SIZE`` under ``torchrun``, else every CUDA device (one
+    rank without one). The ranks build the ``DeviceMesh`` itself
+    (``parallel.mesh.make_mesh``) once they have joined; an inner axis
+    above 1 is refused there and by ``refuse_unported`` (A12)."""
+    if not spec:
+        return None
+    from commefficient_tpu_torch.parallel.mesh import MeshSpec
+    kv = _mesh_kv(spec)
+    inner = mesh_inner_axes(spec)
+
+    def spec_of(n):
+        # the reference's make_mesh check, after the sizes
+        if sum(s > 1 for s in inner.values()) > 1:
+            raise ValueError("choose ONE inner axis: seq (ring attention), "
+                             "model (tensor parallelism), stage (GPipe "
+                             "pipeline), or expert (MoE expert "
+                             "parallelism)")
+        return MeshSpec(clients=n, inner=inner)
+    clients = kv.get("clients", "all")
+    if clients in ("all", "auto"):
+        if "WORLD_SIZE" in os.environ:
+            n = int(os.environ["WORLD_SIZE"])
+        else:
+            import torch
+            n = torch.cuda.device_count() if torch.cuda.is_available() \
+                else 1
+        return spec_of(max(1, n // math.prod(inner.values())))
+    n = int(clients)
+    if n <= 0:
+        raise ValueError(f"--mesh: clients must be positive, got {n}")
+    return spec_of(n)
+
+
+def round_up_workers_for_mesh(args, mesh) -> int:
+    """Number of mesh shards along ``clients``; loudly rounds
+    ``args.num_workers`` up to a multiple of it (the batch worker axis is
+    split over that mesh axis, so its width must divide evenly — the
+    reference instead silently DROPS the tail chunk when procs don't divide
+    clients, fed_aggregator.py:230-237, a quirk SURVEY.md says not to keep)."""
+    if mesh is None:
+        return 1
+    from commefficient_tpu_torch.parallel.mesh import clients_size
+    from commefficient_tpu_torch.utils.params import round_up
+    n_shards = clients_size(mesh)
+    if args.num_workers % n_shards:
+        padded = round_up(args.num_workers, n_shards)
+        if os.environ.get("RANK", "0") == "0":   # torchrun's other ranks
+            print(f"--mesh: rounding num_workers {args.num_workers} -> "
+                  f"{padded} (must be a multiple of the {n_shards}-way "
+                  f"'clients' axis)")
+        args.num_workers = padded
+    return n_shards
 
 
 def make_fault_model(args, num_clients: int):
@@ -361,6 +455,8 @@ def scan_rounds(args) -> int:
     return max(1, int(getattr(args, "scan_rounds", 1) or 1))
 
 
-def args_to_config(args) -> FedConfig:
+def args_to_config(args, **overrides) -> FedConfig:
     fields = set(FedConfig.__dataclass_fields__)
-    return FedConfig(**{k: v for k, v in vars(args).items() if k in fields})
+    kwargs = {k: v for k, v in vars(args).items() if k in fields}
+    kwargs.update(overrides)
+    return FedConfig(**kwargs)

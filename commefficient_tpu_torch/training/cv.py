@@ -50,7 +50,13 @@ a partial buffer applied at the end), ``--client_quarantine``,
 ``--resume auto|PATH`` (``training/preempt.py``: a resumed epoch replays
 its first rounds' data draws without training them, and the run ends
 bitwise where the uninterrupted one does), and ``--finetune`` from
-``--finetune_path`` (``utils/finetune.py``). The mesh is ROADMAP.md A12.
+``--finetune_path`` (``utils/finetune.py``).
+
+``--mesh clients=N`` runs the round on N ranks (``parallel/``): ``main``
+launches them (or joins ``torchrun``'s), each runs ``train(args,
+mesh=...)`` on its own device with the workers of its block, and rank 0
+prints. A CV run refuses every inner axis with the reference's
+ValueErrors.
 """
 
 from __future__ import annotations
@@ -69,11 +75,18 @@ from commefficient_tpu_torch.data.transforms import get_transforms
 from commefficient_tpu_torch.federated.losses import make_cv_loss
 from commefficient_tpu_torch.models import get_model
 from commefficient_tpu_torch.models.norms import BatchNorm
+from commefficient_tpu_torch.parallel import distributed
+from commefficient_tpu_torch.parallel.mesh import (clients_size, main_first,
+                                                   make_mesh,
+                                                   padded_num_clients)
 from commefficient_tpu_torch.training.args import (args_to_config,
                                                    build_parser,
                                                    learner_factory,
+                                                   mesh_inner_axes,
+                                                   parse_mesh,
                                                    refuse_buffered_scan,
                                                    refuse_unported,
+                                                   round_up_workers_for_mesh,
                                                    scan_rounds)
 from commefficient_tpu_torch.training.loop import (FeedClock, RoundAborted,
                                                    RoundFeed, end_aborted,
@@ -95,7 +108,30 @@ DATASET_CLASSES = {"CIFAR10": 10, "CIFAR100": 100, "EMNIST": 62,
 DATASET_CHANNELS = {"EMNIST": 1, "Digits": 1}
 
 
+def _refuse_mesh_axes(args):
+    """The reference's ValueErrors for an inner mesh axis on a CV run
+    (``commefficient_tpu/training/cv.py:104-124``), in its order."""
+    inner = mesh_inner_axes(args.mesh)
+    if inner.get("seq", 1) > 1:
+        raise ValueError("--mesh seq=N applies to the gpt2 entrypoint "
+                         "(sequence-parallel ring attention); CV models "
+                         "have no sequence axis")
+    if inner.get("model", 1) > 1:
+        raise ValueError("--mesh model=M (2D clients x model federation) "
+                         "is wired for the gpt2 entrypoint; CV models "
+                         "have no TP layout")
+    if inner.get("stage", 1) > 1:
+        raise ValueError("--mesh stage=S (GPipe pipeline) is wired for "
+                         "the gpt2 entrypoint; CV models have no stacked "
+                         "block trunk")
+    if inner.get("expert", 1) > 1:
+        raise ValueError("--mesh expert=E (MoE expert parallelism) is "
+                         "wired for the gpt2 entrypoint; CV models have "
+                         "no MoE blocks")
+
+
 def _refuse_unported(args):
+    _refuse_mesh_axes(args)
     refuse_unported(args)
     refuse_buffered_scan(args)
     if args.dataset_name not in fed_datasets:
@@ -116,7 +152,8 @@ def make_dataset(args, train: bool):
     return cls(**kw)
 
 
-def build_learner(args, num_classes, channels, device, image_size=32):
+def build_learner(args, num_classes, channels, device, image_size=32,
+                  mesh=None):
     """The model of ``--model`` (``--batchnorm`` goes to ResNet9 alone, as
     in the reference), seeded from ``--seed``, in a ``FedLearner`` with
     the CIFAR LR schedule and, where ``--scalar_lr_factor`` (0.1 for
@@ -133,8 +170,10 @@ def build_learner(args, num_classes, channels, device, image_size=32):
     ``--finetune`` loads ``--finetune_path``'s weights into every
     coordinate but the head's and freezes them; ``--server_mode
     buffered`` builds a ``BufferedFedLearner`` with the ``--fault_*``
-    schedule (``learner_factory``)."""
-    cfg = args_to_config(args)
+    schedule (``learner_factory``). On a ``mesh`` the client rows are
+    padded to a multiple of its ``clients`` axis."""
+    cfg = args_to_config(args, num_clients=padded_num_clients(
+        args.num_clients, mesh))
     model_kw = dict(num_classes=num_classes, in_channels=channels)
     compute_dtype = getattr(args, "compute_dtype", "float32")
     if args.model == "ResNet9":
@@ -179,20 +218,25 @@ def build_learner(args, num_classes, channels, device, image_size=32):
               partial(scalar_lr_multipliers, scalar_factor=factor))
     cls, extra = learner_factory(args, cfg.num_clients)
     return cls(model, cfg, loss, loss, lr_schedule=sched, device=device,
-               lr_scale_vec=lr_vec, trainable_mask=trainable_mask, **extra)
+               lr_scale_vec=lr_vec, trainable_mask=trainable_mask, mesh=mesh,
+               **extra)
 
 
-def train(args, max_rounds=None, log=True):
+def train(args, mesh=None, max_rounds=None, log=True):
     """Train per ``args``; returns ``(learner, last epoch's row)``. The row
     carries every finalized round's metrics in order, over all epochs,
     under ``"rounds"`` (each with its ``round_s``, ``training/loop.py``),
     and the host seconds and batches of the data feed (``"feed_s"``,
     ``"feed_batches"``). A run stopped by SIGTERM/SIGINT returns after its
-    checkpoint with ``"preempted"`` in the row."""
+    checkpoint with ``"preempted"`` in the row. On a ``mesh`` (a
+    ``DeviceMesh`` this rank has joined) only rank 0 logs; every rank
+    returns the global rounds' metrics."""
     _refuse_unported(args)
+    log = log and distributed.is_main()
     device = resolve_device(args.device)
-    train_set = make_dataset(args, train=True)
-    val_set = make_dataset(args, train=False)
+    with main_first(mesh):
+        train_set = make_dataset(args, train=True)
+        val_set = make_dataset(args, train=False)
     args.num_clients = train_set.num_clients
     num_classes = getattr(train_set, "num_classes",
                           DATASET_CLASSES[args.dataset_name])
@@ -205,7 +249,7 @@ def train(args, max_rounds=None, log=True):
     # (a resume's cursor then overwrites the draws it made)
     _, probe_cols, _ = next(iter(batcher.epoch()))
     learner = build_learner(args, num_classes, channels, device,
-                            image_size=probe_cols[0].shape[2])
+                            image_size=probe_cols[0].shape[2], mesh=mesh)
     meta = {"model": args.model, "num_classes": num_classes,
             "do_batchnorm": args.do_batchnorm}
     ckpt = TrainCheckpointer(args, learner, batcher, entry="cv", meta=meta,
@@ -215,7 +259,8 @@ def train(args, max_rounds=None, log=True):
     skip0 = cursor["rounds_in_epoch"] if cursor else 0
     scan_k = scan_rounds(args)
     table = TableLogger() if log else None
-    writer = (ScalarWriter(make_logdir(args)) if args.use_tensorboard
+    writer = (ScalarWriter(make_logdir(args))
+              if args.use_tensorboard and distributed.is_main()
               else None)
     timer = Timer()
     feed = FeedClock()
@@ -272,7 +317,7 @@ def train(args, max_rounds=None, log=True):
             # gather-ahead (the next round's rows copy meanwhile too)
             for (ids, cols, mask), nxt in with_lookahead(device_prefetch(
                     feed.wrap(batcher.epoch(skip=skip)),
-                    device=learner.device)):
+                    device=learner.device, workers=learner.worker_slice)):
                 record(rounds.push(
                     ids, cols, mask, total_rounds / max(spe, 1),
                     next_client_ids=None if nxt is None else nxt[0]))
@@ -339,6 +384,24 @@ def train(args, max_rounds=None, log=True):
     return learner, row
 
 
+def _print_final(final: dict) -> None:
+    for key in ("rounds", "feed_s", "feed_batches"):
+        final.pop(key, None)
+    print("final:", {k: round(v, 4) if isinstance(v, float) else v
+                     for k, v in final.items()})
+
+
+def mesh_rank_main(args, n_clients: int) -> None:
+    """One rank of a ``--mesh`` run (the launcher's target)."""
+    np.random.seed(args.seed)
+    mesh = make_mesh(n_clients, device_type=torch.device(args.device).type)
+    main_rank = distributed.is_main()
+    with profile_ctx(args.profile if main_rank else None):
+        _, final = train(args, mesh=mesh)
+    if main_rank:
+        _print_final(final)
+
+
 def main(argv=None):
     parser = build_parser(default_lr=0.4)
     args = parser.parse_args(argv)
@@ -348,13 +411,18 @@ def main(argv=None):
         args.num_cols = min(args.num_cols, 100)
         args.num_rows = min(args.num_rows, 1)
         args.num_epochs = 1
+    mesh = parse_mesh(args.mesh)
+    if mesh is not None:
+        round_up_workers_for_mesh(args, mesh)
+        _refuse_unported(args)
+        distributed.run(mesh_rank_main, clients_size(mesh),
+                        (args, clients_size(mesh)),
+                        device_type=torch.device(args.device).type)
+        return 0
     np.random.seed(args.seed)
     with profile_ctx(args.profile):
         _, final = train(args)
-    for key in ("rounds", "feed_s", "feed_batches"):
-        final.pop(key, None)
-    print("final:", {k: round(v, 4) if isinstance(v, float) else v
-                     for k, v in final.items()})
+    _print_final(final)
     return 0
 
 

@@ -54,7 +54,12 @@ serves persona traffic through a paged, personalized
 ``ContinuousBatchingServer``, trains the buffered cohorts on it and
 hot-swaps the new base weights into the server (``--serve_slots``,
 ``--serve_sample``, ``--speculate_k``, ``--kv_quant``, ``--serve_disagg``,
-``--online_train_every``, ``--online_swap_every``).
+``--online_train_every``, ``--online_swap_every``), on one device: with a
+``--mesh`` it raises the reference's ValueError.
+
+``--mesh clients=N`` runs the round on N ranks (``parallel/``), as the CV
+entry point does; the ``seq``, ``model``, ``stage`` and ``expert`` axes
+are ROADMAP.md A12 (the reference's MoE ValueErrors come first).
 """
 
 from __future__ import annotations
@@ -79,13 +84,20 @@ from commefficient_tpu_torch.federated.losses import (make_gpt2_train_loss,
 from commefficient_tpu_torch.models import GPT2_CONFIGS, GPT2DoubleHeads
 from commefficient_tpu_torch.models.gpt2_import import try_load_hf_pretrained
 from commefficient_tpu_torch.ops import cuda_lib
+from commefficient_tpu_torch.parallel import distributed
+from commefficient_tpu_torch.parallel.mesh import (clients_size, main_first,
+                                                   make_mesh,
+                                                   padded_num_clients)
 from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    args_to_config,
                                                    build_parser,
                                                    learner_factory,
+                                                   mesh_inner_axes,
+                                                   parse_mesh,
                                                    refuse_buffered_scan,
                                                    refuse_unported,
                                                    resolve_fused_ce,
+                                                   round_up_workers_for_mesh,
                                                    scan_rounds)
 from commefficient_tpu_torch.training.loop import (FeedClock, RoundAborted,
                                                    RoundFeed, end_aborted,
@@ -99,21 +111,11 @@ from commefficient_tpu_torch.utils.logging import (ScalarWriter, TableLogger,
 from commefficient_tpu_torch.utils.schedules import gpt2_lr_schedule
 
 
-def _mesh_axes(spec: str) -> dict:
-    """``--mesh``'s axis sizes (``key=value`` pairs), read only for the
-    reference's MoE errors: the port builds no mesh (A12)."""
-    axes = {}
-    for part in filter(None, spec.split(",")):
-        key, _, val = part.partition("=")
-        axes[key.strip()] = int(val) if val.strip().isdigit() else 0
-    return axes
-
-
 def _refuse_moe_combinations(args):
     """The reference's own errors for MoE (``training/gpt2.py:146-160``):
     an expert axis without experts, and MoE with the seq (ring) or stage
     losses, which do not collect the load-balancing term."""
-    axes = _mesh_axes(args.mesh)
+    axes = mesh_inner_axes(args.mesh)
     if axes.get("expert", 1) > 1 and args.moe_experts <= 0:
         raise ValueError("--mesh expert=E shards MoE expert weights; "
                          "pass --moe_experts > 0 (got 0)")
@@ -146,6 +148,8 @@ def save_pretrained(log_dir: str, learner, gpt2_config,
     the tokenizer's identity under ``log_dir``, as the reference does."""
     os.makedirs(log_dir, exist_ok=True)
     save_checkpoint(log_dir, learner, "gpt2")
+    if not distributed.is_main():
+        return
     with open(os.path.join(log_dir, "config.json"), "w") as f:
         json.dump({k: getattr(gpt2_config, k)
                    for k in ("vocab_size", "n_positions", "n_embd",
@@ -186,7 +190,7 @@ def gpt2_config(args, vocab_size: int):
     return gcfg
 
 
-def train(args, max_rounds=None, log=True):
+def train(args, mesh=None, max_rounds=None, log=True):
     """Train per ``args``; returns ``(learner, last epoch's row)``. Beside
     the epoch's metrics the row carries every finalized round's metrics in
     order with its ``round_s`` (``"rounds"``), the kernel launch counters
@@ -194,12 +198,17 @@ def train(args, max_rounds=None, log=True):
     (``"launches_after_rounds"``), the number of validation batches
     (``"val_batches"``), the last round's ``(client_ids, batch, mask)``
     (``"last_batch"``, the batch and mask on the device) and the data
-    feed's host seconds and batches (``"feed_s"``, ``"feed_batches"``)."""
+    feed's host seconds and batches (``"feed_s"``, ``"feed_batches"``).
+    On a ``mesh`` (a ``DeviceMesh`` this rank has joined) the client rows
+    are padded to a multiple of its ``clients`` axis and only rank 0
+    logs; every rank returns the global rounds' metrics."""
     _refuse_unported(args)
+    log = log and distributed.is_main()
     device = resolve_device(args.device)
-    tokenizer = get_tokenizer(args.model_checkpoint, verbose=log)
-    train_set = make_persona(args, tokenizer, train=True)
-    val_set = make_persona(args, tokenizer, train=False)
+    with main_first(mesh):
+        tokenizer = get_tokenizer(args.model_checkpoint, verbose=log)
+        train_set = make_persona(args, tokenizer, train=True)
+        val_set = make_persona(args, tokenizer, train=False)
     args.num_clients = train_set.num_clients
 
     model = GPT2DoubleHeads(gpt2_config(args, tokenizer.vocab_size))
@@ -220,12 +229,13 @@ def train(args, max_rounds=None, log=True):
     spe = batcher.steps_per_epoch()
     sched = gpt2_lr_schedule(args.lr_scale,
                              max(1, int(args.num_epochs * spe)))
-    cls, extra = learner_factory(args, args.num_clients)
-    learner = cls(model, args_to_config(args),
+    num_clients = padded_num_clients(args.num_clients, mesh)
+    cls, extra = learner_factory(args, num_clients)
+    learner = cls(model, args_to_config(args, num_clients=num_clients),
                   make_gpt2_train_loss(model, args.lm_coef, args.mc_coef,
                                        args.moe_aux_weight),
                   make_gpt2_val_loss(model), lr_schedule=sched,
-                  device=device, seed=args.seed, **extra)
+                  device=device, seed=args.seed, mesh=mesh, **extra)
     if log:
         print(f"gpt2: d = {learner.cfg.grad_size}, vocab "
               f"{model.config.vocab_size}, attn_impl "
@@ -240,7 +250,8 @@ def train(args, max_rounds=None, log=True):
 
     scan_k = scan_rounds(args)
     table = TableLogger() if log else None
-    writer = (ScalarWriter(make_logdir(args)) if args.use_tensorboard
+    writer = (ScalarWriter(make_logdir(args))
+              if args.use_tensorboard and distributed.is_main()
               else None)
     timer = Timer()
     feed = FeedClock()
@@ -286,7 +297,7 @@ def train(args, max_rounds=None, log=True):
             # gather-ahead
             for (ids, cols, mask), nxt in with_lookahead(device_prefetch(
                     feed.wrap(batcher.epoch(skip=skip)),
-                    device=learner.device)):
+                    device=learner.device, workers=learner.worker_slice)):
                 # the schedule decays per round: lr_at(total rounds so far)
                 record(rounds.push(
                     ids, cols, mask, total_rounds,
@@ -408,6 +419,25 @@ def build_gpt2_parser():
     return parser
 
 
+def _print_final(final: dict) -> None:
+    for key in ("rounds", "launches_after_rounds", "val_batches",
+                "last_batch", "feed_s", "feed_batches"):
+        final.pop(key, None)
+    print("final:", {k: round(v, 4) if isinstance(v, float) else v
+                     for k, v in final.items()})
+
+
+def mesh_rank_main(args, n_clients: int) -> None:
+    """One rank of a ``--mesh`` run (the launcher's target)."""
+    np.random.seed(args.seed)
+    mesh = make_mesh(n_clients, device_type=torch.device(args.device).type)
+    main_rank = distributed.is_main()
+    with profile_ctx(args.profile if main_rank else None):
+        _, final = train(args, mesh=mesh)
+    if main_rank:
+        _print_final(final)
+
+
 def main(argv=None):
     args = build_gpt2_parser().parse_args(argv)
     if args.do_test:
@@ -415,25 +445,31 @@ def main(argv=None):
         args.k = min(args.k, 10)
         args.num_cols = min(args.num_cols, 100)
         args.num_rows = min(args.num_rows, 1)
+    mesh = parse_mesh(args.mesh)
+    round_up_workers_for_mesh(args, mesh)
     np.random.seed(args.seed)
     if args.serve_online:
         # train-while-serve: serve persona traffic, train on it through the
         # buffered event loop, hot-swap the new weights into the server
+        # (one device: a mesh raises the reference's ValueError)
         from commefficient_tpu_torch.online import run_online
-        _refuse_unported(args)
+        if mesh is None:
+            _refuse_unported(args)
         with profile_ctx(args.profile):
-            _, _, results = run_online(args)
+            _, _, results = run_online(args, mesh=mesh)
         print("final:", {k: (round(v, 4) if isinstance(v, float) else v)
                          for k, v in results.items()
                          if not isinstance(v, (list, dict))})
         return 0
+    if mesh is not None:
+        _refuse_unported(args)
+        distributed.run(mesh_rank_main, clients_size(mesh),
+                        (args, clients_size(mesh)),
+                        device_type=torch.device(args.device).type)
+        return 0
     with profile_ctx(args.profile):
         _, final = train(args)
-    for key in ("rounds", "launches_after_rounds", "val_batches",
-                "last_batch", "feed_s", "feed_batches"):
-        final.pop(key, None)
-    print("final:", {k: round(v, 4) if isinstance(v, float) else v
-                     for k, v in final.items()})
+    _print_final(final)
     return 0
 
 

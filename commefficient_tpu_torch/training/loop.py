@@ -17,6 +17,8 @@ from __future__ import annotations
 import time
 from typing import Iterable, Iterator, List
 
+from commefficient_tpu_torch.parallel import distributed
+
 
 class RoundFeed:
     def __init__(self, learner, scan_k: int = 1):
@@ -75,9 +77,10 @@ def raise_on_abort(outs) -> None:
 
 def end_aborted(learner, bad: dict, history: list, nan_threshold: float):
     """An entry point's result after the aborted round ``bad``: the host
-    rows settled first."""
-    print(f"NaN/divergent loss ({bad['loss']}); aborting "
-          f"(threshold {nan_threshold})")
+    rows settled first. On a mesh rank 0 alone says so."""
+    if distributed.is_main():
+        print(f"NaN/divergent loss ({bad['loss']}); aborting "
+              f"(threshold {nan_threshold})")
     learner.flush_offload()
     return learner, {"aborted": True, "loss": bad["loss"],
                      "rounds": history}

@@ -149,6 +149,17 @@ class TrainCheckpointer:
     def due(self, total_rounds: int) -> bool:
         return self.active and total_rounds % self.every == 0
 
+    def _signalled(self) -> bool:
+        """Whether a signal reached this process, or on a mesh any rank:
+        every rank must take the same branch, since a save gathers the
+        rows of all of them (one small ``all_reduce`` a round)."""
+        mesh = getattr(self.learner, "mesh", None)
+        if mesh is not None and self.active:
+            from commefficient_tpu_torch.parallel.mesh import any_rank
+            if any_rank(self.guard.triggered, mesh):
+                self.guard.triggered = True
+        return self.guard.triggered
+
     def after_round(self, epoch: int, rounds_in_epoch: int,
                     total_rounds: int, at_boundary: bool, flush) -> bool:
         """The save policy after each round the loop has counted. A save
@@ -159,7 +170,7 @@ class TrainCheckpointer:
         in flight first (``rounds_done`` and the byte totals advance as
         they are read), then the step file is written. Returns True when
         a signal's save is written: the loop returns, preempted."""
-        if not (self.guard.triggered or self.due(total_rounds)):
+        if not (self._signalled() or self.due(total_rounds)):
             return False
         if at_boundary:
             self._deferred = True
@@ -176,7 +187,7 @@ class TrainCheckpointer:
         when no epoch follows: the run ends. Returns True when a signal's
         save is written: the loop returns, preempted."""
         deferred, self._deferred = self._deferred, False
-        if (not (deferred or self.guard.triggered)
+        if (not (self._signalled() or deferred)
                 or epoch + 1 >= n_epochs or stop):
             return False
         self.save(epoch + 1, 0, total_rounds, in_epoch=False)

@@ -36,6 +36,11 @@ between the fsync and the rename.
 
 ``load_checkpoint`` is transactional: every check (digest, leaf paths,
 shapes, offloaded rows, fingerprint) passes before the learner changes.
+
+On a mesh (a learner with ``mesh``) the ranks join their row blocks and
+arena shards in row order and rank 0 writes the one file, in the format
+a one-process run writes, so it loads on any number of ranks, in one
+process, and in the JAX package; a load gives each rank its own block.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from commefficient_tpu_torch.federated.round import FedState
 from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      ClientState,
                                                      ServerOptState)
+from commefficient_tpu_torch.parallel import mesh as mesh_lib
 
 FORMAT_VERSION = 3
 
@@ -165,6 +171,30 @@ def _with_leaves(state: FedState, new: dict) -> FedState:
         quarantine=new[".quarantine"], buffer=state.buffer)
 
 
+def _mesh_of(learner):
+    return getattr(learner, "mesh", None)
+
+
+def _num_clients(learner) -> int:
+    return int(learner.state.client_last_round.shape[0])
+
+
+def _full_rows(t: torch.Tensor, learner) -> torch.Tensor:
+    """A held block of client rows (its sink dropped) as every client's,
+    the ranks' blocks joined in row order on a mesh."""
+    mesh = _mesh_of(learner)
+    return t if mesh is None else mesh_lib.all_gather_cat(t, mesh)
+
+
+def _held_rows(arr: np.ndarray, learner) -> np.ndarray:
+    """Every client's rows -> the block this process holds."""
+    mesh = _mesh_of(learner)
+    if mesh is None:
+        return arr
+    lo, hi = mesh_lib.row_block(_num_clients(learner), mesh)
+    return arr[lo:hi]
+
+
 def _host_fields(learner):
     """``[(field, key -> leaf name or None)]`` of the offloaded rows."""
     store = getattr(learner, "host_store", None)
@@ -210,12 +240,18 @@ def save_checkpoint(path: str, learner, name: str = "model",
     for field, keys in _host_fields(learner):
         stacked = learner.host_store.stacked(field)
         for key, leaf in keys.items():
-            extra[key] = (stacked if leaf is None
-                          else stacked[leaf]).numpy()
+            extra[key] = _full_rows(stacked if leaf is None
+                                    else stacked[leaf], learner).numpy()
     arrays = {}
     for i, (_, t, rows) in enumerate(leaves):
         # the client rows' sink row is the port's, not the format's
-        arrays[f"arr_{i}"] = (t[:-1] if rows else t).detach().cpu().numpy()
+        arrays[f"arr_{i}"] = (_full_rows(t[:-1], learner) if rows
+                              else t).detach().cpu().numpy()
+    mesh = _mesh_of(learner)
+    if mesh is not None and mesh_lib.clients_rank(mesh) != 0:
+        # rank 0 writes the file; every rank returns once it is there
+        mesh_lib.barrier(mesh)
+        return fn
     payload = dict(rounds_done=np.asarray(learner.rounds_done),
                    total_download_bytes=np.asarray(
                        learner.total_download_bytes),
@@ -230,6 +266,8 @@ def save_checkpoint(path: str, learner, name: str = "model",
         _atomic_write_text(os.path.join(path, f"{name}.latest"),
                            os.path.basename(fn))
         _prune_step_files(path, name)
+    if mesh is not None:
+        mesh_lib.barrier(mesh)
     return fn
 
 
@@ -361,7 +399,7 @@ def load_checkpoint(fn: str, learner, expect_fingerprint: dict = None):
                 f"checkpoint {fn} has {n_saved} state arrays, learner "
                 f"expects {len(leaves)} — config/mode mismatch")
     for (p, cur, rows), new in zip(leaves, restored):
-        want = ((cur.shape[0] - 1,) if rows else ()) + tuple(
+        want = ((_num_clients(learner),) if rows else ()) + tuple(
             cur.shape[1 if rows else 0:])
         if tuple(new.shape) != want:
             raise ValueError(
@@ -406,6 +444,8 @@ def load_checkpoint(fn: str, learner, expect_fingerprint: dict = None):
     # ---- every check passed: mutate ------------------------------------
     new = {}
     for (p, cur, rows), arr in zip(leaves, restored):
+        if rows:
+            arr = _held_rows(arr, learner)
         t = torch.from_numpy(np.array(arr)).to(dtype=cur.dtype)
         if rows:
             t = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])

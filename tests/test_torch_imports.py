@@ -75,3 +75,21 @@ def test_native_and_moe_modules_are_checked_and_import(name):
     path = base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
     assert path in SOURCES
     importlib.import_module(f"commefficient_tpu_torch.{name}")
+
+
+PARALLEL = ("parallel", "parallel.distributed", "parallel.mesh",
+            "tools.mesh_cases")
+
+
+@pytest.mark.parametrize("name", PARALLEL)
+def test_parallel_modules_are_checked_and_import(name):
+    """The ``clients`` mesh's modules are among the files read above (so
+    they import no JAX and nothing of the JAX package), and each imports
+    (joining no process group)."""
+    import importlib
+    base = ROOT / "commefficient_tpu_torch" / name.replace(".", "/")
+    path = base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+    assert path in SOURCES
+    importlib.import_module(f"commefficient_tpu_torch.{name}")
+    import torch.distributed as dist
+    assert not dist.is_initialized()

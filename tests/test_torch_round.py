@@ -201,7 +201,19 @@ def _cli_args(tmp_path, *extra):
         "--dataset_dir", str(tmp_path), "--test", *extra])
 
 
-def test_cli_train_two_rounds_on_cpu(tmp_path):
+@pytest.fixture
+def one_intra_op_thread():
+    """One intra-op thread: under the suite's parallel workers, a
+    full-width ResNet9 at 8 threads a worker oversubscribes the cores and
+    its OpenMP threads spin-wait on each other (over 400 s against 12 s
+    alone, measured with 7 busy processes on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_cli_train_two_rounds_on_cpu(tmp_path, one_intra_op_thread):
     args = _cli_args(tmp_path, "--device", "cpu", "--num_epochs", "1")
     args.do_test = False   # --test only shrinks the dataset here
     learner, row = train(args, max_rounds=2, log=False)
@@ -255,13 +267,17 @@ def test_cli_runs_client_state_offload(tmp_path):
     assert learner.host_store.shard_writes.sum() == 2 * 3 * 2
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "clients=2"],
+@pytest.mark.parametrize("flag", [["--mesh", "clients=2,model=2"],
                                   ["--finetune"],
                                   ["--serve_tp", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     """``--finetune`` runs since ROADMAP A10: a missing checkpoint at
-    ``--finetune_path`` raises instead of a refusal."""
+    ``--finetune_path`` raises instead of a refusal. ``--mesh clients=N``
+    runs since A12's clients axis; a CV run refuses an inner axis with the
+    reference's ValueError."""
     exc, match = NotImplementedError, "ROADMAP"
+    if flag[0] == "--mesh":
+        exc, match = ValueError, "CV models have no TP layout"
     if flag == ["--finetune"]:
         flag = flag + ["--finetune_path", str(tmp_path / "missing.npz")]
         exc, match = FileNotFoundError, "missing.npz"
