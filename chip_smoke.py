@@ -312,7 +312,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    seed: at least 2 applies and 1 hot swap, rows_hist and rows_select
    launched by the cohorts, the flash kernels and the per-row top-k held
    against their plain versions on the first run's own inputs, the
-   replies and final weights of the two runs equal.
+   replies and final weights of the two runs equal;
+10. A12's model axis (tensor parallelism, ``parallel/tp.py``):
+   tp_flash_parity, each flash kernel (tensor-core and scalar) on a head
+   slice with its head map bitwise the unsharded launch's rows of those
+   heads, at the GPT2 shape at dropout 0 and 0.1, the identity map
+   bitwise no map, and the slices within the flash limits of their plain
+   versions; mesh_tp_gpt2, ``GPT2_FLAGS`` with ``--mesh
+   clients=1,model=2`` for 3 rounds on 2 ranks sharing the card over gloo
+   (d = 124,051,201 padded to 124,051,202, each rank storing half): the
+   ranks' whole state bitwise every round, the gpt2 path's launches a
+   rank, upload and download bytes exact, the losses within 1e-4 of the
+   gpt2 path's, round 1's table bitwise the sum of the ranks' block
+   sketches recomputed here and within ``TP_TABLE_SLACK`` times the
+   distance its inputs explain (the TP gradient's deviation and the block
+   split's reassociation) of the gpt2 path's table; serve_tp2,
+   serve_gpt2's burst at tp = 2 on 2 ranks: replies token-identical to
+   serve_gpt2's, flash_fwd 12 a prefill a rank, 24 all-reduces a decode
+   step, a rank's pools half the model's; step ms, tokens/s and the pool
+   bytes a rank printed.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -3818,11 +3836,22 @@ def phase_repeat_gpt2(tmpdir):
     from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
                                                        train)
     runs = []
-    for _ in range(2):
+    for i in range(2):
         args = build_gpt2_parser().parse_args(GPT2_FLAGS + [
             "--dataset_dir", tmpdir])
         np.random.seed(args.seed)
-        learner, row = train(args, max_rounds=3, log=False)
+        with _RoundTables() if i == 0 else nullcontext() as rec:
+            learner, row = train(args, max_rounds=3, log=False)
+        if i == 0:
+            # mesh_tp_gpt2's comparison: round 1's table and the aggregate
+            # it sketched, the rounds' losses and bytes
+            GPT2_ROUND1.update(
+                table=rec.tables[0].cpu().numpy(),
+                agg=rec.dense[0].cpu().numpy(),
+                losses=[r["loss"] for r in row["rounds"]],
+                up=[r["upload_bytes"] for r in row["rounds"]],
+                down=[r["download_bytes"] for r in row["rounds"]])
+            del rec
         s = learner.state
         runs.append(([r["loss"] for r in row["rounds"]],
                      s.weights.clone(), s.opt.Vvelocity.clone(),
@@ -3845,6 +3874,8 @@ def phase_repeat_gpt2(tmpdir):
 
 
 GPT2_SCAN_K = 3
+#: the gpt2 path's round 1 (``phase_repeat_gpt2``'s first run)
+GPT2_ROUND1 = {}
 
 
 def phase_gpt2_scan(tmpdir, ref):
@@ -5345,7 +5376,9 @@ def phase_mesh(tmpdir, ref):
       (lock-step), bitwise mesh_sketch; then FAULT_FLAGS over
       FAULT_COHORTS cohorts, its schedule equal to its one-process CPU
       replay of the same cohorts;
-    * the uninterrupted run of mesh_kill_resume (``phase_mesh_kill``).
+    * the uninterrupted run of mesh_kill_resume (``phase_mesh_kill``);
+    * mesh_tp_gpt2 (``check_mesh_tp_gpt2``: the ranks join a model axis
+      for it).
 
     Returns (launches summed over the ranks, the kill arm's export)."""
     from commefficient_tpu_torch.tools import mesh_run
@@ -5371,10 +5404,11 @@ def phase_mesh(tmpdir, ref):
         _mesh_spec(tmpdir, "mesh_gpt2", GPT2_FLAGS + [
             "--dataset_dir", tmpdir], entry="gpt2",
             max_rounds=MESH_GPT2_ROUNDS, digests=False),
+        mesh_tp_gpt2_spec(tmpdir),
     ]
     t0 = time.perf_counter()
     (sk_a, sk_b, off, dev_rows, lock, faults, kill_base,
-     gpt2) = mesh_run.launch(specs, MESH_RANKS, MESH_BACKEND)
+     gpt2, tp) = mesh_run.launch(specs, MESH_RANKS, MESH_BACKEND)
     wall = time.perf_counter() - t0
     if any(r["backend"] != MESH_BACKEND or r["world"] != MESH_RANKS
            for recs in (sk_a, gpt2) for r in recs):
@@ -5475,6 +5509,7 @@ def phase_mesh(tmpdir, ref):
     _mesh_ranks_agree("mesh_kill_resume (uninterrupted)", kill_base)
     add(_mesh_launches("mesh_kill_resume (uninterrupted)", kill_base,
                        _scaled(LOCAL_TOPK, 6)))
+    add(check_mesh_tp_gpt2(tmpdir, tp))
     print(f"mesh: one launch of {len(specs)} runs on {MESH_RANKS} ranks in "
           f"{wall:.1f} s", flush=True)
     return launches, base
@@ -5652,6 +5687,277 @@ def phase_gpt2_robust(tmpdir, ref):
     return out
 
 
+# ---- A12's model axis: tensor parallelism on 2 ranks ---------------------
+
+TP_HEADS = 12             # GPT2-small's heads
+TP_RANKS = 2
+# the losses of mesh_tp_gpt2 against the gpt2 path's
+TP_LOSS_RTOL = 1e-4
+# rounds of mesh_tp_gpt2 (the first 3 held against the gpt2 path's; the
+# 2nd and 3rd are the steady ones: the first carries the set-up, the
+# epoch's last is read at once)
+TP_GPT2_ROUNDS = 4
+# round 1's table against the gpt2 path's, in float32 ulps of its largest
+# cell: the limit is this multiple of the distance the inputs explain,
+# max over cells of the sketch of |TP gradient - gpt2 gradient| (with
+# every sign +1: a bound on the sketch of the difference) plus the
+# distance of the same gradient's two block sketches summed from its
+# whole sketch (the split's reassociation)
+TP_TABLE_SLACK = 2
+
+
+def phase_tp_flash_parity(dev, errs):
+    """tp_flash_parity: at the GPT2 shape (BH 768 = 64 x 12 heads, T 256,
+    D 64, float32) at dropout 0 and FLASH_RATE, each flash kernel
+    (tensor-core and scalar) launched on a rank's 6 heads with its head
+    map is bitwise the unsharded launch's rows of those heads, for both
+    ranks; the identity map (0, 12, 12) on the whole is bitwise no map;
+    each slice is within ``_flash_bad``'s limits of its plain version
+    with the same map."""
+    import torch
+
+    from commefficient_tpu_torch.ops import flash_attention as fa
+    bh, t, d = FLASH_SHAPE
+    B, Hl = bh // TP_HEADS, TP_HEADS // TP_RANKS
+    worst = {}
+    t0 = time.perf_counter()
+    for rate in (0.0, FLASH_RATE):
+        q, k, v, g = _flash_inputs(dev, bh, t, d, torch.float32, seed=40)
+        args = _flash_args(d, rate)
+        for v1 in (False, True):
+            full = _flash_run(q, k, v, g, args, v1)
+            ident = _flash_run(q, k, v, g, args + ((0, TP_HEADS, TP_HEADS),),
+                               v1)
+            if not all(_same_bits(a, b) for a, b in zip(full, ident)):
+                raise AssertionError(f"tp_flash_parity: the identity head "
+                                     f"map changed a launch (v1 {v1}, rate "
+                                     f"{rate})")
+            for h0 in range(0, TP_HEADS, Hl):
+                rows = (torch.arange(B, device=dev)[:, None] * TP_HEADS + h0
+                        + torch.arange(Hl, device=dev)).reshape(-1)
+                part_in = tuple(x[rows].contiguous() for x in (q, k, v, g))
+                heads = (h0, Hl, TP_HEADS)
+                part = _flash_run(*part_in, args + (heads,), v1)
+                for name, a, b in zip(_FLASH_NAMES, part, full):
+                    if not _same_bits(a, b[rows]):
+                        raise AssertionError(
+                            f"tp_flash_parity: {name} of heads [{h0}, "
+                            f"{h0 + Hl}) (v1 {v1}, rate {rate}) is not the "
+                            f"unsharded launch's rows")
+                ref = fa.flash_fwd_plain(*part_in[:3], *args, heads) + \
+                    fa.flash_bwd_plain(*part_in, *args, heads)
+                err = {n: _max_abs_err(a, b)
+                       for n, a, b in zip(_FLASH_NAMES, part, ref)}
+                rel = {n: err[n] / max(float(b.double().abs().max()), 1e-30)
+                       for n, b in zip(_FLASH_NAMES, ref)}
+                bad = _flash_bad(torch.float32, err, rel)
+                if bad:
+                    raise AssertionError(f"tp_flash_parity: heads [{h0}, "
+                                         f"{h0 + Hl}) disagree with the plain "
+                                         f"versions in {bad}: {err}")
+                if not v1:
+                    errs["flash_fwd"] = max(errs["flash_fwd"], err["o"])
+                    errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"],
+                                               err["dq"])
+                    errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"],
+                                                err["dk"], err["dv"])
+                for n in _FLASH_NAMES:
+                    worst[n] = max(worst.get(n, 0.0), err[n])
+        del q, k, v, g, full, ident, part, ref
+        torch.cuda.empty_cache()
+    print(f"parity tp_flash (BH {bh} = {B} x {TP_HEADS} heads, T {t}, D "
+          f"{d}, float32, rates 0 and {FLASH_RATE}; tensor-core and scalar "
+          f"kernels): each rank's {Hl} heads with its head map bitwise the "
+          f"unsharded launch's rows (forward, lse, dq, dk, dv), the "
+          f"identity map bitwise no map; max abs err against the plain "
+          f"versions {', '.join(f'{n} {e:.3e}' for n, e in worst.items())} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def _abs_sketch(cs, x, chunk=1 << 23):
+    """The sketch of ``x`` with every sign +1 (each cell the sum of |x|
+    over its coordinates): a cellwise bound on |sketch(x)|. Plain
+    PyTorch, a check only."""
+    import torch
+    table = torch.zeros(cs.r * cs.c_eff, device=x.device)
+    rows = torch.arange(cs.r, device=x.device)[:, None] * cs.c_eff
+    for lo in range(0, x.shape[0], chunk):
+        idx = torch.arange(lo, min(lo + chunk, x.shape[0]), device=x.device)
+        _, buckets = cs._row_hashes(None, idx)
+        table.index_add_(0, (buckets + rows).flatten(),
+                         x[idx].abs().expand(cs.r, -1).flatten())
+    return table.view(cs.r, cs.c_eff)
+
+
+def mesh_tp_gpt2_spec(tmpdir):
+    """mesh_tp_gpt2's run (phase 10), on the persona cache the gpt2 paths
+    made: ``phase_mesh``'s launch runs it on its 2 ranks."""
+    return _mesh_spec(tmpdir, "mesh_tp_gpt2", GPT2_FLAGS + [
+        "--dataset_dir", tmpdir], entry="gpt2", max_rounds=TP_GPT2_ROUNDS,
+        record_table=True, record_block=True, model=TP_RANKS,
+        time_collectives=True)
+
+
+def check_mesh_tp_gpt2(tmpdir, recs):
+    """mesh_tp_gpt2's checks (see the module docstring, phase 10) on the
+    ranks' records, against ``GPT2_ROUND1`` from ``phase_repeat_gpt2``.
+    Returns the launches summed over the ranks."""
+    import torch
+
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
+    ref = GPT2_ROUND1
+    if any(r["backend"] != MESH_BACKEND or r["world"] != TP_RANKS
+           for r in recs):
+        raise AssertionError("mesh_tp_gpt2: not the 2-rank gloo group")
+    _mesh_ranks_agree("mesh_tp_gpt2", recs)
+    launches = _mesh_launches("mesh_tp_gpt2", recs,
+                              _scaled(GPT2_SKETCH, TP_GPT2_ROUNDS))
+    d_pad = D_GPT2 + 1
+    if [(r["d"], r["held"]) for r in recs] != [(d_pad, d_pad // 2)] * 2:
+        raise AssertionError(f"mesh_tp_gpt2: d, held "
+                             f"{[(r['d'], r['held']) for r in recs]}")
+    rounds = recs[0]["rounds"]
+    up = [x["upload_bytes"] for x in rounds]
+    down = [x["download_bytes"] for x in rounds]
+    losses = [x["loss"] for x in rounds]
+    if up != [GPT2_WORKERS * GPT2_UPLOAD["gpt2"]] * TP_GPT2_ROUNDS \
+            or up[:3] != ref["up"] or down[:2] != ref["down"][:2]:
+        raise AssertionError(f"mesh_tp_gpt2: upload {up}, download {down} "
+                             f"against the gpt2 path's {ref['up']}, "
+                             f"{ref['down']}")
+    if not all(math.isclose(a, b, rel_tol=TP_LOSS_RTOL)
+               for a, b in zip(losses, ref["losses"])):
+        raise AssertionError(f"mesh_tp_gpt2: losses {losses} against the "
+                             f"gpt2 path's {ref['losses']}")
+    # round 1's table
+    prefix = os.path.join(tmpdir, "mesh_tp_gpt2")
+    tables = [np.load(f"{prefix}_rank{r}_table.npy") for r in range(2)]
+    if not np.array_equal(tables[0], tables[1]):
+        raise AssertionError("mesh_tp_gpt2: the ranks' round-1 tables "
+                             "differ")
+    dev = torch.device("cuda")
+    blocks = [torch.from_numpy(np.load(f"{prefix}_rank{r}_block.npy"))
+              .to(dev) for r in range(2)]
+    offsets = [r["block_offset"] for r in recs]
+    g_tp = torch.cat(blocks)
+    if offsets[0] != 0 or offsets[1] != blocks[0].numel() \
+            or g_tp.numel() != d_pad:
+        raise AssertionError(f"mesh_tp_gpt2: blocks at {offsets} of "
+                             f"{[b.numel() for b in blocks]}")
+    cs = CountSketch(d_pad, 500_000, 5, seed=42)
+    split = (cs.sketch_range(blocks[0], 0)
+             + cs.sketch_range(blocks[1], offsets[1])).cpu().numpy()
+    if not np.array_equal(split, tables[0]):
+        raise AssertionError("mesh_tp_gpt2: round 1's table is not the sum "
+                             "of the ranks' block sketches")
+    g_1 = torch.from_numpy(ref["agg"]).to(dev)
+    whole = ref["table"]
+    ulps = _ulps_of_largest(tables[0], whole)
+    ulp = float(np.spacing(np.float32(np.abs(whole).max())))
+    grad_dev = torch.cat([g_tp[:D_GPT2] - g_1, g_tp[D_GPT2:]])
+    ulps_grad = float(_abs_sketch(cs, grad_dev).max()) / ulp
+    g_1pad = torch.cat([g_1, g_1.new_zeros(1)])
+    ulps_split = _ulps_of_largest(
+        (cs.sketch_range(g_1pad[:offsets[1]], 0)
+         + cs.sketch_range(g_1pad[offsets[1]:], offsets[1])).cpu().numpy(),
+        whole)
+    limit = TP_TABLE_SLACK * (ulps_grad + ulps_split)
+    grad_rel = float(grad_dev.abs().max() / g_1.abs().max())
+    del blocks, g_tp, g_1, g_1pad, grad_dev, cs
+    torch.cuda.empty_cache()
+    if ulps > limit:
+        raise AssertionError(
+            f"mesh_tp_gpt2: round 1's table {ulps:.1f} ulps of its largest "
+            f"cell from the gpt2 path's (limit {limit:.1f}: the TP "
+            f"gradient's deviation explains {ulps_grad:.1f}, its max "
+            f"{grad_rel:.3e} of the largest gradient; the block split "
+            f"{ulps_split:.1f})")
+    steady = [x["round_s"] * 1e3 for x in rounds[1:3]]
+    coll = recs[0]["collectives"]
+    print(f"path mesh_tp_gpt2: {TP_RANKS} ranks on one card over "
+          f"{MESH_BACKEND} (clients=1, model=2), d = {D_GPT2} padded to "
+          f"{d_pad}, {d_pad // 2} coordinates held a rank; launches a rank "
+          f"{recs[0]['launches']}; the ranks' whole state bitwise every "
+          f"round; losses {[round(x, 6) for x in losses]} against the gpt2 "
+          f"path's {[round(x, 6) for x in ref['losses']]}; upload B {up}, "
+          f"download B {down} (gpt2 path {ref['down']}); round 1's table "
+          f"bitwise the ranks' block sketches summed, {ulps:.2f} ulps of "
+          f"its largest cell from the gpt2 path's (limit {limit:.2f} = "
+          f"{TP_TABLE_SLACK} x (gradient deviation {ulps_grad:.2f} + block "
+          f"split {ulps_split:.2f})), the TP gradient within "
+          f"{grad_rel:.3e} of the gpt2 path's largest; round ms rank 0 "
+          f"{_round_ms(recs[0])}, rank 1 {_round_ms(recs[1])} (steady "
+          f"{np.mean(steady):.3f}; a state digest a round); collectives "
+          f"a round, rank 0 (synchronized around each): "
+          f"{[round(c[0] * 1e3, 3) for c in coll]} ms, "
+          f"{[round(c[1] / 1e9, 4) for c in coll]} GB, {[c[2] for c in coll]} "
+          f"calls; peak GiB {_peaks(recs)}", flush=True)
+    return launches
+
+
+def phase_serve_tp2(tmpdir, prompts, replies, eos):
+    """serve_tp2: serve_gpt2's burst (the same seeded GPT2-small, server
+    and prompts) through ``DecodeEngine(mesh=)`` at tp = 2 on 2 ranks
+    sharing the card over gloo (``tools/serve_tp.py``): every rank's
+    replies token-identical to serve_gpt2's ``replies``, flash_fwd 12 a
+    prefill a rank and nothing else, 24 all-reduces a decode step, a
+    rank's pools half the model's, no page left in use. Returns the
+    launches summed over the ranks."""
+    from commefficient_tpu_torch.tools import serve_tp
+    spec = dict(out=os.path.join(tmpdir, "serve_tp2"),
+                prompts=[(list(ids), list(types))
+                         for _, _, ids, types in prompts],
+                eos=int(eos), seed=0, vocab=50262, n_layer=12,
+                device="cuda", max_new=SERVE_NEW, warmup=SERVE_SLOTS,
+                warmup_new=SERVE_WARMUP_NEW, slots=SERVE_SLOTS,
+                prefill=SERVE_PREFILL, max_len=SERVE_MAX_LEN,
+                page=SERVE_PAGE)
+    t0 = time.perf_counter()
+    recs = serve_tp.launch(spec, TP_RANKS, MESH_BACKEND)
+    wall = time.perf_counter() - t0
+    want = {"flash_fwd": 12 * SERVE_REQUESTS}
+    launches = {}
+    for rec in recs:
+        if rec["tp"] != TP_RANKS or rec["backend"] != MESH_BACKEND:
+            raise AssertionError(f"serve_tp2: rank {rec['rank']} tp "
+                                 f"{rec['tp']} over {rec['backend']}")
+        if rec["replies"] != replies:
+            bad = [i for i, (a, b) in enumerate(zip(rec["replies"],
+                                                    replies)) if a != b]
+            raise AssertionError(f"serve_tp2: rank {rec['rank']}'s replies "
+                                 f"{bad} differ from serve_gpt2's")
+        if rec["launches"] != want:
+            raise AssertionError(f"serve_tp2: rank {rec['rank']} launched "
+                                 f"{rec['launches']}, expected {want}")
+        if rec["allreduces_per_decode_step"] != [24] \
+                or rec["kv_pool_bytes_per_rank"] * TP_RANKS \
+                != rec["kv_pool_bytes"] or rec["pages_in_use"]:
+            raise AssertionError(f"serve_tp2: rank {rec['rank']}: "
+                                 f"{rec['allreduces_per_decode_step']} "
+                                 f"all-reduces a step, pools "
+                                 f"{rec['kv_pool_bytes_per_rank']} of "
+                                 f"{rec['kv_pool_bytes']}, "
+                                 f"{rec['pages_in_use']} pages in use")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    r0 = recs[0]
+    print(f"serve_tp2 (serve_gpt2's burst at tp = {TP_RANKS}, {TP_RANKS} "
+          f"ranks on one card over {MESH_BACKEND}): replies token-identical "
+          f"to serve_gpt2's on every rank; {r0['tokens']} tokens in "
+          f"{r0['wall_s']:.3f} s = {r0['tokens'] / r0['wall_s']:.1f} "
+          f"tokens/s; decode step median {np.median(r0['decode_ms']):.3f} "
+          f"ms (rank 1 {np.median(recs[1]['decode_ms']):.3f}) over "
+          f"{len(r0['decode_ms'])} decode-only steps; all-reduces a decode "
+          f"step {r0['allreduces_per_decode_step']}, their ms a step median "
+          f"{np.median(r0['allreduce_ms_per_decode_step']):.3f} "
+          f"(synchronized around each); KV pool "
+          f"{r0['kv_pool_bytes_per_rank'] / 2**30:.3f} GiB a rank of "
+          f"{r0['kv_pool_bytes'] / 2**30:.3f}; launches a rank "
+          f"{r0['launches']}; peak GiB {_peaks(recs)} ({wall:.1f} s)",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5669,12 +5975,19 @@ def main() -> int:
               "repository", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def stamp(label):
+        # the script's time so far, at each group of phases (a smoke run
+        # has a time limit, and the script grows)
+        print(f"time: {label} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     smi = _smi()
     print(f"gpu: {smi}", flush=True)
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
+    stamp("build")
     errs = {}
     cs, vec, table = phase_parity(dev, D_RESNET9, errs)
     inputs = phase_parity_stream(dev, cs, table, errs)
@@ -5695,6 +6008,7 @@ def main() -> int:
     times["sketch_batched"] = phase_timing_batched(cs, vecs)
     del cs, vecs
     torch.cuda.empty_cache()
+    stamp("kernel parity and timing at ResNet9's d")
     launches = {}
     for name in PATHS:
         for kernel, n in phase_path(name).items():
@@ -5703,6 +6017,7 @@ def main() -> int:
     for phase in (phase_sketch_scan, phase_cifar10_fetchsgd):
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n
+    stamp("the CV paths")
     phase_offload_parity()
     sketch_ref = phase_repeat(dev)
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -5715,8 +6030,10 @@ def main() -> int:
         for kernel, n in counts.items():
             launches[kernel] = launches.get(kernel, 0) + n
     del robust
+    stamp("repeat and robustness")
     phase_reference(dev)
     phase_flash_parity(dev, errs)
+    phase_tp_flash_parity(dev, errs)
     times.update(phase_flash_timing(dev))
     phase_hw_dropout_parity(dev, errs)
     times["hw_dropout"] = phase_hw_dropout_timing(dev)
@@ -5734,6 +6051,7 @@ def main() -> int:
     del cs, vecs
     torch.cuda.empty_cache()
     phase_download_counts(dev)
+    stamp("flash, hw_dropout and the kernels at GPT2's d")
     with tempfile.TemporaryDirectory() as tmpdir:
         for name in GPT2_PATHS:
             for kernel, n in phase_gpt2_path(tmpdir, name,
@@ -5745,14 +6063,17 @@ def main() -> int:
             for kernel, n in phase(tmpdir, gpt2_ref).items():
                 launches[kernel] = launches.get(kernel, 0) + n
         del gpt2_ref
+        stamp("the GPT2 paths")
         # the clients mesh, mesh_gpt2 on the persona cache made above
         mesh = [phase_mesh_nccl1(tmpdir, sketch_ref)]
         mesh_launches, base = phase_mesh(tmpdir, sketch_ref)
+        GPT2_ROUND1.clear()
         phase_mesh_kill(tmpdir, base)
         for counts in mesh + [mesh_launches]:
             for kernel, n in counts.items():
                 launches[kernel] = launches.get(kernel, 0) + n
         del sketch_ref
+    stamp("the meshes")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmpdir:
         for kernel, n in phase_gpt2_moe(tmpdir, errs, dev).items():
@@ -5763,12 +6084,19 @@ def main() -> int:
     phase_chunk_host(model, batch)
     del model, batch
     phase_gpt2_reference(dev)
+    stamp("MoE, fused CE, remat, chunk host, GPT2 reference")
     with tempfile.TemporaryDirectory() as tmpdir:
         serve_launches, engine, prompts, replies = phase_serve_gpt2(
             dev, tmpdir, errs)
     phase_serve_variants(engine, prompts, replies)
-    del engine, prompts, replies
+    eos = engine.eos_id
+    del engine
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for kernel, n in phase_serve_tp2(tmpdir, prompts, replies,
+                                         eos).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    del prompts, replies
     with tempfile.TemporaryDirectory() as tmpdir:
         online_launches = phase_serve_online(tmpdir, errs)
     for counts in (serve_launches, online_launches):

@@ -24,6 +24,14 @@ DP_MODES = ("worker", "server")
 SERVER_MODES = ("sync", "buffered")
 
 
+#: head counts of the checkpoint families the serving stack loads: what
+#: --serve_tp must divide for the per-head KV (and kv_quant scale row)
+#: sharding to split cleanly. Unknown checkpoints defer to the
+#: DecodeEngine's n_head check at engine construction.
+_KNOWN_N_HEAD = {"gpt2": 12, "gpt2-medium": 16, "gpt2-large": 20,
+                 "gpt2-xl": 25, "openai-gpt": 12}
+
+
 def _todo(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
@@ -122,20 +130,38 @@ class FedConfig:
     online_train_every: int = 4
     online_swap_every: int = 2
 
-    # derived (set by finalize): the flat-vector length
-    grad_size: int = 0
+    # the mesh the run shards over (the learner sets it from its mesh)
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axis_names: Tuple[str, ...] = ("clients",)
+    model_checkpoint: str = "gpt2"
 
-    def finalize(self, grad_size: int) -> "FedConfig":
+    # derived (set by finalize). grad_size is the LOGICAL model dimension
+    # (what the byte accounting charges); grad_size_pad the PHYSICAL
+    # flat-vector length, rounded up so a 'model' mesh axis can split it
+    # evenly (pad coordinates stay zero: no gradient, decay or update)
+    grad_size: int = 0
+    grad_size_pad: int = 0
+
+    def finalize(self, grad_size: int, pad_to: int = 1) -> "FedConfig":
         """Return a copy with derived fields filled in and invariants checked."""
-        cfg = dataclasses.replace(self, grad_size=int(grad_size))
+        from commefficient_tpu_torch.utils.params import round_up
+        cfg = dataclasses.replace(self, grad_size=int(grad_size),
+                                  grad_size_pad=round_up(grad_size, pad_to))
         cfg.validate()
         return cfg
 
     @property
     def grad_dim(self) -> int:
-        """Flat-vector length; the reference pads it for a model-axis mesh,
-        which the port does not have (ROADMAP.md A12)."""
-        return self.grad_size
+        """Physical flat-vector length (grad_size for configs built without
+        finalize)."""
+        return self.grad_size_pad or self.grad_size
+
+    @property
+    def model_axis(self) -> int:
+        """The mesh's ``model`` axis size (1 without one)."""
+        if "model" not in self.mesh_axis_names:
+            return 1
+        return int(self.mesh_shape[self.mesh_axis_names.index("model")])
 
     def validate(self) -> None:
         if self.mode not in MODES:
@@ -197,7 +223,38 @@ class FedConfig:
             raise ValueError(f"--serve_slots must be >= 1, got "
                              f"{self.serve_slots}")
         if self.serve_tp > 1:
-            _todo("--serve_tp > 1 (tensor-parallel serving)", "A12")
+            if "model" not in self.mesh_axis_names:
+                raise ValueError(
+                    f"--serve_tp {self.serve_tp} shards the served "
+                    f"params and KV heads along a 'model' mesh axis, "
+                    f"but the mesh has axes "
+                    f"{self.mesh_axis_names} — add model="
+                    f"{self.serve_tp} to --mesh")
+            msize = self.mesh_shape[
+                self.mesh_axis_names.index("model")]
+            if msize != self.serve_tp:
+                raise ValueError(
+                    f"--serve_tp {self.serve_tp} does not match the "
+                    f"mesh's model axis size {msize}; the decode step "
+                    f"shards across exactly the model axis")
+            if self.kv_quant != "none":
+                # quantized pools carry (num_pages, n_head) f32 scale
+                # rows that shard per head with the pools; the split
+                # must be exact or a head's scale would straddle shards
+                n_head = _KNOWN_N_HEAD.get(self.model_checkpoint)
+                if n_head is not None and n_head % self.serve_tp:
+                    raise ValueError(
+                        f"--kv_quant {self.kv_quant} per-head scale "
+                        f"rows cannot shard cleanly: "
+                        f"{self.model_checkpoint!r} has {n_head} heads, "
+                        f"not divisible by --serve_tp {self.serve_tp}")
+        if self.model_axis > 1:
+            if self.client_state_offload and self.has_client_state:
+                _todo("--client_state_offload with a model mesh axis",
+                      "A12 1b")
+            if self.server_mode == "buffered":
+                _todo("--server_mode buffered with a model mesh axis",
+                      "A12 1b")
         if self.serve_disagg and self.serve_slots < 2:
             raise ValueError(
                 f"--serve_disagg splits serving into prefill and decode "

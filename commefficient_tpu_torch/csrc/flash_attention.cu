@@ -113,10 +113,19 @@ struct Drop {
   float inv;                          // 1 / (1 - rate), rounded to float
   int on;                             // rate > 0
   int bq, bk;                         // the reference's logical tile sizes
+  // the head map of a head-sharded call: local row bh = b * h_loc + h
+  // draws the bits of global row b * h_tot + h0 + h (1, 1, 0: bh itself)
+  int h_loc, h_tot, h0;
 };
 
-__device__ __forceinline__ bool keep_bit(const Drop& dr, uint32_t bh, int i,
+// the global (batch, head) row whose dropout bits local row bh draws
+__device__ __forceinline__ uint32_t seed_bh(const Drop& dr, int bh) {
+  return (uint32_t)((bh / dr.h_loc) * dr.h_tot + dr.h0 + bh % dr.h_loc);
+}
+
+__device__ __forceinline__ bool keep_bit(const Drop& dr, int lbh, int i,
                                          int j) {
+  const uint32_t bh = seed_bh(dr, lbh);
   const uint32_t qb = (uint32_t)(i / dr.bq), r = (uint32_t)(i % dr.bq);
   const uint32_t kb = (uint32_t)(j / dr.bk), c = (uint32_t)(j % dr.bk);
   const uint32_t s0 = dr.seed0 + bh * 0x9E3779B9u + qb * 0x85EBCA77u;
@@ -539,6 +548,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sV = sK + kTile;                       // 1 tile
   T* sQ = sV + kTile;                       // 1 tile
   const int bh = blockIdx.x;
+  const uint32_t sbh = seed_bh(dr, bh);
   const int qt = gridDim.y - 1 - blockIdx.y;   // the longest rows first
   const int q0 = qt * kBM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -563,7 +573,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row[h] = q0 + warp * 16 + g + 8 * h;
     const int qb = row[h] / dr.bq;
     rr[h] = (uint32_t)(row[h] - qb * dr.bq);
-    rs0[h] = dr.seed0 + (uint32_t)bh * kMixB + (uint32_t)qb * kMixQB;
+    rs0[h] = dr.seed0 + sbh * kMixB + (uint32_t)qb * kMixQB;
   }
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, acc[ND][4];
 #pragma unroll
@@ -650,7 +660,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           uint32_t kb, c;
           cpos.at(nt * 8 + 2 * lq + e, dr.bk, kb, c);
-          const uint32_t s1 = dr.seed1 + kb * kMixKB + (uint32_t)bh * kMixB2;
+          const uint32_t s1 = dr.seed1 + kb * kMixKB + sbh * kMixB2;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const bool keep =
@@ -719,6 +729,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sL = reinterpret_cast<float*>(sO + 2 * kTile);   // lse, 2 x kBM
   float* sD = sL + 2 * kBM;                               // delta
   const int bh = blockIdx.x, kt = blockIdx.y, k0 = kt * kBN;
+  const uint32_t sbh = seed_bh(dr, bh);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, lq = lane & 3;
   const int nd_live = d / 8;
@@ -751,7 +762,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     key[h] = k0 + warp * 16 + g + 8 * h;
     const int kb = key[h] / dr.bk;
     kc[h] = (uint32_t)(key[h] - kb * dr.bk);
-    ks1[h] = dr.seed1 + (uint32_t)kb * kMixKB + (uint32_t)bh * kMixB2;
+    ks1[h] = dr.seed1 + (uint32_t)kb * kMixKB + sbh * kMixB2;
   }
   float acc_k[ND][4], acc_v[ND][4];
 #pragma unroll
@@ -807,7 +818,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float li = cL[ri], di = cD[ri];
         uint32_t qb, r;
         rpos.at(ri, dr.bq, qb, r);
-        const uint32_t s0 = dr.seed0 + (uint32_t)bh * kMixB + qb * kMixQB;
+        const uint32_t s0 = dr.seed0 + sbh * kMixB + qb * kMixQB;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int j = key[h];
@@ -879,6 +890,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sQ = sV + kTile;                       // 1 tile
   T* sO = sQ + kTile;                       // dO, 1 tile
   const int bh = blockIdx.x;
+  const uint32_t sbh = seed_bh(dr, bh);
   const int qt = gridDim.y - 1 - blockIdx.y;   // the longest rows first
   const int q0 = qt * kBM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -906,7 +918,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row[h] = q0 + warp * 16 + g + 8 * h;
     const int qb = row[h] / dr.bq;
     rr[h] = (uint32_t)(row[h] - qb * dr.bq);
-    rs0[h] = dr.seed0 + (uint32_t)bh * kMixB + (uint32_t)qb * kMixQB;
+    rs0[h] = dr.seed0 + sbh * kMixB + (uint32_t)qb * kMixQB;
     const bool ok = row[h] < t;
     lse_r[h] = ok ? lse[(size_t)bh * t + row[h]] : 0.f;
     dl_r[h] = ok ? delta[(size_t)bh * t + row[h]] : 0.f;
@@ -972,7 +984,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = k0 + nt * 8 + 2 * lq + e;
         uint32_t kb, c;
         cpos.at(nt * 8 + 2 * lq + e, dr.bk, kb, c);
-        const uint32_t s1 = dr.seed1 + kb * kMixKB + (uint32_t)bh * kMixB2;
+        const uint32_t s1 = dr.seed1 + kb * kMixKB + sbh * kMixB2;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = row[h];
@@ -1138,7 +1150,9 @@ int dispatch_width(Which which, const Args& a) {
 
 int dispatch(Which which, int dtype, const Args& a) {
   if (a.d <= 0 || a.d > 128 || a.d % 8 != 0 || a.t <= 0 || a.bh <= 0 ||
-      a.dr.bq <= 0 || a.dr.bk <= 0)
+      a.dr.bq <= 0 || a.dr.bk <= 0 || a.dr.h_loc <= 0 ||
+      a.dr.h_tot < a.dr.h_loc || a.dr.h0 < 0 ||
+      a.dr.h0 + a.dr.h_loc > a.dr.h_tot || a.bh % a.dr.h_loc != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return dispatch_width<float>(which, a);
   if (dtype == 1) return dispatch_width<__nv_bfloat16>(which, a);
@@ -1147,7 +1161,7 @@ int dispatch(Which which, int dtype, const Args& a) {
 
 Args make_args(int bh, int t, int d, float scale, int bq, int bk, int seed0,
                int seed1, unsigned threshold, float inv_keep, int dropout,
-               void* stream) {
+               const int* heads, void* stream) {
   Args a = {};
   a.bh = bh;
   a.t = t;
@@ -1162,6 +1176,9 @@ Args make_args(int bh, int t, int d, float scale, int bq, int bk, int seed0,
   a.dr.on = dropout;
   a.dr.bq = bq;
   a.dr.bk = bk;
+  a.dr.h0 = heads[0];
+  a.dr.h_loc = heads[1];
+  a.dr.h_tot = heads[2];
   a.stream = (cudaStream_t)stream;
   return a;
 }
@@ -1169,9 +1186,9 @@ Args make_args(int bh, int t, int d, float scale, int bq, int bk, int seed0,
 int fwd(Which which, const void* q, const void* k, const void* v, void* o,
         void* lse, int bh, int t, int d, int dtype, float scale, int bq,
         int bk, int seed0, int seed1, unsigned threshold, float inv_keep,
-        int dropout, void* stream) {
+        int dropout, const int* heads, void* stream) {
   Args a = make_args(bh, t, d, scale, bq, bk, seed0, seed1, threshold,
-                     inv_keep, dropout, stream);
+                     inv_keep, dropout, heads, stream);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1184,9 +1201,9 @@ int bwd(Which which, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* delta, void* d1,
         void* d2, int bh, int t, int d, int dtype, float scale, int bq,
         int bk, int seed0, int seed1, unsigned threshold, float inv_keep,
-        int dropout, void* stream) {
+        int dropout, const int* heads, void* stream) {
   Args a = make_args(bh, t, d, scale, bq, bk, seed0, seed1, threshold,
-                     inv_keep, dropout, stream);
+                     inv_keep, dropout, heads, stream);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1204,74 +1221,60 @@ int bwd(Which which, const void* q, const void* k, const void* v,
 // launch (or the error that refused it). The tensor-core kernels
 // (flash_fwd_launch, flash_bwd_dq_launch, flash_bwd_dkv_launch) need q, k,
 // v and dO 16-byte aligned; the _v1 entries run the first port's scalar
-// kernels.
+// kernels. (head0, heads_local, heads_total) is the head map of a
+// head-sharded call (0, 1, 1 for an unsharded one): the rows are
+// (batch, local head) pairs, and local head h draws the dropout bits of
+// global head head0 + h of heads_total.
+#define FLASH_TAIL                                                        \
+  int bh, int t, int d, int dtype, float scale, int bq, int bk, int seed0, \
+      int seed1, unsigned threshold, float inv_keep, int dropout,          \
+      int head0, int heads_local, int heads_total, void* stream
+#define FLASH_ARGS                                                        \
+  bh, t, d, dtype, scale, bq, bk, seed0, seed1, threshold, inv_keep,      \
+      dropout, heads, stream
+#define HEADS const int heads[3] = {head0, heads_local, heads_total}
+
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* o, void* lse, int bh, int t, int d,
-                                int dtype, float scale, int bq, int bk,
-                                int seed0, int seed1, unsigned threshold,
-                                float inv_keep, int dropout, void* stream) {
-  return fwd(kFwd, q, k, v, o, lse, bh, t, d, dtype, scale, bq, bk, seed0,
-             seed1, threshold, inv_keep, dropout, stream);
+                                void* o, void* lse, FLASH_TAIL) {
+  HEADS;
+  return fwd(kFwd, q, k, v, o, lse, FLASH_ARGS);
 }
 
 extern "C" int flash_fwd_v1_launch(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int bh,
-                                   int t, int d, int dtype, float scale,
-                                   int bq, int bk, int seed0, int seed1,
-                                   unsigned threshold, float inv_keep,
-                                   int dropout, void* stream) {
-  return fwd(kFwdV1, q, k, v, o, lse, bh, t, d, dtype, scale, bq, bk, seed0,
-             seed1, threshold, inv_keep, dropout, stream);
+                                   const void* v, void* o, void* lse,
+                                   FLASH_TAIL) {
+  HEADS;
+  return fwd(kFwdV1, q, k, v, o, lse, FLASH_ARGS);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
-                                   void* dq, int bh, int t, int d, int dtype,
-                                   float scale, int bq, int bk, int seed0,
-                                   int seed1, unsigned threshold,
-                                   float inv_keep, int dropout,
-                                   void* stream) {
-  return bwd(kDq, q, k, v, dout, lse, delta, dq, nullptr, bh, t, d, dtype,
-             scale, bq, bk, seed0, seed1, threshold, inv_keep, dropout,
-             stream);
+                                   void* dq, FLASH_TAIL) {
+  HEADS;
+  return bwd(kDq, q, k, v, dout, lse, delta, dq, nullptr, FLASH_ARGS);
 }
 
 extern "C" int flash_bwd_dq_v1_launch(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
-                                      void* dq, int bh, int t, int d,
-                                      int dtype, float scale, int bq, int bk,
-                                      int seed0, int seed1,
-                                      unsigned threshold, float inv_keep,
-                                      int dropout, void* stream) {
-  return bwd(kDqV1, q, k, v, dout, lse, delta, dq, nullptr, bh, t, d, dtype,
-             scale, bq, bk, seed0, seed1, threshold, inv_keep, dropout,
-             stream);
+                                      void* dq, FLASH_TAIL) {
+  HEADS;
+  return bwd(kDqV1, q, k, v, dout, lse, delta, dq, nullptr, FLASH_ARGS);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
-                                    void* dk, void* dv, int bh, int t, int d,
-                                    int dtype, float scale, int bq, int bk,
-                                    int seed0, int seed1, unsigned threshold,
-                                    float inv_keep, int dropout,
-                                    void* stream) {
-  return bwd(kDkv, q, k, v, dout, lse, delta, dk, dv, bh, t, d, dtype,
-             scale, bq, bk, seed0, seed1, threshold, inv_keep, dropout,
-             stream);
+                                    void* dk, void* dv, FLASH_TAIL) {
+  HEADS;
+  return bwd(kDkv, q, k, v, dout, lse, delta, dk, dv, FLASH_ARGS);
 }
 
 extern "C" int flash_bwd_dkv_v1_launch(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
-                                       void* dk, void* dv, int bh, int t,
-                                       int d, int dtype, float scale, int bq,
-                                       int bk, int seed0, int seed1,
-                                       unsigned threshold, float inv_keep,
-                                       int dropout, void* stream) {
-  return bwd(kDkvV1, q, k, v, dout, lse, delta, dk, dv, bh, t, d, dtype,
-             scale, bq, bk, seed0, seed1, threshold, inv_keep, dropout,
-             stream);
+                                       void* dk, void* dv, FLASH_TAIL) {
+  HEADS;
+  return bwd(kDkvV1, q, k, v, dout, lse, delta, dk, dv, FLASH_ARGS);
 }

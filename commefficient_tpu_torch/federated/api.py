@@ -47,6 +47,22 @@ the whole ids and mask, and every rank's weights and server state stay
 bitwise the others'. The generator is seeded alike on every rank, so the
 rounds' seeds, and the server's draws from them, are the same on all.
 
+A mesh with a ``model`` axis of M (2-D clients x model federation, the
+reference's ``api.py:95-102``) pads the flat vector to a multiple of M
+(``cfg.grad_size_pad``; the pad coordinates get no gradient, decay or
+update and are never charged to the byte counters), and each model rank
+STORES only its ``coord_block`` of the weights, ``last_changed``, the
+dense modes' server momentum and error and the dense codec's client
+rows: d/M of the flat state, where a clients-only rank holds d. The
+sketch tables and the sparse and sketched codecs' O(k) rows stay whole
+on every model rank. A GPT2 model then computes tensor-parallel
+(``parallel/tp.py``): ``tp.attach`` puts the model axis on its config and
+the round and validation take its compute shards through a
+``TPUnflatten``; any other model computes replicated on the model axis.
+``full_weights()`` is the whole padded vector on every rank.
+``--client_state_offload``, ``--server_mode buffered`` and
+``--grad_buckets`` with a model axis are ROADMAP.md A12 1b.
+
 Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
 (the reference's round rng) and draws one seed from it per round.
 
@@ -60,6 +76,7 @@ coordinates where it is 0 (``utils/finetune.py``).
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from typing import Callable, Iterable, Optional
@@ -81,6 +98,7 @@ from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      make_grad_buckets)
 from commefficient_tpu_torch.ops.countsketch import LANES
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
+from commefficient_tpu_torch.parallel import tp as tp_lib
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.params import flatten_params
 
@@ -95,9 +113,35 @@ class FedLearner:
         self.generator = torch.Generator().manual_seed(int(seed))
         self.model = model.to(self.device)
         flat, self.unflatten = flatten_params(self.model)
-        self.cfg = cfg.finalize(flat.shape[0])
+        d_logical = flat.shape[0]
+        M = mesh_lib.model_size(mesh)
+        if M > 1:
+            cfg = dataclasses.replace(
+                cfg, mesh_shape=(mesh_lib.clients_size(mesh), M),
+                mesh_axis_names=(mesh_lib.AXIS, "model"))
+        self.cfg = cfg.finalize(d_logical, pad_to=M)
         self.mesh = mesh
         self.worker_slice = slice(None)
+        self.coord_block = (0, self.cfg.grad_dim)
+        if self.cfg.grad_dim != d_logical:
+            # the pad coordinates: never reached by unflatten, so they get
+            # no gradient, decay or update
+            flat = torch.cat([flat, flat.new_zeros(self.cfg.grad_dim
+                                                   - d_logical)])
+            base = self.unflatten
+            self.unflatten = lambda fp: base(fp[:d_logical])  # noqa: E731
+        compute_unflatten = self.unflatten
+        if M > 1:
+            self.coord_block = mesh_lib.coord_block(self.cfg.grad_dim, mesh)
+            if getattr(getattr(self.model, "config", None), "n_head", None):
+                ctx = tp_lib.TPContext.from_mesh(mesh)
+                tp_lib.attach(self.model, ctx)
+                layout = tp_lib.TPLayout(
+                    {n: tuple(p.shape)
+                     for n, p in self.model.named_parameters()},
+                    self.model.config.n_head, M)
+                compute_unflatten = tp_lib.TPUnflatten(
+                    self.unflatten, d_logical, layout, ctx)
         num_rows = None
         if mesh is not None:
             # the reference's _check_mesh, before anything is allocated
@@ -108,7 +152,8 @@ class FedLearner:
             lo, hi = mesh_lib.row_block(self.cfg.num_clients, mesh)
             num_rows = hi - lo
         self.state: FedState = init_fed_state(self.cfg, flat,
-                                              num_rows=num_rows)
+                                              num_rows=num_rows,
+                                              block=self.coord_block)
         self.codec = make_codec(self.cfg)
         self._offload = (self.cfg.client_state_offload
                          and self.cfg.has_client_state)
@@ -134,6 +179,12 @@ class FedLearner:
         if trainable_mask is not None:
             trainable_mask = torch.as_tensor(
                 trainable_mask, dtype=torch.float32, device=self.device)
+            if trainable_mask.shape == (d_logical,) != (self.cfg.grad_dim,):
+                # the pads stay frozen
+                trainable_mask = torch.cat([trainable_mask,
+                                            trainable_mask.new_zeros(
+                                                self.cfg.grad_dim
+                                                - d_logical)])
             if trainable_mask.shape != (self.cfg.grad_dim,):
                 raise ValueError(
                     f"trainable_mask must have shape ({self.cfg.grad_dim},)"
@@ -142,15 +193,16 @@ class FedLearner:
         # (federated/buffer.BufferedFedLearner)
         self._loss_train = loss_train
         self._trainable_mask = trainable_mask
-        self._round = build_round_step(loss_train, self.unflatten, self.cfg,
-                                       buckets=self.grad_buckets,
+        self._round = build_round_step(loss_train, compute_unflatten,
+                                       self.cfg, buckets=self.grad_buckets,
                                        trainable_mask=trainable_mask,
                                        mesh=mesh)
         if self._round.sketch is not None:
             # the kernels' hash tables reach the card here, not by blocking
             # copies inside the first round
             self._round.sketch.prepare(self.device)
-        self._eval = build_eval_step(loss_val or loss_train, self.unflatten)
+        self._eval = build_eval_step(loss_val or loss_train,
+                                     compute_unflatten)
         self.lr_schedule = lr_schedule or (lambda t: cfg.lr_scale)
         if callable(lr_scale_vec):
             lr_scale_vec = lr_scale_vec(self.model)
@@ -161,6 +213,9 @@ class FedLearner:
                 raise ValueError(
                     f"lr_scale_vec must have shape ({self.cfg.grad_size},), "
                     f"got {tuple(lr_scale_vec.shape)}")
+            if self.cfg.grad_dim != d_logical:
+                lr_scale_vec = torch.cat([lr_scale_vec, lr_scale_vec.new_ones(
+                    self.cfg.grad_dim - d_logical)])
         self.lr_scale_vec = lr_scale_vec
         self._client_k_memo = {}
         self.rounds_done = 0
@@ -169,6 +224,12 @@ class FedLearner:
 
     def lr_at(self, t: float) -> float:
         return float(self.lr_schedule(t))
+
+    def full_weights(self) -> torch.Tensor:
+        """The whole (padded) flat weight vector: ``state.weights``, or on
+        a model axis the model ranks' blocks joined (every rank must
+        call it)."""
+        return mesh_lib.model_all_gather(self.state.weights, self.mesh)
 
     def _to_device(self, x, dtype=None):
         """``x`` on the learner's device: a tensor (already there, as
@@ -353,9 +414,10 @@ class FedLearner:
     def evaluate(self, batches: Iterable):
         """Centralized validation over an iterable of (batch_tuple, mask)."""
         loss_sum, metric_sums, n_total, num_batches = 0.0, None, 0.0, 0
+        weights = self.full_weights()
         for batch, mask in batches:
             num_batches += 1
-            out = self._eval(self.state.weights,
+            out = self._eval(weights,
                              tuple(self._to_device(c) for c in batch),
                              self._to_device(mask, torch.float32))
             loss_sum += float(out["loss_sum"])

@@ -70,7 +70,12 @@ def _chunk_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask, seed,
     views of one flat ``w``, autograd would add a zero-filled (d,)
     gradient per leaf: a (d,) fill and add each, and every -0.0 of a
     leaf's gradient would come out +0.0. A leaf the loss does not reach
-    gets zeros, as in JAX."""
+    gets zeros, as in JAX.
+
+    On a model axis ``unflatten`` is a ``parallel.tp.TPUnflatten``: the
+    leaves are this rank's compute shards, and its ``write_grads`` joins
+    the ranks' shard gradients into ``grad`` (one all-gather over the
+    model group), so every model rank holds the whole flat gradient."""
     views, spec = tree_flatten(unflatten(w_flat))
     leaves = [v.detach().requires_grad_(True) for v in views]
     per_ex_loss, per_ex_metrics = apply_loss(tree_unflatten(leaves, spec),
@@ -78,6 +83,10 @@ def _chunk_loss_and_grad(apply_loss, unflatten, w_flat, batch, mask, seed,
     loss_sum = torch.sum(per_ex_loss * mask)
     metric_sums = torch.sum(per_ex_metrics.detach() * mask[None, :], dim=-1)
     grads = torch.autograd.grad(loss_sum, leaves, materialize_grads=True)
+    write_grads = getattr(unflatten, "write_grads", None)
+    if write_grads is not None:
+        write_grads(grad, tree_unflatten(list(grads), spec), accumulate)
+        return loss_sum.detach(), metric_sums
     for view, g in zip(tree_flatten(unflatten(grad))[0], grads):
         if accumulate:
             view.add_(g)

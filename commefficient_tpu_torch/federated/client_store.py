@@ -206,14 +206,22 @@ def select_rows(keep: torch.Tensor, new_enc, old_enc):
 
 
 def init_client_storage(cfg: FedConfig, codec, flat_weights: torch.Tensor,
-                        num_rows: Optional[int] = None) -> ClientState:
+                        num_rows: Optional[int] = None,
+                        block: Optional[tuple] = None) -> ClientState:
     """Encoded rows for every field the mode keeps, plus the sink row, on
     ``flat_weights``' device: zero velocities and errors, and
     ``--topk_down``'s stale weights at the initial weights (reference
     ``client_store.py:342``). ``num_rows``: the clients held (a mesh
-    rank's row block; all of them by default)."""
+    rank's row block; all of them by default). ``block``: the ``(lo,
+    hi)`` coordinates of the dense codec's rows a model-axis rank stores
+    (the O(k) encodings stay whole)."""
     n = (cfg.num_clients if num_rows is None else num_rows) + 1
     dev = flat_weights.device
+    if block is not None and isinstance(codec, DenseCodec) \
+            and tuple(block) != (0, codec.d):
+        lo, hi = block
+        codec = DenseCodec(hi - lo)
+        flat_weights = flat_weights[lo:hi]
     return ClientState(
         velocities=(codec.init_rows(n, device=dev)
                     if cfg.needs_velocity_state else None),

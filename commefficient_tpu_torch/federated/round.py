@@ -44,6 +44,20 @@ NaN update cannot leak into the weights), the client-row writeback, the
 per-coordinate ``last_changed`` round and the exact upload/download byte
 metrics, all on the device with no host sync.
 
+On a mesh with a ``model`` axis (2-D clients x model federation) each
+rank stores the ``coord_block`` of the flat state (``api.FedLearner``),
+and a round runs, in order: the model group all-gathers the weights (and
+the dense codec's client rows and a dense mode's server state); the
+rank's clients step on its tensor-parallel shard (``parallel/tp.py``),
+the model group joining the flat gradient; in sketch mode each model
+rank reduces its block over the clients axis and sketches only that
+block (``sketch_range`` at its offset: the hashes are keyed on global
+coordinates) and the model group sums the tables, while the other modes
+join the whole transmit over the clients axis as a 1-D mesh does; the
+server tail runs whole on every rank (the recovery and top-k kernels over
+the whole d, as the reference's Pallas calls see the gathered vector);
+and each rank keeps its block of what changed.
+
 ``--client_quarantine`` forces the per-worker path: a client on the
 bench (``state.quarantine``) neither pulls nor uploads, a non-finite
 contribution is excluded from the aggregate by a select (NaN * 0 is
@@ -72,6 +86,7 @@ from commefficient_tpu_torch.federated.state import (BufferState,
                                                      ClientState,
                                                      GradBuckets,
                                                      ServerOptState)
+from commefficient_tpu_torch.ops.countsketch import LANES
 from commefficient_tpu_torch.ops.dropout import fold_in
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
 
@@ -100,32 +115,49 @@ class FedState:
 
 
 def init_fed_state(cfg: FedConfig, flat_weights: torch.Tensor,
-                   num_rows: Optional[int] = None) -> FedState:
+                   num_rows: Optional[int] = None,
+                   block: Optional[tuple] = None) -> FedState:
     """The round-0 state. ``num_rows``: the client rows this process
-    holds (its ``row_block`` on a mesh; every client's by default)."""
+    holds (its ``row_block`` on a mesh; every client's by default).
+    ``block``: the ``(lo, hi)`` coordinates a model-axis rank stores of
+    the weights, ``last_changed``, the dense server state and the dense
+    client rows (``mesh.coord_block``; all of them by default)."""
     d, dev = cfg.grad_dim, flat_weights.device
     if flat_weights.shape != (d,):
         raise ValueError(f"flat weights of shape {tuple(flat_weights.shape)}"
                          f", expected ({d},)")
+    lo, hi = block or (0, d)
     if cfg.client_state_offload and cfg.has_client_state:
         # the rows live in the learner's host arenas
         clients = ClientState()
     else:
         clients = init_client_storage(cfg, make_codec(cfg), flat_weights,
-                                      num_rows=num_rows)
+                                      num_rows=num_rows, block=(lo, hi))
+    weights = flat_weights.to(torch.float32)
+    if (lo, hi) != (0, d):
+        weights = weights[lo:hi].clone()
     return FedState(
-        weights=flat_weights.to(torch.float32),
-        opt=init_server_opt_state(cfg, dev),
+        weights=weights,
+        opt=init_server_opt_state(cfg, dev, width=hi - lo),
         clients=clients,
         round_idx=torch.zeros((), dtype=torch.int32, device=dev),
         # -2 = "never changed": below the -1 "never participated" sentinel
-        last_changed=torch.full((d,), -2, dtype=torch.int32, device=dev),
+        last_changed=torch.full((hi - lo,), -2, dtype=torch.int32,
+                                device=dev),
         client_last_round=torch.full((cfg.num_clients,), -1,
                                      dtype=torch.int32, device=dev),
         aborted=torch.zeros((), dtype=torch.bool, device=dev),
         weights_version=torch.zeros((), dtype=torch.int32, device=dev),
         quarantine=torch.zeros((cfg.num_clients,), dtype=torch.int32,
                                device=dev))
+
+
+def split_leaves(cfg: FedConfig) -> tuple:
+    """Beside the weights and ``last_changed``, what a model-axis rank
+    stores a coordinate block of: ``(server state, client rows)``, a
+    dense mode's (d,) momentum and error, and the dense codec's rows (the
+    sketch tables and the O(k) encodings stay whole on every rank)."""
+    return cfg.mode != "sketch", cfg.client_state == "dense"
 
 
 def set_at(vec: torch.Tensor, ids: torch.Tensor, value) -> torch.Tensor:
@@ -203,8 +235,9 @@ def build_client_phase(apply_loss: Callable, unflatten: Callable,
                                      state.clients.weights))
 
     def clients(state, ids, batch, mask, lr, seed, rows=None,
-                client_ks=None) -> client_lib.ClientStepOut:
-        w = state.weights
+                client_ks=None, weights=None) -> client_lib.ClientStepOut:
+        # ``weights``: the whole vector (a model-axis rank stores a block)
+        w = state.weights if weights is None else weights
         # one host read of the W ids: the seeds are host ints
         seeds = [fold_in(seed, c) for c in ids.tolist()]
         if is_fedavg:
@@ -272,6 +305,19 @@ def build_server_tail(cfg: FedConfig, sketch=None,
     codec = make_codec(cfg)
     offload = cfg.client_state_offload and cfg.has_client_state
     quarantine = cfg.client_quarantine
+    split = mesh_lib.model_size(mesh) > 1
+    lo, hi = mesh_lib.coord_block(cfg.grad_dim, mesh) if split \
+        else (0, cfg.grad_dim)
+    # what a model-axis rank stores a block of: a dense mode's server
+    # state and the dense codec's rows
+    split_opt, split_rows = (split and x for x in split_leaves(cfg))
+
+    def whole(x):
+        return mesh_lib.model_all_gather(x, mesh) if split_opt else x
+
+    def block(x):
+        # a copy: a view would keep the whole vector alive
+        return x[..., lo:hi].clone() if split_opt else x
 
     def server_tail(state: FedState, agg, loss_mean, ids, contrib_w, pull_w,
                     finite_w, pulled_at, new_rows, download_floats, lr,
@@ -286,16 +332,23 @@ def build_server_tail(cfg: FedConfig, sketch=None,
         okf = ok.to(torch.float32)
         oki = ok.to(torch.int32)
 
+        opt = ServerOptState(Vvelocity=whole(state.opt.Vvelocity),
+                             Verror=whole(state.opt.Verror))
         update, new_opt = server_update(
-            agg, state.opt, cfg, 1.0 if is_fedavg else lr, sketch=sketch,
+            agg, opt, cfg, 1.0 if is_fedavg else lr, sketch=sketch,
             noise_seed=fold_in(seed, SERVER_NOISE_FOLD))
         if trainable_mask is not None:
             update = update * trainable_mask
+        if cfg.grad_dim != cfg.grad_size:
+            # the pad coordinates never move
+            update = torch.cat([update[:cfg.grad_size],
+                                update.new_zeros(cfg.grad_dim
+                                                 - cfg.grad_size)])
         update = torch.where(ok, update, 0.0)
         new_opt = ServerOptState(
-            Vvelocity=torch.where(ok, new_opt.Vvelocity,
-                                  state.opt.Vvelocity),
-            Verror=torch.where(ok, new_opt.Verror, state.opt.Verror))
+            Vvelocity=block(torch.where(ok, new_opt.Vvelocity,
+                                        opt.Vvelocity)),
+            Verror=block(torch.where(ok, new_opt.Verror, opt.Verror)))
 
         new_vels, new_errs, new_stale = new_rows
         if cfg.mode == "true_topk" and new_vels is not None:
@@ -310,7 +363,8 @@ def build_server_tail(cfg: FedConfig, sketch=None,
         writeback = None
         if mesh is not None:
             enc = [None if r is None
-                   else mesh_lib.all_gather_tree(codec.encode_rows(r), mesh)
+                   else mesh_lib.all_gather_tree(codec.encode_rows(
+                       r[:, lo:hi] if split_rows else r), mesh)
                    for r in new_rows]
             clients_state = state.clients
             if offload:
@@ -338,7 +392,8 @@ def build_server_tail(cfg: FedConfig, sketch=None,
         # stamps in version units (round_idx in sync mode): a weight
         # changed at version u was unseen by a client that pulled at
         # version v iff u >= v
-        new_last_changed = torch.where(update != 0, state.weights_version,
+        mine = update[lo:hi] if split else update
+        new_last_changed = torch.where(mine != 0, state.weights_version,
                                        state.last_changed)
         if quarantine:
             # every client that pulled re-syncs its download baseline,
@@ -361,7 +416,7 @@ def build_server_tail(cfg: FedConfig, sketch=None,
 
         aborted = state.aborted | breach
         new_state = FedState(
-            weights=state.weights - update, opt=new_opt,
+            weights=state.weights - mine, opt=new_opt,
             clients=clients_state,
             round_idx=state.round_idx + oki,
             last_changed=new_last_changed,
@@ -409,12 +464,15 @@ def mesh_seed(seed: int, mesh) -> int:
     return seed if r == 0 else fold_in(seed, r)
 
 
-def mesh_client_rows(state: FedState, ids_host, rows, mesh, wslice: slice):
+def mesh_client_rows(state: FedState, ids_host, rows, mesh, wslice: slice,
+                     split_rows: bool = False):
     """On a mesh, the encoded rows of this rank's workers (``wslice`` of
     the W slots), from their owners: ``rows``, the W slots in which this
     rank filled the clients it owns (its offload arena's gather), or else
     the rows of its row block in ``state.clients``. None when the mode
-    keeps no client rows."""
+    keeps no client rows. ``split_rows``: the rows are a model-axis
+    rank's coordinate block (the dense codec), joined over the model
+    group after the exchange."""
     num_clients = state.client_last_round.shape[0]
     if rows is None:
         local = mesh_lib.local_row_ids(
@@ -427,7 +485,12 @@ def mesh_client_rows(state: FedState, ids_host, rows, mesh, wslice: slice):
     if all(r is None for r in (rows.velocities, rows.errors,
                                rows.weights)):
         return None
-    return mesh_lib.route_rows(rows, ids_host, num_clients, mesh, wslice)
+    out = mesh_lib.route_rows(rows, ids_host, num_clients, mesh, wslice)
+    if not split_rows:
+        return out
+    return ClientState(*(
+        None if r is None else mesh_lib.model_all_gather(r, mesh, dim=1)
+        for r in (out.velocities, out.errors, out.weights)))
 
 
 def build_round_step(apply_loss: Callable, unflatten: Callable,
@@ -475,6 +538,15 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
     if bucketed and sum(buckets.sizes) != cfg.grad_dim:
         raise ValueError(f"GradBuckets plan covers {sum(buckets.sizes)} "
                          f"coordinates, round has {cfg.grad_dim}")
+    split = mesh_lib.model_size(mesh) > 1
+    if split and bucketed:
+        raise NotImplementedError(
+            "--grad_buckets with a model mesh axis is not ported to "
+            "PyTorch yet (ROADMAP.md A12 1b)")
+    split_rows = split and split_leaves(cfg)[1]
+    s_lo, s_hi = mesh_lib.coord_block(
+        cfg.grad_dim, mesh, align=LANES if cfg.sketch_scheme == "tiled"
+        else 1) if split else (0, cfg.grad_dim)
     clients = build_client_phase(apply_loss, unflatten, cfg, sketch,
                                  trainable_mask)
     server_tail = build_server_tail(cfg, sketch, trainable_mask, mesh)
@@ -498,6 +570,13 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         aggregated (size,) slice: the whole vector, sketched once in
         sketch mode; or bucket by bucket, the chunks joined by
         concatenation (dense) or their tables added in bucket order."""
+        if split and sketch_after_aggregate:
+            # this rank's block (its cuts on the tiled sketch's lane
+            # blocks), sketched at its offset; the model group sums the
+            # blocks' tables
+            return mesh_lib.model_all_reduce(
+                sketch.sketch_range(chunk_of(s_lo, s_hi - s_lo), s_lo),
+                mesh)
         if not bucketed:
             agg = chunk_of(0, cfg.grad_dim)
             return sketch.sketch_vec(agg) if sketch_after_aggregate else agg
@@ -577,7 +656,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                    rows: Optional[ClientState] = None, client_ks=None):
         if offload and rows is None:
             raise ValueError("an offloaded round takes the clients' rows")
-        w = state.weights
+        w = mesh_lib.model_all_gather(state.weights, mesh)
         ids = client_ids.long()
         num_clients = state.client_last_round.shape[0]
         # epoch-tail rounds carry fewer than W real clients: padded slots
@@ -593,6 +672,9 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         # download accounting before this round's update
         stale_round = state.client_last_round[ids]
         counts = download_counts(state.last_changed, stale_round)
+        if split:
+            # each model rank counts its block
+            counts = mesh_lib.model_all_reduce(counts, mesh)
         download_floats = torch.sum(
             counts * pull_w.to(torch.int32)).to(torch.float32)
 
@@ -608,7 +690,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
             else:
                 out = clients(state, ids[ws], batch, mask[ws], lr, seed,
                               mesh_client_rows(state, ids.tolist(), rows,
-                                               mesh, ws), ks)
+                                               mesh, ws, split_rows), ks,
+                              weights=w)
             if quarantine:
                 finite_w = finite_contributions(out)
                 if mesh is not None:

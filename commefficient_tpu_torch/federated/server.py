@@ -32,6 +32,8 @@ bitwise at a momentum whose products are exact.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from commefficient_tpu_torch.config import FedConfig
@@ -41,9 +43,14 @@ from commefficient_tpu_torch.ops.topk import topk
 from commefficient_tpu_torch.ops.topk_kernels import fused_true_topk
 
 
-def init_server_opt_state(cfg: FedConfig, device="cpu") -> ServerOptState:
-    """Zero virtual momentum/error of the mode's shape."""
+def init_server_opt_state(cfg: FedConfig, device="cpu",
+                          width: Optional[int] = None) -> ServerOptState:
+    """Zero virtual momentum/error of the mode's shape; ``width``: the
+    coordinates a model-axis rank stores of a dense mode's (d,) state
+    (sketch tables stay whole)."""
     shape = cfg.transmit_shape
+    if width is not None and cfg.mode != "sketch":
+        shape = (int(width),)
     return ServerOptState(
         Vvelocity=torch.zeros(shape, dtype=torch.float32, device=device),
         Verror=torch.zeros(shape, dtype=torch.float32, device=device))

@@ -70,6 +70,22 @@ the blocks' load-balancing term averaged over the layers, in the order
 the reference's loss collects it (the block names sorted as strings). A
 KV cache with MoE blocks raises the reference's ValueError.
 
+Tensor parallelism (``parallel/tp.py``): with ``config.tp`` set
+(``tp.attach``), each block's attention runs the rank's H/M heads (the
+qkv product column-parallel, sliced by head; the out product
+row-parallel, closed by one all-reduce before its bias) and its MLP the
+rank's 4C/M hidden units (up column-parallel, down row-parallel, one
+all-reduce); the backward all-reduces once at each column-parallel
+input. A block takes either its shards (a training round's
+``TPUnflatten``) or whole weights (serving), which it cuts. The flash
+kernels draw each head's dropout bits by its global index
+(``head_offset``), and the attention dropout sites that act on the
+head-sharded probabilities or outputs draw the unsharded tensor's bits
+and keep their heads' (``FusedDropout(..., shard=)``); every other site
+acts on replicated activations and draws the same bits on every rank.
+KV caches hold the rank's heads. MoE blocks under a model axis raise
+NotImplementedError (ROADMAP.md A12, the expert axis).
+
 Not ported, raising NotImplementedError: ring attention (ROADMAP.md A12).
 """
 
@@ -89,6 +105,7 @@ from commefficient_tpu_torch.ops.attention import (
     kernel_prob_dropout_eligible, paged_verify_attention)
 from commefficient_tpu_torch.ops.dropout import FusedDropout, fold_in
 from commefficient_tpu_torch.ops.moe import MoEFFN
+from commefficient_tpu_torch.parallel import tp as tp_lib
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -127,6 +144,7 @@ class GPT2Config:
         self.dropout_impl = "xla"     # "xla" | "xla_rbg" | "tpu_bits"
         self.attn_dropout = "auto"    # "auto" | "output" | "kernel"
         self.fused_lm_head = False
+        self.tp = None                # a parallel.tp.TPContext, or None
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -161,6 +179,24 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+    def column(self, x, tp, kind: str, local_out: int):
+        """The column-parallel product: the rank's output columns (its
+        piece of the weight and bias) of the replicated ``x``, whose
+        gradient the backward all-reduces."""
+        dt = self.compute_dtype
+        w = tp_lib.local_piece(self.weight, kind, tp, local_out)
+        b = tp_lib.local_piece(self.bias, kind, tp, local_out)
+        return F.linear(tp_lib.copy_to_tp(x, tp).to(dt), w.to(dt), b.to(dt))
+
+    def row(self, x, tp, local_in: int):
+        """The row-parallel product: the rank's input rows of the weight
+        against its piece of ``x``, summed over the model axis, then the
+        (replicated) bias."""
+        dt = self.compute_dtype
+        w = tp_lib.local_piece(self.weight, "rows", tp, local_in)
+        y = tp_lib.reduce_from_tp(F.linear(x.to(dt), w.to(dt)), tp)
+        return y + self.bias.to(dt)
 
 
 class Embed(nn.Module):
@@ -205,6 +241,7 @@ class CausalSelfAttention(nn.Module):
         C, dt = cfg.n_embd, cfg.torch_dtype
         if cfg.attn_dropout not in ("auto", "output", "kernel"):
             raise ValueError(f"unknown attn_dropout {cfg.attn_dropout!r}")
+        self.config = cfg
         self.n_head = cfg.n_head
         self.rate = cfg.dropout
         self.attn_impl = cfg.attn_impl
@@ -219,17 +256,35 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x, train: bool, seed: Optional[int], cache=None,
                 position=None, verify: bool = False):
         B, T, C = x.shape
-        q, k, v = torch.split(self.Dense_0(x), C, dim=-1)
-        heads = lambda t: t.reshape(B, T, self.n_head, C // self.n_head)
+        tp = getattr(self.config, "tp", None)
+        H, hd = self.n_head, C // self.n_head
+        # this rank's heads [h0, h0 + Hl) (all of them off a model axis)
+        Hl = H if tp is None else H // tp.size
+        h0 = 0 if tp is None else tp.rank * Hl
+        Cl = Hl * hd
+        if tp is None:
+            qkv = self.Dense_0(x)
+        else:
+            qkv = self.Dense_0.column(x, tp, "qkv", 3 * Cl)
+        q, k, v = torch.split(qkv, Cl, dim=-1)
+        heads = lambda t: t.reshape(B, T, Hl, hd)
         q, k, v = heads(q), heads(k), heads(v)
+
+        def out(y):
+            y = y.reshape(B, T, Cl)
+            return self.Dense_1(y) if tp is None else \
+                self.Dense_1.row(y, tp, Cl)
+        # a dropout site on the head-sharded (B, T, H, hd) output or (B,
+        # H, T, T) probabilities draws the unsharded tensor's bits
+        shard = (lambda dim: None) if tp is None else \
+            (lambda dim: (dim, h0, H))
         if cache is not None:
             if self.attn_impl == "ring":
                 raise ValueError("KV-cache decoding does not compose with "
                                  "attn_impl='ring' (no shard_map at serve "
                                  "time); serve with 'full' or 'blockwise'")
             y = self._cached(q, k, v, cache, position, verify)
-            y = self.Dense_1(y.reshape(B, T, C))
-            return self.resid_drop(y, _sub(seed, 1), train), cache
+            return self.resid_drop(out(y), _sub(seed, 1), train), cache
         if self.attn_impl == "ring":
             _todo("attn_impl='ring' (sequence-parallel attention)", "A12")
         if self.attn_impl == "blockwise":
@@ -247,11 +302,12 @@ class CausalSelfAttention(nn.Module):
                 y = blockwise_attention(q, k, v, causal=True,
                                         block_size=self.attn_block_size,
                                         dropout_rate=rate,
-                                        dropout_seed=_sub(seed, 0))
+                                        dropout_seed=_sub(seed, 0),
+                                        head_offset=h0, num_heads=H)
             else:
                 y = blockwise_attention(q, k, v, causal=True,
                                         block_size=self.attn_block_size)
-                y = self.attn_drop(y, _sub(seed, 0), train)
+                y = self.attn_drop(y, _sub(seed, 0), train, shard(2))
         else:
             att = (torch.einsum("bqhd,bkhd->bhqk", q, k)
                    / math.sqrt(C // self.n_head))
@@ -260,10 +316,9 @@ class CausalSelfAttention(nn.Module):
             att = att + torch.where(causal, 0.0,
                                     torch.finfo(att.dtype).min)[None, None]
             att = torch.softmax(att, dim=-1)
-            att = self.attn_drop(att, _sub(seed, 0), train)
+            att = self.attn_drop(att, _sub(seed, 0), train, shard(1))
             y = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        y = self.Dense_1(y.reshape(B, T, C))
-        return self.resid_drop(y, _sub(seed, 1), train)
+        return self.resid_drop(out(y), _sub(seed, 1), train)
 
     def _cached(self, q, k, v, cache, position, verify):
         """Attention of the cached forms, writing k/v into ``cache`` in
@@ -334,6 +389,7 @@ class Block(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         C, dt = cfg.n_embd, cfg.torch_dtype
+        self.config = cfg
         self.post_ln = cfg.arch == "openai-gpt"
         # LayerNorm_0 is the first one applied, LayerNorm_1 the second
         self.LayerNorm_0 = LayerNorm(C, dt)
@@ -351,7 +407,14 @@ class Block(nn.Module):
         """(MLP output, the MoE layer's aux or None)."""
         if hasattr(self, "moe"):
             return self.moe(h)
-        return self.Dense_1(F.gelu(self.Dense_0(h), approximate="tanh")), None
+        tp = getattr(self.config, "tp", None)
+        if tp is None:
+            return self.Dense_1(F.gelu(self.Dense_0(h),
+                                       approximate="tanh")), None
+        units = 4 * h.shape[-1] // tp.size      # this rank's hidden units
+        u = F.gelu(self.Dense_0.column(h, tp, "cols", units),
+                   approximate="tanh")
+        return self.Dense_1.row(u, tp, units), None
 
     def forward(self, x, train: bool, seed: Optional[int], cache=None,
                 position=None, verify: bool = False):
@@ -494,14 +557,14 @@ class GPT2DoubleHeads(nn.Module):
 def init_decode_cache(config: GPT2Config, batch_size: int, max_len: int,
                       device=None):
     """Zero KV cache for cached inference: one ``{"k", "v"}`` dict per
-    layer, each (batch, max_len, n_head, head_dim) in the compute dtype.
-    ``max_len`` (prompt plus generated tokens) is bounded by the position
-    table."""
+    layer, each (batch, max_len, n_head, head_dim) in the compute dtype
+    (the rank's n_head / M heads on an M-way model axis). ``max_len``
+    (prompt plus generated tokens) is bounded by the position table."""
     if max_len > config.n_positions:
         raise ValueError(f"cache capacity {max_len} exceeds n_positions "
                          f"{config.n_positions}")
     head_dim = config.n_embd // config.n_head
-    shape = (batch_size, max_len, config.n_head, head_dim)
+    shape = (batch_size, max_len, tp_lib.local_heads(config), head_dim)
     return tuple({"k": torch.zeros(shape, dtype=config.torch_dtype,
                                    device=device),
                   "v": torch.zeros(shape, dtype=config.torch_dtype,

@@ -27,9 +27,10 @@ import torch
 
 def learner_params(learner):
     """The learner's current weights as a ``{torch name: tensor}`` dict of
-    contiguous copies (the learner goes on updating its flat vector)."""
+    contiguous copies (the learner goes on updating its flat vector); on
+    a model mesh axis every rank must call it (the blocks are joined)."""
     return {name: t.detach().clone(memory_format=torch.contiguous_format)
-            for name, t in learner.unflatten(learner.state.weights).items()}
+            for name, t in learner.unflatten(learner.full_weights()).items()}
 
 
 class HotSwapCoordinator:

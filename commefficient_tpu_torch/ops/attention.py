@@ -163,13 +163,17 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
                         dropout_rate: float = 0.0,
                         dropout_seed: Optional[int] = None,
                         block_q: Optional[int] = None,
-                        block_k: Optional[int] = None) -> torch.Tensor:
+                        block_k: Optional[int] = None,
+                        head_offset: int = 0,
+                        num_heads: Optional[int] = None) -> torch.Tensor:
     """Flash-style attention. ``use_kernel`` forces the choice (None =
     the fused kernels when ``kernel_prob_dropout_eligible``); on a CPU
     tensor the kernel route runs the kernels' plain versions.
     ``block_size`` applies to the loop path only; ``block_q``/``block_k``
     set the kernels' logical dropout tiles. ``dropout_rate > 0`` needs the
-    kernel route and a ``dropout_seed``."""
+    kernel route and a ``dropout_seed``. A head shard (tensor
+    parallelism) passes ``head_offset`` and the unsharded ``num_heads``,
+    so its heads draw the dropout bits of the unsharded call."""
     if use_kernel is None:
         use_kernel = kernel_prob_dropout_eligible(q, k, v, causal=causal,
                                                   kv_mask=kv_mask)
@@ -185,7 +189,9 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
             kw["block_k"] = block_k
         return _fa.flash_attention(q, k, v, causal=causal,
                                    dropout_rate=dropout_rate,
-                                   dropout_seed=dropout_seed, **kw)
+                                   dropout_seed=dropout_seed,
+                                   head_offset=head_offset,
+                                   num_heads=num_heads, **kw)
     if dropout_rate > 0.0:
         raise ValueError(
             "attention-probability dropout needs the fused kernel path "

@@ -35,6 +35,14 @@ takes ``masked_dropout``, any other the kernel on a CUDA tensor. Where the
 reference leaves the TPU it takes ``masked_dropout`` for every shape; the
 port on the CPU takes ``hw_dropout_plain`` instead, so the CPU tests hold
 the very bits the card draws.
+
+A site whose tensor is one head shard of a larger one (tensor
+parallelism, ``parallel/tp.py``) passes ``shard = (dim, offset, full)``:
+its x is ``[offset, offset + n)`` of ``full`` along ``dim``, and it draws
+the keep bits of the whole tensor and applies its slice, so every
+element keeps the bit it has in the unsharded run (``sharded_dropout``;
+under ``tpu_bits`` the whole tensor's bits come from one kernel launch
+on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -235,6 +243,33 @@ def masked_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     return _MaskedDropout.apply(x, int(seed), float(rate))
 
 
+def sharded_dropout(x: torch.Tensor, seed: int, rate: float, impl: str,
+                    shard) -> torch.Tensor:
+    """``FusedDropout``'s result on ``x``, one slice of a larger tensor
+    (``shard = (dim, offset, full)``): the whole tensor's keep bits,
+    sliced, so each element is what the unsharded site gives it. The
+    backward applies the same slice of the mask (autograd of the
+    product)."""
+    dim, offset, full = shard
+    shape = list(x.shape)
+    shape[dim] = full
+    n = x.shape[dim]
+    if impl == "tpu_bits" and hw_dropout_supported(shape):
+        seeds = seed_words(seed)
+        if x.is_cuda:
+            # the kernel on ones: inv_keep where kept, 0 where dropped
+            ones = torch.ones(shape, dtype=torch.float32, device=x.device)
+            keep = _hw_kernel(ones, seeds, rate) != 0
+        else:
+            keep = (hw_bits(math.prod(shape), seeds, x.device)
+                    >= hw_threshold(rate)).view(shape)
+        keep = keep.narrow(dim, offset, n)
+        return torch.where(keep, x.float() * _inv_keep(rate),
+                           0.0).to(x.dtype)
+    mask = _scaled_mask(seed, rate, shape, x.dtype, x.device)
+    return x * mask.narrow(dim, offset, n)
+
+
 class FusedDropout(torch.nn.Module):
     """Drop-in for the reference's ``FusedDropout(rate, impl)``:
     ``forward(x, seed, train)``. ``impl="xla_rbg"`` only chose the TPU's
@@ -249,13 +284,17 @@ class FusedDropout(torch.nn.Module):
         self.rate = float(rate)
         self.impl = impl
 
-    def forward(self, x, seed, train: bool):
+    def forward(self, x, seed, train: bool, shard=None):
+        """``shard``: ``(dim, offset, full)`` when ``x`` is a slice of the
+        site's tensor (``sharded_dropout``)."""
         if self.rate == 0.0 or not train:
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
         if seed is None:
             raise ValueError("dropout in training needs a seed")
+        if shard is not None:
+            return sharded_dropout(x, seed, self.rate, self.impl, shard)
         if self.impl == "tpu_bits" and hw_dropout_supported(x.shape):
             return hw_dropout(x, seed_words(seed), self.rate)
         return masked_dropout(x, seed, self.rate)

@@ -35,6 +35,12 @@ BK) = _effective_blocks(T, block_q, block_k)``, under that tile's seed
 words. So the kernels' mask equals ``dropout_keep_reference`` (and the
 JAX package's) bit for bit, whatever tile the CUDA kernels use.
 
+A head-sharded call (tensor parallelism, ``parallel/tp.py``) holds heads
+``[h0, h0 + H_loc)`` of ``H``: its rows are (batch, local head) pairs, and
+``heads=(h0, H_loc, H)`` makes local row ``b * H_loc + h`` draw the bits of
+global row ``b * H + h0 + h``, so each head keeps the mask it has in the
+unsharded call. ``heads=None`` is ``(0, 1, 1)``, the row itself.
+
 The plain versions are the dense causal softmax with the same mask and
 the same normalize-then-drop order (``flash_fwd_plain``), and that
 forward's autograd (``flash_bwd_plain``). A CPU tensor takes them; a CUDA
@@ -65,7 +71,7 @@ _MASK32 = 0xFFFFFFFF
 MAX_HEAD_DIM = 128
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_TAIL = [_I, _I, _I, _I, _F, _I, _I, _I, _I, _U, _F, _I, _P]
+_TAIL = [_I, _I, _I, _I, _F, _I, _I, _I, _I, _U, _F, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "flash_fwd_launch": [_P] * 5 + _TAIL,
     "flash_fwd_v1_launch": [_P] * 5 + _TAIL,
@@ -96,20 +102,31 @@ def _effective_blocks(t: int, block_q: int, block_k: int):
     return tile(min(block_q, t)), tile(min(block_k, t))
 
 
+def head_rows(batch_heads: int, heads=None, device="cpu") -> torch.Tensor:
+    """(batch_heads,) int64: the global row each local row draws its bits
+    from under the head map ``heads = (h0, H_loc, H)`` (None: itself)."""
+    b = torch.arange(batch_heads, dtype=torch.int64, device=device)
+    if heads is None:
+        return b
+    h0, h_loc, h_tot = (int(x) for x in heads)
+    return (b // h_loc) * h_tot + h0 + b % h_loc
+
+
 def dropout_keep_reference(seeds, batch_heads: int, t: int, *,
                            dropout_rate: float,
                            block_q: int = DEFAULT_BLOCK_Q,
                            block_k: int = DEFAULT_BLOCK_K,
-                           device="cpu") -> torch.Tensor:
+                           device="cpu", heads=None) -> torch.Tensor:
     """The (batch_heads, Tq_pad, Tk_pad) bool keep mask of the reference's
     interpret-mode kernels for the seed words ``seeds`` (two int32, as the
     reference's ``_seeds_from_key`` makes them), padded per
-    ``_effective_blocks``. uint32 arithmetic runs in int64 halves."""
+    ``_effective_blocks``; ``heads`` the head map of a head-sharded call.
+    uint32 arithmetic runs in int64 halves."""
     s0_in, s1_in = (int(s) for s in seeds)
     bq, bk = _effective_blocks(t, block_q, block_k)
     tq, tk = -(-t // bq) * bq, -(-t // bk) * bk
     kw = dict(dtype=torch.int64, device=device)
-    b = torch.arange(batch_heads, **kw)
+    b = head_rows(batch_heads, heads, device)
     qb = torch.arange(tq // bq, **kw)
     kb = torch.arange(tk // bk, **kw)
     s0 = (s0_in + b[:, None] * _MIX_B + qb[None, :] * _MIX_QB) & _MASK32
@@ -123,14 +140,14 @@ def dropout_keep_reference(seeds, batch_heads: int, t: int, *,
     return x >= _threshold(float(dropout_rate))
 
 
-def _keep(seeds, bh, t, rate, block_q, block_k, device):
+def _keep(seeds, bh, t, rate, block_q, block_k, device, heads=None):
     return dropout_keep_reference(seeds, bh, t, dropout_rate=rate,
                                   block_q=block_q, block_k=block_k,
-                                  device=device)[:, :t, :t]
+                                  device=device, heads=heads)[:, :t, :t]
 
 
 def flash_fwd_plain(q3, k3, v3, seeds, scale: float, block_q: int,
-                    block_k: int, rate: float):
+                    block_k: int, rate: float, heads=None):
     """Plain version of ``flash_fwd``: dense causal softmax in float32,
     normalized then dropped, p rounded to the input dtype before ``p @ V``
     as the kernel rounds it. Returns ``(O, lse)``; differentiable."""
@@ -144,7 +161,8 @@ def flash_fwd_plain(q3, k3, v3, seeds, scale: float, block_q: int,
     p = torch.where(s <= _NEG / 2, 0.0, p)
     l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
     if rate > 0.0:
-        keep = _keep(seeds, bh, t, rate, block_q, block_k, q3.device)
+        keep = _keep(seeds, bh, t, rate, block_q, block_k, q3.device,
+                     heads)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
     p = p.to(dtype).float()
     o = (p @ v3.float()) / l
@@ -153,13 +171,13 @@ def flash_fwd_plain(q3, k3, v3, seeds, scale: float, block_q: int,
 
 
 def flash_bwd_plain(q3, k3, v3, do, seeds, scale: float, block_q: int,
-                    block_k: int, rate: float):
+                    block_k: int, rate: float, heads=None):
     """Plain version of the backward: the autograd of ``flash_fwd_plain``.
     Returns ``(dq, dk, dv)``."""
     with torch.enable_grad():
         q, k, v = (x.detach().requires_grad_(True) for x in (q3, k3, v3))
         o, _ = flash_fwd_plain(q, k, v, seeds, scale, block_q, block_k,
-                               rate)
+                               rate, heads)
         return torch.autograd.grad(o, (q, k, v), do)
 
 
@@ -185,11 +203,15 @@ def _check(name, tensors, aligned=False):
     return bh, t, d
 
 
-def _drop_args(seeds, t, block_q, block_k, rate):
+def _drop_args(seeds, t, block_q, block_k, rate, heads, bh):
     bq, bk = _effective_blocks(t, block_q, block_k)
     s0, s1 = (int(s) for s in seeds)
+    h0, h_loc, h_tot = (0, 1, 1) if heads is None else \
+        (int(x) for x in heads)
+    if h_loc <= 0 or bh % h_loc or h0 < 0 or h0 + h_loc > h_tot:
+        raise ValueError(f"head map {heads} does not fit {bh} rows")
     return [bq, bk, s0, s1, _threshold(rate) if rate > 0 else 0,
-            1.0 / (1.0 - rate), int(rate > 0)]
+            1.0 / (1.0 - rate), int(rate > 0), h0, h_loc, h_tot]
 
 
 def _device_of(fn_name, x):
@@ -201,7 +223,7 @@ def _device_of(fn_name, x):
 
 
 def _launch_fwd(entry, key, q3, k3, v3, seeds, scale, block_q, block_k,
-                rate, aligned):
+                rate, aligned, heads=None):
     bh, t, d = _check(key, (q3, k3, v3), aligned)
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
@@ -209,7 +231,7 @@ def _launch_fwd(entry, key, q3, k3, v3, seeds, scale, block_q, block_k,
     err = getattr(lib, entry)(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, t, d, _DTYPES[q3.dtype], scale,
-        *_drop_args(seeds, t, block_q, block_k, rate),
+        *_drop_args(seeds, t, block_q, block_k, rate, heads, bh),
         cuda_lib.stream_ptr(q3.device))
     cuda_lib.check(err, key)
     cuda_lib.LAUNCHES[key] += 1
@@ -217,26 +239,27 @@ def _launch_fwd(entry, key, q3, k3, v3, seeds, scale, block_q, block_k,
 
 
 def flash_fwd(q3, k3, v3, seeds, scale: float, block_q: int, block_k: int,
-              rate: float):
-    """``(O, lse)`` of causal attention over (BH, T, D) q, k, v.
+              rate: float, heads=None):
+    """``(O, lse)`` of causal attention over (BH, T, D) q, k, v; ``heads``
+    the head map of a head-sharded call (the module docstring).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     tensor-core kernel or raises."""
     if not _device_of("flash_fwd", q3):
         return flash_fwd_plain(q3, k3, v3, seeds, scale, block_q, block_k,
-                               rate)
+                               rate, heads)
     return _launch_fwd("flash_fwd_launch", "flash_fwd", q3, k3, v3, seeds,
-                       scale, block_q, block_k, rate, aligned=True)
+                       scale, block_q, block_k, rate, True, heads)
 
 
 def flash_fwd_v1(q3, k3, v3, seeds, scale: float, block_q: int,
-                 block_k: int, rate: float):
+                 block_k: int, rate: float, heads=None):
     """``flash_fwd`` by the first port's scalar kernel (on no path)."""
     if not _device_of("flash_fwd_v1", q3):
         return flash_fwd_plain(q3, k3, v3, seeds, scale, block_q, block_k,
-                               rate)
+                               rate, heads)
     return _launch_fwd("flash_fwd_v1_launch", "flash_fwd_v1", q3, k3, v3,
-                       seeds, scale, block_q, block_k, rate, aligned=False)
+                       seeds, scale, block_q, block_k, rate, False, heads)
 
 
 def _bwd_inputs(name, q3, k3, v3, do, lse, delta, aligned=False):
@@ -250,7 +273,7 @@ def _bwd_inputs(name, q3, k3, v3, do, lse, delta, aligned=False):
 
 
 def _launch_dq(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
-               block_q, block_k, rate, aligned):
+               block_q, block_k, rate, aligned, heads=None):
     bh, t, d = _bwd_inputs(key, q3, k3, v3, do, lse, delta, aligned)
     dq = torch.empty_like(q3)
     lib = cuda_lib.load("flash_attention", _SIGNATURES)
@@ -258,7 +281,7 @@ def _launch_dq(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
         _DTYPES[q3.dtype], scale,
-        *_drop_args(seeds, t, block_q, block_k, rate),
+        *_drop_args(seeds, t, block_q, block_k, rate, heads, bh),
         cuda_lib.stream_ptr(q3.device))
     cuda_lib.check(err, key)
     cuda_lib.LAUNCHES[key] += 1
@@ -266,31 +289,31 @@ def _launch_dq(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
 
 
 def flash_bwd_dq(q3, k3, v3, do, lse, delta, seeds, scale: float,
-                 block_q: int, block_k: int, rate: float):
+                 block_q: int, block_k: int, rate: float, heads=None):
     """dq of causal attention from the forward's ``lse`` and ``delta =
     rowsum(dO * O)``. A CPU tensor takes the plain version (which needs
     neither); a CUDA tensor launches the tensor-core kernel or raises."""
     if not _device_of("flash_bwd_dq", q3):
         return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
-                               block_k, rate)[0]
+                               block_k, rate, heads)[0]
     return _launch_dq("flash_bwd_dq_launch", "flash_bwd_dq", q3, k3, v3, do,
                       lse, delta, seeds, scale, block_q, block_k, rate,
-                      aligned=True)
+                      True, heads)
 
 
 def flash_bwd_dq_v1(q3, k3, v3, do, lse, delta, seeds, scale: float,
-                    block_q: int, block_k: int, rate: float):
+                    block_q: int, block_k: int, rate: float, heads=None):
     """``flash_bwd_dq`` by the first port's scalar kernel (on no path)."""
     if not _device_of("flash_bwd_dq_v1", q3):
         return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
-                               block_k, rate)[0]
+                               block_k, rate, heads)[0]
     return _launch_dq("flash_bwd_dq_v1_launch", "flash_bwd_dq_v1", q3, k3,
                       v3, do, lse, delta, seeds, scale, block_q, block_k,
-                      rate, aligned=False)
+                      rate, False, heads)
 
 
 def _launch_dkv(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
-                block_q, block_k, rate, aligned):
+                block_q, block_k, rate, aligned, heads=None):
     bh, t, d = _bwd_inputs(key, q3, k3, v3, do, lse, delta, aligned)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
     lib = cuda_lib.load("flash_attention", _SIGNATURES)
@@ -298,7 +321,7 @@ def _launch_dkv(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
         t, d, _DTYPES[q3.dtype], scale,
-        *_drop_args(seeds, t, block_q, block_k, rate),
+        *_drop_args(seeds, t, block_q, block_k, rate, heads, bh),
         cuda_lib.stream_ptr(q3.device))
     cuda_lib.check(err, key)
     cuda_lib.LAUNCHES[key] += 1
@@ -306,26 +329,26 @@ def _launch_dkv(entry, key, q3, k3, v3, do, lse, delta, seeds, scale,
 
 
 def flash_bwd_dkv(q3, k3, v3, do, lse, delta, seeds, scale: float,
-                  block_q: int, block_k: int, rate: float):
+                  block_q: int, block_k: int, rate: float, heads=None):
     """(dk, dv) of causal attention by the tensor-core kernel; as
     ``flash_bwd_dq``."""
     if not _device_of("flash_bwd_dkv", q3):
         return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
-                               block_k, rate)[1:]
+                               block_k, rate, heads)[1:]
     return _launch_dkv("flash_bwd_dkv_launch", "flash_bwd_dkv", q3, k3, v3,
                        do, lse, delta, seeds, scale, block_q, block_k, rate,
-                       aligned=True)
+                       True, heads)
 
 
 def flash_bwd_dkv_v1(q3, k3, v3, do, lse, delta, seeds, scale: float,
-                     block_q: int, block_k: int, rate: float):
+                     block_q: int, block_k: int, rate: float, heads=None):
     """``flash_bwd_dkv`` by the first port's scalar kernel (on no path)."""
     if not _device_of("flash_bwd_dkv_v1", q3):
         return flash_bwd_plain(q3, k3, v3, do, seeds, scale, block_q,
-                               block_k, rate)[1:]
+                               block_k, rate, heads)[1:]
     return _launch_dkv("flash_bwd_dkv_v1_launch", "flash_bwd_dkv_v1", q3,
                        k3, v3, do, lse, delta, seeds, scale, block_q,
-                       block_k, rate, aligned=False)
+                       block_k, rate, False, heads)
 
 
 class _Flash(torch.autograd.Function):
@@ -333,10 +356,12 @@ class _Flash(torch.autograd.Function):
     lse (O(T) beyond the inputs); the backward recomputes P."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, seeds, scale, block_q, block_k, rate):
-        o, lse = flash_fwd(q3, k3, v3, seeds, scale, block_q, block_k, rate)
+    def forward(ctx, q3, k3, v3, seeds, scale, block_q, block_k, rate,
+                heads):
+        o, lse = flash_fwd(q3, k3, v3, seeds, scale, block_q, block_k, rate,
+                           heads)
         ctx.save_for_backward(q3, k3, v3, o, lse)
-        ctx.cfg = (seeds, scale, block_q, block_k, rate)
+        ctx.cfg = (seeds, scale, block_q, block_k, rate, heads)
         return o
 
     @staticmethod
@@ -347,18 +372,21 @@ class _Flash(torch.autograd.Function):
         delta = torch.sum(do.float() * o.float(), dim=-1)
         dq = flash_bwd_dq(q3, k3, v3, do, lse, delta, *ctx.cfg)
         dk, dv = flash_bwd_dkv(q3, k3, v3, do, lse, delta, *ctx.cfg)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K,
                     dropout_rate: float = 0.0,
-                    dropout_seed=None) -> torch.Tensor:
+                    dropout_seed=None, head_offset: int = 0,
+                    num_heads=None) -> torch.Tensor:
     """Fused causal self-attention, (B, T, H, D) -> (B, T, H, D),
     differentiable. ``dropout_rate > 0`` drops attention probabilities
     with bits from ``dropout_seed`` (an int, split into the kernels' two
-    seed words); ``block_q``/``block_k`` set the logical dropout tiles."""
+    seed words); ``block_q``/``block_k`` set the logical dropout tiles.
+    A head shard passes its first head ``head_offset`` and the unsharded
+    head count ``num_heads``, and draws those heads' bits."""
     if not causal:
         raise NotImplementedError("flash_attention is causal-only")
     rate = float(dropout_rate)
@@ -372,7 +400,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     def to3(x):
         return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
 
-    args = (seeds, 1.0 / (D ** 0.5), int(block_q), int(block_k), rate)
+    heads = (None if num_heads is None or (head_offset == 0
+                                           and num_heads == H)
+             else (int(head_offset), H, int(num_heads)))
+    args = (seeds, 1.0 / (D ** 0.5), int(block_q), int(block_k), rate,
+            heads)
     if _device_of("flash_attention", q):
         o3 = _Flash.apply(to3(q), to3(k), to3(v), *args)
     else:

@@ -16,7 +16,9 @@ shape is ever made. A frontier write requantizes its page: dequantize,
 write the token, recompute the scale, quantize. A multi-token window
 inserts one position at a time, because consecutive tokens usually land
 in the same page. An all-zero tile stores scale 0 and dequantizes to
-exact zeros.
+exact zeros. A tile is one head's, so a tensor-parallel rank's pools
+(its H/M heads, ``parallel/tp.py``) carry exactly their heads' scale
+rows: the (num_pages, H/M) columns of the unsharded pool's.
 
 Every function here is bitwise the reference's on the same inputs
 (``round`` is half-to-even on both sides).

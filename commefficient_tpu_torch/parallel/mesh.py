@@ -1,5 +1,5 @@
-"""The ``clients`` mesh and its layout (port of
-``commefficient_tpu/parallel/mesh.py``).
+"""The ``clients`` and ``clients x model`` meshes and their layout (port
+of ``commefficient_tpu/parallel/mesh.py``).
 
 The reference shards the round over a ``jax.sharding.Mesh`` with one
 ``clients`` axis: each chip simulates W/N of the sampled clients, the
@@ -20,6 +20,15 @@ reference's, written out:
 
 ``padded_num_clients`` rounds the client rows up to a multiple of the
 axis, as the reference's entry points do.
+
+A ``model`` axis (``make_mesh(n, model=M)``, 2-D clients x model
+federation) lays the ranks out as the reference's ``reshape(n // M, M)``:
+rank ``c * M + m`` is client shard ``c`` and model shard ``m``, the model
+axis fastest. ``clients_group`` is then the ranks that share ``m`` and
+``model_group`` the ranks that share ``c``. The flat vector is padded to
+a multiple of M and each model rank stores ``coord_block(d_pad, mesh)``
+of it, the layout of the reference's ``fed_state_shardings``; the model
+computes in the Megatron layout of ``parallel/tp.py``.
 
 The collectives here take bool tensors as uint8 (gloo reduces no bool).
 """
@@ -60,28 +69,77 @@ class MeshSpec:
         return tuple(self.shape)
 
 
+class _Dim:
+    def __init__(self, size: int):
+        self._size = size
+
+    def size(self) -> int:
+        return self._size
+
+
+class GroupMesh:
+    """A 2-D ``(clients, model)`` mesh over the process group: the
+    ``DeviceMesh`` calls the port reads (``mesh[axis].size()``,
+    ``get_local_rank``, ``get_group``, ``device_type``,
+    ``mesh_dim_names``), over groups made with ``new_group``, so it runs
+    on any backend. Rank ``c * M + m`` sits at (c, m)."""
+
+    def __init__(self, shape: tuple, names: tuple, device_type: str):
+        C, M = shape
+        self.shape = dict(zip(names, shape))
+        self.mesh_dim_names = tuple(names)
+        self.device_type = device_type
+        r = dist.get_rank()
+        self._coord = {names[0]: r // M, names[1]: r % M}
+        self._groups = {}
+        # every rank makes every group, in one order
+        for m in range(M):
+            g = dist.new_group([c * M + m for c in range(C)])
+            if r % M == m:
+                self._groups[names[0]] = g
+        for c in range(C):
+            g = dist.new_group([c * M + m for m in range(M)])
+            if r // M == c:
+                self._groups[names[1]] = g
+
+    def __getitem__(self, axis: str) -> _Dim:
+        return _Dim(self.shape[axis])
+
+    def get_local_rank(self, axis: str) -> int:
+        return self._coord[axis]
+
+    def get_group(self, axis: str):
+        return self._groups[axis]
+
+
 def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
               seq: int = 1, model: int = 1, stage: int = 1,
               expert: int = 1, device_type: str = "cpu"):
-    """A ``DeviceMesh`` with one ``clients`` dimension over the process
-    group (joined first: ``distributed.initialize``/``launch``). Inner
-    axes of size 1 are accepted; an inner axis above 1 is ROADMAP.md
-    A12."""
+    """The mesh over the process group (joined first:
+    ``distributed.initialize``/``launch``): a ``DeviceMesh`` with one
+    ``clients`` dimension, or with ``model`` = M > 1 a ``GroupMesh`` of
+    dims ``("clients", "model")`` of shape (n / M, M). Inner axes of size
+    1 are accepted; ``seq``, ``stage`` and ``expert`` above 1 are
+    ROADMAP.md A12."""
     if sum(s > 1 for s in (seq, model, stage, expert)) > 1:
         raise ValueError("choose ONE inner axis: seq (ring attention), "
                          "model (tensor parallelism), stage (GPipe "
                          "pipeline), or expert (MoE expert parallelism)")
     for name, size in zip(INNER_AXES, (seq, model, stage, expert)):
-        if size > 1:
+        if size > 1 and name != "model":
             raise NotImplementedError(
                 f"--mesh {name}={size} is not ported to PyTorch yet "
                 f"(ROADMAP.md A12)")
-    from torch.distributed.device_mesh import init_device_mesh
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = n_devices or world
     if n != world:
         raise ValueError(f"asked for a {n}-rank mesh, the process group "
                          f"has {world} ranks")
+    if model > 1:
+        if n % model:
+            raise ValueError("n_devices must be divisible by model")
+        return GroupMesh((n // model, model), (axis, "model"), device_type)
+    from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, (n,), mesh_dim_names=(axis,))
 
 
@@ -99,7 +157,45 @@ def clients_rank(mesh, axis: str = AXIS) -> int:
 
 
 def clients_group(mesh, axis: str = AXIS):
+    """The ranks of this rank's ``clients`` axis: every rank of a 1-D
+    mesh, the ranks that share this rank's model shard on a 2-D one."""
     return mesh.get_group(axis)
+
+
+def model_size(mesh) -> int:
+    """The ``model`` axis size of a mesh or a ``MeshSpec`` (1 for none)."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, MeshSpec):
+        return max(1, int(mesh.inner.get("model", 1)))
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    return mesh["model"].size() if "model" in names else 1
+
+
+def model_rank(mesh) -> int:
+    return 0 if model_size(mesh) == 1 else mesh.get_local_rank("model")
+
+
+def model_group(mesh):
+    """The ranks that share this rank's client shard (its model axis)."""
+    return mesh.get_group("model")
+
+
+def coord_block(d_pad: int, mesh, align: int = 1) -> tuple:
+    """``(lo, hi)``: the contiguous block of the padded flat vector this
+    rank stores on a model axis (the whole vector without one). With
+    ``align`` the inner cuts move down to a multiple of it (the tiled
+    sketch's 128-lane blocks: a rank sketches such a block)."""
+    M = model_size(mesh)
+    if d_pad % M:
+        raise ValueError(f"flat length {d_pad} is not a multiple of the "
+                         f"model axis {M}")
+    per = d_pad // M
+    m = model_rank(mesh)
+
+    def cut(i):
+        return d_pad if i == M else (i * per) // align * align
+    return cut(m), cut(m + 1)
 
 
 def padded_num_clients(num_clients: int, mesh, axis: str = AXIS) -> int:
@@ -144,10 +240,30 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``t`` over the ranks, the same bits on every rank."""
+    """The sum of ``t`` over the ranks of this rank's ``clients`` axis,
+    the same bits on every one."""
     out = t.clone()
     dist.all_reduce(out, group=clients_group(mesh))
     return out
+
+
+def model_all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``t`` over this rank's model axis."""
+    out = t.clone()
+    dist.all_reduce(out, group=model_group(mesh))
+    return out
+
+
+def model_all_gather(t: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The model axis's blocks of ``t`` joined along ``dim`` in model-rank
+    order (a coordinate-split vector or row block back into the whole);
+    ``t`` itself off a model axis."""
+    if t is None or model_size(mesh) == 1:
+        return t
+    w = t.contiguous()
+    parts = [torch.empty_like(w) for _ in range(model_size(mesh))]
+    dist.all_gather(parts, w, group=model_group(mesh))
+    return torch.cat(parts, dim=dim)
 
 
 def all_gather_cat(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -176,14 +292,15 @@ def broadcast_from(t: torch.Tensor, src: int, mesh) -> torch.Tensor:
 
 
 def barrier(mesh) -> None:
-    dist.barrier(group=clients_group(mesh))
+    """Every rank of the group (both axes of a 2-D mesh)."""
+    dist.barrier()
 
 
 @contextlib.contextmanager
 def main_first(mesh):
     """Rank 0 runs the block first, the others after it (a dataset cache
     written on first use is then read, never raced); no-op off a mesh."""
-    late = mesh is not None and clients_rank(mesh) != 0
+    late = mesh is not None and dist.get_rank() != 0
     if late:
         barrier(mesh)
     yield
@@ -192,9 +309,9 @@ def main_first(mesh):
 
 
 def any_rank(flag: bool, mesh) -> bool:
-    """Whether ``flag`` holds on any rank (one host read)."""
+    """Whether ``flag`` holds on any rank of the group (one host read)."""
     t = torch.tensor([1.0 if flag else 0.0], device=mesh.device_type)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=clients_group(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
 
 

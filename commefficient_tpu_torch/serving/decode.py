@@ -28,6 +28,19 @@ serve new weights; the programs run on its device. The cache tensors are
 written in place. Sampling draws from an explicit ``torch.Generator`` on
 that device (the reference's key chain becomes the generator's stream):
 greedy draws nothing; top-k matches the reference in distribution only.
+
+Tensor-parallel serving (``DecodeEngine(mesh=, tp_axis="model")``, the
+reference's ``--serve_tp``): every rank of the model axis runs the same
+programs on the same inputs, the model tensor-parallel
+(``parallel/tp.attach``: each block on the rank's H/M heads and 4C/M
+hidden units, one all-reduce closing its attention and one its MLP), and
+every KV cache and page pool holds the rank's H/M heads
+(``parallel/tp.kv_cache_specs``; a quantized pool's scale rows with
+them). The params stay whole on every rank and each product reads its
+rank's piece, so a personalized or hot-swapped tree is served as it is.
+The host page table and the continuous-batching bookkeeping run alike on
+every rank. The logits are replicated after the last all-reduce, so
+every rank samples the same token.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from torch.func import functional_call
 
 from commefficient_tpu_torch.models.gpt2 import init_decode_cache
 from commefficient_tpu_torch.models.gpt2_generate import params_device
+from commefficient_tpu_torch.parallel import tp as tp_lib
 
 
 def sample_next(logits, gen, *, method: str, top_k: int,
@@ -58,21 +72,34 @@ def sample_next(logits, gen, *, method: str, top_k: int,
 class DecodeEngine:
     """The decode programs of one (model, params) pair. ``max_len`` is the
     cache capacity (prompt plus generated tokens), at most the model's
-    position table. ``mesh`` (tensor-parallel serving) is ROADMAP.md
-    A12."""
+    position table. ``mesh`` with a ``tp_axis`` above 1: tensor-parallel
+    serving (the module docstring); the engine attaches the axis to
+    ``model``."""
 
     def __init__(self, model, params, *, eos_id: int,
                  max_len: Optional[int] = None, pad_id: int = 0,
                  method: str = "greedy", top_k: int = 8,
-                 temperature: float = 0.7, mesh=None):
+                 temperature: float = 0.7, mesh=None,
+                 tp_axis: str = "model"):
         if method not in ("greedy", "topk"):
             raise ValueError(f"method must be 'greedy' or 'topk', "
                              f"got {method!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (DecodeEngine mesh=, --serve_tp) "
-                "is not ported to PyTorch yet (ROADMAP.md A12)")
         cfg = model.config
+        self.mesh = None
+        self.tp_axis = tp_axis
+        self.tp = 1
+        names = getattr(mesh, "mesh_dim_names", None) or ()
+        if mesh is not None and tp_axis in names \
+                and mesh[tp_axis].size() > 1:
+            tp = int(mesh[tp_axis].size())
+            if cfg.n_head % tp:
+                raise ValueError(
+                    f"tensor-parallel serving shards the KV head axis: "
+                    f"n_head {cfg.n_head} must be divisible by the "
+                    f"'{tp_axis}' mesh axis size {tp}")
+            self.mesh = mesh
+            self.tp = tp
+            tp_lib.attach(model, tp_lib.TPContext.from_mesh(mesh, tp_axis))
         self.model = model
         self.params = params
         self.device = params_device(params)
@@ -139,22 +166,24 @@ class DecodeEngine:
         (num_pages, page_size, n_head, head_dim) in the compute dtype, or
         with ``kv_quant`` int8/int4 the quantized pools plus float32
         ``k_scale``/``v_scale`` of (num_pages, n_head)
-        (``ops/kv_quant.py``). Page 0 is the garbage page."""
+        (``ops/kv_quant.py``). Page 0 is the garbage page. Under tensor
+        parallelism the pools and scale rows hold the rank's heads."""
         from commefficient_tpu_torch.ops import kv_quant as kvq
         kvq.validate_mode(kv_quant)
         cfg = self.model.config
         hd = cfg.n_embd // cfg.n_head
+        heads = tp_lib.local_heads(cfg)
         dev = self.device
         if kv_quant == "none":
-            shape = (int(num_pages), int(page_size), cfg.n_head, hd)
+            shape = (int(num_pages), int(page_size), heads, hd)
             return tuple({"k": torch.zeros(shape, dtype=cfg.torch_dtype,
                                            device=dev),
                           "v": torch.zeros(shape, dtype=cfg.torch_dtype,
                                            device=dev)}
                          for _ in range(cfg.n_layer))
-        shape = (int(num_pages), int(page_size), cfg.n_head,
+        shape = (int(num_pages), int(page_size), heads,
                  kvq.packed_head_dim(hd, kv_quant))
-        sshape = (int(num_pages), cfg.n_head)
+        sshape = (int(num_pages), heads)
         dt = kvq.pool_dtype(kv_quant)
         return tuple({"k": torch.zeros(shape, dtype=dt, device=dev),
                       "v": torch.zeros(shape, dtype=dt, device=dev),

@@ -1,6 +1,8 @@
 """Continuous-batching server over a ``DecodeEngine`` (port of
-``commefficient_tpu/serving/server.py``; tensor-parallel engines are
-ROADMAP.md A12).
+``commefficient_tpu/serving/server.py``). A tensor-parallel engine
+(``DecodeEngine(mesh=)``) is served by one server a rank, each running
+the same bookkeeping on the same requests and holding its heads of the
+pools; ``stats()["tp"]`` is its degree.
 
 A fixed slot array (the decode batch) serves a stream of requests:
 
@@ -82,6 +84,12 @@ class ContinuousBatchingServer:
             raise ValueError("kv_quant is a property of the paged pools "
                              "(ops/kv_quant.py) — serve with "
                              "kv_cache='paged' or kv_quant='none'")
+        if kv_quant != "none" and engine.tp > 1 \
+                and engine.model.config.n_head % engine.tp:
+            raise ValueError(
+                f"kv_quant scale rows are (num_pages, n_head) and shard "
+                f"per head: n_head {engine.model.config.n_head} must "
+                f"divide by tp {engine.tp}")
         self.engine = engine
         self.slots = int(slots)
         self.prefill_len = int(prefill_len)
@@ -575,7 +583,7 @@ class ContinuousBatchingServer:
         # attached, so bench rows can report routing skew directly
         s["swaps_done"] = self.swaps_done
         s["dirty_swaps"] = self.dirty_swaps
-        s["tp"] = 1                 # tensor-parallel serving is A12
+        s["tp"] = self.engine.tp
         s["disaggregated"] = self.disaggregate
         if self.disaggregate:
             s["prefill_slots"] = self.prefill_slots

@@ -1,7 +1,7 @@
-"""The ``clients`` mesh's cases, computed on every rank of one launch.
+"""The meshes' cases, computed on every rank of one launch.
 
     python -m commefficient_tpu_torch.tools.mesh_cases --out DIR \
-        [--ranks 2] [--device cpu] [--cases modes,offload,...]
+        [--ranks 2] [--model 1] [--device cpu] [--cases modes,offload,...]
 
 Each rank runs the named cases and writes ``DIR/{case}_rank{r}.npz``:
 the per-round metrics, a digest of the replicated state after every
@@ -21,6 +21,19 @@ device-resident), ``buffered`` (lock-step and under a fault model),
 ``ckpt`` (a mesh file written, a file from ``DIR/ref_ckpt.npz`` loaded,
 and a resume in process), ``cli`` (both entry points' ``train`` on the
 mesh, and a scan window).
+
+With ``--model M`` the launch is a 2-D ``clients x model`` mesh
+(``make_mesh(ranks, model=M)``) and runs the tensor-parallel cases on
+gpt2-tiny (``n_head`` 4, ``n_embd`` 128, 2 layers, T 16; the problem of
+the reference's ``tests/test_mesh.py:87-112``, its initial weights from
+``DIR/tp_init.npz``): ``tp_grad`` (one forward and gradient on the
+model axis, at dropout 0 and with ``tpu_bits`` dropout, both attention
+forms), ``tp_modes`` (3 rounds of the five modes, the pads and the
+blocks each rank stores, and the whole replicated state's digest a
+round), ``tp_ckpt`` (a 2-D file written and ``DIR/ref_tp_ckpt.npz``
+loaded), ``tp_serve`` (the four serving modes and the int8/int4 pools
+at tp = M, weights from ``DIR/serve_init.npz``) and ``tp_cli`` (the GPT2
+entry point's ``train``).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.buffer import BufferedFedLearner
 from commefficient_tpu_torch.federated.faults import FaultModel
 from commefficient_tpu_torch.federated.losses import make_cv_loss
+from commefficient_tpu_torch.federated.round import split_leaves
 from commefficient_tpu_torch.federated.state import CLIENT_STATE_FIELDS
 from commefficient_tpu_torch.models import TinyMLP
 from commefficient_tpu_torch.parallel import distributed
@@ -113,11 +127,15 @@ def build(mode_kw: dict, mesh, device="cpu", init=None, cls=FedLearner,
 
 
 def state_digest(learner) -> str:
-    """sha256 of the replicated state's bytes."""
+    """sha256 of the replicated state's bytes (on a model axis, with the
+    coordinate blocks joined: every rank calls it)."""
     s = learner.state
     h = hashlib.sha256()
-    for t in (s.weights, s.opt.Vvelocity, s.opt.Verror, s.round_idx,
-              s.last_changed, s.client_last_round, s.aborted,
+    w = full_state(learner) if mesh_lib.model_size(learner.mesh) > 1 \
+        else {"weights": s.weights, "Vvelocity": s.opt.Vvelocity,
+              "Verror": s.opt.Verror, "last_changed": s.last_changed}
+    for t in (w["weights"], w["Vvelocity"], w["Verror"], s.round_idx,
+              w["last_changed"], s.client_last_round, s.aborted,
               s.weights_version, s.quarantine):
         h.update(t.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
@@ -142,9 +160,14 @@ def joined_rows(learner) -> dict:
             rows = (rows[:-1] if torch.is_tensor(rows)
                     else {k: v[:-1] for k, v in rows.items()})
         leaves = rows.items() if isinstance(rows, dict) else [(None, rows)]
+        split = (mesh_lib.model_size(mesh) > 1
+                 and split_leaves(learner.cfg)[1])
         for leaf, t in leaves:
             if mesh is not None:
                 t = mesh_lib.all_gather_cat(t.to(learner.device), mesh)
+            if split:
+                # the dense rows' coordinate blocks
+                t = mesh_lib.model_all_gather(t, mesh, dim=1)
             key = field if leaf is None else f"{field}__{leaf}"
             out[key] = t.detach().cpu().numpy()
     return out
@@ -313,7 +336,7 @@ def cli_rounds(entry: str, args, mesh, max_rounds: int) -> dict:
     return {"metrics": np.asarray([[float(r[k]) for k in ROUND_KEYS]
                                    for r in row["rounds"]], np.float64),
             "digest": np.asarray(state_digest(learner)),
-            "weights": learner.state.weights.detach().cpu().numpy()}
+            "weights": learner.full_weights().detach().cpu().numpy()}
 
 
 def case_cli(mesh, device, init, out_dir):
@@ -332,20 +355,287 @@ def case_cli(mesh, device, init, out_dir):
     return out
 
 
+# --------------------------------------------------------------------------
+# the model axis: gpt2-tiny on a clients x model mesh
+# --------------------------------------------------------------------------
+
+TP_T, TP_W, TP_B, TP_CLIENTS = 16, 2, 2, 4
+#: the five modes on the GPT2 problem (the reference's test_mesh.py
+#: config: lr 0.05, no weight decay, W 2 of 4 clients)
+TP_MODES = {
+    "uncompressed": dict(mode="uncompressed", error_type="none",
+                         virtual_momentum=0.9),
+    "sketch": dict(mode="sketch", error_type="virtual", virtual_momentum=0.9,
+                   k=500, num_rows=3, num_cols=5000),
+    "true_topk": dict(mode="true_topk", error_type="virtual",
+                      virtual_momentum=0.9, k=500),
+    "local_topk": dict(mode="local_topk", error_type="local",
+                       local_momentum=0.9, k=500),
+    "fedavg": dict(mode="fedavg", error_type="none", local_batch_size=-1,
+                   fedavg_batch_size=1),
+}
+#: (attn_impl, dropout rate) of the tp_grad case; the rated ones draw
+#: tpu_bits dropout
+TP_GRAD_CONFIGS = (("full", 0.0), ("blockwise", 0.0), ("full", 0.1),
+                   ("blockwise", 0.1))
+TP_SEED = 1234
+
+
+def tp_problem():
+    """The reference's ``_gpt2_fed_problem`` batch: (ids (W, B, 1, T), mc,
+    labels, mc labels, types) and an all-ones (W, B) mask, the same every
+    round (ids 0 and 1)."""
+    rng = np.random.RandomState(0)
+    W, B, T = TP_W, TP_B, TP_T
+    ids = rng.randint(0, 200, (W, B, 1, T)).astype(np.int64)
+    types = rng.randint(0, 3, (W, B, 1, T)).astype(np.int64)
+    mc = np.full((W, B, 1), T - 1, np.int64)
+    labels = np.where(rng.rand(W, B, 1, T) < 0.5, ids, -1).astype(np.int64)
+    mcl = np.zeros((W, B), np.int64)
+    return (ids, mc, labels, mcl, types), np.ones((W, B), np.float32)
+
+
+def tp_model(init: Optional[dict] = None, dropout: float = 0.0,
+             attn_impl: str = "full", dropout_impl: str = "xla"):
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    cfg = GPT2Config.tiny()
+    cfg.n_positions = TP_T
+    cfg.dropout = dropout
+    cfg.attn_impl = attn_impl
+    cfg.dropout_impl = dropout_impl
+    model = GPT2DoubleHeads(cfg)
+    if init is None:
+        model.reset_parameters(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in init.items()})
+    return model
+
+
+def tp_build(mode_kw: dict, mesh, device="cpu", init=None):
+    from commefficient_tpu_torch.federated.losses import make_gpt2_train_loss
+    model = tp_model(init)
+    cfg = FedConfig(num_workers=TP_W, num_clients=TP_CLIENTS, lr_scale=0.05,
+                    weight_decay=0, **mode_kw)
+    return FedLearner(model, cfg, make_gpt2_train_loss(model), None,
+                      device=device, mesh=mesh)
+
+
+def full_state(learner) -> dict:
+    """The state's leaves whole: a model-axis rank's coordinate blocks
+    joined over the model group (every rank calls it)."""
+    s = learner.state
+    mesh = learner.mesh
+    split = mesh_lib.model_size(mesh) > 1
+
+    def whole(t, dim=0):
+        return mesh_lib.model_all_gather(t, mesh, dim) if split else t
+    opt = split_leaves(learner.cfg)[0]
+    return {"weights": whole(s.weights),
+            "Vvelocity": whole(s.opt.Vvelocity) if opt else s.opt.Vvelocity,
+            "Verror": whole(s.opt.Verror) if opt else s.opt.Verror,
+            "last_changed": whole(s.last_changed),
+            "client_last_round": s.client_last_round,
+            "round_idx": s.round_idx}
+
+
+def tp_rounds(learner, rounds: int, prefix: str = "") -> dict:
+    batch, mask = tp_problem()
+    ids = np.arange(TP_W)
+    rows, digests = [], []
+    for _ in range(rounds):
+        m = learner.train_round(ids, batch, mask)
+        rows.append([float(m[k]) for k in ROUND_KEYS])
+        digests.append(state_digest(learner))
+    out = {k: v.detach().cpu().numpy()
+           for k, v in full_state(learner).items()}
+    out["metrics"] = np.asarray(rows, np.float64)
+    out["digests"] = np.asarray(digests)
+    return {prefix + k: v for k, v in out.items()}
+
+
+def case_tp_grad(mesh, device, init):
+    """One worker's loss and flat gradient with the model on the mesh's
+    model axis (``TPUnflatten``), per ``TP_GRAD_CONFIGS``."""
+    from commefficient_tpu_torch.federated import client as client_lib
+    from commefficient_tpu_torch.federated.losses import make_gpt2_train_loss
+    from commefficient_tpu_torch.parallel import tp as tp_lib
+    from commefficient_tpu_torch.utils.params import flatten_params
+    batch, mask = tp_problem()
+    out = {}
+    for attn, rate in TP_GRAD_CONFIGS:
+        model = tp_model(init, rate, attn, "tpu_bits" if rate else "xla")
+        flat, unflatten = flatten_params(model)
+        ctx = tp_lib.TPContext.from_mesh(mesh)
+        if ctx is not None:
+            tp_lib.attach(model, ctx)
+            unflatten = tp_lib.TPUnflatten(
+                unflatten, flat.shape[0], tp_lib.TPLayout(
+                    {n: tuple(p.shape) for n, p in model.named_parameters()},
+                    model.config.n_head, ctx.size), ctx)
+        cols = tuple(torch.as_tensor(c[0]).to(device) for c in batch)
+        g, loss, _ = client_lib._masked_loss_and_grad(
+            make_gpt2_train_loss(model), unflatten, flat.to(device), cols,
+            torch.as_tensor(mask[0]).to(device), TP_SEED)
+        tag = f"{attn}_{rate}"
+        out[f"{tag}/grad"] = g.detach().cpu().numpy()
+        out[f"{tag}/loss"] = np.asarray(float(loss))
+    return out
+
+
+def case_tp_modes(mesh, device, init):
+    out = {}
+    for name, kw in TP_MODES.items():
+        ln = tp_build(kw, mesh, device, init)
+        out.update(tp_rounds(ln, ROUNDS, f"{name}/"))
+        s = ln.state
+        out[f"{name}/held"] = np.asarray(
+            [s.weights.numel(), s.last_changed.numel(),
+             s.opt.Vvelocity.numel(), ln.cfg.grad_size, ln.cfg.grad_dim])
+        rows = s.clients.errors if s.clients.errors is not None \
+            else s.clients.velocities
+        if torch.is_tensor(rows):
+            out[f"{name}/rows_shape"] = np.asarray(rows.shape)
+    return out
+
+
+TP_CKPT_KW = TP_MODES["uncompressed"]
+
+
+def case_tp_ckpt(mesh, device, init, out_dir):
+    from commefficient_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                          save_checkpoint)
+    out = {}
+    ln = tp_build(TP_CKPT_KW, mesh, device, init)
+    tp_rounds(ln, 2)
+    save_checkpoint(os.path.join(out_dir, "tp_ckpt"), ln, "tp")
+    out.update({f"saved/{k}": v.detach().cpu().numpy()
+                for k, v in full_state(ln).items()})
+    ref = os.path.join(out_dir, "ref_tp_ckpt.npz")
+    if os.path.exists(ref):
+        ln = tp_build(TP_CKPT_KW, mesh, device, init)
+        load_checkpoint(ref, ln)
+        out.update({f"loaded/{k}": v.detach().cpu().numpy()
+                    for k, v in full_state(ln).items()})
+        out["loaded/held"] = np.asarray(ln.state.weights.shape)
+    return out
+
+
+SERVE_TEXTS = ("hello there", "do you like fish", "tell me a story",
+               "the weather is nice")
+SERVE_MODES = ("fixed", "paged", "personalized", "speculative", "int8",
+               "int4")
+
+
+def serve_prompts():
+    from commefficient_tpu_torch.data.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    return tok, [(tok.encode(t), [1] * len(tok.encode(t)))
+                 for t in SERVE_TEXTS]
+
+
+def serve_replies(model, params, mode: str, mesh=None):
+    """The reference's ``__graft_entry__`` part 10 serving run in
+    ``mode``: 4 prompts through 2 slots, budgets 3 + i, greedy. Returns
+    (replies, the server's stats, its pools or cache)."""
+    from commefficient_tpu_torch.federated.client_store import (
+        HostArenaStore, make_codec)
+    from commefficient_tpu_torch.serving import (ContinuousBatchingServer,
+                                                 DecodeEngine,
+                                                 PersonalizationIndex)
+    from commefficient_tpu_torch.utils.params import flatten_params
+    tok, prompts = serve_prompts()
+    eng = DecodeEngine(model, params, eos_id=tok.convert_tokens_to_ids(
+        "<eos>"), max_len=48, method="greedy", mesh=mesh)
+    kw = {}
+    if mode != "fixed":
+        kw.update(kv_cache="paged", page_size=8)
+    if mode in ("int8", "int4"):
+        kw["kv_quant"] = mode
+    if mode == "personalized":
+        d = flatten_params(model)[0].shape[0]
+        cfg = FedConfig(mode="local_topk", error_type="local",
+                        client_state="sparse", k=4,
+                        num_clients=4).finalize(d)
+        kw["personalize"] = PersonalizationIndex(
+            eng.params, HostArenaStore(cfg, make_codec(cfg), num_shards=2))
+    if mode == "speculative":
+        kw["speculate_k"] = 2
+    srv = ContinuousBatchingServer(eng, slots=2, prefill_len=32, **kw)
+    rids = [srv.submit(i, t, reply_type=1, max_new=3 + n,
+                       user_id=(n if mode == "personalized" else None))
+            for n, (i, t) in enumerate(prompts)]
+    replies = srv.run()
+    return [replies[r] for r in rids], srv.stats(), srv.cache
+
+
+def serve_model(init: dict):
+    from commefficient_tpu_torch.data.tokenizer import ByteTokenizer
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    model = GPT2DoubleHeads(GPT2Config.tiny(
+        vocab_size=ByteTokenizer().vocab_size))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in init.items()})
+    return model
+
+
+def case_tp_serve(mesh, device, init, out_dir):
+    init = dict(np.load(os.path.join(out_dir, "serve_init.npz")))
+    out = {}
+    for mode in SERVE_MODES:
+        model = serve_model(init)
+        params = {n: p.detach().to(device)
+                  for n, p in model.named_parameters()}
+        model.to(device)
+        replies, stats, srv_cache = serve_replies(model, params, mode, mesh)
+        out[f"{mode}/replies"] = np.asarray(
+            [r + [-1] * (16 - len(r)) for r in replies])
+        out[f"{mode}/tp"] = np.asarray(stats["tp"])
+        if "kv_pool_bytes" in stats:
+            from commefficient_tpu_torch.tools.serve_tp import pool_bytes
+            out[f"{mode}/pool_bytes"] = np.asarray(
+                [stats["kv_pool_bytes"], pool_bytes(srv_cache)])
+    return out
+
+
+#: the ``cli`` case's GPT2 flags, the validation in batches of 64
+TP_CLI_ARGS = ("--valid_batch_size", "64")
+
+
+def case_tp_cli(mesh, device, init, out_dir):
+    """The GPT2 entry point's ``train`` on the mesh (``TP_CLI_ARGS``, 2
+    rounds)."""
+    return {f"gpt2/{k}": v for k, v in cli_rounds(
+        "gpt2", cli_args("gpt2", out_dir, *TP_CLI_ARGS), mesh, 2).items()}
+
+
 CASES = {"modes": case_modes, "rows": case_rows, "offload": case_offload,
-         "buffered": case_buffered, "ckpt": case_ckpt, "cli": case_cli}
+         "buffered": case_buffered, "ckpt": case_ckpt, "cli": case_cli,
+         "tp_grad": case_tp_grad, "tp_modes": case_tp_modes,
+         "tp_ckpt": case_tp_ckpt, "tp_serve": case_tp_serve,
+         "tp_cli": case_tp_cli}
 #: the cases that read or write files beside their arrays
-_WITH_DIR = ("ckpt", "cli")
+_WITH_DIR = ("ckpt", "cli", "tp_ckpt", "tp_serve", "tp_cli")
+#: the cases whose initial weights are ``DIR/tp_init.npz``
+_TP_INIT = ("tp_grad", "tp_modes", "tp_ckpt")
 
 
-def run_cases(out_dir: str, names, device: str = "cpu") -> None:
-    """The launcher's target: every named case on this rank."""
-    mesh = mesh_lib.make_mesh(device_type=torch.device(device).type)
-    r = mesh_lib.clients_rank(mesh)
-    init_fn = os.path.join(out_dir, "init.npz")
-    init = dict(np.load(init_fn)) if os.path.exists(init_fn) else None
+def run_cases(out_dir: str, names, device: str = "cpu",
+              model: int = 1) -> None:
+    """The launcher's target: every named case on this rank (of a
+    ``clients x model`` mesh with ``model`` > 1)."""
+    import torch.distributed as dist
+    mesh = mesh_lib.make_mesh(model=model,
+                              device_type=torch.device(device).type)
+    r = dist.get_rank()
+    inits = {}
+    for key in ("init", "tp_init"):
+        fn = os.path.join(out_dir, f"{key}.npz")
+        inits[key] = dict(np.load(fn)) if os.path.exists(fn) else None
     for name in names:
         fn = CASES[name]
+        init = inits["tp_init" if name in _TP_INIT else "init"]
         args = (mesh, device, init) + ((out_dir,) if name in _WITH_DIR
                                        else ())
         arrays = fn(*args)
@@ -361,9 +651,10 @@ def run_one_process(name: str, out_dir: str, device: str = "cpu",
 
 
 def launch(out_dir: str, names, ranks: int = 2, device: str = "cpu",
-           backend: Optional[str] = None) -> None:
+           backend: Optional[str] = None, model: int = 1) -> None:
     os.makedirs(out_dir, exist_ok=True)
-    distributed.launch(run_cases, ranks, (out_dir, list(names), device),
+    distributed.launch(run_cases, ranks,
+                       (out_dir, list(names), device, model),
                        backend=backend, device_type=torch.device(device).type)
 
 
@@ -371,12 +662,14 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", required=True)
     p.add_argument("--ranks", type=int, default=2)
+    p.add_argument("--model", type=int, default=1)
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default=None)
     p.add_argument("--cases", default=",".join(
         c for c in CASES if c != "rows"))
     a = p.parse_args(argv)
-    launch(a.out, a.cases.split(","), a.ranks, a.device, a.backend)
+    launch(a.out, a.cases.split(","), a.ranks, a.device, a.backend,
+           a.model)
     return 0
 
 

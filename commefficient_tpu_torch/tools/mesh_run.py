@@ -1,4 +1,4 @@
-"""An entry point's ``train`` on a ``clients`` mesh, with what each rank saw.
+"""An entry point's ``train`` on a mesh, with what each rank saw.
 
     python -m commefficient_tpu_torch.tools.mesh_run --entry cv \
         --ranks 2 --backend gloo --out PREFIX [--max_rounds 3] -- FLAGS...
@@ -13,21 +13,33 @@ weights, server momentum and error and of every client's joined rows,
 the kernel launches of the rounds (every counter zeroed just before
 ``train``), the peak device memory, the offload shards' reads and
 writes, the buffered server's schedule, and the backend that ran. With
-``record_table`` the first aggregate table the round sketched is saved
-as ``PREFIX_rank{r}_table.npy``; with ``record_cohorts`` the dispatched
-cohorts' ids and masks as ``PREFIX_rank{r}_cohorts.npz``.
+``record_table`` the first aggregate the server took (the sketched table
+in sketch mode) is saved as ``PREFIX_rank{r}_table.npy``; with
+``record_block`` the first slice a rank sketched (its block of the
+aggregate on a model axis) as ``PREFIX_rank{r}_block.npy``, its offset
+in the JSON; with ``record_cohorts`` the dispatched cohorts' ids and
+masks as ``PREFIX_rank{r}_cohorts.npz``; with ``time_collectives`` each
+dispatched round's ``torch.distributed`` collectives (all-reduce,
+all-gather, broadcast) are timed on the host, the device synchronized
+around each, with their payload (the bytes a rank contributes). A
+spec's ``model`` = M makes the
+launch a ``clients x model`` mesh of ranks / M client shards (the state's
+shas and ``d`` are then of the whole joined vectors).
 
 ``launch(specs, ranks, backend)`` does the same from Python for one spec
-or a list of them, which the same ranks run in turn. FLAGS are the entry
-point's; ``--mesh clients=N`` is added.
+or a list of them, which the same ranks run in turn (each on its own
+mesh, of its own ``model`` size). FLAGS are the entry point's; ``--mesh clients=N`` (or
+``clients=N/M,model=M``) is added.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -43,18 +55,61 @@ def _sha(t) -> str:
         t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
+class _CollectiveClock:
+    """Host seconds, calls and payload bytes of the collectives, each
+    call bracketed by device synchronizations (``torch.distributed``'s
+    functions patched while it is entered)."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast")
+
+    def __enter__(self):
+        self.seconds, self.bytes, self.calls = 0.0, 0, 0
+        self._saved = {n: getattr(dist, n) for n in self.NAMES}
+        for name, f in self._saved.items():
+            setattr(dist, name, self._timed(name, f))
+        return self
+
+    def _timed(self, name, f):
+        def timed(*args, **kwargs):
+            t = args[1] if name == "all_gather" else args[0]
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            self.seconds += time.perf_counter() - t0
+            self.bytes += t.numel() * t.element_size()
+            self.calls += 1
+            return out
+        return timed
+
+    def snapshot(self):
+        return self.seconds, self.bytes, self.calls
+
+    def __exit__(self, *exc):
+        for name, f in self._saved.items():
+            setattr(dist, name, f)
+
+
 class _Record:
     """Per-round state digests of every dispatched round (the outermost
-    ``train_round_async`` of a learner only), the first sketched table and
-    the dispatched cohorts."""
+    ``train_round_async`` of a learner only), the first aggregate the
+    server took, the first sketched slice and the dispatched cohorts."""
 
-    def __init__(self, table: bool, digests: bool):
+    def __init__(self, table: bool, digests: bool, block: bool = False,
+                 clock: Optional[_CollectiveClock] = None):
         self.digests, self.cohorts, self.table = [], [], None
+        self.block = None
+        self.clock = clock
+        self.collectives = []     # (seconds, bytes, calls) a round
         self._want_table = table
+        self._want_block = block
         self._want_digests = digests
         self._depth = 0
 
     def __enter__(self):
+        from commefficient_tpu_torch.federated import round as round_mod
         from commefficient_tpu_torch.federated.api import FedLearner
         from commefficient_tpu_torch.federated.buffer import \
             BufferedFedLearner
@@ -62,18 +117,24 @@ class _Record:
         from commefficient_tpu_torch.tools.mesh_cases import state_digest
         self._saved = [(cls, "train_round_async", cls.train_round_async)
                        for cls in (FedLearner, BufferedFedLearner)]
-        self._saved.append((CountSketch, "sketch_vec",
-                            CountSketch.sketch_vec))
+        self._saved += [(round_mod, "server_update", round_mod.server_update),
+                        (CountSketch, "sketch_range",
+                         CountSketch.sketch_range)]
         rec = self
 
         def wrap(saved):
             def dispatch(learner, client_ids, batch, mask, **kw):
                 rec._depth += 1
+                before = rec.clock.snapshot() if rec.clock else None
                 try:
                     raw = saved(learner, client_ids, batch, mask, **kw)
                 finally:
                     rec._depth -= 1
                 if rec._depth == 0:
+                    if before is not None:
+                        rec.collectives.append([
+                            a - b for a, b in zip(rec.clock.snapshot(),
+                                                  before)])
                     rec.cohorts.append((np.array(client_ids),
                                         np.array(mask)))
                     if rec._want_digests:
@@ -82,14 +143,20 @@ class _Record:
             return dispatch
         for cls, attr, saved in self._saved[:2]:
             setattr(cls, attr, wrap(saved))
-        sketch_vec = self._saved[2][2]
+        server_update, sketch_range = (f for _, _, f in self._saved[2:])
 
-        def sketch(cs, vec):
-            out = sketch_vec(cs, vec)
+        def update(gradient, *args, **kwargs):
             if rec._want_table and rec.table is None:
-                rec.table = out.detach().cpu().numpy().copy()
-            return out
-        CountSketch.sketch_vec = sketch
+                rec.table = gradient.detach().cpu().numpy().copy()
+            return server_update(gradient, *args, **kwargs)
+
+        def sketch(cs, chunk, offset=0):
+            if rec._want_block and rec.block is None:
+                rec.block = (chunk.detach().cpu().numpy().copy(),
+                             int(offset))
+            return sketch_range(cs, chunk, offset)
+        round_mod.server_update = update
+        CountSketch.sketch_range = sketch
         return self
 
     def __exit__(self, *exc):
@@ -121,21 +188,25 @@ def run_rank(spec: dict) -> None:
     parser = (build_parser() if entry == "cv"
               else gpt2.build_gpt2_parser())
     n = distributed.world_size()
-    args = parser.parse_args(list(spec["argv"]) + ["--mesh",
-                                                   f"clients={n}"])
+    M = int(spec.get("model", 1))
+    axes = f"clients={n // M}" + (f",model={M}" if M > 1 else "")
+    args = parser.parse_args(list(spec["argv"]) + ["--mesh", axes])
     for k, v in spec.get("attrs", {}).items():
         setattr(args, k, v)
-    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(n))
+    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(
+        n // M, {"model": M} if M > 1 else {}))
     np.random.seed(args.seed)
     device_type = torch.device(args.device).type
-    mesh = mesh_lib.make_mesh(n, device_type=device_type)
-    r = mesh_lib.clients_rank(mesh)
+    mesh = mesh_lib.make_mesh(n, model=M, device_type=device_type)
+    r = dist.get_rank()
     cuda = device_type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     train = cv.train if entry == "cv" else gpt2.train
-    with _Record(spec.get("record_table", False),
-                 spec.get("digests", True)) as rec:
+    clock = _CollectiveClock() if spec.get("time_collectives") else None
+    with (clock or contextlib.nullcontext()), _Record(
+            spec.get("record_table", False), spec.get("digests", True),
+            spec.get("record_block", False), clock) as rec:
         cuda_lib.LAUNCHES.clear()
         learner, row = train(args, mesh=mesh,
                              max_rounds=spec.get("max_rounds"), log=False)
@@ -143,7 +214,8 @@ def run_rank(spec: dict) -> None:
             torch.cuda.synchronize()
         launches = dict(row.get("launches_after_rounds") or
                         {k: v for k, v in cuda_lib.LAUNCHES.items() if v})
-    s = learner.state
+    from commefficient_tpu_torch.tools.mesh_cases import full_state
+    s = full_state(learner)
     rows = joined_rows(learner)
     h = hashlib.sha256()
     for k in sorted(rows):
@@ -160,11 +232,13 @@ def run_rank(spec: dict) -> None:
         "test_loss": row.get("test_loss", row.get("nll")),
         "preempted": bool(row.get("preempted", False)),
         "digests": rec.digests,
-        "weights_sha": _sha(s.weights), "vvel_sha": _sha(s.opt.Vvelocity),
-        "verr_sha": _sha(s.opt.Verror), "rows_sha": h.hexdigest(),
-        "round_idx": int(s.round_idx), "d": int(s.weights.shape[0]),
-        "finite": bool(torch.isfinite(s.weights).all()),
+        "weights_sha": _sha(s["weights"]), "vvel_sha": _sha(s["Vvelocity"]),
+        "verr_sha": _sha(s["Verror"]), "rows_sha": h.hexdigest(),
+        "round_idx": int(s["round_idx"]), "d": int(s["weights"].shape[0]),
+        "held": int(learner.state.weights.shape[0]),
+        "finite": bool(torch.isfinite(s["weights"]).all()),
         "launches": launches,
+        "collectives": rec.collectives,
         "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                      if cuda else None),
     }
@@ -180,12 +254,16 @@ def run_rank(spec: dict) -> None:
     prefix = f"{spec['out']}_rank{r}"
     if rec.table is not None:
         np.save(prefix + "_table.npy", rec.table)
+    if rec.block is not None:
+        np.save(prefix + "_block.npy", rec.block[0])
+        out["block_offset"] = rec.block[1]
     if spec.get("record_cohorts"):
         np.savez(prefix + "_cohorts.npz",
                  ids=np.stack([c[0] for c in rec.cohorts]),
                  masks=np.stack([c[1] for c in rec.cohorts]))
     with open(prefix + ".json", "w") as f:
         json.dump(out, f)
+    del learner, s
 
 
 def launch(specs, ranks: int, backend: Optional[str] = None) -> list:

@@ -196,8 +196,10 @@ def build_parser(default_lr: float = 0.4) -> argparse.ArgumentParser:
                         "int8 or nibble-packed int4 pages with per-page, "
                         "per-head float32 scales")
     p.add_argument("--serve_tp", type=int, default=1,
-                   help="tensor-parallel serving degree; above 1 is not "
-                        "ported (ROADMAP.md A12)")
+                   help="tensor-parallel serving degree (parallel/tp.py "
+                        "+ serving/decode.py): the KV pools shard their "
+                        "heads along the mesh's 'model' axis; requires "
+                        "--mesh with model=<this value>. 1 = one device")
     p.add_argument("--serve_slots", type=int, default=8,
                    help="continuous-batching slots (the decode batch)")
     p.add_argument("--serve_disagg", action="store_true",
@@ -303,14 +305,14 @@ def resolve_fused_ce(args) -> bool:
 
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: a ``--mesh`` axis other than
-    ``clients`` above 1 (A12), then the entry point's own ``extra``
-    ``(flag, is_set, item)`` triples. The config refuses ``--serve_tp``
-    above 1 (A12)."""
+    flag set that the port does not run: a ``--mesh`` ``seq``, ``stage``
+    or ``expert`` axis above 1 (A12), then the entry point's own
+    ``extra`` ``(flag, is_set, item)`` triples. The ``model`` axis runs
+    (GPT2; the CV entry point raises the reference's ValueError first)."""
     inner = mesh_inner_axes(getattr(args, "mesh", ""))
     for flag, on, item in (
             *((f"--mesh {name}={size}", size > 1, "A12")
-              for name, size in inner.items()),
+              for name, size in inner.items() if name != "model"),
             *extra):
         if on:
             raise NotImplementedError(f"{flag} is not ported to PyTorch "
@@ -353,9 +355,10 @@ def parse_mesh(spec: str):
     441-487``): ``clients=N[,seq=M | ,model=M | ,stage=S | ,expert=E]``,
     the inner axes mutually exclusive. ``clients=all`` (or ``auto``)
     means ``WORLD_SIZE`` under ``torchrun``, else every CUDA device (one
-    rank without one). The ranks build the ``DeviceMesh`` itself
-    (``parallel.mesh.make_mesh``) once they have joined; an inner axis
-    above 1 is refused there and by ``refuse_unported`` (A12)."""
+    rank without one). The ranks build the mesh itself
+    (``parallel.mesh.make_mesh``) once they have joined; a ``seq``,
+    ``stage`` or ``expert`` axis above 1 is refused there and by
+    ``refuse_unported`` (A12)."""
     if not spec:
         return None
     from commefficient_tpu_torch.parallel.mesh import MeshSpec
@@ -456,7 +459,21 @@ def scan_rounds(args) -> int:
 
 
 def args_to_config(args, **overrides) -> FedConfig:
+    """The ``FedConfig`` of the parsed flags; a ``--mesh`` with a
+    ``model`` axis sets the config's mesh shape, so that its checks
+    (``--serve_tp``, the model axis's refusals) see it."""
     fields = set(FedConfig.__dataclass_fields__)
     kwargs = {k: v for k, v in vars(args).items() if k in fields}
+    mesh = parse_mesh(getattr(args, "mesh", "") or "")
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        kwargs.update(mesh_shape=tuple(mesh.shape.values()),
+                      mesh_axis_names=mesh.axis_names)
     kwargs.update(overrides)
     return FedConfig(**kwargs)
+
+
+def mesh_ranks(mesh) -> int:
+    """The ranks a parsed ``--mesh`` launches: clients x model."""
+    from commefficient_tpu_torch.parallel.mesh import (clients_size,
+                                                       model_size)
+    return clients_size(mesh) * model_size(mesh)

@@ -58,8 +58,18 @@ hot-swaps the new base weights into the server (``--serve_slots``,
 ``--mesh`` it raises the reference's ValueError.
 
 ``--mesh clients=N`` runs the round on N ranks (``parallel/``), as the CV
-entry point does; the ``seq``, ``model``, ``stage`` and ``expert`` axes
-are ROADMAP.md A12 (the reference's MoE ValueErrors come first).
+entry point does. ``--mesh clients=C,model=M`` runs C*M ranks: 2-D
+clients x model federation, GPT2 tensor-parallel on each model group of
+M ranks (``parallel/tp.py``), the flat state stored in coordinate blocks
+(``federated/api.py``):
+
+    python -m commefficient_tpu_torch.training.gpt2 --device cpu \
+        --mesh clients=2,model=2 --model gpt2-tiny --mode sketch ...
+
+The ``seq``, ``stage`` and ``expert`` axes, MoE blocks on a model axis,
+and ``--client_state_offload``, ``--server_mode buffered`` or
+``--grad_buckets`` with one are ROADMAP.md A12 (the reference's MoE
+ValueErrors come first).
 """
 
 from __future__ import annotations
@@ -85,15 +95,16 @@ from commefficient_tpu_torch.models import GPT2_CONFIGS, GPT2DoubleHeads
 from commefficient_tpu_torch.models.gpt2_import import try_load_hf_pretrained
 from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.parallel import distributed
-from commefficient_tpu_torch.parallel.mesh import (clients_size, main_first,
-                                                   make_mesh,
+from commefficient_tpu_torch.online.swap import learner_params
+from commefficient_tpu_torch.parallel.mesh import (main_first, make_mesh,
+                                                   model_size,
                                                    padded_num_clients)
 from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    args_to_config,
                                                    build_parser,
                                                    learner_factory,
                                                    mesh_inner_axes,
-                                                   parse_mesh,
+                                                   mesh_ranks, parse_mesh,
                                                    refuse_buffered_scan,
                                                    refuse_unported,
                                                    resolve_fused_ce,
@@ -131,7 +142,10 @@ def _refuse_moe_combinations(args):
 def _refuse_unported(args):
     _refuse_moe_combinations(args)
     refuse_unported(args, (
-        ("--attn_impl ring", args.attn_impl == "ring", "A12"),))
+        ("--attn_impl ring", args.attn_impl == "ring", "A12"),
+        ("--moe_experts with a --mesh model axis",
+         args.moe_experts > 0 and mesh_inner_axes(args.mesh).get(
+             "model", 1) > 1, "A12, the expert axis")))
     refuse_buffered_scan(args)
     if args.model not in GPT2_CONFIGS:
         raise ValueError(f"--model {args.model!r} is not a GPT2 model; "
@@ -359,29 +373,34 @@ def train(args, mesh=None, max_rounds=None, log=True):
         if writer:
             writer.close()
     finish_run(learner, row, log)
-    if log and not args.do_test:
-        _print_sample(args, model, learner, tokenizer, val_set)
+    if not args.do_test:
+        # every rank: on a model axis the weights are joined over it
+        params = learner_params(learner)
+        if log:
+            _print_sample(args, model, params, tokenizer, val_set)
     if args.do_checkpoint:
         save_pretrained(args.checkpoint_path, learner, model.config,
                         tokenizer)
     return learner, row
 
 
-def _print_sample(args, model, learner, tokenizer, val_set):
+def _print_sample(args, model, params, tokenizer, val_set):
     """A greedy reply to the first validation dialog's last utterance
-    (the reference's qualitative sample)."""
+    (the reference's qualitative sample), from ``params`` (every weight
+    whole)."""
     import copy
 
     from commefficient_tpu_torch.data.persona import tokenize_tree
     from commefficient_tpu_torch.models.gpt2_generate import sample_reply
-    from commefficient_tpu_torch.online.swap import learner_params
     try:
         gen_model = model
-        if model.config.fused_lm_head:
-            # generation needs the logits: the same params through a twin
-            # without the fused head
+        if model.config.fused_lm_head or model.config.tp is not None:
+            # generation needs the logits, on this rank alone: the same
+            # params through a twin without the fused head or the model
+            # axis
             cfg = copy.copy(model.config)
             cfg.fused_lm_head = False
+            cfg.tp = None
             gen_model = GPT2DoubleHeads(cfg)
         raw = val_set._raw_dialogs()
         d = raw.get("valid", raw.get("train"))[0]
@@ -389,7 +408,7 @@ def _print_sample(args, model, learner, tokenizer, val_set):
         persona = tokenize_tree(d["personality"], tokenizer)
         history = tokenize_tree(
             utt["history"][-(2 * args.max_history + 1):], tokenizer)
-        reply = sample_reply(gen_model, learner_params(learner), tokenizer,
+        reply = sample_reply(gen_model, params, tokenizer,
                              persona, history, max_seq_len=args.max_seq_len)
         print("context:", " / ".join(utt["history"][-2:]))
         print("sample reply:", tokenizer.decode(reply))
@@ -427,10 +446,11 @@ def _print_final(final: dict) -> None:
                      for k, v in final.items()})
 
 
-def mesh_rank_main(args, n_clients: int) -> None:
+def mesh_rank_main(args, n_ranks: int, model: int = 1) -> None:
     """One rank of a ``--mesh`` run (the launcher's target)."""
     np.random.seed(args.seed)
-    mesh = make_mesh(n_clients, device_type=torch.device(args.device).type)
+    mesh = make_mesh(n_ranks, model=model,
+                     device_type=torch.device(args.device).type)
     main_rank = distributed.is_main()
     with profile_ctx(args.profile if main_rank else None):
         _, final = train(args, mesh=mesh)
@@ -463,8 +483,8 @@ def main(argv=None):
         return 0
     if mesh is not None:
         _refuse_unported(args)
-        distributed.run(mesh_rank_main, clients_size(mesh),
-                        (args, clients_size(mesh)),
+        n = mesh_ranks(mesh)
+        distributed.run(mesh_rank_main, n, (args, n, model_size(mesh)),
                         device_type=torch.device(args.device).type)
         return 0
     with profile_ctx(args.profile):

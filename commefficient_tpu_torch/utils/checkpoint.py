@@ -26,6 +26,11 @@ keeps its ``torch.Generator``'s state under ``torch_generator`` instead.
 Each package ignores the other's key, so a resume across packages draws
 its own seeds.
 
+On a ``model`` mesh axis each rank stores a coordinate block of the
+flat state: a save joins the blocks over the model group (the file holds
+the reference's padded vector; rank 0 writes it) and a load keeps each
+rank's block.
+
 Writes are atomic (a temp file, fsync, ``os.replace``, then the
 directory's fsync). Periodic saves land as ``{name}_r{step:08d}.npz``
 behind a ``{name}.latest`` pointer, the newest ``KEEP_STEP_FILES``
@@ -54,10 +59,11 @@ import signal
 import numpy as np
 import torch
 
-from commefficient_tpu_torch.federated.round import FedState
+from commefficient_tpu_torch.federated.round import FedState, split_leaves
 from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      ClientState,
                                                      ServerOptState)
+from commefficient_tpu_torch.parallel import distributed
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
 
 FORMAT_VERSION = 3
@@ -195,6 +201,41 @@ def _held_rows(arr: np.ndarray, learner) -> np.ndarray:
     return arr[lo:hi]
 
 
+def _coord_dim(path: str, learner):
+    """The dim along which a model-axis rank stores only its coordinate
+    block of the leaf at ``path`` (``api.FedLearner``), or None: the
+    weights and ``last_changed``, a dense mode's server state, the dense
+    codec's client rows."""
+    if mesh_lib.model_size(_mesh_of(learner)) == 1:
+        return None
+    opt, rows = split_leaves(learner.cfg)
+    if path in (".weights", ".last_changed"):
+        return 0
+    if path.startswith(".opt.") and opt:
+        return 0
+    if path.startswith(".clients.") and rows:
+        return 1
+    return None
+
+
+def _whole(t: torch.Tensor, path: str, learner) -> torch.Tensor:
+    """A leaf as the file holds it: a coordinate block joined over the
+    model axis (the reference's padded vector)."""
+    dim = _coord_dim(path, learner)
+    if dim is None:
+        return t
+    return mesh_lib.model_all_gather(t, _mesh_of(learner), dim=dim)
+
+
+def _held_coords(arr: np.ndarray, path: str, learner) -> np.ndarray:
+    """A whole leaf -> the coordinate block this rank stores."""
+    dim = _coord_dim(path, learner)
+    if dim is None:
+        return arr
+    lo, hi = learner.coord_block
+    return arr[(slice(None),) * dim + (slice(lo, hi),)]
+
+
 def _host_fields(learner):
     """``[(field, key -> leaf name or None)]`` of the offloaded rows."""
     store = getattr(learner, "host_store", None)
@@ -243,12 +284,13 @@ def save_checkpoint(path: str, learner, name: str = "model",
             extra[key] = _full_rows(stacked if leaf is None
                                     else stacked[leaf], learner).numpy()
     arrays = {}
-    for i, (_, t, rows) in enumerate(leaves):
+    for i, (p, t, rows) in enumerate(leaves):
         # the client rows' sink row is the port's, not the format's
+        t = _whole(t, p, learner)
         arrays[f"arr_{i}"] = (_full_rows(t[:-1], learner) if rows
                               else t).detach().cpu().numpy()
     mesh = _mesh_of(learner)
-    if mesh is not None and mesh_lib.clients_rank(mesh) != 0:
+    if mesh is not None and distributed.rank() != 0:
         # rank 0 writes the file; every rank returns once it is there
         mesh_lib.barrier(mesh)
         return fn
@@ -399,8 +441,12 @@ def load_checkpoint(fn: str, learner, expect_fingerprint: dict = None):
                 f"checkpoint {fn} has {n_saved} state arrays, learner "
                 f"expects {len(leaves)} — config/mode mismatch")
     for (p, cur, rows), new in zip(leaves, restored):
+        shape = list(cur.shape)
+        dim = _coord_dim(p, learner)
+        if dim is not None:
+            shape[dim] = learner.cfg.grad_dim
         want = ((_num_clients(learner),) if rows else ()) + tuple(
-            cur.shape[1 if rows else 0:])
+            shape[1 if rows else 0:])
         if tuple(new.shape) != want:
             raise ValueError(
                 f"checkpoint {fn} array {p} has shape {new.shape}, learner "
@@ -444,6 +490,7 @@ def load_checkpoint(fn: str, learner, expect_fingerprint: dict = None):
     # ---- every check passed: mutate ------------------------------------
     new = {}
     for (p, cur, rows), arr in zip(leaves, restored):
+        arr = _held_coords(arr, p, learner)
         if rows:
             arr = _held_rows(arr, learner)
         t = torch.from_numpy(np.array(arr)).to(dtype=cur.dtype)

@@ -126,8 +126,9 @@ def test_cli_refuses_cuda_without_a_device(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [
     (["--moe_experts", "4", "--mesh", "clients=2,expert=2"], "A12"),
-    (["--mesh", "clients=2,model=2"], "A12"),
-    (["--serve_tp", "2"], "A12"), (["--attn_impl", "ring"], "A12")])
+    (["--mesh", "clients=2,seq=2"], "A12"),
+    (["--mesh", "clients=1,stage=2"], "A12"),
+    (["--attn_impl", "ring"], "A12")])
 def test_cli_refuses_unported_flags(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         train(_args(tmp_path, "--device", "cpu", *extra), max_rounds=1,

@@ -289,6 +289,11 @@ def test_serve_flags_parse_and_validate_as_the_reference(bad):
         ref_config(ref_parser().parse_args(bad), num_clients=8).finalize(64)
     with pytest.raises(ValueError):
         args_to_config(build_gpt2_parser().parse_args(bad)).finalize(64)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # --serve_tp above 1 needs a model mesh axis, in both packages
+    with pytest.raises(ValueError) as ref_err:
+        ref_config(ref_parser().parse_args(["--serve_tp", "2"]),
+                   num_clients=8).finalize(64)
+    with pytest.raises(ValueError) as got:
         args_to_config(build_gpt2_parser().parse_args(
             ["--serve_tp", "2"])).finalize(64)
+    assert str(got.value) == str(ref_err.value)

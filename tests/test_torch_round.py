@@ -235,7 +235,9 @@ def test_entry_points_refuse_cuda_without_a_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(serve_tp=2), "A12")])
+    (dict(mode="local_topk", error_type="local", client_state_offload=True,
+          mesh_shape=(1, 2), mesh_axis_names=("clients", "model")),
+     "A12")])
 def test_config_refuses_what_is_not_ported(override, item):
     with pytest.raises(NotImplementedError, match=item):
         FedConfig(**dict(SKETCH, **override)).finalize(1_000)
@@ -274,10 +276,14 @@ def test_cli_refuses_unported_flags(tmp_path, flag):
     """``--finetune`` runs since ROADMAP A10: a missing checkpoint at
     ``--finetune_path`` raises instead of a refusal. ``--mesh clients=N``
     runs since A12's clients axis; a CV run refuses an inner axis with the
-    reference's ValueError."""
+    reference's ValueError. ``--serve_tp`` above 1 runs since A12's model
+    axis: without a model mesh axis it raises the reference's
+    ValueError."""
     exc, match = NotImplementedError, "ROADMAP"
     if flag[0] == "--mesh":
         exc, match = ValueError, "CV models have no TP layout"
+    if flag[0] == "--serve_tp":
+        exc, match = ValueError, "add model=2 to --mesh"
     if flag == ["--finetune"]:
         flag = flag + ["--finetune_path", str(tmp_path / "missing.npz")]
         exc, match = FileNotFoundError, "missing.npz"
