@@ -7,7 +7,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
    CUDA kernel from csrc/ (one nvcc per source, all at once) and of the
-   C++ host data plane (g++, beside them), timed;
+   C++ host data plane (g++, beside them), timed; the flash source
+   (``LATE_BUILDS``) compiles on while phase 2 and 3's kernels at
+   ResNet9's d run, and its build is waited for and reported after them;
 2. kernel parity at full width, every kernel against its plain PyTorch
    version, bitwise:
    - a seeded (6,568,640,) vector sketched into a 5 x 500,096 table
@@ -331,6 +333,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    serve_gpt2's, flash_fwd 12 a prefill a rank, 24 all-reduces a decode
    step, a rank's pools half the model's; step ms, tokens/s and the pool
    bytes a rank printed.
+11. A12 1b and the seq axis, in phase 10's launch (2 ranks sharing the
+   card over gloo): mesh_seq_gpt2, ``GPT2_FLAGS`` with ``--attn_impl ring
+   --mesh clients=1,seq=2`` and ``dropout_impl = "tpu_bits"`` for 3
+   rounds, then 2 again: the ranks' state bitwise every round, the second
+   run's state bitwise the first's after each round, the sketch, recovery and hw_dropout launches a rank, upload
+   and download bytes exact, hw_dropout held against its plain version at
+   a seq rank's shape (phase 6's parity), the ring traffic in GB a round
+   a rank, the collectives' ms and the peak a rank printed;
+   mesh_seq_parity, round 1 of the same at dropout 0 (on the model
+   config) against one process's ``--attn_impl full`` round: loss within
+   1e-5, the table within ``SEQ_TABLE_SLACK`` times what the aggregates'
+   difference explains; mesh_tp_buffered, ``--server_mode buffered`` on
+   ``clients=1,model=2``, bitwise mesh_tp_gpt2's rounds (lock-step is
+   the sync round); mesh_tp_buckets, ``--grad_buckets 4`` there: round
+   1's table bitwise the sketches of each rank's bucket pieces summed and
+   within the two summation orders' rounding bound of mesh_tp_gpt2's; and
+   mesh_tp_sparse_offload, gpt2_local_topk_sparse_offload's flags there,
+   offloaded against device-resident rows, 2 rounds each, bitwise.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -546,6 +566,8 @@ FLASH_RATE = 0.1
 # the hardware-RNG dropout's inputs on the GPT2 path: the (64, 256, 768)
 # activations at every site but the mc head's (64, 768)
 HW_SHAPE = (64, 256, 768)
+# a seq rank's activations on mesh_seq_gpt2 (clients=1, seq=2)
+SEQ_HW_SHAPE = (64, 128, 768)
 HW_RATE = 0.1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -736,9 +758,15 @@ def _hw_dropout_cost(n, itemsize=4):
     return _bound(2 * itemsize * n, _OPS_HW * n)
 
 
+#: sources first used by the GPT2 phases: their nvcc keeps compiling while
+#: the kernel phases at ResNet9's d run (the flash source takes most of
+#: the build's time), and ``phase_build_report`` waits for them
+LATE_BUILDS = ("flash_attention",)
+
+
 def phase_build():
     """Every CUDA source (one nvcc each, at once) and, beside them, the
-    C++ host data plane (g++)."""
+    C++ host data plane (g++); waits for all but ``LATE_BUILDS``."""
     import threading
 
     from commefficient_tpu_torch import native
@@ -756,13 +784,30 @@ def phase_build():
     t0 = time.perf_counter()
     thread = threading.Thread(target=build_native)
     thread.start()
-    built = cuda_lib.build_all()
+    started = cuda_lib.start_builds()
+    for name in cuda_lib.SOURCES:
+        if name not in LATE_BUILDS:
+            cuda_lib.wait_build(name)
     thread.join()
     if "error" in host:
         raise host["error"]
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{sorted(built) or 'nothing (cached)'}; the C++ data plane "
-          f"{native.lib_path().name} in {host['s']:.1f} s", flush=True)
+          f"{sorted(set(started) - set(LATE_BUILDS)) or 'nothing (cached)'}"
+          f"; {[n for n in started if n in LATE_BUILDS]} compiling on; the "
+          f"C++ data plane {native.lib_path().name} in {host['s']:.1f} s",
+          flush=True)
+
+
+def phase_build_report():
+    """Wait for every build still running (``LATE_BUILDS``), then print
+    each build's seconds and the compiler's register and spill listing."""
+    from commefficient_tpu_torch.ops import cuda_lib
+    t0 = time.perf_counter()
+    cuda_lib.build_all()
+    print(f"build: waited {time.perf_counter() - t0:.1f} s for "
+          f"{list(LATE_BUILDS)}; seconds a source "
+          f"{ {k: round(v, 1) for k, v in cuda_lib.BUILD_SECONDS.items()} }",
+          flush=True)
     for name in cuda_lib.SOURCES:
         log = cuda_lib.BUILD_DIR / f"{name}.log"
         if log.exists():
@@ -1948,7 +1993,9 @@ def phase_hw_dropout_parity(dev, errs):
              (HW_SHAPE, torch.float32, 0.5),
              ((64, 768), torch.float32, HW_RATE),
              ((300, 1024), torch.float32, HW_RATE),
-             ((16, 256, 768), torch.bfloat16, HW_RATE)]
+             ((16, 256, 768), torch.bfloat16, HW_RATE),
+             # a seq rank's block (mesh_seq_gpt2: T 128 of 256)
+             (SEQ_HW_SHAPE, torch.float32, HW_RATE)]
     gen = torch.Generator(device=dev).manual_seed(8)
     errs["hw_dropout"] = 0.0
     for i, (shape, dtype, rate) in enumerate(cases):
@@ -5141,7 +5188,7 @@ MESH_TABLE_SLACK = 2
 # the mesh's trajectory against one process's after round 1: the top-k
 # of a reassociated table may pick other near-threshold coordinates
 MESH_LOSS_RTOL = 1e-3
-MESH_GPT2_ROUNDS = 4
+MESH_GPT2_ROUNDS = 3
 # the A10b baselines check the placements' equality, not the arenas' size:
 # 20 clients (a multiple of the 10 classes, the non-iid split's partition)
 ROBUST_CLIENTS = 20
@@ -5378,7 +5425,10 @@ def phase_mesh(tmpdir, ref):
       replay of the same cohorts;
     * the uninterrupted run of mesh_kill_resume (``phase_mesh_kill``);
     * mesh_tp_gpt2 (``check_mesh_tp_gpt2``: the ranks join a model axis
-      for it).
+      for it);
+    * A12 1b and the seq axis (``mesh_a12_specs``: ``check_mesh_seq``,
+      ``check_mesh_tp_1b``; the ranks join a seq or model axis for each),
+      after ``phase_seq_reference``'s one-process round.
 
     Returns (launches summed over the ranks, the kill arm's export)."""
     from commefficient_tpu_torch.tools import mesh_run
@@ -5402,13 +5452,18 @@ def phase_mesh(tmpdir, ref):
             "--checkpoint", "--checkpoint_path", base,
             "--checkpoint_every_rounds", "2"]),
         _mesh_spec(tmpdir, "mesh_gpt2", GPT2_FLAGS + [
-            "--dataset_dir", tmpdir], entry="gpt2",
+            "--dataset_dir", tmpdir, "--valid_batch_size", "32"],
+            entry="gpt2",
             max_rounds=MESH_GPT2_ROUNDS, digests=False),
         mesh_tp_gpt2_spec(tmpdir),
+        *mesh_a12_specs(tmpdir),
     ]
+    phase_seq_reference(tmpdir)
     t0 = time.perf_counter()
+    launched = mesh_run.launch(specs, MESH_RANKS, MESH_BACKEND)
     (sk_a, sk_b, off, dev_rows, lock, faults, kill_base,
-     gpt2, tp) = mesh_run.launch(specs, MESH_RANKS, MESH_BACKEND)
+     gpt2, tp, seq_a, seq_b, seq_parity, tp_buffered, tp_buckets,
+     tp_offload, tp_device) = launched
     wall = time.perf_counter() - t0
     if any(r["backend"] != MESH_BACKEND or r["world"] != MESH_RANKS
            for recs in (sk_a, gpt2) for r in recs):
@@ -5441,7 +5496,8 @@ def phase_mesh(tmpdir, ref):
                        _scaled(GPT2_SKETCH, MESH_GPT2_ROUNDS)))
     if gpt2[0]["d"] != D_GPT2:
         raise AssertionError(f"mesh_gpt2: d = {gpt2[0]['d']}")
-    steady = [x["round_s"] * 1e3 for x in gpt2[0]["rounds"][1:3]]
+    # the first round carries the set-up, the epoch's last is read at once
+    steady = [x["round_s"] * 1e3 for x in gpt2[0]["rounds"][1:-1]]
     print(f"path mesh_gpt2: d = {D_GPT2}, launches a rank "
           f"{gpt2[0]['launches']}, ranks' final state bitwise; losses "
           f"{[round(x['loss'], 6) for x in gpt2[0]['rounds']]}; round ms "
@@ -5510,6 +5566,12 @@ def phase_mesh(tmpdir, ref):
     add(_mesh_launches("mesh_kill_resume (uninterrupted)", kill_base,
                        _scaled(LOCAL_TOPK, 6)))
     add(check_mesh_tp_gpt2(tmpdir, tp))
+    add(check_mesh_seq(tmpdir, seq_a, seq_b, seq_parity))
+    add(check_mesh_tp_1b(tmpdir, tp, tp_buffered, tp_buckets, tp_offload,
+                         tp_device))
+    walls = {os.path.basename(spec["out"]): round(recs[0]["wall_s"], 1)
+             for spec, recs in zip(specs, launched)}
+    print(f"mesh: train's wall s, rank 0: {walls}", flush=True)
     print(f"mesh: one launch of {len(specs)} runs on {MESH_RANKS} ranks in "
           f"{wall:.1f} s", flush=True)
     return launches, base
@@ -5693,10 +5755,10 @@ TP_HEADS = 12             # GPT2-small's heads
 TP_RANKS = 2
 # the losses of mesh_tp_gpt2 against the gpt2 path's
 TP_LOSS_RTOL = 1e-4
-# rounds of mesh_tp_gpt2 (the first 3 held against the gpt2 path's; the
-# 2nd and 3rd are the steady ones: the first carries the set-up, the
-# epoch's last is read at once)
-TP_GPT2_ROUNDS = 4
+# rounds of mesh_tp_gpt2, each held against the gpt2 path's; the 2nd is
+# the steady one (the first carries the set-up, the epoch's last is read
+# at once)
+TP_GPT2_ROUNDS = 3
 # round 1's table against the gpt2 path's, in float32 ulps of its largest
 # cell: the limit is this multiple of the distance the inputs explain,
 # max over cells of the sketch of |TP gradient - gpt2 gradient| (with
@@ -5793,7 +5855,8 @@ def mesh_tp_gpt2_spec(tmpdir):
     """mesh_tp_gpt2's run (phase 10), on the persona cache the gpt2 paths
     made: ``phase_mesh``'s launch runs it on its 2 ranks."""
     return _mesh_spec(tmpdir, "mesh_tp_gpt2", GPT2_FLAGS + [
-        "--dataset_dir", tmpdir], entry="gpt2", max_rounds=TP_GPT2_ROUNDS,
+        "--dataset_dir", tmpdir, "--valid_batch_size", "32"], entry="gpt2",
+        max_rounds=TP_GPT2_ROUNDS,
         record_table=True, record_block=True, model=TP_RANKS,
         time_collectives=True)
 
@@ -5872,7 +5935,7 @@ def check_mesh_tp_gpt2(tmpdir, recs):
             f"gradient's deviation explains {ulps_grad:.1f}, its max "
             f"{grad_rel:.3e} of the largest gradient; the block split "
             f"{ulps_split:.1f})")
-    steady = [x["round_s"] * 1e3 for x in rounds[1:3]]
+    steady = [x["round_s"] * 1e3 for x in rounds[1:-1]]
     coll = recs[0]["collectives"]
     print(f"path mesh_tp_gpt2: {TP_RANKS} ranks on one card over "
           f"{MESH_BACKEND} (clients=1, model=2), d = {D_GPT2} padded to "
@@ -5892,6 +5955,334 @@ def check_mesh_tp_gpt2(tmpdir, recs):
           f"{[round(c[0] * 1e3, 3) for c in coll]} ms, "
           f"{[round(c[1] / 1e9, 4) for c in coll]} GB, {[c[2] for c in coll]} "
           f"calls; peak GiB {_peaks(recs)}", flush=True)
+    return launches
+
+
+# ---- A12 1b and the seq axis on 2 ranks -----------------------------------
+
+SEQ_RANKS = 2
+SEQ_GPT2_ROUNDS = 3
+# the second mesh_seq_gpt2 run's rounds, each state digest bitwise the
+# first run's (the script's time)
+SEQ_REPEAT_ROUNDS = 2
+SEQ_FLAGS = GPT2_FLAGS + ["--attn_impl", "ring"]
+# hw_dropout a round a rank: 38 sites a forward (the embedding; each
+# layer's ring attention output, attention projection and MLP; the MC
+# head's owner contribution) and 38 in the backward; the flash kernels do
+# not run (ring attention is plain PyTorch, as the reference's einsums)
+SEQ_LAUNCHES = dict(RECOVERY, sketch=3, hw_dropout=SEQ_GPT2_ROUNDS * 76)
+# mesh_seq_parity's round 1 against the one-process full-attention round
+# at dropout 0: the loss within this, and the table within SEQ_TABLE_SLACK
+# times the ulps the two aggregates' difference explains (the sketch of
+# |g_seq - g_full| with every sign +1), plus the cells' last rounding
+SEQ_LOSS_RTOL = 1e-5
+SEQ_TABLE_SLACK = 2
+TP_BUFFERED_ROUNDS = 2
+TP_BUCKETS = 4
+TP_OFFLOAD_ROUNDS = 2
+GPT2_SPARSE_OFFLOAD = GPT2_PATHS["gpt2_local_topk_sparse_offload"][0]
+#: the one-process full-attention round 1 at dropout 0
+#: (``phase_seq_reference``)
+SEQ_ROUND1 = {}
+
+
+def phase_seq_reference(tmpdir):
+    """mesh_seq_parity's reference: round 1 of ``GPT2_FLAGS`` with
+    ``--attn_impl full`` at dropout 0 in this process (its loss, bytes,
+    aggregate and table into ``SEQ_ROUND1``)."""
+    from commefficient_tpu_torch.tools.mesh_run import gpt2_overrides
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    args = build_gpt2_parser().parse_args(GPT2_FLAGS + [
+        "--attn_impl", "full", "--dataset_dir", tmpdir])
+    np.random.seed(args.seed)
+    t0 = time.perf_counter()
+    with gpt2_overrides({"dropout": 0.0}), _RoundTables() as rec:
+        learner, row = train(args, max_rounds=1, log=False)
+    r = row["rounds"][0]
+    SEQ_ROUND1.update(table=rec.tables[0].cpu().numpy(),
+                      agg=rec.dense[0].cpu().numpy(), loss=r["loss"],
+                      up=r["upload_bytes"], down=r["download_bytes"])
+    del learner, row, rec
+    _sync()
+    print(f"seq reference: one process, --attn_impl full, dropout 0, round "
+          f"1 loss {SEQ_ROUND1['loss']!r} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def mesh_a12_specs(tmpdir):
+    """The runs of A12 1b and the seq axis on ``phase_mesh``'s 2 ranks,
+    on the persona caches the gpt2 paths made."""
+    # validation in batches of 32 dialogs (the default 4 makes ~8x the
+    # eval steps, each a ring or TP pass); the rounds do not read it
+    data = ["--dataset_dir", tmpdir, "--valid_batch_size", "32"]
+    seq = dict(entry="gpt2", seq=SEQ_RANKS)
+    tp = dict(entry="gpt2", model=TP_RANKS)
+    return [
+        _mesh_spec(tmpdir, "mesh_seq_gpt2", SEQ_FLAGS + data,
+                   max_rounds=SEQ_GPT2_ROUNDS, time_collectives=True,
+                   attrs={"dropout_impl": "tpu_bits"}, **seq),
+        _mesh_spec(tmpdir, "mesh_seq_gpt2_b", SEQ_FLAGS + data,
+                   max_rounds=SEQ_REPEAT_ROUNDS,
+                   attrs={"dropout_impl": "tpu_bits"}, **seq),
+        _mesh_spec(tmpdir, "mesh_seq_parity", SEQ_FLAGS + data,
+                   max_rounds=1, record_table=True, record_block=True,
+                   gpt2_config={"dropout": 0.0}, **seq),
+        _mesh_spec(tmpdir, "mesh_tp_buffered", GPT2_FLAGS + data + [
+            "--server_mode", "buffered"], max_rounds=TP_BUFFERED_ROUNDS,
+            time_collectives=True, **tp),
+        _mesh_spec(tmpdir, "mesh_tp_buckets", GPT2_FLAGS + data + [
+            "--grad_buckets", str(TP_BUCKETS)], max_rounds=1,
+            record_table=True, time_collectives=True, **tp),
+        _mesh_spec(tmpdir, "mesh_tp_sparse_offload", GPT2_FLAGS + data
+                   + GPT2_SPARSE_OFFLOAD, max_rounds=TP_OFFLOAD_ROUNDS,
+                   time_collectives=True, **tp),
+        _mesh_spec(tmpdir, "mesh_tp_sparse_device", GPT2_FLAGS + data + [
+            f for f in GPT2_SPARSE_OFFLOAD if f != "--client_state_offload"],
+            max_rounds=TP_OFFLOAD_ROUNDS, **tp),
+    ]
+
+
+def _by_kind(rec, kind):
+    """Per round of ``rec``: (ms, GB) of the collectives of ``kind``."""
+    return [(round(r.get(kind, [0.0])[0] * 1e3, 3),
+             round(r.get(kind, [0.0, 0])[1] / 1e9, 4))
+            for r in rec["collectives_by_kind"]]
+
+
+def _coll_ms(rec):
+    return [round(c[0] * 1e3, 3) for c in rec["collectives"]]
+
+
+def _same_rounds(a, b, n=None) -> bool:
+    key = [(x["loss_hex"], x["upload_bytes"], x["download_bytes"])
+           for x in a["rounds"]]
+    other = [(x["loss_hex"], x["upload_bytes"], x["download_bytes"])
+             for x in b["rounds"]]
+    return key[:n] == other[:n] if n else key == other
+
+
+def check_mesh_seq(tmpdir, recs, recs_b, parity):
+    """mesh_seq_gpt2 and mesh_seq_parity's checks (see the module
+    docstring, phase 11). Returns the launches summed over the ranks."""
+    import torch
+
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
+    for tag, rr in (("mesh_seq_gpt2", recs), ("mesh_seq_gpt2 (second run)",
+                                              recs_b),
+                    ("mesh_seq_parity", parity)):
+        if any(r["backend"] != MESH_BACKEND or r["world"] != SEQ_RANKS
+               for r in rr):
+            raise AssertionError(f"{tag}: not the 2-rank gloo group")
+        _mesh_ranks_agree(tag, rr)
+    a, b = recs[0], recs_b[0]
+    n = SEQ_REPEAT_ROUNDS
+    if b["digests"] != a["digests"][:n] or not _same_rounds(a, b, n):
+        raise AssertionError("mesh_seq_gpt2: the two runs differ")
+    launches = _mesh_launches("mesh_seq_gpt2", recs, SEQ_LAUNCHES)
+    for k, v in _mesh_launches("mesh_seq_gpt2 (second run)", recs_b,
+                               _scaled(SEQ_LAUNCHES, n)).items():
+        launches[k] = launches.get(k, 0) + v
+    up = [x["upload_bytes"] for x in a["rounds"]]
+    down = [x["download_bytes"] for x in a["rounds"]]
+    ref = GPT2_ROUND1
+    if up != [GPT2_WORKERS * GPT2_UPLOAD["gpt2"]] * SEQ_GPT2_ROUNDS \
+            or down[:2] != ref["down"][:2] or a["d"] != D_GPT2:
+        raise AssertionError(f"mesh_seq_gpt2: upload {up}, download {down} "
+                             f"against the gpt2 path's {ref['up']}, "
+                             f"{ref['down']}; d {a['d']}")
+    ring = [_by_kind(r, "batch_isend_irecv") for r in recs]
+    reduce = [_by_kind(r, "all_reduce") for r in recs]
+    steady = [x["round_s"] * 1e3 for x in a["rounds"][1:-1]]
+    print(f"path mesh_seq_gpt2: {SEQ_RANKS} ranks on one card over "
+          f"{MESH_BACKEND} (clients=1, seq=2, T 256 in blocks of 128), "
+          f"dropout_impl tpu_bits; launches a rank {a['launches']}; the "
+          f"ranks' state bitwise every round; losses "
+          f"{[round(x['loss'], 6) for x in a['rounds']]}; upload B {up}, "
+          f"download B {down}; round ms rank 0 {_round_ms(a)}, rank 1 "
+          f"{_round_ms(recs[1])} (steady {np.mean(steady):.3f}; a state "
+          f"digest a round), second run ({n} rounds, every state digest "
+          f"bitwise the first run's) {_round_ms(b)}; ring traffic a "
+          f"round (ms, GB sent) rank 0 {ring[0]}, rank 1 {ring[1]}; "
+          f"all-reduces a round (ms, GB) rank 0 {reduce[0]}; collectives "
+          f"ms a round rank 0 {_coll_ms(a)} (synchronized around each); "
+          f"peak GiB {_peaks(recs)}", flush=True)
+    # mesh_seq_parity
+    p = parity[0]
+    loss, want = p["rounds"][0]["loss"], SEQ_ROUND1["loss"]
+    if not math.isclose(loss, want, rel_tol=SEQ_LOSS_RTOL) \
+            or p["rounds"][0]["upload_bytes"] != SEQ_ROUND1["up"]:
+        raise AssertionError(f"mesh_seq_parity: round 1 loss {loss!r} "
+                             f"against the one-process full attention's "
+                             f"{want!r}")
+    prefix = os.path.join(tmpdir, "mesh_seq_parity")
+    tables = [np.load(f"{prefix}_rank{r}_table.npy")
+              for r in range(SEQ_RANKS)]
+    if not np.array_equal(tables[0], tables[1]):
+        raise AssertionError("mesh_seq_parity: the ranks' tables differ")
+    dev = torch.device("cuda")
+    g_seq = torch.from_numpy(np.load(f"{prefix}_rank0_block.npy")).to(dev)
+    g_full = torch.from_numpy(SEQ_ROUND1["agg"]).to(dev)
+    whole = SEQ_ROUND1["table"]
+    cs = CountSketch(D_GPT2, 500_000, 5, seed=42)
+    if p["block_offset"] != 0 or g_seq.numel() != D_GPT2 or not \
+            np.array_equal(cs.sketch_vec(g_seq).cpu().numpy(), tables[0]):
+        raise AssertionError("mesh_seq_parity: the table is not the sketch "
+                             "of the recorded aggregate")
+    ulp = float(np.spacing(np.float32(np.abs(whole).max())))
+    ulps_grad = float(_abs_sketch(cs, g_seq - g_full).max()) / ulp
+    ulps = _ulps_of_largest(tables[0], whole)
+    limit = SEQ_TABLE_SLACK * (ulps_grad + 1.0)
+    grad_rel = float((g_seq - g_full).abs().max() / g_full.abs().max())
+    del g_seq, g_full, cs
+    torch.cuda.empty_cache()
+    if ulps > limit:
+        raise AssertionError(
+            f"mesh_seq_parity: round 1's table {ulps:.1f} ulps of its "
+            f"largest cell from the one-process full attention's (limit "
+            f"{limit:.1f}: the aggregates' difference explains "
+            f"{ulps_grad:.1f}, its max {grad_rel:.3e} of the largest)")
+    print(f"path mesh_seq_parity: round 1 of clients=1, seq=2 ring "
+          f"attention at dropout 0 against one process's --attn_impl full: "
+          f"loss {loss!r} vs {want!r} (rtol {SEQ_LOSS_RTOL}); the "
+          f"aggregate within {grad_rel:.3e} of the largest coordinate; the "
+          f"table {ulps:.2f} ulps of its largest cell (limit {limit:.2f} = "
+          f"{SEQ_TABLE_SLACK} x (the difference's {ulps_grad:.2f} + 1)); "
+          f"round ms {_round_ms(p)}; peak GiB {_peaks(parity)}", flush=True)
+    for k, v in _mesh_launches("mesh_seq_parity", parity, _scaled(
+            dict(RECOVERY, sketch=3), 1)).items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def check_mesh_tp_1b(tmpdir, tp, buffered, buckets, offload, device):
+    """mesh_tp_buffered, mesh_tp_buckets and mesh_tp_sparse_offload's
+    checks (see the module docstring, phase 11) against mesh_tp_gpt2's
+    records ``tp``. Returns the launches summed over the ranks."""
+    import torch
+
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for tag, rr in (("mesh_tp_buffered", buffered),
+                    ("mesh_tp_buckets", buckets),
+                    ("mesh_tp_sparse_offload", offload),
+                    ("mesh_tp_sparse_device", device)):
+        if any(r["backend"] != MESH_BACKEND or r["world"] != TP_RANKS
+               for r in rr):
+            raise AssertionError(f"{tag}: not the 2-rank gloo group")
+        _mesh_ranks_agree(tag, rr)
+    # buffered lock-step: the sync round itself (C13), bitwise
+    n = TP_BUFFERED_ROUNDS
+    if buffered[0]["digests"] != tp[0]["digests"][:n] \
+            or not _same_rounds(buffered[0], tp[0], n) \
+            or buffered[0]["applies"] != n:
+        raise AssertionError("mesh_tp_buffered: lock-step is not "
+                             "mesh_tp_gpt2's rounds")
+    add(_mesh_launches("mesh_tp_buffered", buffered,
+                       _scaled(GPT2_SKETCH, n)))
+    print(f"path mesh_tp_buffered: --server_mode buffered on clients=1, "
+          f"model=2: every round's whole state, losses and bytes bitwise "
+          f"mesh_tp_gpt2's ({n} rounds, {buffered[0]['applies']} applies); "
+          f"launches a rank {buffered[0]['launches']}; round ms "
+          f"{_round_ms(buffered[0])}; collectives ms a round "
+          f"{_coll_ms(buffered[0])}; peak GiB {_peaks(buffered)}",
+          flush=True)
+    # buckets: the same aggregate, sketched bucket by bucket within each
+    # rank's block
+    b0 = buckets[0]
+    prefix = os.path.join(tmpdir, "mesh_tp_buckets")
+    tables = [np.load(f"{prefix}_rank{r}_table.npy")
+              for r in range(TP_RANKS)]
+    if not np.array_equal(tables[0], tables[1]):
+        raise AssertionError("mesh_tp_buckets: the ranks' tables differ")
+    offsets, sizes = b0["buckets"]
+    if len(offsets) < 2:
+        raise AssertionError(f"mesh_tp_buckets: one bucket {b0['buckets']}")
+    dev = torch.device("cuda")
+    tp_prefix = os.path.join(tmpdir, "mesh_tp_gpt2")
+    blocks = [torch.from_numpy(np.load(f"{tp_prefix}_rank{r}_block.npy"))
+              .to(dev) for r in range(TP_RANKS)]
+    starts = [r["block_offset"] for r in tp]
+    g = torch.cat(blocks)
+    cs = CountSketch(g.numel(), 500_000, 5, seed=42)
+    pieces, table = [], None
+    for (lo, hi) in zip(starts, starts[1:] + [g.numel()]):
+        part, n_r = None, 0
+        for o, m in zip(offsets, sizes):
+            a, b = max(o, lo), min(o + m, hi)
+            if a >= b:
+                continue
+            t = cs.sketch_range(g[a:b], a)
+            part = t if part is None else part + t
+            n_r += 1
+        pieces.append(n_r)
+        table = part if table is None else table + part
+    # round 1 on each rank: the flash kernels and the recovery once, a
+    # sketch launch a piece of its block
+    for r, rec in enumerate(buckets):
+        want = dict(_scaled(GPT2_SKETCH, 1), sketch=pieces[r])
+        if rec["launches"] != want:
+            raise AssertionError(f"mesh_tp_buckets: rank {r} launched "
+                                 f"{rec['launches']}, expected {want}")
+        add(rec["launches"])
+    pieces = sum(pieces)
+    ulp = float(np.spacing(np.float32(np.abs(tables[0]).max())))
+    same = np.array_equal(table.cpu().numpy(), tables[0])
+    whole = np.load(f"{tp_prefix}_rank0_table.npy")
+    # the two summation orders of a cell's n coordinates (its block's in
+    # one pass, or its pieces' passes added): each is within (n - 1 +
+    # pieces) 2^-24 sum|x| of the exact sum (recursive summation)
+    count = _abs_sketch(cs, torch.ones_like(g)).cpu().numpy()
+    bound = (2 * (count - 1 + pieces) * 2.0 ** -24
+             * _abs_sketch(cs, g).cpu().numpy())
+    dist_ = np.abs(tables[0].astype(np.float64) - whole)
+    del blocks, g, table, cs
+    torch.cuda.empty_cache()
+    if not same or np.any(dist_ > bound):
+        raise AssertionError(
+            f"mesh_tp_buckets: bitwise the pieces' sketches summed: {same}; "
+            f"max distance from mesh_tp_gpt2's table "
+            f"{dist_.max() / ulp:.2f} ulps, over the bound in "
+            f"{int(np.sum(dist_ > bound))} cells")
+    print(f"path mesh_tp_buckets: --grad_buckets {TP_BUCKETS} on clients=1, "
+          f"model=2 ({len(offsets)} buckets, {pieces} bucket-block pieces): "
+          f"round 1's table bitwise the pieces' sketches summed (each rank "
+          f"its pieces in bucket order, then the model group), "
+          f"{dist_.max() / ulp:.2f} ulps of its largest cell from "
+          f"mesh_tp_gpt2's, every cell within 2 (n - 1 + pieces) 2^-24 "
+          f"sum|x| of it (n its coordinates), at most "
+          f"{float(np.max(dist_ / np.maximum(bound, 1e-45))):.3e} of that "
+          f"bound; "
+          f"launches a rank {b0['launches']}; round ms {_round_ms(b0)}; "
+          f"collectives ms {_coll_ms(b0)}; peak GiB {_peaks(buckets)}",
+          flush=True)
+    # sparse offload: bitwise the device-resident rows
+    o0, d0 = offload[0], device[0]
+    if (o0["rows_sha"], o0["weights_sha"], o0["digests"]) != (
+            d0["rows_sha"], d0["weights_sha"], d0["digests"]) \
+            or not _same_rounds(o0, d0):
+        raise AssertionError("mesh_tp_sparse_offload: the offloaded rows "
+                             "or state are not the device-resident run's")
+    want = dict(_scaled(LOCAL_TOPK, TP_OFFLOAD_ROUNDS),
+                flash_fwd=48 * TP_OFFLOAD_ROUNDS,
+                flash_bwd_dq=48 * TP_OFFLOAD_ROUNDS,
+                flash_bwd_dkv=48 * TP_OFFLOAD_ROUNDS)
+    add(_mesh_launches("mesh_tp_sparse_offload", offload, want))
+    add(_mesh_launches("mesh_tp_sparse_device", device, want))
+    print(f"path mesh_tp_sparse_offload: gpt2_local_topk_sparse_offload's "
+          f"flags on clients=1, model=2: the rows (k pairs, encoded from "
+          f"the whole row every model rank holds), weights and every "
+          f"round's state bitwise the device-resident run's over "
+          f"{TP_OFFLOAD_ROUNDS} rounds; arena {o0['arena_bytes']} B a rank, "
+          f"shard reads {[r['shard_reads'] for r in offload]}; launches a "
+          f"rank {o0['launches']}; round ms offload {_round_ms(o0)}, device "
+          f"{_round_ms(d0)}; collectives ms a round {_coll_ms(o0)}; peak "
+          f"GiB offload {_peaks(offload)}, device {_peaks(device)}",
+          flush=True)
     return launches
 
 
@@ -5987,7 +6378,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    stamp("build")
+    stamp("build (all but LATE_BUILDS)")
     errs = {}
     cs, vec, table = phase_parity(dev, D_RESNET9, errs)
     inputs = phase_parity_stream(dev, cs, table, errs)
@@ -6009,6 +6400,9 @@ def main() -> int:
     del cs, vecs
     torch.cuda.empty_cache()
     stamp("kernel parity and timing at ResNet9's d")
+    # the flash build ran beside the kernel phases above (the card's work,
+    # little of the host's); the CV paths would slow it down threefold
+    phase_build_report()
     launches = {}
     for name in PATHS:
         for kernel, n in phase_path(name).items():

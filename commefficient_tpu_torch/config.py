@@ -32,11 +32,6 @@ _KNOWN_N_HEAD = {"gpt2": 12, "gpt2-medium": 16, "gpt2-large": 20,
                  "gpt2-xl": 25, "openai-gpt": 12}
 
 
-def _todo(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
-
-
 @dataclass(frozen=True)
 class FedConfig:
     """The knobs of a federated run that the ported round reads (the
@@ -134,6 +129,8 @@ class FedConfig:
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axis_names: Tuple[str, ...] = ("clients",)
     model_checkpoint: str = "gpt2"
+    # GPT2's static sequence length: a seq mesh axis cuts it into blocks
+    max_seq_len: int = 256
 
     # derived (set by finalize). grad_size is the LOGICAL model dimension
     # (what the byte accounting charges); grad_size_pad the PHYSICAL
@@ -248,13 +245,6 @@ class FedConfig:
                         f"rows cannot shard cleanly: "
                         f"{self.model_checkpoint!r} has {n_head} heads, "
                         f"not divisible by --serve_tp {self.serve_tp}")
-        if self.model_axis > 1:
-            if self.client_state_offload and self.has_client_state:
-                _todo("--client_state_offload with a model mesh axis",
-                      "A12 1b")
-            if self.server_mode == "buffered":
-                _todo("--server_mode buffered with a model mesh axis",
-                      "A12 1b")
         if self.serve_disagg and self.serve_slots < 2:
             raise ValueError(
                 f"--serve_disagg splits serving into prefill and decode "

@@ -60,7 +60,8 @@ class _CudaCopier:
 
 
 def device_prefetch(batches: Iterable, size: int = 2,
-                    device="cuda", workers: slice = slice(None)) -> Iterator:
+                    device="cuda", workers: slice = slice(None),
+                    seq_cut=None) -> Iterator:
     """Yield the ``(client_ids, cols, mask)`` items of ``batches`` in order,
     with the columns of up to ``size`` of them already on their way to
     ``device``.
@@ -72,9 +73,12 @@ def device_prefetch(batches: Iterable, size: int = 2,
     of a device copy would wait for the rounds queued before it. The
     learner copies them (a few hundred bytes) from pinned memory without
     blocking. ``workers``: the columns' worker slots to move (a mesh
-    rank's ``worker_block``; the ids and mask stay whole). On a CUDA device the columns' copies run from pinned memory
-    on a side stream (``_CudaCopier``); on the CPU the tensors share the
-    arrays' memory."""
+    rank's ``worker_block``; the ids and mask stay whole). ``seq_cut``: on
+    a seq mesh axis, the learner's ``parallel.seq.SeqCut``, which also cuts
+    each column with a sequence dimension to the rank's block of it. On a
+    CUDA device the columns' copies run from pinned memory on a side
+    stream (``_CudaCopier``); on the CPU the tensors share the arrays'
+    memory."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
     device = torch.device(device)
@@ -83,6 +87,8 @@ def device_prefetch(batches: Iterable, size: int = 2,
     def put(item):
         ids, cols, mask = item
         cols = [np.asarray(a)[workers] for a in cols]
+        if seq_cut is not None:
+            cols = [seq_cut.apply(i, a) for i, a in enumerate(cols)]
         if copier is None:
             tensors = [torch.as_tensor(np.asarray(a)) for a in cols]
             return ids, tensors, mask, None

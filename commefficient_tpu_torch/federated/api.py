@@ -59,9 +59,20 @@ on every model rank. A GPT2 model then computes tensor-parallel
 (``parallel/tp.py``): ``tp.attach`` puts the model axis on its config and
 the round and validation take its compute shards through a
 ``TPUnflatten``; any other model computes replicated on the model axis.
-``full_weights()`` is the whole padded vector on every rank.
-``--client_state_offload``, ``--server_mode buffered`` and
-``--grad_buckets`` with a model axis are ROADMAP.md A12 1b.
+``full_weights()`` is the whole padded vector on every rank. Under
+``--client_state_offload`` the host arenas of a model rank hold the
+dense codec's rows as their coordinate blocks (``client_rows_shardings``'
+``(clients, model)`` split), and the sparse and sketched codecs' whole
+encodings (encoded from the whole row every model rank holds, so the
+stored pairs are the one-process encode's); ``--server_mode buffered``
+and ``--grad_buckets`` split by coordinate as the round does.
+
+A mesh with a ``seq`` axis of S (sequence parallelism, GPT2 with ring
+attention: ``parallel/seq.py``) attaches the axis to the model, and the
+learner cuts each batch column with a sequence dimension (the loss's
+``seq_columns``) to the rank's block of ``cfg.max_seq_len``
+(``seq_cut``, a ``SeqCut``) beside the worker block, for the rounds and
+the validation; the state is replicated over the axis.
 
 Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
 (the reference's round rng) and draws one seed from it per round.
@@ -92,12 +103,14 @@ from commefficient_tpu_torch.federated.faults import cohort_client_ks
 from commefficient_tpu_torch.federated.round import (FedState,
                                                      build_eval_step,
                                                      build_round_step,
-                                                     init_fed_state)
+                                                     init_fed_state,
+                                                     split_leaves)
 from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      ClientState,
                                                      make_grad_buckets)
 from commefficient_tpu_torch.ops.countsketch import LANES
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
+from commefficient_tpu_torch.parallel import seq as seq_lib
 from commefficient_tpu_torch.parallel import tp as tp_lib
 from commefficient_tpu_torch.utils.device import resolve_device
 from commefficient_tpu_torch.utils.params import flatten_params
@@ -142,6 +155,17 @@ class FedLearner:
                     self.model.config.n_head, M)
                 compute_unflatten = tp_lib.TPUnflatten(
                     self.unflatten, d_logical, layout, ctx)
+        self.seq_cut = None
+        seq_ctx = seq_lib.SeqContext.from_mesh(mesh)
+        if seq_ctx is not None:
+            columns = getattr(loss_train, "seq_columns", None)
+            if columns is None:
+                raise ValueError("a seq mesh axis needs a sequence-parallel "
+                                 "loss (parallel/seq.py: its seq_columns "
+                                 "name the columns to cut)")
+            seq_lib.attach(self.model, seq_ctx)
+            self.seq_cut = seq_lib.SeqCut(columns, self.cfg.max_seq_len,
+                                          seq_ctx.rank, seq_ctx.size)
         num_rows = None
         if mesh is not None:
             # the reference's _check_mesh, before anything is allocated
@@ -162,11 +186,18 @@ class FedLearner:
             # --topk_down's stale weights start at the initial weights
             fill = (flat.detach().cpu() if self.cfg.needs_client_weights
                     else None)
+            codec, coords = self.codec, None
+            if M > 1 and split_leaves(self.cfg)[1]:
+                # a model rank's arenas hold its block of each dense row
+                coords = self.coord_block
+                codec = type(self.codec)(coords[1] - coords[0])
+                fill = None if fill is None else fill[coords[0]:coords[1]]
             self.host_store = HostArenaStore(
-                self.cfg, self.codec, flat_weights=fill,
+                self.cfg, codec, flat_weights=fill,
                 num_shards=mesh_lib.clients_size(mesh),
                 local_shard=(None if mesh is None
-                             else mesh_lib.clients_rank(mesh)))
+                             else mesh_lib.clients_rank(mesh)),
+                coord_block=coords)
             self.host_clients = {f: self.host_store.view(f)
                                  for f in CLIENT_STATE_FIELDS}
             self._offload_pipe = HostOffloadPipeline(
@@ -192,6 +223,7 @@ class FedLearner:
         # kept for subclasses that build more programs over the same loss
         # (federated/buffer.BufferedFedLearner)
         self._loss_train = loss_train
+        self._compute_unflatten = compute_unflatten
         self._trainable_mask = trainable_mask
         self._round = build_round_step(loss_train, compute_unflatten,
                                        self.cfg, buckets=self.grad_buckets,
@@ -246,12 +278,15 @@ class FedLearner:
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
 
-    def _cols(self, c, stacked: bool = False):
-        """A batch column on the device: on a mesh this rank's workers
-        only (a prefetched column arrives sliced already)."""
+    def _cols(self, c, i: int, stacked: bool = False):
+        """Batch column ``i`` on the device: on a mesh this rank's workers
+        only, on a seq axis its block of the sequence (a prefetched column
+        arrives cut already)."""
         if (self.mesh is not None
                 and c.shape[1 if stacked else 0] == self.cfg.num_workers):
             c = c[:, self.worker_slice] if stacked else c[self.worker_slice]
+        if self.seq_cut is not None:
+            c = self.seq_cut.apply(i, c)
         return self._to_device(c)
 
     def _client_ks(self, client_ids) -> torch.Tensor:
@@ -288,7 +323,7 @@ class FedLearner:
                         else epoch_frac)
         seed = self._next_seed()
         args = (self._to_device(client_ids, torch.int32),
-                tuple(self._cols(c) for c in batch),
+                tuple(self._cols(c, i) for i, c in enumerate(batch)),
                 self._to_device(mask, torch.float32), self._lr_in(lr), seed)
         ks = (self._client_ks(client_ids) if self.cfg.client_k_active
               else None)
@@ -356,7 +391,8 @@ class FedLearner:
         lrs = [self.lr_at(float(t)) for t in ts]
         seeds = [self._next_seed() for _ in range(K)]
         ids = self._to_device(ids_host, torch.int32)
-        cols = tuple(self._cols(c, stacked=True) for c in batches)
+        cols = tuple(self._cols(c, i, stacked=True)
+                     for i, c in enumerate(batches))
         m = self._to_device(masks, torch.float32)
         ks = None
         if self.cfg.client_k_active:
@@ -417,6 +453,9 @@ class FedLearner:
         weights = self.full_weights()
         for batch, mask in batches:
             num_batches += 1
+            if self.seq_cut is not None:
+                batch = tuple(self.seq_cut.apply(i, c)
+                              for i, c in enumerate(batch))
             out = self._eval(weights,
                              tuple(self._to_device(c) for c in batch),
                              self._to_device(mask, torch.float32))

@@ -45,6 +45,17 @@ slot on the rank that owns its buffer slot; the apply sums each rank's
 slots and joins the sums with ``all_reduce``, and the tail writes the
 slots' rows back to their owners. The fault schedule is the host's and
 reads only the whole cohort, so it does not depend on the mesh.
+
+With a ``model`` axis (2-D clients x model federation) the cohort runs
+the clients tensor-parallel on the joined weights, as the sync round
+does, and each slot keeps only the rank's coordinate block of its dense
+transmit (its sketch block, 128-aligned, in sketch mode, which sketches
+at apply) and of the dense codec's rows: ``buffer_state_shardings``'
+``(clients, model)`` split. A per-client sketched transmit (an (r, c)
+table) is split by slot only. The apply sums each rank's block over the
+clients axis and joins the blocks over the model group (or sums their
+block sketches), and the tail writes each rank's block of the rows back.
+A seq axis needs the fused round, so the cohort refuses it.
 """
 
 from __future__ import annotations
@@ -65,10 +76,12 @@ from commefficient_tpu_torch.federated.round import (FedState,
                                                      client_sketch_of,
                                                      download_counts,
                                                      finite_contributions,
-                                                     mesh_client_rows)
+                                                     mesh_client_rows,
+                                                     split_leaves)
 from commefficient_tpu_torch.federated.server import make_sketch
 from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      BufferState)
+from commefficient_tpu_torch.ops.countsketch import LANES
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
 
 
@@ -109,6 +122,15 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
         ws = mesh_lib.worker_block(cfg.num_workers, mesh)
         m_lo, m_hi = mesh_lib.slot_block(M, mesh)
     m_loc = m_hi - m_lo
+    if mesh_lib.seq_size(mesh) > 1:
+        raise ValueError(
+            "the buffered server's cohort steps each client apart, which a "
+            "seq mesh axis cannot shard; use --server_mode sync (or the "
+            "lock-step buffered server, which runs the sync round)")
+    split = mesh_lib.model_size(mesh) > 1
+    split_rows = split and split_leaves(cfg)[1]
+    lo, hi = mesh_lib.coord_block(cfg.grad_dim, mesh) if split \
+        else (0, cfg.grad_dim)
     if cfg.mode == "sketch" and sketch is None:
         sketch = make_sketch(cfg)
     offload = cfg.client_state_offload and cfg.has_client_state
@@ -119,7 +141,26 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
                               and client_sketch_of(cfg, sketch) is None)
     clients = build_client_phase(apply_loss, unflatten, cfg, sketch,
                                  trainable_mask)
-    server_tail = build_server_tail(cfg, sketch, trainable_mask, mesh)
+    server_tail = build_server_tail(cfg, sketch, trainable_mask, mesh,
+                                    rows_blocked=True)
+    # the coordinates of a dense transmit a model-axis rank keeps: its
+    # sketch block (the tiled sketch's lane cuts) when the apply sketches
+    t_lo, t_hi = (mesh_lib.coord_block(
+        cfg.grad_dim, mesh, align=LANES if cfg.sketch_scheme == "tiled"
+        else 1) if sketch_after_aggregate else (lo, hi)) if split \
+        else (0, cfg.grad_dim)
+
+    def mine(out: ClientStepOut) -> ClientStepOut:
+        """A rank's coordinate block of the dense transmit and rows."""
+        if not split:
+            return out
+        t = out.transmit
+        if t.dim() == 2:
+            t = t[:, t_lo:t_hi].contiguous()
+        rows = [r[:, lo:hi].contiguous() if r is not None and split_rows
+                else r for r in (out.velocity, out.error, out.client_weights)]
+        return ClientStepOut(t, *rows, out.loss_sum, out.metric_sums,
+                             out.num_datapoints)
 
     def gather(x):
         """A rank's block joined into the whole on every rank (identity
@@ -141,15 +182,20 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
         # billed at apply, gated by that apply's guard
         counts = download_counts(state.last_changed,
                                  state.client_last_round[ids])
+        if split:
+            # each model rank counts its block
+            counts = mesh_lib.model_all_reduce(counts, mesh)
         if mesh is None:
             out = clients(state, ids, batch, mask, lr, seed, rows,
                           client_ks)
         else:
             out = clients(state, ids[ws], batch, mask[ws], lr, seed,
                           mesh_client_rows(state, ids.tolist(), rows, mesh,
-                                           ws),
-                          None if client_ks is None else client_ks[ws])
-            out = ClientStepOut(*(gather(x) for x in out))
+                                           ws, split_rows),
+                          None if client_ks is None else client_ks[ws],
+                          weights=mesh_lib.model_all_gather(state.weights,
+                                                            mesh))
+            out = ClientStepOut(*(gather(x) for x in mine(out)))
         contrib = BufferState(
             transmit=out.transmit, loss_sum=out.loss_sum,
             metric_sums=out.metric_sums,
@@ -215,6 +261,10 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
             # per-contribution exclusion by a select (NaN * 0 is NaN)
             finite_b = (torch.isfinite(loss_sum) & torch.all(
                 torch.isfinite(transmit.reshape(m_loc, -1)), dim=1))
+            if split:
+                # a slot is finite when every model rank's block is
+                finite_b = mesh_lib.model_all_reduce(
+                    (~finite_b).to(torch.int32), mesh) == 0
             contrib_b = vmask & finite_b
         else:
             finite_b, contrib_b = None, vmask
@@ -239,7 +289,14 @@ def build_buffer_programs(apply_loss: Callable, unflatten: Callable,
                 [total_n, loss_total, n_raw, download]))
         agg = (reduce(torch.sum(torch.where(cb, wt_t, 0.0), dim=0))
                / torch.clamp(total_n, min=1.0))
-        if sketch_after_aggregate:
+        if split and sketch_after_aggregate:
+            # the rank's block sketched at its offset, the tables summed
+            # over the model group
+            agg = mesh_lib.model_all_reduce(sketch.sketch_range(agg, t_lo),
+                                            mesh)
+        elif split and agg.dim() == 1:
+            agg = mesh_lib.model_all_gather(agg, mesh)
+        elif sketch_after_aggregate:
             agg = sketch.sketch_vec(agg)
         # the rows computed at cohort time land in client state only when
         # their contribution is applied; each client pulled at its slot's
@@ -349,10 +406,15 @@ class BufferedFedLearner(FedLearner):
                          lr_scale_vec=lr_scale_vec,
                          trainable_mask=trainable_mask, mesh=mesh)
         self.M = self.cfg.effective_buffer_m
-        self._cohort, self._deposit, self._apply = build_buffer_programs(
-            self._loss_train, self.unflatten, self.cfg,
-            trainable_mask=self._trainable_mask, sketch=self._round.sketch,
-            mesh=mesh)
+        # lock-step runs the sync round itself (also on a seq axis, which
+        # the cohort cannot run)
+        self._cohort = self._deposit = self._apply = None
+        if fault_model is not None or mesh_lib.seq_size(mesh) == 1:
+            self._cohort, self._deposit, self._apply = \
+                build_buffer_programs(
+                    self._loss_train, self._compute_unflatten, self.cfg,
+                    trainable_mask=self._trainable_mask,
+                    sketch=self._round.sketch, mesh=mesh)
         lo, hi = ((0, self.M) if mesh is None
                   else mesh_lib.slot_block(self.M, mesh))
         self._m_local = hi - lo
@@ -461,7 +523,7 @@ class BufferedFedLearner(FedLearner):
         seed = self._next_seed()
         ids_np = np.asarray(client_ids)
         ids = self._to_device(ids_np, torch.int64)
-        cols = tuple(self._cols(c) for c in batch)
+        cols = tuple(self._cols(c, i) for i, c in enumerate(batch))
         m = self._to_device(mask, torch.float32)
         lr_in = self._lr_in(lr)
         # the applies this call triggers from here on use its lr and seed

@@ -271,10 +271,16 @@ class HostArenaStore:
     On a mesh each rank's store holds its own shard only (``local_shard``
     = its ``clients`` rank, ``num_shards`` = the axis size): ``owns(cid)``
     says whether a row is here, and another shard's row raises. The
-    rows cross ranks in the round (``parallel/mesh.route_rows``)."""
+    rows cross ranks in the round (``parallel/mesh.route_rows``).
+
+    ``coord_block``: on a ``model`` mesh axis, the ``(lo, hi)``
+    coordinates of each dense row this rank's arenas hold (``codec`` is
+    then a ``DenseCodec`` of that width): ``assign`` takes whole rows and
+    keeps the block, ``stacked`` gives the block."""
 
     def __init__(self, cfg: FedConfig, codec, flat_weights=None,
-                 num_shards: int = 1, local_shard: Optional[int] = None):
+                 num_shards: int = 1, local_shard: Optional[int] = None,
+                 coord_block: Optional[tuple] = None):
         n = int(cfg.num_clients)
         if num_shards < 1 or n % num_shards:
             raise ValueError(
@@ -291,6 +297,7 @@ class HostArenaStore:
                                      device="cpu"))
 
         self.local_shard = local_shard
+        self.coord_block = None if coord_block is None else tuple(coord_block)
 
         def alloc(fill=None):
             return [codec.init_rows(self.rows_per_shard, fill=fill)
@@ -360,7 +367,10 @@ class HostArenaStore:
 
     def assign(self, field: str, rows) -> None:
         """Overwrite the held rows of ``field`` from (num_rows, ...) leaves
-        of the arena's dtypes (every client's rows)."""
+        of the arena's dtypes (every client's rows, whole: a
+        ``coord_block`` keeps its coordinates)."""
+        cols = (slice(None) if self.coord_block is None
+                else slice(*self.coord_block))
         for s, shard in enumerate(self._arenas[field]):
             if shard is None:
                 continue
@@ -368,7 +378,7 @@ class HostArenaStore:
 
             def put(a, r):
                 a.copy_(torch.as_tensor(np.asarray(
-                    r[lo:lo + self.rows_per_shard])).to(a.dtype))
+                    r[lo:lo + self.rows_per_shard][:, cols])).to(a.dtype))
                 return a
             tree_map(put, shard, rows)
 

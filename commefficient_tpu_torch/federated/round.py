@@ -56,7 +56,19 @@ coordinates) and the model group sums the tables, while the other modes
 join the whole transmit over the clients axis as a 1-D mesh does; the
 server tail runs whole on every rank (the recovery and top-k kernels over
 the whole d, as the reference's Pallas calls see the gathered vector);
-and each rank keeps its block of what changed.
+and each rank keeps its block of what changed. With ``--grad_buckets``
+each model rank compresses each bucket's intersection with its block:
+the dense chunks joined over the model group, or in sketch mode each
+intersection sketched at its (128-aligned) offset and the tables summed
+over the buckets and the model group. Offloaded dense rows are the
+rank's coordinate block of each row, joined after the owners route them.
+
+On a mesh with a ``seq`` axis (sequence parallelism, ``parallel/seq.py``;
+the fused path only) rank (c, s) runs client shard c's workers on its
+block of the sequence, its dropout from ``seq.shard_seed``; the
+gradient's reduce spans both axes (each seq rank holds its block's
+share), the loss, metric and datapoint sums only the clients axis (the
+seq ranks' losses are the same), and the tail runs replicated.
 
 ``--client_quarantine`` forces the per-worker path: a client on the
 bench (``state.quarantine``) neither pulls nor uploads, a non-finite
@@ -89,6 +101,7 @@ from commefficient_tpu_torch.federated.state import (BufferState,
 from commefficient_tpu_torch.ops.countsketch import LANES
 from commefficient_tpu_torch.ops.dropout import fold_in
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
+from commefficient_tpu_torch.parallel import seq as seq_lib
 
 #: fold-in domain of the server's DP noise seed under the round's seed
 #: (the reference's ``noise_rng = fold_in(rng, 0x5e77e7)``)
@@ -276,7 +289,7 @@ def last_of(ids: torch.Tensor, sink: int) -> torch.Tensor:
 
 def build_server_tail(cfg: FedConfig, sketch=None,
                       trainable_mask: Optional[torch.Tensor] = None,
-                      mesh=None) -> Callable:
+                      mesh=None, rows_blocked: bool = False) -> Callable:
     """``server_tail(state, agg, loss_mean, ids, contrib_w, pull_w, finite_w,
     pulled_at, new_rows, download_floats, lr, seed) -> (FedState,
     writeback, metrics)``: what follows the aggregation, shared by the sync
@@ -300,7 +313,10 @@ def build_server_tail(cfg: FedConfig, sketch=None,
     slot vector and ``new_rows`` are this rank's block of slots: each rank
     encodes its block, the blocks are joined in slot order, and each rank
     writes the rows of the clients it owns into its row block (under
-    offload the writeback carries every slot, for the owners' arenas)."""
+    offload the writeback carries every slot, for the owners' arenas).
+    ``rows_blocked``: on a model axis the dense codec's ``new_rows`` are
+    the rank's coordinate block already (the buffered server's slots),
+    not whole rows to cut."""
     is_fedavg = cfg.mode == "fedavg"
     codec = make_codec(cfg)
     offload = cfg.client_state_offload and cfg.has_client_state
@@ -351,10 +367,12 @@ def build_server_tail(cfg: FedConfig, sketch=None,
             Verror=block(torch.where(ok, new_opt.Verror, opt.Verror)))
 
         new_vels, new_errs, new_stale = new_rows
+        cut = split_rows and not rows_blocked
         if cfg.mode == "true_topk" and new_vels is not None:
             # momentum factor masking of the participating clients'
             # velocities at the global top-k support
-            new_vels = torch.where((update != 0)[None, :], 0.0, new_vels)
+            upd = update[lo:hi] if split_rows and rows_blocked else update
+            new_vels = torch.where((upd != 0)[None, :], 0.0, new_vels)
         new_rows = (new_vels, new_errs, new_stale)
         # out-of-range ids (padded, benched, excluded or guarded slots, and
         # all but the last slot of a client) write the sink row
@@ -364,7 +382,7 @@ def build_server_tail(cfg: FedConfig, sketch=None,
         if mesh is not None:
             enc = [None if r is None
                    else mesh_lib.all_gather_tree(codec.encode_rows(
-                       r[:, lo:hi] if split_rows else r), mesh)
+                       r[:, lo:hi] if cut else r), mesh)
                    for r in new_rows]
             clients_state = state.clients
             if offload:
@@ -539,11 +557,15 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         raise ValueError(f"GradBuckets plan covers {sum(buckets.sizes)} "
                          f"coordinates, round has {cfg.grad_dim}")
     split = mesh_lib.model_size(mesh) > 1
-    if split and bucketed:
-        raise NotImplementedError(
-            "--grad_buckets with a model mesh axis is not ported to "
-            "PyTorch yet (ROADMAP.md A12 1b)")
+    seq = mesh_lib.seq_size(mesh) > 1
+    if seq and not fused_clients:
+        raise ValueError(
+            "a seq mesh axis runs on the fused federated round only (mode "
+            "uncompressed/sketch/true_topk; no local momentum/error, DP, "
+            "grad clip, topk_down, microbatching or quarantine)")
     split_rows = split and split_leaves(cfg)[1]
+    b_lo, b_hi = mesh_lib.coord_block(cfg.grad_dim, mesh) if split \
+        else (0, cfg.grad_dim)
     s_lo, s_hi = mesh_lib.coord_block(
         cfg.grad_dim, mesh, align=LANES if cfg.sketch_scheme == "tiled"
         else 1) if split else (0, cfg.grad_dim)
@@ -557,6 +579,11 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         """The sum over the mesh's ranks (identity off a mesh)."""
         return x if mesh is None else mesh_lib.all_reduce_sum(x, mesh)
 
+    def reduce_grad(x):
+        """The gradient's sum: over both axes of a seq mesh (each seq rank
+        holds its block's share), else ``reduce``."""
+        return mesh_lib.world_all_reduce(x) if seq else reduce(x)
+
     def reduce_sums(total_n, loss_total, metric_totals):
         """The scalar sums of every rank, in one ``all_reduce``."""
         if mesh is None:
@@ -565,6 +592,14 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                                    metric_totals]))
         return packed[0], packed[1], packed[2:]
 
+    def pieces(lo, hi):
+        """``[lo, hi)`` cut at the bucket edges (itself unbucketed)."""
+        if not bucketed:
+            return [(lo, hi)]
+        return [(max(o, lo), min(o + n, hi))
+                for o, n in zip(buckets.offsets, buckets.sizes)
+                if max(o, lo) < min(o + n, hi)]
+
     def compress(chunk_of):
         """The round's aggregate from ``chunk_of(offset, size)``, the
         aggregated (size,) slice: the whole vector, sketched once in
@@ -572,11 +607,19 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         concatenation (dense) or their tables added in bucket order."""
         if split and sketch_after_aggregate:
             # this rank's block (its cuts on the tiled sketch's lane
-            # blocks), sketched at its offset; the model group sums the
-            # blocks' tables
-            return mesh_lib.model_all_reduce(
-                sketch.sketch_range(chunk_of(s_lo, s_hi - s_lo), s_lo),
-                mesh)
+            # blocks), each bucket's part of it sketched at its offset;
+            # the model group sums the tables
+            table = None
+            for lo_i, hi_i in pieces(s_lo, s_hi):
+                t = sketch.sketch_range(chunk_of(lo_i, hi_i - lo_i), lo_i)
+                table = t if table is None else table + t
+            return mesh_lib.model_all_reduce(table, mesh)
+        if split and bucketed:
+            # the buckets' parts of this rank's block, joined over the
+            # model group (equal blocks, in model-rank order)
+            return mesh_lib.model_all_gather(torch.cat([
+                chunk_of(lo_i, hi_i - lo_i)
+                for lo_i, hi_i in pieces(b_lo, b_hi)]), mesh)
         if not bucketed:
             agg = chunk_of(0, cfg.grad_dim)
             return sketch.sketch_vec(agg) if sketch_after_aggregate else agg
@@ -596,7 +639,8 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         grad_sum, loss_total, metric_totals = \
             client_lib._masked_loss_and_grad(
                 apply_loss, unflatten, w, flat_cols, flat_mask,
-                seed if mesh is None else mesh_seed(seed, mesh))
+                seed if mesh is None else seq_lib.shard_seed(seed, mesh)
+                if seq else mesh_seed(seed, mesh))
         if trainable_mask is not None:
             grad_sum = grad_sum * trainable_mask
         total_n, loss_total, metric_totals = reduce_sums(
@@ -612,7 +656,7 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         denom = torch.clamp(total_n, min=1.0)
 
         def chunk_of(o, n):
-            g = reduce(grad_sum[o:o + n])
+            g = reduce_grad(grad_sum[o:o + n])
             return (g if wd is None else g + wd[o:o + n]) / denom
         return compress(chunk_of), loss_total, metric_totals, total_n
 

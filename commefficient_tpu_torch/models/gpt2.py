@@ -86,7 +86,15 @@ acts on replicated activations and draws the same bits on every rank.
 KV caches hold the rank's heads. MoE blocks under a model axis raise
 NotImplementedError (ROADMAP.md A12, the expert axis).
 
-Not ported, raising NotImplementedError: ring attention (ROADMAP.md A12).
+Sequence parallelism (``parallel/seq.py``): with ``attn_impl="ring"``
+the model runs on a seq axis (``config.seq``, set by ``seq.attach``) and
+takes a rank's block of T_loc columns: positions are global (``s T_loc +
+t``), attention is ``ring_attention`` over the group followed by output
+dropout, and the MC head reads the hidden state of the rank that owns
+each global ``mc_token_ids`` position (zero elsewhere), drops it out
+there and sums it over the group; its parameters' gradient counts on seq
+rank 0 only (``seq.grad_once``). Outside a seq context, with a KV cache
+or with ``fused_lm_head``, ring raises the reference's ValueErrors.
 """
 
 from __future__ import annotations
@@ -102,7 +110,7 @@ from torch.utils.checkpoint import checkpoint
 
 from commefficient_tpu_torch.ops.attention import (
     blockwise_attention, decode_attention, full_attention,
-    kernel_prob_dropout_eligible, paged_verify_attention)
+    kernel_prob_dropout_eligible, paged_verify_attention, ring_attention)
 from commefficient_tpu_torch.ops.dropout import FusedDropout, fold_in
 from commefficient_tpu_torch.ops.moe import MoEFFN
 from commefficient_tpu_torch.parallel import tp as tp_lib
@@ -112,11 +120,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _sub(seed: Optional[int], i: int) -> Optional[int]:
     return None if seed is None else fold_in(seed, i)
-
-
-def _todo(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
 
 class GPT2Config:
@@ -145,6 +148,7 @@ class GPT2Config:
         self.attn_dropout = "auto"    # "auto" | "output" | "kernel"
         self.fused_lm_head = False
         self.tp = None                # a parallel.tp.TPContext, or None
+        self.seq = None               # a parallel.seq.SeqContext, or None
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -286,8 +290,11 @@ class CausalSelfAttention(nn.Module):
             y = self._cached(q, k, v, cache, position, verify)
             return self.resid_drop(out(y), _sub(seed, 1), train), cache
         if self.attn_impl == "ring":
-            _todo("attn_impl='ring' (sequence-parallel attention)", "A12")
-        if self.attn_impl == "blockwise":
+            from commefficient_tpu_torch.parallel import seq as seq_lib
+            y = ring_attention(q, k, v, seq_lib.context(self).group,
+                               causal=True)
+            y = self.attn_drop(y, _sub(seed, 0), train)
+        elif self.attn_impl == "blockwise":
             rate = self.rate if train else 0.0
             in_kernel = (rate > 0.0 and self.attn_dropout != "output"
                          and kernel_prob_dropout_eligible(q, k, v))
@@ -492,6 +499,11 @@ class GPT2DoubleHeads(nn.Module):
                 position=None, logits_at=None, verify: bool = False,
                 logits_all: bool = False, return_aux: bool = False):
         cfg = self.config
+        ring = cfg.attn_impl == "ring"
+        if cfg.fused_lm_head and ring:
+            raise ValueError("fused_lm_head is not supported with "
+                             "attn_impl='ring' (the seq-parallel losses "
+                             "own their logits handling)")
         if cache is not None and train:
             raise ValueError("cache decoding is inference-only; "
                              "call with train=False")
@@ -502,6 +514,12 @@ class GPT2DoubleHeads(nn.Module):
         ids = input_ids.reshape(B * C, T).long()
         types = token_type_ids.reshape(B * C, T).long()
         pos = torch.arange(T, device=ids.device)[None, :]
+        seq = None
+        if ring and cache is None:
+            from commefficient_tpu_torch.parallel import seq as seq_lib
+            seq = seq_lib.context(self)
+            # T is this rank's block: positions (and the MC pick) global
+            pos = pos + seq.rank * T
         if cache is not None:
             pos = position.long()[:, None] + pos   # per-row decode offsets
             if verify:
@@ -542,9 +560,27 @@ class GPT2DoubleHeads(nn.Module):
         else:
             lm_out = self.wte.attend(x).reshape(B, C, T, cfg.vocab_size)
         mc_ids = mc_token_ids.reshape(B * C).long()
-        picked = x[torch.arange(B * C, device=x.device), mc_ids]
-        picked = self.mc_drop(picked, _sub(seed, cfg.n_layer + 1), train)
-        mc_logits = self.mc_head(picked).reshape(B, C)
+        rows = torch.arange(B * C, device=x.device)
+        if seq is not None:
+            # the rank that owns each global position contributes its
+            # hidden state, dropped out there before the sum (a dropout
+            # after it would draw another mask on every rank)
+            off = seq.rank * T
+            mine = (mc_ids >= off) & (mc_ids < off + T)
+            val = x[rows, torch.clamp(mc_ids - off, 0, T - 1)]
+            contrib = torch.where(mine[:, None], val, 0.0)
+            contrib = self.mc_drop(contrib, _sub(seed, cfg.n_layer + 1),
+                                   train)
+            picked = seq_lib.reduce_from_seq(contrib, seq)
+            head = self.mc_head
+            mc_logits = F.linear(picked, seq_lib.grad_once(head.weight, seq),
+                                 seq_lib.grad_once(head.bias, seq))
+            mc_logits = mc_logits.reshape(B, C)
+        else:
+            picked = x[rows, mc_ids]
+            picked = self.mc_drop(picked, _sub(seed, cfg.n_layer + 1),
+                                  train)
+            mc_logits = self.mc_head(picked).reshape(B, C)
         if cache is not None:
             return lm_out, mc_logits, cache
         if return_aux:

@@ -19,9 +19,16 @@
   queries, the decode form Tq = 1. Quantized pools (``ops/kv_quant.py``)
   are dequantized after the gather, never as a whole.
 
-The decode forms are plain PyTorch, as the reference computes them
-outside any Pallas kernel. Layout: q/k/v are (B, T, H, D); ``kv_mask``
-(B, T) marks valid keys. Ring attention is ROADMAP.md A12.
+* ``ring_attention`` — sequence-parallel attention over a ``seq``
+  process group (``parallel/seq.py``): each rank holds a (B, T/S, H, D)
+  block of q, k and v; k, v (and the key mask) travel the ring while
+  each rank folds every visiting block into its online softmax, the
+  reference's ``_fold_block`` and ``_finish`` at global positions.
+  ``ring_attention_sharded`` is the same on global inputs.
+
+The decode and ring forms are plain PyTorch, as the reference computes
+them outside any Pallas kernel (its ring is einsums in ``_fold_block``).
+Layout: q/k/v are (B, T, H, D); ``kv_mask`` (B, T) marks valid keys.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from commefficient_tpu_torch.ops import flash_attention as _fa
 
@@ -146,6 +154,104 @@ def _fold_block(acc, q, kb, vb, q_pos, k_pos, kv_mask_b, causal):
     return m_new, l_new, o_new
 
 
+def _finish(m, l, o, dtype):
+    # fully masked queries (all-pad rows) have l == 0: emit 0, not NaN
+    l = torch.clamp(l, min=1e-30)
+    return (o / l.permute(0, 2, 1)[..., None]).to(dtype)
+
+
+def _ring_send_recv(xs, group, step: int):
+    """Each tensor of ``xs`` sent to the rank ``step`` ahead on the ring
+    of ``group`` and replaced by the one from the rank ``step`` behind
+    (one ``batch_isend_irecv``). Over gloo, whose sends read host memory
+    (several ranks share one card over gloo), CUDA tensors cross through
+    host copies."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + step) % n)
+    src = dist.get_global_rank(group, (me - step) % n)
+    host = dist.get_backend(group) == "gloo"
+    send = [x.contiguous().cpu() if host else x.contiguous() for x in xs]
+    out = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+           for x in send]
+    ops = []
+    for x, o in zip(send, out):
+        ops.append(dist.P2POp(dist.isend, x, dst, group))
+        ops.append(dist.P2POp(dist.irecv, o, src, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [o.to(x.device) for o, x in zip(out, xs)]
+
+
+class _RingShift(torch.autograd.Function):
+    """One hop of the ring: forward sends each input to the next rank
+    and receives the previous rank's; backward sends each cotangent the
+    other way (the transpose of JAX's ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(_ring_send_recv(xs, group, 1))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *_ring_send_recv(gs, ctx.group, -1))
+
+
+def ring_attention(q, k, v, group=None, causal: bool = True,
+                   kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequence-parallel attention over the ranks of ``group`` (the seq
+    axis; every rank calls it with its block). q/k/v are this rank's
+    (B, T_loc, H, D) block of the sequence, ``kv_mask`` its (B, T_loc)
+    keys. Rank s's queries sit at global positions ``s T_loc + t``; at
+    step j it folds the block of rank ``(s - j) mod S`` (so causal
+    masking is exact across blocks), then k, v and the mask move one hop
+    (``_RingShift``; the reference's last hop, whose result nothing
+    reads, is skipped). Returns this rank's (B, T_loc, H, D) output."""
+    group = group or dist.group.WORLD
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    B, T, H, D = q.shape
+    dev = q.device
+    q_pos = me * T + torch.arange(T, device=dev)
+    acc = (torch.full((B, H, T), _NEG, device=dev),
+           torch.zeros((B, H, T), device=dev),
+           torch.zeros((B, T, H, D), device=dev))
+    kb, vb = k, v
+    kmb = None if kv_mask is None else kv_mask.bool()
+    for step in range(n):
+        src = (me - step) % n          # the ring owner of the visiting block
+        k_pos = src * T + torch.arange(T, device=dev)
+        acc = _fold_block(acc, q, kb, vb, q_pos, k_pos, kmb, causal)
+        if step == n - 1:
+            break
+        kb, vb = _RingShift.apply(group, kb, vb)
+        if kmb is not None:
+            kmb = _ring_send_recv([kmb.to(torch.uint8)], group, 1)[0].bool()
+    return _finish(*acc, q.dtype)
+
+
+def ring_attention_sharded(q, k, v, group=None, causal: bool = True,
+                           kv_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``ring_attention`` on global (B, T, H, D) inputs: each rank of
+    ``group`` takes its block of T, and the blocks of the output are
+    joined back into the global (B, T, H, D) on every rank."""
+    group = group or dist.group.WORLD
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    T = q.shape[1]
+    if T % n:
+        raise ValueError(f"sequence length {T} not divisible by seq axis "
+                         f"size {n}")
+    Tl = T // n
+    sl = slice(me * Tl, (me + 1) * Tl)
+    out = ring_attention(q[:, sl], k[:, sl], v[:, sl], group, causal,
+                         None if kv_mask is None else kv_mask[:, sl])
+    parts = [torch.empty_like(out) for _ in range(n)]
+    dist.all_gather(parts, out.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
 def kernel_prob_dropout_eligible(q, k, v, *, causal: bool = True,
                                  kv_mask: Optional[torch.Tensor] = None
                                  ) -> bool:
@@ -213,6 +319,4 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
         k_pos = torch.arange(s0, min(s0 + bs, Tk), device=dev)
         acc = _fold_block(acc, q, k[:, s0:s0 + bs], v[:, s0:s0 + bs],
                           q_pos, k_pos, km[:, s0:s0 + bs], causal)
-    m, l, o = acc
-    l = torch.clamp(l, min=1e-30)
-    return (o / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+    return _finish(*acc, q.dtype)

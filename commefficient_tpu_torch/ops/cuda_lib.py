@@ -6,7 +6,11 @@ Pointers and the stream cross as ``c_void_p``; every C entry point returns
 ``cudaGetLastError()`` and ``check`` raises if it is not 0. Libraries are
 built at first use into ``_build/`` (listed in ``.gitignore``), named by
 a hash of their sources so a stale build is never loaded; ``build_all``
-starts one ``nvcc`` per source at once.
+starts one ``nvcc`` per source at once and waits for them all.
+``start_builds`` starts them without waiting: ``load`` then waits for its
+own library only, so a program can run on the libraries that are ready
+while a slow one compiles (``BUILD_SECONDS`` records each build's
+seconds). A build still running when the process exits is killed.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -14,6 +18,7 @@ machine may have no ``nvcc``.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -37,6 +42,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Counter = Counter()
 
 _libs: dict = {}
+#: {name: (temporary output, nvcc process, start time)} of started builds
+_pending: dict = {}
+#: {name: seconds} of the builds this process finished
+BUILD_SECONDS: dict = {}
 
 
 def _nvcc() -> str:
@@ -56,44 +65,81 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict:
-    """Compile every source not built yet, all ``nvcc`` processes at once.
-    Returns ``{name: seconds}`` for what it built; raises on a failure,
-    with the compiler's output."""
-    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+def start_builds() -> list:
+    """Start one ``nvcc`` for every source neither built nor building;
+    returns their names."""
+    todo = [n for n in SOURCES
+            if n not in _pending and not _lib_path(n).exists()]
     if not todo:
-        return {}
+        return []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
-    t0 = time.perf_counter()
+    if not _pending:
+        atexit.register(_kill_pending)
     for name in todo:
         tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    seconds, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
-                          f"{out}")
-            continue
-        os.replace(tmp, _lib_path(name))
+        # the compiler's output goes to a file: a pipe nobody reads while
+        # the build runs in the background could fill and stall it
+        with open(BUILD_DIR / f"{name}.log", "w") as log:
+            _pending[name] = (tmp, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT),
+                time.perf_counter())
+    return todo
+
+
+def _finish(name: str):
+    """Wait for ``name``'s started build: None when it succeeded (the
+    library in place, its seconds in ``BUILD_SECONDS``), else the
+    compiler's output."""
+    tmp, proc, t0 = _pending.pop(name)
+    proc.wait()
+    out = (BUILD_DIR / f"{name}.log").read_text()
+    if proc.returncode != 0:
+        return f"--- nvcc {name}.cu (exit {proc.returncode})\n{out}"
+    os.replace(tmp, _lib_path(name))
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    return None
+
+
+def _kill_pending() -> None:
+    for _, proc, _ in _pending.values():
+        proc.kill()
+        proc.wait()
+    _pending.clear()
+
+
+def wait_build(name: str) -> None:
+    """``name``'s library built: when it is neither built nor building,
+    every missing source's build is started (at once); then its own is
+    waited for. Raises on a failure, with the compiler's output."""
+    if name not in _pending and not _lib_path(name).exists():
+        start_builds()
+    if name in _pending:
+        err = _finish(name)
+        if err:
+            raise RuntimeError(f"CUDA kernel build failed:\n{err}")
+
+
+def build_all() -> dict:
+    """Compile every source not built yet, all ``nvcc`` processes at once
+    (with any started before), and wait for them. Returns ``{name:
+    seconds}`` for what it built; raises on a failure, with the
+    compiler's output."""
+    start_builds()
+    names = list(_pending)
+    failed = [err for err in map(_finish, names) if err]
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return seconds
+    return {n: BUILD_SECONDS[n] for n in names}
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The built library ``name`` with ``signatures`` ({function:
     argtypes}) declared; every function returns an int error code."""
     if name not in _libs:
-        build_all()
+        wait_build(name)
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes

@@ -30,6 +30,14 @@ a multiple of M and each model rank stores ``coord_block(d_pad, mesh)``
 of it, the layout of the reference's ``fed_state_shardings``; the model
 computes in the Megatron layout of ``parallel/tp.py``.
 
+A ``seq`` axis (``make_mesh(n, seq=S)``, sequence parallelism: ring
+attention, ``parallel/seq.py``) lays the ranks out alike: rank ``c * S +
+s`` is client shard ``c`` and sequence shard ``s``, the seq axis fastest.
+``clients_group`` is then the ranks that share ``s`` and ``seq_group`` the
+ranks that share ``c``. Every state (weights, server state, client rows)
+is replicated over ``seq``; rank (c, s) runs the workers of client shard
+c on its columns ``[s T/S, (s+1) T/S)`` of the sequence.
+
 The collectives here take bool tensors as uint8 (gloo reduces no bool).
 """
 
@@ -78,11 +86,12 @@ class _Dim:
 
 
 class GroupMesh:
-    """A 2-D ``(clients, model)`` mesh over the process group: the
-    ``DeviceMesh`` calls the port reads (``mesh[axis].size()``,
-    ``get_local_rank``, ``get_group``, ``device_type``,
-    ``mesh_dim_names``), over groups made with ``new_group``, so it runs
-    on any backend. Rank ``c * M + m`` sits at (c, m)."""
+    """A 2-D ``(clients, inner)`` mesh over the process group, the inner
+    axis ``model`` or ``seq``: the ``DeviceMesh`` calls the port reads
+    (``mesh[axis].size()``, ``get_local_rank``, ``get_group``,
+    ``device_type``, ``mesh_dim_names``), over groups made with
+    ``new_group``, so it runs on any backend. Rank ``c * M + m`` sits at
+    (c, m), the inner axis fastest."""
 
     def __init__(self, shape: tuple, names: tuple, device_type: str):
         C, M = shape
@@ -117,16 +126,16 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
               expert: int = 1, device_type: str = "cpu"):
     """The mesh over the process group (joined first:
     ``distributed.initialize``/``launch``): a ``DeviceMesh`` with one
-    ``clients`` dimension, or with ``model`` = M > 1 a ``GroupMesh`` of
-    dims ``("clients", "model")`` of shape (n / M, M). Inner axes of size
-    1 are accepted; ``seq``, ``stage`` and ``expert`` above 1 are
-    ROADMAP.md A12."""
+    ``clients`` dimension, or with ``model`` = M > 1 (or ``seq`` = S > 1)
+    a ``GroupMesh`` of dims ``("clients", "model")`` (``("clients",
+    "seq")``) of shape (n / M, M). Inner axes of size 1 are accepted;
+    ``stage`` and ``expert`` above 1 are ROADMAP.md A12."""
     if sum(s > 1 for s in (seq, model, stage, expert)) > 1:
         raise ValueError("choose ONE inner axis: seq (ring attention), "
                          "model (tensor parallelism), stage (GPipe "
                          "pipeline), or expert (MoE expert parallelism)")
     for name, size in zip(INNER_AXES, (seq, model, stage, expert)):
-        if size > 1 and name != "model":
+        if size > 1 and name not in ("model", "seq"):
             raise NotImplementedError(
                 f"--mesh {name}={size} is not ported to PyTorch yet "
                 f"(ROADMAP.md A12)")
@@ -135,10 +144,11 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
     if n != world:
         raise ValueError(f"asked for a {n}-rank mesh, the process group "
                          f"has {world} ranks")
-    if model > 1:
-        if n % model:
-            raise ValueError("n_devices must be divisible by model")
-        return GroupMesh((n // model, model), (axis, "model"), device_type)
+    for name, size in (("model", model), ("seq", seq)):
+        if size > 1:
+            if n % size:
+                raise ValueError(f"n_devices must be divisible by {name}")
+            return GroupMesh((n // size, size), (axis, name), device_type)
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, (n,), mesh_dim_names=(axis,))
 
@@ -162,18 +172,38 @@ def clients_group(mesh, axis: str = AXIS):
     return mesh.get_group(axis)
 
 
-def model_size(mesh) -> int:
-    """The ``model`` axis size of a mesh or a ``MeshSpec`` (1 for none)."""
+def inner_size(mesh, name: str) -> int:
+    """The size of the inner axis ``name`` of a mesh or a ``MeshSpec`` (1
+    for none)."""
     if mesh is None:
         return 1
     if isinstance(mesh, MeshSpec):
-        return max(1, int(mesh.inner.get("model", 1)))
+        return max(1, int(mesh.inner.get(name, 1)))
     names = getattr(mesh, "mesh_dim_names", None) or ()
-    return mesh["model"].size() if "model" in names else 1
+    return mesh[name].size() if name in names else 1
+
+
+def model_size(mesh) -> int:
+    """The ``model`` axis size of a mesh or a ``MeshSpec`` (1 for none)."""
+    return inner_size(mesh, "model")
 
 
 def model_rank(mesh) -> int:
     return 0 if model_size(mesh) == 1 else mesh.get_local_rank("model")
+
+
+def seq_size(mesh) -> int:
+    """The ``seq`` axis size of a mesh or a ``MeshSpec`` (1 for none)."""
+    return inner_size(mesh, "seq")
+
+
+def seq_rank(mesh) -> int:
+    return 0 if seq_size(mesh) == 1 else mesh.get_local_rank("seq")
+
+
+def seq_group(mesh):
+    """The ranks that share this rank's client shard (its seq axis)."""
+    return mesh.get_group("seq")
 
 
 def model_group(mesh):
@@ -244,6 +274,14 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     the same bits on every one."""
     out = t.clone()
     dist.all_reduce(out, group=clients_group(mesh))
+    return out
+
+
+def world_all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over every rank of the group (both axes of a 2-D
+    mesh: a seq mesh's gradient)."""
+    out = t.clone()
+    dist.all_reduce(out)
     return out
 
 

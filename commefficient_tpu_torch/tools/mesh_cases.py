@@ -32,8 +32,21 @@ forms), ``tp_modes`` (3 rounds of the five modes, the pads and the
 blocks each rank stores, and the whole replicated state's digest a
 round), ``tp_ckpt`` (a 2-D file written and ``DIR/ref_tp_ckpt.npz``
 loaded), ``tp_serve`` (the four serving modes and the int8/int4 pools
-at tp = M, weights from ``DIR/serve_init.npz``) and ``tp_cli`` (the GPT2
-entry point's ``train``).
+at tp = M, weights from ``DIR/serve_init.npz``), ``tp_cli`` (the GPT2
+entry point's ``train``) and ``tp_1b`` (A12 1b: the buffered server,
+lock-step and under faults, offloaded dense and sparse rows beside their
+device-resident twins, ``--grad_buckets 3`` in sketch and uncompressed
+mode, a buffered 2-D checkpoint both ways, and a buffered and an
+offloaded run resumed from a step file halfway).
+
+With ``--seq S`` the launch is a ``clients x seq`` mesh (``make_mesh(
+ranks, seq=S)``): ``seq_ring`` (ring attention on every rank as one seq
+axis, forward and gradient), ``seq_apply`` (``seq_parallel_apply`` of a
+ring gpt2-tiny on every rank as one seq axis, weights from
+``DIR/seq_apply_init.npz``), ``seq_grad`` (one worker's loss and
+gradient summed over the seq axis) and ``seq_cli`` (the GPT2 entry
+point's ``train`` with ring attention, initial weights from
+``DIR/seq_init.npz``).
 """
 
 from __future__ import annotations
@@ -126,19 +139,29 @@ def build(mode_kw: dict, mesh, device="cpu", init=None, cls=FedLearner,
                None, device=device, mesh=mesh, **(learner_kw or {}))
 
 
+def host_bytes(t: torch.Tensor) -> memoryview:
+    """A tensor's bytes on the host, for a hash (no extra copy)."""
+    return memoryview(t.detach().cpu().contiguous().reshape(-1)
+                      .numpy()).cast("B")
+
+
 def state_digest(learner) -> str:
-    """sha256 of the replicated state's bytes (on a model axis, with the
-    coordinate blocks joined: every rank calls it)."""
+    """sha256 of the replicated state's bytes. On a model axis each rank
+    hashes the blocks it stores and the digest is the sha256 of the model
+    ranks' digests in rank order (every rank calls it): the same on every
+    rank exactly when each block is the same on every client shard."""
     s = learner.state
     h = hashlib.sha256()
-    w = full_state(learner) if mesh_lib.model_size(learner.mesh) > 1 \
-        else {"weights": s.weights, "Vvelocity": s.opt.Vvelocity,
-              "Verror": s.opt.Verror, "last_changed": s.last_changed}
-    for t in (w["weights"], w["Vvelocity"], w["Verror"], s.round_idx,
-              w["last_changed"], s.client_last_round, s.aborted,
+    for t in (s.weights, s.opt.Vvelocity, s.opt.Verror, s.round_idx,
+              s.last_changed, s.client_last_round, s.aborted,
               s.weights_version, s.quarantine):
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()
+        h.update(host_bytes(t))
+    if mesh_lib.model_size(learner.mesh) == 1:
+        return h.hexdigest()
+    mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)
+    joined = mesh_lib.model_all_gather(mine.to(learner.device),
+                                       learner.mesh)
+    return hashlib.sha256(host_bytes(joined)).hexdigest()
 
 
 def joined_rows(learner) -> dict:
@@ -610,23 +633,364 @@ def case_tp_cli(mesh, device, init, out_dir):
         "gpt2", cli_args("gpt2", out_dir, *TP_CLI_ARGS), mesh, 2).items()}
 
 
+#: A12 1b on the model axis: ``{tag: (mode, config extras, learner)}``,
+#: the learner ``"sync"``, ``"lockstep"`` (buffered, no fault model) or
+#: ``"faults"`` (buffered under ``tp_fault_model``)
+TP_1B = {
+    "lockstep": ("sketch", dict(server_mode="buffered"), "lockstep"),
+    "faults": ("local_topk", dict(server_mode="buffered", buffer_m=2),
+               "faults"),
+    "offload_dense": ("local_topk", dict(client_state_offload=True),
+                      "sync"),
+    "device_dense": ("local_topk", {}, "sync"),
+    "offload_sparse": ("local_topk", dict(client_state_offload=True,
+                                          client_state="sparse"), "sync"),
+    "device_sparse": ("local_topk", dict(client_state="sparse"), "sync"),
+    "buckets_sketch": ("sketch", dict(grad_buckets=3), "sync"),
+    "buckets_uncompressed": ("uncompressed", dict(grad_buckets=3), "sync"),
+}
+#: rounds (cohorts) of the tp_1b runs
+TP_1B_ROUNDS = 4
+
+
+def tp_fault_model() -> FaultModel:
+    return FaultModel(7, TP_CLIENTS, base_latency=1.0, latency_sigma=0.5,
+                      straggler_frac=0.25, straggler_mult=4.0,
+                      dropout_prob=0.15, crash_prob=0.1)
+
+
+def tp_1b_learner(tag: str, mesh, device="cpu", init=None):
+    """The learner of ``TP_1B[tag]`` on gpt2-tiny (``tp_build``'s)."""
+    from commefficient_tpu_torch.federated.losses import make_gpt2_train_loss
+    mode, extra, kind = TP_1B[tag]
+    model = tp_model(init)
+    cfg = FedConfig(num_workers=TP_W, num_clients=TP_CLIENTS, lr_scale=0.05,
+                    weight_decay=0, **dict(TP_MODES[mode], **extra))
+    cls = FedLearner if kind == "sync" else BufferedFedLearner
+    kw = dict(fault_model=tp_fault_model()) if kind == "faults" else {}
+    return cls(model, cfg, make_gpt2_train_loss(model), None, device=device,
+               mesh=mesh, **kw)
+
+
+def case_tp_1b(mesh, device, init, out_dir):
+    """``TP_1B``'s runs, ``TP_1B_ROUNDS`` rounds each (cohorts through the
+    event loop for ``faults``, then its flush): metrics, per-round
+    digests, the whole state, every client's rows joined, each rank's
+    held widths; a buffered 2-D checkpoint written (``tp_1b_ckpt``) and
+    the reference's (``DIR/ref_tp_buffered.npz``) loaded."""
+    from commefficient_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                          save_checkpoint)
+    out = {}
+    batch, mask = tp_problem()
+    ids = np.arange(TP_W)
+    for tag, (_, _, kind) in TP_1B.items():
+        ln = tp_1b_learner(tag, mesh, device, init)
+        if kind == "faults":
+            rec = {f"{tag}/{k}": v for k, v in run_buffered_faults(
+                ln, [(ids, batch, mask)] * TP_1B_ROUNDS).items()}
+            out.update(rec)
+        else:
+            out.update(tp_rounds(ln, TP_1B_ROUNDS, f"{tag}/"))
+        out.update({f"{tag}/{k}": v.detach().cpu().numpy()
+                    for k, v in full_state(ln).items()})
+        out.update({f"{tag}/rows_{k}": v
+                    for k, v in joined_rows(ln).items()})
+        store = ln.host_store
+        if store is not None:
+            leaf = store.arena(TP_1B_ROW_FIELD)
+            out[f"{tag}/arena_shape"] = np.asarray(
+                (leaf if torch.is_tensor(leaf) else leaf["val"]).shape)
+        if tag == "lockstep":
+            save_checkpoint(os.path.join(out_dir, "tp_1b_ckpt"), ln, "tp")
+    ref = os.path.join(out_dir, "ref_tp_buffered.npz")
+    if os.path.exists(ref):
+        ln = tp_1b_learner("lockstep", mesh, device, init)
+        load_checkpoint(ref, ln)
+        out.update({f"loaded/{k}": v.detach().cpu().numpy()
+                    for k, v in full_state(ln).items()})
+    # a resume in process: half the rounds, a step file, a new learner,
+    # the other half
+    half = TP_1B_ROUNDS // 2
+    for tag in TP_1B_RESUME:
+        first = tp_1b_learner(tag, mesh, device, init)
+        tp_rounds(first, half)
+        fn = save_checkpoint(os.path.join(out_dir, f"tp_1b_resume_{tag}"),
+                             first, "tp", step=half)
+        second = tp_1b_learner(tag, mesh, device, init)
+        load_checkpoint(fn, second)
+        out.update(tp_rounds(second, TP_1B_ROUNDS - half, f"{tag}_resumed/"))
+        out.update({f"{tag}_resumed/rows_{k}": v
+                    for k, v in joined_rows(second).items()})
+    return out
+
+
+#: the runs ``tp_1b`` also resumes from a step file halfway
+TP_1B_RESUME = ("lockstep", "offload_dense")
+
+
+#: the client-row field local_topk keeps
+TP_1B_ROW_FIELD = "errors"
+
+
+# --------------------------------------------------------------------------
+# the seq axis: ring attention and gpt2-tiny on a clients x seq mesh
+# --------------------------------------------------------------------------
+
+#: ring attention's inputs: (B, T, H, D) at 8 tokens a rank of 4
+RING_SHAPE = (2, 32, 2, 8)
+#: (causal, with a key mask) of the ring cases
+RING_CASES = ((True, False), (False, False), (True, True))
+SEQ_T = 32
+
+
+def ring_inputs(seed: int = 2):
+    """q, k, v (scaled 0.3), a cotangent and a key mask, from numpy."""
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (rng.randn(*RING_SHAPE).astype(np.float32) * 0.3
+                  for _ in range(4))
+    return q, k, v, g, rng.rand(*RING_SHAPE[:2]) > 0.25
+
+
+def case_seq_ring(mesh, device, init):
+    """``ring_attention_sharded`` on a 4-rank seq axis (its own mesh), per
+    ``RING_CASES``: the global output, and the gradient of q, k and v
+    under a fixed cotangent of each rank's block, summed over the
+    ranks."""
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch.ops.attention import (
+        ring_attention, ring_attention_sharded)
+    ring = mesh_lib.make_mesh(seq=dist.get_world_size(),
+                              device_type=torch.device(device).type)
+    group = mesh_lib.seq_group(ring)
+    me, n = mesh_lib.seq_rank(ring), mesh_lib.seq_size(ring)
+    q, k, v, g, km = (torch.as_tensor(x).to(device) for x in ring_inputs())
+    per = q.shape[1] // n
+    sl = slice(me * per, (me + 1) * per)
+    out = {}
+    for causal, masked in RING_CASES:
+        tag = f"ring/{int(causal)}{int(masked)}"
+        mask = km if masked else None
+        out[f"{tag}/out"] = ring_attention_sharded(
+            q, k, v, group, causal, mask).cpu().numpy()
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        y = ring_attention(*(x[:, sl] for x in leaves), group, causal,
+                           None if mask is None else mask[:, sl])
+        grads = torch.autograd.grad(y, leaves, g[:, sl])
+        for name, gr in zip("qkv", grads):
+            gr = gr.contiguous()
+            dist.all_reduce(gr, group=group)
+            out[f"{tag}/d{name}"] = gr.cpu().numpy()
+    return out
+
+
+def seq_model(init: Optional[dict], attn_impl: str = "ring",
+              T: int = SEQ_T, dropout: float = 0.0):
+    from commefficient_tpu_torch.models.gpt2 import (GPT2Config,
+                                                     GPT2DoubleHeads)
+    cfg = GPT2Config.tiny()
+    cfg.n_positions = T
+    cfg.dropout = dropout
+    cfg.attn_impl = attn_impl
+    model = GPT2DoubleHeads(cfg)
+    if init is None:
+        model.reset_parameters(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in init.items()})
+    return model
+
+
+def seq_apply_inputs(T: int = SEQ_T, seed: int = 5):
+    """The reference's ``test_gpt2_ring_seq_parallel_matches_single_device``
+    inputs at T: ids, types (2, 2, T), global MC positions (2, 2)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 300, (2, 2, T)).astype(np.int64)
+    types = rng.randint(0, 3, (2, 2, T)).astype(np.int64)
+    mc = rng.randint(0, T, (2, 2)).astype(np.int64)
+    return ids, types, mc
+
+
+def case_seq_apply(mesh, device, init, out_dir):
+    """``seq_parallel_apply`` of a ring gpt2-tiny (weights from
+    ``DIR/seq_apply_init.npz``) on a 4-rank seq axis: the LM logits'
+    blocks joined, and the MC logits."""
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch.parallel import seq as seq_lib
+    fn = os.path.join(out_dir, "seq_apply_init.npz")
+    model = seq_model(dict(np.load(fn)) if os.path.exists(fn) else None)
+    ring = mesh_lib.make_mesh(seq=dist.get_world_size(),
+                              device_type=torch.device(device).type)
+    seq_lib.attach(model, seq_lib.SeqContext.from_mesh(ring))
+    model.to(device)
+    ids, types, mc = (torch.as_tensor(x).to(device)
+                      for x in seq_apply_inputs())
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        lm, mcl = seq_lib.seq_parallel_apply(model, params, ids, types, mc)
+    parts = [torch.empty_like(lm) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, lm.contiguous(), group=mesh_lib.seq_group(ring))
+    return {"lm": torch.cat(parts, dim=2).cpu().numpy(),
+            "mc": mcl.cpu().numpy()}
+
+
+def seq_grad_batch(T: int = SEQ_T, seed: int = 3):
+    """One worker's (B 2, C 2, T) GPT2 batch with labels and global MC
+    positions in both halves of the sequence."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 200, (2, 2, T)).astype(np.int64)
+    types = rng.randint(0, 3, (2, 2, T)).astype(np.int64)
+    mc = np.array([[T - 1, 3], [T // 2, T // 2 - 1]], np.int64)
+    labels = np.where(rng.rand(2, 2, T) < 0.5, ids, -1).astype(np.int64)
+    mcl = np.array([0, 1], np.int64)
+    return (ids, mc, labels, mcl, types), np.ones(2, np.float32)
+
+
+def case_seq_grad(mesh, device, init):
+    """One worker's loss and flat gradient on the mesh's seq axis (the
+    seq loss, every rank on its block of ``seq_grad_batch``, the
+    gradient summed over the seq group), at dropout 0, and
+    ``seq_dp_lm_train_step``'s on both axes; with ``mesh`` None the
+    port's full attention with no mesh."""
+    import torch.distributed as dist
+
+    from torch.func import functional_call
+
+    from commefficient_tpu_torch.federated import client as client_lib
+    from commefficient_tpu_torch.federated.losses import make_gpt2_train_loss
+    from commefficient_tpu_torch.parallel import seq as seq_lib
+    from commefficient_tpu_torch.utils.params import flatten_params
+    batch, mask = seq_grad_batch()
+    ctx = seq_lib.SeqContext.from_mesh(mesh)
+    model = seq_model(init, "full" if ctx is None else "ring")
+    flat, unflatten = flatten_params(model)
+    cols = tuple(torch.as_tensor(c).to(device) for c in batch)
+    if ctx is None:
+        loss = make_gpt2_train_loss(model)
+    else:
+        seq_lib.attach(model, ctx)
+        loss = seq_lib.make_gpt2_train_loss_seq(model)
+        cut = seq_lib.SeqCut(loss.seq_columns, SEQ_T, ctx.rank, ctx.size)
+        cols = tuple(cut.apply(i, c) for i, c in enumerate(cols))
+    g, total, _ = client_lib._masked_loss_and_grad(
+        loss, unflatten, flat.to(device), cols,
+        torch.as_tensor(mask).to(device), 0)
+    if ctx is not None:
+        dist.all_reduce(g, group=ctx.group)
+    out = {"grad": g.detach().cpu().numpy(),
+           "loss": np.asarray(float(total))}
+    # seq_dp_lm_train_step: a (4, 1, T) batch of pre-shifted next-token
+    # labels, rows over the clients axis and T over the seq axis, against
+    # the same mean NLL's gradient with full attention in one process
+    ids, types = (torch.as_tensor(np.concatenate([c, c[:, ::-1]])[:, :1]
+                                  .copy()).to(device)
+                  for c in (batch[0], batch[4]))
+    labels = torch.cat([ids[..., 1:], torch.full_like(ids[..., :1], -1)],
+                       dim=-1)
+    labels[..., ::3] = -1
+    params = dict(model.to(device).named_parameters())
+    if ctx is None:
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        lm, _ = functional_call(model, leaves, (
+            ids, types, torch.zeros(ids.shape[:2], dtype=torch.long,
+                                    device=ids.device)), {"train": False})
+        lp = torch.log_softmax(lm.float(), dim=-1)
+        valid = labels >= 0
+        nll = -torch.gather(lp, -1, torch.where(valid, labels, 0)[..., None])
+        dp_loss = torch.sum(nll[..., 0] * valid) / torch.sum(valid)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            dp_loss, list(leaves.values()), materialize_grads=True)))
+    else:
+        dp_loss, grads = seq_lib.seq_dp_lm_train_step(mesh, model, params,
+                                                      ids, types, labels)
+    out["dp/loss"] = np.asarray(float(dp_loss))
+    out["dp/grad"] = torch.cat([grads[k].reshape(-1) for k in sorted(grads)]
+                               ).detach().cpu().numpy()
+    return out
+
+
+#: the reference's ``tests/test_cli_mesh.py:87-116`` problem, per mode
+SEQ_CLI_MODES = {
+    "uncompressed": ["--mode", "uncompressed", "--error_type", "none"],
+    "sketch": ["--mode", "sketch", "--error_type", "virtual", "--k", "1000",
+               "--num_cols", "5000", "--num_rows", "3"],
+}
+SEQ_CLI_ROUNDS = 2
+
+
+def seq_cli_argv(mode: str, dataset_dir: str) -> list:
+    return SEQ_CLI_MODES[mode] + [
+        "--virtual_momentum", "0.9", "--num_workers", "4",
+        "--local_batch_size", "2", "--max_seq_len", str(SEQ_T),
+        "--dataset_name", "SyntheticPersona", "--dataset_dir", dataset_dir,
+        "--synthetic_personas", "8", "--synthetic_dialogs", "2",
+        "--weight_decay", "0", "--num_epochs", "1", "--valid_batch_size",
+        "64"]
+
+
+def case_seq_cli(mesh, device, init, out_dir):
+    """The GPT2 entry point's ``train`` on the mesh with ``--attn_impl
+    ring`` (``SEQ_CLI_MODES``, ``SEQ_CLI_ROUNDS`` rounds; the initial
+    weights from ``DIR/seq_init.npz`` when present): the rounds, a state
+    digest after each, the final weights and the validation nll."""
+    from commefficient_tpu_torch.models.gpt2 import GPT2DoubleHeads
+    from commefficient_tpu_torch.tools.mesh_run import _Record
+    from commefficient_tpu_torch.training import gpt2
+    fn = os.path.join(out_dir, "seq_init.npz")
+    saved = GPT2DoubleHeads.reset_parameters
+    if os.path.exists(fn):
+        init = {k: torch.as_tensor(v) for k, v in np.load(fn).items()}
+
+        def from_file(self, generator=None):
+            self.load_state_dict(init)
+            return self
+        GPT2DoubleHeads.reset_parameters = from_file
+    out = {}
+    try:
+        for mode in SEQ_CLI_MODES:
+            args = gpt2.build_gpt2_parser().parse_args(
+                seq_cli_argv(mode, os.path.join(out_dir, "persona_seq"))
+                + ["--device", device, "--attn_impl", "ring", "--mesh",
+                   f"clients={mesh_lib.clients_size(mesh)},seq="
+                   f"{mesh_lib.seq_size(mesh)}"])
+            np.random.seed(args.seed)
+            with _Record(False, True) as rec:
+                learner, row = gpt2.train(args, mesh=mesh,
+                                          max_rounds=SEQ_CLI_ROUNDS,
+                                          log=False)
+            out[f"{mode}/metrics"] = np.asarray(
+                [[float(r[k]) for k in ROUND_KEYS] for r in row["rounds"]])
+            out[f"{mode}/digests"] = np.asarray(rec.digests)
+            out[f"{mode}/weights"] = learner.full_weights().cpu().numpy()
+            out[f"{mode}/nll"] = np.asarray(row["nll"])
+    finally:
+        GPT2DoubleHeads.reset_parameters = saved
+    return out
+
+
 CASES = {"modes": case_modes, "rows": case_rows, "offload": case_offload,
          "buffered": case_buffered, "ckpt": case_ckpt, "cli": case_cli,
          "tp_grad": case_tp_grad, "tp_modes": case_tp_modes,
          "tp_ckpt": case_tp_ckpt, "tp_serve": case_tp_serve,
-         "tp_cli": case_tp_cli}
+         "tp_cli": case_tp_cli, "tp_1b": case_tp_1b,
+         "seq_ring": case_seq_ring, "seq_apply": case_seq_apply,
+         "seq_grad": case_seq_grad, "seq_cli": case_seq_cli}
 #: the cases that read or write files beside their arrays
-_WITH_DIR = ("ckpt", "cli", "tp_ckpt", "tp_serve", "tp_cli")
+_WITH_DIR = ("ckpt", "cli", "tp_ckpt", "tp_serve", "tp_cli", "tp_1b",
+             "seq_apply", "seq_cli")
 #: the cases whose initial weights are ``DIR/tp_init.npz``
-_TP_INIT = ("tp_grad", "tp_modes", "tp_ckpt")
+_TP_INIT = ("tp_grad", "tp_modes", "tp_ckpt", "tp_1b")
 
 
 def run_cases(out_dir: str, names, device: str = "cpu",
-              model: int = 1) -> None:
+              model: int = 1, seq: int = 1) -> None:
     """The launcher's target: every named case on this rank (of a
-    ``clients x model`` mesh with ``model`` > 1)."""
+    ``clients x model`` mesh with ``model`` > 1, ``clients x seq`` with
+    ``seq`` > 1)."""
     import torch.distributed as dist
-    mesh = mesh_lib.make_mesh(model=model,
+    mesh = mesh_lib.make_mesh(model=model, seq=seq,
                               device_type=torch.device(device).type)
     r = dist.get_rank()
     inits = {}
@@ -651,10 +1015,11 @@ def run_one_process(name: str, out_dir: str, device: str = "cpu",
 
 
 def launch(out_dir: str, names, ranks: int = 2, device: str = "cpu",
-           backend: Optional[str] = None, model: int = 1) -> None:
+           backend: Optional[str] = None, model: int = 1,
+           seq: int = 1) -> None:
     os.makedirs(out_dir, exist_ok=True)
     distributed.launch(run_cases, ranks,
-                       (out_dir, list(names), device, model),
+                       (out_dir, list(names), device, model, seq),
                        backend=backend, device_type=torch.device(device).type)
 
 
@@ -663,13 +1028,14 @@ def main(argv=None):
     p.add_argument("--out", required=True)
     p.add_argument("--ranks", type=int, default=2)
     p.add_argument("--model", type=int, default=1)
+    p.add_argument("--seq", type=int, default=1)
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default=None)
     p.add_argument("--cases", default=",".join(
         c for c in CASES if c != "rows"))
     a = p.parse_args(argv)
     launch(a.out, a.cases.split(","), a.ranks, a.device, a.backend,
-           a.model)
+           a.model, a.seq)
     return 0
 
 

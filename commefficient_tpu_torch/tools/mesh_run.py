@@ -8,11 +8,11 @@ ranks (``parallel.distributed.launch``; ``--backend gloo`` lets several
 ranks share one card) and writes ``PREFIX_rank{r}.json`` for each rank:
 the rounds' metrics (losses also as float hex), a digest of the
 replicated state after every dispatched round (unless ``digests`` is
-False), sha256 of the final
-weights, server momentum and error and of every client's joined rows,
-the kernel launches of the rounds (every counter zeroed just before
-``train``), the peak device memory, the offload shards' reads and
-writes, the buffered server's schedule, and the backend that ran. With
+False), sha256 of the final weights, server momentum and error and of
+every client's joined rows, the kernel launches of the rounds (every
+counter zeroed just before ``train``), ``train``'s wall seconds, the
+peak device memory, the offload shards' reads and writes, the buffered
+server's schedule, and the backend that ran. With
 ``record_table`` the first aggregate the server took (the sketched table
 in sketch mode) is saved as ``PREFIX_rank{r}_table.npy``; with
 ``record_block`` the first slice a rank sketched (its block of the
@@ -20,11 +20,15 @@ aggregate on a model axis) as ``PREFIX_rank{r}_block.npy``, its offset
 in the JSON; with ``record_cohorts`` the dispatched cohorts' ids and
 masks as ``PREFIX_rank{r}_cohorts.npz``; with ``time_collectives`` each
 dispatched round's ``torch.distributed`` collectives (all-reduce,
-all-gather, broadcast) are timed on the host, the device synchronized
-around each, with their payload (the bytes a rank contributes). A
-spec's ``model`` = M makes the
-launch a ``clients x model`` mesh of ranks / M client shards (the state's
-shas and ``d`` are then of the whole joined vectors).
+all-gather, broadcast, and the ring's ``batch_isend_irecv``) are timed
+on the host, the device synchronized around each, with their payload
+(the bytes a rank contributes, or sends), in all and by kind
+(``collectives_by_kind``). A spec's ``model`` = M makes the launch a
+``clients x model`` mesh of ranks / M client shards (the state's shas and
+``d`` are then of the whole joined vectors), its ``seq`` = S a ``clients
+x seq`` mesh; ``gpt2_config`` sets attributes of the GPT2 entry point's
+model config (``{"dropout": 0.0}``); the record carries the learner's
+``--grad_buckets`` plan (``buckets``: offsets and sizes).
 
 ``launch(specs, ranks, backend)`` does the same from Python for one spec
 or a list of them, which the same ranks run in turn (each on its own
@@ -51,8 +55,15 @@ from commefficient_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _sha(t) -> str:
-    return hashlib.sha256(
-        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    from commefficient_tpu_torch.tools.mesh_cases import host_bytes
+    return hashlib.sha256(host_bytes(t)).hexdigest()
+
+
+class _Done:
+    """A finished work: ``wait`` returns at once."""
+
+    def wait(self):
+        return True
 
 
 class _CollectiveClock:
@@ -60,10 +71,11 @@ class _CollectiveClock:
     call bracketed by device synchronizations (``torch.distributed``'s
     functions patched while it is entered)."""
 
-    NAMES = ("all_reduce", "all_gather", "broadcast")
+    NAMES = ("all_reduce", "all_gather", "broadcast", "batch_isend_irecv")
 
     def __enter__(self):
         self.seconds, self.bytes, self.calls = 0.0, 0, 0
+        self.kinds = {n: [0.0, 0, 0] for n in self.NAMES}
         self._saved = {n: getattr(dist, n) for n in self.NAMES}
         for name, f in self._saved.items():
             setattr(dist, name, self._timed(name, f))
@@ -71,21 +83,41 @@ class _CollectiveClock:
 
     def _timed(self, name, f):
         def timed(*args, **kwargs):
-            t = args[1] if name == "all_gather" else args[0]
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
+            if name == "batch_isend_irecv":
+                sent = [op.tensor for op in args[0] if op.op is dist.isend]
+                ts = sent or [args[0][0].tensor]
+            else:
+                ts = [args[1] if name == "all_gather" else args[0]]
+                sent = ts
+            cuda = any(t.is_cuda for t in ts)
+            if cuda:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = f(*args, **kwargs)
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
-            self.seconds += time.perf_counter() - t0
-            self.bytes += t.numel() * t.element_size()
+            if name == "batch_isend_irecv":
+                # waited here, so the time is the transfer's; a gloo
+                # send or receive waits once, so the caller gets works
+                # already done
+                for req in out:
+                    req.wait()
+                out = [_Done()] * len(out)
+            if cuda:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            nbytes = sum(t.numel() * t.element_size() for t in sent)
+            self.seconds += dt
+            self.bytes += nbytes
             self.calls += 1
+            kind = self.kinds[name]
+            kind[0] += dt
+            kind[1] += nbytes
+            kind[2] += 1
             return out
         return timed
 
     def snapshot(self):
-        return self.seconds, self.bytes, self.calls
+        return (self.seconds, self.bytes, self.calls,
+                {k: list(v) for k, v in self.kinds.items()})
 
     def __exit__(self, *exc):
         for name, f in self._saved.items():
@@ -103,6 +135,7 @@ class _Record:
         self.block = None
         self.clock = clock
         self.collectives = []     # (seconds, bytes, calls) a round
+        self.by_kind = []         # {kind: (seconds, bytes, calls)} a round
         self._want_table = table
         self._want_block = block
         self._want_digests = digests
@@ -132,9 +165,13 @@ class _Record:
                     rec._depth -= 1
                 if rec._depth == 0:
                     if before is not None:
+                        now = rec.clock.snapshot()
                         rec.collectives.append([
-                            a - b for a, b in zip(rec.clock.snapshot(),
-                                                  before)])
+                            a - b for a, b in zip(now[:3], before[:3])])
+                        rec.by_kind.append({
+                            k: [a - b for a, b in zip(v, before[3][k])]
+                            for k, v in now[3].items() if v[2]
+                            > before[3][k][2]})
                     rec.cohorts.append((np.array(client_ids),
                                         np.array(mask)))
                     if rec._want_digests:
@@ -164,6 +201,25 @@ class _Record:
             setattr(owner, attr, f)
 
 
+@contextlib.contextmanager
+def gpt2_overrides(overrides: dict):
+    """The GPT2 entry point's model config with ``overrides`` set on it
+    while entered (``{"dropout": 0.0}``: no flag sets them)."""
+    from commefficient_tpu_torch.training import gpt2
+    saved = gpt2.gpt2_config
+
+    def gpt2_config(*a, **kw):
+        cfg = saved(*a, **kw)
+        for k, v in overrides.items():
+            setattr(cfg, k, v)
+        return cfg
+    gpt2.gpt2_config = gpt2_config
+    try:
+        yield
+    finally:
+        gpt2.gpt2_config = saved
+
+
 def run_specs(specs: list) -> None:
     """The launcher's target: ``run_rank`` of each spec in turn, on one
     process group (the ranks start once)."""
@@ -189,15 +245,17 @@ def run_rank(spec: dict) -> None:
               else gpt2.build_gpt2_parser())
     n = distributed.world_size()
     M = int(spec.get("model", 1))
-    axes = f"clients={n // M}" + (f",model={M}" if M > 1 else "")
+    S = int(spec.get("seq", 1))
+    inner = {k: v for k, v in (("model", M), ("seq", S)) if v > 1}
+    axes = f"clients={n // (M * S)}" + "".join(
+        f",{k}={v}" for k, v in inner.items())
     args = parser.parse_args(list(spec["argv"]) + ["--mesh", axes])
     for k, v in spec.get("attrs", {}).items():
         setattr(args, k, v)
-    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(
-        n // M, {"model": M} if M > 1 else {}))
+    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(n // (M * S), inner))
     np.random.seed(args.seed)
     device_type = torch.device(args.device).type
-    mesh = mesh_lib.make_mesh(n, model=M, device_type=device_type)
+    mesh = mesh_lib.make_mesh(n, model=M, seq=S, device_type=device_type)
     r = dist.get_rank()
     cuda = device_type == "cuda"
     if cuda:
@@ -206,10 +264,13 @@ def run_rank(spec: dict) -> None:
     clock = _CollectiveClock() if spec.get("time_collectives") else None
     with (clock or contextlib.nullcontext()), _Record(
             spec.get("record_table", False), spec.get("digests", True),
-            spec.get("record_block", False), clock) as rec:
+            spec.get("record_block", False), clock) as rec, \
+            gpt2_overrides(spec.get("gpt2_config", {})):
         cuda_lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
         learner, row = train(args, mesh=mesh,
                              max_rounds=spec.get("max_rounds"), log=False)
+        wall = time.perf_counter() - t0
         if cuda:
             torch.cuda.synchronize()
         launches = dict(row.get("launches_after_rounds") or
@@ -230,6 +291,7 @@ def run_rank(spec: dict) -> None:
                     "round_s": x.get("round_s")}
                    for x in row.get("rounds", [])],
         "test_loss": row.get("test_loss", row.get("nll")),
+        "wall_s": wall,
         "preempted": bool(row.get("preempted", False)),
         "digests": rec.digests,
         "weights_sha": _sha(s["weights"]), "vvel_sha": _sha(s["Vvelocity"]),
@@ -239,6 +301,10 @@ def run_rank(spec: dict) -> None:
         "finite": bool(torch.isfinite(s["weights"]).all()),
         "launches": launches,
         "collectives": rec.collectives,
+        "collectives_by_kind": rec.by_kind,
+        "buckets": (None if learner.grad_buckets is None else
+                    [list(map(int, learner.grad_buckets.offsets)),
+                     list(map(int, learner.grad_buckets.sizes))]),
         "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                      if cuda else None),
     }

@@ -240,7 +240,8 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    default="full",
                    help="full = materialized (T, T) scores; blockwise = "
                         "the flash kernels on CUDA (the online-softmax "
-                        "loop elsewhere); ring is not ported (A12)")
+                        "loop elsewhere); ring = sequence-parallel over "
+                        "the --mesh seq axis (parallel/seq.py)")
     p.add_argument("--vocab_pad_to", type=int, default=None,
                    help="pad the vocab (embedding rows) to at least this "
                         "size: 50262 gives GPT2-small's d with the byte "
@@ -285,11 +286,14 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
-def resolve_fused_ce(args) -> bool:
+def resolve_fused_ce(args, mesh=None) -> bool:
     """``--fused_ce`` (and the legacy ``--fused_lm_head``, which means
     'on' and conflicts with 'off') -> whether the model returns hidden
     states for the fused LM-head loss (the reference's
-    ``training/args.py:376-394`` without a mesh)."""
+    ``training/args.py:376-394``): 'auto' is off under ring attention or
+    a seq/stage mesh axis (``mesh``: a joined mesh or a ``MeshSpec``),
+    an explicit 'on' passes through (and the model refuses it with
+    ring)."""
     choice = args.fused_ce
     if args.fused_lm_head:
         if choice == "off":
@@ -300,19 +304,24 @@ def resolve_fused_ce(args) -> bool:
         return choice == "on"
     if args.attn_impl == "ring":
         return False
+    from commefficient_tpu_torch.parallel.mesh import inner_size
+    if any(inner_size(mesh, axis) > 1 for axis in ("seq", "stage")):
+        return False
     return args.max_seq_len >= FUSED_CE_AUTO_T
 
 
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: a ``--mesh`` ``seq``, ``stage``
-    or ``expert`` axis above 1 (A12), then the entry point's own
-    ``extra`` ``(flag, is_set, item)`` triples. The ``model`` axis runs
-    (GPT2; the CV entry point raises the reference's ValueError first)."""
+    flag set that the port does not run: a ``--mesh`` ``stage`` or
+    ``expert`` axis above 1 (A12), then the entry point's own ``extra``
+    ``(flag, is_set, item)`` triples. The ``model`` and ``seq`` axes run
+    (GPT2; the CV entry point raises the reference's ValueErrors
+    first)."""
     inner = mesh_inner_axes(getattr(args, "mesh", ""))
     for flag, on, item in (
             *((f"--mesh {name}={size}", size > 1, "A12")
-              for name, size in inner.items() if name != "model"),
+              for name, size in inner.items()
+              if name not in ("model", "seq")),
             *extra):
         if on:
             raise NotImplementedError(f"{flag} is not ported to PyTorch "
@@ -356,9 +365,9 @@ def parse_mesh(spec: str):
     the inner axes mutually exclusive. ``clients=all`` (or ``auto``)
     means ``WORLD_SIZE`` under ``torchrun``, else every CUDA device (one
     rank without one). The ranks build the mesh itself
-    (``parallel.mesh.make_mesh``) once they have joined; a ``seq``,
-    ``stage`` or ``expert`` axis above 1 is refused there and by
-    ``refuse_unported`` (A12)."""
+    (``parallel.mesh.make_mesh``) once they have joined; a ``stage`` or
+    ``expert`` axis above 1 is refused there and by ``refuse_unported``
+    (A12)."""
     if not spec:
         return None
     from commefficient_tpu_torch.parallel.mesh import MeshSpec
@@ -473,7 +482,8 @@ def args_to_config(args, **overrides) -> FedConfig:
 
 
 def mesh_ranks(mesh) -> int:
-    """The ranks a parsed ``--mesh`` launches: clients x model."""
+    """The ranks a parsed ``--mesh`` launches: clients x the inner axis
+    (model or seq)."""
     from commefficient_tpu_torch.parallel.mesh import (clients_size,
-                                                       model_size)
-    return clients_size(mesh) * model_size(mesh)
+                                                       model_size, seq_size)
+    return clients_size(mesh) * model_size(mesh) * seq_size(mesh)

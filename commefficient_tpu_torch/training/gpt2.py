@@ -66,10 +66,19 @@ M ranks (``parallel/tp.py``), the flat state stored in coordinate blocks
     python -m commefficient_tpu_torch.training.gpt2 --device cpu \
         --mesh clients=2,model=2 --model gpt2-tiny --mode sketch ...
 
-The ``seq``, ``stage`` and ``expert`` axes, MoE blocks on a model axis,
-and ``--client_state_offload``, ``--server_mode buffered`` or
-``--grad_buckets`` with one are ROADMAP.md A12 (the reference's MoE
-ValueErrors come first).
+``--client_state_offload``, ``--server_mode buffered`` and
+``--grad_buckets`` run on the model axis too. ``--mesh clients=C,seq=S``
+runs C*S ranks: each client shard's workers on S blocks of the
+sequence, ring attention over each seq group (``parallel/seq.py``), on
+the fused round only (the reference's ValueErrors otherwise);
+``--attn_impl full`` switches to ring there, ``blockwise`` is refused:
+
+    python -m commefficient_tpu_torch.training.gpt2 --device cpu \
+        --mesh clients=2,seq=2 --attn_impl ring --model gpt2-tiny \
+        --mode uncompressed --error_type none --max_seq_len 32 ...
+
+The ``stage`` and ``expert`` axes and MoE blocks on a model axis are
+ROADMAP.md A12 (the reference's MoE ValueErrors come first).
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ from commefficient_tpu_torch.data.tokenizer import (HFTokenizerWrapper,
                                                     get_tokenizer)
 from commefficient_tpu_torch.federated.losses import (make_gpt2_train_loss,
                                                       make_gpt2_val_loss)
+from commefficient_tpu_torch.federated.round import fused_clients_eligible
 from commefficient_tpu_torch.models import GPT2_CONFIGS, GPT2DoubleHeads
 from commefficient_tpu_torch.models.gpt2_import import try_load_hf_pretrained
 from commefficient_tpu_torch.ops import cuda_lib
@@ -98,7 +108,10 @@ from commefficient_tpu_torch.parallel import distributed
 from commefficient_tpu_torch.online.swap import learner_params
 from commefficient_tpu_torch.parallel.mesh import (main_first, make_mesh,
                                                    model_size,
-                                                   padded_num_clients)
+                                                   padded_num_clients,
+                                                   seq_size)
+from commefficient_tpu_torch.parallel.seq import (make_gpt2_train_loss_seq,
+                                                  make_gpt2_val_loss_seq)
 from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    args_to_config,
                                                    build_parser,
@@ -142,10 +155,9 @@ def _refuse_moe_combinations(args):
 def _refuse_unported(args):
     _refuse_moe_combinations(args)
     refuse_unported(args, (
-        ("--attn_impl ring", args.attn_impl == "ring", "A12"),
         ("--moe_experts with a --mesh model axis",
          args.moe_experts > 0 and mesh_inner_axes(args.mesh).get(
-             "model", 1) > 1, "A12, the expert axis")))
+             "model", 1) > 1, "A12, the expert axis"),))
     refuse_buffered_scan(args)
     if args.model not in GPT2_CONFIGS:
         raise ValueError(f"--model {args.model!r} is not a GPT2 model; "
@@ -154,6 +166,39 @@ def _refuse_unported(args):
         raise ValueError(f"--dataset_name {args.dataset_name!r}: the GPT2 "
                          "entry point reads SyntheticPersona or PERSONA")
     args_to_config(args).validate()
+
+
+def seq_gate(args, mesh, log: bool = False) -> str:
+    """The reference's checks of the seq axis (``training/gpt2.py:104-119``
+    and ``:162-181``) on ``mesh`` (a joined mesh or a ``MeshSpec``; None
+    for one process), with its messages; returns the attention to build:
+    ``full`` switches to ``ring`` on a seq axis."""
+    seq_n = seq_size(mesh)
+    attn = args.attn_impl
+    if seq_n > 1:
+        if attn == "blockwise":
+            raise ValueError("--attn_impl blockwise cannot shard the "
+                             "sequence; use --attn_impl ring with "
+                             "--mesh seq=N")
+        if attn != "ring":
+            if log:
+                print(f"--mesh seq={seq_n}: enabling ring attention")
+            attn = "ring"
+        if args.max_seq_len % seq_n:
+            raise ValueError(f"--max_seq_len {args.max_seq_len} must be "
+                             f"divisible by the seq axis ({seq_n})")
+        cfg = args_to_config(args)
+        if not fused_clients_eligible(cfg):
+            raise ValueError(
+                f"--mesh seq={seq_n} requires the fused federated round "
+                "(mode uncompressed/sketch/true_topk; no local momentum/"
+                "error, DP, grad clip, topk_down, or microbatching) — "
+                f"this config has mode={cfg.mode}, error_type="
+                f"{cfg.error_type}, local_momentum={cfg.local_momentum}, "
+                f"microbatch_size={cfg.microbatch_size}")
+    elif attn == "ring":
+        raise ValueError("--attn_impl ring requires --mesh ...,seq=N>1")
+    return attn
 
 
 def save_pretrained(log_dir: str, learner, gpt2_config,
@@ -186,19 +231,20 @@ def make_persona(args, tokenizer, train: bool):
     return SyntheticPersona(**kw)
 
 
-def gpt2_config(args, vocab_size: int):
-    """The model config the reference builds from the flags."""
+def gpt2_config(args, vocab_size: int, mesh=None, attn_impl=None):
+    """The model config the reference builds from the flags (on ``mesh``,
+    with the attention ``seq_gate`` chose)."""
     gcfg = GPT2_CONFIGS[args.model](vocab_size=vocab_size)
     if args.vocab_pad_to:
         gcfg.vocab_size = max(gcfg.vocab_size, args.vocab_pad_to)
     gcfg.n_positions = max(gcfg.n_positions, args.max_seq_len)
-    gcfg.attn_impl = args.attn_impl
+    gcfg.attn_impl = attn_impl or args.attn_impl
     gcfg.dtype = args.compute_dtype
     # no CLI value selects "tpu_bits" (as in the reference): a caller sets
     # it on the parsed namespace, and it reaches every FusedDropout site
     gcfg.dropout_impl = getattr(args, "dropout_impl", "xla")
     gcfg.attn_dropout = args.attn_dropout
-    gcfg.fused_lm_head = resolve_fused_ce(args)
+    gcfg.fused_lm_head = resolve_fused_ce(args, mesh)
     gcfg.moe_experts = args.moe_experts
     gcfg.moe_capacity_factor = args.moe_capacity_factor
     return gcfg
@@ -218,14 +264,20 @@ def train(args, mesh=None, max_rounds=None, log=True):
     logs; every rank returns the global rounds' metrics."""
     _refuse_unported(args)
     log = log and distributed.is_main()
+    attn = seq_gate(args, mesh, log)
     device = resolve_device(args.device)
+    # the tokenizer only reads (a local cache or none), so every rank
+    # loads it at once; the persona cache is written on first use
+    tokenizer = get_tokenizer(args.model_checkpoint, verbose=log)
     with main_first(mesh):
-        tokenizer = get_tokenizer(args.model_checkpoint, verbose=log)
         train_set = make_persona(args, tokenizer, train=True)
         val_set = make_persona(args, tokenizer, train=False)
     args.num_clients = train_set.num_clients
 
-    model = GPT2DoubleHeads(gpt2_config(args, tokenizer.vocab_size))
+    # the init draws no forward, so a ring model initializes as it is (the
+    # reference goes through a full-attention twin: the same parameters)
+    model = GPT2DoubleHeads(gpt2_config(args, tokenizer.vocab_size, mesh,
+                                        attn))
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     if args.model in ("gpt2", "openai-gpt") and isinstance(
             tokenizer, HFTokenizerWrapper):
@@ -245,11 +297,16 @@ def train(args, mesh=None, max_rounds=None, log=True):
                              max(1, int(args.num_epochs * spe)))
     num_clients = padded_num_clients(args.num_clients, mesh)
     cls, extra = learner_factory(args, num_clients)
+    if attn == "ring":
+        loss_tr = make_gpt2_train_loss_seq(model, args.lm_coef, args.mc_coef)
+        loss_val = make_gpt2_val_loss_seq(model)
+    else:
+        loss_tr = make_gpt2_train_loss(model, args.lm_coef, args.mc_coef,
+                                       args.moe_aux_weight)
+        loss_val = make_gpt2_val_loss(model)
     learner = cls(model, args_to_config(args, num_clients=num_clients),
-                  make_gpt2_train_loss(model, args.lm_coef, args.mc_coef,
-                                       args.moe_aux_weight),
-                  make_gpt2_val_loss(model), lr_schedule=sched,
-                  device=device, seed=args.seed, mesh=mesh, **extra)
+                  loss_tr, loss_val, lr_schedule=sched, device=device,
+                  seed=args.seed, mesh=mesh, **extra)
     if log:
         print(f"gpt2: d = {learner.cfg.grad_size}, vocab "
               f"{model.config.vocab_size}, attn_impl "
@@ -311,7 +368,8 @@ def train(args, mesh=None, max_rounds=None, log=True):
             # gather-ahead
             for (ids, cols, mask), nxt in with_lookahead(device_prefetch(
                     feed.wrap(batcher.epoch(skip=skip)),
-                    device=learner.device, workers=learner.worker_slice)):
+                    device=learner.device, workers=learner.worker_slice,
+                    seq_cut=learner.seq_cut)):
                 # the schedule decays per round: lr_at(total rounds so far)
                 record(rounds.push(
                     ids, cols, mask, total_rounds,
@@ -394,13 +452,16 @@ def _print_sample(args, model, params, tokenizer, val_set):
     from commefficient_tpu_torch.models.gpt2_generate import sample_reply
     try:
         gen_model = model
-        if model.config.fused_lm_head or model.config.tp is not None:
+        cfg = model.config
+        if cfg.fused_lm_head or cfg.tp is not None or cfg.seq is not None:
             # generation needs the logits, on this rank alone: the same
-            # params through a twin without the fused head or the model
-            # axis
-            cfg = copy.copy(model.config)
+            # params through a twin without the fused head, the model axis
+            # or the seq axis (ring attention becomes full attention)
+            cfg = copy.copy(cfg)
             cfg.fused_lm_head = False
-            cfg.tp = None
+            cfg.tp = cfg.seq = None
+            if cfg.attn_impl == "ring":
+                cfg.attn_impl = "full"
             gen_model = GPT2DoubleHeads(cfg)
         raw = val_set._raw_dialogs()
         d = raw.get("valid", raw.get("train"))[0]
@@ -447,9 +508,11 @@ def _print_final(final: dict) -> None:
 
 
 def mesh_rank_main(args, n_ranks: int, model: int = 1) -> None:
-    """One rank of a ``--mesh`` run (the launcher's target)."""
+    """One rank of a ``--mesh`` run (the launcher's target); a seq axis
+    is read from ``args.mesh``."""
     np.random.seed(args.seed)
     mesh = make_mesh(n_ranks, model=model,
+                     seq=mesh_inner_axes(args.mesh).get("seq", 1),
                      device_type=torch.device(args.device).type)
     main_rank = distributed.is_main()
     with profile_ctx(args.profile if main_rank else None):
@@ -483,6 +546,7 @@ def main(argv=None):
         return 0
     if mesh is not None:
         _refuse_unported(args)
+        seq_gate(args, mesh)
         n = mesh_ranks(mesh)
         distributed.run(mesh_rank_main, n, (args, n, model_size(mesh)),
                         device_type=torch.device(args.device).type)

@@ -29,7 +29,10 @@ its own seeds.
 On a ``model`` mesh axis each rank stores a coordinate block of the
 flat state: a save joins the blocks over the model group (the file holds
 the reference's padded vector; rank 0 writes it) and a load keeps each
-rank's block.
+rank's block. Offloaded dense rows are joined alike (a model rank's
+arenas hold its block of each row), over both axes. On a ``seq`` axis
+the state is replicated and written once. Buffered slots are never
+saved: a resume starts with an empty buffer.
 
 Writes are atomic (a temp file, fsync, ``os.replace``, then the
 directory's fsync). Periodic saves land as ``{name}_r{step:08d}.npz``
@@ -281,8 +284,13 @@ def save_checkpoint(path: str, learner, name: str = "model",
     for field, keys in _host_fields(learner):
         stacked = learner.host_store.stacked(field)
         for key, leaf in keys.items():
-            extra[key] = _full_rows(stacked if leaf is None
-                                    else stacked[leaf], learner).numpy()
+            rows = _full_rows(stacked if leaf is None else stacked[leaf],
+                              learner)
+            if learner.host_store.coord_block is not None:
+                # a model rank's arenas hold its block of each dense row
+                rows = mesh_lib.model_all_gather(rows, _mesh_of(learner),
+                                                 dim=1)
+            extra[key] = rows.numpy()
     arrays = {}
     for i, (p, t, rows) in enumerate(leaves):
         # the client rows' sink row is the port's, not the format's
@@ -465,6 +473,8 @@ def load_checkpoint(fn: str, learner, expect_fingerprint: dict = None):
                     f"--client_state representation (config mismatch)")
             row = proto if leaf is None else proto[leaf]
             want = (store.num_rows,) + tuple(row.shape[1:])
+            if store.coord_block is not None:
+                want = (store.num_rows, learner.cfg.grad_dim)
             if tuple(z[key].shape) != want:
                 raise ValueError(
                     f"checkpoint {fn} {key} has shape {z[key].shape}, "

@@ -7,7 +7,8 @@ CPU, and the GPT2 entry point.
   per-worker path): loss rtol 1e-5, bytes exact, weights atol 1e-6;
 * the CLI runs one round on the CPU when asked, refuses CUDA without a
   card, and refuses every unported flag naming its ROADMAP item (MoE
-  runs; with an expert mesh axis the mesh is refused).
+  runs; with an expert mesh axis the mesh is refused; the seq axis and
+  ring attention run, with the reference's ValueErrors).
 """
 
 import jax
@@ -29,6 +30,7 @@ from commefficient_tpu_torch.federated.api import FedLearner
 from commefficient_tpu_torch.federated.losses import (make_gpt2_train_loss,
                                                       make_gpt2_val_loss)
 from commefficient_tpu_torch.models.gpt2 import GPT2Config, GPT2DoubleHeads
+from commefficient_tpu_torch.training.args import parse_mesh
 from commefficient_tpu_torch.training.gpt2 import build_gpt2_parser, train
 from commefficient_tpu_torch.utils.params import params_from_jax
 
@@ -125,11 +127,21 @@ def test_cli_refuses_cuda_without_a_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--moe_experts", "4", "--mesh", "clients=2,expert=2"], "A12"),
-    (["--mesh", "clients=2,seq=2"], "A12"),
-    (["--mesh", "clients=1,stage=2"], "A12"),
-    (["--attn_impl", "ring"], "A12")])
+    pytest.param(["--moe_experts", "4", "--mesh", "clients=2,expert=2"],
+                 "A12", id="extra0-A12"),
+    pytest.param(["--mesh", "clients=2,seq=2", "--attn_impl", "blockwise"],
+                 "cannot shard the sequence", id="extra1-A12"),
+    pytest.param(["--mesh", "clients=1,stage=2"], "A12", id="extra2-A12"),
+    pytest.param(["--attn_impl", "ring"], "requires --mesh",
+                 id="extra3-A12")])
 def test_cli_refuses_unported_flags(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train(_args(tmp_path, "--device", "cpu", *extra), max_rounds=1,
-              log=False)
+    """The expert and stage axes are A12; the seq axis and ring attention
+    run since A12's seq axis, and keep the reference's ValueErrors
+    (blockwise on a seq axis, ring without one)."""
+    args = _args(tmp_path, "--device", "cpu", *extra)
+    if item == "A12":
+        with pytest.raises(NotImplementedError, match=item):
+            train(args, max_rounds=1, log=False)
+        return
+    with pytest.raises(ValueError, match=item):
+        train(args, mesh=parse_mesh(args.mesh), max_rounds=1, log=False)

@@ -25,7 +25,9 @@ arrays; each test reads them:
   token-identical to the reference's tp = 1 engine
   (``__graft_entry__.py:339-420``'s prompts and budgets), int8 and int4
   pools at C16's contract;
-* (g) the refusals and the reference's ValueErrors.
+* (g) the refusals and the reference's ValueErrors (offload and the
+  buffered server run on the model axis since A12 1b:
+  ``tests/test_torch_tp_1b.py``).
 
 Every rank and the test process run one intra-op thread.
 """
@@ -91,18 +93,20 @@ def jax_problem():
     return _Wrap(model), jax_gpt2_loss(model), sample_in, batch, mask
 
 
-def _jax_learner(jax_problem, mode_kw, mesh=None):
+def _jax_learner(jax_problem, mode_kw, mesh=None, cls=JaxLearner, **kw):
     wrap, loss, sample_in, _, _ = jax_problem
     cfg = JaxConfig(num_workers=mc.TP_W, num_clients=mc.TP_CLIENTS,
                     lr_scale=0.05, weight_decay=0, max_seq_len=mc.TP_T,
                     **mode_kw)
     specs = None
     if mesh is not None:
-        probe = JaxLearner(wrap, cfg, loss, None, jax.random.PRNGKey(0),
-                           sample_in)
+        probe = JaxLearner(wrap, JaxConfig(
+            num_workers=mc.TP_W, num_clients=mc.TP_CLIENTS,
+            max_seq_len=mc.TP_T), loss, None, jax.random.PRNGKey(0),
+            sample_in)
         specs = jax_tp_specs(probe.unflatten(probe.state.weights))
-    return JaxLearner(wrap, cfg, loss, None, jax.random.PRNGKey(0),
-                      sample_in, mesh=mesh, param_specs=specs)
+    return cls(wrap, cfg, loss, None, jax.random.PRNGKey(0), sample_in,
+               mesh=mesh, param_specs=specs, **kw)
 
 
 def _jax_rounds(jl, jax_problem, rounds):
@@ -467,24 +471,40 @@ def test_serve_tp_value_errors_match_reference(kw):
     dict(mode="local_topk", error_type="local", client_state_offload=True),
     dict(server_mode="buffered")])
 def test_model_axis_offload_and_buffered_are_a12_1b(kw):
+    """Both run on a model axis since A12 1b (``tests/test_torch_tp_1b.py``
+    holds their rounds against the reference): the config takes them, with
+    the model axis and without."""
     mesh = dict(mesh_shape=(2, 2), mesh_axis_names=("clients", "model"))
-    with pytest.raises(NotImplementedError, match="A12 1b"):
-        FedConfig(**kw, **mesh).finalize(1000)
-    FedConfig(**kw).finalize(1000)     # runs without the model axis
+    assert FedConfig(**kw, **mesh).finalize(1000).model_axis == 2
+    assert FedConfig(**kw).finalize(1000).model_axis == 1
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--client_state_offload", "--mode", "local_topk", "--error_type",
-      "local"], NotImplementedError, "A12 1b"),
-    (["--server_mode", "buffered"], NotImplementedError, "A12 1b"),
+    pytest.param(["--client_state_offload", "--mode", "local_topk",
+                  "--error_type", "local"], None, None,
+                 id="extra0-NotImplementedError-A12 1b"),
+    pytest.param(["--server_mode", "buffered"], None, None,
+                 id="extra1-NotImplementedError-A12 1b"),
     (["--moe_experts", "2"], NotImplementedError, "A12, the expert axis")])
-def test_gpt2_cli_model_axis_refusals(tmp_path, extra, exc, match):
-    from commefficient_tpu_torch.training.gpt2 import build_gpt2_parser, main
+def test_gpt2_cli_model_axis_refusals(tmp_path, monkeypatch, extra, exc,
+                                      match):
+    """MoE on a model axis is A12's expert axis. Offloaded rows and the
+    buffered server run there since A12 1b: ``main`` launches the 2 ranks
+    of ``mesh_rank_main`` (their rounds: ``tests/test_torch_tp_1b.py``)."""
+    from commefficient_tpu_torch.training import gpt2
     argv = ["--device", "cpu", "--model", "gpt2-tiny", "--mesh",
             "clients=1,model=2", "--dataset_dir", str(tmp_path), *extra]
-    build_gpt2_parser().parse_args(argv)
-    with pytest.raises(exc, match=match):
-        main(argv)
+    gpt2.build_gpt2_parser().parse_args(argv)
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            gpt2.main(argv)
+        return
+    seen = []
+    monkeypatch.setattr(gpt2.distributed, "run",
+                        lambda target, n, args, **kw: seen.append(
+                            (target, n, args[1:])))
+    assert gpt2.main(argv) == 0
+    assert seen == [(gpt2.mesh_rank_main, 2, (2, 2))]
 
 
 def test_cv_model_axis_keeps_reference_valueerror(tmp_path):
@@ -529,7 +549,9 @@ def test_engine_and_model_refuse_what_does_not_shard():
     ring = GPT2Config.tiny()
     ring.attn_impl = "ring"
     z = torch.zeros((1, 1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ring attention runs on a seq axis since A12's seq axis; outside one
+    # it raises a ValueError naming the seq mesh
+    with pytest.raises(ValueError, match="seq mesh axis"):
         GPT2DoubleHeads(ring)(z, z, torch.zeros((1, 1), dtype=torch.int32),
                               train=False)
 
