@@ -350,7 +350,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    1's table bitwise the sketches of each rank's bucket pieces summed and
    within the two summation orders' rounding bound of mesh_tp_gpt2's; and
    mesh_tp_sparse_offload, gpt2_local_topk_sparse_offload's flags there,
-   offloaded against device-resident rows, 2 rounds each, bitwise.
+   offloaded against device-resident rows, 2 rounds each, bitwise; the
+   stage axis (GPipe, ``parallel/pp.py``): mesh_pp_gpt2, ``GPT2_FLAGS``
+   with ``--mc_coef 0 --mesh clients=1,stage=2`` for 3 rounds (blocks 0-5
+   on one rank, 6-11 on the other, 2 microbatches of 32 sequences): the
+   ranks' state bitwise every round, the flash, sketch and recovery
+   launches a rank (12 flash launches of each kind a round: 6 blocks x 2
+   microbatches at BH 384), upload and download bytes exact, each rank's
+   hops exactly its 2 activations or cotangents a round, the hops' and
+   receive waits' ms, the all-reduce and the peak a rank printed beside
+   the 1/3 bubble; mesh_pp_parity, round 1 of the same in 4
+   microbatches at dropout 0 (on the model config) against one
+   process's ``--mc_coef 0`` round: loss within 1e-5, the aggregate
+   within ``PP_AGG_TOL`` of its largest coordinate, the table within
+   ``PP_TABLE_SLACK`` times what the aggregates' difference explains.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -562,6 +575,9 @@ FLASH_SHAPE_CLIENT = (FLASH_SHAPE[0] // GPT2_WORKERS,) + FLASH_SHAPE[1:]
 FLASH_SHAPE_T512 = (FLASH_SHAPE[0], 512, FLASH_SHAPE[2])
 FLASH_SHAPE_T512_VAL = (FLASH_SHAPE_CLIENT[0], 512, FLASH_SHAPE[2])
 FLASH_SHAPE_CHUNK = (FLASH_SHAPE[0] // 8,) + FLASH_SHAPE[1:]
+# a stage rank's microbatch of 32 sequences (mesh_pp_gpt2), a model rank's
+# 6 heads of 64 sequences: BH 384
+FLASH_SHAPE_HALF = (FLASH_SHAPE[0] // 2,) + FLASH_SHAPE[1:]
 FLASH_RATE = 0.1
 # the hardware-RNG dropout's inputs on the GPT2 path: the (64, 256, 768)
 # activations at every site but the mc head's (64, 768)
@@ -3577,7 +3593,8 @@ def phase_flash_parity(dev, errs):
              ("f32", *FLASH_SHAPE_T512_VAL, torch.float32, 0.0),
              ("f32", *FLASH_SHAPE_CHUNK, torch.float32, FLASH_RATE),
              ("bf16", bh, t, d, torch.bfloat16, FLASH_RATE),
-             ("f32", 24, 1100, 128, torch.float32, FLASH_RATE)]
+             ("f32", 24, 1100, 128, torch.float32, FLASH_RATE),
+             ("f32", *FLASH_SHAPE_HALF, torch.float32, FLASH_RATE)]
     errs.update(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0,
                 flash_fwd_v1=0.0, flash_bwd_dq_v1=0.0, flash_bwd_dkv_v1=0.0)
     for i, (tag, bh_, t_, d_, dtype, rate) in enumerate(cases):
@@ -5426,9 +5443,11 @@ def phase_mesh(tmpdir, ref):
     * the uninterrupted run of mesh_kill_resume (``phase_mesh_kill``);
     * mesh_tp_gpt2 (``check_mesh_tp_gpt2``: the ranks join a model axis
       for it);
-    * A12 1b and the seq axis (``mesh_a12_specs``: ``check_mesh_seq``,
-      ``check_mesh_tp_1b``; the ranks join a seq or model axis for each),
-      after ``phase_seq_reference``'s one-process round.
+    * A12 1b and the seq and stage axes (``mesh_a12_specs``:
+      ``check_mesh_seq``, ``check_mesh_tp_1b``, ``check_mesh_pp``; the
+      ranks join a seq, model or stage axis for each), after
+      ``phase_seq_reference``'s and ``phase_pp_reference``'s one-process
+      rounds.
 
     Returns (launches summed over the ranks, the kill arm's export)."""
     from commefficient_tpu_torch.tools import mesh_run
@@ -5459,11 +5478,12 @@ def phase_mesh(tmpdir, ref):
         *mesh_a12_specs(tmpdir),
     ]
     phase_seq_reference(tmpdir)
+    phase_pp_reference(tmpdir)
     t0 = time.perf_counter()
     launched = mesh_run.launch(specs, MESH_RANKS, MESH_BACKEND)
     (sk_a, sk_b, off, dev_rows, lock, faults, kill_base,
      gpt2, tp, seq_a, seq_b, seq_parity, tp_buffered, tp_buckets,
-     tp_offload, tp_device) = launched
+     tp_offload, tp_device, pp_a, pp_parity) = launched
     wall = time.perf_counter() - t0
     if any(r["backend"] != MESH_BACKEND or r["world"] != MESH_RANKS
            for recs in (sk_a, gpt2) for r in recs):
@@ -5569,6 +5589,7 @@ def phase_mesh(tmpdir, ref):
     add(check_mesh_seq(tmpdir, seq_a, seq_b, seq_parity))
     add(check_mesh_tp_1b(tmpdir, tp, tp_buffered, tp_buckets, tp_offload,
                          tp_device))
+    add(check_mesh_pp(tmpdir, pp_a, pp_parity))
     walls = {os.path.basename(spec["out"]): round(recs[0]["wall_s"], 1)
              for spec, recs in zip(specs, launched)}
     print(f"mesh: train's wall s, rank 0: {walls}", flush=True)
@@ -5984,6 +6005,25 @@ GPT2_SPARSE_OFFLOAD = GPT2_PATHS["gpt2_local_topk_sparse_offload"][0]
 #: the one-process full-attention round 1 at dropout 0
 #: (``phase_seq_reference``)
 SEQ_ROUND1 = {}
+# the stage axis: GPT2_FLAGS LM-only, 2 stages of 6 blocks on 2 ranks
+PP_RANKS = 2
+PP_GPT2_ROUNDS = 3
+PP_FLAGS = GPT2_FLAGS + ["--mc_coef", "0"]
+# mesh_pp_gpt2 runs --pp_microbatches 0 (= the stages: 2 microbatches of 32
+# sequences), mesh_pp_parity 4 (of 16)
+PP_PARITY_MICRO = 4
+# a stage rank's hops a round: its n_micro activations (stage 0) or
+# cotangents (stage 1) of (B / n_micro, T, C) float32, B = 64 sequences
+PP_HOP_BYTES = 64 * 256 * 768 * 4
+# mesh_pp_parity's round 1 against the one-process --mc_coef 0 round at
+# dropout 0: the loss within PP_LOSS_RTOL, the aggregate within
+# PP_AGG_TOL of its largest coordinate, the table within PP_TABLE_SLACK
+# times the ulps the aggregates' difference explains
+PP_LOSS_RTOL = 1e-5
+PP_AGG_TOL = 1e-5
+PP_TABLE_SLACK = 2
+#: the one-process LM-only round 1 at dropout 0 (``phase_pp_reference``)
+PP_ROUND1 = {}
 
 
 def phase_seq_reference(tmpdir):
@@ -6010,6 +6050,30 @@ def phase_seq_reference(tmpdir):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def phase_pp_reference(tmpdir):
+    """mesh_pp_parity's reference: round 1 of ``PP_FLAGS`` at dropout 0
+    in this process (its loss, bytes, aggregate and table into
+    ``PP_ROUND1``)."""
+    from commefficient_tpu_torch.tools.mesh_run import gpt2_overrides
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    args = build_gpt2_parser().parse_args(PP_FLAGS + [
+        "--dataset_dir", tmpdir, "--valid_batch_size", "32"])
+    np.random.seed(args.seed)
+    t0 = time.perf_counter()
+    with gpt2_overrides({"dropout": 0.0}), _RoundTables() as rec:
+        learner, row = train(args, max_rounds=1, log=False)
+    r = row["rounds"][0]
+    PP_ROUND1.update(table=rec.tables[0].cpu().numpy(),
+                     agg=rec.dense[0].cpu().numpy(), loss=r["loss"],
+                     up=r["upload_bytes"], down=r["download_bytes"])
+    del learner, row, rec
+    _sync()
+    print(f"pp reference: one process, --mc_coef 0, dropout 0, round 1 "
+          f"loss {PP_ROUND1['loss']!r} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
 def mesh_a12_specs(tmpdir):
     """The runs of A12 1b and the seq axis on ``phase_mesh``'s 2 ranks,
     on the persona caches the gpt2 paths made."""
@@ -6018,6 +6082,7 @@ def mesh_a12_specs(tmpdir):
     data = ["--dataset_dir", tmpdir, "--valid_batch_size", "32"]
     seq = dict(entry="gpt2", seq=SEQ_RANKS)
     tp = dict(entry="gpt2", model=TP_RANKS)
+    pp = dict(entry="gpt2", stage=PP_RANKS)
     return [
         _mesh_spec(tmpdir, "mesh_seq_gpt2", SEQ_FLAGS + data,
                    max_rounds=SEQ_GPT2_ROUNDS, time_collectives=True,
@@ -6040,6 +6105,12 @@ def mesh_a12_specs(tmpdir):
         _mesh_spec(tmpdir, "mesh_tp_sparse_device", GPT2_FLAGS + data + [
             f for f in GPT2_SPARSE_OFFLOAD if f != "--client_state_offload"],
             max_rounds=TP_OFFLOAD_ROUNDS, **tp),
+        _mesh_spec(tmpdir, "mesh_pp_gpt2", PP_FLAGS + data,
+                   max_rounds=PP_GPT2_ROUNDS, time_collectives=True, **pp),
+        _mesh_spec(tmpdir, "mesh_pp_parity", PP_FLAGS + data + [
+            "--pp_microbatches", str(PP_PARITY_MICRO)], max_rounds=1,
+            record_table=True, record_block=True,
+            gpt2_config={"dropout": 0.0}, **pp),
     ]
 
 
@@ -6152,6 +6223,115 @@ def check_mesh_seq(tmpdir, recs, recs_b, parity):
     for k, v in _mesh_launches("mesh_seq_parity", parity, _scaled(
             dict(RECOVERY, sketch=3), 1)).items():
         launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def check_mesh_pp(tmpdir, recs, parity):
+    """mesh_pp_gpt2 and mesh_pp_parity's checks (see the module
+    docstring, phase 11). Returns the launches summed over the ranks."""
+    import torch
+
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
+    for tag, rr in (("mesh_pp_gpt2", recs), ("mesh_pp_parity", parity)):
+        if any(r["backend"] != MESH_BACKEND or r["world"] != PP_RANKS
+               for r in rr):
+            raise AssertionError(f"{tag}: not the 2-rank gloo group")
+        _mesh_ranks_agree(tag, rr)
+    # each stage rank: its 6 blocks' flash kernels for each of the 2
+    # microbatches, the sketch and the recovery of the replicated tail
+    launches = _mesh_launches("mesh_pp_gpt2", recs, _scaled(
+        GPT2_SKETCH, PP_GPT2_ROUNDS))
+    a = recs[0]
+    up = [x["upload_bytes"] for x in a["rounds"]]
+    down = [x["download_bytes"] for x in a["rounds"]]
+    ref = GPT2_ROUND1
+    if up != [GPT2_WORKERS * GPT2_UPLOAD["gpt2"]] * PP_GPT2_ROUNDS \
+            or down[:2] != ref["down"][:2] or a["d"] != D_GPT2:
+        raise AssertionError(f"mesh_pp_gpt2: upload {up}, download {down} "
+                             f"against the gpt2 path's {ref['up']}, "
+                             f"{ref['down']}; d {a['d']}")
+    hops = [_by_kind(r, "stage_send") for r in recs]
+    waits = [_by_kind(r, "stage_recv") for r in recs]
+    for r, rec in enumerate(recs):
+        sent = [k.get("stage_send", [0.0, 0])[1]
+                for k in rec["collectives_by_kind"]]
+        if sent != [PP_HOP_BYTES] * PP_GPT2_ROUNDS:
+            raise AssertionError(f"mesh_pp_gpt2: rank {r} sent {sent} B a "
+                                 f"round, not {PP_HOP_BYTES}")
+    reduce = [_by_kind(r, "all_reduce") for r in recs]
+    # the share of a steady round a rank waits in its receives (the GPipe
+    # bubble is 1/3 of the ticks at 2 stages and 2 microbatches; the
+    # first round carries the set-up, the last round's period is its read)
+    idle = [[round(w[0] / (x["round_s"] * 1e3), 3)
+             for w, x in zip(wr[1:-1], r["rounds"][1:-1])]
+            for wr, r in zip(waits, recs)]
+    steady = [x["round_s"] * 1e3 for x in a["rounds"][1:-1]]
+    print(f"path mesh_pp_gpt2: {PP_RANKS} ranks on one card over "
+          f"{MESH_BACKEND} (clients=1, stage=2: blocks 0-5 and 6-11, 2 "
+          f"microbatches of 32 sequences, --mc_coef 0); launches a rank "
+          f"{a['launches']}; the ranks' state bitwise every round; losses "
+          f"{[round(x['loss'], 6) for x in a['rounds']]}; upload B {up}, "
+          f"download B {down}; round ms stage 0 {_round_ms(a)}, stage 1 "
+          f"{_round_ms(recs[1])} (steady {np.mean(steady):.3f}; a state "
+          f"digest a round); hops sent a round (ms, GB) stage 0 {hops[0]}, "
+          f"stage 1 {hops[1]}; receive waits a round (ms) stage 0 "
+          f"{[w[0] for w in waits[0]]}, stage 1 {[w[0] for w in waits[1]]}, "
+          f"of a steady round {idle[0]}, {idle[1]} (the schedule's bubble "
+          f"1/3 of the ticks); "
+          f"all-reduces a round (ms, GB) stage 0 {reduce[0]}; collectives "
+          f"ms a round stage 0 {_coll_ms(a)} (synchronized around each); "
+          f"peak GiB stage 0, stage 1 {_peaks(recs)}", flush=True)
+    # mesh_pp_parity
+    p = parity[0]
+    loss, want = p["rounds"][0]["loss"], PP_ROUND1["loss"]
+    if not math.isclose(loss, want, rel_tol=PP_LOSS_RTOL) \
+            or p["rounds"][0]["upload_bytes"] != PP_ROUND1["up"]:
+        raise AssertionError(f"mesh_pp_parity: round 1 loss {loss!r} "
+                             f"against the one-process round's {want!r}")
+    prefix = os.path.join(tmpdir, "mesh_pp_parity")
+    tables = [np.load(f"{prefix}_rank{r}_table.npy")
+              for r in range(PP_RANKS)]
+    if not np.array_equal(tables[0], tables[1]):
+        raise AssertionError("mesh_pp_parity: the ranks' tables differ")
+    dev = torch.device("cuda")
+    g_pp = torch.from_numpy(np.load(f"{prefix}_rank0_block.npy")).to(dev)
+    g_one = torch.from_numpy(PP_ROUND1["agg"]).to(dev)
+    whole = PP_ROUND1["table"]
+    cs = CountSketch(D_GPT2, 500_000, 5, seed=42)
+    if p["block_offset"] != 0 or g_pp.numel() != D_GPT2 or not \
+            np.array_equal(cs.sketch_vec(g_pp).cpu().numpy(), tables[0]):
+        raise AssertionError("mesh_pp_parity: the table is not the sketch "
+                             "of the recorded aggregate")
+    ulp = float(np.spacing(np.float32(np.abs(whole).max())))
+    ulps_grad = float(_abs_sketch(cs, g_pp - g_one).max()) / ulp
+    ulps = _ulps_of_largest(tables[0], whole)
+    limit = PP_TABLE_SLACK * (ulps_grad + 1.0)
+    grad_rel = float((g_pp - g_one).abs().max() / g_one.abs().max())
+    del g_pp, g_one, cs
+    torch.cuda.empty_cache()
+    if grad_rel > PP_AGG_TOL or ulps > limit:
+        raise AssertionError(
+            f"mesh_pp_parity: round 1's aggregate {grad_rel:.3e} of its "
+            f"largest coordinate from the one-process round's (limit "
+            f"{PP_AGG_TOL}), its table {ulps:.1f} ulps of its largest "
+            f"cell (limit {limit:.1f}: the aggregates' difference explains "
+            f"{ulps_grad:.1f})")
+    per_round = {k: v // PP_GPT2_ROUNDS for k, v in GPT2_SKETCH.items()}
+    micro = PP_PARITY_MICRO // PP_RANKS
+    want_launches = dict(per_round, **{k: per_round[k] * micro for k in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    for k, v in _mesh_launches("mesh_pp_parity", parity,
+                               want_launches).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"path mesh_pp_parity: round 1 of clients=1, stage=2 in "
+          f"{PP_PARITY_MICRO} microbatches at dropout 0 against one "
+          f"process's --mc_coef 0 round: loss {loss!r} vs {want!r} (rtol "
+          f"{PP_LOSS_RTOL}); the aggregate within {grad_rel:.3e} of the "
+          f"largest coordinate (limit {PP_AGG_TOL}); the table {ulps:.2f} "
+          f"ulps of its largest cell (limit {limit:.2f} = {PP_TABLE_SLACK} "
+          f"x (the difference's {ulps_grad:.2f} + 1)); launches a rank "
+          f"{p['launches']}; round ms {_round_ms(p)}, {_round_ms(parity[1])};"
+          f" peak GiB {_peaks(parity)}", flush=True)
     return launches
 
 

@@ -70,6 +70,15 @@ gradient's reduce spans both axes (each seq rank holds its block's
 share), the loss, metric and datapoint sums only the clients axis (the
 seq ranks' losses are the same), and the tail runs replicated.
 
+On a mesh with a ``stage`` axis (GPipe, ``parallel/pp.py``; the fused
+path only) the S ranks of client shard c run its workers through one
+pipeline, each rank the blocks of its stage, with the dropout seed of the
+clients axis (``mesh_seed``; the pipeline folds each stage's ticks into
+it); the gradient's reduce spans both axes (each stage rank holds the
+gradient of the parameters it reads, zeros elsewhere), the loss, metric
+and datapoint sums only the clients axis (every stage rank returns the
+last stage's loss), and the tail runs replicated.
+
 ``--client_quarantine`` forces the per-worker path: a client on the
 bench (``state.quarantine``) neither pulls nor uploads, a non-finite
 contribution is excluded from the aggregate by a select (NaN * 0 is
@@ -558,11 +567,13 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
                          f"coordinates, round has {cfg.grad_dim}")
     split = mesh_lib.model_size(mesh) > 1
     seq = mesh_lib.seq_size(mesh) > 1
-    if seq and not fused_clients:
+    stage = mesh_lib.stage_size(mesh) > 1
+    if (seq or stage) and not fused_clients:
         raise ValueError(
-            "a seq mesh axis runs on the fused federated round only (mode "
-            "uncompressed/sketch/true_topk; no local momentum/error, DP, "
-            "grad clip, topk_down, microbatching or quarantine)")
+            f"a {'seq' if seq else 'stage'} mesh axis runs on the fused "
+            "federated round only (mode uncompressed/sketch/true_topk; no "
+            "local momentum/error, DP, grad clip, topk_down, microbatching "
+            "or quarantine)")
     split_rows = split and split_leaves(cfg)[1]
     b_lo, b_hi = mesh_lib.coord_block(cfg.grad_dim, mesh) if split \
         else (0, cfg.grad_dim)
@@ -580,9 +591,9 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         return x if mesh is None else mesh_lib.all_reduce_sum(x, mesh)
 
     def reduce_grad(x):
-        """The gradient's sum: over both axes of a seq mesh (each seq rank
-        holds its block's share), else ``reduce``."""
-        return mesh_lib.world_all_reduce(x) if seq else reduce(x)
+        """The gradient's sum: over both axes of a seq or stage mesh (each
+        inner rank holds its share), else ``reduce``."""
+        return mesh_lib.world_all_reduce(x) if seq or stage else reduce(x)
 
     def reduce_sums(total_n, loss_total, metric_totals):
         """The scalar sums of every rank, in one ``all_reduce``."""

@@ -443,12 +443,15 @@ class Block(nn.Module):
         return x + drop(m), aux
 
 
-def _remat_block(block: Block, x, train: bool, seed: Optional[int]):
+def _remat_block(block: Block, x, train: bool, seed: Optional[int],
+                 params: Optional[dict] = None):
     """``block(x, train, seed)`` under non-reentrant activation
-    checkpointing, with the block's current parameters passed in as the
-    checkpointed function's inputs (the recomputation in the backward
-    runs after ``functional_call`` has put the module's own back)."""
-    names, params = zip(*block.named_parameters())
+    checkpointing, with the block's current parameters (or ``params``,
+    ``{local name: tensor}``) passed in as the checkpointed function's
+    inputs (the recomputation in the backward runs after
+    ``functional_call`` has put the module's own back)."""
+    names, params = zip(*(params.items() if params is not None
+                          else block.named_parameters()))
 
     def run(h, *ps):
         return functional_call(block, dict(zip(names, ps)), (h, train, seed))

@@ -1,8 +1,9 @@
 """Multi-process federation (port of ``commefficient_tpu/parallel``): the
 ``clients`` axis, the ``model`` axis (2-D clients x model federation,
-Megatron tensor parallelism for GPT2: ``tp.py``) and the ``seq`` axis
-(ring attention for GPT2: ``seq.py``) on ``torch.distributed``. The
-``stage`` and ``expert`` axes are ROADMAP.md A12."""
+Megatron tensor parallelism for GPT2: ``tp.py``), the ``seq`` axis (ring
+attention for GPT2: ``seq.py``) and the ``stage`` axis (the GPipe
+pipeline for GPT2: ``pp.py``, imported on its own) on
+``torch.distributed``. The ``expert`` axis is ROADMAP.md A12."""
 
 from commefficient_tpu_torch.parallel import distributed, seq, tp
 from commefficient_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,

@@ -38,6 +38,12 @@ ranks that share ``c``. Every state (weights, server state, client rows)
 is replicated over ``seq``; rank (c, s) runs the workers of client shard
 c on its columns ``[s T/S, (s+1) T/S)`` of the sequence.
 
+A ``stage`` axis (``make_mesh(n, stage=S)``, GPipe pipeline parallelism
+for GPT2, ``parallel/pp.py``) lays the ranks out alike again: rank ``c *
+S + s`` is client shard ``c`` and pipeline stage ``s``. Every state is
+replicated over ``stage``; the S ranks of a client shard run its workers
+together, stage s applying layers ``[s L/S, (s+1) L/S)``.
+
 The collectives here take bool tensors as uint8 (gloo reduces no bool).
 """
 
@@ -87,8 +93,8 @@ class _Dim:
 
 class GroupMesh:
     """A 2-D ``(clients, inner)`` mesh over the process group, the inner
-    axis ``model`` or ``seq``: the ``DeviceMesh`` calls the port reads
-    (``mesh[axis].size()``, ``get_local_rank``, ``get_group``,
+    axis ``model``, ``seq`` or ``stage``: the ``DeviceMesh`` calls the port
+    reads (``mesh[axis].size()``, ``get_local_rank``, ``get_group``,
     ``device_type``, ``mesh_dim_names``), over groups made with
     ``new_group``, so it runs on any backend. Rank ``c * M + m`` sits at
     (c, m), the inner axis fastest."""
@@ -126,16 +132,17 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
               expert: int = 1, device_type: str = "cpu"):
     """The mesh over the process group (joined first:
     ``distributed.initialize``/``launch``): a ``DeviceMesh`` with one
-    ``clients`` dimension, or with ``model`` = M > 1 (or ``seq`` = S > 1)
-    a ``GroupMesh`` of dims ``("clients", "model")`` (``("clients",
-    "seq")``) of shape (n / M, M). Inner axes of size 1 are accepted;
-    ``stage`` and ``expert`` above 1 are ROADMAP.md A12."""
+    ``clients`` dimension, or with ``model`` = M > 1 (or ``seq``, or
+    ``stage``) a ``GroupMesh`` of dims ``("clients", "model")``
+    (``("clients", "seq")``, ``("clients", "stage")``) of shape (n / M,
+    M). Inner axes of size 1 are accepted; ``expert`` above 1 is
+    ROADMAP.md A12."""
     if sum(s > 1 for s in (seq, model, stage, expert)) > 1:
         raise ValueError("choose ONE inner axis: seq (ring attention), "
                          "model (tensor parallelism), stage (GPipe "
                          "pipeline), or expert (MoE expert parallelism)")
     for name, size in zip(INNER_AXES, (seq, model, stage, expert)):
-        if size > 1 and name not in ("model", "seq"):
+        if size > 1 and name == "expert":
             raise NotImplementedError(
                 f"--mesh {name}={size} is not ported to PyTorch yet "
                 f"(ROADMAP.md A12)")
@@ -144,7 +151,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
     if n != world:
         raise ValueError(f"asked for a {n}-rank mesh, the process group "
                          f"has {world} ranks")
-    for name, size in (("model", model), ("seq", seq)):
+    for name, size in (("model", model), ("seq", seq), ("stage", stage)):
         if size > 1:
             if n % size:
                 raise ValueError(f"n_devices must be divisible by {name}")
@@ -204,6 +211,20 @@ def seq_rank(mesh) -> int:
 def seq_group(mesh):
     """The ranks that share this rank's client shard (its seq axis)."""
     return mesh.get_group("seq")
+
+
+def stage_size(mesh) -> int:
+    """The ``stage`` axis size of a mesh or a ``MeshSpec`` (1 for none)."""
+    return inner_size(mesh, "stage")
+
+
+def stage_rank(mesh) -> int:
+    return 0 if stage_size(mesh) == 1 else mesh.get_local_rank("stage")
+
+
+def stage_group(mesh):
+    """The ranks that share this rank's client shard (its pipeline)."""
+    return mesh.get_group("stage")
 
 
 def model_group(mesh):
@@ -279,7 +300,7 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def world_all_reduce(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over every rank of the group (both axes of a 2-D
-    mesh: a seq mesh's gradient)."""
+    mesh: a seq or stage mesh's gradient)."""
     out = t.clone()
     dist.all_reduce(out)
     return out

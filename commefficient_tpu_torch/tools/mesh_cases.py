@@ -47,6 +47,15 @@ ring gpt2-tiny on every rank as one seq axis, weights from
 gradient summed over the seq axis) and ``seq_cli`` (the GPT2 entry
 point's ``train`` with ring attention, initial weights from
 ``DIR/seq_init.npz``).
+
+With ``--stage S`` the launch is a ``clients x stage`` mesh (``make_mesh(
+ranks, stage=S)``): ``pp_apply`` (``gpt2_pp_lm_apply`` of gpt2-tiny on
+the mesh's stage axis and, for 4 stages, on every rank as one: logits,
+gradient, dropout; weights from ``DIR/pp_{tag}_init.npz``), ``pp_grad``
+(one worker's LM loss and gradient summed over the stage axis) and
+``pp_cli`` (the GPT2 entry point's ``train`` with ``--mc_coef 0``, and a
+run saved after round 1 and resumed, initial weights from
+``DIR/pp_cli_init.npz``).
 """
 
 from __future__ import annotations
@@ -970,27 +979,239 @@ def case_seq_cli(mesh, device, init, out_dir):
     return out
 
 
+# --------------------------------------------------------------------------
+# the stage axis: the GPipe pipeline of gpt2-tiny on a clients x stage mesh
+# --------------------------------------------------------------------------
+
+#: ``gpt2_pp_lm_apply``'s problems (the reference's ``tests/
+#: test_attention.py`` and ``tests/test_moe.py`` pipeline tests): input
+#: seed, (B, T), microbatches, stages (2: the launch's mesh; 4: the world
+#: as one stage axis), the gpt2-tiny config's changes, and the reference's
+#: init key (or "init", the problem whose weights it takes); "grad" takes
+#: the flat gradient of mean(lm ** 2) too, "dp" also runs with
+#: ``dp_axis="clients"``
+PP_APPLY = {
+    "two": dict(seed=8, B=4, T=16, n_micro=2, stages=2, cfg={}, key=0,
+                grad=True, dp=True),
+    "four": dict(seed=9, B=6, T=8, n_micro=3, stages=4, cfg={"n_layer": 4},
+                 key=1, grad=True),
+    "post_ln": dict(seed=0, B=2, T=16, n_micro=2, stages=2,
+                    cfg={"arch": "openai-gpt"}, key=1, train=False),
+    "moe": dict(seed=11, B=4, T=16, n_micro=2, stages=2,
+                cfg={"moe_experts": 4, "moe_capacity_factor": 100.0}, key=0),
+    "dropout": dict(seed=0, B=2, T=16, n_micro=2, stages=2,
+                    cfg={"dropout": 0.3}, key=1),
+    # "two" (its inputs and weights) with every block recomputed in the
+    # backward
+    "remat": dict(seed=8, B=4, T=16, n_micro=2, stages=2,
+                  cfg={"remat": True}, init="two", grad=True),
+}
+#: the dropout problem's seeds: two runs of the first, one of the second
+PP_DROPOUT_SEEDS = (5, 5, 6)
+
+
+def pp_apply_inputs(tag: str):
+    """(B, T) ids and token types of ``PP_APPLY[tag]``, from numpy."""
+    spec = PP_APPLY[tag]
+    rng = np.random.RandomState(spec["seed"])
+    ids = rng.randint(0, 300, (spec["B"], spec["T"])).astype(np.int64)
+    types = rng.randint(0, 3, (spec["B"], spec["T"])).astype(np.int64)
+    return ids, types
+
+
+def pp_config(tag: str):
+    """``PP_APPLY[tag]``'s gpt2-tiny config (port side)."""
+    from commefficient_tpu_torch.models.gpt2 import GPT2Config
+    cfg = GPT2Config.tiny()
+    cfg.n_positions = PP_APPLY[tag]["T"]
+    for k, v in PP_APPLY[tag]["cfg"].items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _model_from(cfg, init: Optional[dict]):
+    from commefficient_tpu_torch.models.gpt2 import GPT2DoubleHeads
+    model = GPT2DoubleHeads(cfg)
+    if init is None:
+        model.reset_parameters(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in init.items()})
+    return model
+
+
+def _npz_or_none(out_dir: str, name: str) -> Optional[dict]:
+    fn = os.path.join(out_dir, name)
+    return dict(np.load(fn)) if os.path.exists(fn) else None
+
+
+def _flat_grad(params: dict, loss) -> torch.Tensor:
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                materialize_grads=True)
+    return torch.cat([g.reshape(-1) for g in grads])
+
+
+def case_pp_apply(mesh, device, init, out_dir):
+    """``gpt2_pp_lm_apply`` on each ``PP_APPLY`` problem (weights from
+    ``DIR/pp_{tag}_init.npz``, or its "init" problem's): the logits of
+    every rank, with ``dp_axis`` the clients shards' blocks joined; the
+    flat gradient of mean(lm ** 2) summed over the stage group; the
+    dropout problem's logits at ``PP_DROPOUT_SEEDS`` and with
+    ``train=False``."""
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch.parallel import pp
+    four = mesh_lib.make_mesh(stage=dist.get_world_size(),
+                              device_type=torch.device(device).type)
+    out = {}
+    for tag, spec in PP_APPLY.items():
+        on = mesh if spec["stages"] == 2 else four
+        model = _model_from(pp_config(tag), _npz_or_none(
+            out_dir, f"pp_{spec.get('init', tag)}_init.npz"))
+        model.to(device)
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in model.named_parameters()}
+        ids, types = (torch.as_tensor(x).to(device)
+                      for x in pp_apply_inputs(tag))
+
+        def run(**kw):
+            kw.setdefault("train", spec.get("train", True))
+            return pp.gpt2_pp_lm_apply(on, model, params, ids, types,
+                                       spec["n_micro"], **kw)
+        if tag == "dropout":
+            for i, seed in enumerate(PP_DROPOUT_SEEDS):
+                out[f"{tag}/seed{i}"] = run(seed=seed).detach().cpu().numpy()
+            out[f"{tag}/eval"] = run(train=False).detach().cpu().numpy()
+            continue
+        lm = run()
+        out[f"{tag}/lm"] = lm.detach().cpu().numpy()
+        if spec.get("grad"):
+            g = _flat_grad(params, torch.mean(lm ** 2))
+            dist.all_reduce(g, group=mesh_lib.stage_group(on))
+            out[f"{tag}/grad"] = g.cpu().numpy()
+        if spec.get("dp"):
+            with torch.no_grad():
+                block = run(dp_axis="clients").contiguous()
+            parts = [torch.empty_like(block)
+                     for _ in range(mesh_lib.clients_size(mesh))]
+            dist.all_gather(parts, block,
+                            group=mesh_lib.clients_group(mesh))
+            out[f"{tag}/dp_lm"] = torch.cat(parts).cpu().numpy()
+    return out
+
+
+#: ``pp_grad``'s microbatches (one worker's 4 sequences)
+PP_GRAD_MICRO = 2
+
+
+def case_pp_grad(mesh, device, init):
+    """One worker's LM-only loss and flat gradient through the pipeline
+    (``make_gpt2_train_loss_pp`` on the mesh's stage axis, the gradient
+    summed over the stage group) at dropout 0 on ``seq_grad_batch``; with
+    ``mesh`` None the port's unpipelined loss at ``mc_coef`` 0."""
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch.federated import client as client_lib
+    from commefficient_tpu_torch.federated.losses import make_gpt2_train_loss
+    from commefficient_tpu_torch.parallel import pp
+    from commefficient_tpu_torch.utils.params import flatten_params
+    batch, mask = seq_grad_batch()
+    model = seq_model(init, "full")
+    flat, unflatten = flatten_params(model)
+    loss = (make_gpt2_train_loss(model, mc_coef=0.0) if mesh is None
+            else pp.make_gpt2_train_loss_pp(mesh, model, PP_GRAD_MICRO))
+    g, total, _ = client_lib._masked_loss_and_grad(
+        loss, unflatten, flat.to(device),
+        tuple(torch.as_tensor(c).to(device) for c in batch),
+        torch.as_tensor(mask).to(device), 0)
+    if mesh is not None:
+        dist.all_reduce(g, group=mesh_lib.stage_group(mesh))
+    return {"grad": g.detach().cpu().numpy(),
+            "loss": np.asarray(float(total))}
+
+
+#: the reference's ``tests/test_cli_mesh.py:286-315`` stage problem, per
+#: mode (``seq_cli_argv``'s problem with ``--mc_coef 0``)
+PP_CLI_ROUNDS = 2
+
+
+def pp_cli_argv(mode: str, dataset_dir: str) -> list:
+    return seq_cli_argv(mode, dataset_dir) + ["--mc_coef", "0"]
+
+
+def case_pp_cli(mesh, device, init, out_dir):
+    """The GPT2 entry point's ``train`` on the mesh with ``--mc_coef 0``
+    (``SEQ_CLI_MODES``, ``PP_CLI_ROUNDS`` rounds; the initial weights from
+    ``DIR/pp_cli_init.npz`` when present): the rounds, a state digest
+    after each, the final weights and the validation nll; then, per mode,
+    the same with a step file saved after round 1 (a save at a run's last
+    round waits for an epoch that never comes), and a run resumed from
+    that file for round 2."""
+    from commefficient_tpu_torch.models.gpt2 import GPT2DoubleHeads
+    from commefficient_tpu_torch.tools.mesh_run import _Record
+    from commefficient_tpu_torch.training import gpt2
+    init = _npz_or_none(out_dir, "pp_cli_init.npz")
+    saved = GPT2DoubleHeads.reset_parameters
+    if init is not None:
+        def from_file(self, generator=None):
+            self.load_state_dict({k: torch.as_tensor(v)
+                                  for k, v in init.items()})
+            return self
+        GPT2DoubleHeads.reset_parameters = from_file
+    axes = (f"clients={mesh_lib.clients_size(mesh)},stage="
+            f"{mesh_lib.stage_size(mesh)}")
+    out = {}
+    try:
+        for mode in SEQ_CLI_MODES:
+            argv = pp_cli_argv(mode, os.path.join(out_dir, "persona_pp")) + [
+                "--device", device, "--mesh", axes]
+            ckpt = ["--checkpoint_path", os.path.join(out_dir, f"pp_{mode}")]
+            for tag, extra, rounds in (
+                    ("", [], PP_CLI_ROUNDS),
+                    ("saved/", ckpt + ["--checkpoint_every_rounds", "1"],
+                     PP_CLI_ROUNDS),
+                    ("resumed/", ckpt + ["--resume", "auto"],
+                     PP_CLI_ROUNDS)):
+                args = gpt2.build_gpt2_parser().parse_args(argv + extra)
+                np.random.seed(args.seed)
+                with _Record(False, True) as rec:
+                    learner, row = gpt2.train(args, mesh=mesh,
+                                              max_rounds=rounds, log=False)
+                key = f"{mode}/{tag}"
+                out[key + "metrics"] = np.asarray(
+                    [[float(r[k]) for k in ROUND_KEYS]
+                     for r in row["rounds"]])
+                out[key + "digests"] = np.asarray(rec.digests)
+                out[key + "weights"] = learner.full_weights().cpu().numpy()
+                out[key + "nll"] = np.asarray(row["nll"])
+    finally:
+        GPT2DoubleHeads.reset_parameters = saved
+    return out
+
+
 CASES = {"modes": case_modes, "rows": case_rows, "offload": case_offload,
          "buffered": case_buffered, "ckpt": case_ckpt, "cli": case_cli,
          "tp_grad": case_tp_grad, "tp_modes": case_tp_modes,
          "tp_ckpt": case_tp_ckpt, "tp_serve": case_tp_serve,
          "tp_cli": case_tp_cli, "tp_1b": case_tp_1b,
          "seq_ring": case_seq_ring, "seq_apply": case_seq_apply,
-         "seq_grad": case_seq_grad, "seq_cli": case_seq_cli}
+         "seq_grad": case_seq_grad, "seq_cli": case_seq_cli,
+         "pp_apply": case_pp_apply, "pp_grad": case_pp_grad,
+         "pp_cli": case_pp_cli}
 #: the cases that read or write files beside their arrays
 _WITH_DIR = ("ckpt", "cli", "tp_ckpt", "tp_serve", "tp_cli", "tp_1b",
-             "seq_apply", "seq_cli")
+             "seq_apply", "seq_cli", "pp_apply", "pp_cli")
 #: the cases whose initial weights are ``DIR/tp_init.npz``
 _TP_INIT = ("tp_grad", "tp_modes", "tp_ckpt", "tp_1b")
 
 
 def run_cases(out_dir: str, names, device: str = "cpu",
-              model: int = 1, seq: int = 1) -> None:
+              model: int = 1, seq: int = 1, stage: int = 1) -> None:
     """The launcher's target: every named case on this rank (of a
     ``clients x model`` mesh with ``model`` > 1, ``clients x seq`` with
-    ``seq`` > 1)."""
+    ``seq`` > 1, ``clients x stage`` with ``stage`` > 1)."""
     import torch.distributed as dist
-    mesh = mesh_lib.make_mesh(model=model, seq=seq,
+    mesh = mesh_lib.make_mesh(model=model, seq=seq, stage=stage,
                               device_type=torch.device(device).type)
     r = dist.get_rank()
     inits = {}
@@ -1016,10 +1237,10 @@ def run_one_process(name: str, out_dir: str, device: str = "cpu",
 
 def launch(out_dir: str, names, ranks: int = 2, device: str = "cpu",
            backend: Optional[str] = None, model: int = 1,
-           seq: int = 1) -> None:
+           seq: int = 1, stage: int = 1) -> None:
     os.makedirs(out_dir, exist_ok=True)
     distributed.launch(run_cases, ranks,
-                       (out_dir, list(names), device, model, seq),
+                       (out_dir, list(names), device, model, seq, stage),
                        backend=backend, device_type=torch.device(device).type)
 
 
@@ -1029,13 +1250,14 @@ def main(argv=None):
     p.add_argument("--ranks", type=int, default=2)
     p.add_argument("--model", type=int, default=1)
     p.add_argument("--seq", type=int, default=1)
+    p.add_argument("--stage", type=int, default=1)
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default=None)
     p.add_argument("--cases", default=",".join(
         c for c in CASES if c != "rows"))
     a = p.parse_args(argv)
     launch(a.out, a.cases.split(","), a.ranks, a.device, a.backend,
-           a.model, a.seq)
+           a.model, a.seq, a.stage)
     return 0
 
 

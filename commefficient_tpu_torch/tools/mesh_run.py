@@ -26,9 +26,12 @@ on the host, the device synchronized around each, with their payload
 (``collectives_by_kind``). A spec's ``model`` = M makes the launch a
 ``clients x model`` mesh of ranks / M client shards (the state's shas and
 ``d`` are then of the whole joined vectors), its ``seq`` = S a ``clients
-x seq`` mesh; ``gpt2_config`` sets attributes of the GPT2 entry point's
-model config (``{"dropout": 0.0}``); the record carries the learner's
-``--grad_buckets`` plan (``buckets``: offsets and sizes).
+x seq`` mesh, its ``stage`` = S a ``clients x stage`` mesh (the
+pipeline's hops timed as ``stage_send`` and ``stage_recv``: a receive's
+time is its wait for the sending stage); ``gpt2_config`` sets attributes
+of the GPT2 entry point's model config (``{"dropout": 0.0}``); the record
+carries the learner's ``--grad_buckets`` plan (``buckets``: offsets and
+sizes).
 
 ``launch(specs, ranks, backend)`` does the same from Python for one spec
 or a list of them, which the same ranks run in turn (each on its own
@@ -72,13 +75,21 @@ class _CollectiveClock:
     functions patched while it is entered)."""
 
     NAMES = ("all_reduce", "all_gather", "broadcast", "batch_isend_irecv")
+    #: the pipeline's hops (``parallel/pp.py``), each waited inside: a
+    #: receive's time is its wait for the sending stage
+    HOPS = ("send", "recv")
 
     def __enter__(self):
         self.seconds, self.bytes, self.calls = 0.0, 0, 0
+        from commefficient_tpu_torch.parallel.pp import StageContext
         self.kinds = {n: [0.0, 0, 0] for n in self.NAMES}
+        self.kinds.update({f"stage_{n}": [0.0, 0, 0] for n in self.HOPS})
         self._saved = {n: getattr(dist, n) for n in self.NAMES}
+        self._hops = {n: getattr(StageContext, n) for n in self.HOPS}
         for name, f in self._saved.items():
             setattr(dist, name, self._timed(name, f))
+        for name, f in self._hops.items():
+            setattr(StageContext, name, self._timed(name, f))
         return self
 
     def _timed(self, name, f):
@@ -86,10 +97,15 @@ class _CollectiveClock:
             if name == "batch_isend_irecv":
                 sent = [op.tensor for op in args[0] if op.op is dist.isend]
                 ts = sent or [args[0][0].tensor]
+            elif name in self.HOPS:
+                # (stage, tensor or shape, ...)
+                ts = [args[1]] if name == "send" else []
+                sent = ts
             else:
                 ts = [args[1] if name == "all_gather" else args[0]]
                 sent = ts
-            cuda = any(t.is_cuda for t in ts)
+            cuda = (any(t.is_cuda for t in ts) if ts
+                    else torch.cuda.is_available())
             if cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -108,7 +124,8 @@ class _CollectiveClock:
             self.seconds += dt
             self.bytes += nbytes
             self.calls += 1
-            kind = self.kinds[name]
+            kind = self.kinds[f"stage_{name}" if name in self.HOPS
+                              else name]
             kind[0] += dt
             kind[1] += nbytes
             kind[2] += 1
@@ -120,8 +137,11 @@ class _CollectiveClock:
                 {k: list(v) for k, v in self.kinds.items()})
 
     def __exit__(self, *exc):
+        from commefficient_tpu_torch.parallel.pp import StageContext
         for name, f in self._saved.items():
             setattr(dist, name, f)
+        for name, f in self._hops.items():
+            setattr(StageContext, name, f)
 
 
 class _Record:
@@ -246,16 +266,20 @@ def run_rank(spec: dict) -> None:
     n = distributed.world_size()
     M = int(spec.get("model", 1))
     S = int(spec.get("seq", 1))
-    inner = {k: v for k, v in (("model", M), ("seq", S)) if v > 1}
-    axes = f"clients={n // (M * S)}" + "".join(
+    P = int(spec.get("stage", 1))
+    inner = {k: v for k, v in (("model", M), ("seq", S), ("stage", P))
+             if v > 1}
+    axes = f"clients={n // (M * S * P)}" + "".join(
         f",{k}={v}" for k, v in inner.items())
     args = parser.parse_args(list(spec["argv"]) + ["--mesh", axes])
     for k, v in spec.get("attrs", {}).items():
         setattr(args, k, v)
-    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(n // (M * S), inner))
+    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(n // (M * S * P),
+                                                      inner))
     np.random.seed(args.seed)
     device_type = torch.device(args.device).type
-    mesh = mesh_lib.make_mesh(n, model=M, seq=S, device_type=device_type)
+    mesh = mesh_lib.make_mesh(n, model=M, seq=S, stage=P,
+                              device_type=device_type)
     r = dist.get_rank()
     cuda = device_type == "cuda"
     if cuda:

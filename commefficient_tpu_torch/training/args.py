@@ -271,6 +271,11 @@ def add_gpt2_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "ring attention)")
     p.add_argument("--fused_lm_head", action="store_true",
                    help="legacy alias for --fused_ce on")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="GPipe microbatches per pipeline shard for "
+                        "--mesh ...,stage=S (parallel/pp.py); 0 = the "
+                        "stage count (a full pipeline with the classic "
+                        "1-(S-1)/(n+S-1) bubble)")
     p.add_argument("--synthetic_personas", type=int, default=8,
                    help="SyntheticPersona: generated personas (= natural "
                         "clients)")
@@ -312,16 +317,15 @@ def resolve_fused_ce(args, mesh=None) -> bool:
 
 def refuse_unported(args, extra=()):
     """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: a ``--mesh`` ``stage`` or
-    ``expert`` axis above 1 (A12), then the entry point's own ``extra``
-    ``(flag, is_set, item)`` triples. The ``model`` and ``seq`` axes run
-    (GPT2; the CV entry point raises the reference's ValueErrors
-    first)."""
+    flag set that the port does not run: a ``--mesh`` ``expert`` axis
+    above 1 (A12), then the entry point's own ``extra`` ``(flag, is_set,
+    item)`` triples. The ``model``, ``seq`` and ``stage`` axes run (GPT2;
+    the CV entry point raises the reference's ValueErrors first)."""
     inner = mesh_inner_axes(getattr(args, "mesh", ""))
     for flag, on, item in (
             *((f"--mesh {name}={size}", size > 1, "A12")
               for name, size in inner.items()
-              if name not in ("model", "seq")),
+              if name == "expert"),
             *extra):
         if on:
             raise NotImplementedError(f"{flag} is not ported to PyTorch "
@@ -365,9 +369,8 @@ def parse_mesh(spec: str):
     the inner axes mutually exclusive. ``clients=all`` (or ``auto``)
     means ``WORLD_SIZE`` under ``torchrun``, else every CUDA device (one
     rank without one). The ranks build the mesh itself
-    (``parallel.mesh.make_mesh``) once they have joined; a ``stage`` or
-    ``expert`` axis above 1 is refused there and by ``refuse_unported``
-    (A12)."""
+    (``parallel.mesh.make_mesh``) once they have joined; an ``expert``
+    axis above 1 is refused there and by ``refuse_unported`` (A12)."""
     if not spec:
         return None
     from commefficient_tpu_torch.parallel.mesh import MeshSpec
@@ -483,7 +486,9 @@ def args_to_config(args, **overrides) -> FedConfig:
 
 def mesh_ranks(mesh) -> int:
     """The ranks a parsed ``--mesh`` launches: clients x the inner axis
-    (model or seq)."""
+    (model, seq or stage)."""
     from commefficient_tpu_torch.parallel.mesh import (clients_size,
-                                                       model_size, seq_size)
-    return clients_size(mesh) * model_size(mesh) * seq_size(mesh)
+                                                       model_size, seq_size,
+                                                       stage_size)
+    return (clients_size(mesh) * model_size(mesh) * seq_size(mesh)
+            * stage_size(mesh))

@@ -77,8 +77,19 @@ the fused round only (the reference's ValueErrors otherwise);
         --mesh clients=2,seq=2 --attn_impl ring --model gpt2-tiny \
         --mode uncompressed --error_type none --max_seq_len 32 ...
 
-The ``stage`` and ``expert`` axes and MoE blocks on a model axis are
-ROADMAP.md A12 (the reference's MoE ValueErrors come first).
+``--mesh clients=C,stage=S --mc_coef 0`` runs C*S ranks: each client
+shard's workers through a GPipe pipeline of S stages of contiguous
+blocks in ``--pp_microbatches`` microbatches (0: S), the LM loss on the
+last stage (``parallel/pp.py``); the fused round, ``--mc_coef 0``,
+``--fused_ce`` auto/off and ``--dropout_impl xla`` are demanded with the
+reference's ValueErrors, and validation runs the plain forward:
+
+    python -m commefficient_tpu_torch.training.gpt2 --device cpu \
+        --mesh clients=2,stage=2 --mc_coef 0 --model gpt2-tiny \
+        --mode uncompressed --error_type none --max_seq_len 32 ...
+
+The ``expert`` axis and MoE blocks on a model axis are ROADMAP.md A12
+(the reference's MoE ValueErrors come first).
 """
 
 from __future__ import annotations
@@ -109,7 +120,8 @@ from commefficient_tpu_torch.online.swap import learner_params
 from commefficient_tpu_torch.parallel.mesh import (main_first, make_mesh,
                                                    model_size,
                                                    padded_num_clients,
-                                                   seq_size)
+                                                   seq_size, stage_size)
+from commefficient_tpu_torch.parallel.pp import make_gpt2_train_loss_pp
 from commefficient_tpu_torch.parallel.seq import (make_gpt2_train_loss_seq,
                                                   make_gpt2_val_loss_seq)
 from commefficient_tpu_torch.training.args import (add_gpt2_flags,
@@ -168,6 +180,20 @@ def _refuse_unported(args):
     args_to_config(args).validate()
 
 
+def _require_fused_round(args, which: str) -> None:
+    """The reference's check that an inner mesh axis (``which``, as
+    ``seq=S``) runs on the fused federated round, with its message."""
+    cfg = args_to_config(args)
+    if not fused_clients_eligible(cfg):
+        raise ValueError(
+            f"--mesh {which} requires the fused federated round "
+            "(mode uncompressed/sketch/true_topk; no local momentum/"
+            "error, DP, grad clip, topk_down, or microbatching) — "
+            f"this config has mode={cfg.mode}, error_type="
+            f"{cfg.error_type}, local_momentum={cfg.local_momentum}, "
+            f"microbatch_size={cfg.microbatch_size}")
+
+
 def seq_gate(args, mesh, log: bool = False) -> str:
     """The reference's checks of the seq axis (``training/gpt2.py:104-119``
     and ``:162-181``) on ``mesh`` (a joined mesh or a ``MeshSpec``; None
@@ -187,18 +213,47 @@ def seq_gate(args, mesh, log: bool = False) -> str:
         if args.max_seq_len % seq_n:
             raise ValueError(f"--max_seq_len {args.max_seq_len} must be "
                              f"divisible by the seq axis ({seq_n})")
-        cfg = args_to_config(args)
-        if not fused_clients_eligible(cfg):
-            raise ValueError(
-                f"--mesh seq={seq_n} requires the fused federated round "
-                "(mode uncompressed/sketch/true_topk; no local momentum/"
-                "error, DP, grad clip, topk_down, or microbatching) — "
-                f"this config has mode={cfg.mode}, error_type="
-                f"{cfg.error_type}, local_momentum={cfg.local_momentum}, "
-                f"microbatch_size={cfg.microbatch_size}")
+        _require_fused_round(args, f"seq={seq_n}")
     elif attn == "ring":
         raise ValueError("--attn_impl ring requires --mesh ...,seq=N>1")
     return attn
+
+
+def stage_gate(args, mesh, log: bool = False) -> int:
+    """The reference's checks of the stage axis (``training/gpt2.py:
+    162-210``) on ``mesh`` (a joined mesh or a ``MeshSpec``; None for one
+    process), in its order, with its messages; returns the pipeline's
+    microbatches (``--pp_microbatches``, 0 meaning the stage count), 0
+    without a stage axis."""
+    stage_n = stage_size(mesh)
+    if stage_n == 1:
+        return 0
+    _require_fused_round(args, f"stage={stage_n}")
+    if args.mc_coef != 0:
+        raise ValueError(
+            "--mesh stage=S runs the client loss through the GPipe "
+            "pipeline, which is LM-only (no MC head, parallel/pp.py); "
+            "pass --mc_coef 0 to acknowledge, or use --mesh seq=/"
+            "model= for double-heads parallelism")
+    if resolve_fused_ce(args, mesh):
+        raise ValueError(
+            "--fused_ce on is not plumbed through the GPipe loss "
+            "(make_gpt2_train_loss_pp materializes logits via its own "
+            "head einsum); use --fused_ce auto/off for --mesh stage=S")
+    impl = getattr(args, "dropout_impl", "xla")
+    if impl != "xla":
+        raise ValueError(
+            "--dropout_impl {} is not plumbed through the pipeline's "
+            "blocks (parallel/pp.py uses the portable xla path); drop "
+            "the flag for --mesh stage=S".format(impl))
+    if args.pp_microbatches < 0:
+        raise ValueError("--pp_microbatches must be >= 0 "
+                         f"(got {args.pp_microbatches})")
+    n_micro = args.pp_microbatches or stage_n
+    if log:
+        print(f"--mesh stage={stage_n}: GPipe pipeline inside the "
+              f"federated round ({n_micro} microbatches, LM-only)")
+    return n_micro
 
 
 def save_pretrained(log_dir: str, learner, gpt2_config,
@@ -265,6 +320,7 @@ def train(args, mesh=None, max_rounds=None, log=True):
     _refuse_unported(args)
     log = log and distributed.is_main()
     attn = seq_gate(args, mesh, log)
+    n_micro = stage_gate(args, mesh, log)
     device = resolve_device(args.device)
     # the tokenizer only reads (a local cache or none), so every rank
     # loads it at once; the persona cache is written on first use
@@ -300,6 +356,10 @@ def train(args, mesh=None, max_rounds=None, log=True):
     if attn == "ring":
         loss_tr = make_gpt2_train_loss_seq(model, args.lm_coef, args.mc_coef)
         loss_val = make_gpt2_val_loss_seq(model)
+    elif n_micro:
+        # validation runs the plain forward, as the reference's does
+        loss_tr = make_gpt2_train_loss_pp(mesh, model, n_micro, args.lm_coef)
+        loss_val = make_gpt2_val_loss(model)
     else:
         loss_tr = make_gpt2_train_loss(model, args.lm_coef, args.mc_coef,
                                        args.moe_aux_weight)
@@ -508,11 +568,12 @@ def _print_final(final: dict) -> None:
 
 
 def mesh_rank_main(args, n_ranks: int, model: int = 1) -> None:
-    """One rank of a ``--mesh`` run (the launcher's target); a seq axis
-    is read from ``args.mesh``."""
+    """One rank of a ``--mesh`` run (the launcher's target); a seq or
+    stage axis is read from ``args.mesh``."""
     np.random.seed(args.seed)
-    mesh = make_mesh(n_ranks, model=model,
-                     seq=mesh_inner_axes(args.mesh).get("seq", 1),
+    inner = mesh_inner_axes(args.mesh)
+    mesh = make_mesh(n_ranks, model=model, seq=inner.get("seq", 1),
+                     stage=inner.get("stage", 1),
                      device_type=torch.device(args.device).type)
     main_rank = distributed.is_main()
     with profile_ctx(args.profile if main_rank else None):
@@ -547,6 +608,7 @@ def main(argv=None):
     if mesh is not None:
         _refuse_unported(args)
         seq_gate(args, mesh)
+        stage_gate(args, mesh)
         n = mesh_ranks(mesh)
         distributed.run(mesh_rank_main, n, (args, n, model_size(mesh)),
                         device_type=torch.device(args.device).type)

@@ -131,13 +131,15 @@ def test_cli_refuses_cuda_without_a_device(tmp_path, monkeypatch):
                  "A12", id="extra0-A12"),
     pytest.param(["--mesh", "clients=2,seq=2", "--attn_impl", "blockwise"],
                  "cannot shard the sequence", id="extra1-A12"),
-    pytest.param(["--mesh", "clients=1,stage=2"], "A12", id="extra2-A12"),
+    pytest.param(["--mesh", "clients=1,stage=2"], "mc_coef 0",
+                 id="extra2-A12"),
     pytest.param(["--attn_impl", "ring"], "requires --mesh",
                  id="extra3-A12")])
 def test_cli_refuses_unported_flags(tmp_path, extra, item):
-    """The expert and stage axes are A12; the seq axis and ring attention
-    run since A12's seq axis, and keep the reference's ValueErrors
-    (blockwise on a seq axis, ring without one)."""
+    """The expert axis is A12; the seq and stage axes and ring attention
+    run since A12's seq and stage axes, and keep the reference's
+    ValueErrors (blockwise on a seq axis, ring without one, a stage axis
+    without ``--mc_coef 0``)."""
     args = _args(tmp_path, "--device", "cpu", *extra)
     if item == "A12":
         with pytest.raises(NotImplementedError, match=item):

@@ -193,15 +193,17 @@ def test_gpt2_serve_online_with_mesh_raises_reference_valueerror(tmp_path):
 
 
 def test_gpt2_inner_axis_is_a12(tmp_path):
-    """The stage axis is A12; the seq axis runs since A12's seq axis
-    (``tests/test_torch_seq.py``) and keeps the reference's ValueError
-    for blockwise attention on it."""
+    """The seq and stage axes run since A12's seq and stage axes
+    (``tests/test_torch_seq.py``, ``tests/test_torch_pp.py``) and keep
+    the reference's ValueErrors: blockwise attention on a seq axis, and a
+    stage axis off the fused round."""
     from commefficient_tpu_torch.training.gpt2 import train
     args = build_gpt2_parser().parse_args([
-        "--device", "cpu", "--mesh", "clients=2,stage=2",
-        "--dataset_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A12"):
-        train(args, max_rounds=1, log=False)
+        "--device", "cpu", "--mesh", "clients=2,stage=2", "--mode",
+        "local_topk", "--error_type", "local", "--k", "10", "--mc_coef",
+        "0", "--dataset_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="stage=2 requires the fused"):
+        train(args, mesh=parse_mesh(args.mesh), max_rounds=1, log=False)
     args = build_gpt2_parser().parse_args([
         "--device", "cpu", "--mesh", "clients=2,seq=2", "--attn_impl",
         "blockwise", "--dataset_dir", str(tmp_path)])

@@ -290,12 +290,26 @@ def test_gpt2_main_launches_clients_times_seq_ranks(tmp_path, monkeypatch):
     assert seen == [(gpt2.mesh_rank_main, 4, (4, 1), "clients=2,seq=2")]
 
 
-def test_make_mesh_keeps_the_other_inner_axes_refused():
+def test_make_mesh_keeps_the_other_inner_axes_refused(monkeypatch):
+    """``expert`` stays refused; ``stage`` builds a ``("clients",
+    "stage")`` mesh (here over a stand-in 4-rank group: rank 1 sits at
+    (0, 1), its stage group ranks 0-1, its clients group ranks 1 and
+    3)."""
     with pytest.raises(ValueError, match="choose ONE inner axis"):
         mesh_lib.make_mesh(4, seq=2, model=2)
-    for axis in ("stage", "expert"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            mesh_lib.make_mesh(4, **{axis: 2})
+    with pytest.raises(NotImplementedError, match="A12"):
+        mesh_lib.make_mesh(4, expert=2)
+    dist = mesh_lib.dist
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(dist, "new_group", lambda ranks: tuple(ranks))
+    mesh = mesh_lib.make_mesh(4, stage=2)
+    assert mesh.mesh_dim_names == ("clients", "stage")
+    assert mesh.shape == {"clients": 2, "stage": 2}
+    assert (mesh_lib.stage_rank(mesh), mesh_lib.clients_rank(mesh)) == (1, 0)
+    assert mesh_lib.stage_group(mesh) == (0, 1)
+    assert mesh_lib.clients_group(mesh) == (1, 3)
 
 
 def test_ring_model_value_errors():
