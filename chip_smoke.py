@@ -364,6 +364,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    process's ``--mc_coef 0`` round: loss within 1e-5, the aggregate
    within ``PP_AGG_TOL`` of its largest coordinate, the table within
    ``PP_TABLE_SLACK`` times what the aggregates' difference explains.
+12. A12's expert axis and MoE blocks on the model axis, in phase 10's
+   launch, at ``EP_FLAGS`` (``GPT2_FLAGS`` with 4 experts at
+   ``--local_batch_size 4``: d = 294,095,665): mesh_ep_gpt2, ``--mesh
+   clients=1,expert=2`` for 3 rounds (each rank the whole model but
+   experts 0-1 or 2-3 of every block): the ranks' whole state bitwise
+   every round, the flash (12 a round each at BH 384), sketch and
+   recovery launches a rank, exact upload bytes, the peak a rank and
+   both ranks', the round ms and the expert group's collectives a round
+   (the combine all-reduces, the f all-reduces, the gradient join)
+   printed; mesh_ep_parity, round 1 of the same at dropout 0 (on the
+   model config) against one process's round (``phase_ep_reference``):
+   loss within ``EP_LOSS_RTOL``, the aggregate within ``EP_AGG_TOL`` of
+   its largest coordinate, the table within ``EP_TABLE_SLACK`` times what
+   the aggregates' difference explains, and whether aggregate and table
+   are bitwise the one-process ones printed; mesh_tp_moe, ``--mesh
+   clients=1,model=2`` for 2 rounds at dropout 0 (each MoE block whole
+   on both model ranks): the ranks' state bitwise every round, flash at
+   BH 192, round 1's loss within ``EP_LOSS_RTOL`` of the one-process
+   round's and its table bitwise the ranks' block sketches summed and
+   within ``check_mesh_tp_gpt2``'s limit of the one-process table; peak,
+   round ms and collective GB a rank printed.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -5443,10 +5464,11 @@ def phase_mesh(tmpdir, ref):
     * the uninterrupted run of mesh_kill_resume (``phase_mesh_kill``);
     * mesh_tp_gpt2 (``check_mesh_tp_gpt2``: the ranks join a model axis
       for it);
-    * A12 1b and the seq and stage axes (``mesh_a12_specs``:
-      ``check_mesh_seq``, ``check_mesh_tp_1b``, ``check_mesh_pp``; the
-      ranks join a seq, model or stage axis for each), after
-      ``phase_seq_reference``'s and ``phase_pp_reference``'s one-process
+    * A12 1b and the seq, stage and expert axes (``mesh_a12_specs``:
+      ``check_mesh_seq``, ``check_mesh_tp_1b``, ``check_mesh_pp``,
+      ``check_mesh_ep``; the ranks join a seq, model, stage or expert
+      axis for each), after ``phase_seq_reference``'s,
+      ``phase_pp_reference``'s and ``phase_ep_reference``'s one-process
       rounds.
 
     Returns (launches summed over the ranks, the kill arm's export)."""
@@ -5479,11 +5501,13 @@ def phase_mesh(tmpdir, ref):
     ]
     phase_seq_reference(tmpdir)
     phase_pp_reference(tmpdir)
+    phase_ep_reference(tmpdir)
     t0 = time.perf_counter()
     launched = mesh_run.launch(specs, MESH_RANKS, MESH_BACKEND)
     (sk_a, sk_b, off, dev_rows, lock, faults, kill_base,
      gpt2, tp, seq_a, seq_b, seq_parity, tp_buffered, tp_buckets,
-     tp_offload, tp_device, pp_a, pp_parity) = launched
+     tp_offload, tp_device, pp_a, pp_parity, ep_a, ep_parity,
+     tp_moe) = launched
     wall = time.perf_counter() - t0
     if any(r["backend"] != MESH_BACKEND or r["world"] != MESH_RANKS
            for recs in (sk_a, gpt2) for r in recs):
@@ -5590,6 +5614,8 @@ def phase_mesh(tmpdir, ref):
     add(check_mesh_tp_1b(tmpdir, tp, tp_buffered, tp_buckets, tp_offload,
                          tp_device))
     add(check_mesh_pp(tmpdir, pp_a, pp_parity))
+    add(check_mesh_ep(tmpdir, ep_a, ep_parity, tp_moe))
+    EP_ROUND1.clear()
     walls = {os.path.basename(spec["out"]): round(recs[0]["wall_s"], 1)
              for spec, recs in zip(specs, launched)}
     print(f"mesh: train's wall s, rank 0: {walls}", flush=True)
@@ -5886,9 +5912,6 @@ def check_mesh_tp_gpt2(tmpdir, recs):
     """mesh_tp_gpt2's checks (see the module docstring, phase 10) on the
     ranks' records, against ``GPT2_ROUND1`` from ``phase_repeat_gpt2``.
     Returns the launches summed over the ranks."""
-    import torch
-
-    from commefficient_tpu_torch.ops.countsketch import CountSketch
     ref = GPT2_ROUND1
     if any(r["backend"] != MESH_BACKEND or r["world"] != TP_RANKS
            for r in recs):
@@ -5914,48 +5937,8 @@ def check_mesh_tp_gpt2(tmpdir, recs):
         raise AssertionError(f"mesh_tp_gpt2: losses {losses} against the "
                              f"gpt2 path's {ref['losses']}")
     # round 1's table
-    prefix = os.path.join(tmpdir, "mesh_tp_gpt2")
-    tables = [np.load(f"{prefix}_rank{r}_table.npy") for r in range(2)]
-    if not np.array_equal(tables[0], tables[1]):
-        raise AssertionError("mesh_tp_gpt2: the ranks' round-1 tables "
-                             "differ")
-    dev = torch.device("cuda")
-    blocks = [torch.from_numpy(np.load(f"{prefix}_rank{r}_block.npy"))
-              .to(dev) for r in range(2)]
-    offsets = [r["block_offset"] for r in recs]
-    g_tp = torch.cat(blocks)
-    if offsets[0] != 0 or offsets[1] != blocks[0].numel() \
-            or g_tp.numel() != d_pad:
-        raise AssertionError(f"mesh_tp_gpt2: blocks at {offsets} of "
-                             f"{[b.numel() for b in blocks]}")
-    cs = CountSketch(d_pad, 500_000, 5, seed=42)
-    split = (cs.sketch_range(blocks[0], 0)
-             + cs.sketch_range(blocks[1], offsets[1])).cpu().numpy()
-    if not np.array_equal(split, tables[0]):
-        raise AssertionError("mesh_tp_gpt2: round 1's table is not the sum "
-                             "of the ranks' block sketches")
-    g_1 = torch.from_numpy(ref["agg"]).to(dev)
-    whole = ref["table"]
-    ulps = _ulps_of_largest(tables[0], whole)
-    ulp = float(np.spacing(np.float32(np.abs(whole).max())))
-    grad_dev = torch.cat([g_tp[:D_GPT2] - g_1, g_tp[D_GPT2:]])
-    ulps_grad = float(_abs_sketch(cs, grad_dev).max()) / ulp
-    g_1pad = torch.cat([g_1, g_1.new_zeros(1)])
-    ulps_split = _ulps_of_largest(
-        (cs.sketch_range(g_1pad[:offsets[1]], 0)
-         + cs.sketch_range(g_1pad[offsets[1]:], offsets[1])).cpu().numpy(),
-        whole)
-    limit = TP_TABLE_SLACK * (ulps_grad + ulps_split)
-    grad_rel = float(grad_dev.abs().max() / g_1.abs().max())
-    del blocks, g_tp, g_1, g_1pad, grad_dev, cs
-    torch.cuda.empty_cache()
-    if ulps > limit:
-        raise AssertionError(
-            f"mesh_tp_gpt2: round 1's table {ulps:.1f} ulps of its largest "
-            f"cell from the gpt2 path's (limit {limit:.1f}: the TP "
-            f"gradient's deviation explains {ulps_grad:.1f}, its max "
-            f"{grad_rel:.3e} of the largest gradient; the block split "
-            f"{ulps_split:.1f})")
+    ulps, limit, ulps_grad, ulps_split, grad_rel = _split_tables(
+        "mesh_tp_gpt2", tmpdir, recs, D_GPT2, ref["agg"], ref["table"])
     steady = [x["round_s"] * 1e3 for x in rounds[1:-1]]
     coll = recs[0]["collectives"]
     print(f"path mesh_tp_gpt2: {TP_RANKS} ranks on one card over "
@@ -6024,6 +6007,25 @@ PP_AGG_TOL = 1e-5
 PP_TABLE_SLACK = 2
 #: the one-process LM-only round 1 at dropout 0 (``phase_pp_reference``)
 PP_ROUND1 = {}
+# the expert axis and MoE blocks on the model axis: GPT2-small with 4
+# experts (d = 294,095,665) at --local_batch_size 4 (N = 8,192 tokens a
+# round, capacity 2,560; the (N, E, cap) one-hot tensors grow as N^2,
+# ROADMAP.md X1), on 2 ranks sharing the card over gloo
+EP_RANKS = 2
+EP_GPT2_ROUNDS = 3
+TP_MOE_ROUNDS = 2
+EP_FLAGS = GPT2_FLAGS + MOE_FLAGS + ["--local_batch_size", "4"]
+# mesh_ep_parity's round 1 (and mesh_tp_moe's, both at dropout 0) against
+# the one-process round: the loss within EP_LOSS_RTOL, mesh_ep_parity's
+# aggregate within EP_AGG_TOL of its largest coordinate and its table
+# within EP_TABLE_SLACK times the ulps the aggregates' difference
+# explains; mesh_tp_moe's table within TP_TABLE_SLACK times what its
+# inputs explain (check_mesh_tp_gpt2's limit)
+EP_LOSS_RTOL = 1e-5
+EP_AGG_TOL = 1e-5
+EP_TABLE_SLACK = 2
+#: the one-process MoE round 1 at dropout 0 (``phase_ep_reference``)
+EP_ROUND1 = {}
 
 
 def phase_seq_reference(tmpdir):
@@ -6074,6 +6076,35 @@ def phase_pp_reference(tmpdir):
           flush=True)
 
 
+def phase_ep_reference(tmpdir):
+    """mesh_ep_parity's and mesh_tp_moe's reference: round 1 of
+    ``EP_FLAGS`` at dropout 0 in this process (its loss, bytes,
+    aggregate, table and peak into ``EP_ROUND1``)."""
+    import torch
+
+    from commefficient_tpu_torch.tools.mesh_run import gpt2_overrides
+    from commefficient_tpu_torch.training.gpt2 import (build_gpt2_parser,
+                                                       train)
+    args = build_gpt2_parser().parse_args(EP_FLAGS + [
+        "--dataset_dir", tmpdir, "--valid_batch_size", "32"])
+    np.random.seed(args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with gpt2_overrides({"dropout": 0.0}), _RoundTables() as rec:
+        learner, row = train(args, max_rounds=1, log=False)
+    r = row["rounds"][0]
+    EP_ROUND1.update(table=rec.tables[0].cpu().numpy(),
+                     agg=rec.dense[0].cpu().numpy(), loss=r["loss"],
+                     up=r["upload_bytes"], down=r["download_bytes"],
+                     peak=torch.cuda.max_memory_allocated() / 2**30)
+    del learner, row, rec
+    _sync()
+    print(f"ep reference: one process, --moe_experts 4 --local_batch_size "
+          f"4, dropout 0, round 1 loss {EP_ROUND1['loss']!r}, peak "
+          f"{EP_ROUND1['peak']:.2f} GiB ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
 def mesh_a12_specs(tmpdir):
     """The runs of A12 1b and the seq axis on ``phase_mesh``'s 2 ranks,
     on the persona caches the gpt2 paths made."""
@@ -6111,6 +6142,25 @@ def mesh_a12_specs(tmpdir):
             "--pp_microbatches", str(PP_PARITY_MICRO)], max_rounds=1,
             record_table=True, record_block=True,
             gpt2_config={"dropout": 0.0}, **pp),
+        *mesh_ep_specs(tmpdir, data),
+    ]
+
+
+def mesh_ep_specs(tmpdir, data):
+    """The expert axis's and MoE-on-model runs on ``phase_mesh``'s 2
+    ranks (``check_mesh_ep``)."""
+    ep = dict(entry="gpt2", expert=EP_RANKS)
+    return [
+        _mesh_spec(tmpdir, "mesh_ep_gpt2", EP_FLAGS + data,
+                   max_rounds=EP_GPT2_ROUNDS, time_collectives=True, **ep),
+        _mesh_spec(tmpdir, "mesh_ep_parity", EP_FLAGS + data, max_rounds=1,
+                   record_table=True, record_block=True,
+                   gpt2_config={"dropout": 0.0}, **ep),
+        _mesh_spec(tmpdir, "mesh_tp_moe", EP_FLAGS + data,
+                   max_rounds=TP_MOE_ROUNDS, record_table=True,
+                   record_block=True, time_collectives=True,
+                   gpt2_config={"dropout": 0.0}, entry="gpt2",
+                   model=TP_RANKS),
     ]
 
 
@@ -6226,12 +6276,117 @@ def check_mesh_seq(tmpdir, recs, recs_b, parity):
     return launches
 
 
-def check_mesh_pp(tmpdir, recs, parity):
-    """mesh_pp_gpt2 and mesh_pp_parity's checks (see the module
-    docstring, phase 11). Returns the launches summed over the ranks."""
+def _round1_parity(tag, tmpdir, parity, ref, d, loss_rtol, agg_tol, slack):
+    """Round 1 of ``parity`` (2 ranks at dropout 0, the aggregate whole on
+    each: ``record_table``, ``record_block``) against the one-process
+    round 1 ``ref`` (its loss, upload bytes, aggregate and table): the
+    loss within ``loss_rtol``, the ranks' tables equal and the sketch of
+    rank 0's recorded aggregate, the aggregate within ``agg_tol`` of its
+    largest coordinate, the table within ``slack`` times (the ulps the
+    aggregates' difference explains + 1). Returns (the table's ulps, its
+    limit, the difference's ulps, the aggregate's relative distance,
+    whether aggregate and table are bitwise ``ref``'s)."""
     import torch
 
     from commefficient_tpu_torch.ops.countsketch import CountSketch
+    p = parity[0]
+    loss, want = p["rounds"][0]["loss"], ref["loss"]
+    if not math.isclose(loss, want, rel_tol=loss_rtol) \
+            or p["rounds"][0]["upload_bytes"] != ref["up"]:
+        raise AssertionError(f"{tag}: round 1 loss {loss!r} against the "
+                             f"one-process round's {want!r}")
+    prefix = os.path.join(tmpdir, tag)
+    tables = [np.load(f"{prefix}_rank{r}_table.npy")
+              for r in range(len(parity))]
+    if not all(np.array_equal(tables[0], t) for t in tables[1:]):
+        raise AssertionError(f"{tag}: the ranks' tables differ")
+    dev = torch.device("cuda")
+    g = torch.from_numpy(np.load(f"{prefix}_rank0_block.npy")).to(dev)
+    g_one = torch.from_numpy(ref["agg"]).to(dev)
+    whole = ref["table"]
+    cs = CountSketch(d, 500_000, 5, seed=42)
+    if p["block_offset"] != 0 or g.numel() != d or not \
+            np.array_equal(cs.sketch_vec(g).cpu().numpy(), tables[0]):
+        raise AssertionError(f"{tag}: the table is not the sketch of the "
+                             f"recorded aggregate")
+    ulp = float(np.spacing(np.float32(np.abs(whole).max())))
+    ulps_grad = float(_abs_sketch(cs, g - g_one).max()) / ulp
+    ulps = _ulps_of_largest(tables[0], whole)
+    limit = slack * (ulps_grad + 1.0)
+    grad_rel = float((g - g_one).abs().max() / g_one.abs().max())
+    bitwise = (bool(torch.equal(g, g_one)),
+               bool(np.array_equal(tables[0], whole)))
+    del g, g_one, cs
+    torch.cuda.empty_cache()
+    if grad_rel > agg_tol or ulps > limit:
+        raise AssertionError(
+            f"{tag}: round 1's aggregate {grad_rel:.3e} of its largest "
+            f"coordinate from the one-process round's (limit {agg_tol}), "
+            f"its table {ulps:.1f} ulps of its largest cell (limit "
+            f"{limit:.1f}: the aggregates' difference explains "
+            f"{ulps_grad:.1f})")
+    return ulps, limit, ulps_grad, grad_rel, bitwise
+
+
+def _split_tables(tag, tmpdir, recs, d, agg, whole):
+    """A model-axis run's round-1 table (``record_table``,
+    ``record_block``; d padded by one to the 2 ranks) against the
+    one-process aggregate ``agg`` and its table ``whole``: the ranks'
+    tables equal and the sum of their block sketches, and within
+    ``TP_TABLE_SLACK`` times the distance its inputs explain (the TP
+    gradient's deviation and the block split's reassociation). Returns
+    (the table's ulps, its limit, the gradient's ulps, the split's ulps,
+    the gradient's relative distance)."""
+    import torch
+
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
+    d_pad = d + 1
+    prefix = os.path.join(tmpdir, tag)
+    tables = [np.load(f"{prefix}_rank{r}_table.npy") for r in range(2)]
+    if not np.array_equal(tables[0], tables[1]):
+        raise AssertionError(f"{tag}: the ranks' round-1 tables differ")
+    dev = torch.device("cuda")
+    blocks = [torch.from_numpy(np.load(f"{prefix}_rank{r}_block.npy"))
+              .to(dev) for r in range(2)]
+    offsets = [r["block_offset"] for r in recs]
+    g_tp = torch.cat(blocks)
+    if offsets[0] != 0 or offsets[1] != blocks[0].numel() \
+            or g_tp.numel() != d_pad:
+        raise AssertionError(f"{tag}: blocks at {offsets} of "
+                             f"{[b.numel() for b in blocks]}")
+    cs = CountSketch(d_pad, 500_000, 5, seed=42)
+    split = (cs.sketch_range(blocks[0], 0)
+             + cs.sketch_range(blocks[1], offsets[1])).cpu().numpy()
+    if not np.array_equal(split, tables[0]):
+        raise AssertionError(f"{tag}: round 1's table is not the sum of "
+                             f"the ranks' block sketches")
+    g_1 = torch.from_numpy(agg).to(dev)
+    ulps = _ulps_of_largest(tables[0], whole)
+    ulp = float(np.spacing(np.float32(np.abs(whole).max())))
+    grad_dev = torch.cat([g_tp[:d] - g_1, g_tp[d:]])
+    ulps_grad = float(_abs_sketch(cs, grad_dev).max()) / ulp
+    g_1pad = torch.cat([g_1, g_1.new_zeros(1)])
+    ulps_split = _ulps_of_largest(
+        (cs.sketch_range(g_1pad[:offsets[1]], 0)
+         + cs.sketch_range(g_1pad[offsets[1]:], offsets[1])).cpu().numpy(),
+        whole)
+    limit = TP_TABLE_SLACK * (ulps_grad + ulps_split)
+    grad_rel = float(grad_dev.abs().max() / g_1.abs().max())
+    del blocks, g_tp, g_1, g_1pad, grad_dev, cs
+    torch.cuda.empty_cache()
+    if ulps > limit:
+        raise AssertionError(
+            f"{tag}: round 1's table {ulps:.1f} ulps of its largest cell "
+            f"from the one-process round's (limit {limit:.1f}: the TP "
+            f"gradient's deviation explains {ulps_grad:.1f}, its max "
+            f"{grad_rel:.3e} of the largest gradient; the block split "
+            f"{ulps_split:.1f})")
+    return ulps, limit, ulps_grad, ulps_split, grad_rel
+
+
+def check_mesh_pp(tmpdir, recs, parity):
+    """mesh_pp_gpt2 and mesh_pp_parity's checks (see the module
+    docstring, phase 11). Returns the launches summed over the ranks."""
     for tag, rr in (("mesh_pp_gpt2", recs), ("mesh_pp_parity", parity)):
         if any(r["backend"] != MESH_BACKEND or r["world"] != PP_RANKS
                for r in rr):
@@ -6284,38 +6439,9 @@ def check_mesh_pp(tmpdir, recs, parity):
     # mesh_pp_parity
     p = parity[0]
     loss, want = p["rounds"][0]["loss"], PP_ROUND1["loss"]
-    if not math.isclose(loss, want, rel_tol=PP_LOSS_RTOL) \
-            or p["rounds"][0]["upload_bytes"] != PP_ROUND1["up"]:
-        raise AssertionError(f"mesh_pp_parity: round 1 loss {loss!r} "
-                             f"against the one-process round's {want!r}")
-    prefix = os.path.join(tmpdir, "mesh_pp_parity")
-    tables = [np.load(f"{prefix}_rank{r}_table.npy")
-              for r in range(PP_RANKS)]
-    if not np.array_equal(tables[0], tables[1]):
-        raise AssertionError("mesh_pp_parity: the ranks' tables differ")
-    dev = torch.device("cuda")
-    g_pp = torch.from_numpy(np.load(f"{prefix}_rank0_block.npy")).to(dev)
-    g_one = torch.from_numpy(PP_ROUND1["agg"]).to(dev)
-    whole = PP_ROUND1["table"]
-    cs = CountSketch(D_GPT2, 500_000, 5, seed=42)
-    if p["block_offset"] != 0 or g_pp.numel() != D_GPT2 or not \
-            np.array_equal(cs.sketch_vec(g_pp).cpu().numpy(), tables[0]):
-        raise AssertionError("mesh_pp_parity: the table is not the sketch "
-                             "of the recorded aggregate")
-    ulp = float(np.spacing(np.float32(np.abs(whole).max())))
-    ulps_grad = float(_abs_sketch(cs, g_pp - g_one).max()) / ulp
-    ulps = _ulps_of_largest(tables[0], whole)
-    limit = PP_TABLE_SLACK * (ulps_grad + 1.0)
-    grad_rel = float((g_pp - g_one).abs().max() / g_one.abs().max())
-    del g_pp, g_one, cs
-    torch.cuda.empty_cache()
-    if grad_rel > PP_AGG_TOL or ulps > limit:
-        raise AssertionError(
-            f"mesh_pp_parity: round 1's aggregate {grad_rel:.3e} of its "
-            f"largest coordinate from the one-process round's (limit "
-            f"{PP_AGG_TOL}), its table {ulps:.1f} ulps of its largest "
-            f"cell (limit {limit:.1f}: the aggregates' difference explains "
-            f"{ulps_grad:.1f})")
+    ulps, limit, ulps_grad, grad_rel, _ = _round1_parity(
+        "mesh_pp_parity", tmpdir, parity, PP_ROUND1, D_GPT2, PP_LOSS_RTOL,
+        PP_AGG_TOL, PP_TABLE_SLACK)
     per_round = {k: v // PP_GPT2_ROUNDS for k, v in GPT2_SKETCH.items()}
     micro = PP_PARITY_MICRO // PP_RANKS
     want_launches = dict(per_round, **{k: per_round[k] * micro for k in (
@@ -6332,6 +6458,179 @@ def check_mesh_pp(tmpdir, recs, parity):
           f"x (the difference's {ulps_grad:.2f} + 1)); launches a rank "
           f"{p['launches']}; round ms {_round_ms(p)}, {_round_ms(parity[1])};"
           f" peak GiB {_peaks(parity)}", flush=True)
+    return launches
+
+
+def _gb(nbytes) -> float:
+    return round(nbytes / 1e9, 4)
+
+
+def _expert_products_bitwise() -> dict:
+    """At mesh_ep_gpt2's shapes (8,192 tokens, 4 experts of capacity
+    2,560, C 768, d_ff 3,072; seeded weights and tokens), whether each
+    per-expert tensor of an expert rank's MoE block (experts 0-1: its
+    dispatch slice and weight blocks) is bitwise the 4-expert block's
+    first two, forward (the dispatched tokens, the hidden layer, the
+    experts' outputs) and backward (their gradients, the combine
+    weights', the weights'). A check only."""
+    import torch
+    import torch.nn.functional as F
+
+    from commefficient_tpu_torch.ops.moe import MoEFFN
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    layer = MoEFFN(768, 4, 3072)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    layer.to(dev)
+    xt, gy = (torch.randn(8192, 768, generator=gen).to(dev)
+              for _ in range(2))
+    with torch.no_grad():
+        r = layer.route(xt)
+    slots = torch.arange(r.capacity, device=dev, dtype=r.slot.dtype)
+    dispatch = r.onehot[:, :, None] * (r.slot[:, None] == slots).float()[
+        :, None, :]
+    names = ("xin", "h", "out_e", "combine", "w1", "b1", "w2", "b2")
+
+    def block(per):
+        w = [t[:per].detach().requires_grad_(True) for t in (
+            layer.moe_w1, layer.moe_b1, layer.moe_w2, layer.moe_b2)]
+        gate = r.gate.detach().requires_grad_(True)
+        x = xt.detach().requires_grad_(True)
+        d = dispatch[:, :per]
+        xin = torch.einsum("nec,nd->ecd", d, x)
+        h = F.gelu(torch.einsum("ecd,edh->ech", xin, w[0])
+                   + w[1][:, None, :], approximate="tanh")
+        out_e = torch.einsum("ech,ehd->ecd", h, w[2]) + w[3][:, None, :]
+        combine = d * gate[:, None, None]
+        out = torch.einsum("nec,ecd->nd", combine, out_e)
+        grads = torch.autograd.grad(out, [xin, h, out_e, combine] + w, gy)
+        return (xin.detach(), h.detach(), out_e.detach()), grads
+
+    (f4, g4), (f2, g2) = block(4), block(2)
+    out = {n: bool(torch.equal(a[:2], b))
+           for n, a, b in zip(names, f4, f2)}
+    for n, a, b in zip(names, g4, g2):
+        a = a[:, :2] if n == "combine" else a[:2]
+        out[f"d{n}"] = bool(torch.equal(a, b))
+    del layer, xt, gy, r, dispatch, f4, g4, f2, g2
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_ep(tmpdir, recs, parity, tp_moe):
+    """mesh_ep_gpt2, mesh_ep_parity and mesh_tp_moe's checks (see the
+    module docstring, phase 12) against ``EP_ROUND1``. Returns the
+    launches summed over the ranks."""
+    for tag, rr in (("mesh_ep_gpt2", recs), ("mesh_ep_parity", parity),
+                    ("mesh_tp_moe", tp_moe)):
+        if any(r["backend"] != MESH_BACKEND or r["world"] != EP_RANKS
+               for r in rr):
+            raise AssertionError(f"{tag}: not the 2-rank gloo group")
+        _mesh_ranks_agree(tag, rr)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # mesh_ep_gpt2: each rank the whole model but half the experts
+    add(_mesh_launches("mesh_ep_gpt2", recs, _scaled(GPT2_SKETCH,
+                                                     EP_GPT2_ROUNDS)))
+    a = recs[0]
+    up = [x["upload_bytes"] for x in a["rounds"]]
+    if up != [GPT2_WORKERS * GPT2_UPLOAD["gpt2"]] * EP_GPT2_ROUNDS \
+            or a["d"] != D_GPT2_MOE or a["held"] != D_GPT2_MOE:
+        raise AssertionError(f"mesh_ep_gpt2: upload {up}, d {a['d']}, held "
+                             f"{a['held']}")
+    if not all(math.isfinite(x["loss"]) for x in a["rounds"]):
+        raise AssertionError("mesh_ep_gpt2: a loss is not finite")
+    kinds = {k: [_by_kind(r, k) for r in recs] for k in (
+        "expert_combine", "expert_grad", "expert_join", "all_reduce",
+        "all_gather")}
+    steady = [x["round_s"] * 1e3 for x in a["rounds"][1:-1]]
+    peaks = [r["peak_gib"] for r in recs]
+    print(f"path mesh_ep_gpt2: {EP_RANKS} ranks on one card over "
+          f"{MESH_BACKEND} (clients=1, expert=2: experts 0-1 and 2-3 of "
+          f"every block, --local_batch_size 4: N = 8,192 tokens, capacity "
+          f"2,560), d = {a['d']}; launches a rank {a['launches']}; the "
+          f"ranks' whole state bitwise every round; losses "
+          f"{[round(x['loss'], 6) for x in a['rounds']]}; upload B {up}, "
+          f"download B {[x['download_bytes'] for x in a['rounds']]}; round "
+          f"ms rank 0 {_round_ms(a)}, rank 1 {_round_ms(recs[1])} (steady "
+          f"{np.mean(steady):.3f}; a state digest a round); expert-group "
+          f"collectives a round, rank 0 (ms, GB): the combine all-reduces "
+          f"{kinds['expert_combine'][0]}, the f all-reduces "
+          f"{kinds['expert_grad'][0]}, the gradient join "
+          f"{kinds['expert_join'][0]}; rank 1: "
+          f"{kinds['expert_combine'][1]}, {kinds['expert_grad'][1]}, "
+          f"{kinds['expert_join'][1]}; other all-reduces "
+          f"{kinds['all_reduce'][0]}, all-gathers {kinds['all_gather'][0]};"
+          f" collectives ms a round rank 0 {_coll_ms(a)} (synchronized "
+          f"around each); peak GiB {_peaks(recs)}, both ranks "
+          f"{sum(peaks) if None not in peaks else 'not measured'}",
+          flush=True)
+
+    # mesh_ep_parity: round 1 at dropout 0 against one process
+    p = parity[0]
+    loss, want = p["rounds"][0]["loss"], EP_ROUND1["loss"]
+    ulps, limit, ulps_grad, grad_rel, (agg_bitwise, table_bitwise) = \
+        _round1_parity("mesh_ep_parity", tmpdir, parity, EP_ROUND1,
+                       D_GPT2_MOE, EP_LOSS_RTOL, EP_AGG_TOL, EP_TABLE_SLACK)
+    products = _expert_products_bitwise()
+    add(_mesh_launches("mesh_ep_parity", parity, _scaled(GPT2_SKETCH, 1)))
+    print(f"path mesh_ep_parity: round 1 of clients=1, expert=2 at dropout "
+          f"0 against one process's round (peak {EP_ROUND1['peak']:.2f} "
+          f"GiB): loss {loss!r} vs {want!r} (rtol {EP_LOSS_RTOL}); the "
+          f"aggregate within {grad_rel:.3e} of the largest coordinate "
+          f"(limit {EP_AGG_TOL}), bitwise the one-process aggregate: "
+          f"{agg_bitwise}; the table {ulps:.2f} ulps of its largest cell "
+          f"(limit {limit:.2f} = {EP_TABLE_SLACK} x (the difference's "
+          f"{ulps_grad:.2f} + 1)), bitwise the one-process table: "
+          f"{table_bitwise}; an expert rank's per-expert tensors (2 of 4 "
+          f"experts) bitwise the 4-expert block's: {products}; round ms "
+          f"{_round_ms(p)}; peak GiB {_peaks(parity)}", flush=True)
+
+    # mesh_tp_moe: every MoE block whole on each model rank
+    add(_mesh_launches("mesh_tp_moe", tp_moe, _scaled(GPT2_SKETCH,
+                                                      TP_MOE_ROUNDS)))
+    t = tp_moe[0]
+    d_pad = D_GPT2_MOE + 1
+    if [(r["d"], r["held"]) for r in tp_moe] != [(d_pad, d_pad // 2)] * 2:
+        raise AssertionError(f"mesh_tp_moe: d, held "
+                             f"{[(r['d'], r['held']) for r in tp_moe]}")
+    loss = t["rounds"][0]["loss"]
+    if not math.isclose(loss, want, rel_tol=EP_LOSS_RTOL) \
+            or t["rounds"][0]["upload_bytes"] != EP_ROUND1["up"]:
+        raise AssertionError(f"mesh_tp_moe: round 1 loss {loss!r} against "
+                             f"the one-process round's {want!r}")
+    ulps, limit, ulps_grad, ulps_split, grad_rel = _split_tables(
+        "mesh_tp_moe", tmpdir, tp_moe, D_GPT2_MOE, EP_ROUND1["agg"],
+        EP_ROUND1["table"])
+    coll = t["collectives"]
+    steady = [x["round_s"] * 1e3 for x in t["rounds"][1:]]
+    peaks = [r["peak_gib"] for r in tp_moe]
+    print(f"path mesh_tp_moe: {TP_RANKS} ranks on one card over "
+          f"{MESH_BACKEND} (clients=1, model=2, each MoE block whole on "
+          f"both; --local_batch_size 4, dropout 0), d = {D_GPT2_MOE} padded "
+          f"to {d_pad}, {d_pad // 2} coordinates held a rank; launches a "
+          f"rank {t['launches']} (flash at BH 192: 6 heads of 32 "
+          f"sequences); the ranks' whole state bitwise every round; losses "
+          f"{[round(x['loss'], 6) for x in t['rounds']]}; round 1's table "
+          f"bitwise the ranks' block sketches summed, {ulps:.2f} ulps of "
+          f"its largest cell from the one-process round's (limit "
+          f"{limit:.2f} = {TP_TABLE_SLACK} x (gradient deviation "
+          f"{ulps_grad:.2f} + block split {ulps_split:.2f})), the TP "
+          f"gradient within {grad_rel:.3e} of the one-process largest; "
+          f"round ms rank 0 {_round_ms(t)}, rank 1 {_round_ms(tp_moe[1])} "
+          f"(round 2 {np.mean(steady):.3f}; a state digest a round); "
+          f"collectives a round, rank 0 (synchronized around each): "
+          f"{[round(c[0] * 1e3, 3) for c in coll]} ms, "
+          f"{[_gb(c[1]) for c in coll]} GB, {[c[2] for c in coll]} calls; "
+          f"peak GiB {_peaks(tp_moe)}, both ranks "
+          f"{sum(peaks) if None not in peaks else 'not measured'}",
+          flush=True)
     return launches
 
 

@@ -74,6 +74,12 @@ learner cuts each batch column with a sequence dimension (the loss's
 (``seq_cut``, a ``SeqCut``) beside the worker block, for the rounds and
 the validation; the state is replicated over the axis.
 
+A mesh with an ``expert`` axis (MoE expert parallelism, GPT2 with
+``--moe_experts``: ``parallel/ep.py``) attaches the axis to the model and
+the round and validation take the rank's expert leaves through an
+``EPUnflatten``; the state is replicated over the axis, as in the
+reference.
+
 Dropout: the learner owns a ``torch.Generator`` seeded with ``seed``
 (the reference's round rng) and draws one seed from it per round.
 
@@ -109,6 +115,7 @@ from commefficient_tpu_torch.federated.state import (CLIENT_STATE_FIELDS,
                                                      ClientState,
                                                      make_grad_buckets)
 from commefficient_tpu_torch.ops.countsketch import LANES
+from commefficient_tpu_torch.parallel import ep as ep_lib
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
 from commefficient_tpu_torch.parallel import seq as seq_lib
 from commefficient_tpu_torch.parallel import tp as tp_lib
@@ -155,6 +162,16 @@ class FedLearner:
                     self.model.config.n_head, M)
                 compute_unflatten = tp_lib.TPUnflatten(
                     self.unflatten, d_logical, layout, ctx)
+        ep_ctx = ep_lib.EPContext.from_mesh(mesh)
+        if ep_ctx is not None:
+            # the state stays replicated over the expert axis; the
+            # compute takes the rank's expert leaves
+            ep_lib.attach(self.model, ep_ctx)
+            compute_unflatten = ep_lib.EPUnflatten(
+                self.unflatten, d_logical, ep_lib.EPLayout(
+                    {n: tuple(p.shape)
+                     for n, p in self.model.named_parameters()},
+                    ep_ctx.size), ep_ctx)
         self.seq_cut = None
         seq_ctx = seq_lib.SeqContext.from_mesh(mesh)
         if seq_ctx is not None:

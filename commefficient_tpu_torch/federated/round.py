@@ -79,6 +79,21 @@ gradient of the parameters it reads, zeros elsewhere), the loss, metric
 and datapoint sums only the clients axis (every stage rank returns the
 last stage's loss), and the tail runs replicated.
 
+On a mesh with an ``expert`` axis (MoE expert parallelism,
+``parallel/ep.py``; the fused path only) the E ranks of client shard c
+run its workers together, each its experts' share of every MoE block,
+with the dropout seed of the clients axis (``mesh_seed``: the expert
+ranks of a shard draw the same masks); every rank holds the whole
+gradient (``EPUnflatten`` joins the expert leaves), so the gradient's
+reduce spans the clients axis only: a world sum would count the
+replicated leaves E times.
+
+On any clients axis above 1 the fused path's MoE blocks route every
+rank's tokens as one call, as the reference's one GSPMD loss call does
+(``ops/moe.py`` ``routing_group``: the capacity, the slots and the aux
+term of the whole batch); the per-worker path routes each client alone,
+as the reference's vmap does.
+
 ``--client_quarantine`` forces the per-worker path: a client on the
 bench (``state.quarantine``) neither pulls nor uploads, a non-finite
 contribution is excluded from the aggregate by a select (NaN * 0 is
@@ -107,6 +122,7 @@ from commefficient_tpu_torch.federated.state import (BufferState,
                                                      ClientState,
                                                      GradBuckets,
                                                      ServerOptState)
+from commefficient_tpu_torch.ops import moe as moe_lib
 from commefficient_tpu_torch.ops.countsketch import LANES
 from commefficient_tpu_torch.ops.dropout import fold_in
 from commefficient_tpu_torch.parallel import mesh as mesh_lib
@@ -568,12 +584,19 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
     split = mesh_lib.model_size(mesh) > 1
     seq = mesh_lib.seq_size(mesh) > 1
     stage = mesh_lib.stage_size(mesh) > 1
-    if (seq or stage) and not fused_clients:
+    expert = mesh_lib.expert_size(mesh) > 1
+    if (seq or stage or expert) and not fused_clients:
+        which = "seq" if seq else "stage" if stage else "expert"
         raise ValueError(
-            f"a {'seq' if seq else 'stage'} mesh axis runs on the fused "
+            f"a {which} mesh axis runs on the fused "
             "federated round only (mode uncompressed/sketch/true_topk; no "
             "local momentum/error, DP, grad clip, topk_down, microbatching "
             "or quarantine)")
+    # the fused path's MoE routes every rank's tokens as one call
+    route = (moe_lib.RouteGroup(mesh_lib.clients_group(mesh),
+                                mesh_lib.clients_rank(mesh),
+                                mesh_lib.clients_size(mesh))
+             if mesh_lib.clients_size(mesh) > 1 else None)
     split_rows = split and split_leaves(cfg)[1]
     b_lo, b_hi = mesh_lib.coord_block(cfg.grad_dim, mesh) if split \
         else (0, cfg.grad_dim)
@@ -647,11 +670,12 @@ def build_round_step(apply_loss: Callable, unflatten: Callable,
         flat_cols = tuple(c.reshape((-1,) + tuple(c.shape[2:]))
                           for c in batch)
         flat_mask = mask.reshape(-1)
-        grad_sum, loss_total, metric_totals = \
-            client_lib._masked_loss_and_grad(
-                apply_loss, unflatten, w, flat_cols, flat_mask,
-                seed if mesh is None else seq_lib.shard_seed(seed, mesh)
-                if seq else mesh_seed(seed, mesh))
+        with moe_lib.routing_group(route):
+            grad_sum, loss_total, metric_totals = \
+                client_lib._masked_loss_and_grad(
+                    apply_loss, unflatten, w, flat_cols, flat_mask,
+                    seed if mesh is None else seq_lib.shard_seed(seed, mesh)
+                    if seq else mesh_seed(seed, mesh))
         if trainable_mask is not None:
             grad_sum = grad_sum * trainable_mask
         total_n, loss_total, metric_totals = reduce_sums(

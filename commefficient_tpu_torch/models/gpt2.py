@@ -83,8 +83,14 @@ kernels draw each head's dropout bits by its global index
 head-sharded probabilities or outputs draw the unsharded tensor's bits
 and keep their heads' (``FusedDropout(..., shard=)``); every other site
 acts on replicated activations and draws the same bits on every rank.
-KV caches hold the rank's heads. MoE blocks under a model axis raise
-NotImplementedError (ROADMAP.md A12, the expert axis).
+KV caches hold the rank's heads. An MoE block computes whole on every
+model rank, on the replicated activation (its router too: the routing
+is one process's bit for bit).
+
+Expert parallelism (``parallel/ep.py``): with ``config.ep`` set
+(``ep.attach``) each MoE block routes whole and computes the rank's
+experts, its output summed over the expert group (``ops/moe.py``); every
+other layer computes whole, replicated.
 
 Sequence parallelism (``parallel/seq.py``): with ``attn_impl="ring"``
 the model runs on a seq axis (``config.seq``, set by ``seq.attach``) and
@@ -149,6 +155,7 @@ class GPT2Config:
         self.fused_lm_head = False
         self.tp = None                # a parallel.tp.TPContext, or None
         self.seq = None               # a parallel.seq.SeqContext, or None
+        self.ep = None                # a parallel.ep.EPContext, or None
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -413,7 +420,7 @@ class Block(nn.Module):
     def _mlp(self, h):
         """(MLP output, the MoE layer's aux or None)."""
         if hasattr(self, "moe"):
-            return self.moe(h)
+            return self.moe(h, getattr(self.config, "ep", None))
         tp = getattr(self.config, "tp", None)
         if tp is None:
             return self.Dense_1(F.gelu(self.Dense_0(h),

@@ -44,7 +44,17 @@ S + s`` is client shard ``c`` and pipeline stage ``s``. Every state is
 replicated over ``stage``; the S ranks of a client shard run its workers
 together, stage s applying layers ``[s L/S, (s+1) L/S)``.
 
+An ``expert`` axis (``make_mesh(n, expert=E)``, MoE expert parallelism
+for GPT2, ``parallel/ep.py``) lays the ranks out alike: rank ``c * E +
+e`` is client shard ``c`` and expert shard ``e``. Every state is
+replicated over ``expert``; the E ranks of a client shard run its workers
+together, rank e computing the experts ``[e X/E, (e+1) X/E)`` of each MoE
+block (X the model's experts) and everything else whole.
+
 The collectives here take bool tensors as uint8 (gloo reduces no bool).
+Those of the ``clients`` axis return at once on an axis of one rank: a
+sum, a join or a broadcast over one rank is the tensor itself, and gloo
+would stage it through the host.
 """
 
 from __future__ import annotations
@@ -61,7 +71,6 @@ from torch.utils._pytree import tree_map
 from commefficient_tpu_torch.utils.params import round_up
 
 AXIS = "clients"
-INNER_AXES = ("seq", "model", "stage", "expert")
 
 
 @dataclass(frozen=True)
@@ -93,10 +102,10 @@ class _Dim:
 
 class GroupMesh:
     """A 2-D ``(clients, inner)`` mesh over the process group, the inner
-    axis ``model``, ``seq`` or ``stage``: the ``DeviceMesh`` calls the port
-    reads (``mesh[axis].size()``, ``get_local_rank``, ``get_group``,
-    ``device_type``, ``mesh_dim_names``), over groups made with
-    ``new_group``, so it runs on any backend. Rank ``c * M + m`` sits at
+    axis ``model``, ``seq``, ``stage`` or ``expert``: the ``DeviceMesh``
+    calls the port reads (``mesh[axis].size()``, ``get_local_rank``,
+    ``get_group``, ``device_type``, ``mesh_dim_names``), over groups made
+    with ``new_group``, so it runs on any backend. Rank ``c * M + m`` sits at
     (c, m), the inner axis fastest."""
 
     def __init__(self, shape: tuple, names: tuple, device_type: str):
@@ -132,26 +141,22 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
               expert: int = 1, device_type: str = "cpu"):
     """The mesh over the process group (joined first:
     ``distributed.initialize``/``launch``): a ``DeviceMesh`` with one
-    ``clients`` dimension, or with ``model`` = M > 1 (or ``seq``, or
-    ``stage``) a ``GroupMesh`` of dims ``("clients", "model")``
-    (``("clients", "seq")``, ``("clients", "stage")``) of shape (n / M,
-    M). Inner axes of size 1 are accepted; ``expert`` above 1 is
-    ROADMAP.md A12."""
+    ``clients`` dimension, or with ``model`` = M > 1 (or ``seq``,
+    ``stage`` or ``expert``) a ``GroupMesh`` of dims ``("clients",
+    "model")`` (``("clients", "seq")``, ``("clients", "stage")``,
+    ``("clients", "expert")``) of shape (n / M, M). Inner axes of size 1
+    are accepted."""
     if sum(s > 1 for s in (seq, model, stage, expert)) > 1:
         raise ValueError("choose ONE inner axis: seq (ring attention), "
                          "model (tensor parallelism), stage (GPipe "
                          "pipeline), or expert (MoE expert parallelism)")
-    for name, size in zip(INNER_AXES, (seq, model, stage, expert)):
-        if size > 1 and name == "expert":
-            raise NotImplementedError(
-                f"--mesh {name}={size} is not ported to PyTorch yet "
-                f"(ROADMAP.md A12)")
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = n_devices or world
     if n != world:
         raise ValueError(f"asked for a {n}-rank mesh, the process group "
                          f"has {world} ranks")
-    for name, size in (("model", model), ("seq", seq), ("stage", stage)):
+    for name, size in (("model", model), ("seq", seq), ("stage", stage),
+                       ("expert", expert)):
         if size > 1:
             if n % size:
                 raise ValueError(f"n_devices must be divisible by {name}")
@@ -227,6 +232,21 @@ def stage_group(mesh):
     return mesh.get_group("stage")
 
 
+def expert_size(mesh) -> int:
+    """The ``expert`` axis size of a mesh or a ``MeshSpec`` (1 for
+    none)."""
+    return inner_size(mesh, "expert")
+
+
+def expert_rank(mesh) -> int:
+    return 0 if expert_size(mesh) == 1 else mesh.get_local_rank("expert")
+
+
+def expert_group(mesh):
+    """The ranks that share this rank's client shard (its expert axis)."""
+    return mesh.get_group("expert")
+
+
 def model_group(mesh):
     """The ranks that share this rank's client shard (its model axis)."""
     return mesh.get_group("model")
@@ -292,7 +312,9 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``t`` over the ranks of this rank's ``clients`` axis,
-    the same bits on every one."""
+    the same bits on every one (a copy of ``t`` on an axis of one)."""
+    if clients_size(mesh) == 1:
+        return t.clone()
     out = t.clone()
     dist.all_reduce(out, group=clients_group(mesh))
     return out
@@ -330,6 +352,8 @@ def all_gather_cat(t: torch.Tensor, mesh) -> torch.Tensor:
     worker or slot block back into the whole)."""
     if t is None:
         return None
+    if clients_size(mesh) == 1:
+        return t.clone()
     w = _wire(t)
     parts = [torch.empty_like(w) for _ in range(clients_size(mesh))]
     dist.all_gather(parts, w, group=clients_group(mesh))
@@ -344,6 +368,8 @@ def all_gather_tree(tree, mesh):
 def broadcast_from(t: torch.Tensor, src: int, mesh) -> torch.Tensor:
     """``t`` of rank ``src`` (in the mesh's group) on every rank; ``t``
     gives the shape and dtype elsewhere."""
+    if clients_size(mesh) == 1:
+        return t
     group = clients_group(mesh)
     w = _wire(t)
     dist.broadcast(w, src=dist.get_global_rank(group, src), group=group)

@@ -26,6 +26,15 @@ in flax's ``(in, out)`` kernel layout):
   MLP down (4C, C);
 * everything else replicated (embeddings, LayerNorms, biases, heads).
 
+MoE blocks (``--moe_experts``): the reference's rule row-shards the
+router kernel (C, E) over the model axis (its "up-projection" test,
+``shape[1] > shape[0]``, is false) and GSPMD computes the MoE FFN under
+that layout. The port computes every MoE leaf whole on every model rank,
+on the replicated activation, with no f or g around it (``leaf_cut``
+leaves ``Block_i.moe.*`` whole), so the routing is bitwise one
+process's; their gradients are equal on every model rank and join the
+flat gradient as the other whole leaves do.
+
 The qkv kernel is sliced BY HEAD: rank m of M takes heads ``[h0, h1) =
 [m H / M, (m + 1) H / M)``, i.e. columns ``[h0 hd, h1 hd)`` of each of
 the q, k and v thirds. The reference's spec takes a contiguous third of
@@ -36,8 +45,9 @@ the MLP up's) are replicated in the reference's spec and in the port's
 storage; in the compute each rank adds its slice of them, so their
 gradients are joined with the sharded kernels'.
 
-``TPLayout`` cuts a full ``{torch name: tensor}`` tree into a rank's
-compute shards (``shard``) and joins the ranks' shard gradients back into
+``TPLayout`` (a ``CutLayout``, which ``parallel/ep.py`` shares) cuts a
+full ``{torch name: tensor}`` tree into a rank's compute shards
+(``shard``) and joins the ranks' shard gradients back into
 the flat gradient (``join_grads``: one all-gather of every sharded leaf's
 gradient over the model group, placed by copy, so a -0.0 stays -0.0 and
 the flat order is the reference's ``ravel_pytree`` order). ``TPUnflatten``
@@ -216,20 +226,16 @@ def local_piece(t: torch.Tensor, kind: str, tp: TPContext,
     return t.narrow(dim, tp.rank * local_extent, local_extent)
 
 
-class TPLayout:
-    """The compute cuts of one GPT2 parameter tree on an M-way model axis
-    (``leaf_cut``), in the order of ``names`` (the tree's)."""
+class CutLayout:
+    """The compute cuts of one parameter tree over a ``size``-rank group:
+    ``cuts`` maps a cut leaf's name to its kind (``leaf_cut``'s kinds),
+    every other leaf of ``shapes`` (the tree's, in its order) is whole."""
 
-    def __init__(self, shapes: Dict[str, tuple], n_head: int, size: int):
-        if n_head % size:
-            raise ValueError(f"tensor parallelism shards the heads: n_head "
-                             f"{n_head} must be divisible by the 'model' "
-                             f"mesh axis size {size}")
+    def __init__(self, shapes: Dict[str, tuple], cuts: Dict[str, str],
+                 size: int):
         self.shapes = dict(shapes)
-        self.n_head = n_head
         self.size = size
-        self.cuts = {n: k for n in self.shapes
-                     if (k := leaf_cut(n)) is not None}
+        self.cuts = dict(cuts)
 
     def index(self, name: str, rank: int, device=None) -> torch.Tensor:
         kind = self.cuts[name]
@@ -254,15 +260,21 @@ class TPLayout:
                 out[name] = t.narrow(dim, rank * per, per)
         return out
 
+    def gather(self, mine: torch.Tensor, group) -> list:
+        """Every rank's ``mine`` over ``group``, in rank order."""
+        parts = [torch.empty_like(mine) for _ in range(self.size)]
+        dist.all_gather(parts, mine, group=group)
+        return parts
+
     def join_grads(self, views: Dict[str, torch.Tensor],
                    grads: Dict[str, torch.Tensor], group,
                    accumulate: bool) -> None:
         """Write (or add, with ``accumulate``) each leaf's gradient into
         its view of the flat gradient (``views``: the full leaves). A cut
         leaf's gradient is this rank's piece: the pieces of every cut
-        leaf go over the model group in ONE all-gather, and each rank's
-        piece lands at its indices; whole leaves' gradients are equal on
-        every rank and go as they are."""
+        leaf go over the group in ONE all-gather, and each rank's piece
+        lands at its indices; whole leaves' gradients are equal on every
+        rank and go as they are."""
         cut = [n for n in grads if n in self.cuts]
         for name, g in grads.items():
             if name in self.cuts:
@@ -274,9 +286,7 @@ class TPLayout:
         if not cut:
             return
         mine = torch.cat([grads[n].reshape(-1) for n in cut])
-        parts = [torch.empty_like(mine) for _ in range(self.size)]
-        dist.all_gather(parts, mine, group=group)
-        for r, flat in enumerate(parts):
+        for r, flat in enumerate(self.gather(mine, group)):
             off = 0
             for name in cut:
                 g = grads[name]
@@ -288,6 +298,20 @@ class TPLayout:
                     views[name].index_add_(dim, idx, piece)
                 else:
                     views[name].index_copy_(dim, idx, piece)
+
+
+class TPLayout(CutLayout):
+    """The compute cuts of one GPT2 parameter tree on an M-way model axis
+    (``leaf_cut``), in the order of ``names`` (the tree's)."""
+
+    def __init__(self, shapes: Dict[str, tuple], n_head: int, size: int):
+        if n_head % size:
+            raise ValueError(f"tensor parallelism shards the heads: n_head "
+                             f"{n_head} must be divisible by the 'model' "
+                             f"mesh axis size {size}")
+        super().__init__(shapes, {n: k for n in shapes
+                                  if (k := leaf_cut(n)) is not None}, size)
+        self.n_head = n_head
 
 
 def shard_params_tp(params: Dict[str, torch.Tensor], rank: int, size: int,
@@ -304,7 +328,7 @@ class TPUnflatten:
     prefix; ``write_grads`` joins the ranks' shard gradients into a flat
     gradient (``federated/client.py`` calls it in place of the views)."""
 
-    def __init__(self, base, d_logical: int, layout: TPLayout,
+    def __init__(self, base, d_logical: int, layout: CutLayout,
                  tp: TPContext):
         self.base = base
         self.d = int(d_logical)
@@ -328,14 +352,10 @@ class TPUnflatten:
 def attach(model: torch.nn.Module, tp: Optional[TPContext]) -> None:
     """Run ``model`` (a ``GPT2DoubleHeads``) tensor-parallel on ``tp``'s
     model axis (None: replicated again). Its blocks then compute on H/M
-    heads and 4C/M hidden units and its caches hold H/M heads."""
+    heads and 4C/M hidden units (an MoE block whole) and its caches hold
+    H/M heads."""
     cfg = model.config
     if tp is not None:
-        if getattr(cfg, "moe_experts", 0) > 0:
-            raise NotImplementedError(
-                "--moe_experts with a 'model' mesh axis (tensor-parallel "
-                "MoE blocks) is not ported to PyTorch yet (ROADMAP.md A12, "
-                "the expert axis)")
         if cfg.n_head % tp.size:
             raise ValueError(f"tensor parallelism shards the heads: n_head "
                              f"{cfg.n_head} must be divisible by the "

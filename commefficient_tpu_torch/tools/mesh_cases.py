@@ -56,6 +56,17 @@ gradient, dropout; weights from ``DIR/pp_{tag}_init.npz``), ``pp_grad``
 ``pp_cli`` (the GPT2 entry point's ``train`` with ``--mc_coef 0``, and a
 run saved after round 1 and resumed, initial weights from
 ``DIR/pp_cli_init.npz``).
+
+With ``--expert E`` the launch is a ``clients x expert`` mesh
+(``make_mesh(ranks, expert=E)``): ``ep_layer`` (the MoE layer's output
+and a binding-capacity trajectory on the expert axis, weights from
+``DIR/ep_{layer,traj}_init.npz``), ``ep_gpt2`` (gpt2-tiny with 4 experts:
+logits and one worker's gradient, weights from ``DIR/ep_gpt2_init.npz``)
+``ep_cli`` (the GPT2 entry point's MoE rounds at capacity factors 1.25
+and 100, with a resume) and ``ep_flags`` (the buffered server under
+faults and ``--grad_buckets`` there). ``tp_moe`` runs the MoE rounds on a model
+axis and ``moe_c20`` on a clients mesh, with round 1's routing (initial
+weights from ``DIR/moe_cli_init.npz``).
 """
 
 from __future__ import annotations
@@ -1189,6 +1200,283 @@ def case_pp_cli(mesh, device, init, out_dir):
     return out
 
 
+# --------------------------------------------------------------------------
+# MoE on the meshes: whole-batch routing on a clients axis, the expert
+# axis, and MoE blocks on a model axis
+# --------------------------------------------------------------------------
+
+#: the reference's ``tests/test_moe.py`` layer problems: experts, width,
+#: hidden width, tokens, seed (of the tokens and of the reference's init)
+#: and capacity factor; "traj" takes ``steps`` SGD steps at ``lr`` on
+#: mean((y - target) ** 2), target from RandomState(1)
+EP_LAYER = {
+    "layer": dict(E=4, C=8, ff=16, N=64, seed=0, cap=1.25),
+    "traj": dict(E=4, C=8, ff=16, N=64, seed=5, cap=1.25, steps=4, lr=0.1),
+}
+#: the GPT2 entry point's MoE problem: ``seq_cli_argv``'s (4 workers of
+#: 2 dialogs, T 32, gpt2-tiny) with 4 experts; (mode, capacity factor)
+#: runs, each 2 rounds; the "resume" ones also save a step file after
+#: round 1 and resume from it
+MOE_EXPERTS = 4
+MOE_CLI_ROUNDS = 2
+EP_CLI_RUNS = {"uncompressed_1.25": ("uncompressed", 1.25, True),
+               "sketch_1.25": ("sketch", 1.25, True),
+               "uncompressed_100": ("uncompressed", 100.0, False),
+               "sketch_100": ("sketch", 100.0, False)}
+#: the model axis's MoE round and the clients axis's (C20)
+TP_MOE_RUN = ("uncompressed", 1.25)
+C20_RUN = ("uncompressed", 1.25)
+#: flags the reference composes with the expert axis, on the sketch run
+#: at 1.25: the buffered server under a fault schedule (per-worker
+#: cohorts, each client routed alone) and bucketed aggregation
+EP_FLAG_RUNS = {
+    "buffered": ["--server_mode", "buffered", "--fault_seed", "7",
+                 "--fault_dropout_prob", "0.2", "--buffer_m", "2"],
+    "buckets": ["--grad_buckets", "3"],
+}
+
+
+def moe_cli_argv(mode: str, capacity: float, dataset_dir: str) -> list:
+    # validation in batches of 8 dialogs: a batch is one capacity group,
+    # and its (N, E, cap) dispatch grows as N^2 (at capacity factor 100
+    # and 64 dialogs, 3.4 GB a tensor)
+    return seq_cli_argv(mode, dataset_dir) + [
+        "--moe_experts", str(MOE_EXPERTS), "--moe_capacity_factor",
+        str(capacity), "--valid_batch_size", "8"]
+
+
+def moe_layer_inputs(tag: str):
+    """``EP_LAYER[tag]``'s tokens (and the trajectory's target)."""
+    spec = EP_LAYER[tag]
+    x = np.random.RandomState(spec["seed"]).randn(
+        spec["N"], spec["C"]).astype(np.float32)
+    tgt = np.random.RandomState(1).randn(*x.shape).astype(np.float32)
+    return x, tgt
+
+
+def case_ep_layer(mesh, device, init, out_dir):
+    """``MoEFFN`` on the mesh's expert axis (weights from
+    ``DIR/ep_{tag}_init.npz``): the layer's output with whole weights;
+    the trajectory's losses and its final weights (the expert leaves'
+    blocks joined over the expert group), each rank updating its own
+    expert blocks from their gradients."""
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from commefficient_tpu_torch.ops.moe import (MoEFFN, is_expert_leaf,
+                                                 shard_params_ep)
+    from commefficient_tpu_torch.parallel import ep as ep_lib
+    ctx = ep_lib.EPContext.from_mesh(mesh)
+    out = {}
+    for tag, spec in EP_LAYER.items():
+        layer = MoEFFN(spec["C"], spec["E"], spec["ff"], spec["cap"])
+        layer.load_state_dict({k: torch.as_tensor(v) for k, v in np.load(
+            os.path.join(out_dir, f"ep_{tag}_init.npz")).items()})
+        layer.to(device)
+        x, tgt = (torch.as_tensor(a).to(device)
+                  for a in moe_layer_inputs(tag))
+        if "steps" not in spec:
+            with torch.no_grad():
+                out[f"{tag}/y"] = layer(x, ctx)[0].cpu().numpy()
+            continue
+        params = {k: v.detach() for k, v in layer.named_parameters()}
+        if ctx is not None:
+            params = shard_params_ep(params, ctx.rank, ctx.size)
+        losses = []
+        for _ in range(spec["steps"]):
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in params.items()}
+            y, _ = functional_call(layer, leaves, (x, ctx))
+            loss = torch.mean((y - tgt) ** 2)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            params = {k: (v - spec["lr"] * g).detach()
+                      for (k, v), g in zip(leaves.items(), grads)}
+            losses.append(float(loss.detach()))
+        out[f"{tag}/losses"] = np.asarray(losses)
+        for k, v in params.items():
+            if ctx is not None and is_expert_leaf(k):
+                parts = [torch.empty_like(v) for _ in range(ctx.size)]
+                dist.all_gather(parts, v.contiguous(), group=ctx.group)
+                v = torch.cat(parts)
+            out[f"{tag}/{k}"] = v.cpu().numpy()
+    return out
+
+
+def moe_gpt2_config():
+    from commefficient_tpu_torch.models.gpt2 import GPT2Config
+    cfg = GPT2Config.tiny()
+    cfg.moe_experts = MOE_EXPERTS
+    return cfg
+
+
+def case_ep_gpt2(mesh, device, init, out_dir):
+    """gpt2-tiny with 4 experts (weights from ``DIR/ep_gpt2_init.npz``)
+    on the mesh's expert axis (``EPUnflatten``): the LM logits of
+    ``pp_apply_inputs("two")`` in evaluation, and one worker's training
+    loss (aux term included) and flat gradient on ``seq_grad_batch``;
+    with ``mesh`` None the same unsharded."""
+    from torch.func import functional_call
+
+    from commefficient_tpu_torch.federated import client as client_lib
+    from commefficient_tpu_torch.federated.losses import make_gpt2_train_loss
+    from commefficient_tpu_torch.parallel import ep as ep_lib
+    from commefficient_tpu_torch.utils.params import flatten_params
+    model = _model_from(moe_gpt2_config(), _npz_or_none(
+        out_dir, "ep_gpt2_init.npz")).to(device)
+    flat, unflatten = flatten_params(model)
+    ctx = ep_lib.EPContext.from_mesh(mesh)
+    if ctx is not None:
+        ep_lib.attach(model, ctx)
+        unflatten = ep_lib.EPUnflatten(unflatten, flat.shape[0],
+                                       ep_lib.EPLayout(
+                                           {n: tuple(p.shape) for n, p in
+                                            model.named_parameters()},
+                                           ctx.size), ctx)
+    ids, types = (torch.as_tensor(x).to(device)[:, None]
+                  for x in pp_apply_inputs("two"))
+    with torch.no_grad():
+        lm, _ = functional_call(model, unflatten(flat), (
+            ids, types, torch.zeros((ids.shape[0], 1), dtype=torch.int64,
+                                    device=device)), {"train": False})
+    batch, mask = seq_grad_batch()
+    g, loss, _ = client_lib._masked_loss_and_grad(
+        make_gpt2_train_loss(model), unflatten, flat,
+        tuple(torch.as_tensor(c).to(device) for c in batch),
+        torch.as_tensor(mask).to(device), 0)
+    return {"lm": lm[:, 0].cpu().numpy(), "grad": g.cpu().numpy(),
+            "loss": np.asarray(float(loss))}
+
+
+class _RoutingRecord:
+    """The routings of the first ``n`` MoE calls (``MoEFFN.route``
+    patched while entered): each call's chosen experts, keep mask and
+    capacity, as numpy."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.calls = []
+
+    def __enter__(self):
+        from commefficient_tpu_torch.ops.moe import MoEFFN
+        self._saved = MoEFFN.route
+        rec = self
+
+        def route(layer, xt):
+            r = rec._saved(layer, xt)
+            if len(rec.calls) < rec.n:
+                rec.calls.append((r.expert.cpu().numpy(),
+                                  r.keep.cpu().numpy(), r.capacity))
+            return r
+        MoEFFN.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from commefficient_tpu_torch.ops.moe import MoEFFN
+        MoEFFN.route = self._saved
+
+
+def _moe_cli_run(mesh, device, out_dir, init_name, axes, mode, capacity,
+                 resume_dir=None, record=0, extra=()):
+    """The GPT2 entry point's ``train`` of the MoE problem on ``axes``
+    (``--mesh``; None for one process), the initial weights from
+    ``DIR/{init_name}`` when present: {tag: arrays} for the run and, with
+    ``resume_dir``, for a run that saves a step file after round 1 and one
+    resumed from it. ``record``: the first MoE calls' routings."""
+    from commefficient_tpu_torch.models.gpt2 import GPT2DoubleHeads
+    from commefficient_tpu_torch.tools.mesh_run import _Record
+    from commefficient_tpu_torch.training import gpt2
+    init = _npz_or_none(out_dir, init_name)
+    saved = GPT2DoubleHeads.reset_parameters
+    if init is not None:
+        def from_file(self, generator=None):
+            self.load_state_dict({k: torch.as_tensor(v)
+                                  for k, v in init.items()})
+            return self
+        GPT2DoubleHeads.reset_parameters = from_file
+    argv = moe_cli_argv(mode, capacity, os.path.join(out_dir, "persona_moe")
+                        ) + ["--device", device, *extra]
+    if axes is not None:
+        argv += ["--mesh", axes]
+    runs = [("", [])]
+    if resume_dir is not None:
+        ckpt = ["--checkpoint_path", resume_dir]
+        runs += [("saved/", ckpt + ["--checkpoint_every_rounds", "1"]),
+                 ("resumed/", ckpt + ["--resume", "auto"])]
+    out = {}
+    try:
+        for tag, extra in runs:
+            args = gpt2.build_gpt2_parser().parse_args(argv + extra)
+            np.random.seed(args.seed)
+            routing = _RoutingRecord(record if not tag else 0)
+            with _Record(False, mesh is not None) as rec, routing:
+                learner, row = gpt2.train(args, mesh=mesh,
+                                          max_rounds=MOE_CLI_ROUNDS,
+                                          log=False)
+            out[tag + "metrics"] = np.asarray(
+                [[float(r[k]) for k in ROUND_KEYS] for r in row["rounds"]])
+            if mesh is not None:
+                out[tag + "digests"] = np.asarray(rec.digests)
+            out[tag + "weights"] = learner.full_weights().cpu().numpy()
+            out[tag + "nll"] = np.asarray(row["nll"])
+            for i, (e, keep, cap) in enumerate(routing.calls):
+                out[f"{tag}route{i}/expert"] = e
+                out[f"{tag}route{i}/keep"] = keep
+                out[f"{tag}route{i}/capacity"] = np.asarray(cap)
+    finally:
+        GPT2DoubleHeads.reset_parameters = saved
+    return out
+
+
+def _mesh_axes(mesh) -> Optional[str]:
+    if mesh is None:
+        return None
+    inner = "".join(f",{k}={mesh_lib.inner_size(mesh, k)}"
+                    for k in ("model", "expert")
+                    if mesh_lib.inner_size(mesh, k) > 1)
+    return f"clients={mesh_lib.clients_size(mesh)}{inner}"
+
+
+def case_ep_cli(mesh, device, init, out_dir):
+    """The GPT2 entry point's MoE rounds on the mesh (``EP_CLI_RUNS``;
+    initial weights ``DIR/moe_cli_init.npz``): the rounds, a state digest
+    after each, the final weights and the validation nll, and the resumed
+    runs."""
+    out = {}
+    for tag, (mode, cap, resume) in EP_CLI_RUNS.items():
+        res = os.path.join(out_dir, f"ep_{tag}") if resume else None
+        out.update({f"{tag}/{k}": v for k, v in _moe_cli_run(
+            mesh, device, out_dir, "moe_cli_init.npz", _mesh_axes(mesh),
+            mode, cap, res).items()})
+    return out
+
+
+def case_ep_flags(mesh, device, init, out_dir):
+    """``EP_FLAG_RUNS`` on the sketch MoE problem at capacity factor 1.25
+    on the mesh (initial weights ``DIR/moe_cli_init.npz``)."""
+    out = {}
+    for tag, extra in EP_FLAG_RUNS.items():
+        out.update({f"{tag}/{k}": v for k, v in _moe_cli_run(
+            mesh, device, out_dir, "moe_cli_init.npz", _mesh_axes(mesh),
+            "sketch", 1.25, extra=extra).items()})
+    return out
+
+
+def case_tp_moe(mesh, device, init, out_dir):
+    """``TP_MOE_RUN``'s MoE rounds on the mesh's model axis (initial
+    weights ``DIR/moe_cli_init.npz``)."""
+    return _moe_cli_run(mesh, device, out_dir, "moe_cli_init.npz",
+                        _mesh_axes(mesh), *TP_MOE_RUN)
+
+
+def case_moe_c20(mesh, device, init, out_dir):
+    """``C20_RUN``'s MoE rounds on the clients mesh (initial weights
+    ``DIR/moe_cli_init.npz``), with the routing of round 1's MoE calls
+    (one a block: this rank's tokens)."""
+    return _moe_cli_run(mesh, device, out_dir, "moe_cli_init.npz",
+                        _mesh_axes(mesh), *C20_RUN,
+                        record=moe_gpt2_config().n_layer)
+
+
 CASES = {"modes": case_modes, "rows": case_rows, "offload": case_offload,
          "buffered": case_buffered, "ckpt": case_ckpt, "cli": case_cli,
          "tp_grad": case_tp_grad, "tp_modes": case_tp_modes,
@@ -1197,21 +1485,28 @@ CASES = {"modes": case_modes, "rows": case_rows, "offload": case_offload,
          "seq_ring": case_seq_ring, "seq_apply": case_seq_apply,
          "seq_grad": case_seq_grad, "seq_cli": case_seq_cli,
          "pp_apply": case_pp_apply, "pp_grad": case_pp_grad,
-         "pp_cli": case_pp_cli}
+         "pp_cli": case_pp_cli, "ep_layer": case_ep_layer,
+         "ep_gpt2": case_ep_gpt2, "ep_cli": case_ep_cli,
+         "ep_flags": case_ep_flags, "tp_moe": case_tp_moe,
+         "moe_c20": case_moe_c20}
 #: the cases that read or write files beside their arrays
 _WITH_DIR = ("ckpt", "cli", "tp_ckpt", "tp_serve", "tp_cli", "tp_1b",
-             "seq_apply", "seq_cli", "pp_apply", "pp_cli")
+             "seq_apply", "seq_cli", "pp_apply", "pp_cli", "ep_layer",
+             "ep_gpt2", "ep_cli", "ep_flags", "tp_moe", "moe_c20")
 #: the cases whose initial weights are ``DIR/tp_init.npz``
 _TP_INIT = ("tp_grad", "tp_modes", "tp_ckpt", "tp_1b")
 
 
 def run_cases(out_dir: str, names, device: str = "cpu",
-              model: int = 1, seq: int = 1, stage: int = 1) -> None:
+              model: int = 1, seq: int = 1, stage: int = 1,
+              expert: int = 1) -> None:
     """The launcher's target: every named case on this rank (of a
     ``clients x model`` mesh with ``model`` > 1, ``clients x seq`` with
-    ``seq`` > 1, ``clients x stage`` with ``stage`` > 1)."""
+    ``seq`` > 1, ``clients x stage`` with ``stage`` > 1, ``clients x
+    expert`` with ``expert`` > 1)."""
     import torch.distributed as dist
     mesh = mesh_lib.make_mesh(model=model, seq=seq, stage=stage,
+                              expert=expert,
                               device_type=torch.device(device).type)
     r = dist.get_rank()
     inits = {}
@@ -1237,10 +1532,11 @@ def run_one_process(name: str, out_dir: str, device: str = "cpu",
 
 def launch(out_dir: str, names, ranks: int = 2, device: str = "cpu",
            backend: Optional[str] = None, model: int = 1,
-           seq: int = 1, stage: int = 1) -> None:
+           seq: int = 1, stage: int = 1, expert: int = 1) -> None:
     os.makedirs(out_dir, exist_ok=True)
     distributed.launch(run_cases, ranks,
-                       (out_dir, list(names), device, model, seq, stage),
+                       (out_dir, list(names), device, model, seq, stage,
+                        expert),
                        backend=backend, device_type=torch.device(device).type)
 
 
@@ -1251,13 +1547,14 @@ def main(argv=None):
     p.add_argument("--model", type=int, default=1)
     p.add_argument("--seq", type=int, default=1)
     p.add_argument("--stage", type=int, default=1)
+    p.add_argument("--expert", type=int, default=1)
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default=None)
     p.add_argument("--cases", default=",".join(
         c for c in CASES if c != "rows"))
     a = p.parse_args(argv)
     launch(a.out, a.cases.split(","), a.ranks, a.device, a.backend,
-           a.model, a.seq, a.stage)
+           a.model, a.seq, a.stage, a.expert)
     return 0
 
 

@@ -28,15 +28,20 @@ on the host, the device synchronized around each, with their payload
 ``d`` are then of the whole joined vectors), its ``seq`` = S a ``clients
 x seq`` mesh, its ``stage`` = S a ``clients x stage`` mesh (the
 pipeline's hops timed as ``stage_send`` and ``stage_recv``: a receive's
-time is its wait for the sending stage); ``gpt2_config`` sets attributes
+time is its wait for the sending stage), its ``expert`` = E a ``clients
+x expert`` mesh (the expert group's collectives timed apart as
+``expert_combine``, the MoE outputs' all-reduces, ``expert_grad``, the
+f all-reduces of the backward, and ``expert_join``, the expert leaves'
+gradient all-gather; a collective inside another is the outer one's);
+``gpt2_config`` sets attributes
 of the GPT2 entry point's model config (``{"dropout": 0.0}``); the record
 carries the learner's ``--grad_buckets`` plan (``buckets``: offsets and
 sizes).
 
 ``launch(specs, ranks, backend)`` does the same from Python for one spec
 or a list of them, which the same ranks run in turn (each on its own
-mesh, of its own ``model`` size). FLAGS are the entry point's; ``--mesh clients=N`` (or
-``clients=N/M,model=M``) is added.
+mesh, of its own inner axis). FLAGS are the entry point's; ``--mesh
+clients=N`` (or ``clients=N/M,model=M``, and so on) is added.
 """
 
 from __future__ import annotations
@@ -78,22 +83,31 @@ class _CollectiveClock:
     #: the pipeline's hops (``parallel/pp.py``), each waited inside: a
     #: receive's time is its wait for the sending stage
     HOPS = ("send", "recv")
+    #: the expert group's collectives (``parallel/ep.py``), by kind
+    EXPERT = {"combine_sum": "expert_combine", "grad_sum": "expert_grad",
+              "gather_grads": "expert_join"}
 
     def __enter__(self):
         self.seconds, self.bytes, self.calls = 0.0, 0, 0
+        from commefficient_tpu_torch.parallel import ep
         from commefficient_tpu_torch.parallel.pp import StageContext
         self.kinds = {n: [0.0, 0, 0] for n in self.NAMES}
         self.kinds.update({f"stage_{n}": [0.0, 0, 0] for n in self.HOPS})
-        self._saved = {n: getattr(dist, n) for n in self.NAMES}
-        self._hops = {n: getattr(StageContext, n) for n in self.HOPS}
-        for name, f in self._saved.items():
-            setattr(dist, name, self._timed(name, f))
-        for name, f in self._hops.items():
-            setattr(StageContext, name, self._timed(name, f))
+        self.kinds.update({k: [0.0, 0, 0] for k in self.EXPERT.values()})
+        self._inside = False
+        self._saved = [(dist, n, getattr(dist, n), n) for n in self.NAMES]
+        self._saved += [(StageContext, n, getattr(StageContext, n),
+                         f"stage_{n}") for n in self.HOPS]
+        self._saved += [(ep, n, getattr(ep, n), kind)
+                        for n, kind in self.EXPERT.items()]
+        for owner, name, f, kind in self._saved:
+            setattr(owner, name, self._timed(name, f, kind))
         return self
 
-    def _timed(self, name, f):
+    def _timed(self, name, f, kind_name):
         def timed(*args, **kwargs):
+            if self._inside:
+                return f(*args, **kwargs)
             if name == "batch_isend_irecv":
                 sent = [op.tensor for op in args[0] if op.op is dist.isend]
                 ts = sent or [args[0][0].tensor]
@@ -109,7 +123,11 @@ class _CollectiveClock:
             if cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = f(*args, **kwargs)
+            self._inside = True
+            try:
+                out = f(*args, **kwargs)
+            finally:
+                self._inside = False
             if name == "batch_isend_irecv":
                 # waited here, so the time is the transfer's; a gloo
                 # send or receive waits once, so the caller gets works
@@ -124,8 +142,7 @@ class _CollectiveClock:
             self.seconds += dt
             self.bytes += nbytes
             self.calls += 1
-            kind = self.kinds[f"stage_{name}" if name in self.HOPS
-                              else name]
+            kind = self.kinds[kind_name]
             kind[0] += dt
             kind[1] += nbytes
             kind[2] += 1
@@ -137,11 +154,8 @@ class _CollectiveClock:
                 {k: list(v) for k, v in self.kinds.items()})
 
     def __exit__(self, *exc):
-        from commefficient_tpu_torch.parallel.pp import StageContext
-        for name, f in self._saved.items():
-            setattr(dist, name, f)
-        for name, f in self._hops.items():
-            setattr(StageContext, name, f)
+        for owner, name, f, _ in self._saved:
+            setattr(owner, name, f)
 
 
 class _Record:
@@ -264,22 +278,18 @@ def run_rank(spec: dict) -> None:
     parser = (build_parser() if entry == "cv"
               else gpt2.build_gpt2_parser())
     n = distributed.world_size()
-    M = int(spec.get("model", 1))
-    S = int(spec.get("seq", 1))
-    P = int(spec.get("stage", 1))
-    inner = {k: v for k, v in (("model", M), ("seq", S), ("stage", P))
-             if v > 1}
-    axes = f"clients={n // (M * S * P)}" + "".join(
+    inner = {k: int(spec[k]) for k in ("model", "seq", "stage", "expert")
+             if int(spec.get(k, 1)) > 1}
+    shards = n // int(np.prod(list(inner.values()), dtype=np.int64))
+    axes = f"clients={shards}" + "".join(
         f",{k}={v}" for k, v in inner.items())
     args = parser.parse_args(list(spec["argv"]) + ["--mesh", axes])
     for k, v in spec.get("attrs", {}).items():
         setattr(args, k, v)
-    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(n // (M * S * P),
-                                                      inner))
+    round_up_workers_for_mesh(args, mesh_lib.MeshSpec(shards, inner))
     np.random.seed(args.seed)
     device_type = torch.device(args.device).type
-    mesh = mesh_lib.make_mesh(n, model=M, seq=S, stage=P,
-                              device_type=device_type)
+    mesh = mesh_lib.make_mesh(n, device_type=device_type, **inner)
     r = dist.get_rank()
     cuda = device_type == "cuda"
     if cuda:

@@ -315,23 +315,6 @@ def resolve_fused_ce(args, mesh=None) -> bool:
     return args.max_seq_len >= FUSED_CE_AUTO_T
 
 
-def refuse_unported(args, extra=()):
-    """Raise NotImplementedError naming its ROADMAP.md item for the first
-    flag set that the port does not run: a ``--mesh`` ``expert`` axis
-    above 1 (A12), then the entry point's own ``extra`` ``(flag, is_set,
-    item)`` triples. The ``model``, ``seq`` and ``stage`` axes run (GPT2;
-    the CV entry point raises the reference's ValueErrors first)."""
-    inner = mesh_inner_axes(getattr(args, "mesh", ""))
-    for flag, on, item in (
-            *((f"--mesh {name}={size}", size > 1, "A12")
-              for name, size in inner.items()
-              if name == "expert"),
-            *extra):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to PyTorch "
-                                      f"yet (ROADMAP.md {item})")
-
-
 def _mesh_kv(spec: str) -> dict:
     kv = {}
     for part in spec.split(","):
@@ -369,8 +352,7 @@ def parse_mesh(spec: str):
     the inner axes mutually exclusive. ``clients=all`` (or ``auto``)
     means ``WORLD_SIZE`` under ``torchrun``, else every CUDA device (one
     rank without one). The ranks build the mesh itself
-    (``parallel.mesh.make_mesh``) once they have joined; an ``expert``
-    axis above 1 is refused there and by ``refuse_unported`` (A12)."""
+    (``parallel.mesh.make_mesh``) once they have joined."""
     if not spec:
         return None
     from commefficient_tpu_torch.parallel.mesh import MeshSpec
@@ -486,9 +468,8 @@ def args_to_config(args, **overrides) -> FedConfig:
 
 def mesh_ranks(mesh) -> int:
     """The ranks a parsed ``--mesh`` launches: clients x the inner axis
-    (model, seq or stage)."""
-    from commefficient_tpu_torch.parallel.mesh import (clients_size,
-                                                       model_size, seq_size,
-                                                       stage_size)
-    return (clients_size(mesh) * model_size(mesh) * seq_size(mesh)
-            * stage_size(mesh))
+    (model, seq, stage or expert)."""
+    from commefficient_tpu_torch.parallel.mesh import clients_size, inner_size
+    return clients_size(mesh) * math.prod(
+        inner_size(mesh, axis) for axis in ("model", "seq", "stage",
+                                            "expert"))

@@ -85,7 +85,6 @@ from commefficient_tpu_torch.training.args import (args_to_config,
                                                    mesh_inner_axes,
                                                    parse_mesh,
                                                    refuse_buffered_scan,
-                                                   refuse_unported,
                                                    round_up_workers_for_mesh,
                                                    scan_rounds)
 from commefficient_tpu_torch.training.loop import (FeedClock, RoundAborted,
@@ -132,7 +131,6 @@ def _refuse_mesh_axes(args):
 
 def _refuse_unported(args):
     _refuse_mesh_axes(args)
-    refuse_unported(args)
     refuse_buffered_scan(args)
     if args.dataset_name not in fed_datasets:
         raise ValueError(f"--dataset_name {args.dataset_name!r} is not a CV "

@@ -88,8 +88,19 @@ reference's ValueErrors, and validation runs the plain forward:
         --mesh clients=2,stage=2 --mc_coef 0 --model gpt2-tiny \
         --mode uncompressed --error_type none --max_seq_len 32 ...
 
-The ``expert`` axis and MoE blocks on a model axis are ROADMAP.md A12
-(the reference's MoE ValueErrors come first).
+``--mesh clients=C,expert=E --moe_experts X`` runs C*E ranks: each
+client shard's workers on E ranks, rank e computing the experts ``[e X/E,
+(e+1) X/E)`` of every MoE block and the rest replicated
+(``parallel/ep.py``), on the fused round only (the reference's
+ValueErrors otherwise); ``--moe_experts`` also runs on a model axis,
+each MoE block whole on every model rank:
+
+    python -m commefficient_tpu_torch.training.gpt2 --device cpu \
+        --mesh clients=2,expert=2 --moe_experts 4 --model gpt2-tiny \
+        --mode sketch --max_seq_len 32 ...
+
+On any clients axis the fused round's MoE blocks route the whole batch
+(every rank's tokens) as the reference's one loss call does.
 """
 
 from __future__ import annotations
@@ -117,8 +128,8 @@ from commefficient_tpu_torch.models.gpt2_import import try_load_hf_pretrained
 from commefficient_tpu_torch.ops import cuda_lib
 from commefficient_tpu_torch.parallel import distributed
 from commefficient_tpu_torch.online.swap import learner_params
-from commefficient_tpu_torch.parallel.mesh import (main_first, make_mesh,
-                                                   model_size,
+from commefficient_tpu_torch.parallel.mesh import (expert_size, main_first,
+                                                   make_mesh, model_size,
                                                    padded_num_clients,
                                                    seq_size, stage_size)
 from commefficient_tpu_torch.parallel.pp import make_gpt2_train_loss_pp
@@ -131,7 +142,6 @@ from commefficient_tpu_torch.training.args import (add_gpt2_flags,
                                                    mesh_inner_axes,
                                                    mesh_ranks, parse_mesh,
                                                    refuse_buffered_scan,
-                                                   refuse_unported,
                                                    resolve_fused_ce,
                                                    round_up_workers_for_mesh,
                                                    scan_rounds)
@@ -166,10 +176,6 @@ def _refuse_moe_combinations(args):
 
 def _refuse_unported(args):
     _refuse_moe_combinations(args)
-    refuse_unported(args, (
-        ("--moe_experts with a --mesh model axis",
-         args.moe_experts > 0 and mesh_inner_axes(args.mesh).get(
-             "model", 1) > 1, "A12, the expert axis"),))
     refuse_buffered_scan(args)
     if args.model not in GPT2_CONFIGS:
         raise ValueError(f"--model {args.model!r} is not a GPT2 model; "
@@ -256,6 +262,20 @@ def stage_gate(args, mesh, log: bool = False) -> int:
     return n_micro
 
 
+def expert_gate(args, mesh, log: bool = False) -> None:
+    """The reference's check of the expert axis (``training/gpt2.py:
+    162-184``, after the MoE checks of ``_refuse_moe_combinations``) on
+    ``mesh`` (a joined mesh or a ``MeshSpec``; None for one process),
+    with its message."""
+    expert_n = expert_size(mesh)
+    if expert_n > 1:
+        _require_fused_round(args, f"expert={expert_n}")
+        if log:
+            print(f"--mesh expert={expert_n}: EP-sharding the "
+                  f"{args.moe_experts}-expert MoE weights inside the "
+                  "federated round")
+
+
 def save_pretrained(log_dir: str, learner, gpt2_config,
                     tokenizer) -> None:
     """Export the weights and state (``gpt2.npz``), the model config and
@@ -321,6 +341,7 @@ def train(args, mesh=None, max_rounds=None, log=True):
     log = log and distributed.is_main()
     attn = seq_gate(args, mesh, log)
     n_micro = stage_gate(args, mesh, log)
+    expert_gate(args, mesh, log)
     device = resolve_device(args.device)
     # the tokenizer only reads (a local cache or none), so every rank
     # loads it at once; the persona cache is written on first use
@@ -513,13 +534,14 @@ def _print_sample(args, model, params, tokenizer, val_set):
     try:
         gen_model = model
         cfg = model.config
-        if cfg.fused_lm_head or cfg.tp is not None or cfg.seq is not None:
+        if cfg.fused_lm_head or any(
+                c is not None for c in (cfg.tp, cfg.seq, cfg.ep)):
             # generation needs the logits, on this rank alone: the same
-            # params through a twin without the fused head, the model axis
-            # or the seq axis (ring attention becomes full attention)
+            # params through a twin without the fused head or the mesh's
+            # inner axis (ring attention becomes full attention)
             cfg = copy.copy(cfg)
             cfg.fused_lm_head = False
-            cfg.tp = cfg.seq = None
+            cfg.tp = cfg.seq = cfg.ep = None
             if cfg.attn_impl == "ring":
                 cfg.attn_impl = "full"
             gen_model = GPT2DoubleHeads(cfg)
@@ -568,12 +590,13 @@ def _print_final(final: dict) -> None:
 
 
 def mesh_rank_main(args, n_ranks: int, model: int = 1) -> None:
-    """One rank of a ``--mesh`` run (the launcher's target); a seq or
-    stage axis is read from ``args.mesh``."""
+    """One rank of a ``--mesh`` run (the launcher's target); a seq, stage
+    or expert axis is read from ``args.mesh``."""
     np.random.seed(args.seed)
     inner = mesh_inner_axes(args.mesh)
     mesh = make_mesh(n_ranks, model=model, seq=inner.get("seq", 1),
                      stage=inner.get("stage", 1),
+                     expert=inner.get("expert", 1),
                      device_type=torch.device(args.device).type)
     main_rank = distributed.is_main()
     with profile_ctx(args.profile if main_rank else None):
@@ -609,6 +632,7 @@ def main(argv=None):
         _refuse_unported(args)
         seq_gate(args, mesh)
         stage_gate(args, mesh)
+        expert_gate(args, mesh)
         n = mesh_ranks(mesh)
         distributed.run(mesh_rank_main, n, (args, n, model_size(mesh)),
                         device_type=torch.device(args.device).type)

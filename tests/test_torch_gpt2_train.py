@@ -6,9 +6,8 @@ CPU, and the GPT2 entry point.
   batches, in sketch mode (the fused path) and in local_topk (the
   per-worker path): loss rtol 1e-5, bytes exact, weights atol 1e-6;
 * the CLI runs one round on the CPU when asked, refuses CUDA without a
-  card, and refuses every unported flag naming its ROADMAP item (MoE
-  runs; with an expert mesh axis the mesh is refused; the seq axis and
-  ring attention run, with the reference's ValueErrors).
+  card, and keeps the reference's ValueErrors of the inner mesh axes
+  (MoE, the expert, seq and stage axes and ring attention run).
 """
 
 import jax
@@ -127,8 +126,9 @@ def test_cli_refuses_cuda_without_a_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    pytest.param(["--moe_experts", "4", "--mesh", "clients=2,expert=2"],
-                 "A12", id="extra0-A12"),
+    pytest.param(["--moe_experts", "4", "--mesh", "clients=2,expert=2",
+                  "--max_grad_norm", "1.0"], "expert=2 requires the fused",
+                 id="extra0-A12"),
     pytest.param(["--mesh", "clients=2,seq=2", "--attn_impl", "blockwise"],
                  "cannot shard the sequence", id="extra1-A12"),
     pytest.param(["--mesh", "clients=1,stage=2"], "mc_coef 0",
@@ -136,14 +136,10 @@ def test_cli_refuses_cuda_without_a_device(tmp_path, monkeypatch):
     pytest.param(["--attn_impl", "ring"], "requires --mesh",
                  id="extra3-A12")])
 def test_cli_refuses_unported_flags(tmp_path, extra, item):
-    """The expert axis is A12; the seq and stage axes and ring attention
-    run since A12's seq and stage axes, and keep the reference's
-    ValueErrors (blockwise on a seq axis, ring without one, a stage axis
+    """The expert, seq and stage axes and ring attention run since A12's
+    slices, and keep the reference's ValueErrors (an expert axis off the
+    fused round, blockwise on a seq axis, ring without one, a stage axis
     without ``--mc_coef 0``)."""
     args = _args(tmp_path, "--device", "cpu", *extra)
-    if item == "A12":
-        with pytest.raises(NotImplementedError, match=item):
-            train(args, max_rounds=1, log=False)
-        return
     with pytest.raises(ValueError, match=item):
         train(args, mesh=parse_mesh(args.mesh), max_rounds=1, log=False)

@@ -18,7 +18,13 @@ files; each test reads them:
 * every rank's replicated state bitwise the others' after every round;
 * the row exchange on 4 ranks, offload on a mesh, the buffered server on
   a mesh, the mesh checkpoint across packages and a resume, and both
-  entry points' ``train`` on a mesh with a scan window.
+  entry points' ``train`` on a mesh with a scan window;
+* (ROADMAP.md C20) the GPT2 entry point's ``--mesh clients=2
+  --moe_experts 4`` round at capacity factor 1.25 on gpt2-tiny, the
+  capacity binding: round 1's drop set token for token the one-process
+  round's (the reference's fused round routes every client's tokens as
+  one call), and the rounds against the reference's ``make_mesh(2)``
+  round (weights atol 2e-4, nll within 1e-3).
 
 The grammar of ``--mesh`` and the refusals run in this process.
 """
@@ -51,6 +57,11 @@ from commefficient_tpu_torch.utils import checkpoint as port_ckpt
 from commefficient_tpu_torch.utils.params import params_from_jax
 
 CASES_2 = ("modes", "offload", "buffered", "ckpt", "cli")
+#: in the same launch; its routing records are each rank's own tokens'
+C20_CASE = "moe_c20"
+#: the reference's byte tokenizer (the CLI's vocab without a local cache)
+BYTE_VOCAB = 261
+SEED = 21
 MESH_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
@@ -99,10 +110,57 @@ def runs(tmp_path_factory, params):
     ref_rounds = _jax_rounds(jl, mesh_cases.make_problem()[:2])
     fn = jax_ckpt.save_checkpoint(os.path.join(out, "ref"), jl, "ref")
     os.replace(fn, os.path.join(out, "ref_ckpt.npz"))
-    mesh_cases.launch(out, CASES_2, ranks=2)
+    np.savez(os.path.join(out, "moe_cli_init.npz"), **_ref_moe_cli_init())
+    mesh_cases.launch(out, CASES_2 + (C20_CASE,), ranks=2)
     mesh_cases.launch(out, ["rows"], ranks=4)
     return {"dir": out, "init": init, "ref_learner": jl,
             "ref_rounds": ref_rounds}
+
+
+def _ref_moe_cli_init():
+    """The reference GPT2 entry point's initial weights for the MoE
+    problem (gpt2-tiny with 4 experts on the byte tokenizer, ``--seed``),
+    as port arrays."""
+    from commefficient_tpu.models.gpt2 import GPT2Config as JConfig
+    from commefficient_tpu.models.gpt2 import GPT2DoubleHeads as JModel
+    cfg = JConfig.tiny(vocab_size=BYTE_VOCAB)
+    cfg.moe_experts = mesh_cases.MOE_EXPERTS
+    ids = np.zeros((1, 2, mesh_cases.SEQ_T), np.int32)
+    init_rng, _ = jax.random.split(jax.random.PRNGKey(SEED))
+    params = JModel(cfg).init(init_rng, ids, ids, np.zeros((1, 2), np.int32),
+                              train=False)["params"]
+    return {k: v.numpy() for k, v in
+            params_from_jax(jax.device_get(params)).items()}
+
+
+def _ref_moe_round(tmp_path_factory, mode, capacity, mesh_spec):
+    """The reference entry point's MoE rounds of the problem on
+    ``mesh_spec``: (rounds' metrics, final weights, validation nll)."""
+    from commefficient_tpu.federated.api import FedLearner as JaxLearner
+    from commefficient_tpu.training.gpt2 import build_gpt2_parser as jp
+    from commefficient_tpu.training.gpt2 import train as jax_train
+    rounds = []
+    saved = JaxLearner.finalize_round_metrics
+
+    def recording(self, raw):
+        out = saved(self, raw)
+        rounds.append([float(out[k]) for k in mesh_cases.ROUND_KEYS])
+        return out
+    JaxLearner.finalize_round_metrics = recording
+    try:
+        args = jp().parse_args(mesh_cases.moe_cli_argv(
+            mode, capacity, str(tmp_path_factory.mktemp("ref_moe")))
+            + ["--mesh", mesh_spec])
+        mesh = jax_parse_mesh(args.mesh)
+        jax_round_up(args, mesh)
+        np.random.seed(args.seed)
+        learner, row = jax_train(args, mesh=mesh,
+                                 max_rounds=mesh_cases.MOE_CLI_ROUNDS,
+                                 log=False)
+    finally:
+        JaxLearner.finalize_round_metrics = saved
+    return (np.asarray(rounds), np.asarray(learner.state.weights),
+            float(row["nll"]))
 
 
 def _load(runs, case, rank=0):
@@ -485,3 +543,44 @@ def test_sigterm_on_mesh_finishes_round_saves_and_exits(tmp_path):
         "--num_epochs", "3", "--resume", fn])
     learner, row = port_cv.train(args, max_rounds=1, log=False)
     assert learner.rounds_done >= 3
+
+
+# --------------------------------------------------------------------------
+# C20: whole-batch MoE routing on a clients axis
+# --------------------------------------------------------------------------
+
+
+def test_moe_routing_on_clients_mesh_is_whole_batch(runs, tmp_path_factory):
+    """``--mesh clients=2 --moe_experts 4`` at capacity factor 1.25: the
+    capacity binds (an expert gets more tokens than its slots in round
+    1, as ``tests/test_moe.py:83-99`` asserts), the ranks' keep masks of
+    round 1 joined in rank order are the one-process round's token for
+    token, the ranks are bitwise every round, and the rounds match the
+    reference's ``make_mesh(2)`` round."""
+    recs = [_load(runs, C20_CASE, r) for r in range(2)]
+    one = _one_process(runs, C20_CASE)
+    n_layer = mesh_cases.moe_gpt2_config().n_layer
+    bound = 0
+    for i in range(n_layer):
+        cap = int(one[f"route{i}/capacity"])
+        counts = np.bincount(one[f"route{i}/expert"],
+                             minlength=mesh_cases.MOE_EXPERTS)
+        bound += int(counts.max() > cap)
+        for rec in recs:
+            assert int(rec[f"route{i}/capacity"]) == cap
+        for key in ("expert", "keep"):
+            np.testing.assert_array_equal(
+                np.concatenate([rec[f"route{i}/{key}"] for rec in recs]),
+                one[f"route{i}/{key}"], err_msg=f"block {i} {key}")
+    assert bound, "the capacity must bind in some block"
+    for rec in recs:
+        for key in ("digests", "weights", "metrics"):
+            np.testing.assert_array_equal(rec[key], recs[0][key])
+    rounds, w_ref, nll_ref = _ref_moe_round(
+        tmp_path_factory, *mesh_cases.C20_RUN, "clients=2")
+    got = recs[0]
+    np.testing.assert_allclose(got["metrics"][:, :2], rounds[:, :2],
+                               rtol=2e-4)
+    np.testing.assert_array_equal(got["metrics"][:, 2:], rounds[:, 2:])
+    np.testing.assert_allclose(got["weights"], w_ref, atol=2e-4)
+    assert float(got["nll"]) == pytest.approx(nll_ref, abs=1e-3)

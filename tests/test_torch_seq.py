@@ -291,14 +291,13 @@ def test_gpt2_main_launches_clients_times_seq_ranks(tmp_path, monkeypatch):
 
 
 def test_make_mesh_keeps_the_other_inner_axes_refused(monkeypatch):
-    """``expert`` stays refused; ``stage`` builds a ``("clients",
-    "stage")`` mesh (here over a stand-in 4-rank group: rank 1 sits at
-    (0, 1), its stage group ranks 0-1, its clients group ranks 1 and
-    3)."""
+    """Two inner axes stay refused with the reference's ValueError;
+    ``stage`` and ``expert`` build ``("clients", "stage")`` and
+    ``("clients", "expert")`` meshes (here over a stand-in 4-rank group:
+    rank 1 sits at (0, 1), its inner group ranks 0-1, its clients group
+    ranks 1 and 3)."""
     with pytest.raises(ValueError, match="choose ONE inner axis"):
         mesh_lib.make_mesh(4, seq=2, model=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        mesh_lib.make_mesh(4, expert=2)
     dist = mesh_lib.dist
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
@@ -309,6 +308,11 @@ def test_make_mesh_keeps_the_other_inner_axes_refused(monkeypatch):
     assert mesh.shape == {"clients": 2, "stage": 2}
     assert (mesh_lib.stage_rank(mesh), mesh_lib.clients_rank(mesh)) == (1, 0)
     assert mesh_lib.stage_group(mesh) == (0, 1)
+    assert mesh_lib.clients_group(mesh) == (1, 3)
+    mesh = mesh_lib.make_mesh(4, expert=2)
+    assert mesh.mesh_dim_names == ("clients", "expert")
+    assert (mesh_lib.expert_rank(mesh), mesh_lib.clients_rank(mesh)) == (1, 0)
+    assert mesh_lib.expert_group(mesh) == (0, 1)
     assert mesh_lib.clients_group(mesh) == (1, 3)
 
 

@@ -27,7 +27,12 @@ arrays; each test reads them:
   pools at C16's contract;
 * (g) the refusals and the reference's ValueErrors (offload and the
   buffered server run on the model axis since A12 1b:
-  ``tests/test_torch_tp_1b.py``).
+  ``tests/test_torch_tp_1b.py``; MoE blocks since A12's expert slice);
+* (h) the GPT2 entry point's ``--mesh clients=2,model=2 --moe_experts 4``
+  round at capacity factor 1.25 (each MoE block whole on every model
+  rank, routed over the clients axis) against the reference's
+  ``make_mesh(4, model=2)`` round from the same initial weights, at
+  (c)'s tolerances, the ranks bitwise every round.
 
 Every rank and the test process run one intra-op thread.
 """
@@ -56,7 +61,11 @@ from commefficient_tpu_torch.utils.params import flax_path, params_from_jax
 
 RANKS, MODEL = 4, 2
 MESH_TOL = dict(rtol=2e-4, atol=2e-5)
-TP_CASES = ("tp_grad", "tp_modes", "tp_ckpt", "tp_serve", "tp_cli")
+TP_CASES = ("tp_grad", "tp_modes", "tp_ckpt", "tp_serve", "tp_cli",
+            "tp_moe")
+#: the reference's byte tokenizer (the CLI's vocab without a local cache)
+BYTE_VOCAB = 261
+SEED = 21
 JAX_MODES = ("uncompressed", "sketch")
 
 
@@ -131,6 +140,20 @@ def _serve_jparams():
     return model, params
 
 
+def _ref_moe_cli_init():
+    """The reference GPT2 entry point's initial weights for the MoE
+    problem (gpt2-tiny with 4 experts on the byte tokenizer, ``--seed``),
+    as port arrays."""
+    cfg = JConfig.tiny(vocab_size=BYTE_VOCAB)
+    cfg.moe_experts = mc.MOE_EXPERTS
+    ids = np.zeros((1, 2, mc.SEQ_T), np.int32)
+    init_rng, _ = jax.random.split(jax.random.PRNGKey(SEED))
+    params = JModel(cfg).init(init_rng, ids, ids, np.zeros((1, 2), np.int32),
+                              train=False)["params"]
+    return {k: v.numpy() for k, v in
+            params_from_jax(jax.device_get(params)).items()}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, jax_problem, jparams):
     """The launch: every tensor-parallel case on 4 ranks (2 x 2)."""
@@ -146,6 +169,7 @@ def runs(tmp_path_factory, jax_problem, jparams):
     _jax_rounds(jl, jax_problem, 2)
     fn = jax_ckpt.save_checkpoint(os.path.join(out, "ref"), jl, "ref")
     os.replace(fn, os.path.join(out, "ref_tp_ckpt.npz"))
+    np.savez(os.path.join(out, "moe_cli_init.npz"), **_ref_moe_cli_init())
     mc.launch(out, TP_CASES, ranks=RANKS, model=MODEL)
     return {"dir": out, "init": init,
             "ref_ckpt_weights": np.asarray(jl.state.weights)}
@@ -485,12 +509,14 @@ def test_model_axis_offload_and_buffered_are_a12_1b(kw):
                  id="extra0-NotImplementedError-A12 1b"),
     pytest.param(["--server_mode", "buffered"], None, None,
                  id="extra1-NotImplementedError-A12 1b"),
-    (["--moe_experts", "2"], NotImplementedError, "A12, the expert axis")])
+    pytest.param(["--moe_experts", "2"], None, None,
+                 id="extra2-NotImplementedError-A12, the expert axis")])
 def test_gpt2_cli_model_axis_refusals(tmp_path, monkeypatch, extra, exc,
                                       match):
-    """MoE on a model axis is A12's expert axis. Offloaded rows and the
-    buffered server run there since A12 1b: ``main`` launches the 2 ranks
-    of ``mesh_rank_main`` (their rounds: ``tests/test_torch_tp_1b.py``)."""
+    """Offloaded rows and the buffered server run on a model axis since
+    A12 1b, MoE blocks since A12's expert slice: ``main`` launches the 2
+    ranks of ``mesh_rank_main`` (their rounds: ``tests/test_torch_tp_1b.py``
+    and (h) above)."""
     from commefficient_tpu_torch.training import gpt2
     argv = ["--device", "cpu", "--model", "gpt2-tiny", "--mesh",
             "clients=1,model=2", "--dataset_dir", str(tmp_path), *extra]
@@ -541,11 +567,17 @@ def test_engine_and_model_refuse_what_does_not_shard():
     with pytest.raises(ValueError, match="n_head 4 must be divisible by "
                                          "the 'model' mesh axis size 3"):
         DecodeEngine(model, params, eos_id=0, max_len=16, mesh=_FakeMesh())
+    # MoE blocks run on a model axis since A12's expert slice: every MoE
+    # leaf stays whole in the compute layout
     cfg = GPT2Config.tiny()
     cfg.moe_experts = 2
-    with pytest.raises(NotImplementedError, match="A12"):
-        tp_lib.attach(GPT2DoubleHeads(cfg),
-                      tp_lib.TPContext(group=None, rank=0, size=2))
+    moe = GPT2DoubleHeads(cfg)
+    tp_lib.attach(moe, tp_lib.TPContext(group=None, rank=0, size=2))
+    assert moe.config.tp.size == 2
+    layout = tp_lib.TPLayout({n: tuple(p.shape)
+                              for n, p in moe.named_parameters()}, 4, 2)
+    assert not [n for n in layout.cuts if ".moe." in n]
+    assert len(layout.cuts) == 2 * 3
     ring = GPT2Config.tiny()
     ring.attn_impl = "ring"
     z = torch.zeros((1, 1, 4), dtype=torch.int32)
@@ -564,3 +596,55 @@ def test_kv_specs_shard_heads_and_keep_the_page_table():
     assert specs == ({"k": (None, None, "model"), "v": (None, None, "model"),
                       "k_scale": (None, "model"),
                       "v_scale": (None, "model"), "pt": ()},)
+
+
+# --------------------------------------------------------------------------
+# (h) MoE blocks on the model axis
+# --------------------------------------------------------------------------
+
+
+def _ref_model_moe_round(tmp_path_factory, mode, capacity):
+    """The reference's ``--mesh clients=2,model=2`` MoE round of the
+    problem: (rounds' metrics, final weights, validation nll)."""
+    from commefficient_tpu.training.args import parse_mesh as jax_parse
+    from commefficient_tpu.training.args import \
+        round_up_workers_for_mesh as jax_round_up
+    from commefficient_tpu.training.gpt2 import build_gpt2_parser, train
+    rounds = []
+    saved = JaxLearner.finalize_round_metrics
+
+    def recording(self, raw):
+        out = saved(self, raw)
+        rounds.append([float(out[k]) for k in mc.ROUND_KEYS])
+        return out
+    JaxLearner.finalize_round_metrics = recording
+    try:
+        args = build_gpt2_parser().parse_args(mc.moe_cli_argv(
+            mode, capacity, str(tmp_path_factory.mktemp("ref_moe")))
+            + ["--mesh", "clients=2,model=2"])
+        mesh = jax_parse(args.mesh)
+        jax_round_up(args, mesh)
+        np.random.seed(args.seed)
+        learner, row = train(args, mesh=mesh, max_rounds=mc.MOE_CLI_ROUNDS,
+                             log=False)
+    finally:
+        JaxLearner.finalize_round_metrics = saved
+    return (np.asarray(rounds), np.asarray(learner.state.weights),
+            float(row["nll"]))
+
+
+def test_moe_round_on_the_model_axis_matches_reference(runs,
+                                                       tmp_path_factory):
+    recs = [_load(runs, "tp_moe", r) for r in range(RANKS)]
+    for rec in recs:
+        for key in ("digests", "weights", "metrics"):
+            np.testing.assert_array_equal(rec[key], recs[0][key])
+    rounds, w_ref, nll_ref = _ref_model_moe_round(tmp_path_factory,
+                                                  *mc.TP_MOE_RUN)
+    got = recs[0]
+    np.testing.assert_allclose(got["metrics"][:, :2], rounds[:, :2],
+                               **MESH_TOL)
+    np.testing.assert_array_equal(got["metrics"][:, 2:], rounds[:, 2:])
+    assert got["weights"].shape == w_ref.shape
+    np.testing.assert_allclose(got["weights"], w_ref, **MESH_TOL)
+    assert float(got["nll"]) == pytest.approx(nll_ref, abs=1e-3)
